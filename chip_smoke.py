@@ -8,13 +8,23 @@ exits non-zero on failure:
 
 1. build   — every ``hfrep_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
              one process per source, started together; prints ptxas's
-             registers, shared memory and spills per kernel;
-2. parity  — each kernel against its plain PyTorch version on the card,
-             at the serving shapes (W, F) in {(48, 35), (168, 36)}, H=100,
-             B in {8, 64}, activations sigmoid/tanh/linear, float32 and
-             bf16 operand streams; bars: f32 atol 2e-5 (the dot sums in
-             another order than torch.matmul), bf16 atol 1e-2 (an h that
-             rounds differently to bf16 feeds the next step);
+             registers and spills per kernel, and the dynamic shared
+             memory each LSTM kernel asks for at H=100;
+2. parity  — the forward kernel (primal mode) against its plain PyTorch
+             version on the card, at the serving shapes (W, F) in
+             {(48, 35), (168, 36)}, H=100, B in {8, 64}, activations
+             sigmoid/tanh/linear, float32 and bf16 operand streams; bars:
+             f32 atol 2e-5 (the dot sums in another order than
+             torch.matmul), bf16 atol 1e-2 (an h that rounds differently to
+             bf16 feeds the next step);
+   grad    — the forward kernel's with_cs mode, the backward kernel (plain,
+             dcs and with_carries modes) and the adjoint kernel against
+             their plain versions, at the epoch's shapes W in {48, 168},
+             H=100, B in {32, 64}, every activation, float32 and bf16; the
+             error is max|kernel - plain| / max(1, max|plain|) over every
+             output; bars: f32 1e-4 (drec and urec are sums over up to
+             W*B = 10,752 rows, taken in another order), bf16 1e-2 (as the
+             forward);
 3. server  — the main path: ``ReplicationServer`` on ``cuda`` with the
              fixture AE head and the ``mtss_wgan_gp`` generator, then the
              ``mtss_wgan_gp_prod`` one: start, ``warm_server`` (the program
@@ -30,7 +40,25 @@ exits non-zero on failure:
              the plain version and cuDNN's LSTM (``library_ms``: tanh,
              same weights, input projection included; timed here only,
              never called by the port);
-5. profile — ``torch.profiler`` over 20 sample dispatches per preset:
+5. train   — the slice-2 main path: for ``mtss_wgan_gp`` and
+             ``mtss_wgan_gp_prod`` at full width (H=100), float32, batch
+             32, n_critic 5, on a seeded uniform dataset of 1,000 windows:
+             ``init_gan_state`` then ``make_multi_step`` for 3 epochs, with
+             every launch count set to 0 just before and read just after;
+             the losses must be finite and every kernel must have launched.
+             Then 3 more epochs timed (host clock around synchronised
+             work), one epoch under ``torch.profiler``, and one epoch on the
+             card against the same epoch — same state, same draws — through
+             the plain path on the CPU: d_loss and g_loss rtol 1e-4, every
+             param atol 1e-5 + rtol 1e-4 (the JAX package's bar for its
+             kernel-vs-scan epoch);
+6. timing  — CUDA events for each kernel at the served shapes, beside its
+             bound, its plain version and ``library_ms`` (cuDNN's LSTM at
+             tanh: the forward in training mode for with_cs, backward =
+             forward-and-backward minus forward for lstm_bwd; none for the
+             adjoint: no PyTorch call computes it, the cuDNN RNN has no
+             double backward);
+7. profile — ``torch.profiler`` over 20 sample dispatches per preset:
              device time by kernel name and the device's busy share.
 
 The last lines are the card's name and power limit, one JSON object
@@ -43,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -55,8 +84,17 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 SHAPES = ((48, 35), (168, 36))                  # (W, F): headline, production
 HIDDEN = 100
 BARS = {"float32": 2e-5, "bfloat16": 1e-2}
+GRAD_BARS = {"float32": 1e-4, "bfloat16": 1e-2}   # scaled by max(1, max|plain|)
 ACTS = ("sigmoid", "tanh", "linear")
 TPU_KERNEL = "hfrep_tpu/ops/pallas_lstm.py:168"
+TPU_KERNELS = {"lstm_fwd": TPU_KERNEL, "lstm_fwd_cs": TPU_KERNEL,
+               "lstm_bwd": "hfrep_tpu/ops/pallas_lstm.py:263",
+               "lstm_adj": "hfrep_tpu/ops/pallas_lstm.py:415"}
+SOURCES = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_cs": "lstm_fwd.cu",
+           "lstm_bwd": "lstm_bwd.cu", "lstm_adj": "lstm_adj.cu"}
+TRAIN_PRESETS = ("mtss_wgan_gp", "mtss_wgan_gp_prod")
+TRAIN_EPOCHS = 3
+TRAIN_BATCHES = (32, 64)        # penalty and generator passes; critic scores (2B)
 
 
 def fail(msg: str) -> None:
@@ -94,7 +132,20 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 
 
 # ------------------------------------------------------------------ phases
-def phase_build(_build) -> None:
+def entry_name(mangled: str) -> str:
+    """A readable name for a kernel's mangled entry: base<dtype,act,mode>."""
+    m = re.search(r"(lstm_(?:fwd|bwd|adj)_kernel)I(f|13__nv_bfloat16)Li(\d)E(?:Lb(\d)E)?",
+                  mangled)
+    if m:
+        mode = {None: "", "0": ",primal", "1": ",with_cs"}[m.group(4)]
+        return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},act={m.group(3)}{mode}>"
+    m = re.search(r"outer_sum_partialILi(\d)E", mangled)
+    if m:
+        return f"outer_sum_partial<{m.group(1)}>"
+    return "sum_splits" if "sum_splits" in mangled else mangled
+
+
+def phase_build(torch, _build, cuda_lstm) -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     say(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s: "
@@ -104,11 +155,14 @@ def phase_build(_build) -> None:
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                entry = m.group(1)
-                t = re.search(r"kernelI(.+?)Li(\d)E", entry)
-                entry = f"{t.group(1)},act={t.group(2)}" if t else entry
+                entry = entry_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 say(f"[build] {name} {entry}: {line.split(':', 1)[-1].strip()}")
+    for kernel in ("lstm_fwd", "lstm_bwd", "lstm_adj"):
+        sm = {n: cuda_lstm.smem_bytes(HIDDEN, dt, 1, kernel)
+              for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+        say(f"[build] {kernel}: dynamic shared memory at H={HIDDEN}, one row a block: "
+            f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{cuda_lstm.smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm['f32']} B a further row)")
 
 
 def lstm_inputs(torch, w, f, b, act, dtype, seed):
@@ -150,6 +204,63 @@ def phase_parity(torch, cuda_lstm) -> dict:
                         fail(f"kernel disagrees with its plain version: {err} > "
                              f"{BARS[name]} at W={w} B={b} {act} {name}")
     return worst
+
+
+def scaled_err(got, ref) -> float:
+    """max|got - ref| / max(1, max|ref|)."""
+    return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def phase_grad_parity(torch, cuda_lstm) -> dict:
+    """Kernel 1 with_cs, kernel 2 (plain, dcs, with_carries) and kernel 3
+    against their plain versions on the same inputs: the forward's from
+    ``lstm_inputs``, hs and cs from the kernel, seeded cotangents."""
+    names = ("lstm_fwd_cs", "lstm_bwd", "lstm_adj")
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
+    worst_abs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
+    h = HIDDEN
+    for w, f in SHAPES:
+        for b in TRAIN_BATCHES:
+            for act in ACTS:
+                for name, dtype in (("float32", torch.float32),
+                                    ("bfloat16", torch.bfloat16)):
+                    _, _, xz, rec = lstm_inputs(torch, w, f, b, act, dtype, seed=w + b + 1)
+                    g = torch.Generator(device="cuda")
+                    g.manual_seed(w * b)
+                    rnd = lambda *shape: 0.3 * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+                    with torch.no_grad():
+                        hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, act, with_cs=True)
+                        errs = {"lstm_fwd_cs": list(zip(
+                            (hs, cs), cuda_lstm.lstm_seq_plain(xz, rec, act, with_cs=True)))}
+                        dhs, dcs = rnd(w, b, h), rnd(w, b, h)
+                        errs["lstm_bwd"] = []
+                        for dcs_, carries in ((None, False), (dcs, False), (None, True)):
+                            errs["lstm_bwd"] += list(zip(
+                                cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, dhs, dcs_, act, carries),
+                                cuda_lstm.lstm_bwd_plain(xz, rec, hs, cs, dhs, dcs_, act, carries)))
+                        _, _, dhT, dcT = cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, dhs, None,
+                                                                 act, True)
+                        u, v = rnd(w, b, 4 * h), rnd(h, 4 * h)
+                        errs["lstm_adj"] = list(zip(
+                            cuda_lstm.lstm_adj_cuda(xz, rec, hs, cs, dhT, dcT, u, v, act),
+                            cuda_lstm.lstm_adj_plain(xz, rec, hs, cs, dhT, dcT, u, v, act)))
+                    torch.cuda.synchronize()
+                    line = []
+                    for k, pairs in errs.items():
+                        for got, ref in pairs:
+                            if got.shape != ref.shape or not torch.isfinite(got).all():
+                                fail(f"{k} output not finite/shaped at W={w} B={b} {act} {name}")
+                        err = max(scaled_err(a, r) for a, r in pairs)
+                        worst[k][name] = max(worst[k][name], err)
+                        worst_abs[k][name] = max(worst_abs[k][name], max(
+                            float((a - r).abs().max()) for a, r in pairs))
+                        line.append(f"{k} {err:.2e}")
+                        if not err <= GRAD_BARS[name]:
+                            fail(f"{k} disagrees with its plain version: {err} > "
+                                 f"{GRAD_BARS[name]} at W={w} B={b} {act} {name}")
+                    say(f"[grad] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
+                        f"{', '.join(line)} (limit {GRAD_BARS[name]:.0e})")
+    return {"scaled": worst, "abs": worst_abs}
 
 
 def check_answers(torch, np, srv, futures, panels, preset_cfg) -> None:
@@ -240,6 +351,146 @@ def phase_server(torch, np, cuda_lstm) -> dict:
     return out
 
 
+def device_time_by_name(prof) -> dict:
+    """Device time by kernel name, from the device's own events only: a
+    CPU-side op (``aten::mul``, an autograd node) also reports the device
+    time of the kernels it launched, and summing both counts them twice."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us
+    return by_name
+
+
+def profile_epoch(torch, step, state, draws) -> dict:
+    """One epoch under ``torch.profiler``: device time by kernel name and
+    the device's busy share of the epoch's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, draws)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = device_time_by_name(prof)
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "busy_share": busy_us / wall_us if busy_us else None,
+            "top": [{"name": k[:80], "us": v} for k, v in top]}
+
+
+def epoch_parity(torch, mcfg, tcfg, pair, dataset, state, draws) -> dict:
+    """One epoch on the card and the same epoch — a copy of the state, the
+    same draws — through the plain path on the CPU."""
+    from hfrep_tpu_torch.models.registry import build_gan
+    from hfrep_tpu_torch.train import Draws, make_train_step
+
+    cpu_state = state.to("cpu")
+    cpu_draws = Draws(*(None if t is None else t.cpu()
+                        for t in (draws.idx, draws.noises, draws.alphas)))
+    state, m = make_train_step(pair, tcfg, dataset)(state, draws)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu_pair = build_gan(mcfg, device="cpu")
+    cpu_state, mc = make_train_step(cpu_pair, tcfg, dataset.cpu())(cpu_state, cpu_draws)
+    cpu_s = time.perf_counter() - t0
+    rel = {k: abs(float(m[k]) - float(mc[k])) / max(abs(float(mc[k])), 1e-30)
+           for k in ("d_loss", "g_loss")}
+    worst, worst_at, max_diff = 0.0, None, 0.0
+    for net, card_mod, cpu_mod in (("g", state.generator, cpu_state.generator),
+                                   ("d", state.discriminator, cpu_state.discriminator)):
+        for (n, a), (_, r) in zip(card_mod.named_parameters(), cpu_mod.named_parameters()):
+            diff = (a.detach().cpu() - r.detach()).abs()
+            ratio = float((diff / (1e-5 + 1e-4 * r.detach().abs())).max())
+            max_diff = max(max_diff, float(diff.max()))
+            if ratio > worst:
+                worst, worst_at = ratio, f"{net}.{n}"
+    return {"d_loss": float(m["d_loss"]), "d_loss_cpu": float(mc["d_loss"]),
+            "g_loss": float(m["g_loss"]), "g_loss_cpu": float(mc["g_loss"]),
+            "loss_rel_diff": rel, "param_max_abs_diff": max_diff,
+            "param_worst_ratio": worst, "param_worst_at": worst_at, "cpu_epoch_s": cpu_s,
+            "ok": all(v <= 1e-4 for v in rel.values()) and worst <= 1.0}
+
+
+def phase_train(torch, cuda_lstm) -> list:
+    from hfrep_tpu_torch.config import get_preset
+    from hfrep_tpu_torch.models.registry import build_gan
+    from hfrep_tpu_torch.train import (init_gan_state, make_multi_step,
+                                       make_train_step, sample_draws)
+
+    out = []
+    for k, preset in enumerate(TRAIN_PRESETS):
+        cfg = get_preset(preset)
+        mcfg = cfg.model
+        tcfg = dataclasses.replace(cfg.train, batch_size=32, n_critic=5,
+                                   steps_per_call=TRAIN_EPOCHS)
+        w = mcfg.window
+        g = torch.Generator(device="cuda")
+        g.manual_seed(100 + k)
+        dataset = torch.rand((1000, w, mcfg.features), generator=g, device="cuda")
+        pair = build_gan(mcfg, device="cuda")
+        state = init_gan_state(k, mcfg, device="cuda")
+        multi = make_multi_step(pair, tcfg, dataset)
+        torch.cuda.synchronize()
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = multi(state, generator=g)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = cuda_lstm.launch_counts()
+        d_loss, g_loss = metrics["d_loss"].cpu(), metrics["g_loss"].cpu()
+        if d_loss.shape != (TRAIN_EPOCHS,) or not (torch.isfinite(d_loss).all()
+                                                   and torch.isfinite(g_loss).all()):
+            fail(f"{preset}: losses not finite/shaped: {d_loss}, {g_loss}")
+        idle = [n for n, c in launches.items() if c < 1]
+        if idle:
+            fail(f"{preset}: the training epochs launched no {idle} kernel ({launches})")
+        per_epoch = {n: c / TRAIN_EPOCHS for n, c in launches.items()}
+        say(f"[train] {preset} W={w}: {TRAIN_EPOCHS} epochs in {first_s:.2f} s; d_loss "
+            f"{[round(float(x), 5) for x in d_loss]}, g_loss {[round(float(x), 5) for x in g_loss]}; "
+            f"launches per epoch: " + ", ".join(f"{n} {c:g}" for n, c in per_epoch.items()))
+        t0 = time.perf_counter()
+        state, _ = multi(state, generator=g)
+        torch.cuda.synchronize()
+        ms_epoch = (time.perf_counter() - t0) / TRAIN_EPOCHS * 1e3
+        one = dataclasses.replace(tcfg, steps_per_call=1)
+        prof = profile_epoch(torch, make_train_step(pair, one, dataset), state,
+                             sample_draws(g, pair, one, dataset))
+        parity = epoch_parity(torch, mcfg, one, pair, dataset, state,
+                              sample_draws(g, pair, one, dataset))
+        busy = ("not measured" if not prof["device_busy_us"] else
+                f"device busy {prof['device_busy_us']:.0f} of {prof['wall_us']:.0f} us "
+                f"({100 * prof['busy_share']:.1f}%)")
+        say(f"[train] {preset} W={w}: {ms_epoch:.2f} ms/epoch over {TRAIN_EPOCHS} epochs "
+            f"(host clock, synchronised); profiled epoch: {busy}")
+        for row in prof["top"]:
+            share = 100 * row["us"] / prof["device_busy_us"]
+            say(f"[train]   {row['us']:9.1f} us  {share:5.1f}%  {row['name']}")
+        say(f"[train] {preset} W={w}: one epoch, card vs CPU plain path: d_loss "
+            f"{parity['d_loss']:.7g} vs {parity['d_loss_cpu']:.7g} (rel {parity['loss_rel_diff']['d_loss']:.2e}), "
+            f"g_loss {parity['g_loss']:.7g} vs {parity['g_loss_cpu']:.7g} "
+            f"(rel {parity['loss_rel_diff']['g_loss']:.2e}; limit 1e-4); params max|diff| "
+            f"{parity['param_max_abs_diff']:.2e}, worst |diff|/(1e-5+1e-4|cpu|) "
+            f"{parity['param_worst_ratio']:.3f} at {parity['param_worst_at']} (limit 1); "
+            f"CPU epoch {parity['cpu_epoch_s']:.1f} s")
+        if not parity["ok"]:
+            fail(f"{preset}: the card's epoch differs from the CPU plain path: {parity}")
+        out.append({"preset": preset, "W": w, "F": mcfg.features, "launches": launches,
+                    "launches_per_epoch": per_epoch, "d_loss": d_loss.tolist(),
+                    "g_loss": g_loss.tolist(), "first_epochs_s": first_s,
+                    "ms_per_epoch": ms_epoch, "profile": prof, "parity": parity})
+    return out
+
+
 def bound_ms(w, b, h, dtype_name) -> tuple:
     item = 4 if dtype_name == "float32" else 2
     nbytes = (w * b * 4 * h + h * 4 * h) * item + w * b * h * 4
@@ -288,6 +539,92 @@ def phase_timing(torch, cuda_lstm) -> list:
     return rows
 
 
+def grad_bounds(w, b, h, dtype_name) -> dict:
+    """Least time for each new kernel at (W, B, H): each input read once,
+    each output written once, over 3.35 TB/s; each product of 2*W*B*H*4H
+    over the peak for its operands' type (products with rec are in the
+    operand dtype, products with v and the drec/urec sums in float32)."""
+    item = 4 if dtype_name == "float32" else 2
+    seq, g32 = w * b * h * 4, w * b * 4 * h * 4
+    xzb, recb, mat32 = w * b * 4 * h * item, 4 * h * h * item, 4 * h * h * 4
+    prod = 2 * w * b * h * 4 * h
+    peak, f32 = PEAK_OPS_PER_S[dtype_name], PEAK_OPS_PER_S["float32"]
+    work = {"lstm_fwd_cs": (xzb + recb + 2 * seq, prod / peak),
+            "lstm_bwd": (xzb + recb + 3 * seq + g32 + mat32, 2 * prod / peak + prod / f32),
+            "lstm_adj": (xzb + recb + mat32 + 4 * seq + 2 * g32 + 3 * seq + mat32,
+                         3 * prod / peak + 4 * prod / f32)}
+    out = {}
+    for k, (nbytes, t_ops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[k] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def phase_grad_timing(torch, cuda_lstm) -> list:
+    rows = []
+    h = HIDDEN
+    for w, f in SHAPES:
+        for b in TRAIN_BATCHES:
+            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                layer, x, xz, rec = lstm_inputs(torch, w, f, b, "tanh", dtype, seed=3)
+                g = torch.Generator(device="cuda")
+                g.manual_seed(4)
+                with torch.no_grad():
+                    hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", with_cs=True)
+                    dhs = 0.3 * torch.randn((w, b, h), generator=g, device="cuda")
+                    _, _, dhT, dcT = cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, dhs, None,
+                                                             "tanh", True)
+                    u = 0.3 * torch.randn((w, b, 4 * h), generator=g, device="cuda")
+                    v = 0.3 * torch.randn((h, 4 * h), generator=g, device="cuda")
+                    calls = {
+                        "lstm_fwd_cs": (
+                            lambda: cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", with_cs=True),
+                            lambda: cuda_lstm.lstm_seq_plain(xz, rec, "tanh", with_cs=True)),
+                        "lstm_bwd": (
+                            lambda: cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, dhs, None, "tanh"),
+                            lambda: cuda_lstm.lstm_bwd_plain(xz, rec, hs, cs, dhs, None, "tanh")),
+                        "lstm_adj": (
+                            lambda: cuda_lstm.lstm_adj_cuda(xz, rec, hs, cs, dhT, dcT, u, v, "tanh"),
+                            lambda: cuda_lstm.lstm_adj_plain(xz, rec, hs, cs, dhT, dcT, u, v,
+                                                             "tanh"))}
+                    times = {k: (time_ms(torch, kern, 50), time_ms(torch, plain, 2, 1))
+                             for k, (kern, plain) in calls.items()}
+                    # the primal at the same shape and activation, beside with_cs
+                    primal = time_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh"), 50)
+                library = {"lstm_fwd_cs": None, "lstm_bwd": None, "lstm_adj": None}
+                if name == "float32":
+                    lstm = torch.nn.LSTM(f, h).cuda()
+                    with torch.no_grad():
+                        lstm.weight_ih_l0.copy_(layer.kernel.T)
+                        lstm.weight_hh_l0.copy_(layer.recurrent_kernel.T)
+                        lstm.bias_ih_l0.copy_(layer.bias)
+                        lstm.bias_hh_l0.zero_()
+                    xt = x.transpose(0, 1).contiguous().requires_grad_(True)
+                    gout = torch.randn((w, b, h), generator=g, device="cuda")
+
+                    def fwd_bwd():
+                        out, _ = lstm(xt)
+                        out.backward(gout)
+
+                    fwd = time_ms(torch, lambda: lstm(xt), 50)
+                    library["lstm_fwd_cs"] = fwd
+                    library["lstm_bwd"] = time_ms(torch, fwd_bwd, 50) - fwd
+                bounds = grad_bounds(w, b, h, name)
+                for k, (ms, plain) in times.items():
+                    bnd, by = bounds[k]
+                    rows.append({"kernel": k, "W": w, "F": f, "B": b, "dtype": name,
+                                 "ms": ms, "plain_ms": plain, "library_ms": library[k],
+                                 "bound_ms": bnd, "bound_by": by})
+                    lib_s = "n/a" if library[k] is None else f"{library[k]:.4f}"
+                    extra = ""
+                    if k == "lstm_fwd_cs":
+                        rows[-1]["primal_ms"] = primal
+                        extra = f" (primal, same tanh: {primal:.4f})"
+                    say(f"[timing] {k:11s} W={w:3d} B={b:2d} {name:8s}: kernel {ms:.4f} ms{extra}, "
+                        f"plain {plain:.3f} ms, cuDNN {lib_s} ms, bound {bnd:.5f} ms ({by})")
+    return rows
+
+
 def phase_profile(torch) -> list:
     """``torch.profiler`` over 20 sample dispatches of the generator at
     the served batch (bucket 8), per preset: device time by kernel name
@@ -314,13 +651,7 @@ def phase_profile(torch) -> list:
                 fn(z).cpu()                      # the server copies each answer out
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        by_name = {}
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us
+        by_name = device_time_by_name(prof)
         busy_us = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         row = {"preset": preset, "dispatches": len(noises), "wall_us": wall_us,
@@ -361,26 +692,48 @@ def main() -> None:
     say("TF32 off for matmuls and cuDNN: every float32 product is full float32")
 
     t0 = time.perf_counter()
-    phase_build(_build)
+    phase_build(torch, _build, cuda_lstm)
     worst = phase_parity(torch, cuda_lstm)
+    grad = phase_grad_parity(torch, cuda_lstm)
     server = phase_server(torch, np, cuda_lstm)
+    train = phase_train(torch, cuda_lstm)
     timing = phase_timing(torch, cuda_lstm)
+    grad_timing = phase_grad_timing(torch, cuda_lstm)
     profiled = phase_profile(torch)
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
 
+    trained = {k: sum(r["launches"][k] for r in train) for k in TPU_KERNELS}
     head = next(r for r in timing if r["W"] == 48 and r["B"] == 8 and r["dtype"] == "float32")
-    kernels = {"kernels": [{
+    rows = [{
         "name": "lstm_fwd", "route": "cuda",
         "source": "hfrep_tpu_torch/csrc/lstm_fwd.cu", "replaces": TPU_KERNEL,
-        "launches": server["launches"], "max_abs_err": worst["float32"],
-        "max_abs_err_bf16": worst["bfloat16"],
+        "launches": server["launches"] + trained["lstm_fwd"],
+        "launches_by_path": {"serve": server["launches"], "train": trained["lstm_fwd"]},
+        "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": "W=48 B=8 H=100 float32"}]}
+        "shape": "W=48 B=8 H=100 float32"}]
+    for k in ("lstm_fwd_cs", "lstm_bwd", "lstm_adj"):
+        r = next(x for x in grad_timing if x["kernel"] == k and x["W"] == 48
+                 and x["B"] == 32 and x["dtype"] == "float32")
+        rows.append({
+            "name": k, "route": "cuda", "source": f"hfrep_tpu_torch/csrc/{SOURCES[k]}",
+            "replaces": TPU_KERNELS[k], "launches": trained[k],
+            "launches_by_path": {"train": trained[k]},
+            "max_abs_err": grad["abs"][k]["float32"],
+            "max_abs_err_bf16": grad["abs"][k]["bfloat16"],
+            "max_scaled_err": grad["scaled"][k]["float32"],
+            "max_scaled_err_bf16": grad["scaled"][k]["bfloat16"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": "W=48 B=32 H=100 float32"})
+    rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
+    kernels = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"card": card, "kernels": kernels["kernels"], "server": server,
-                       "timing": timing, "parity_max_abs_err": worst,
+            json.dump({"card": card, "kernels": rows, "server": server, "train": train,
+                       "timing": timing, "grad_timing": grad_timing,
+                       "parity_max_abs_err": worst, "grad_parity": grad,
                        "profile": profiled}, fh, indent=1)
     say(card)
     say(json.dumps(kernels))

@@ -7,8 +7,9 @@ a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o build/cuda/<name>-<hash>.so <name>.cu
 
 The library goes into ``build/cuda/`` at the root of the checkout (listed
-in ``.gitignore``), named by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.  ``nvcc``'s output
+in ``.gitignore``), named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  ``nvcc``'s output
 (the ``-Xptxas -v`` register, shared-memory and spill report) is kept
 beside it as ``<name>-<hash>.log``.
 
@@ -60,6 +61,7 @@ def sources() -> list:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,0 +1,229 @@
+"""Alternating G/D train steps for the three loss families
+(``hfrep_tpu/train/steps.py``).
+
+One *epoch* is one call of the step: n_critic critic updates and one
+generator update, with the step semantics of the JAX package one for one:
+
+* **bce** (GAN / MTSS-GAN): two sequential discriminator Adam updates —
+  real batch vs label 1, then a generated batch vs label 0 — then one
+  generator update against label 1 on fresh noise.  Logits are per
+  timestep (B, W, 1); the label broadcasts over W.
+* **wgan_clip** (WGAN / MTSS-WGAN): n_critic iterations of two
+  sequential critic updates (mean(−c(real)), then mean(c(fake))), each
+  iteration ending in a clip of *every* critic tensor to ±clip,
+  LayerNorm scales included.
+* **wgan_gp** (WGAN-GP / MTSS-WGAN-GP): n_critic single RMSprop updates
+  on mean(−c(real)) + mean(c(fake)) + gp_weight·mean((1−‖∇ₓ̂c(x̂)‖)²),
+  x̂ = α·real + (1−α)·fake, α per sample.  Real and fake are scored in
+  one 2B critic pass; the penalty is a separate B-wide pass whose
+  second-order ∂/∂θ ∇ₓ̂c path runs the LSTM adjoint kernel.
+
+As in the JAX step, the n_critic fake batches are one (n_critic·B)-row
+generator pass with no gradient, and the generator update reuses the
+last critic iteration's noise.
+
+Draws are an explicit argument (:class:`Draws`): the real-batch indices,
+the noises and α.  JAX's threefry and torch's generators never give the
+same numbers, so a test hands one JAX epoch's draws to the port's step;
+:func:`sample_draws` makes them on the device for ordinary runs.
+
+Left out of this port, named in ROADMAP: the in-graph health block, the
+mesh hooks (``shard_data``, ``apply_fns``) and ``make_conditional_step``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hfrep_tpu_torch.config import TrainConfig
+from hfrep_tpu_torch.models.registry import GanPair
+from hfrep_tpu_torch.train.states import GanState, make_optimizers, params_of
+
+Metrics = dict
+
+
+@dataclasses.dataclass
+class Draws:
+    """One epoch's random inputs.
+
+    Wasserstein families: ``idx`` (n_critic, B) real-batch indices,
+    ``noises`` (n_critic, B, W, F), and for wgan_gp ``alphas``
+    (n_critic, B, 1, 1).  bce: ``idx`` (B,) and ``noises`` (2, B, W, F) —
+    the fake batch's noise, then the generator update's."""
+
+    idx: torch.Tensor
+    noises: torch.Tensor
+    alphas: Optional[torch.Tensor] = None
+
+
+def sample_draws(generator: torch.Generator, pair: GanPair, tcfg: TrainConfig,
+                 dataset: torch.Tensor) -> Draws:
+    """One epoch's draws from ``generator``, made on ``dataset``'s device
+    (the generator must live there too)."""
+    n, w, f = dataset.shape
+    b = tcfg.batch_size
+    kw = dict(generator=generator, device=dataset.device)
+    if pair.loss == "bce":
+        return Draws(idx=torch.randint(0, n, (b,), **kw),
+                     noises=torch.randn((2, b, w, f), **kw))
+    k = tcfg.n_critic
+    return Draws(idx=torch.randint(0, n, (k, b), **kw),
+                 noises=torch.randn((k, b, w, f), **kw),
+                 alphas=(torch.rand((k, b, 1, 1), **kw)
+                         if pair.loss == "wgan_gp" else None))
+
+
+def _bce_logits(logits: torch.Tensor, label: float) -> torch.Tensor:
+    """Binary cross-entropy from logits against a constant broadcast
+    label (``optax.sigmoid_binary_cross_entropy``, averaged)."""
+    labels = torch.full_like(logits, label)
+    return (-labels * F.logsigmoid(logits)
+            - (1.0 - labels) * F.logsigmoid(-logits)).mean()
+
+
+def gradient_penalty(critic: nn.Module, interp: torch.Tensor) -> torch.Tensor:
+    """mean((1 − ‖∇ₓ̂ c(x̂)‖)²) over the batch of interpolates.
+
+    The input gradient is taken with ``create_graph=True`` so the outer
+    gradient reaches the critic's parameters through it (the LSTM's
+    second order: :class:`~hfrep_tpu_torch.ops.cuda_lstm.LSTMBwdSeq` and
+    the adjoint kernel).  The score sum, the gradient and the norm are
+    float32 whatever the compute dtype; the +1e-12 sits inside the root."""
+    x = interp.detach().requires_grad_(True)
+    grads, = torch.autograd.grad(critic(x).float().sum(), x, create_graph=True)
+    grads = grads.float()
+    norms = torch.sqrt((grads ** 2).sum(dim=tuple(range(1, grads.dim()))) + 1e-12)
+    return ((1.0 - norms) ** 2).mean()
+
+
+def _cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.concatenate`` with its dtype promotion."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.cat([a.to(dt), b.to(dt)], dim=0)
+
+
+def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
+                    ) -> Callable[[GanState, Draws], Tuple[GanState, Metrics]]:
+    """Build ``step(state, draws) -> (state, metrics)`` for one epoch.
+
+    The step updates ``state``'s networks and slots in place and returns
+    it; metrics are 0-d float32 tensors on the device (no host sync).
+    ``tcfg.fuse_gd`` changes nothing here: the JAX step uses it to emit
+    an n_critic == 1 epoch as straight-line code instead of a size-1
+    traced loop, and the port runs eagerly with no traced loop at all.
+    """
+    g_tx, d_tx = make_optimizers(pair, tcfg)
+    acc = pair.policy.accum
+    clip, gp_w = tcfg.clip_value, tcfg.gp_weight
+    window, features = dataset.shape[1], dataset.shape[2]
+
+    def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor) -> None:
+        params = params_of(module)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        tx.update(params, {k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(params.items(), grads)}, slots)
+
+    def d_update(state: GanState, loss: torch.Tensor) -> torch.Tensor:
+        _update(state.discriminator, d_tx, state.d_opt, loss)
+        return loss.detach()
+
+    def g_update(state: GanState, loss: torch.Tensor) -> torch.Tensor:
+        _update(state.generator, g_tx, state.g_opt, loss)
+        state.step += 1
+        return loss.detach()
+
+    def _fakes(state: GanState, noises: torch.Tensor) -> torch.Tensor:
+        """n_critic fake batches as ONE generator pass, no gradient."""
+        n, b = noises.shape[0], noises.shape[1]
+        with torch.no_grad():
+            out = state.generator(noises.reshape(n * b, window, features))
+        return out.reshape(noises.shape[:2] + out.shape[1:])
+
+    # ------------------------------------------------------------------ bce
+    def bce_step(state: GanState, draws: Draws):
+        real = dataset[draws.idx]
+        with torch.no_grad():
+            fake = state.generator(draws.noises[0])
+        d = state.discriminator
+        logits = acc(d(real))
+        acc_r = (logits > 0).float().mean()
+        l_real = d_update(state, _bce_logits(logits, 1.0))
+        logits = acc(d(fake))
+        acc_f = (logits <= 0).float().mean()
+        l_fake = d_update(state, _bce_logits(logits, 0.0))
+        g_loss = g_update(state, _bce_logits(
+            acc(d(state.generator(draws.noises[1]))), 1.0))
+        return state, {"d_loss": 0.5 * (l_real + l_fake),
+                       "d_acc": 0.5 * (acc_r + acc_f), "g_loss": g_loss}
+
+    # ------------------------------------------------------------ wgan_clip
+    def wgan_step(state: GanState, draws: Draws):
+        fakes = _fakes(state, draws.noises)
+        d = state.discriminator
+        d_loss = None
+        for i in range(tcfg.n_critic):
+            real = dataset[draws.idx[i]]
+            l_real = d_update(state, (-acc(d(real))).mean())
+            l_fake = d_update(state, acc(d(fakes[i])).mean())
+            with torch.no_grad():
+                for p in d.parameters():
+                    p.clamp_(-clip, clip)
+            d_loss = 0.5 * (l_real + l_fake)
+        # the reference reuses the final critic-loop noise
+        g_loss = g_update(state, (-acc(d(state.generator(draws.noises[-1])))).mean())
+        return state, {"d_loss": d_loss, "g_loss": g_loss}
+
+    # -------------------------------------------------------------- wgan_gp
+    def gp_critic_loss(d: nn.Module, real, fake, alpha) -> torch.Tensor:
+        interp = alpha * real + (1.0 - alpha) * fake
+        b = real.shape[0]
+        scores = acc(d(_cat(real, fake)))       # one 2B pass for real ⊕ fake
+        gp = gradient_penalty(d, interp)        # a separate B-wide pass
+        w_loss = (-scores[:b]).mean() + scores[b:].mean()
+        return w_loss + gp_w * gp
+
+    def wgan_gp_step(state: GanState, draws: Draws):
+        fakes = _fakes(state, draws.noises)
+        d = state.discriminator
+        d_loss = None
+        for i in range(tcfg.n_critic):
+            real = dataset[draws.idx[i]]
+            d_loss = d_update(state, gp_critic_loss(d, real, fakes[i], draws.alphas[i]))
+        # the reference reuses the final critic-loop noise
+        g_loss = g_update(state, (-acc(d(state.generator(draws.noises[-1])))).mean())
+        return state, {"d_loss": d_loss, "g_loss": g_loss}
+
+    return {"bce": bce_step, "wgan_clip": wgan_step, "wgan_gp": wgan_gp_step}[pair.loss]
+
+
+def make_multi_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor):
+    """``tcfg.steps_per_call`` epochs per call, in a Python loop.
+
+    Returns ``fn(state, draws=None, generator=None) -> (state, metrics)``:
+    ``draws`` is a list of one :class:`Draws` per epoch, or ``None`` to
+    sample each epoch's from ``generator`` (:func:`sample_draws`).
+    Metrics are stacked, one entry per epoch, as the JAX scan stacks
+    them.
+    """
+    step = make_train_step(pair, tcfg, dataset)
+    n = tcfg.steps_per_call
+
+    def multi(state: GanState, draws: Optional[List[Draws]] = None,
+              generator: Optional[torch.Generator] = None):
+        if draws is not None and len(draws) != n:
+            raise ValueError(f"want {n} epochs of draws, got {len(draws)}")
+        if draws is None and generator is None:
+            raise ValueError("pass the epochs' draws or a generator to sample them")
+        metrics = []
+        for i in range(n):
+            d = draws[i] if draws is not None else sample_draws(generator, pair, tcfg, dataset)
+            state, m = step(state, d)
+            metrics.append(m)
+        return state, {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+    return multi

@@ -7,7 +7,8 @@ The port keeps the Keras layout in its parameters (``kernel`` is
 (in, out)), so the bridge copies and never transposes.
 
 Names: a module class's ``FLAX_NAMES`` maps a Flax submodule name
-(``KerasLSTM_0``) to the attribute holding its counterpart (``lstm0``).
+(``KerasLSTM_0``) to the attribute holding its counterpart (``lstm0``);
+every generator and critic class carries one.
 Flax's inner wrappers (``LayerNorm_0`` inside ``KerasLayerNorm``,
 ``Dense_0`` inside ``KerasDense``) have no module of their own here:
 their params live on the Keras-level module.
@@ -15,6 +16,7 @@ their params live on the Keras-level module.
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping
 
 import numpy as np
@@ -66,3 +68,14 @@ def to_flax(module: nn.Module) -> dict:
     for flax_name, attr in getattr(type(module), "FLAX_NAMES", {}).items():
         own[flax_name] = to_flax(getattr(module, attr))
     return own
+
+
+def gan_state_from_flax(g_tree: Mapping, d_tree: Mapping, pair):
+    """A fresh training state (zero optimizer slots) whose networks are
+    copies of ``pair``'s carrying the JAX param trees ``g_tree`` (the
+    generator's) and ``d_tree`` (the critic's)."""
+    from hfrep_tpu_torch.train.states import fresh_state
+
+    gen = from_flax(g_tree, copy.deepcopy(pair.generator))
+    disc = from_flax(d_tree, copy.deepcopy(pair.discriminator))
+    return fresh_state(pair.loss, gen, disc)
