@@ -9,7 +9,8 @@ exits non-zero on failure:
 1. build   — every ``hfrep_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
              one process per source, started together; prints ptxas's
              registers and spills per kernel, and the dynamic shared
-             memory each LSTM kernel asks for at H=100;
+             memory each LSTM kernel (single-layer and fused stack) asks
+             for at H=100;
 2. parity  — the forward kernel (primal mode) against its plain PyTorch
              version on the card, at the serving shapes (W, F) in
              {(48, 35), (168, 36)}, H=100, B in {8, 64}, activations
@@ -25,6 +26,10 @@ exits non-zero on failure:
              output; bars: f32 1e-4 (drec and urec are sums over up to
              W*B = 10,752 rows, taken in another order), bf16 1e-2 (as the
              forward);
+   stack   — the fused two-layer stack's kernels: the forward (primal and
+             with_res), the backward (plain, direct cotangents,
+             with_carries) and the adjoint against their plain versions,
+             at the same shapes, activations, dtypes and bars;
 3. server  — the main path: ``ReplicationServer`` on ``cuda`` with the
              fixture AE head and the ``mtss_wgan_gp`` generator, then the
              ``mtss_wgan_gp_prod`` one: start, ``warm_server`` (the program
@@ -40,24 +45,30 @@ exits non-zero on failure:
              the plain version and cuDNN's LSTM (``library_ms``: tanh,
              same weights, input projection included; timed here only,
              never called by the port);
-5. train   — the slice-2 main path: for ``mtss_wgan_gp`` and
+5. train   — the training paths: for ``mtss_wgan_gp`` and
              ``mtss_wgan_gp_prod`` at full width (H=100), float32, batch
-             32, n_critic 5, on a seeded uniform dataset of 1,000 windows:
-             ``init_gan_state`` then ``make_multi_step`` for 3 epochs, with
-             every launch count set to 0 just before and read just after;
-             the losses must be finite and every kernel must have launched.
-             Then 3 more epochs timed (host clock around synchronised
-             work), one epoch under ``torch.profiler``, and one epoch on the
-             card against the same epoch — same state, same draws — through
-             the plain path on the CPU: d_loss and g_loss rtol 1e-4, every
-             param atol 1e-5 + rtol 1e-4 (the JAX package's bar for its
-             kernel-vs-scan epoch);
+             32, n_critic 5, on a seeded uniform dataset of 1,000 windows,
+             the critic on its default route (the fused stack, slice 3's
+             main path): ``init_gan_state`` then ``make_multi_step`` for 3
+             epochs, with every launch count set to 0 just before and read
+             just after; the losses must be finite and exactly the route's
+             kernels must have launched (``ROUTE_KERNELS``).  Then 3 more
+             epochs timed (host clock around synchronised work), one epoch
+             under ``torch.profiler``, and one epoch on the card against
+             the same epoch — same state, same draws — through the plain
+             path on the CPU: d_loss and g_loss rtol 1e-4, every param
+             atol 1e-5 + rtol 1e-4 (the JAX package's bar for its
+             kernel-vs-scan epoch).  The same for ``mtss_wgan_gp`` with
+             the critic on the chained route (slice 2's path, which runs
+             the single-layer adjoint);
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (cuDNN's LSTM at
              tanh: the forward in training mode for with_cs, backward =
              forward-and-backward minus forward for lstm_bwd; none for the
              adjoint: no PyTorch call computes it, the cuDNN RNN has no
-             double backward);
+             double backward); each stack kernel also beside the chained
+             single-layer pair it replaces, its library the two-layer
+             cuDNN LSTM;
 7. profile — ``torch.profiler`` over 20 sample dispatches per preset:
              device time by kernel name and the device's busy share.
 
@@ -89,12 +100,25 @@ ACTS = ("sigmoid", "tanh", "linear")
 TPU_KERNEL = "hfrep_tpu/ops/pallas_lstm.py:168"
 TPU_KERNELS = {"lstm_fwd": TPU_KERNEL, "lstm_fwd_cs": TPU_KERNEL,
                "lstm_bwd": "hfrep_tpu/ops/pallas_lstm.py:263",
-               "lstm_adj": "hfrep_tpu/ops/pallas_lstm.py:415"}
+               "lstm_adj": "hfrep_tpu/ops/pallas_lstm.py:415",
+               "stack_fwd": "hfrep_tpu/ops/pallas_lstm_stack.py:71",
+               "stack_bwd": "hfrep_tpu/ops/pallas_lstm_stack.py:134",
+               "stack_adj": "hfrep_tpu/ops/pallas_lstm_stack.py:250"}
 SOURCES = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_cs": "lstm_fwd.cu",
-           "lstm_bwd": "lstm_bwd.cu", "lstm_adj": "lstm_adj.cu"}
+           "lstm_bwd": "lstm_bwd.cu", "lstm_adj": "lstm_adj.cu",
+           "stack_fwd": "lstm_stack_fwd.cu", "stack_bwd": "lstm_stack_bwd.cu",
+           "stack_adj": "lstm_stack_adj.cu"}
 TRAIN_PRESETS = ("mtss_wgan_gp", "mtss_wgan_gp_prod")
 TRAIN_EPOCHS = 3
 TRAIN_BATCHES = (32, 64)        # penalty and generator passes; critic scores (2B)
+#: the kernels each critic route's epoch must launch, and no others: the
+#: generator's single-layer kernels, then the critic's fused stack
+#: ("auto", slice 3) or its two chained single-layer LSTMs (slice 2)
+ROUTE_KERNELS = {
+    "auto": {"lstm_fwd", "lstm_fwd_cs", "lstm_bwd", "stack_fwd_res", "stack_bwd",
+             "stack_adj"},
+    "chained": {"lstm_fwd", "lstm_fwd_cs", "lstm_bwd", "lstm_adj"},
+}
 
 
 def fail(msg: str) -> None:
@@ -134,18 +158,19 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 # ------------------------------------------------------------------ phases
 def entry_name(mangled: str) -> str:
     """A readable name for a kernel's mangled entry: base<dtype,act,mode>."""
-    m = re.search(r"(lstm_(?:fwd|bwd|adj)_kernel)I(f|13__nv_bfloat16)Li(\d)E(?:Lb(\d)E)?",
-                  mangled)
+    m = re.search(r"((lstm|stack)_(?:fwd|bwd|adj)_kernel)I(f|13__nv_bfloat16)Li(\d)E"
+                  r"(?:Lb(\d)E)?", mangled)
     if m:
-        mode = {None: "", "0": ",primal", "1": ",with_cs"}[m.group(4)]
-        return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},act={m.group(3)}{mode}>"
+        second = "with_cs" if m.group(2) == "lstm" else "with_res"
+        mode = {None: "", "0": ",primal", "1": f",{second}"}[m.group(5)]
+        return f"{m.group(1)}<{'f32' if m.group(3) == 'f' else 'bf16'},act={m.group(4)}{mode}>"
     m = re.search(r"outer_sum_partialILi(\d)E", mangled)
     if m:
         return f"outer_sum_partial<{m.group(1)}>"
     return "sum_splits" if "sum_splits" in mangled else mangled
 
 
-def phase_build(torch, _build, cuda_lstm) -> None:
+def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     say(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s: "
@@ -163,6 +188,17 @@ def phase_build(torch, _build, cuda_lstm) -> None:
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
         say(f"[build] {kernel}: dynamic shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{cuda_lstm.smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm['f32']} B a further row)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    rows = [cuda_lstm_stack.stack_rows(b, HIDDEN, torch.float32, sms, limit)
+            for b in TRAIN_BATCHES]
+    for kernel in ("stack_fwd", "stack_bwd", "stack_adj"):
+        sm = {n: cuda_lstm_stack.stack_smem_bytes(HIDDEN, dt, 1, kernel)
+              for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+        extra = cuda_lstm_stack.stack_smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm["f32"]
+        say(f"[build] {kernel}: dynamic shared memory at H={HIDDEN}, one row a block: "
+            f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{extra} B a further row); "
+            f"{limit} B allowed; rows a block at B={TRAIN_BATCHES}: {rows}")
 
 
 def lstm_inputs(torch, w, f, b, act, dtype, seed):
@@ -259,6 +295,80 @@ def phase_grad_parity(torch, cuda_lstm) -> dict:
                             fail(f"{k} disagrees with its plain version: {err} > "
                                  f"{GRAD_BARS[name]} at W={w} B={b} {act} {name}")
                     say(f"[grad] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
+                        f"{', '.join(line)} (limit {GRAD_BARS[name]:.0e})")
+    return {"scaled": worst, "abs": worst_abs}
+
+
+def stack_inputs(torch, w, f, b, act, dtype, seed):
+    """xz1, rec1, k2, b2 and rec2 as the critic makes them: two
+    Keras-initialised layers (F -> H, H -> H) and layer 1's projection of
+    standard-normal windows; also the layers and the windows."""
+    from hfrep_tpu_torch.ops.lstm import KerasLSTM
+
+    g = torch.Generator()
+    g.manual_seed(seed)
+    l0 = KerasLSTM(f, HIDDEN, activation=act, device="cuda", generator=g)
+    l1 = KerasLSTM(HIDDEN, HIDDEN, activation=act, device="cuda", generator=g)
+    x = torch.randn((b, w, f), generator=g).cuda()
+    with torch.no_grad():
+        xz1 = (x.reshape(b * w, f) @ l0.kernel + l0.bias).reshape(b, w, 4 * HIDDEN)
+        weights = (xz1.transpose(0, 1).contiguous(), l0.recurrent_kernel, l1.kernel,
+                   l1.bias, l1.recurrent_kernel)
+        weights = tuple(t.detach().to(dtype).contiguous() for t in weights)
+    return (l0, l1), x, weights
+
+
+def phase_stack_parity(torch, cuda_lstm_stack) -> dict:
+    """Kernels 4 (primal, with_res), 5 (plain, directs, with_carries) and
+    6 against their plain versions on the same inputs: the forward's from
+    ``stack_inputs``, the residuals from the kernel, seeded cotangents."""
+    cls = cuda_lstm_stack
+    names = ("stack_fwd", "stack_bwd", "stack_adj")
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
+    worst_abs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
+    h = HIDDEN
+    for w, f in SHAPES:
+        for b in TRAIN_BATCHES:
+            for act in ACTS:
+                for name, dtype in (("float32", torch.float32),
+                                    ("bfloat16", torch.bfloat16)):
+                    _, _, wts = stack_inputs(torch, w, f, b, act, dtype, seed=w + b + 2)
+                    g = torch.Generator(device="cuda")
+                    g.manual_seed(w * b + 1)
+                    rnd = lambda *shape: 0.3 * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+                    with torch.no_grad():
+                        res = cls.stack_fwd_cuda(*wts, act, with_res=True)
+                        errs = {"stack_fwd": [(cls.stack_fwd_cuda(*wts, act),
+                                               cls.stack_seq_plain(*wts, act))]
+                                + list(zip(res, cls.stack_seq_plain(*wts, act, True)))}
+                        dhs2 = rnd(w, b, h)
+                        directs = (rnd(w, b, h), rnd(w, b, h), rnd(w, b, h))
+                        errs["stack_bwd"] = []
+                        for d, carries in ((None, False), (directs, False), (None, True)):
+                            errs["stack_bwd"] += list(zip(
+                                cls.stack_bwd_cuda(*wts, *res, dhs2, d, act, carries),
+                                cls.stack_bwd_plain(*wts, *res, dhs2, d, act, carries)))
+                        carried = cls.stack_bwd_cuda(*wts, *res, dhs2, None, act, True)[5:]
+                        cots = (rnd(w, b, 4 * h), rnd(h, 4 * h), rnd(h, 4 * h), rnd(4 * h),
+                                rnd(h, 4 * h))
+                        errs["stack_adj"] = list(zip(
+                            cls.stack_adj_cuda(*wts, *res, *carried, *cots, act),
+                            cls.stack_adj_plain(*wts, *res, *carried, *cots, act)))
+                    torch.cuda.synchronize()
+                    line = []
+                    for k, pairs in errs.items():
+                        for got, ref in pairs:
+                            if got.shape != ref.shape or not torch.isfinite(got).all():
+                                fail(f"{k} output not finite/shaped at W={w} B={b} {act} {name}")
+                        err = max(scaled_err(a, r) for a, r in pairs)
+                        worst[k][name] = max(worst[k][name], err)
+                        worst_abs[k][name] = max(worst_abs[k][name], max(
+                            float((a - r).abs().max()) for a, r in pairs))
+                        line.append(f"{k} {err:.2e}")
+                        if not err <= GRAD_BARS[name]:
+                            fail(f"{k} disagrees with its plain version: {err} > "
+                                 f"{GRAD_BARS[name]} at W={w} B={b} {act} {name}")
+                    say(f"[stack] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
                         f"{', '.join(line)} (limit {GRAD_BARS[name]:.0e})")
     return {"scaled": worst, "abs": worst_abs}
 
@@ -389,8 +499,9 @@ def profile_epoch(torch, step, state, draws) -> dict:
 
 
 def epoch_parity(torch, mcfg, tcfg, pair, dataset, state, draws) -> dict:
-    """One epoch on the card and the same epoch — a copy of the state, the
-    same draws — through the plain path on the CPU."""
+    """One epoch on the card and the same epoch — a copy of the state (its
+    critic route included), the same draws — through the plain path on
+    the CPU."""
     from hfrep_tpu_torch.models.registry import build_gan
     from hfrep_tpu_torch.train import Draws, make_train_step
 
@@ -421,14 +532,19 @@ def epoch_parity(torch, mcfg, tcfg, pair, dataset, state, draws) -> dict:
             "ok": all(v <= 1e-4 for v in rel.values()) and worst <= 1.0}
 
 
-def phase_train(torch, cuda_lstm) -> list:
+def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
+    """The training path on one critic route: ``auto`` (the fused stack,
+    slice 3's main path) or ``chained`` (two single-layer LSTMs, slice
+    2's), each preset with every launch count set to 0 just before its
+    counted epochs and read just after."""
     from hfrep_tpu_torch.config import get_preset
     from hfrep_tpu_torch.models.registry import build_gan
     from hfrep_tpu_torch.train import (init_gan_state, make_multi_step,
                                        make_train_step, sample_draws)
 
     out = []
-    for k, preset in enumerate(TRAIN_PRESETS):
+    tag = f"[train:{route}]"
+    for k, preset in enumerate(presets):
         cfg = get_preset(preset)
         mcfg = cfg.model
         tcfg = dataclasses.replace(cfg.train, batch_size=32, n_critic=5,
@@ -439,6 +555,7 @@ def phase_train(torch, cuda_lstm) -> list:
         dataset = torch.rand((1000, w, mcfg.features), generator=g, device="cuda")
         pair = build_gan(mcfg, device="cuda")
         state = init_gan_state(k, mcfg, device="cuda")
+        state.discriminator.stack = route
         multi = make_multi_step(pair, tcfg, dataset)
         torch.cuda.synchronize()
         cuda_lstm.reset_launches()
@@ -451,11 +568,12 @@ def phase_train(torch, cuda_lstm) -> list:
         if d_loss.shape != (TRAIN_EPOCHS,) or not (torch.isfinite(d_loss).all()
                                                    and torch.isfinite(g_loss).all()):
             fail(f"{preset}: losses not finite/shaped: {d_loss}, {g_loss}")
-        idle = [n for n, c in launches.items() if c < 1]
-        if idle:
-            fail(f"{preset}: the training epochs launched no {idle} kernel ({launches})")
-        per_epoch = {n: c / TRAIN_EPOCHS for n, c in launches.items()}
-        say(f"[train] {preset} W={w}: {TRAIN_EPOCHS} epochs in {first_s:.2f} s; d_loss "
+        launched = {n for n, c in launches.items() if c > 0}
+        if launched != ROUTE_KERNELS[route]:
+            fail(f"{preset} ({route} route): the epochs launched {sorted(launched)}, "
+                 f"expected {sorted(ROUTE_KERNELS[route])} ({launches})")
+        per_epoch = {n: c / TRAIN_EPOCHS for n, c in launches.items() if c}
+        say(f"{tag} {preset} W={w}: {TRAIN_EPOCHS} epochs in {first_s:.2f} s; d_loss "
             f"{[round(float(x), 5) for x in d_loss]}, g_loss {[round(float(x), 5) for x in g_loss]}; "
             f"launches per epoch: " + ", ".join(f"{n} {c:g}" for n, c in per_epoch.items()))
         t0 = time.perf_counter()
@@ -470,12 +588,12 @@ def phase_train(torch, cuda_lstm) -> list:
         busy = ("not measured" if not prof["device_busy_us"] else
                 f"device busy {prof['device_busy_us']:.0f} of {prof['wall_us']:.0f} us "
                 f"({100 * prof['busy_share']:.1f}%)")
-        say(f"[train] {preset} W={w}: {ms_epoch:.2f} ms/epoch over {TRAIN_EPOCHS} epochs "
+        say(f"{tag} {preset} W={w}: {ms_epoch:.2f} ms/epoch over {TRAIN_EPOCHS} epochs "
             f"(host clock, synchronised); profiled epoch: {busy}")
         for row in prof["top"]:
             share = 100 * row["us"] / prof["device_busy_us"]
-            say(f"[train]   {row['us']:9.1f} us  {share:5.1f}%  {row['name']}")
-        say(f"[train] {preset} W={w}: one epoch, card vs CPU plain path: d_loss "
+            say(f"{tag}   {row['us']:9.1f} us  {share:5.1f}%  {row['name']}")
+        say(f"{tag} {preset} W={w}: one epoch, card vs CPU plain path: d_loss "
             f"{parity['d_loss']:.7g} vs {parity['d_loss_cpu']:.7g} (rel {parity['loss_rel_diff']['d_loss']:.2e}), "
             f"g_loss {parity['g_loss']:.7g} vs {parity['g_loss_cpu']:.7g} "
             f"(rel {parity['loss_rel_diff']['g_loss']:.2e}; limit 1e-4); params max|diff| "
@@ -484,7 +602,8 @@ def phase_train(torch, cuda_lstm) -> list:
             f"CPU epoch {parity['cpu_epoch_s']:.1f} s")
         if not parity["ok"]:
             fail(f"{preset}: the card's epoch differs from the CPU plain path: {parity}")
-        out.append({"preset": preset, "W": w, "F": mcfg.features, "launches": launches,
+        out.append({"route": route, "preset": preset, "W": w, "F": mcfg.features,
+                    "launches": launches,
                     "launches_per_epoch": per_epoch, "d_loss": d_loss.tolist(),
                     "g_loss": g_loss.tolist(), "first_epochs_s": first_s,
                     "ms_per_epoch": ms_epoch, "profile": prof, "parity": parity})
@@ -625,6 +744,147 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
     return rows
 
 
+def stack_bounds(w, b, h, dtype_name) -> dict:
+    """Least time for each stack kernel at (W, B, H), as ``grad_bounds``
+    reckons: each input read once and each output written once (the
+    sweeps' workspaces are not counted) over 3.35 TB/s; each product of
+    2*W*B*H*4H over the peak for its operands' type — products with an
+    operand-dtype matrix in that dtype, products with a v-stream and the
+    W*B-row sums in float32.  Forward: 3 products; backward: 6 + 3 sums;
+    adjoint: 9 + 12."""
+    item = 4 if dtype_name == "float32" else 2
+    seq, g32 = w * b * h * 4, w * b * 4 * h * 4
+    xzb, mat, vec = w * b * 4 * h * item, 4 * h * h * item, 4 * h * item
+    mat32, vec32 = 4 * h * h * 4, 4 * h * 4
+    weights = xzb + 3 * mat + vec
+    prod = 2 * w * b * h * 4 * h
+    peak, f32 = PEAK_OPS_PER_S[dtype_name], PEAK_OPS_PER_S["float32"]
+    work = {"stack_fwd": (weights + 4 * seq, 3 * prod / peak),
+            "stack_bwd": (weights + 5 * seq + g32 + 3 * mat32 + vec32,
+                          6 * prod / peak + 3 * prod / f32),
+            "stack_adj": (weights + 8 * seq + g32 + 3 * mat32 + vec32
+                          + g32 + 3 * mat32 + vec32 + 5 * seq,
+                          9 * prod / peak + 12 * prod / f32)}
+    out = {}
+    for k, (nbytes, t_ops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[k] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack) -> list:
+    """CUDA events for each stack kernel in the mode the epoch runs it
+    (forward with_res, plain backward, adjoint), beside its bound, its
+    plain version, ``library_ms`` and the chained pair it replaces: the
+    two single-layer kernels of the same mode at the same shape, with the
+    layer-2 projection matmul between the forwards and the dz2 . k2^T
+    matmul between the backwards (the adjoints: the two kernels alone).
+    The library is ``torch.nn.LSTM(F, H, num_layers=2)`` at tanh with the
+    same weights: its forward in training mode (input projection
+    included, so the kernel's "+projection" time stands beside it) for
+    the forward, forward-and-backward minus forward for the backward,
+    none for the adjoint (the cuDNN RNN has no double backward)."""
+    cls = cuda_lstm_stack
+    rows = []
+    h = HIDDEN
+    for w, f in SHAPES:
+        for b in TRAIN_BATCHES:
+            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                (l0, l1), x, wts = stack_inputs(torch, w, f, b, "tanh", dtype, seed=5)
+                xz1, rec1, k2, b2, rec2 = wts
+                g = torch.Generator(device="cuda")
+                g.manual_seed(6)
+                rnd = lambda *shape: 0.3 * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+                with torch.no_grad():
+                    res = cls.stack_fwd_cuda(*wts, "tanh", with_res=True)
+                    hs1, cs1, hs2, cs2 = res
+                    dhs2 = rnd(w, b, h)
+                    carried = cls.stack_bwd_cuda(*wts, *res, dhs2, None, "tanh", True)[5:]
+                    cots = (rnd(w, b, 4 * h), rnd(h, 4 * h), rnd(h, 4 * h), rnd(4 * h),
+                            rnd(h, 4 * h))
+                    xz2 = ((hs1.reshape(w * b, h).to(dtype) @ k2 + b2)
+                           .reshape(w, b, 4 * h).contiguous())
+                    hs2c, cs2c = cuda_lstm.lstm_fwd_cuda(xz2, rec2, "tanh", with_cs=True)
+                    _, _, dhT, dcT = cuda_lstm.lstm_bwd_cuda(xz1, rec1, hs1, cs1, dhs2, None,
+                                                             "tanh", True)
+                    u, v = cots[0], cots[1]
+
+                    def chained_fwd():
+                        h1, _ = cuda_lstm.lstm_fwd_cuda(xz1, rec1, "tanh", with_cs=True)
+                        z2 = (h1.reshape(w * b, h).to(dtype) @ k2 + b2).reshape(w, b, 4 * h)
+                        cuda_lstm.lstm_fwd_cuda(z2.contiguous(), rec2, "tanh", with_cs=True)
+
+                    def chained_bwd():
+                        dxz2, _ = cuda_lstm.lstm_bwd_cuda(xz2, rec2, hs2c, cs2c, dhs2, None,
+                                                          "tanh")
+                        dh1 = (dxz2.reshape(w * b, 4 * h) @ k2.float().T).reshape(w, b, h)
+                        cuda_lstm.lstm_bwd_cuda(xz1, rec1, hs1, cs1, dh1.contiguous(), None,
+                                                "tanh")
+
+                    def chained_adj():
+                        cuda_lstm.lstm_adj_cuda(xz1, rec1, hs1, cs1, dhT, dcT, u, v, "tanh")
+                        cuda_lstm.lstm_adj_cuda(xz2, rec2, hs2c, cs2c, dhT, dcT, u, v, "tanh")
+
+                    calls = {
+                        "stack_fwd": (lambda: cls.stack_fwd_cuda(*wts, "tanh", with_res=True),
+                                      lambda: cls.stack_seq_plain(*wts, "tanh", with_res=True),
+                                      chained_fwd),
+                        "stack_bwd": (lambda: cls.stack_bwd_cuda(*wts, *res, dhs2, None, "tanh"),
+                                      lambda: cls.stack_bwd_plain(*wts, *res, dhs2, None, "tanh"),
+                                      chained_bwd),
+                        "stack_adj": (lambda: cls.stack_adj_cuda(*wts, *res, *carried, *cots,
+                                                                 "tanh"),
+                                      lambda: cls.stack_adj_plain(*wts, *res, *carried, *cots,
+                                                                  "tanh"),
+                                      chained_adj)}
+                    times = {k: (time_ms(torch, kern, 30), time_ms(torch, plain, 2, 1),
+                                 time_ms(torch, pair, 30))
+                             for k, (kern, plain, pair) in calls.items()}
+                    xd = x.to(dtype)
+                    k1, bb1 = l0.kernel.detach().to(dtype), l0.bias.detach().to(dtype)
+
+                    def with_projection():
+                        z = (xd.reshape(b * w, f) @ k1 + bb1).reshape(b, w, 4 * h)
+                        cls.stack_fwd_cuda(z.transpose(0, 1).contiguous(), rec1, k2, b2, rec2,
+                                           "tanh", with_res=True)
+
+                    fwd_proj = time_ms(torch, with_projection, 30)
+                library = {"stack_fwd": None, "stack_bwd": None, "stack_adj": None}
+                if name == "float32":
+                    lstm = torch.nn.LSTM(f, h, num_layers=2).cuda()
+                    with torch.no_grad():
+                        for layer, mod in enumerate((l0, l1)):
+                            getattr(lstm, f"weight_ih_l{layer}").copy_(mod.kernel.T)
+                            getattr(lstm, f"weight_hh_l{layer}").copy_(mod.recurrent_kernel.T)
+                            getattr(lstm, f"bias_ih_l{layer}").copy_(mod.bias)
+                            getattr(lstm, f"bias_hh_l{layer}").zero_()
+                    xt = x.transpose(0, 1).contiguous().requires_grad_(True)
+                    gout = torch.randn((w, b, h), generator=g, device="cuda")
+
+                    def fwd_bwd():
+                        out, _ = lstm(xt)
+                        out.backward(gout)
+
+                    fwd = time_ms(torch, lambda: lstm(xt), 30)
+                    library["stack_fwd"] = fwd
+                    library["stack_bwd"] = time_ms(torch, fwd_bwd, 30) - fwd
+                bounds = stack_bounds(w, b, h, name)
+                for k, (ms, plain, pair) in times.items():
+                    bnd, by = bounds[k]
+                    rows.append({"kernel": k, "W": w, "F": f, "B": b, "dtype": name,
+                                 "ms": ms, "plain_ms": plain, "library_ms": library[k],
+                                 "chained_ms": pair, "bound_ms": bnd, "bound_by": by})
+                    extra = ""
+                    if k == "stack_fwd":
+                        rows[-1]["ms_with_projection"] = fwd_proj
+                        extra = f" (+projection {fwd_proj:.4f})"
+                    lib_s = "n/a" if library[k] is None else f"{library[k]:.4f}"
+                    say(f"[timing] {k:9s} W={w:3d} B={b:2d} {name:8s}: kernel {ms:.4f} ms{extra}, "
+                        f"chained pair {pair:.4f} ms, plain {plain:.3f} ms, cuDNN 2-layer "
+                        f"{lib_s} ms, bound {bnd:.5f} ms ({by})")
+    return rows
+
+
 def phase_profile(torch) -> list:
     """``torch.profiler`` over 20 sample dispatches of the generator at
     the served batch (bucket 8), per preset: device time by kernel name
@@ -682,7 +942,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke test runs on a card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from hfrep_tpu_torch.ops import _build, cuda_lstm
+        from hfrep_tpu_torch.ops import _build, cuda_lstm, cuda_lstm_stack
     except ImportError as e:
         fail(f"the port (hfrep_tpu_torch) is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -692,23 +952,34 @@ def main() -> None:
     say("TF32 off for matmuls and cuDNN: every float32 product is full float32")
 
     t0 = time.perf_counter()
-    phase_build(torch, _build, cuda_lstm)
+    phase_build(torch, _build, cuda_lstm, cuda_lstm_stack)
     worst = phase_parity(torch, cuda_lstm)
     grad = phase_grad_parity(torch, cuda_lstm)
+    stack = phase_stack_parity(torch, cuda_lstm_stack)
     server = phase_server(torch, np, cuda_lstm)
-    train = phase_train(torch, cuda_lstm)
+    train = phase_train(torch, cuda_lstm, "auto")
+    train_chained = phase_train(torch, cuda_lstm, "chained", TRAIN_PRESETS[:1])
     timing = phase_timing(torch, cuda_lstm)
     grad_timing = phase_grad_timing(torch, cuda_lstm)
+    stack_timing = phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack)
     profiled = phase_profile(torch)
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
 
-    trained = {k: sum(r["launches"][k] for r in train) for k in TPU_KERNELS}
+    # launches on the main paths: the fused epochs (slice 3) and the
+    # chained ones (slice 2), each read just after its own run
+    by_route = {}
+    for route, runs in (("train_fused", train), ("train_chained", train_chained)):
+        counts = {k: sum(r["launches"][k] for r in runs) for k in cuda_lstm.launch_counts()}
+        counts["stack_fwd"] += counts.pop("stack_fwd_res")
+        by_route[route] = counts
+    trained = {k: sum(c[k] for c in by_route.values()) for k in by_route["train_fused"]}
     head = next(r for r in timing if r["W"] == 48 and r["B"] == 8 and r["dtype"] == "float32")
     rows = [{
         "name": "lstm_fwd", "route": "cuda",
         "source": "hfrep_tpu_torch/csrc/lstm_fwd.cu", "replaces": TPU_KERNEL,
         "launches": server["launches"] + trained["lstm_fwd"],
-        "launches_by_path": {"serve": server["launches"], "train": trained["lstm_fwd"]},
+        "launches_by_path": {"serve": server["launches"],
+                             **{p: c["lstm_fwd"] for p, c in by_route.items()}},
         "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -719,7 +990,7 @@ def main() -> None:
         rows.append({
             "name": k, "route": "cuda", "source": f"hfrep_tpu_torch/csrc/{SOURCES[k]}",
             "replaces": TPU_KERNELS[k], "launches": trained[k],
-            "launches_by_path": {"train": trained[k]},
+            "launches_by_path": {p: c[k] for p, c in by_route.items()},
             "max_abs_err": grad["abs"][k]["float32"],
             "max_abs_err_bf16": grad["abs"][k]["bfloat16"],
             "max_scaled_err": grad["scaled"][k]["float32"],
@@ -728,13 +999,30 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": "W=48 B=32 H=100 float32"})
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
+    for k in ("stack_fwd", "stack_bwd", "stack_adj"):
+        r = next(x for x in stack_timing if x["kernel"] == k and x["W"] == 48
+                 and x["B"] == 32 and x["dtype"] == "float32")
+        rows.append({
+            "name": k, "route": "cuda", "source": f"hfrep_tpu_torch/csrc/{SOURCES[k]}",
+            "replaces": TPU_KERNELS[k], "launches": trained[k],
+            "launches_by_path": {p: c[k] for p, c in by_route.items()},
+            "max_abs_err": stack["abs"][k]["float32"],
+            "max_abs_err_bf16": stack["abs"][k]["bfloat16"],
+            "max_scaled_err": stack["scaled"][k]["float32"],
+            "max_scaled_err_bf16": stack["scaled"][k]["bfloat16"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "chained_ms": r["chained_ms"], "shape": "W=48 B=32 H=100 float32"})
+    rows[-3]["mode"] = "with_res (the epoch's); launches count both modes"
+    rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
     kernels = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
-                       "timing": timing, "grad_timing": grad_timing,
+                       "train_chained": train_chained, "timing": timing,
+                       "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "parity_max_abs_err": worst, "grad_parity": grad,
-                       "profile": profiled}, fh, indent=1)
+                       "stack_parity": stack, "profile": profiled}, fh, indent=1)
     say(card)
     say(json.dumps(kernels))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

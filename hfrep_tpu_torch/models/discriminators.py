@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from hfrep_tpu_torch.core.device import DeviceLike, resolve_device
+from hfrep_tpu_torch.ops.cuda_lstm_stack import keras_lstm_stack, stack_fits
 from hfrep_tpu_torch.ops.layers import KerasDense, KerasLayerNorm, leaky_relu
 from hfrep_tpu_torch.ops.lstm import KerasLSTM
 
@@ -109,23 +110,36 @@ class DenseFlatCritic(nn.Module):
         return self.out(x.reshape(x.shape[0], -1))
 
 
-def _plain_stack(lstm0: KerasLSTM, lstm1: KerasLSTM,
-                 x: torch.Tensor) -> torch.Tensor:
-    """Two stacked default-activation (tanh) ``KerasLSTM``s, chained: the
+STACK_ROUTES = ("auto", "chained")
+
+
+def _plain_stack(lstm0: KerasLSTM, lstm1: KerasLSTM, x: torch.Tensor,
+                 stack: str = "auto") -> torch.Tensor:
+    """Two stacked default-activation (tanh) ``KerasLSTM``s: the
     plain-stack topology of the MTSS critics (``_plain_stack``).
 
-    The JAX package runs this pair as ONE fused two-layer kernel chain on
-    its Pallas backend (``ops/pallas_lstm_stack.py``, kernels 4–6) when
-    ``kernel_eligible(..., layers=2)``, and as two chained single-layer
-    LSTMs otherwise — the route its own tests pin equal to the scan.  The
-    port takes the chained route: the fused stack is not yet ported
-    (its three resident matrices do not fit one Hopper block; see
-    ROADMAP), so each layer runs the single-layer kernels 1–3."""
-    return lstm1(lstm0(x))
+    Routed as the JAX package routes it: with ``stack="auto"`` the pair
+    runs as ONE fused two-layer kernel chain
+    (:func:`~hfrep_tpu_torch.ops.cuda_lstm_stack.keras_lstm_stack`,
+    kernels 4–6) wherever :func:`~hfrep_tpu_torch.ops.cuda_lstm_stack.stack_fits`
+    admits the width and compute dtype, and as two chained single-layer
+    LSTMs (kernels 1–3 per layer) otherwise.  ``stack="chained"`` asks
+    for the chained route, as the JAX caller's ``backend`` argument
+    does.  The parameters stay on ``lstm0``/``lstm1`` either way."""
+    if stack not in STACK_ROUTES:
+        raise ValueError(f"stack must be one of {STACK_ROUTES}, got {stack!r}")
+    dt = lstm0.dtype or x.dtype
+    if stack == "chained" or not stack_fits(lstm0.features, dt):
+        return lstm1(lstm0(x))
+    # the fused kernel takes one activation for both layers
+    assert lstm0.activation == lstm1.activation, (lstm0.activation, lstm1.activation)
+    return keras_lstm_stack(dict(lstm0.named_parameters()), dict(lstm1.named_parameters()),
+                            x, lstm0.activation, lstm0.recurrent_activation, dtype=dt)
 
 
 class LSTMDiscriminator(nn.Module):
-    """MTSS-GAN discriminator; logits (B, W, 1)."""
+    """MTSS-GAN discriminator; logits (B, W, 1).  ``stack`` picks the
+    LSTM pair's route (:func:`_plain_stack`)."""
 
     FLAX_NAMES = {"KerasLSTM_0": "lstm0", "KerasLSTM_1": "lstm1",
                   "KerasDense_0": "out"}
@@ -134,15 +148,17 @@ class LSTMDiscriminator(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  param_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 stack: str = "auto"):
         super().__init__()
         kw = _kw(dtype, param_dtype, device, generator)
+        self.stack = stack
         self.lstm0 = KerasLSTM(features, hidden, **kw)
         self.lstm1 = KerasLSTM(hidden, hidden, **kw)
         self.out = KerasDense(hidden, 1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(_plain_stack(self.lstm0, self.lstm1, x))
+        return self.out(_plain_stack(self.lstm0, self.lstm1, x, self.stack))
 
 
 class LSTMCritic(nn.Module):
@@ -173,7 +189,8 @@ class LSTMCritic(nn.Module):
 
 
 class LSTMFlatCritic(nn.Module):
-    """MTSS-WGAN-GP critic; one score per window, (B, 1)."""
+    """MTSS-WGAN-GP critic; one score per window, (B, 1).  ``stack``
+    picks the LSTM pair's route (:func:`_plain_stack`)."""
 
     FLAX_NAMES = {"KerasLSTM_0": "lstm0", "KerasLSTM_1": "lstm1",
                   "KerasDense_0": "out"}
@@ -182,13 +199,15 @@ class LSTMFlatCritic(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  param_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 stack: str = "auto"):
         super().__init__()
         kw = _kw(dtype, param_dtype, device, generator)
+        self.stack = stack
         self.lstm0 = KerasLSTM(features, hidden, **kw)
         self.lstm1 = KerasLSTM(hidden, hidden, **kw)
         self.out = KerasDense(window * hidden, 1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _plain_stack(self.lstm0, self.lstm1, x)
+        x = _plain_stack(self.lstm0, self.lstm1, x, self.stack)
         return self.out(x.reshape(x.shape[0], -1))

@@ -1,10 +1,13 @@
-"""The LSTM recurrence and its derivatives: CUDA kernels, plain versions,
-dispatch and autograd.
+"""The single-layer LSTM recurrence and its derivatives: CUDA kernels,
+plain versions, dispatch and autograd.
 
 Counterpart of ``hfrep_tpu/ops/pallas_lstm.py`` (``_fwd_kernel`` in its
 primal and ``with_cs`` modes, ``_bwd_kernel``, ``_adj_kernel``, and the
 nested ``custom_vjp``s ``lstm_seq`` / ``lstm_fwd_res`` /
-``lstm_bwd_seq`` over them).  Four layers:
+``lstm_bwd_seq`` over them).  The fused two-layer stack of the MTSS
+critics (``pallas_lstm_stack.py``, three more kernels) is
+:mod:`hfrep_tpu_torch.ops.cuda_lstm_stack`, built the same way on this
+module's helpers and launch counters.  Four layers:
 
 * the wrappers of the hand-written Hopper kernels —
   :func:`lstm_fwd_cuda` (``csrc/lstm_fwd.cu``), :func:`lstm_bwd_cuda`
@@ -81,13 +84,21 @@ _SIGNATURES = {
 
 #: kernel launches, one counter per kernel and mode, each a plain int
 #: raised by one where its wrapper launches (reset with
-#: :func:`reset_launches`; read all with :func:`launch_counts`)
-launches = 0        # lstm_fwd, primal mode
-launches_cs = 0     # lstm_fwd, with_cs mode
-launches_bwd = 0    # lstm_bwd
-launches_adj = 0    # lstm_adj
+#: :func:`reset_launches`; read all with :func:`launch_counts`).  The
+#: fused two-layer stack's wrappers (:mod:`.cuda_lstm_stack`) count here
+#: too, so one dict carries every kernel.
+launches = 0                # lstm_fwd, primal mode
+launches_cs = 0             # lstm_fwd, with_cs mode
+launches_bwd = 0            # lstm_bwd
+launches_adj = 0            # lstm_adj
+launches_stack_fwd = 0      # stack_fwd, primal mode
+launches_stack_res = 0      # stack_fwd, with_res mode
+launches_stack_bwd = 0      # stack_bwd
+launches_stack_adj = 0      # stack_adj
 _COUNTERS = {"lstm_fwd": "launches", "lstm_fwd_cs": "launches_cs",
-             "lstm_bwd": "launches_bwd", "lstm_adj": "launches_adj"}
+             "lstm_bwd": "launches_bwd", "lstm_adj": "launches_adj",
+             "stack_fwd": "launches_stack_fwd", "stack_fwd_res": "launches_stack_res",
+             "stack_bwd": "launches_stack_bwd", "stack_adj": "launches_stack_adj"}
 _count_lock = threading.Lock()
 
 
@@ -98,7 +109,8 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    """``{kernel: launches}`` for lstm_fwd, lstm_fwd_cs, lstm_bwd, lstm_adj."""
+    """``{kernel: launches}`` for lstm_fwd, lstm_fwd_cs, lstm_bwd, lstm_adj,
+    stack_fwd, stack_fwd_res, stack_bwd and stack_adj."""
     with _count_lock:
         return {k: globals()[var] for k, var in _COUNTERS.items()}
 
@@ -417,6 +429,45 @@ def lstm_bwd_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
     return (dxz, drec, dhT, dcT) if with_carries else (dxz, drec)
 
 
+def _adj_step(code: int, z, c, c_prev, dh, dc, muc, dzbar) -> tuple:
+    """One step of a layer's adjoint (``_adj_kernel``; ``adj_layer`` of the
+    fused stack): the backward's step recomputed from the gates of ``z``
+    and the carries dh = dhT_t, dc = dcT_t, then its VJP given the
+    cotangent ``dzbar`` of dz and mu_c of the dc carry.  Returns (dz,
+    zbar, dhTbar, dcTbar, cpbar, cbar): the backward's dz, the cotangent
+    of z, of dhT_t and dcT_t, of c_{t-1} through the forget gate's dz, and
+    of c_t."""
+    act, p, pp = _PLAIN_ACT[code], _PRIME[code], _PRIME2[code]
+    h = z.shape[-1] // 4
+    i, f, gc, o = _gates(z, h, act)
+    a_c = act(c)
+    qi, qf, qo = i * (1.0 - i), f * (1.0 - f), o * (1.0 - o)
+    do = dh * a_c
+    dz = torch.cat([dc * gc * qi, dc * c_prev * qf, dc * i * p(gc), do * qo], dim=-1)
+    dzbi, dzbf = dzbar[:, :h], dzbar[:, h:2 * h]
+    dzbc, dzbo = dzbar[:, 2 * h:3 * h], dzbar[:, 3 * h:]
+    dcTbar = muc * f
+    fbar = muc * dc
+    dcTbar = dcTbar + dzbi * gc * qi
+    gbar = dzbi * dc * qi
+    ibar = dzbi * dc * gc * (1.0 - 2.0 * i)
+    dcTbar = dcTbar + dzbf * c_prev * qf
+    cpbar = dzbf * dc * qf
+    fbar = fbar + dzbf * dc * c_prev * (1.0 - 2.0 * f)
+    dcTbar = dcTbar + dzbc * i * p(gc)
+    ibar = ibar + dzbc * dc * p(gc)
+    gbar = gbar + dzbc * dc * i * pp(gc)
+    dobar = dzbo * qo
+    obar = dzbo * do * (1.0 - 2.0 * o)
+    dhTbar = dcTbar * o * p(a_c)
+    obar = obar + dcTbar * dh * p(a_c)
+    aCbar = dcTbar * dh * o * pp(a_c)
+    dhTbar = dhTbar + dobar * a_c
+    aCbar = aCbar + dobar * dh
+    zbar = torch.cat([ibar * qi, fbar * qf, gbar * p(gc), obar * qo], dim=-1)
+    return dz, zbar, dhTbar, dcTbar, cpbar, aCbar * p(a_c)
+
+
 def lstm_adj_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
                    cs: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
                    u: torch.Tensor, v: torch.Tensor,
@@ -425,7 +476,6 @@ def lstm_adj_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
     (``_adj_kernel``, with ``_adj_call``'s output shift):
     (uxz, urec, uhs, ucs, udhs)."""
     code = act_code(activation)
-    act, p, pp = _PLAIN_ACT[code], _PRIME[code], _PRIME2[code]
     w, b, g = xz.shape
     h = g // 4
     rec32 = rec.float()
@@ -440,40 +490,14 @@ def lstm_adj_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
     for t in range(w):
         hp_s, cp_s, dh, dc = h_prev[t], c_prev[t], dhT[t], dcT[t]
         z = xz[t].float() + rnd(hp_s) @ rec32
-        i, f, gc, o = _gates(z, h, act)
-        a_c = act(cs[t])
-        qi, qf, qo = i * (1.0 - i), f * (1.0 - f), o * (1.0 - o)
-        do = dh * a_c
-        dz = torch.cat([dc * gc * qi, dc * cp_s * qf, dc * i * p(gc), do * qo], dim=-1)
-
         dzbar = u[t] + rnd(muh) @ rec32 + hp_s @ v
-        dzbi, dzbf = dzbar[:, :h], dzbar[:, h:2 * h]
-        dzbc, dzbo = dzbar[:, 2 * h:3 * h], dzbar[:, 3 * h:]
-        dcTbar = muc * f
-        fbar = muc * dc
-        dcTbar = dcTbar + dzbi * gc * qi
-        gbar = dzbi * dc * qi
-        ibar = dzbi * dc * gc * (1.0 - 2.0 * i)
-        dcTbar = dcTbar + dzbf * cp_s * qf
-        cpbar = dzbf * dc * qf
-        fbar = fbar + dzbf * dc * cp_s * (1.0 - 2.0 * f)
-        dcTbar = dcTbar + dzbc * i * p(gc)
-        ibar = ibar + dzbc * dc * p(gc)
-        gbar = gbar + dzbc * dc * i * pp(gc)
-        dobar = dzbo * qo
-        obar = dzbo * do * (1.0 - 2.0 * o)
-        dhTbar = dcTbar * o * p(a_c)
-        obar = obar + dcTbar * dh * p(a_c)
-        aCbar = dcTbar * dh * o * pp(a_c)
-        dhTbar = dhTbar + dobar * a_c
-        aCbar = aCbar + dobar * dh
-        zbar = torch.cat([ibar * qi, fbar * qf, gbar * p(gc), obar * qo], dim=-1)
-
+        dz, zbar, dhTbar, dcTbar, cpbar, cbar = _adj_step(
+            code, z, cs[t], cp_s, dh, dc, muc, dzbar)
         uxz[t] = zbar
         udhs[t] = dhTbar
         uhp[t] = dz @ v.T + rnd(zbar) @ rec32.T
         ucp[t] = cpbar
-        uc[t] = aCbar * p(a_c)
+        uc[t] = cbar
         urec = urec + (muh.T @ dz + hp_s.T @ zbar)
         muh, muc = dhTbar, dcTbar
     # uhp_t is the cotangent of hs_{t-1}, ucp_t of cs_{t-1}, uc_t of cs_t

@@ -11,8 +11,11 @@ the next step); the generator on the card against its CPU plain path
 1e-4 (float32 through two LSTMs and LayerNorm).  The backward and
 adjoint kernels: max|kernel - plain| / max(1, max|plain|) within 1e-4 in
 f32 (drec and urec are sums over W*B rows in another order) and 1e-2 in
-bf16.  One training epoch on the card against the same epoch on the CPU
-plain path: the JAX package's bar for its kernel-vs-scan epoch.
+bf16.  The fused stack's kernels (forward, backward in every mode,
+adjoint) against their plain versions at the same scaled bars.  One
+training epoch on the card against the same epoch on the CPU plain
+path, on the fused and the chained critic route: the JAX package's bar
+for its kernel-vs-scan epoch.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from hfrep_tpu_torch.config import get_preset
 from hfrep_tpu_torch.models.registry import build_gan
-from hfrep_tpu_torch.ops import cuda_lstm
+from hfrep_tpu_torch.ops import cuda_lstm, cuda_lstm_stack
 from hfrep_tpu_torch.serve import aot
 from hfrep_tpu_torch.serve.fixture import fixture_gen_model, fixture_server
 from hfrep_tpu_torch.serve.loadgen import drive_load, make_panels
@@ -137,11 +140,85 @@ def test_backward_and_adjoint_kernels_match_plain_on_card(card, dtype, bar):
                 assert all(_scaled(a, r) <= bar for a, r in zip(got, ref))
 
 
+def _stack_case(card, dtype, w, b, seed):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    rnd = lambda *shape: 0.3 * torch.randn(shape, device=card, generator=g)  # noqa: E731
+    weights = (rnd(w, b, 400).to(dtype), (rnd(100, 400) / 3).to(dtype),
+               (rnd(100, 400) / 3).to(dtype), rnd(400).to(dtype),
+               (rnd(100, 400) / 3).to(dtype))
+    return weights, rnd
+
+
 @pytest.mark.gpu
-def test_epoch_on_card_matches_cpu_plain_path(card):
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_stack_kernels_match_plain_on_card(card, dtype, bar):
+    """Kernels 4 (primal, with_res), 5 (plain, directs, with_carries) and 6
+    against their plain versions, each launch counted once."""
+    for w, b in ((48, 32), (168, 64)):
+        weights, rnd = _stack_case(card, dtype, w, b, w + b)
+        dhs2, directs = rnd(w, b, 100), (rnd(w, b, 100), rnd(w, b, 100), rnd(w, b, 100))
+        cots = (rnd(w, b, 400), rnd(100, 400), rnd(100, 400), rnd(400), rnd(100, 400))
+        for act in ACTS:
+            with torch.no_grad():
+                for with_res, key in ((False, "stack_fwd"), (True, "stack_fwd_res")):
+                    before = cuda_lstm.launch_counts()[key]
+                    got = cuda_lstm_stack.stack_fwd(*weights, act, with_res)
+                    assert cuda_lstm.launch_counts()[key] == before + 1
+                    ref = cuda_lstm_stack.stack_seq_plain(*weights, act, with_res)
+                    pairs = zip(got, ref) if with_res else [(got, ref)]
+                    assert all(_scaled(a, r) <= bar for a, r in pairs)
+                res = cuda_lstm_stack.stack_fwd_cuda(*weights, act, with_res=True)
+                for d, carries in ((None, False), (directs, False), (None, True)):
+                    before = cuda_lstm.launches_stack_bwd
+                    got = cuda_lstm_stack.stack_bwd(*weights, *res, dhs2, d, act, carries)
+                    assert cuda_lstm.launches_stack_bwd == before + 1
+                    ref = cuda_lstm_stack.stack_bwd_plain(*weights, *res, dhs2, d, act,
+                                                          carries)
+                    assert len(got) == len(ref)
+                    errs = [_scaled(a, r) for a, r in zip(got, ref)]
+                    assert max(errs) <= bar, (w, b, act, d is not None, carries, errs)
+                carries = cuda_lstm_stack.stack_bwd_cuda(*weights, *res, dhs2, None, act,
+                                                         True)[5:]
+                before = cuda_lstm.launches_stack_adj
+                got = cuda_lstm_stack.stack_adj(*weights, *res, *carries, *cots, act)
+                assert cuda_lstm.launches_stack_adj == before + 1
+                ref = cuda_lstm_stack.stack_adj_plain(*weights, *res, *carries, *cots, act)
+                errs = [_scaled(a, r) for a, r in zip(got, ref)]
+                assert max(errs) <= bar, (w, b, act, errs)
+
+
+@pytest.mark.gpu
+def test_stack_wrappers_refuse_mixed_devices_and_grad(card):
+    weights, _ = _stack_case(card, torch.float32, 4, 2, 0)
+    xz1, rec1, k2, b2, rec2 = weights
+    with pytest.raises(ValueError, match="k2 on cpu"):
+        cuda_lstm_stack.stack_fwd_cuda(xz1, rec1, k2.cpu(), b2, rec2, "tanh")
+    with pytest.raises(NotImplementedError, match="not differentiable"):
+        cuda_lstm_stack.stack_fwd_cuda(xz1, rec1, k2, b2.requires_grad_(True), rec2, "tanh")
+    seq = torch.zeros(4, 2, 100, device=card)
+    with pytest.raises(ValueError, match="hs2 on cpu"):
+        cuda_lstm_stack.stack_bwd_cuda(xz1, rec1, k2, b2.detach(), rec2, seq, seq,
+                                       seq.cpu(), seq, seq)
+
+
+#: LSTM launches per MTSS-WGAN-GP epoch (batch 32, n_critic 5) on each
+#: critic route: the generator's single-layer kernels, and the critic's
+#: fused stack or its two chained layers
+EPOCH_LAUNCHES = {
+    "auto": {"lstm_fwd": 2, "lstm_fwd_cs": 2, "lstm_bwd": 2, "lstm_adj": 0,
+             "stack_fwd": 0, "stack_fwd_res": 11, "stack_bwd": 16, "stack_adj": 5},
+    "chained": {"lstm_fwd": 2, "lstm_fwd_cs": 24, "lstm_bwd": 34, "lstm_adj": 10,
+                "stack_fwd": 0, "stack_fwd_res": 0, "stack_bwd": 0, "stack_adj": 0},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stack", ["auto", "chained"])
+def test_epoch_on_card_matches_cpu_plain_path(card, stack):
     """One full-width MTSS-WGAN-GP epoch (W=48, H=100, batch 32,
     n_critic 5) on the card and, from a copy of the same state with the
-    same draws, through the plain path on the CPU."""
+    same draws, through the plain path on the CPU, on each critic route."""
     cfg = get_preset("mtss_wgan_gp")
     tcfg = dataclasses.replace(cfg.train, batch_size=32, n_critic=5, steps_per_call=1)
     g = torch.Generator(device=card)
@@ -150,12 +227,12 @@ def test_epoch_on_card_matches_cpu_plain_path(card):
                          device=card)
     pair = build_gan(cfg.model, device=card)
     state = init_gan_state(0, cfg.model, device=card)
+    state.discriminator.stack = stack
     cpu_state = state.to("cpu")
     draws = sample_draws(g, pair, tcfg, dataset)
     cuda_lstm.reset_launches()
     state, m = make_train_step(pair, tcfg, dataset)(state, draws)
-    assert cuda_lstm.launch_counts() == {"lstm_fwd": 2, "lstm_fwd_cs": 24,
-                                         "lstm_bwd": 34, "lstm_adj": 10}
+    assert cuda_lstm.launch_counts() == EPOCH_LAUNCHES[stack]
     cpu_draws = Draws(draws.idx.cpu(), draws.noises.cpu(), draws.alphas.cpu())
     cpu_state, mc = make_train_step(build_gan(cfg.model, device="cpu"), tcfg,
                                     dataset.cpu())(cpu_state, cpu_draws)

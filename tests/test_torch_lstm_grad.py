@@ -256,4 +256,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     assert cuda_lstm.reduce_splits(5, 100, 132) == (1, 32)
     cuda_lstm.reset_launches()
     assert cuda_lstm.launch_counts() == {"lstm_fwd": 0, "lstm_fwd_cs": 0,
-                                         "lstm_bwd": 0, "lstm_adj": 0}
+                                         "lstm_bwd": 0, "lstm_adj": 0,
+                                         "stack_fwd": 0, "stack_fwd_res": 0,
+                                         "stack_bwd": 0, "stack_adj": 0}

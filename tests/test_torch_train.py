@@ -37,6 +37,15 @@ from hfrep_tpu_torch.utils.bridge import from_flax, gan_state_from_flax, to_flax
 
 H, W, F, B, NC, N_ROWS = 8, 6, 5, 4, 2, 16
 EPOCH_FAMILIES = ["mtss_wgan_gp", "mtss_wgan", "mtss_gan", "wgan_gp"]
+#: the MTSS plain-stack critics run fused by default; each also runs on
+#: the chained route it can ask for (``stack="chained"``)
+CHAINED = ["mtss_wgan_gp", "mtss_gan"]
+
+
+def _routes(families):
+    """(family, stack) cases: the default route keeps the family's id."""
+    return ([pytest.param(f, "auto", id=f) for f in families]
+            + [pytest.param(f, "chained", id=f"{f}-chained") for f in CHAINED])
 
 
 @pytest.fixture(autouse=True)
@@ -70,7 +79,7 @@ def _jax_draws(loss: str, key) -> Draws:
                  alphas=None if alphas is None else _t(alphas))
 
 
-def _case(family, steps_per_call=1):
+def _case(family, steps_per_call=1, stack="auto"):
     jm = JaxModelConfig(family=family, hidden=H, window=W, features=F)
     jt = JaxTrainConfig(batch_size=B, n_critic=NC, lstm_backend="xla",
                         steps_per_call=steps_per_call)
@@ -81,6 +90,8 @@ def _case(family, steps_per_call=1):
     pm = ModelConfig(family=family, hidden=H, window=W, features=F)
     pt = TrainConfig(batch_size=B, n_critic=NC, steps_per_call=steps_per_call)
     pair = build_gan(pm, device="cpu")
+    if stack != "auto":
+        pair.discriminator.stack = stack
     state = gan_state_from_flax(_np(jstate.g_params), _np(jstate.d_params), pair)
     return jpair, jt, dataset, jstate, pair, pt, _t(dataset), state
 
@@ -96,9 +107,9 @@ def _assert_params(state, jstate):
                                        err_msg=f"{name} {jax.tree_util.keystr(path)}")
 
 
-@pytest.mark.parametrize("family", EPOCH_FAMILIES)
-def test_one_epoch_matches_jax(family):
-    jpair, jt, dataset, jstate, pair, pt, tds, state = _case(family)
+@pytest.mark.parametrize("family,stack", _routes(EPOCH_FAMILIES))
+def test_one_epoch_matches_jax(family, stack):
+    jpair, jt, dataset, jstate, pair, pt, tds, state = _case(family, stack=stack)
     key = jax.random.PRNGKey(4)
     jstate1, jm = jax.jit(jax_make_train_step(jpair, jt, dataset))(jstate, key)
     state, m = make_train_step(pair, pt, tds)(state, _jax_draws(pair.loss, key))
@@ -109,11 +120,12 @@ def test_one_epoch_matches_jax(family):
     _assert_params(state, jstate1)
 
 
-@pytest.mark.parametrize("family", ["mtss_wgan_gp", "mtss_gan"])
-def test_three_epochs_through_multi_step_match_jax(family):
+@pytest.mark.parametrize("family,stack", _routes(["mtss_wgan_gp", "mtss_gan"]))
+def test_three_epochs_through_multi_step_match_jax(family, stack):
     """Keys folded per epoch as the JAX scan folds them; the second and
     third epochs start from nonzero optimizer slots."""
-    jpair, jt, dataset, jstate, pair, pt, tds, state = _case(family, steps_per_call=3)
+    jpair, jt, dataset, jstate, pair, pt, tds, state = _case(family, steps_per_call=3,
+                                                              stack=stack)
     key = jax.random.PRNGKey(9)
     jstate3, jm = jax_make_multi_step(jpair, jt, dataset)(jstate, key)
     draws = [_jax_draws(pair.loss, jax.random.fold_in(key, i)) for i in range(3)]
@@ -139,6 +151,40 @@ def test_critic_forward_matches_jax(family):
         got = port(torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("family", CHAINED)
+def test_critic_params_identical_across_routes(family, monkeypatch):
+    """The port's counterpart of test_pallas_stack.py's
+    ``test_critic_params_identical_across_backends``: bridged JAX params
+    load into the fused and the chained critic alike (the parameters stay
+    on lstm0/lstm1), and both routes score alike."""
+    jm = JaxModelConfig(family=family, hidden=H, window=W, features=F)
+    critic = jax_build_gan(jm).discriminator
+    x = np.random.default_rng(8).normal(size=(2, W, F)).astype(np.float32)
+    params = _np(critic.init(jax.random.PRNGKey(4), jnp.asarray(x))["params"])
+    cfg = ModelConfig(family=family, hidden=H, window=W, features=F)
+    fused = from_flax(params, build_discriminator(cfg, device="cpu"))
+    chained = from_flax(params, build_discriminator(cfg, device="cpu"))
+    chained.stack = "chained"
+    for port in (fused, chained):
+        tree = to_flax(port)
+        assert (jax.tree_util.tree_structure(tree)
+                == jax.tree_util.tree_structure(params))
+        for a, r in zip(jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(params)):
+            assert np.array_equal(a, r)
+    fused_calls = []
+    fused_stack = port_disc.keras_lstm_stack
+    monkeypatch.setattr(port_disc, "keras_lstm_stack",
+                        lambda *a, **k: fused_calls.append(1) or fused_stack(*a, **k))
+    with torch.no_grad():
+        out_f = fused(torch.from_numpy(x)).numpy()
+        assert len(fused_calls) == 1
+        out_c = chained(torch.from_numpy(x)).numpy()
+        assert len(fused_calls) == 1
+    np.testing.assert_allclose(out_f, out_c, atol=1e-6)
+    with pytest.raises(ValueError, match="stack must be one of"):
+        port_disc._plain_stack(fused.lstm0, fused.lstm1, torch.from_numpy(x), "pallas")
 
 
 @pytest.mark.parametrize("kind", ["rmsprop", "adam"])
