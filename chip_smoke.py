@@ -26,6 +26,19 @@ exits non-zero on failure:
              output; bars: f32 1e-4 (drec and urec are sums over up to
              W*B = 10,752 rows, taken in another order), bf16 1e-2 (as the
              forward);
+   carry   — (a) the carry modes of the single-layer kernels (forward
+             carry primal and carry with_cs; backward carry0 alone, with
+             dcs and with the per-step carries, each with dc_fin; adjoint
+             carry with mu0) against their plain versions from a nonzero
+             (h0, c0), at the grad phase's shapes, activations, dtypes and
+             bars; (b) the carry path at full width: the W=168, B=32
+             window as four chunks of 42 passing (h, c) through
+             ``lstm_seq_carry``, forward, first order and the gp_like
+             second order against the whole window (``lstm_seq`` from a
+             zero start, the plain carry forward from a nonzero one) at
+             the JAX suite's bars, with the launch counts set to 0 just
+             before the chunked runs and exactly the four carry modes
+             launched;
    stack   — the fused two-layer stack's kernels: the forward (primal and
              with_res), the backward (plain, direct cotangents,
              with_carries) and the adjoint against their plain versions,
@@ -66,9 +79,11 @@ exits non-zero on failure:
              tanh: the forward in training mode for with_cs, backward =
              forward-and-backward minus forward for lstm_bwd; none for the
              adjoint: no PyTorch call computes it, the cuDNN RNN has no
-             double backward); each stack kernel also beside the chained
-             single-layer pair it replaces, its library the two-layer
-             cuDNN LSTM;
+             double backward); each carry mode at W=48, B=32 beside its
+             carry-free mode, its bound, its plain version and cuDNN's
+             LSTM called with hx=(h0, c0); each stack kernel also beside
+             the chained single-layer pair it replaces, its library the
+             two-layer cuDNN LSTM;
 7. profile — ``torch.profiler`` over 20 sample dispatches per preset:
              device time by kernel name and the device's busy share.
 
@@ -101,11 +116,16 @@ TPU_KERNEL = "hfrep_tpu/ops/pallas_lstm.py:168"
 TPU_KERNELS = {"lstm_fwd": TPU_KERNEL, "lstm_fwd_cs": TPU_KERNEL,
                "lstm_bwd": "hfrep_tpu/ops/pallas_lstm.py:263",
                "lstm_adj": "hfrep_tpu/ops/pallas_lstm.py:415",
+               "lstm_fwd_carry": TPU_KERNEL,
+               "lstm_bwd_carry": "hfrep_tpu/ops/pallas_lstm.py:263",
+               "lstm_adj_carry": "hfrep_tpu/ops/pallas_lstm.py:415",
                "stack_fwd": "hfrep_tpu/ops/pallas_lstm_stack.py:71",
                "stack_bwd": "hfrep_tpu/ops/pallas_lstm_stack.py:134",
                "stack_adj": "hfrep_tpu/ops/pallas_lstm_stack.py:250"}
 SOURCES = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_cs": "lstm_fwd.cu",
            "lstm_bwd": "lstm_bwd.cu", "lstm_adj": "lstm_adj.cu",
+           "lstm_fwd_carry": "lstm_fwd.cu", "lstm_bwd_carry": "lstm_bwd.cu",
+           "lstm_adj_carry": "lstm_adj.cu",
            "stack_fwd": "lstm_stack_fwd.cu", "stack_bwd": "lstm_stack_bwd.cu",
            "stack_adj": "lstm_stack_adj.cu"}
 TRAIN_PRESETS = ("mtss_wgan_gp", "mtss_wgan_gp_prod")
@@ -156,17 +176,27 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 
 
 # ------------------------------------------------------------------ phases
+#: the bool template flags of each kernel, in order
+KERNEL_FLAGS = {"lstm_fwd": ("with_cs", "carry"), "lstm_bwd": ("carry",),
+                "lstm_adj": ("carry",), "stack_fwd": ("with_res",)}
+
+
 def entry_name(mangled: str) -> str:
-    """A readable name for a kernel's mangled entry: base<dtype,act,mode>."""
-    m = re.search(r"((lstm|stack)_(?:fwd|bwd|adj)_kernel)I(f|13__nv_bfloat16)Li(\d)E"
-                  r"(?:Lb(\d)E)?", mangled)
+    """A readable name for a kernel's mangled entry: base<dtype,act,modes>."""
+    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj))_kernel)I(f|13__nv_bfloat16)Li(\d)E"
+                  r"((?:Lb\dE)*)", mangled)
     if m:
-        second = "with_cs" if m.group(2) == "lstm" else "with_res"
-        mode = {None: "", "0": ",primal", "1": f",{second}"}[m.group(5)]
+        flags = re.findall(r"Lb(\d)E", m.group(5))
+        mode = ""
+        for k, (name, on) in enumerate(zip(KERNEL_FLAGS.get(m.group(2), ()), flags)):
+            if on == "1":
+                mode += f",{name}"
+            elif k == 0 and m.group(2).endswith("fwd"):
+                mode += ",primal"
         return f"{m.group(1)}<{'f32' if m.group(3) == 'f' else 'bf16'},act={m.group(4)}{mode}>"
-    m = re.search(r"outer_sum_partialILi(\d)E", mangled)
+    m = re.search(r"outer_sum_partialILi(\d)ELb(\d)E", mangled)
     if m:
-        return f"outer_sum_partial<{m.group(1)}>"
+        return f"outer_sum_partial<{m.group(1)}{',head' if m.group(2) == '1' else ''}>"
     return "sum_splits" if "sum_splits" in mangled else mangled
 
 
@@ -658,22 +688,38 @@ def phase_timing(torch, cuda_lstm) -> list:
     return rows
 
 
-def grad_bounds(w, b, h, dtype_name) -> dict:
-    """Least time for each new kernel at (W, B, H): each input read once,
-    each output written once, over 3.35 TB/s; each product of 2*W*B*H*4H
-    over the peak for its operands' type (products with rec are in the
-    operand dtype, products with v and the drec/urec sums in float32)."""
+def grad_work(w, b, h, dtype_name) -> dict:
+    """{kernel: (bytes, seconds of operations)} for the single-layer
+    kernels at (W, B, H): each input read once and each output written
+    once; each product of 2*W*B*H*4H over the peak for its operands' type
+    (products with rec are in the operand dtype, products with v and the
+    drec/urec sums in float32).  The carry modes add their (B, H) arrays
+    — forward: h0, c0 and c_fin (with_cs: h0, c0); backward: h0, c0,
+    dc_fin, dh0, dc0; adjoint: h0, c0, mu_h0, mu_c0, cot(dc_fin),
+    cot(h0), cot(c0) — and no operations: the step-0 products replace
+    products with zero rows that the carry-free reckoning counts too."""
     item = 4 if dtype_name == "float32" else 2
-    seq, g32 = w * b * h * 4, w * b * 4 * h * 4
+    seq, g32, st = w * b * h * 4, w * b * 4 * h * 4, b * h * 4
     xzb, recb, mat32 = w * b * 4 * h * item, 4 * h * h * item, 4 * h * h * 4
     prod = 2 * w * b * h * 4 * h
     peak, f32 = PEAK_OPS_PER_S[dtype_name], PEAK_OPS_PER_S["float32"]
-    work = {"lstm_fwd_cs": (xzb + recb + 2 * seq, prod / peak),
+    work = {"lstm_fwd": (xzb + recb + seq, prod / peak),
+            "lstm_fwd_cs": (xzb + recb + 2 * seq, prod / peak),
             "lstm_bwd": (xzb + recb + 3 * seq + g32 + mat32, 2 * prod / peak + prod / f32),
             "lstm_adj": (xzb + recb + mat32 + 4 * seq + 2 * g32 + 3 * seq + mat32,
                          3 * prod / peak + 4 * prod / f32)}
+    for k, extra in (("lstm_fwd", 3), ("lstm_fwd_cs", 2), ("lstm_bwd", 5), ("lstm_adj", 7)):
+        nbytes, t_ops = work[k]
+        work[f"{k}_carry"] = (nbytes + extra * st, t_ops)
+    return work
+
+
+def grad_bounds(w, b, h, dtype_name) -> dict:
+    """Least time for each kernel and mode of :func:`grad_work` at
+    (W, B, H): the larger of its bytes over 3.35 TB/s and its operations'
+    time, in ms, with which of the two bounds it."""
     out = {}
-    for k, (nbytes, t_ops) in work.items():
+    for k, (nbytes, t_ops) in grad_work(w, b, h, dtype_name).items():
         t_bytes = nbytes / HBM_BYTES_PER_S
         out[k] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -741,6 +787,277 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
                         extra = f" (primal, same tanh: {primal:.4f})"
                     say(f"[timing] {k:11s} W={w:3d} B={b:2d} {name:8s}: kernel {ms:.4f} ms{extra}, "
                         f"plain {plain:.3f} ms, cuDNN {lib_s} ms, bound {bnd:.5f} ms ({by})")
+    return rows
+
+
+def carry_draws(torch, w, b, seed):
+    """A nonzero carry (h0, c0) at chip_check_carry's 0.5 scale and seeded
+    cotangents at the grad phase's 0.3: dhs, dcs, dc_fin, u, v and mu0."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rnd = lambda s, *shape: s * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    h = HIDDEN
+    carry = (rnd(0.5, b, h), rnd(0.5, b, h))
+    cots = dict(dhs=rnd(0.3, w, b, h), dcs=rnd(0.3, w, b, h), dc_fin=rnd(0.3, b, h),
+                u=rnd(0.3, w, b, 4 * h), v=rnd(0.3, h, 4 * h),
+                mu0=(rnd(0.3, b, h), rnd(0.3, b, h)))
+    return carry, cots
+
+
+def carry_calls(cuda_lstm, xz, rec, act, carry, c, kernel: bool) -> dict:
+    """{row: [outputs of each mode]}: the kernel wrappers (``kernel``) or
+    the plain versions, every carry mode on the same inputs."""
+    fwd = cuda_lstm.lstm_fwd_cuda if kernel else cuda_lstm.lstm_seq_plain
+    bwd = cuda_lstm.lstm_bwd_cuda if kernel else cuda_lstm.lstm_bwd_plain
+    adj = cuda_lstm.lstm_adj_cuda if kernel else cuda_lstm.lstm_adj_plain
+    hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True, carry)    # the residuals, as the path
+    _, _, dhT, dcT, _, _ = cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, c["dhs"], None, act, True,
+                                                   carry, c["dc_fin"])
+    return {"lstm_fwd_carry": [fwd(xz, rec, act, False, carry), fwd(xz, rec, act, True, carry)],
+            "lstm_bwd_carry": [bwd(xz, rec, hs, cs, c["dhs"], dcs, act, carries, carry,
+                                   c["dc_fin"])
+                               for dcs, carries in ((None, False), (c["dcs"], False),
+                                                    (None, True))],
+            "lstm_adj_carry": [adj(xz, rec, hs, cs, dhT, dcT, c["u"], c["v"], act, carry,
+                                   c["mu0"])]}
+
+
+def phase_carry_parity(torch, cuda_lstm) -> dict:
+    """(a) Each carry mode of kernels 1–3 against its plain version on the
+    same inputs, at the grad phase's shapes, activations, dtypes and
+    scaled bars: the forward's carry primal and with_cs modes, the
+    backward's carry0 mode alone, with dcs and with the per-step carries
+    (each with dc_fin), the adjoint's carry mode (with mu0)."""
+    names = ("lstm_fwd_carry", "lstm_bwd_carry", "lstm_adj_carry")
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
+    worst_abs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
+    t0 = time.perf_counter()
+    for w, f in SHAPES:
+        for b in TRAIN_BATCHES:
+            for act in ACTS:
+                for name, dtype in (("float32", torch.float32),
+                                    ("bfloat16", torch.bfloat16)):
+                    _, _, xz, rec = lstm_inputs(torch, w, f, b, act, dtype, seed=w + b + 3)
+                    carry, c = carry_draws(torch, w, b, seed=w * b + 3)
+                    with torch.no_grad():
+                        got = carry_calls(cuda_lstm, xz, rec, act, carry, c, True)
+                        ref = carry_calls(cuda_lstm, xz, rec, act, carry, c, False)
+                    torch.cuda.synchronize()
+                    line = []
+                    for k in names:
+                        pairs = [(a, r) for g_, r_ in zip(got[k], ref[k]) for a, r in zip(g_, r_)]
+                        for a, r in pairs:
+                            if a.shape != r.shape or not torch.isfinite(a).all():
+                                fail(f"{k} output not finite/shaped at W={w} B={b} {act} {name}")
+                        err = max(scaled_err(a, r) for a, r in pairs)
+                        worst[k][name] = max(worst[k][name], err)
+                        worst_abs[k][name] = max(worst_abs[k][name], max(
+                            float((a - r).abs().max()) for a, r in pairs))
+                        line.append(f"{k} {err:.2e}")
+                        if not err <= GRAD_BARS[name]:
+                            fail(f"{k} disagrees with its plain version: {err} > "
+                                 f"{GRAD_BARS[name]} at W={w} B={b} {act} {name}")
+                    say(f"[carry] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
+                        f"{', '.join(line)} (limit {GRAD_BARS[name]:.0e})")
+    seconds = time.perf_counter() - t0
+    say(f"[carry] parity in {seconds:.1f} s")
+    return {"scaled": worst, "abs": worst_abs, "seconds": seconds}
+
+
+def allclose_err(got, ref, atol, rtol) -> float:
+    """max |got - ref| / (atol + rtol |ref|): at most 1 within the bar."""
+    return float(((got.float() - ref.float()).abs() / (atol + rtol * ref.float().abs())).max())
+
+
+def phase_carry_path(torch, cuda_lstm) -> dict:
+    """(b) The carry path at full width: the W=168, B=32, H=100 window in
+    float32 as four chunks of 42 that pass (h, c) on through
+    ``lstm_seq_carry``, against the whole window, for sigmoid and tanh.
+
+    From a zero start the whole window is ``lstm_seq`` (the carry-free
+    kernels): hs, the final c (``lstm_seq``'s residual cs at W-1), the
+    gradients of xz and rec under a loss on hs, and the ``gp_like``
+    second order (the input-gradient penalty of sum(hs)) in xz and rec.
+    From chip_check_carry's nonzero (h0, c0) the whole window is the
+    plain carry forward, differentiated by torch: hs and the final c,
+    the gradients of xz, rec, h0 and c0 under chip_check_carry's loss
+    (hs·wts + c_fin·u), and its ``gp_like`` in all four.  Bars: the JAX
+    suite's, forward atol 1e-5, gradients atol 1e-5 + rtol 1e-4, second
+    order atol 2e-4 + rtol 1e-4.  Every whole-window reference is formed
+    first; then every launch count is set to 0, the chunked runs go, and
+    exactly the four carry modes must have launched."""
+    h, w, f, b, cut = HIDDEN, 168, 36, 32, 42
+    t_phase = time.perf_counter()
+    bars = {"forward": (1e-5, 0.0), "first": (1e-5, 1e-4), "second": (2e-4, 1e-4)}
+
+    def chunked(xz, rec, h0, c0, act):
+        hs, hh, cc = [], h0, c0
+        for k in range(0, w, cut):
+            hs_k, cc = cuda_lstm.lstm_seq_carry(xz[k:k + cut], rec, hh, cc, act)
+            hs.append(hs_k)
+            hh = hs_k[-1]
+        return torch.cat(hs), cc
+
+    def gp_like(fn, args, wrt, act):
+        hs, c_fin = fn(*args, act)
+        gr = torch.autograd.grad(hs.sum() + (0 if c_fin is None else c_fin.sum()),
+                                 [args[i] for i in wrt], create_graph=True)
+        pen = (1.0 - torch.sqrt(sum((t ** 2).sum() for t in gr) + 1e-12)) ** 2
+        return torch.autograd.grad(pen, args)
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_(True) for t in ts]
+
+    cases, refs = [], []
+    for act in ("sigmoid", "tanh"):
+        _, _, xz, rec = lstm_inputs(torch, w, f, b, act, torch.float32, seed=168)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(42)
+        h0, c0 = (0.5 * torch.randn((b, h), generator=g, device="cuda") for _ in range(2))
+        wts = torch.randn((w, b, h), generator=g, device="cuda")
+        u = torch.randn((b, h), generator=g, device="cuda")
+        zero = torch.zeros((b, h), device="cuda")
+        cases.append((act, xz, rec, h0, c0, wts, u, zero))
+        # zero start: the whole window through lstm_seq's kernels
+        ref = {}
+        with torch.no_grad():
+            ref["zero hs"], cs = cuda_lstm.lstm_fwd(xz, rec, act, with_cs=True)
+            ref["zero c_fin"] = cs[-1]
+        args = leaves(xz, rec)
+        ref["zero first"] = torch.autograd.grad((cuda_lstm.lstm_seq(*args, act) * wts).sum(),
+                                                args)
+        ref["zero second"] = gp_like(lambda x, r, a: (cuda_lstm.lstm_seq(x, r, a), None),
+                                     leaves(xz, rec), (0,), act)
+        # nonzero start: the whole window through the plain carry forward
+        def plain(x, r, a, b_, act_):
+            return cuda_lstm.lstm_seq_plain(x, r, act_, carry=(a, b_))
+        with torch.no_grad():
+            ref["carry hs"], ref["carry c_fin"] = plain(xz, rec, h0, c0, act)
+        args = leaves(xz, rec, h0, c0)
+        hs_p, cf_p = plain(*args, act)
+        ref["carry first"] = torch.autograd.grad((hs_p * wts).sum() + (cf_p * u).sum(), args)
+        ref["carry second"] = gp_like(plain, leaves(xz, rec, h0, c0), (0, 2, 3), act)
+        refs.append(ref)
+    torch.cuda.synchronize()
+
+    cuda_lstm.reset_launches()
+    t0 = time.perf_counter()
+    gots = []
+    for act, xz, rec, h0, c0, wts, u, zero in cases:
+        got = {}
+        with torch.no_grad():
+            got["zero hs"], got["zero c_fin"] = chunked(xz, rec, zero, zero, act)
+            got["carry hs"], got["carry c_fin"] = chunked(xz, rec, h0, c0, act)
+        args = leaves(xz, rec, zero, zero)
+        got["zero first"] = torch.autograd.grad((chunked(*args, act)[0] * wts).sum(),
+                                                args[:2])
+        args = leaves(xz, rec, zero, zero)
+        got["zero second"] = gp_like(lambda x, r, a, c_, act_: (chunked(x, r, a, c_, act_)[0],
+                                                                None),
+                                     args, (0,), act)[:2]
+        args = leaves(xz, rec, h0, c0)
+        hs_c, cf_c = chunked(*args, act)
+        got["carry first"] = torch.autograd.grad((hs_c * wts).sum() + (cf_c * u).sum(), args)
+        got["carry second"] = gp_like(chunked, leaves(xz, rec, h0, c0), (0, 2, 3), act)
+        gots.append(got)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_lstm.launch_counts()
+    launched = {k for k, n in launches.items() if n}
+    want = {"lstm_fwd_carry", "lstm_fwd_cs_carry", "lstm_bwd_carry", "lstm_adj_carry"}
+    if launched != want:
+        fail(f"the carry path launched {sorted(launched)}, expected exactly {sorted(want)} "
+             f"({launches})")
+    worst = {}
+    for (act, *_), got, ref in zip(cases, gots, refs):
+        line = []
+        for key in got:
+            order = key.split()[-1] if key.split()[-1] in bars else "forward"
+            atol, rtol = bars[order]
+            outs = got[key] if isinstance(got[key], (tuple, list)) else [got[key]]
+            refs_ = ref[key] if isinstance(ref[key], (tuple, list)) else [ref[key]]
+            err = 0.0
+            for a, r in zip(outs, refs_):
+                if a.shape != r.shape or not torch.isfinite(a).all():
+                    fail(f"carry path {act} {key}: not finite/shaped")
+                err = max(err, allclose_err(a.detach(), r.detach(), atol, rtol))
+            worst[f"{act} {key}"] = err
+            line.append(f"{key} {err:.3f}")
+            if not err <= 1.0:
+                fail(f"carry path {act}: {key} differs from the whole window "
+                     f"({err:.3f} of the bar atol {atol:g} + rtol {rtol:g})")
+        say(f"[carry] path W={w} as {w // cut} chunks of {cut}, B={b}, {act}: error as a share "
+            f"of the bar: {', '.join(line)}")
+    seconds = time.perf_counter() - t_phase
+    say("[carry] path launches: " + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+        + f"; chunked runs {wall:.2f} s, phase {seconds:.1f} s")
+    return {"launches": launches, "worst_share_of_bar": worst, "chunked_s": wall,
+            "seconds": seconds}
+
+
+def phase_carry_timing(torch, cuda_lstm) -> list:
+    """(c) CUDA events for each carry mode at W=48, B=32, H=100, float32,
+    tanh, beside the same kernel's carry-free mode, its bound
+    (``grad_bounds``), its plain version and ``library_ms``: cuDNN's LSTM
+    called with hx=(h0, c0) — under no_grad for the carry primal forward,
+    in training mode for the carry with_cs forward, forward and backward
+    (h0 and c0 needing a gradient) minus forward for the backward; none
+    for the adjoint."""
+    w, f, b, h = 48, 35, 32, HIDDEN
+    layer, x, xz, rec = lstm_inputs(torch, w, f, b, "tanh", torch.float32, seed=3)
+    carry, c = carry_draws(torch, w, b, seed=4)
+    with torch.no_grad():
+        hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", True, carry)
+        dhT, dcT = cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, c["dhs"], None, "tanh", True,
+                                           carry, c["dc_fin"])[2:4]
+        args = {"fwd": (xz, rec, "tanh"), "bwd": (xz, rec, hs, cs, c["dhs"], None, "tanh"),
+                "adj": (xz, rec, hs, cs, dhT, dcT, c["u"], c["v"], "tanh")}
+        calls = {   # carry mode, its carry-free mode, the plain carry version
+            "lstm_fwd_carry": (lambda: cuda_lstm.lstm_fwd_cuda(*args["fwd"], False, carry),
+                               lambda: cuda_lstm.lstm_fwd_cuda(*args["fwd"], False),
+                               lambda: cuda_lstm.lstm_seq_plain(*args["fwd"], False, carry)),
+            "lstm_fwd_cs_carry": (lambda: cuda_lstm.lstm_fwd_cuda(*args["fwd"], True, carry),
+                                  lambda: cuda_lstm.lstm_fwd_cuda(*args["fwd"], True),
+                                  lambda: cuda_lstm.lstm_seq_plain(*args["fwd"], True, carry)),
+            "lstm_bwd_carry": (
+                lambda: cuda_lstm.lstm_bwd_cuda(*args["bwd"], False, carry, c["dc_fin"]),
+                lambda: cuda_lstm.lstm_bwd_cuda(*args["bwd"]),
+                lambda: cuda_lstm.lstm_bwd_plain(*args["bwd"], False, carry, c["dc_fin"])),
+            "lstm_adj_carry": (lambda: cuda_lstm.lstm_adj_cuda(*args["adj"], carry, c["mu0"]),
+                               lambda: cuda_lstm.lstm_adj_cuda(*args["adj"]),
+                               lambda: cuda_lstm.lstm_adj_plain(*args["adj"], carry, c["mu0"]))}
+        times = {k: (time_ms(torch, kern, 50), time_ms(torch, free, 50), time_ms(torch, plain, 2, 1))
+                 for k, (kern, free, plain) in calls.items()}
+    lstm = torch.nn.LSTM(f, h).cuda()
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(layer.kernel.T)
+        lstm.weight_hh_l0.copy_(layer.recurrent_kernel.T)
+        lstm.bias_ih_l0.copy_(layer.bias)
+        lstm.bias_hh_l0.zero_()
+    xt = x.transpose(0, 1).contiguous().requires_grad_(True)
+    hx = tuple(t[None].clone().requires_grad_(True) for t in carry)
+    gout = torch.randn((w, b, h), device="cuda")
+
+    def fwd_bwd():
+        out, _ = lstm(xt, hx)
+        out.backward(gout)
+
+    with torch.no_grad():
+        lib_primal = time_ms(torch, lambda: lstm(xt, hx), 50)
+    fwd = time_ms(torch, lambda: lstm(xt, hx), 50)
+    library = {"lstm_fwd_carry": lib_primal, "lstm_fwd_cs_carry": fwd,
+               "lstm_bwd_carry": time_ms(torch, fwd_bwd, 50) - fwd, "lstm_adj_carry": None}
+    bounds = grad_bounds(w, b, h, "float32")
+    rows = []
+    for k, (ms, free_ms, plain) in times.items():
+        bnd, by = bounds[k]
+        rows.append({"kernel": k, "W": w, "F": f, "B": b, "dtype": "float32", "ms": ms,
+                     "carry_free_ms": free_ms, "plain_ms": plain, "library_ms": library[k],
+                     "bound_ms": bnd, "bound_by": by})
+        lib_s = "n/a" if library[k] is None else f"{library[k]:.4f}"
+        say(f"[timing] {k:17s} W={w} B={b} float32: kernel {ms:.4f} ms (carry-free "
+            f"{free_ms:.4f}, {100 * (ms / free_ms - 1):+.1f}%), plain {plain:.3f} ms, "
+            f"cuDNN with hx {lib_s} ms, bound {bnd:.5f} ms ({by})")
     return rows
 
 
@@ -955,12 +1272,15 @@ def main() -> None:
     phase_build(torch, _build, cuda_lstm, cuda_lstm_stack)
     worst = phase_parity(torch, cuda_lstm)
     grad = phase_grad_parity(torch, cuda_lstm)
+    carry = phase_carry_parity(torch, cuda_lstm)
+    carry_path = phase_carry_path(torch, cuda_lstm)
     stack = phase_stack_parity(torch, cuda_lstm_stack)
     server = phase_server(torch, np, cuda_lstm)
     train = phase_train(torch, cuda_lstm, "auto")
     train_chained = phase_train(torch, cuda_lstm, "chained", TRAIN_PRESETS[:1])
     timing = phase_timing(torch, cuda_lstm)
     grad_timing = phase_grad_timing(torch, cuda_lstm)
+    carry_timing = phase_carry_timing(torch, cuda_lstm)
     stack_timing = phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack)
     profiled = phase_profile(torch)
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
@@ -999,6 +1319,29 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": "W=48 B=32 H=100 float32"})
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
+    # the carry modes: launches from the carry path's run (phase_carry_path)
+    timed = {r["kernel"]: r for r in carry_timing}
+    path_launches = carry_path["launches"]
+    for k, modes in (("lstm_fwd_carry", ("lstm_fwd_carry", "lstm_fwd_cs_carry")),
+                     ("lstm_bwd_carry", ("lstm_bwd_carry",)),
+                     ("lstm_adj_carry", ("lstm_adj_carry",))):
+        r = timed["lstm_fwd_cs_carry" if k == "lstm_fwd_carry" else k]
+        rows.append({
+            "name": k, "route": "cuda", "source": f"hfrep_tpu_torch/csrc/{SOURCES[k]}",
+            "replaces": TPU_KERNELS[k], "launches": sum(path_launches[m] for m in modes),
+            "launches_by_mode": {m: path_launches[m] for m in modes},
+            "max_abs_err": carry["abs"][k]["float32"],
+            "max_abs_err_bf16": carry["abs"][k]["bfloat16"],
+            "max_scaled_err": carry["scaled"][k]["float32"],
+            "max_scaled_err_bf16": carry["scaled"][k]["bfloat16"],
+            "ms": r["ms"], "carry_free_ms": r["carry_free_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": "W=48 B=32 H=100 float32"})
+    primal = timed["lstm_fwd_carry"]
+    rows[-3]["mode"] = "with_cs carry (the differentiable path's); launches count both modes"
+    rows[-3]["primal_carry"] = {k: primal[k] for k in ("ms", "carry_free_ms", "plain_ms",
+                                                       "bound_ms", "bound_by", "library_ms")}
+    rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
     for k in ("stack_fwd", "stack_bwd", "stack_adj"):
         r = next(x for x in stack_timing if x["kernel"] == k and x["W"] == 48
                  and x["B"] == 32 and x["dtype"] == "float32")
@@ -1021,6 +1364,8 @@ def main() -> None:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
                        "train_chained": train_chained, "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
+                       "carry_parity": carry, "carry_path": carry_path,
+                       "carry_timing": carry_timing,
                        "parity_max_abs_err": worst, "grad_parity": grad,
                        "stack_parity": stack, "profile": profiled}, fh, indent=1)
     say(card)

@@ -1,8 +1,9 @@
 // Adjoint of the single-layer LSTM backward sweep for Hopper (sm_90a).
 //
 // Replaces: hfrep_tpu/ops/pallas_lstm.py::_adj_kernel, launched through
-// _adj_call without a carry: the VJP of lstm_bwd_seq, which is the
-// WGAN-GP penalty's d/dtheta grad_x c term for each critic LSTM layer.
+// _adj_call without a carry (the VJP of lstm_bwd_seq, which is the
+// WGAN-GP penalty's d/dtheta grad_x c term for each critic LSTM layer)
+// and in its carry mode (the VJP of lstm_bwd_seq_carry).
 // Given u = cot(dxz) and v = cot(drec) it returns the cotangents of the
 // backward's inputs xz, rec, hs, cs and dhs.  It runs forward in time,
 // t = 0 .. W-1 (the reverse of the backward's order), with the adjoint
@@ -19,7 +20,16 @@
 //
 // with _adj_call's output shift done in place (uhs_t = uhp_{t+1},
 // ucs_t = uc_t + ucp_{t+1}, zero past the end), and then
-// urec = sum_t mu_h^T dz + h_{t-1}^T zbar.  xz and rec are float32 or
+// urec = sum_t mu_h^T dz + h_{t-1}^T zbar.
+//
+// Carry mode (template flag CARRY; the carry-free instantiation is the
+// code it was before the mode existed): the backward's final carries were
+// (dh0, dc0), so their cotangents (mu_h0, mu_c0) seed mu_h and mu_c
+// (null: zero); step 0's h_{t-1} and c_{t-1} are the injected h0 and c0;
+// step 0's uhp and ucp, dropped without a carry, are cot(h0) and cot(c0);
+// the last step's dcTbar is cot(dc_fin), the cotangent of the dc carry the
+// backward started from; and urec's t = 0 terms mu_h0^T dz_0 + h0^T zbar_0
+// come in through the reduction's head operands.  All (B, H), float32.  xz and rec are float32 or
 // bf16; v, u and everything else float32.  As in the TPU kernel, the
 // vectors dotted with rec or rec^T (h_{t-1}, mu_h, zbar) are rounded to
 // the operand dtype first; the products with v and urec use float32.
@@ -28,9 +38,10 @@
 // H=100, float32) it must move 12.15 MB (xz, u and uxz 2.46 MB each;
 // hs, cs, dhT, dcT, uhs, ucs and udhs 0.61 MB each; rec, v and urec
 // 0.16 MB each) — >= 3.6 us at 3.35 TB/s — and do 860 MFLOP (seven
-// products of 2*W*B*H*4H) — >= 12.8 us at 67 TFLOP/s float32.  Neither
-// sets the pace: mu_h of step t feeds step t+1 through mu_h . rec, so the
-// sweep is W dependent steps.
+// products of 2*W*B*H*4H) — >= 12.8 us at 67 TFLOP/s float32 (the carry
+// mode adds seven (B, H) arrays, 90 KB).  Neither sets the pace: mu_h of
+// step t feeds step t+1 through mu_h . rec, so the sweep is W dependent
+// steps.
 //
 // What the design does about it.  One block owns a tile of batch rows and
 // walks all W steps, as the TPU's sequential grid did.  rec and v cannot
@@ -54,7 +65,7 @@ namespace {
 
 using namespace hfrep;
 
-template <typename T, int ACT>
+template <typename T, int ACT, bool CARRY>
 __global__ void lstm_adj_kernel(const T* __restrict__ xz,
                                 const T* __restrict__ rec,
                                 const float* __restrict__ v,
@@ -63,11 +74,18 @@ __global__ void lstm_adj_kernel(const T* __restrict__ xz,
                                 const float* __restrict__ dhT,
                                 const float* __restrict__ dcT,
                                 const float* __restrict__ u,
+                                const float* __restrict__ h0,     // CARRY
+                                const float* __restrict__ c0,     // CARRY
+                                const float* __restrict__ muh0,   // CARRY, nullable
+                                const float* __restrict__ muc0,   // CARRY, nullable
                                 float* __restrict__ uxz,
                                 float* __restrict__ uhs,
                                 float* __restrict__ ucs,
                                 float* __restrict__ udhs,
                                 float* __restrict__ dzw,
+                                float* __restrict__ udcfin,       // CARRY
+                                float* __restrict__ uh0,          // CARRY
+                                float* __restrict__ uc0,          // CARRY
                                 int W, int B, int H, int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = 4 * H;
@@ -93,13 +111,16 @@ __global__ void lstm_adj_kernel(const T* __restrict__ xz,
   float* mu_row = mu_s + bl * H;
   float* dz_row = dz_s + static_cast<size_t>(bl) * G;
   float* zb_row = zb_s + static_cast<size_t>(bl) * G;
-  float muh = 0.f, muc = 0.f, uc_prev = 0.f;
+  const size_t st = static_cast<size_t>(live ? b : 0) * H + j;   // (B, H) carry
+  float muh = CARRY && live && muh0 != nullptr ? muh0[st] : 0.f;
+  float muc = CARRY && live && muc0 != nullptr ? muc0[st] : 0.f;
+  float uc_prev = 0.f;
 
   for (int t = 0; t < W; ++t) {
     const size_t o = (static_cast<size_t>(t) * B + b) * H + j;
     const size_t og4 = (static_cast<size_t>(t) * B + b) * G + j;
     if (live) {
-      hp_row[j] = t > 0 ? hs[o - hstep] : 0.f;
+      hp_row[j] = t > 0 ? hs[o - hstep] : (CARRY ? h0[st] : 0.f);
       mu_row[j] = round_to<T>(muh);
     }
     __syncthreads();
@@ -129,7 +150,7 @@ __global__ void lstm_adj_kernel(const T* __restrict__ xz,
       const float gc = act_f<ACT>(to_f(xr[2 * H]) + zd[2]);
       const float og = sigmoid_f(to_f(xr[3 * H]) + zd[3]);
       const float c_s = cs[o];
-      const float cp = t > 0 ? cs[o - hstep] : 0.f;
+      const float cp = t > 0 ? cs[o - hstep] : (CARRY ? c0[st] : 0.f);
       const float a_c = act_f<ACT>(c_s);
       const float qi = ig * (1.0f - ig), qf = fg * (1.0f - fg), qo = og * (1.0f - og);
       const float pg = act_prime<ACT>(gc), pa = act_prime<ACT>(a_c);
@@ -183,6 +204,7 @@ __global__ void lstm_adj_kernel(const T* __restrict__ xz,
       udhs[o] = dhTbar;
       const float uc = aCbar * pa;
       if (t > 0) ucs[o - hstep] = uc_prev + cpbar;
+      else if (CARRY) uc0[st] = cpbar;
       uc_prev = uc;
       dz_row[j] = dz0;
       dz_row[H + j] = dz1;
@@ -205,94 +227,136 @@ __global__ void lstm_adj_kernel(const T* __restrict__ xz,
         rb = fmaf(zb_row[m], to_f(rr[m]), rb);
       }
       if (t > 0) uhs[o - hstep] = hpbar + rb;
+      else if (CARRY) uh0[st] = hpbar + rb;
     }
   }
   if (live) {
     const size_t last = (static_cast<size_t>(W - 1) * B + b) * H + j;
     uhs[last] = 0.f;
     ucs[last] = uc_prev;
+    if (CARRY) udcfin[st] = muc;
   }
 }
 
-template <typename T, int ACT>
-cudaError_t launch_sweep(const void* xz, const void* rec, const float* v,
-                         const float* hs, const float* cs, const float* dhT,
-                         const float* dcT, const float* u, float* uxz, float* uhs,
-                         float* ucs, float* udhs, float* dzw, int W, int B, int H,
-                         int rows, cudaStream_t stream) {
-  const size_t smem = rec_smem_bytes(H, sizeof(T))
-                      + static_cast<size_t>(rows) * 10 * H * sizeof(float);
-  const int threads = ((rows * H + 31) / 32) * 32;
-  const int blocks = (B + rows - 1) / rows;
-  cudaError_t e = cudaFuncSetAttribute(lstm_adj_kernel<T, ACT>,
+struct AdjArgs {
+  const void* xz;
+  const void* rec;
+  const float* v;
+  const float* hs;
+  const float* cs;
+  const float* dhT;
+  const float* dcT;
+  const float* u;
+  const float* h0;     // null: no carry
+  const float* c0;
+  const float* muh0;   // null: zero
+  const float* muc0;   // null: zero
+  float* uxz;
+  float* uhs;
+  float* ucs;
+  float* udhs;
+  float* dzw;
+  float* udcfin;
+  float* uh0;
+  float* uc0;
+  int W, B, H, rows;
+};
+
+template <typename T, int ACT, bool CARRY>
+cudaError_t launch_sweep(const AdjArgs& a, cudaStream_t stream) {
+  const size_t smem = rec_smem_bytes(a.H, sizeof(T))
+                      + static_cast<size_t>(a.rows) * 10 * a.H * sizeof(float);
+  const int threads = ((a.rows * a.H + 31) / 32) * 32;
+  const int blocks = (a.B + a.rows - 1) / a.rows;
+  cudaError_t e = cudaFuncSetAttribute(lstm_adj_kernel<T, ACT, CARRY>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  lstm_adj_kernel<T, ACT><<<blocks, threads, smem, stream>>>(
-      static_cast<const T*>(xz), static_cast<const T*>(rec), v, hs, cs, dhT, dcT,
-      u, uxz, uhs, ucs, udhs, dzw, W, B, H, rows);
+  lstm_adj_kernel<T, ACT, CARRY><<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(a.xz), static_cast<const T*>(a.rec), a.v, a.hs, a.cs, a.dhT,
+      a.dcT, a.u, a.h0, a.c0, a.muh0, a.muc0, a.uxz, a.uhs, a.ucs, a.udhs, a.dzw,
+      a.udcfin, a.uh0, a.uc0, a.W, a.B, a.H, a.rows);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_act(int act, const void* xz, const void* rec, const float* v,
-                       const float* hs, const float* cs, const float* dhT,
-                       const float* dcT, const float* u, float* uxz, float* uhs,
-                       float* ucs, float* udhs, float* dzw, int W, int B, int H,
-                       int rows, cudaStream_t s) {
+template <typename T, bool CARRY>
+cudaError_t launch_act(const AdjArgs& a, int act, cudaStream_t s) {
   switch (act) {
-    case ACT_LINEAR:
-      return launch_sweep<T, ACT_LINEAR>(xz, rec, v, hs, cs, dhT, dcT, u, uxz, uhs,
-                                         ucs, udhs, dzw, W, B, H, rows, s);
-    case ACT_SIGMOID:
-      return launch_sweep<T, ACT_SIGMOID>(xz, rec, v, hs, cs, dhT, dcT, u, uxz, uhs,
-                                          ucs, udhs, dzw, W, B, H, rows, s);
-    case ACT_TANH:
-      return launch_sweep<T, ACT_TANH>(xz, rec, v, hs, cs, dhT, dcT, u, uxz, uhs,
-                                       ucs, udhs, dzw, W, B, H, rows, s);
+    case ACT_LINEAR: return launch_sweep<T, ACT_LINEAR, CARRY>(a, s);
+    case ACT_SIGMOID: return launch_sweep<T, ACT_SIGMOID, CARRY>(a, s);
+    case ACT_TANH: return launch_sweep<T, ACT_TANH, CARRY>(a, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The sweep, then urec = sum mu_h^T dz + h_{t-1}^T zbar over the W*B rows
+// (in carry mode mu_h0 and h0 are the heads of mu_h and h_{t-1}), both on
+// `stream`.
+int run(const AdjArgs& a, void* urec, void* part, int act, int bf16, int splits,
+        int rows_per_split, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool carry = a.h0 != nullptr;
+  if (bf16)
+    e = carry ? launch_act<__nv_bfloat16, true>(a, act, s)
+              : launch_act<__nv_bfloat16, false>(a, act, s);
+  else
+    e = carry ? launch_act<float, true>(a, act, s) : launch_act<float, false>(a, act, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = outer_sum<2>(a.udhs, a.dzw, a.hs, a.uxz, static_cast<float*>(urec),
+                   static_cast<float*>(part), a.W * a.B, a.B, a.H, 4 * a.H, splits,
+                   rows_per_split, s, a.muh0, a.h0);
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The sweep, then urec = sum mu_h^T dz + h_{t-1}^T zbar over the W*B
-// rows, both on `stream`.  `dzw` is a (W, B, 4H) float32 workspace for
-// dz; `part` holds splits x H x 4H floats when splits > 1.  Returns the
-// first CUDA error of a launch (0 = ok).
+// The sweep and urec on `stream`.  `dzw` is a (W, B, 4H) float32
+// workspace for dz; `part` holds splits x H x 4H floats when splits > 1.
+// Returns the first CUDA error of a launch (0 = ok).
 int hfrep_lstm_adj(const void* xz, const void* rec, const void* v, const void* hs,
                    const void* cs, const void* dhT, const void* dcT, const void* u,
                    void* uxz, void* uhs, void* ucs, void* udhs, void* urec,
                    void* dzw, void* part, int W, int B, int H, int act, int bf16,
                    int rows, int splits, int rows_per_split, int device,
                    void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* v_f = static_cast<const float*>(v);
-  const float* hs_f = static_cast<const float*>(hs);
-  const float* cs_f = static_cast<const float*>(cs);
-  const float* dhT_f = static_cast<const float*>(dhT);
-  const float* dcT_f = static_cast<const float*>(dcT);
-  const float* u_f = static_cast<const float*>(u);
-  float* uxz_f = static_cast<float*>(uxz);
-  float* udhs_f = static_cast<float*>(udhs);
-  float* dzw_f = static_cast<float*>(dzw);
-  e = bf16 ? launch_act<__nv_bfloat16>(act, xz, rec, v_f, hs_f, cs_f, dhT_f, dcT_f,
-                                      u_f, uxz_f, static_cast<float*>(uhs),
-                                      static_cast<float*>(ucs), udhs_f, dzw_f, W, B,
-                                      H, rows, s)
-           : launch_act<float>(act, xz, rec, v_f, hs_f, cs_f, dhT_f, dcT_f, u_f,
-                               uxz_f, static_cast<float*>(uhs),
-                               static_cast<float*>(ucs), udhs_f, dzw_f, W, B, H,
-                               rows, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = outer_sum<2>(udhs_f, dzw_f, hs_f, uxz_f, static_cast<float*>(urec),
-                   static_cast<float*>(part), W * B, B, H, 4 * H, splits,
-                   rows_per_split, s);
-  return static_cast<int>(e);
+  const AdjArgs a{xz, rec, static_cast<const float*>(v), static_cast<const float*>(hs),
+                  static_cast<const float*>(cs), static_cast<const float*>(dhT),
+                  static_cast<const float*>(dcT), static_cast<const float*>(u),
+                  nullptr, nullptr, nullptr, nullptr, static_cast<float*>(uxz),
+                  static_cast<float*>(uhs), static_cast<float*>(ucs),
+                  static_cast<float*>(udhs), static_cast<float*>(dzw), nullptr, nullptr,
+                  nullptr, W, B, H, rows};
+  return run(a, urec, part, act, bf16, splits, rows_per_split, device, stream);
+}
+
+// The carry mode: h0, c0 (B, H) the injected state, muh0 and muc0 (B, H;
+// null: zero) the cotangents of the backward's dh0 and dc0; cot(dc_fin),
+// cot(h0) and cot(c0) go to udcfin, uh0 and uc0 (B, H).
+int hfrep_lstm_adj_carry(const void* xz, const void* rec, const void* v,
+                         const void* hs, const void* cs, const void* dhT,
+                         const void* dcT, const void* u, const void* h0,
+                         const void* c0, const void* muh0, const void* muc0,
+                         void* uxz, void* uhs, void* ucs, void* udhs, void* urec,
+                         void* dzw, void* udcfin, void* uh0, void* uc0, void* part,
+                         int W, int B, int H, int act, int bf16, int rows,
+                         int splits, int rows_per_split, int device, void* stream) {
+  if (h0 == nullptr || c0 == nullptr || udcfin == nullptr || uh0 == nullptr ||
+      uc0 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AdjArgs a{xz, rec, static_cast<const float*>(v), static_cast<const float*>(hs),
+                  static_cast<const float*>(cs), static_cast<const float*>(dhT),
+                  static_cast<const float*>(dcT), static_cast<const float*>(u),
+                  static_cast<const float*>(h0), static_cast<const float*>(c0),
+                  static_cast<const float*>(muh0), static_cast<const float*>(muc0),
+                  static_cast<float*>(uxz), static_cast<float*>(uhs),
+                  static_cast<float*>(ucs), static_cast<float*>(udhs),
+                  static_cast<float*>(dzw), static_cast<float*>(udcfin),
+                  static_cast<float*>(uh0), static_cast<float*>(uc0), W, B, H, rows};
+  return run(a, urec, part, act, bf16, splits, rows_per_split, device, stream);
 }
 
 }  // extern "C"

@@ -113,7 +113,8 @@ def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:
     ``signatures`` maps each C function to ``(restype, [argtypes])``;
     they are declared once, when the library is first loaded.  Pointers
     and the stream must be ``ctypes.c_void_p``, or ctypes passes them as
-    32-bit ints.
+    32-bit ints.  A function the library lacks (an older ``csrc`` tree,
+    built to compare against) is skipped; calling it raises.
     """
     with _lock:
         lib = _libs.get(name)
@@ -122,7 +123,8 @@ def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:
         _build_locked([name])
         lib = ctypes.CDLL(str(_target(name)))
         for fn, (restype, argtypes) in (signatures or {}).items():
-            f = getattr(lib, fn)
-            f.restype, f.argtypes = restype, argtypes
+            f = getattr(lib, fn, None)
+            if f is not None:
+                f.restype, f.argtypes = restype, argtypes
         _libs[name] = lib
         return lib

@@ -2,9 +2,10 @@
 plain versions, dispatch and autograd.
 
 Counterpart of ``hfrep_tpu/ops/pallas_lstm.py`` (``_fwd_kernel`` in its
-primal and ``with_cs`` modes, ``_bwd_kernel``, ``_adj_kernel``, and the
-nested ``custom_vjp``s ``lstm_seq`` / ``lstm_fwd_res`` /
-``lstm_bwd_seq`` over them).  The fused two-layer stack of the MTSS
+primal and ``with_cs`` modes, ``_bwd_kernel``, ``_adj_kernel``, each also
+in its carry mode, and the nested ``custom_vjp``s ``lstm_seq`` /
+``lstm_fwd_res`` / ``lstm_bwd_seq`` and ``lstm_seq_carry`` /
+``lstm_fwd_res_carry`` / ``lstm_bwd_seq_carry`` over them).  The fused two-layer stack of the MTSS
 critics (``pallas_lstm_stack.py``, three more kernels) is
 :mod:`hfrep_tpu_torch.ops.cuda_lstm_stack`, built the same way on this
 module's helpers and launch counters.  Four layers:
@@ -26,14 +27,20 @@ module's helpers and launch counters.  Four layers:
 * autograd — :class:`LSTMFwdRes` and :class:`LSTMBwdSeq`, nested as the
   JAX ``custom_vjp``s are, so the WGAN-GP penalty's second order runs
   the adjoint kernel; :func:`lstm_seq` and :func:`keras_lstm` are the
-  differentiable entries.
+  differentiable entries.  The carry modes (an injected initial (h0, c0),
+  the final c out, the cotangents of h0, c0 and of the final c) have
+  their own pair, :class:`LSTMFwdResCarry` and :class:`LSTMBwdSeqCarry`,
+  behind :func:`lstm_seq_carry`, :func:`lstm_fwd_res_carry` and
+  :func:`lstm_bwd_seq_carry`: a window run in chunks that pass (h, c)
+  from one to the next, at first and second order.
 
 The layout is the unpadded Keras one: xz (W, B, 4H) time-major with
 gate blocks [i, f, c, o], rec (H, 4H).  The TPU kernels' 128-lane gate
 padding is a TPU fact and is not carried over.  Gates are sigmoid;
 ``activation`` (sigmoid, tanh or linear) transforms the candidate and
 the output.  xz and rec stream as float32 or bf16; h, c, the gate math,
-the accumulation and every other array are float32.  A float32 vector
+the accumulation and every other array are float32 (the carries h0, c0,
+their cotangents and dc_fin too).  A float32 vector
 dotted with rec or recᵀ is first rounded to rec's dtype, as the TPU
 kernels cast it.
 """
@@ -67,6 +74,9 @@ _SIGNATURES = {
                                 _I, _I, _I,              # W, B, H
                                 _I, _I, _I, _I,          # act, bf16, rows, device
                                 _P]),                    # stream
+        "hfrep_lstm_fwd_carry": (_I, [_P] * 7             # xz rec h0 c0 hs cs cfin
+                                 + [_I] * 7              # W B H act bf16 rows device
+                                 + [_P]),
         "hfrep_max_smem_optin": (_I, [_I]),
         "hfrep_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -74,11 +84,16 @@ _SIGNATURES = {
         "hfrep_lstm_bwd": (_I, [_P] * 11                 # xz rec hs cs dhs dcs dxz dhT dcT drec part
                            + [_I] * 9                    # W B H act bf16 rows splits rps device
                            + [_P]),                      # stream
+        # xz rec hs cs dhs dcs h0 c0 dcfin dxz dhT dcT dh0 dc0 drec part
+        "hfrep_lstm_bwd_carry": (_I, [_P] * 16 + [_I] * 9 + [_P]),
     },
     "lstm_adj": {
         "hfrep_lstm_adj": (_I, [_P] * 15                 # xz rec v hs cs dhT dcT u uxz uhs ucs udhs urec dzw part
                            + [_I] * 9
                            + [_P]),
+        # xz rec v hs cs dhT dcT u h0 c0 muh0 muc0 uxz uhs ucs udhs urec dzw
+        # udcfin uh0 uc0 part
+        "hfrep_lstm_adj_carry": (_I, [_P] * 22 + [_I] * 9 + [_P]),
     },
 }
 
@@ -91,12 +106,18 @@ launches = 0                # lstm_fwd, primal mode
 launches_cs = 0             # lstm_fwd, with_cs mode
 launches_bwd = 0            # lstm_bwd
 launches_adj = 0            # lstm_adj
+launches_fwd_carry = 0      # lstm_fwd, carry primal mode
+launches_cs_carry = 0       # lstm_fwd, carry with_cs mode
+launches_bwd_carry = 0      # lstm_bwd, carry0 mode (with any mix of dcs, carries)
+launches_adj_carry = 0      # lstm_adj, carry mode
 launches_stack_fwd = 0      # stack_fwd, primal mode
 launches_stack_res = 0      # stack_fwd, with_res mode
 launches_stack_bwd = 0      # stack_bwd
 launches_stack_adj = 0      # stack_adj
 _COUNTERS = {"lstm_fwd": "launches", "lstm_fwd_cs": "launches_cs",
              "lstm_bwd": "launches_bwd", "lstm_adj": "launches_adj",
+             "lstm_fwd_carry": "launches_fwd_carry", "lstm_fwd_cs_carry": "launches_cs_carry",
+             "lstm_bwd_carry": "launches_bwd_carry", "lstm_adj_carry": "launches_adj_carry",
              "stack_fwd": "launches_stack_fwd", "stack_fwd_res": "launches_stack_res",
              "stack_bwd": "launches_stack_bwd", "stack_adj": "launches_stack_adj"}
 _count_lock = threading.Lock()
@@ -110,7 +131,8 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     """``{kernel: launches}`` for lstm_fwd, lstm_fwd_cs, lstm_bwd, lstm_adj,
-    stack_fwd, stack_fwd_res, stack_bwd and stack_adj."""
+    their carry modes (lstm_fwd_carry, lstm_fwd_cs_carry, lstm_bwd_carry,
+    lstm_adj_carry), stack_fwd, stack_fwd_res, stack_bwd and stack_adj."""
     with _count_lock:
         return {k: globals()[var] for k, var in _COUNTERS.items()}
 
@@ -233,6 +255,34 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _carry_pair(fn: str, name: str, pair, nullable: bool = False) -> tuple:
+    """``pair`` as a 2-tuple of tensors ((None, None) for None); with
+    ``nullable`` either may be None."""
+    if pair is None:
+        return None, None
+    if not (isinstance(pair, (tuple, list)) and len(pair) == 2
+            and (nullable or all(t is not None for t in pair))):
+        raise TypeError(f"{fn}: {name} is a pair of (B, H) tensors")
+    return tuple(pair)
+
+
+def _no_carry_extra(fn: str, carry, name: str, extra) -> None:
+    if carry is None and extra is not None:
+        raise ValueError(f"{fn}: {name} belongs to the carry mode; pass carry=(h0, c0)")
+
+
+def _check_carry(fn: str, device: torch.device, state: tuple, named: dict) -> None:
+    """The carry modes' (B, H) tensors (None skipped): float32, contiguous,
+    on xz's device, of shape ``state``, not needing a gradient."""
+    _check_f32(fn, device, {k: (t, state) for k, t in named.items()})
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in named.values()):
+        raise NotImplementedError(
+            f"{fn} is not differentiable itself: differentiate through "
+            f"cuda_lstm.lstm_seq_carry, whose autograd runs the backward and "
+            f"adjoint kernels")
+
+
 def _launch_setup(xz: torch.Tensor, b: int, h: int, kernel: str) -> tuple:
     """(device index, rows per block, SM count, stream), after the fit
     check."""
@@ -250,91 +300,161 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 def lstm_fwd_cuda(xz: torch.Tensor, rec: torch.Tensor,
-                  activation: Optional[str] = "tanh", with_cs: bool = False):
+                  activation: Optional[str] = "tanh", with_cs: bool = False,
+                  carry: Optional[tuple] = None):
     """Launch ``csrc/lstm_fwd.cu``: xz (W, B, 4H), rec (H, 4H) → hs
     (W, B, H) float32, and with ``with_cs`` also cs (W, B, H) float32, on
-    CUDA tensors only."""
+    CUDA tensors only.  ``carry`` = (h0, c0), float32 (B, H): h and c start
+    there; without ``with_cs`` the result is then (hs, c_fin), the final
+    c (B, H)."""
     act = act_code(activation)
     w, b, h = _check_operands("lstm_fwd_cuda", xz, rec)
+    h0, c0 = _carry_pair("lstm_fwd_cuda", "carry", carry)
+    if carry is not None:
+        _check_carry("lstm_fwd_cuda", xz.device, (b, h), {"h0": h0, "c0": c0})
     hs = torch.empty((w, b, h), dtype=torch.float32, device=xz.device)
     cs = torch.empty_like(hs) if with_cs else None
+    c_fin = None
+    if carry is not None and not with_cs:
+        c_fin = torch.empty((b, h), dtype=torch.float32, device=xz.device)
+    out = (hs, cs) if with_cs else (hs, c_fin) if c_fin is not None else hs
     if w == 0 or b == 0:
-        return (hs, cs) if with_cs else hs
+        if c_fin is not None:
+            c_fin.copy_(c0)
+        return out
     dev, rows, _, stream = _launch_setup(xz, b, h, "lstm_fwd")
-    err = _lib().hfrep_lstm_fwd(xz.data_ptr(), rec.data_ptr(), hs.data_ptr(),
-                                _ptr(cs), w, b, h, act,
-                                int(xz.dtype == torch.bfloat16), rows, dev, stream)
+    bf16 = int(xz.dtype == torch.bfloat16)
+    if carry is None:
+        err = _lib().hfrep_lstm_fwd(xz.data_ptr(), rec.data_ptr(), hs.data_ptr(),
+                                    _ptr(cs), w, b, h, act, bf16, rows, dev, stream)
+    else:
+        err = _lib().hfrep_lstm_fwd_carry(
+            xz.data_ptr(), rec.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+            _ptr(cs), _ptr(c_fin), w, b, h, act, bf16, rows, dev, stream)
     _raise_on(err, "lstm_fwd")
-    _count_launch("lstm_fwd_cs" if with_cs else "lstm_fwd")
-    return (hs, cs) if with_cs else hs
+    _count_launch("lstm_fwd" + ("_cs" if with_cs else "") + ("_carry" if carry else ""))
+    return out
 
 
 def lstm_bwd_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
                   cs: torch.Tensor, dhs: torch.Tensor,
                   dcs: Optional[torch.Tensor] = None,
                   activation: Optional[str] = "tanh",
-                  with_carries: bool = False) -> tuple:
+                  with_carries: bool = False,
+                  carry: Optional[tuple] = None,
+                  dc_fin: Optional[torch.Tensor] = None) -> tuple:
     """Launch ``csrc/lstm_bwd.cu``: (dxz (W, B, 4H), drec (H, 4H)) and,
     with ``with_carries``, the per-step (dhT, dcT) (W, B, H); every output
-    float32.  ``dcs`` is an optional direct cotangent on cs."""
+    float32.  ``dcs`` is an optional direct cotangent on cs.  ``carry`` =
+    (h0, c0) is the carry0 mode: step 0's previous state is (h0, c0), the
+    dc carry starts at ``dc_fin`` (the final c's cotangent; None: zero),
+    and (dh0, dc0) (B, H) are appended."""
     act = act_code(activation)
     w, b, h = _check_operands("lstm_bwd_cuda", xz, rec)
     seq = (w, b, h)
     _check_f32("lstm_bwd_cuda", xz.device,
                {"hs": (hs, seq), "cs": (cs, seq), "dhs": (dhs, seq), "dcs": (dcs, seq)})
+    h0, c0 = _carry_pair("lstm_bwd_cuda", "carry", carry)
+    _no_carry_extra("lstm_bwd_cuda", carry, "dc_fin", dc_fin)
+    if carry is not None:
+        _check_carry("lstm_bwd_cuda", xz.device, (b, h), {"h0": h0, "c0": c0, "dc_fin": dc_fin})
     f32 = dict(dtype=torch.float32, device=xz.device)
     dxz = torch.empty((w, b, 4 * h), **f32)
     drec = torch.empty((h, 4 * h), **f32)
     dhT = torch.empty(seq, **f32) if with_carries else None
     dcT = torch.empty(seq, **f32) if with_carries else None
-    outs = (dxz, drec) + ((dhT, dcT) if with_carries else ())
+    dh0 = torch.empty((b, h), **f32) if carry is not None else None
+    dc0 = torch.empty((b, h), **f32) if carry is not None else None
+    outs = ((dxz, drec) + ((dhT, dcT) if with_carries else ())
+            + ((dh0, dc0) if carry is not None else ()))
     if w == 0 or b == 0:
         drec.zero_()
+        if carry is not None:
+            dh0.zero_()
+            dc0.zero_()
+            if dc_fin is not None:
+                dc0.copy_(dc_fin)
         return outs
     dev, rows, sms, stream = _launch_setup(xz, b, h, "lstm_bwd")
     splits, per = reduce_splits(w * b, h, sms)
     part = torch.empty((splits, h, 4 * h), **f32) if splits > 1 else None
-    err = _lib("lstm_bwd").hfrep_lstm_bwd(
-        xz.data_ptr(), rec.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-        _ptr(dcs), dxz.data_ptr(), _ptr(dhT), _ptr(dcT), drec.data_ptr(), _ptr(part),
-        w, b, h, act, int(xz.dtype == torch.bfloat16), rows, splits, per, dev, stream)
+    bf16 = int(xz.dtype == torch.bfloat16)
+    if carry is None:
+        err = _lib("lstm_bwd").hfrep_lstm_bwd(
+            xz.data_ptr(), rec.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+            _ptr(dcs), dxz.data_ptr(), _ptr(dhT), _ptr(dcT), drec.data_ptr(), _ptr(part),
+            w, b, h, act, bf16, rows, splits, per, dev, stream)
+    else:
+        err = _lib("lstm_bwd").hfrep_lstm_bwd_carry(
+            xz.data_ptr(), rec.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+            _ptr(dcs), h0.data_ptr(), c0.data_ptr(), _ptr(dc_fin), dxz.data_ptr(),
+            _ptr(dhT), _ptr(dcT), dh0.data_ptr(), dc0.data_ptr(), drec.data_ptr(),
+            _ptr(part), w, b, h, act, bf16, rows, splits, per, dev, stream)
     _raise_on(err, "lstm_bwd")
-    _count_launch("lstm_bwd")
+    _count_launch("lstm_bwd" if carry is None else "lstm_bwd_carry")
     return outs
 
 
 def lstm_adj_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
                   cs: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
                   u: torch.Tensor, v: torch.Tensor,
-                  activation: Optional[str] = "tanh") -> tuple:
+                  activation: Optional[str] = "tanh",
+                  carry: Optional[tuple] = None,
+                  mu0: Optional[tuple] = None) -> tuple:
     """Launch ``csrc/lstm_adj.cu``: given u = cot(dxz) (W, B, 4H) and
     v = cot(drec) (H, 4H), the cotangents (uxz, urec, uhs, ucs, udhs) of
-    the backward's inputs xz, rec, hs, cs and dhs, all float32."""
+    the backward's inputs xz, rec, hs, cs and dhs, all float32.  Carry
+    mode: ``carry`` = (h0, c0) the backward's injected state and ``mu0`` =
+    (muh0, muc0) the cotangents of its (dh0, dc0) (either None: zero);
+    (u_dcfin, uh0, uc0), the cotangents of dc_fin, h0 and c0, are appended."""
     act = act_code(activation)
     w, b, h = _check_operands("lstm_adj_cuda", xz, rec)
     seq = (w, b, h)
     _check_f32("lstm_adj_cuda", xz.device,
                {"hs": (hs, seq), "cs": (cs, seq), "dhT": (dhT, seq), "dcT": (dcT, seq),
                 "u": (u, (w, b, 4 * h)), "v": (v, (h, 4 * h))})
+    h0, c0 = _carry_pair("lstm_adj_cuda", "carry", carry)
+    muh0, muc0 = _carry_pair("lstm_adj_cuda", "mu0", mu0, nullable=True)
+    _no_carry_extra("lstm_adj_cuda", carry, "mu0", mu0)
+    if carry is not None:
+        _check_carry("lstm_adj_cuda", xz.device, (b, h),
+                     {"h0": h0, "c0": c0, "muh0": muh0, "muc0": muc0})
     f32 = dict(dtype=torch.float32, device=xz.device)
     uxz = torch.empty((w, b, 4 * h), **f32)
     urec = torch.empty((h, 4 * h), **f32)
     uhs, ucs, udhs = (torch.empty(seq, **f32) for _ in range(3))
+    tail = tuple(torch.empty((b, h), **f32) for _ in range(3)) if carry is not None else ()
+    outs = (uxz, urec, uhs, ucs, udhs) + tail
     if w == 0 or b == 0:
         urec.zero_()
-        return uxz, urec, uhs, ucs, udhs
+        for t in tail:
+            t.zero_()
+        if tail and muc0 is not None:
+            tail[0].copy_(muc0)
+        return outs
     dev, rows, sms, stream = _launch_setup(xz, b, h, "lstm_adj")
     splits, per = reduce_splits(w * b, h, sms)
     part = torch.empty((splits, h, 4 * h), **f32) if splits > 1 else None
     dzw = torch.empty((w, b, 4 * h), **f32)          # the backward's dz, for urec
-    err = _lib("lstm_adj").hfrep_lstm_adj(
-        xz.data_ptr(), rec.data_ptr(), v.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        dhT.data_ptr(), dcT.data_ptr(), u.data_ptr(), uxz.data_ptr(), uhs.data_ptr(),
-        ucs.data_ptr(), udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(), _ptr(part),
-        w, b, h, act, int(xz.dtype == torch.bfloat16), rows, splits, per, dev, stream)
+    bf16 = int(xz.dtype == torch.bfloat16)
+    if carry is None:
+        err = _lib("lstm_adj").hfrep_lstm_adj(
+            xz.data_ptr(), rec.data_ptr(), v.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            dhT.data_ptr(), dcT.data_ptr(), u.data_ptr(), uxz.data_ptr(), uhs.data_ptr(),
+            ucs.data_ptr(), udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(), _ptr(part),
+            w, b, h, act, bf16, rows, splits, per, dev, stream)
+    else:
+        udcfin, uh0, uc0 = tail
+        err = _lib("lstm_adj").hfrep_lstm_adj_carry(
+            xz.data_ptr(), rec.data_ptr(), v.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            dhT.data_ptr(), dcT.data_ptr(), u.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            _ptr(muh0), _ptr(muc0), uxz.data_ptr(), uhs.data_ptr(), ucs.data_ptr(),
+            udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(), udcfin.data_ptr(),
+            uh0.data_ptr(), uc0.data_ptr(), _ptr(part),
+            w, b, h, act, bf16, rows, splits, per, dev, stream)
     _raise_on(err, "lstm_adj")
-    _count_launch("lstm_adj")
-    return uxz, urec, uhs, ucs, udhs
+    _count_launch("lstm_adj" if carry is None else "lstm_adj_carry")
+    return outs
 
 
 # ------------------------------------------------------ the plain versions
@@ -346,9 +466,12 @@ def _rounder(rec: torch.Tensor):
     return lambda x: x.to(rec.dtype).float()
 
 
-def _shifted(seq: torch.Tensor) -> torch.Tensor:
-    """Per-step previous-state sequence: step 0 sees zeros."""
-    return torch.cat([torch.zeros_like(seq[:1]), seq[:-1]], dim=0)
+def _shifted(seq: torch.Tensor, first: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-step previous-state sequence: step 0 sees zeros, or the
+    injected state ``first`` (B, H)."""
+    head = torch.zeros_like(seq[:1]) if first is None else first[None].to(seq.dtype)
+    return torch.cat([head, seq[:-1]], dim=0)
+
 
 
 def _gates(z: torch.Tensor, h: int, act):
@@ -357,20 +480,26 @@ def _gates(z: torch.Tensor, h: int, act):
 
 
 def lstm_seq_plain(xz: torch.Tensor, rec: torch.Tensor,
-                   activation: Optional[str] = "tanh", with_cs: bool = False):
+                   activation: Optional[str] = "tanh", with_cs: bool = False,
+                   carry: Optional[tuple] = None):
     """The forward kernel's function as a plain step loop
     (``lstm_cell_step``): hs (W, B, H) float32, and with ``with_cs`` also
     cs.  h is rounded to the operand dtype before the dot; the dot (exact
     products of bf16 values, summed in float32), state and gate math are
-    float32.  Built from differentiable torch ops, so torch's own autograd
-    can differentiate it (the tests' reference)."""
+    float32.  ``carry`` = (h0, c0): h and c start there, and without
+    ``with_cs`` the result is (hs, c_fin).  Built from differentiable
+    torch ops, so torch's own autograd can differentiate it (the tests'
+    reference)."""
     act = _PLAIN_ACT[act_code(activation)]
     w, b, g = xz.shape
     h = g // 4
     rec32 = rec.float()
     rnd = _rounder(rec)
-    h_t = torch.zeros((b, h), dtype=torch.float32, device=xz.device)
-    c = torch.zeros_like(h_t)
+    if carry is None:
+        h_t = torch.zeros((b, h), dtype=torch.float32, device=xz.device)
+        c = torch.zeros_like(h_t)
+    else:
+        h_t, c = carry[0].float(), carry[1].float()
     hs, cs = [], []
     for t in range(w):
         z = xz[t].float() + rnd(h_t) @ rec32
@@ -381,31 +510,37 @@ def lstm_seq_plain(xz: torch.Tensor, rec: torch.Tensor,
         cs.append(c)
     empty = torch.zeros((0, b, h), dtype=torch.float32, device=xz.device)
     hs_t = torch.stack(hs) if hs else empty
-    if not with_cs:
-        return hs_t
-    return hs_t, (torch.stack(cs) if cs else empty.clone())
+    if with_cs:
+        return hs_t, (torch.stack(cs) if cs else empty.clone())
+    return hs_t if carry is None else (hs_t, c)
 
 
 def lstm_bwd_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
                    cs: torch.Tensor, dhs: torch.Tensor,
                    dcs: Optional[torch.Tensor] = None,
                    activation: Optional[str] = "tanh",
-                   with_carries: bool = False) -> tuple:
+                   with_carries: bool = False,
+                   carry: Optional[tuple] = None,
+                   dc_fin: Optional[torch.Tensor] = None) -> tuple:
     """The backward kernel's function as a plain reverse-time step loop
-    (``_bwd_kernel`` / ``_lstm_bwd_scan``): (dxz, drec) [+ (dhT, dcT)]."""
+    (``_bwd_kernel`` / ``_lstm_bwd_scan``): (dxz, drec) [+ (dhT, dcT)]
+    [+ (dh0, dc0) in the carry0 mode, ``carry`` = (h0, c0), with the dc
+    carry starting at ``dc_fin``]."""
+    _no_carry_extra("lstm_bwd_plain", carry, "dc_fin", dc_fin)
     code = act_code(activation)
     act, p = _PLAIN_ACT[code], _PRIME[code]
     w, b, g = xz.shape
     h = g // 4
     rec32 = rec.float()
     rnd = _rounder(rec)
-    h_prev, c_prev = _shifted(hs), _shifted(cs)
+    h0, c0 = (None, None) if carry is None else carry
+    h_prev, c_prev = _shifted(hs, h0), _shifted(cs, c0)
     f32 = dict(dtype=torch.float32, device=xz.device)
     dxz = torch.empty((w, b, g), **f32)
     dhT = torch.empty((w, b, h), **f32)
     dcT = torch.empty((w, b, h), **f32)
     dh_c = torch.zeros((b, h), **f32)
-    dc_c = torch.zeros((b, h), **f32)
+    dc_c = torch.zeros((b, h), **f32) if dc_fin is None else dc_fin.float().clone()
     for t in reversed(range(w)):
         z = xz[t].float() + rnd(h_prev[t]) @ rec32
         i, f, gc, o = _gates(z, h, act)
@@ -426,7 +561,8 @@ def lstm_bwd_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
         dh_c = rnd(dz) @ rec32.T
         dc_c = dc * f
     drec = h_prev.reshape(w * b, h).T @ dxz.reshape(w * b, g)
-    return (dxz, drec, dhT, dcT) if with_carries else (dxz, drec)
+    outs = (dxz, drec, dhT, dcT) if with_carries else (dxz, drec)
+    return outs if carry is None else outs + (dh_c, dc_c)
 
 
 def _adj_step(code: int, z, c, c_prev, dh, dc, muc, dzbar) -> tuple:
@@ -471,22 +607,29 @@ def _adj_step(code: int, z, c, c_prev, dh, dc, muc, dzbar) -> tuple:
 def lstm_adj_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
                    cs: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
                    u: torch.Tensor, v: torch.Tensor,
-                   activation: Optional[str] = "tanh") -> tuple:
+                   activation: Optional[str] = "tanh",
+                   carry: Optional[tuple] = None,
+                   mu0: Optional[tuple] = None) -> tuple:
     """The adjoint kernel's function as a plain forward-time step loop
     (``_adj_kernel``, with ``_adj_call``'s output shift):
-    (uxz, urec, uhs, ucs, udhs)."""
+    (uxz, urec, uhs, ucs, udhs) [+ (u_dcfin, uh0, uc0) in the carry mode,
+    ``carry`` = (h0, c0), with the adjoint carries starting at ``mu0`` =
+    (muh0, muc0), either None: zero]."""
+    _no_carry_extra("lstm_adj_plain", carry, "mu0", mu0)
     code = act_code(activation)
     w, b, g = xz.shape
     h = g // 4
     rec32 = rec.float()
     rnd = _rounder(rec)
-    h_prev, c_prev = _shifted(hs), _shifted(cs)
+    h0, c0 = (None, None) if carry is None else carry
+    h_prev, c_prev = _shifted(hs, h0), _shifted(cs, c0)
     f32 = dict(dtype=torch.float32, device=xz.device)
     uxz = torch.empty((w, b, g), **f32)
     uhp, ucp, uc, udhs = (torch.empty((w, b, h), **f32) for _ in range(4))
     urec = torch.zeros((h, g), **f32)
-    muh = torch.zeros((b, h), **f32)
-    muc = torch.zeros((b, h), **f32)
+    muh0, muc0 = (None, None) if mu0 is None else mu0
+    muh = torch.zeros((b, h), **f32) if muh0 is None else muh0.float()
+    muc = torch.zeros((b, h), **f32) if muc0 is None else muc0.float()
     for t in range(w):
         hp_s, cp_s, dh, dc = h_prev[t], c_prev[t], dhT[t], dcT[t]
         z = xz[t].float() + rnd(hp_s) @ rec32
@@ -504,7 +647,12 @@ def lstm_adj_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
     zero = torch.zeros_like(uhp[:1])
     uhs = torch.cat([uhp[1:], zero], dim=0)
     ucs = uc + torch.cat([ucp[1:], zero], dim=0)
-    return uxz, urec, uhs, ucs, udhs
+    if carry is None:
+        return uxz, urec, uhs, ucs, udhs
+    # step 0's previous state is the injected carry itself; the last
+    # step's dcTbar is the cotangent of the dc carry the backward started at
+    first = (uhp[0], ucp[0]) if w else (torch.zeros((b, h), **f32),) * 2
+    return (uxz, urec, uhs, ucs, udhs, muc) + first
 
 
 # ---------------------------------------------------------------- dispatch
@@ -518,27 +666,30 @@ def _device_rule(xz: torch.Tensor, what: str) -> bool:
 
 
 def lstm_fwd(xz: torch.Tensor, rec: torch.Tensor,
-             activation: Optional[str] = "tanh", with_cs: bool = False):
-    """hs [, cs]: the forward kernel on a CUDA tensor, the plain version
-    on a CPU tensor.  Not differentiable; see :func:`lstm_seq`."""
+             activation: Optional[str] = "tanh", with_cs: bool = False,
+             carry: Optional[tuple] = None):
+    """hs [, cs] (carry mode without cs: hs, c_fin): the forward kernel on
+    a CUDA tensor, the plain version on a CPU tensor.  Not differentiable;
+    see :func:`lstm_seq` and :func:`lstm_seq_carry`."""
     if _device_rule(xz, "forward"):
-        return lstm_fwd_cuda(xz, rec, activation, with_cs)
-    return lstm_seq_plain(xz, rec, activation, with_cs)
+        return lstm_fwd_cuda(xz, rec, activation, with_cs, carry)
+    return lstm_seq_plain(xz, rec, activation, with_cs, carry)
 
 
 def lstm_bwd(xz, rec, hs, cs, dhs, dcs=None, activation="tanh",
-             with_carries=False) -> tuple:
+             with_carries=False, carry=None, dc_fin=None) -> tuple:
     """The backward sweep: the kernel on a CUDA tensor, the plain version
     on a CPU tensor.  Not differentiable; see :class:`LSTMBwdSeq`."""
     fn = lstm_bwd_cuda if _device_rule(xz, "backward") else lstm_bwd_plain
-    return fn(xz, rec, hs, cs, dhs, dcs, activation, with_carries)
+    return fn(xz, rec, hs, cs, dhs, dcs, activation, with_carries, carry, dc_fin)
 
 
-def lstm_adj(xz, rec, hs, cs, dhT, dcT, u, v, activation="tanh") -> tuple:
+def lstm_adj(xz, rec, hs, cs, dhT, dcT, u, v, activation="tanh", carry=None,
+             mu0=None) -> tuple:
     """The adjoint sweep: the kernel on a CUDA tensor, the plain version
     on a CPU tensor."""
     fn = lstm_adj_cuda if _device_rule(xz, "adjoint") else lstm_adj_plain
-    return fn(xz, rec, hs, cs, dhT, dcT, u, v, activation)
+    return fn(xz, rec, hs, cs, dhT, dcT, u, v, activation, carry, mu0)
 
 
 # ---------------------------------------------------------------- autograd
@@ -627,6 +778,121 @@ def lstm_seq(xz: torch.Tensor, rec: torch.Tensor,
     if torch.is_grad_enabled() and (xz.requires_grad or rec.requires_grad):
         return LSTMFwdRes.apply(xz, rec, activation)[0]
     return lstm_fwd(xz, rec, activation)
+
+
+class LSTMFwdResCarry(torch.autograd.Function):
+    """``lstm_fwd_res_carry`` and ``lstm_seq_carry``'s residual forward:
+    (xz, rec, h0, c0) → (hs, cs, c_fin) through the forward kernel in its
+    carry ``with_cs`` mode.
+
+    c_fin (= cs[-1]) is an output of its own, not a slice of cs taken
+    outside: its cotangent then arrives here as ``dc_fin``, which seeds the
+    carry backward's dc carry (``_lstm_seq_carry_bwd``), where a slice's
+    would arrive as a direct cs cotangent, which a recorded backward
+    refuses.  As :class:`LSTMFwdRes`, the backward is the differentiable
+    :class:`LSTMBwdSeqCarry` while autograd is recording and the raw
+    carry0 backward kernel otherwise, with the direct cs cotangent (its
+    ``dcs`` mode) that the adjoint sends at second order, and dc_fin."""
+
+    @staticmethod
+    def forward(ctx, xz, rec, h0, c0, activation):
+        hs, cs = lstm_fwd(xz, rec, activation, with_cs=True, carry=(h0, c0))
+        c_fin = cs[-1].clone() if cs.shape[0] else c0.clone()
+        ctx.save_for_backward(xz, rec, h0, c0, hs, cs)
+        ctx.activation = activation
+        ctx.set_materialize_grads(False)
+        return hs, cs, c_fin
+
+    @staticmethod
+    def backward(ctx, dhs, dcs, dc_fin):
+        xz, rec, h0, c0, hs, cs = ctx.saved_tensors
+        dhs = torch.zeros_like(hs) if dhs is None else _f32(dhs)
+        dc_fin = torch.zeros_like(h0) if dc_fin is None else _f32(dc_fin)
+        if torch.is_grad_enabled():
+            if dcs is not None:
+                raise NotImplementedError(
+                    "LSTM: a recorded backward with a cell-state cotangent "
+                    "(third order) is not supported")
+            dxz, drec, dh0, dc0 = LSTMBwdSeqCarry.apply(xz, rec, hs, cs, dhs, dc_fin,
+                                                        h0, c0, ctx.activation)
+        else:
+            dcs = None if dcs is None else _f32(dcs)
+            dxz, drec, dh0, dc0 = lstm_bwd(xz, rec, hs, cs, dhs, dcs, ctx.activation,
+                                           carry=(h0, c0), dc_fin=dc_fin)
+        return _cast_like(dxz, xz), _cast_like(drec, rec), dh0, dc0, None
+
+
+class LSTMBwdSeqCarry(torch.autograd.Function):
+    """``lstm_bwd_seq_carry``: the first-order carry backward (dxz, drec,
+    dh0, dc0) as a differentiable-once node.  Its forward runs the
+    backward kernel in its carry0 mode with the per-step carries; its
+    backward is the adjoint kernel in its carry mode, returning the
+    cotangents of xz, rec, hs, cs, dhs, dc_fin, h0 and c0."""
+
+    @staticmethod
+    def forward(ctx, xz, rec, hs, cs, dhs, dc_fin, h0, c0, activation):
+        dxz, drec, dhT, dcT, dh0, dc0 = lstm_bwd(
+            xz, rec, hs, cs, dhs, None, activation, with_carries=True, carry=(h0, c0),
+            dc_fin=dc_fin)
+        ctx.save_for_backward(xz, rec, hs, cs, h0, c0, dhT, dcT)
+        ctx.activation = activation
+        ctx.set_materialize_grads(False)
+        return dxz, drec, dh0, dc0
+
+    @staticmethod
+    def backward(ctx, u, v, muh0, muc0):
+        if torch.is_grad_enabled():
+            raise NotImplementedError("LSTM: third-order derivatives are not supported")
+        xz, rec, hs, cs, h0, c0, dhT, dcT = ctx.saved_tensors
+        u = torch.zeros(xz.shape, dtype=torch.float32, device=xz.device) if u is None else _f32(u)
+        v = torch.zeros(rec.shape, dtype=torch.float32, device=xz.device) if v is None else _f32(v)
+        mu0 = tuple(None if m is None else _f32(m) for m in (muh0, muc0))
+        uxz, urec, uhs, ucs, udhs, udcfin, uh0, uc0 = lstm_adj(
+            xz, rec, hs, cs, dhT, dcT, u, v, ctx.activation, carry=(h0, c0), mu0=mu0)
+        return (_cast_like(uxz, xz), _cast_like(urec, rec), uhs, ucs, udhs, udcfin,
+                uh0, uc0, None)
+
+
+def _recording(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def lstm_seq_carry(xz: torch.Tensor, rec: torch.Tensor, h0: torch.Tensor,
+                   c0: torch.Tensor, activation: Optional[str] = "tanh") -> tuple:
+    """A chunk of the recurrence from the injected state (h0, c0), float32
+    (B, H): (hs (W, B, H), c_fin (B, H)), both float32; the final hidden
+    carry is hs[-1].  Twice differentiable in all four arguments, as
+    :func:`lstm_seq`: under autograd the carry ``with_cs`` forward, the
+    carry0 backward and the carry adjoint kernels; otherwise the carry
+    primal forward kernel.  Kernel on a CUDA tensor, plain version on a
+    CPU tensor."""
+    if _recording(xz, rec, h0, c0):
+        hs, _, c_fin = LSTMFwdResCarry.apply(xz, rec, h0, c0, activation)
+        return hs, c_fin
+    return lstm_fwd(xz, rec, activation, carry=(h0, c0))
+
+
+def lstm_fwd_res_carry(xz: torch.Tensor, rec: torch.Tensor, h0: torch.Tensor,
+                       c0: torch.Tensor, activation: Optional[str] = "tanh") -> tuple:
+    """The residual-producing carry forward: (hs, cs) from (h0, c0),
+    differentiable once (its backward is the carry0 backward kernel with
+    a direct cs cotangent)."""
+    if _recording(xz, rec, h0, c0):
+        hs, cs, _ = LSTMFwdResCarry.apply(xz, rec, h0, c0, activation)
+        return hs, cs
+    return lstm_fwd(xz, rec, activation, with_cs=True, carry=(h0, c0))
+
+
+def lstm_bwd_seq_carry(xz, rec, hs, cs, dhs, dc_fin, h0, c0,
+                       activation: Optional[str] = "tanh") -> tuple:
+    """The first-order carry backward (dxz, drec, dh0, dc0), differentiable
+    once through the carry adjoint kernel; ``dc_fin`` None is zero."""
+    if dc_fin is None:
+        dc_fin = torch.zeros_like(h0)
+    if _recording(xz, rec, hs, cs, dhs, dc_fin, h0, c0):
+        return LSTMBwdSeqCarry.apply(xz, rec, hs, cs, dhs, dc_fin, h0, c0, activation)
+    return lstm_bwd(xz, rec, hs, cs, dhs, None, activation, carry=(h0, c0), dc_fin=dc_fin)
 
 
 def keras_lstm(kernel: torch.Tensor, recurrent: torch.Tensor,

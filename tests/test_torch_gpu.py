@@ -12,10 +12,11 @@ the next step); the generator on the card against its CPU plain path
 adjoint kernels: max|kernel - plain| / max(1, max|plain|) within 1e-4 in
 f32 (drec and urec are sums over W*B rows in another order) and 1e-2 in
 bf16.  The fused stack's kernels (forward, backward in every mode,
-adjoint) against their plain versions at the same scaled bars.  One
-training epoch on the card against the same epoch on the CPU plain
-path, on the fused and the chained critic route: the JAX package's bar
-for its kernel-vs-scan epoch.
+adjoint) against their plain versions at the same scaled bars, and the
+single-layer kernels' carry modes the same way.  One training epoch on
+the card against the same epoch on the CPU plain path, on the fused and
+the chained critic route: the JAX package's bar for its kernel-vs-scan
+epoch.
 """
 
 from __future__ import annotations
@@ -140,6 +141,144 @@ def test_backward_and_adjoint_kernels_match_plain_on_card(card, dtype, bar):
                 assert all(_scaled(a, r) <= bar for a, r in zip(got, ref))
 
 
+def _carry_case(card, dtype, w, b, seed):
+    """Operands, a nonzero carry (scale 0.5), the forward's residuals from
+    the carry kernel and seeded cotangents."""
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    rnd = lambda *shape: 0.3 * torch.randn(shape, device=card, generator=g)  # noqa: E731
+    xz, rec = rnd(w, b, 400).to(dtype), (rnd(100, 400) / 3).to(dtype)
+    carry = (rnd(b, 100) * 5 / 3, rnd(b, 100) * 5 / 3)
+    cots = dict(dhs=rnd(w, b, 100), dcs=rnd(w, b, 100), dc_fin=rnd(b, 100),
+                u=rnd(w, b, 400), v=rnd(100, 400), mu0=(rnd(b, 100), rnd(b, 100)))
+    return xz, rec, carry, cots
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_carry_kernels_match_plain_on_card(card, dtype, bar):
+    """Each carry mode of kernels 1–3 against its plain version from a
+    nonzero (h0, c0), with dc_fin and mu0, each launch counted once on its
+    own counter."""
+    for w, b in ((48, 32), (168, 64)):
+        xz, rec, carry, c = _carry_case(card, dtype, w, b, w + b)
+        for act in ACTS:
+            with torch.no_grad():
+                for with_cs, key in ((False, "lstm_fwd_carry"), (True, "lstm_fwd_cs_carry")):
+                    before = cuda_lstm.launch_counts()[key]
+                    got = cuda_lstm.lstm_fwd(xz, rec, act, with_cs, carry)
+                    assert cuda_lstm.launch_counts()[key] == before + 1
+                    ref = cuda_lstm.lstm_seq_plain(xz, rec, act, with_cs, carry)
+                    assert max(_scaled(a, r) for a, r in zip(got, ref)) <= bar
+                hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True, carry)
+                for dcs, carries in ((None, True), (c["dcs"], False)):
+                    before = cuda_lstm.launches_bwd_carry
+                    got = cuda_lstm.lstm_bwd(xz, rec, hs, cs, c["dhs"], dcs, act, carries,
+                                             carry, c["dc_fin"])
+                    assert cuda_lstm.launches_bwd_carry == before + 1
+                    ref = cuda_lstm.lstm_bwd_plain(xz, rec, hs, cs, c["dhs"], dcs, act,
+                                                   carries, carry, c["dc_fin"])
+                    assert len(got) == len(ref) == (6 if carries else 4)
+                    errs = [_scaled(a, r) for a, r in zip(got, ref)]
+                    assert max(errs) <= bar, (w, b, act, carries, errs)
+                _, _, dhT, dcT, _, _ = cuda_lstm.lstm_bwd_cuda(
+                    xz, rec, hs, cs, c["dhs"], None, act, True, carry, c["dc_fin"])
+                before = cuda_lstm.launches_adj_carry
+                got = cuda_lstm.lstm_adj(xz, rec, hs, cs, dhT, dcT, c["u"], c["v"], act,
+                                         carry, c["mu0"])
+                assert cuda_lstm.launches_adj_carry == before + 1
+                ref = cuda_lstm.lstm_adj_plain(xz, rec, hs, cs, dhT, dcT, c["u"], c["v"], act,
+                                               carry, c["mu0"])
+                errs = [_scaled(a, r) for a, r in zip(got, ref)]
+                assert len(errs) == 8 and max(errs) <= bar, (w, b, act, errs)
+
+
+@pytest.mark.gpu
+def test_carry_wrappers_refuse_mixed_devices_and_bad_carries(card):
+    xz, rec, (h0, c0), c = _carry_case(card, torch.float32, 4, 2, 0)
+    with pytest.raises(ValueError, match="h0 on cpu"):
+        cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", carry=(h0.cpu(), c0))
+    with pytest.raises(TypeError, match="c0 must be float32"):
+        cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", carry=(h0, c0.to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="want h0"):
+        cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", carry=(h0[:1], c0))
+    hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", True, (h0, c0))
+    with pytest.raises(ValueError, match="dc_fin on cpu"):
+        cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, c["dhs"], carry=(h0, c0),
+                                dc_fin=c["dc_fin"].cpu())
+    with pytest.raises(ValueError, match="want c0"):
+        cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, c["dhs"], carry=(h0, c0.T.contiguous()))
+    with pytest.raises(TypeError, match="muh0 must be float32"):
+        cuda_lstm.lstm_adj_cuda(xz, rec, hs, cs, hs, cs, c["u"], c["v"], carry=(h0, c0),
+                                mu0=(c["mu0"][0].double(), None))
+    with pytest.raises(NotImplementedError, match="not differentiable"):
+        cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", carry=(h0.requires_grad_(True), c0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_carry_equals_carry_free_kernels_bitwise(card, dtype):
+    """A zero (h0, c0, dc_fin, mu0) through the carry modes gives the
+    carry-free kernels' results bit for bit: the reduction's head operand
+    of zeros reads as the null head the carry-free calls (and the fused
+    stack's) pass, and a zero state as the zero start."""
+    xz, rec, (h0, _), c = _carry_case(card, dtype, 48, 32, 7)
+    z = (torch.zeros_like(h0), torch.zeros_like(h0))
+    for act in ACTS:
+        with torch.no_grad():
+            hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True)
+            got = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True, z)
+            assert torch.equal(got[0], hs) and torch.equal(got[1], cs)
+            assert torch.equal(cuda_lstm.lstm_fwd_cuda(xz, rec, act, carry=z)[0],
+                               cuda_lstm.lstm_fwd_cuda(xz, rec, act))
+            for dcs, carries in ((None, False), (c["dcs"], False), (None, True)):
+                ref = cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, c["dhs"], dcs, act, carries)
+                got = cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, c["dhs"], dcs, act, carries,
+                                              z, z[0])
+                assert all(torch.equal(a, r) for a, r in zip(got, ref))
+            _, _, dhT, dcT = cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, c["dhs"], None, act, True)
+            ref = cuda_lstm.lstm_adj_cuda(xz, rec, hs, cs, dhT, dcT, c["u"], c["v"], act)
+            got = cuda_lstm.lstm_adj_cuda(xz, rec, hs, cs, dhT, dcT, c["u"], c["v"], act, z, z)
+            assert all(torch.equal(a, r) for a, r in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["sigmoid", "tanh"])
+def test_carry_chunks_through_the_kernels_match_plain(card, act):
+    """Four chunks of 12 passing (h, c) through ``lstm_seq_carry`` on the
+    card, first order and the ``gp_like`` second order, against the
+    whole window through the plain carry forward differentiated twice by
+    torch on the CPU; only the carry kernels launch."""
+    g = torch.Generator()
+    g.manual_seed(9)
+    base = [0.3 * torch.randn(48, 32, 400, generator=g), 0.1 * torch.randn(100, 400, generator=g),
+            0.5 * torch.randn(32, 100, generator=g), 0.5 * torch.randn(32, 100, generator=g)]
+
+    def gp_like(dev, chunked):
+        args = [t.to(dev).requires_grad_(True) for t in base]
+        xz, rec, h0, c0 = args
+        if chunked:
+            hs, h, c = [], h0, c0
+            for k in range(0, 48, 12):
+                hs_k, c = cuda_lstm.lstm_seq_carry(xz[k:k + 12], rec, h, c, act)
+                hs.append(hs_k)
+                h = hs_k[-1]
+            hs = torch.cat(hs)
+        else:
+            hs, c = cuda_lstm.lstm_seq_plain(xz, rec, act, carry=(h0, c0))
+        gr = torch.autograd.grad(hs.sum() + c.sum(), (xz, h0, c0), create_graph=True)
+        pen = (1.0 - torch.sqrt(sum((t ** 2).sum() for t in gr) + 1e-12)) ** 2
+        return gr + torch.autograd.grad(pen, args)
+
+    cuda_lstm.reset_launches()
+    got = gp_like(card, True)
+    launched = {k for k, n in cuda_lstm.launch_counts().items() if n}
+    assert launched == {"lstm_fwd_cs_carry", "lstm_bwd_carry", "lstm_adj_carry"}
+    ref = gp_like("cpu", False)
+    for a, r in zip(got, ref):
+        assert _scaled(a.detach(), r.detach()) <= 1e-4
+
+
 def _stack_case(card, dtype, w, b, seed):
     g = torch.Generator(device=card)
     g.manual_seed(seed)
@@ -211,6 +350,8 @@ EPOCH_LAUNCHES = {
     "chained": {"lstm_fwd": 2, "lstm_fwd_cs": 24, "lstm_bwd": 34, "lstm_adj": 10,
                 "stack_fwd": 0, "stack_fwd_res": 0, "stack_bwd": 0, "stack_adj": 0},
 }
+for _counts in EPOCH_LAUNCHES.values():       # the epochs launch no carry mode
+    _counts.update(lstm_fwd_carry=0, lstm_fwd_cs_carry=0, lstm_bwd_carry=0, lstm_adj_carry=0)
 
 
 @pytest.mark.gpu

@@ -257,5 +257,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     cuda_lstm.reset_launches()
     assert cuda_lstm.launch_counts() == {"lstm_fwd": 0, "lstm_fwd_cs": 0,
                                          "lstm_bwd": 0, "lstm_adj": 0,
+                                         "lstm_fwd_carry": 0, "lstm_fwd_cs_carry": 0,
+                                         "lstm_bwd_carry": 0, "lstm_adj_carry": 0,
                                          "stack_fwd": 0, "stack_fwd_res": 0,
                                          "stack_bwd": 0, "stack_adj": 0}
