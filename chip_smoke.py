@@ -8,9 +8,10 @@ exits non-zero on failure:
 
 1. build   — every ``hfrep_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
              one process per source, started together; prints ptxas's
-             registers and spills per kernel, and the dynamic shared
-             memory each LSTM kernel (single-layer and fused stack) asks
-             for at H=100;
+             registers and spills per kernel (and fails if an lstm_fwd
+             instantiation spills), the forward's launch rule at H=100
+             and at its wide widths, and the dynamic shared memory each
+             LSTM kernel (single-layer and fused stack) asks for at H=100;
 2. parity  — the forward kernel (primal mode) against its plain PyTorch
              version on the card, at the serving shapes (W, F) in
              {(48, 35), (168, 36)}, H=100, B in {8, 64}, activations
@@ -18,6 +19,12 @@ exits non-zero on failure:
              f32 atol 2e-5 (the dot sums in another order than
              torch.matmul), bf16 atol 1e-2 (an h that rounds differently to
              bf16 feeds the next step);
+   layout  — the forward kernel's four modes (primal, with_cs, carry
+             primal, carry with_cs) in its register layout at H=100,
+             B=133 (two batch rows a block) and in its wide layout
+             (H=120 f32, H=160 bf16; B 8 and 133), every activation,
+             against the plain version at the bars below, each launched
+             twice and bit-equal;
    grad    — the forward kernel's with_cs mode, the backward kernel (plain,
              dcs and with_carries modes) and the adjoint kernel against
              their plain versions, at the epoch's shapes W in {48, 168},
@@ -129,6 +136,10 @@ SOURCES = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_cs": "lstm_fwd.cu",
            "stack_fwd": "lstm_stack_fwd.cu", "stack_bwd": "lstm_stack_bwd.cu",
            "stack_adj": "lstm_stack_adj.cu"}
 TRAIN_PRESETS = ("mtss_wgan_gp", "mtss_wgan_gp_prod")
+#: batches whose forward layout the build phase prints; 133 is two rows a block
+FWD_BATCHES = (8, 32, 64, 133)
+#: (H, dtype) of the forward's wide layout: widths the register file cannot hold
+WIDE_CASES = ((120, "float32"), (160, "bfloat16"))
 TRAIN_EPOCHS = 3
 TRAIN_BATCHES = (32, 64)        # penalty and generator passes; critic scores (2B)
 #: the kernels each critic route's epoch must launch, and no others: the
@@ -175,6 +186,35 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int, match: str = "lstm_fwd") -> float:
+    """Mean device time, in ms, of one call of ``fn``, from
+    ``torch.profiler``'s device events over ``iters`` calls.  With a
+    ``match`` that names the one kernel a call launches, its time over
+    its own count of events (so a window the profiler did not record
+    whole is not read as a short one); with ``match=""``, every kernel of
+    the calls over ``iters``.  A kernel shorter than its wrapper's host
+    time leaves the card idle between back-to-back launches, and
+    ``time_ms`` then measures the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, calls = 0.0, 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA or match not in ev.key:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        calls += ev.count
+    calls = calls if match else iters
+    return us / calls / 1e3 if us and calls else float("nan")
+
+
 # ------------------------------------------------------------------ phases
 #: the bool template flags of each kernel, in order
 KERNEL_FLAGS = {"lstm_fwd": ("with_cs", "carry"), "lstm_bwd": ("carry",),
@@ -183,8 +223,8 @@ KERNEL_FLAGS = {"lstm_fwd": ("with_cs", "carry"), "lstm_bwd": ("carry",),
 
 def entry_name(mangled: str) -> str:
     """A readable name for a kernel's mangled entry: base<dtype,act,modes>."""
-    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj))_kernel)I(f|13__nv_bfloat16)Li(\d)E"
-                  r"((?:Lb\dE)*)", mangled)
+    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj))(?:_wide)?_kernel)I(f|13__nv_bfloat16)"
+                  r"Li(\d)E((?:Lb\dE)*)", mangled)
     if m:
         flags = re.findall(r"Lb(\d)E", m.group(5))
         mode = ""
@@ -205,6 +245,7 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
     logs = _build.build_all()
     say(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s: "
         f"{', '.join(sorted(logs))}")
+    spilled = []
     for name, log in sorted(logs.items()):
         entry = None
         for line in log.splitlines():
@@ -213,13 +254,29 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
                 entry = entry_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 say(f"[build] {name} {entry}: {line.split(':', 1)[-1].strip()}")
-    for kernel in ("lstm_fwd", "lstm_bwd", "lstm_adj"):
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if name == "lstm_fwd" and m and (int(m.group(1)) or int(m.group(2))):
+                    spilled.append(entry)
+    if spilled:
+        fail(f"lstm_fwd spills registers in {spilled}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        plans = {b: cuda_lstm.fwd_layout(HIDDEN, dt, b, sms, limit) for b in FWD_BATCHES}
+        say(f"[build] lstm_fwd layout at H={HIDDEN} {n} (layout, threads, rows a block) by B: "
+            + ", ".join(f"B={b} {p}" for b, p in plans.items())
+            + f"; {cuda_lstm.smem_bytes(HIDDEN, dt)} B of shared memory (KS={cuda_lstm.FWD_KS}, "
+            f"{cuda_lstm.FWD_KEEP} rows in registers); no spills")
+    for h, name in WIDE_CASES:
+        dt = getattr(torch, name)
+        say(f"[build] lstm_fwd layout at H={h} {name}, B=133: "
+            f"{cuda_lstm.fwd_layout(h, dt, 133, sms, limit)}, "
+            f"{cuda_lstm.smem_bytes(h, dt, -(-133 // sms))} B of shared memory")
+    for kernel in ("lstm_bwd", "lstm_adj"):
         sm = {n: cuda_lstm.smem_bytes(HIDDEN, dt, 1, kernel)
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
         say(f"[build] {kernel}: dynamic shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{cuda_lstm.smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm['f32']} B a further row)")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
     rows = [cuda_lstm_stack.stack_rows(b, HIDDEN, torch.float32, sms, limit)
             for b in TRAIN_BATCHES]
     for kernel in ("stack_fwd", "stack_bwd", "stack_adj"):
@@ -269,6 +326,63 @@ def phase_parity(torch, cuda_lstm) -> dict:
                     if not err <= BARS[name]:
                         fail(f"kernel disagrees with its plain version: {err} > "
                              f"{BARS[name]} at W={w} B={b} {act} {name}")
+    return worst
+
+
+#: the forward's four modes: (name, with_cs, carried)
+FWD_MODES = (("lstm_fwd", False, False), ("lstm_fwd_cs", True, False),
+             ("lstm_fwd_carry", False, True), ("lstm_fwd_cs_carry", True, True))
+
+
+def phase_fwd_layouts(torch, cuda_lstm) -> dict:
+    """The forward kernel's four modes in both layouts against the plain
+    version: the register layout at H=100 with B=133 (two batch rows a
+    block), the wide layout at ``WIDE_CASES`` with B in {8, 133}; W=48,
+    every activation, seeded inputs (xz 0.5 N(0,1), rec N(0,1)/sqrt(H),
+    carry 0.5 N(0,1)).  Bars: the primal abs f32 2e-5 / bf16 1e-2, the
+    other modes scaled by max(1, max|plain|), f32 1e-4 / bf16 1e-2.  Each
+    mode launched twice must give the same bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    cases = [(HIDDEN, "float32", 133), (HIDDEN, "bfloat16", 133)]
+    cases += [(h, name, b) for h, name in WIDE_CASES for b in (8, 133)]
+    worst = {}
+    for h, name, b in cases:
+        dtype = getattr(torch, name)
+        layout = cuda_lstm.fwd_layout(h, dtype, b, sms, limit)[0]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(h + b)
+        xz = (0.5 * torch.randn((48, b, 4 * h), generator=g, device="cuda")).to(dtype)
+        rec = (torch.randn((h, 4 * h), generator=g, device="cuda") / h ** 0.5).to(dtype)
+        carry = tuple(0.5 * torch.randn((b, h), generator=g, device="cuda") for _ in range(2))
+        line = []
+        for act in ACTS:
+            for mode, with_cs, carried in FWD_MODES:
+                c = carry if carried else None
+                with torch.no_grad():
+                    got = cuda_lstm.lstm_fwd_cuda(xz, rec, act, with_cs, c)
+                    again = cuda_lstm.lstm_fwd_cuda(xz, rec, act, with_cs, c)
+                    ref = cuda_lstm.lstm_seq_plain(xz, rec, act, with_cs, c)
+                torch.cuda.synchronize()
+                got, again, ref = ((x,) if torch.is_tensor(x) else x for x in (got, again, ref))
+                for a, r in zip(got, ref):
+                    if a.shape != r.shape or not torch.isfinite(a).all():
+                        fail(f"{mode} ({layout}) not finite/shaped at H={h} B={b} {act} {name}")
+                if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                    fail(f"{mode} ({layout}): two launches differ at H={h} B={b} {act} {name}")
+                if mode == "lstm_fwd":
+                    err, bar = float((got[0] - ref[0]).abs().max()), BARS[name]
+                else:
+                    err, bar = max(scaled_err(a, r) for a, r in zip(got, ref)), GRAD_BARS[name]
+                key = f"{layout} {mode} {name}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                if act == "tanh":
+                    line.append(f"{mode} {err:.2e}")
+                if not err <= bar:
+                    fail(f"{mode} ({layout}) disagrees with its plain version: {err} > {bar} "
+                         f"at H={h} B={b} {act} {name}")
+        say(f"[layout] lstm_fwd {layout} H={h} W=48 B={b} {name}: every mode within its bar "
+            f"and bitwise repeatable; tanh errors: {', '.join(line)}")
     return worst
 
 
@@ -657,6 +771,7 @@ def phase_timing(torch, cuda_lstm) -> list:
                 layer, x, xz, rec = lstm_inputs(torch, w, f, b, "sigmoid", dtype, seed=1)
                 with torch.no_grad():
                     kernel = time_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(xz, rec, "sigmoid"), 200)
+                    dev = device_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(xz, rec, "sigmoid"), 50)
                     plain = time_ms(torch, lambda: cuda_lstm.lstm_seq_plain(xz, rec, "sigmoid"), 5, 1)
                     kx = layer.kernel.to(dtype)
                     kb = layer.bias.to(dtype)
@@ -667,7 +782,7 @@ def phase_timing(torch, cuda_lstm) -> list:
                         cuda_lstm.lstm_fwd_cuda(z.transpose(0, 1).contiguous(), rec, "sigmoid")
 
                     kernel_proj = time_ms(torch, with_projection, 200)
-                    library = None
+                    library = library_dev = None
                     if name == "float32":
                         lstm = torch.nn.LSTM(f, HIDDEN).cuda()
                         lstm.weight_ih_l0.copy_(layer.kernel.T)
@@ -676,15 +791,20 @@ def phase_timing(torch, cuda_lstm) -> list:
                         lstm.bias_hh_l0.zero_()
                         xt = x.transpose(0, 1).contiguous()
                         library = time_ms(torch, lambda: lstm(xt), 200)
+                        library_dev = device_ms(torch, lambda: lstm(xt), 50, match="")
                 bnd, by = bound_ms(w, b, HIDDEN, name)
                 row = {"W": w, "F": f, "B": b, "dtype": name, "ms": kernel,
+                       "us_per_step": kernel / w * 1e3, "device_ms": dev,
                        "ms_with_projection": kernel_proj, "plain_ms": plain,
-                       "library_ms": library, "bound_ms": bnd, "bound_by": by}
+                       "library_ms": library, "library_device_ms": library_dev,
+                       "bound_ms": bnd, "bound_by": by}
                 rows.append(row)
-                lib_s = "n/a" if library is None else f"{library:.4f}"
+                lib_s = ("n/a" if library is None
+                         else f"{library:.4f} (device {library_dev:.4f})")
                 say(f"[timing] lstm_fwd W={w:3d} B={b:2d} {name:8s}: kernel {kernel:.4f} ms "
-                    f"(+projection {kernel_proj:.4f}), plain {plain:.3f} ms, "
-                    f"cuDNN LSTM {lib_s} ms, bound {bnd:.5f} ms ({by})")
+                    f"({kernel / w * 1e3:.3f} us a step; device {dev:.4f} ms, "
+                    f"{dev / w * 1e3:.3f} us a step; +projection {kernel_proj:.4f}), "
+                    f"plain {plain:.3f} ms, cuDNN LSTM {lib_s} ms, bound {bnd:.5f} ms ({by})")
     return rows
 
 
@@ -756,6 +876,9 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
                              for k, (kern, plain) in calls.items()}
                     # the primal at the same shape and activation, beside with_cs
                     primal = time_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh"), 50)
+                    dev = {"lstm_fwd_cs": device_ms(torch, calls["lstm_fwd_cs"][0], 30),
+                           "primal": device_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(
+                               xz, rec, "tanh"), 30)}
                 library = {"lstm_fwd_cs": None, "lstm_bwd": None, "lstm_adj": None}
                 if name == "float32":
                     lstm = torch.nn.LSTM(f, h).cuda()
@@ -774,6 +897,7 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
                     fwd = time_ms(torch, lambda: lstm(xt), 50)
                     library["lstm_fwd_cs"] = fwd
                     library["lstm_bwd"] = time_ms(torch, fwd_bwd, 50) - fwd
+                    dev["library"] = device_ms(torch, lambda: lstm(xt), 30, match="")
                 bounds = grad_bounds(w, b, h, name)
                 for k, (ms, plain) in times.items():
                     bnd, by = bounds[k]
@@ -783,8 +907,14 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
                     lib_s = "n/a" if library[k] is None else f"{library[k]:.4f}"
                     extra = ""
                     if k == "lstm_fwd_cs":
-                        rows[-1]["primal_ms"] = primal
-                        extra = f" (primal, same tanh: {primal:.4f})"
+                        rows[-1].update(primal_ms=primal, us_per_step=ms / w * 1e3,
+                                        device_ms=dev[k], primal_device_ms=dev["primal"],
+                                        library_device_ms=dev.get("library"))
+                        extra = (f" ({ms / w * 1e3:.3f} us a step; device {dev[k]:.4f} ms, "
+                                 f"{dev[k] / w * 1e3:.3f} us a step; primal, same tanh: "
+                                 f"{primal:.4f}, device {dev['primal']:.4f})")
+                        if "library" in dev:
+                            lib_s += f" (device {dev['library']:.4f})"
                     say(f"[timing] {k:11s} W={w:3d} B={b:2d} {name:8s}: kernel {ms:.4f} ms{extra}, "
                         f"plain {plain:.3f} ms, cuDNN {lib_s} ms, bound {bnd:.5f} ms ({by})")
     return rows
@@ -1028,6 +1158,8 @@ def phase_carry_timing(torch, cuda_lstm) -> list:
                                lambda: cuda_lstm.lstm_adj_plain(*args["adj"], carry, c["mu0"]))}
         times = {k: (time_ms(torch, kern, 50), time_ms(torch, free, 50), time_ms(torch, plain, 2, 1))
                  for k, (kern, free, plain) in calls.items()}
+        dev = {k: (device_ms(torch, calls[k][0], 30), device_ms(torch, calls[k][1], 30))
+               for k in ("lstm_fwd_carry", "lstm_fwd_cs_carry")}
     lstm = torch.nn.LSTM(f, h).cuda()
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(layer.kernel.T)
@@ -1044,7 +1176,9 @@ def phase_carry_timing(torch, cuda_lstm) -> list:
 
     with torch.no_grad():
         lib_primal = time_ms(torch, lambda: lstm(xt, hx), 50)
+        lib_dev = {"lstm_fwd_carry": device_ms(torch, lambda: lstm(xt, hx), 30, match="")}
     fwd = time_ms(torch, lambda: lstm(xt, hx), 50)
+    lib_dev["lstm_fwd_cs_carry"] = device_ms(torch, lambda: lstm(xt, hx), 30, match="")
     library = {"lstm_fwd_carry": lib_primal, "lstm_fwd_cs_carry": fwd,
                "lstm_bwd_carry": time_ms(torch, fwd_bwd, 50) - fwd, "lstm_adj_carry": None}
     bounds = grad_bounds(w, b, h, "float32")
@@ -1052,12 +1186,19 @@ def phase_carry_timing(torch, cuda_lstm) -> list:
     for k, (ms, free_ms, plain) in times.items():
         bnd, by = bounds[k]
         rows.append({"kernel": k, "W": w, "F": f, "B": b, "dtype": "float32", "ms": ms,
+                     "us_per_step": ms / w * 1e3,
                      "carry_free_ms": free_ms, "plain_ms": plain, "library_ms": library[k],
                      "bound_ms": bnd, "bound_by": by})
         lib_s = "n/a" if library[k] is None else f"{library[k]:.4f}"
-        say(f"[timing] {k:17s} W={w} B={b} float32: kernel {ms:.4f} ms (carry-free "
-            f"{free_ms:.4f}, {100 * (ms / free_ms - 1):+.1f}%), plain {plain:.3f} ms, "
-            f"cuDNN with hx {lib_s} ms, bound {bnd:.5f} ms ({by})")
+        say(f"[timing] {k:17s} W={w} B={b} float32: kernel {ms:.4f} ms ({ms / w * 1e3:.3f} "
+            f"us a step; carry-free {free_ms:.4f}, {100 * (ms / free_ms - 1):+.1f}%), plain "
+            f"{plain:.3f} ms, cuDNN with hx {lib_s} ms, bound {bnd:.5f} ms ({by})")
+        if k in dev:
+            rows[-1].update(device_ms=dev[k][0], carry_free_device_ms=dev[k][1],
+                            library_device_ms=lib_dev[k])
+            say(f"[timing] {k:17s} W={w} B={b} float32: device {dev[k][0]:.4f} ms "
+                f"({dev[k][0] / w * 1e3:.3f} us a step; carry-free {dev[k][1]:.4f}), "
+                f"cuDNN with hx device {lib_dev[k]:.4f} ms")
     return rows
 
 
@@ -1271,6 +1412,7 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_build(torch, _build, cuda_lstm, cuda_lstm_stack)
     worst = phase_parity(torch, cuda_lstm)
+    layouts = phase_fwd_layouts(torch, cuda_lstm)
     grad = phase_grad_parity(torch, cuda_lstm)
     carry = phase_carry_parity(torch, cuda_lstm)
     carry_path = phase_carry_path(torch, cuda_lstm)
@@ -1301,6 +1443,8 @@ def main() -> None:
         "launches_by_path": {"serve": server["launches"],
                              **{p: c["lstm_fwd"] for p, c in by_route.items()}},
         "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
+        "max_err_by_layout": layouts, "us_per_step": head["us_per_step"],
+        "device_ms": head["device_ms"], "library_device_ms": head["library_device_ms"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": "W=48 B=8 H=100 float32"}]
@@ -1318,6 +1462,8 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": "W=48 B=32 H=100 float32"})
+        if "device_ms" in r:
+            rows[-1].update(device_ms=r["device_ms"], library_device_ms=r["library_device_ms"])
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
     # the carry modes: launches from the carry path's run (phase_carry_path)
     timed = {r["kernel"]: r for r in carry_timing}
@@ -1337,10 +1483,13 @@ def main() -> None:
             "ms": r["ms"], "carry_free_ms": r["carry_free_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": "W=48 B=32 H=100 float32"})
+        if "device_ms" in r:
+            rows[-1].update(device_ms=r["device_ms"], library_device_ms=r["library_device_ms"])
     primal = timed["lstm_fwd_carry"]
     rows[-3]["mode"] = "with_cs carry (the differentiable path's); launches count both modes"
-    rows[-3]["primal_carry"] = {k: primal[k] for k in ("ms", "carry_free_ms", "plain_ms",
-                                                       "bound_ms", "bound_by", "library_ms")}
+    rows[-3]["primal_carry"] = {k: primal[k] for k in ("ms", "device_ms", "carry_free_ms",
+                                                       "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms", "library_device_ms")}
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
     for k in ("stack_fwd", "stack_bwd", "stack_adj"):
         r = next(x for x in stack_timing if x["kernel"] == k and x["W"] == 48
@@ -1366,7 +1515,8 @@ def main() -> None:
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,
                        "carry_timing": carry_timing,
-                       "parity_max_abs_err": worst, "grad_parity": grad,
+                       "parity_max_abs_err": worst, "fwd_layouts": layouts,
+                       "grad_parity": grad,
                        "stack_parity": stack, "profile": profiled}, fh, indent=1)
     say(card)
     say(json.dumps(kernels))

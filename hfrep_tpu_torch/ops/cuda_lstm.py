@@ -72,10 +72,11 @@ _SIGNATURES = {
     "lstm_fwd": {
         "hfrep_lstm_fwd": (_I, [_P, _P, _P, _P,          # xz, rec, hs, cs
                                 _I, _I, _I,              # W, B, H
-                                _I, _I, _I, _I,          # act, bf16, rows, device
+                                _I, _I,                  # act, bf16
+                                _I, _I, _I, _I,          # layout, threads, rows, device
                                 _P]),                    # stream
         "hfrep_lstm_fwd_carry": (_I, [_P] * 7             # xz rec h0 c0 hs cs cfin
-                                 + [_I] * 7              # W B H act bf16 rows device
+                                 + [_I] * 9              # W B H act bf16 layout threads rows device
                                  + [_P]),
         "hfrep_max_smem_optin": (_I, [_I]),
         "hfrep_cuda_error_string": (ctypes.c_char_p, [_I]),
@@ -151,15 +152,32 @@ def act_code(activation: Optional[str]) -> int:
 
 
 # ------------------------------------------------------- eligibility rule
+#: the forward's register layout (``csrc/lstm_fwd.cu``): a thread holds
+#: FWD_KS rows of rec's k range for its hidden unit's four gate columns
+#: (FWD_KEEP of them in registers, the rest in shared memory), four
+#: threads a unit in FWD_THREADS, so widths up to 4 * FWD_KS; in shared
+#: memory h's quarters sit FWD_KSP floats apart and z's gates FWD_ZP
+FWD_KS, FWD_KSP, FWD_KEEP, FWD_ZP, FWD_THREADS = 25, 28, 22, 104, 416
+FWD_LAYOUTS = {"registers": 0, "wide": 1}
+
+
 def smem_bytes(hidden: int, dtype: torch.dtype, rows: int = 1,
                kernel: str = "lstm_fwd") -> int:
     """Dynamic shared memory of one block of ``kernel``.
 
-    lstm_fwd: rec plus two h buffers in the operand dtype.  lstm_bwd and
-    lstm_adj: rec with a one-entry row pad (rounded up to 16 B), plus
-    float32 staging per batch row — h_{t-1} and dz (5H) for the backward;
-    h_{t-1}, mu_h, dz and zbar (10H) for the adjoint."""
+    lstm_fwd, at widths the register layout takes (H <= 4 * FWD_KS): the
+    float32 h buffer (four quarters of FWD_KSP) and z buffer (four gates
+    of FWD_ZP), the rows of rec not held in registers (float32), and rec
+    itself in the operand dtype, staged there once; nothing grows with the
+    rows.  Wider, the wide layout: rec plus two h buffers per row, in the
+    operand dtype.  lstm_bwd and lstm_adj: rec with a one-entry row pad
+    (rounded up to 16 B), plus float32 staging per batch row — h_{t-1}
+    and dz (5H) for the backward; h_{t-1}, mu_h, dz and zbar (10H) for
+    the adjoint."""
     item = torch.empty((), dtype=dtype).element_size()
+    if kernel == "lstm_fwd" and hidden <= 4 * FWD_KS:
+        own = 4 * FWD_KSP + 4 * FWD_ZP + (FWD_KS - FWD_KEEP) * 4 * FWD_THREADS
+        return own * 4 + 4 * hidden * hidden * item
     if kernel == "lstm_fwd":
         return (4 * hidden * hidden + 2 * rows * hidden) * item
     rec = -(-hidden * (4 * hidden + 1) * item // 16) * 16
@@ -186,6 +204,28 @@ def check_fits(hidden: int, dtype: torch.dtype, rows: int, smem_limit: int,
             f"{kernel} kernel: hidden width {hidden} in {dtype} needs {need} B "
             f"of shared memory for rec and its buffers; one block of this card "
             f"may use {smem_limit} B")
+
+
+def fwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
+               smem_limit: int) -> tuple:
+    """The forward kernel's launch rule: ``(layout, threads, rows)``.
+
+    Up to 4 * FWD_KS hidden units the register layout: FWD_THREADS threads,
+    a quad per unit holding rec in registers, ceil(B / SMs) batch rows a
+    block walked one after another.  Wider, the wide layout under
+    :func:`check_fits` (which raises what it refuses), with
+    :func:`rows_per_block` rows a block and a thread per (row, unit).
+    Pure arithmetic on the shapes and the card's limits: the wrapper never
+    tries a layout and falls back."""
+    if hidden <= 4 * FWD_KS:
+        need = smem_bytes(hidden, dtype, 1, "lstm_fwd")
+        if need > smem_limit:
+            raise ValueError(f"lstm_fwd kernel: the register layout needs {need} B of "
+                             f"shared memory; one block of this card may use {smem_limit} B")
+        return "registers", FWD_THREADS, max(1, math.ceil(batch / sm_count))
+    rows = rows_per_block(batch, hidden, sm_count)
+    check_fits(hidden, dtype, rows, smem_limit, "lstm_fwd")
+    return "wide", 32 * math.ceil(rows * hidden / 32), rows
 
 
 def reduce_splits(nrows: int, hidden: int, sm_count: int) -> tuple:
@@ -302,13 +342,15 @@ def _raise_on(err: int, kernel: str) -> None:
 def lstm_fwd_cuda(xz: torch.Tensor, rec: torch.Tensor,
                   activation: Optional[str] = "tanh", with_cs: bool = False,
                   carry: Optional[tuple] = None):
-    """Launch ``csrc/lstm_fwd.cu``: xz (W, B, 4H), rec (H, 4H) → hs
-    (W, B, H) float32, and with ``with_cs`` also cs (W, B, H) float32, on
-    CUDA tensors only.  ``carry`` = (h0, c0), float32 (B, H): h and c start
-    there; without ``with_cs`` the result is then (hs, c_fin), the final
-    c (B, H)."""
+    """Launch ``csrc/lstm_fwd.cu`` in the layout :func:`fwd_layout` picks:
+    xz (W, B, 4H), rec (H, 4H) → hs (W, B, H) float32, and with
+    ``with_cs`` also cs (W, B, H) float32, on CUDA tensors only.
+    ``carry`` = (h0, c0), float32 (B, H): h and c start there; without
+    ``with_cs`` the result is then (hs, c_fin), the final c (B, H)."""
     act = act_code(activation)
     w, b, h = _check_operands("lstm_fwd_cuda", xz, rec)
+    if rec.data_ptr() % 16:
+        rec = rec.clone()              # the kernel stages rec with 16-byte loads
     h0, c0 = _carry_pair("lstm_fwd_cuda", "carry", carry)
     if carry is not None:
         _check_carry("lstm_fwd_cuda", xz.device, (b, h), {"h0": h0, "c0": c0})
@@ -322,15 +364,20 @@ def lstm_fwd_cuda(xz: torch.Tensor, rec: torch.Tensor,
         if c_fin is not None:
             c_fin.copy_(c0)
         return out
-    dev, rows, _, stream = _launch_setup(xz, b, h, "lstm_fwd")
+    dev = xz.device.index if xz.device.index is not None else torch.cuda.current_device()
+    layout, threads, rows = fwd_layout(
+        h, xz.dtype, b, torch.cuda.get_device_properties(dev).multi_processor_count,
+        _lib().hfrep_max_smem_optin(dev))
+    stream = torch.cuda.current_stream(xz.device).cuda_stream
     bf16 = int(xz.dtype == torch.bfloat16)
+    plan = (FWD_LAYOUTS[layout], threads, rows, dev, stream)
     if carry is None:
         err = _lib().hfrep_lstm_fwd(xz.data_ptr(), rec.data_ptr(), hs.data_ptr(),
-                                    _ptr(cs), w, b, h, act, bf16, rows, dev, stream)
+                                    _ptr(cs), w, b, h, act, bf16, *plan)
     else:
         err = _lib().hfrep_lstm_fwd_carry(
             xz.data_ptr(), rec.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-            _ptr(cs), _ptr(c_fin), w, b, h, act, bf16, rows, dev, stream)
+            _ptr(cs), _ptr(c_fin), w, b, h, act, bf16, *plan)
     _raise_on(err, "lstm_fwd")
     _count_launch("lstm_fwd" + ("_cs" if with_cs else "") + ("_carry" if carry else ""))
     return out

@@ -13,7 +13,10 @@ adjoint kernels: max|kernel - plain| / max(1, max|plain|) within 1e-4 in
 f32 (drec and urec are sums over W*B rows in another order) and 1e-2 in
 bf16.  The fused stack's kernels (forward, backward in every mode,
 adjoint) against their plain versions at the same scaled bars, and the
-single-layer kernels' carry modes the same way.  One training epoch on
+single-layer kernels' carry modes the same way.  The forward kernel's
+four modes in both its layouts (registers at H=100 with up to two batch
+rows a block; wide at H=120 f32 and H=160 bf16), each mode bit-equal
+over two launches.  One training epoch on
 the card against the same epoch on the CPU plain path, on the fused and
 the chained critic route: the JAX package's bar for its kernel-vs-scan
 epoch.
@@ -82,6 +85,85 @@ def test_kernel_refuses_mixed_devices_and_grad(card):
 def _scaled(got, ref):
     return float((got.float().cpu() - ref.float().cpu()).abs().max()) / max(
         1.0, float(ref.abs().max()))
+
+
+#: the forward's four modes: (with_cs, carried, counter)
+FWD_MODES = [(False, False, "lstm_fwd"), (True, False, "lstm_fwd_cs"),
+             (False, True, "lstm_fwd_carry"), (True, True, "lstm_fwd_cs_carry")]
+
+
+def _fwd_case(card, dtype, w, b, h, seed):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    xz = (0.5 * torch.randn(w, b, 4 * h, device=card, generator=g)).to(dtype)
+    rec = (torch.randn(h, 4 * h, device=card, generator=g) / h ** 0.5).to(dtype)
+    carry = (0.5 * torch.randn(b, h, device=card, generator=g),
+             0.5 * torch.randn(b, h, device=card, generator=g))
+    return xz, rec, carry
+
+
+def _fwd_modes_hold(card, dtype, w, b, h, seed):
+    """Each mode of the forward kernel against its plain version, every
+    activation, each launch counted once on its own counter.  Bars: the
+    primal abs f32 2e-5 / bf16 1e-2; the other modes scaled by
+    max(1, max|plain|), f32 1e-4 / bf16 1e-2."""
+    xz, rec, carry = _fwd_case(card, dtype, w, b, h, seed)
+    f32 = dtype == torch.float32
+    for act in ACTS:
+        for with_cs, carried, key in FWD_MODES:
+            c = carry if carried else None
+            with torch.no_grad():
+                before = cuda_lstm.launch_counts()[key]
+                got = cuda_lstm.lstm_fwd(xz, rec, act, with_cs, c)
+                assert cuda_lstm.launch_counts()[key] == before + 1
+                ref = cuda_lstm.lstm_seq_plain(xz, rec, act, with_cs, c)
+            torch.cuda.synchronize()
+            if key == "lstm_fwd":
+                err, bar = float((got - ref).abs().max()), 2e-5 if f32 else 1e-2
+            else:
+                err, bar = max(_scaled(a, r) for a, r in zip(got, ref)), 1e-4 if f32 else 1e-2
+            assert err <= bar, (w, b, h, act, key, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [48, 168])
+def test_forward_register_layout_matches_plain_on_card(card, dtype, w):
+    """The register layout (H=100, every preset width) in all four modes;
+    B=133 gives two batch rows a block."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (8, 32, 64, 133):
+        layout, _, rows = cuda_lstm.fwd_layout(100, dtype, b, sms,
+                                               cuda_lstm._lib().hfrep_max_smem_optin(0))
+        assert layout == "registers" and rows == -(-b // sms)
+        _fwd_modes_hold(card, dtype, w, b, 100, seed=w + b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 120), (torch.bfloat16, 160)])
+def test_forward_wide_layout_matches_plain_on_card(card, dtype, h):
+    """Widths the register file cannot hold run the wide layout, in all
+    four modes."""
+    for b in (8, 133):
+        assert cuda_lstm.fwd_layout(
+            h, dtype, b, torch.cuda.get_device_properties(0).multi_processor_count,
+            cuda_lstm._lib().hfrep_max_smem_optin(0))[0] == "wide"
+        _fwd_modes_hold(card, dtype, 48, b, h, seed=h + b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 100), (torch.bfloat16, 100),
+                                     (torch.float32, 120)])
+def test_forward_launches_are_bitwise_repeatable(card, dtype, h):
+    """Two launches on the same inputs give the same bits in every mode:
+    the quad's sums run in one fixed order and nothing is atomic."""
+    xz, rec, carry = _fwd_case(card, dtype, 48, 133, h, seed=11)
+    for with_cs, carried, _ in FWD_MODES:
+        with torch.no_grad():
+            one = cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", with_cs, carry if carried else None)
+            two = cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh", with_cs, carry if carried else None)
+        one, two = (one, two) if isinstance(one, tuple) else ((one,), (two,))
+        assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 @pytest.mark.gpu

@@ -147,9 +147,17 @@ def test_keras_entry_refuses_other_gates_and_dtypes():
 
 
 def test_eligibility_rule_from_hopper_limits():
-    # H=100: rec is 160,000 B in f32 and 80,000 B in bf16, plus h buffers
-    assert cuda_lstm.smem_bytes(100, torch.float32) == 160_000 + 800
-    assert cuda_lstm.smem_bytes(100, torch.bfloat16) == 80_000 + 400
+    # H=100 takes the forward's register layout: an h buffer of four
+    # 28-float quarters, a z buffer of four 104-float gates and, for each
+    # of 416 threads, the 3 of its 25 rows of rec not held in registers,
+    # four gates each, all float32; then rec itself (160,000 B in f32,
+    # 80,000 B in bf16), staged there once.  H=120 the wide layout, rec
+    # (230,400 B in f32) plus h buffers
+    own = (4 * 28 + 4 * 104 + (25 - cuda_lstm.FWD_KEEP) * 416 * 4) * 4
+    assert cuda_lstm.FWD_KEEP == 22 and own == 22_080
+    assert cuda_lstm.smem_bytes(100, torch.float32) == own + 160_000
+    assert cuda_lstm.smem_bytes(100, torch.bfloat16) == own + 80_000
+    assert cuda_lstm.smem_bytes(120, torch.float32) == 230_400 + 960
     hopper = 232_448
     cuda_lstm.check_fits(100, torch.float32, 1, hopper)
     cuda_lstm.check_fits(160, torch.bfloat16, 1, hopper)
@@ -160,6 +168,67 @@ def test_eligibility_rule_from_hopper_limits():
     assert cuda_lstm.rows_per_block(64, 100, 132) == 1
     assert cuda_lstm.rows_per_block(1000, 100, 132) == 8
     assert cuda_lstm.rows_per_block(100_000, 100, 132) == 10
+
+
+HOPPER_SMEM, HOPPER_SMS = 232_448, 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_layout_at_the_preset_width_is_registers(dtype):
+    """H=100 (every preset): a quad of threads per unit, 13 warps (at any
+    width the layout takes), rec's k range cut into quarters of KS=25
+    rows, one batch row a block up to the SM count and two at B=133."""
+    assert cuda_lstm.FWD_KS == 25 and 4 * cuda_lstm.FWD_KS >= 100
+    for b, rows in ((1, 1), (8, 1), (32, 1), (64, 1), (132, 1), (133, 2), (1000, 8)):
+        assert cuda_lstm.fwd_layout(100, dtype, b, HOPPER_SMS, HOPPER_SMEM) == (
+            "registers", 416, rows)
+    assert cuda_lstm.fwd_layout(16, dtype, 8, HOPPER_SMS, HOPPER_SMEM) == ("registers", 416, 1)
+    # the register layout's shared memory does not grow with the rows
+    assert cuda_lstm.smem_bytes(100, dtype, 8) == cuda_lstm.smem_bytes(100, dtype, 1) <= HOPPER_SMEM
+
+
+def _shared_rule(h, dtype, b):
+    """The forward's rule before the register layout: rec and two h
+    buffers per row in shared memory, a thread per (row, unit); None if it
+    admits (h, dtype, b), else the message it raised."""
+    item = torch.empty((), dtype=dtype).element_size()
+    rows = cuda_lstm.rows_per_block(b, h, HOPPER_SMS)
+    if rows * h > 1024:
+        return f"lstm_fwd kernel: {rows} rows x hidden width {h} exceeds 1024 threads a block"
+    need = (4 * h * h + 2 * rows * h) * item
+    if need > HOPPER_SMEM:
+        return (f"lstm_fwd kernel: hidden width {h} in {dtype} needs {need} B of shared "
+                f"memory for rec and its buffers; one block of this card may use "
+                f"{HOPPER_SMEM} B")
+    return None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_layout_admits_what_the_shared_rule_admitted(dtype):
+    """Every (H, dtype, B) the shared-memory rule admitted still gets a
+    layout (the register one up to H=100, the wide one above), and each
+    one it refused raises the same ValueError."""
+    admitted = refused = 0
+    for h in range(1, 171):
+        for b in (1, 8, 32, 64, 133, 1000):
+            want = _shared_rule(h, dtype, b)
+            if want is None:
+                layout, threads, rows = cuda_lstm.fwd_layout(h, dtype, b, HOPPER_SMS,
+                                                              HOPPER_SMEM)
+                assert layout == ("registers" if h <= 100 else "wide"), (h, b)
+                assert threads % 32 == 0 and threads <= 1024 and rows >= 1
+                assert threads >= (4 * h if layout == "registers" else rows * h)
+                admitted += 1
+            else:
+                assert h > 100, (h, b)       # the register widths were all admitted
+                with pytest.raises(ValueError) as err:
+                    cuda_lstm.fwd_layout(h, dtype, b, HOPPER_SMS, HOPPER_SMEM)
+                assert str(err.value) == want
+                refused += 1
+    # f32 admits H <= 120 at B <= 264, bf16 H <= 170 at B <= 132
+    assert admitted and refused
+    top = max(h for h in range(101, 171) if _shared_rule(h, dtype, 8) is None)
+    assert top == (120 if dtype == torch.float32 else 170)
 
 
 def test_launch_counter_resets():
