@@ -9,9 +9,12 @@ exits non-zero on failure:
 1. build   — every ``hfrep_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
              one process per source, started together; prints ptxas's
              registers and spills per kernel (and fails if an lstm_fwd
-             instantiation spills), the forward's launch rule at H=100
-             and at its wide widths, and the dynamic shared memory each
-             LSTM kernel (single-layer and fused stack) asks for at H=100;
+             or stack_fwd cluster-layout instantiation spills), the
+             forward's launch rule at H=100 and at its wide widths, the
+             stack forward's launch rule and how many of its two-block
+             clusters can be resident at once, and the dynamic shared
+             memory each LSTM kernel (single-layer and fused stack) asks
+             for at H=100;
 2. parity  — the forward kernel (primal mode) against its plain PyTorch
              version on the card, at the serving shapes (W, F) in
              {(48, 35), (168, 36)}, H=100, B in {8, 64}, activations
@@ -49,7 +52,10 @@ exits non-zero on failure:
    stack   — the fused two-layer stack's kernels: the forward (primal and
              with_res), the backward (plain, direct cotangents,
              with_carries) and the adjoint against their plain versions,
-             at the same shapes, activations, dtypes and bars;
+             at the same shapes, activations, dtypes and bars; then the
+             forward's two layouts (the cluster layout at H=100 with three
+             batch rows a cluster, the wide one at H=117 f32 / 160 bf16),
+             both modes, each launched twice and bit-equal;
 3. server  — the main path: ``ReplicationServer`` on ``cuda`` with the
              fixture AE head and the ``mtss_wgan_gp`` generator, then the
              ``mtss_wgan_gp_prod`` one: start, ``warm_server`` (the program
@@ -90,7 +96,8 @@ exits non-zero on failure:
              carry-free mode, its bound, its plain version and cuDNN's
              LSTM called with hx=(h0, c0); each stack kernel also beside
              the chained single-layer pair it replaces, its library the
-             two-layer cuDNN LSTM;
+             two-layer cuDNN LSTM, with the profiler's device time of the
+             kernel, the pair and cuDNN;
 7. profile — ``torch.profiler`` over 20 sample dispatches per preset:
              device time by kernel name and the device's busy share.
 
@@ -140,6 +147,9 @@ TRAIN_PRESETS = ("mtss_wgan_gp", "mtss_wgan_gp_prod")
 FWD_BATCHES = (8, 32, 64, 133)
 #: (H, dtype) of the forward's wide layout: widths the register file cannot hold
 WIDE_CASES = ((120, "float32"), (160, "bfloat16"))
+#: (H, dtype) of the stack forward's wide layout: widths past the cluster
+#: layout's 100, within stack_fits
+STACK_WIDE_CASES = ((117, "float32"), (160, "bfloat16"))
 TRAIN_EPOCHS = 3
 TRAIN_BATCHES = (32, 64)        # penalty and generator passes; critic scores (2B)
 #: the kernels each critic route's epoch must launch, and no others: the
@@ -223,7 +233,7 @@ KERNEL_FLAGS = {"lstm_fwd": ("with_cs", "carry"), "lstm_bwd": ("carry",),
 
 def entry_name(mangled: str) -> str:
     """A readable name for a kernel's mangled entry: base<dtype,act,modes>."""
-    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj))(?:_wide)?_kernel)I(f|13__nv_bfloat16)"
+    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj))(?:_wide|_cluster)?_kernel)I(f|13__nv_bfloat16)"
                   r"Li(\d)E((?:Lb\dE)*)", mangled)
     if m:
         flags = re.findall(r"Lb(\d)E", m.group(5))
@@ -255,10 +265,11 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
             elif "registers" in line or "spill" in line:
                 say(f"[build] {name} {entry}: {line.split(':', 1)[-1].strip()}")
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if name == "lstm_fwd" and m and (int(m.group(1)) or int(m.group(2))):
+                if ((name == "lstm_fwd" or "_cluster_" in (entry or "")) and m
+                        and (int(m.group(1)) or int(m.group(2)))):
                     spilled.append(entry)
     if spilled:
-        fail(f"lstm_fwd spills registers in {spilled}")
+        fail(f"a register-layout kernel spills registers in {spilled}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
     for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -277,6 +288,22 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
         say(f"[build] {kernel}: dynamic shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{cuda_lstm.smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm['f32']} B a further row)")
+    lib = cuda_lstm_stack._lib("lstm_stack_fwd")
+    for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        plans = {b: cuda_lstm_stack.stack_fwd_layout(HIDDEN, dt, b, sms, limit)
+                 for b in FWD_BATCHES}
+        clusters = lib.hfrep_stack_fwd_clusters(HIDDEN, int(n == "bf16"), 0)
+        if clusters < 1:
+            fail(f"stack_fwd cluster layout: no cluster can be resident ({clusters})")
+        say(f"[build] stack_fwd layout at H={HIDDEN} {n} (layout, threads, rows a cluster) by B: "
+            + ", ".join(f"B={b} {p}" for b, p in plans.items())
+            + f"; {cuda_lstm_stack.cluster_smem_bytes(HIDDEN, dt)} B of shared memory a block; "
+            f"{clusters} clusters of 2 resident at once (cudaOccupancyMaxActiveClusters); "
+            f"no spills")
+    for h, name in STACK_WIDE_CASES:
+        dt = getattr(torch, name)
+        say(f"[build] stack_fwd layout at H={h} {name}, B=133: "
+            f"{cuda_lstm_stack.stack_fwd_layout(h, dt, 133, sms, limit)}")
     rows = [cuda_lstm_stack.stack_rows(b, HIDDEN, torch.float32, sms, limit)
             for b in TRAIN_BATCHES]
     for kernel in ("stack_fwd", "stack_bwd", "stack_adj"):
@@ -515,6 +542,63 @@ def phase_stack_parity(torch, cuda_lstm_stack) -> dict:
                     say(f"[stack] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
                         f"{', '.join(line)} (limit {GRAD_BARS[name]:.0e})")
     return {"scaled": worst, "abs": worst_abs}
+
+
+def phase_stack_layouts(torch, cuda_lstm_stack) -> dict:
+    """The stack forward's two modes in both layouts against the plain
+    version: the cluster layout at H=100 with B=133 (three batch rows a
+    cluster), the wide layout at ``STACK_WIDE_CASES`` with B in {8, 133};
+    W=48, every activation, seeded inputs (xz1 and b2 0.3 N(0,1), matrices
+    0.5 N(0,1)/sqrt(H), as the card tests).  Bars: the primal abs f32 2e-5 / bf16
+    1e-2, with_res scaled by max(1, max|plain|), f32 1e-4 / bf16 1e-2.
+    Each mode launched twice must give the same bits."""
+    cls = cuda_lstm_stack
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm_stack.cuda_lstm._lib().hfrep_max_smem_optin(0)
+    cases = [(HIDDEN, "float32", 133), (HIDDEN, "bfloat16", 133)]
+    cases += [(h, name, b) for h, name in STACK_WIDE_CASES for b in (8, 133)]
+    worst = {}
+    for h, name, b in cases:
+        dtype = getattr(torch, name)
+        layout = cls.stack_fwd_layout(h, dtype, b, sms, limit)[0]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(h + b + 7)
+        rnd = lambda s, *shape: s * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+        m = 0.5 / h ** 0.5
+        wts = (rnd(0.3, 48, b, 4 * h).to(dtype), rnd(m, h, 4 * h).to(dtype),
+               rnd(m, h, 4 * h).to(dtype), rnd(0.3, 4 * h).to(dtype),
+               rnd(m, h, 4 * h).to(dtype))
+        line = []
+        for act in ACTS:
+            for with_res in (False, True):
+                mode = "with_res" if with_res else "primal"
+                with torch.no_grad():
+                    got = cls.stack_fwd_cuda(*wts, act, with_res)
+                    again = cls.stack_fwd_cuda(*wts, act, with_res)
+                    ref = cls.stack_seq_plain(*wts, act, with_res)
+                torch.cuda.synchronize()
+                got, again, ref = ((x,) if torch.is_tensor(x) else x for x in (got, again, ref))
+                for a, r in zip(got, ref):
+                    if a.shape != r.shape or not torch.isfinite(a).all():
+                        fail(f"stack_fwd {mode} ({layout}) not finite/shaped at H={h} B={b} "
+                             f"{act} {name}")
+                if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                    fail(f"stack_fwd {mode} ({layout}): two launches differ at H={h} B={b} "
+                         f"{act} {name}")
+                if with_res:
+                    err, bar = max(scaled_err(a, r) for a, r in zip(got, ref)), GRAD_BARS[name]
+                else:
+                    err, bar = float((got[0] - ref[0]).abs().max()), BARS[name]
+                key = f"{layout} stack_fwd {mode} {name}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                if act == "tanh":
+                    line.append(f"{mode} {err:.2e}")
+                if not err <= bar:
+                    fail(f"stack_fwd {mode} ({layout}) disagrees with its plain version: "
+                         f"{err} > {bar} at H={h} B={b} {act} {name}")
+        say(f"[stack] layout {layout} H={h} W=48 B={b} {name}: stack_fwd within its bars and "
+            f"bitwise repeatable; tanh errors: {', '.join(line)}")
+    return worst
 
 
 def check_answers(torch, np, srv, futures, panels, preset_cfg) -> None:
@@ -1298,6 +1382,13 @@ def phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack) -> list:
                     times = {k: (time_ms(torch, kern, 30), time_ms(torch, plain, 2, 1),
                                  time_ms(torch, pair, 30))
                              for k, (kern, plain, pair) in calls.items()}
+                    # the profiler's device time: the kernel (and, for the
+                    # sweeps, their reductions and transposed copies), and
+                    # every kernel of the chained pair
+                    dev = {k: (device_ms(torch, kern, 20,
+                                         match="stack_fwd" if k == "stack_fwd" else ""),
+                               device_ms(torch, pair, 20, match=""))
+                           for k, (kern, _, pair) in calls.items()}
                     xd = x.to(dtype)
                     k1, bb1 = l0.kernel.detach().to(dtype), l0.bias.detach().to(dtype)
 
@@ -1308,6 +1399,7 @@ def phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack) -> list:
 
                     fwd_proj = time_ms(torch, with_projection, 30)
                 library = {"stack_fwd": None, "stack_bwd": None, "stack_adj": None}
+                library_dev = {}
                 if name == "float32":
                     lstm = torch.nn.LSTM(f, h, num_layers=2).cuda()
                     with torch.no_grad():
@@ -1326,20 +1418,28 @@ def phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack) -> list:
                     fwd = time_ms(torch, lambda: lstm(xt), 30)
                     library["stack_fwd"] = fwd
                     library["stack_bwd"] = time_ms(torch, fwd_bwd, 30) - fwd
+                    fwd_dev = device_ms(torch, lambda: lstm(xt), 20, match="")
+                    library_dev = {"stack_fwd": fwd_dev,
+                                   "stack_bwd": device_ms(torch, fwd_bwd, 20, match="") - fwd_dev}
                 bounds = stack_bounds(w, b, h, name)
                 for k, (ms, plain, pair) in times.items():
                     bnd, by = bounds[k]
                     rows.append({"kernel": k, "W": w, "F": f, "B": b, "dtype": name,
                                  "ms": ms, "plain_ms": plain, "library_ms": library[k],
-                                 "chained_ms": pair, "bound_ms": bnd, "bound_by": by})
+                                 "chained_ms": pair, "bound_ms": bnd, "bound_by": by,
+                                 "device_ms": dev[k][0], "chained_device_ms": dev[k][1],
+                                 "library_device_ms": library_dev.get(k)})
                     extra = ""
                     if k == "stack_fwd":
                         rows[-1]["ms_with_projection"] = fwd_proj
                         extra = f" (+projection {fwd_proj:.4f})"
                     lib_s = "n/a" if library[k] is None else f"{library[k]:.4f}"
+                    if k in library_dev:
+                        lib_s += f" (device {library_dev[k]:.4f})"
                     say(f"[timing] {k:9s} W={w:3d} B={b:2d} {name:8s}: kernel {ms:.4f} ms{extra}, "
-                        f"chained pair {pair:.4f} ms, plain {plain:.3f} ms, cuDNN 2-layer "
-                        f"{lib_s} ms, bound {bnd:.5f} ms ({by})")
+                        f"device {dev[k][0]:.4f} ms ({dev[k][0] / w * 1e3:.3f} us a step); "
+                        f"chained pair {pair:.4f} ms (device {dev[k][1]:.4f}), plain {plain:.3f} "
+                        f"ms, cuDNN 2-layer {lib_s} ms, bound {bnd:.5f} ms ({by})")
     return rows
 
 
@@ -1417,6 +1517,7 @@ def main() -> None:
     carry = phase_carry_parity(torch, cuda_lstm)
     carry_path = phase_carry_path(torch, cuda_lstm)
     stack = phase_stack_parity(torch, cuda_lstm_stack)
+    stack_layouts = phase_stack_layouts(torch, cuda_lstm_stack)
     server = phase_server(torch, np, cuda_lstm)
     train = phase_train(torch, cuda_lstm, "auto")
     train_chained = phase_train(torch, cuda_lstm, "chained", TRAIN_PRESETS[:1])
@@ -1504,8 +1605,13 @@ def main() -> None:
             "max_scaled_err_bf16": stack["scaled"][k]["bfloat16"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "chained_ms": r["chained_ms"], "shape": "W=48 B=32 H=100 float32"})
+            "chained_ms": r["chained_ms"], "device_ms": r["device_ms"],
+            "chained_device_ms": r["chained_device_ms"],
+            "library_device_ms": r["library_device_ms"], "shape": "W=48 B=32 H=100 float32"})
     rows[-3]["mode"] = "with_res (the epoch's); launches count both modes"
+    rows[-3]["layouts"] = {"cluster": "H <= 100: every preset, the main path's",
+                           "wide": "100 < H within stack_fits"}
+    rows[-3]["max_err_by_layout"] = stack_layouts
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
     kernels = {"kernels": rows}
     if args.out:
@@ -1517,7 +1623,8 @@ def main() -> None:
                        "carry_timing": carry_timing,
                        "parity_max_abs_err": worst, "fwd_layouts": layouts,
                        "grad_parity": grad,
-                       "stack_parity": stack, "profile": profiled}, fh, indent=1)
+                       "stack_parity": stack, "stack_layouts": stack_layouts,
+                       "profile": profiled}, fh, indent=1)
     say(card)
     say(json.dumps(kernels))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

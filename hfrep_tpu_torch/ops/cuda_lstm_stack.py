@@ -28,7 +28,10 @@ rule and launch counters it is built:
   entries;
 * the eligibility rule — :func:`stack_fits`: the widths and dtypes whose
   three kernels fit one Hopper block; the critics take the chained
-  single-layer route for the others.
+  single-layer route for the others;
+* the forward's launch rule — :func:`stack_fwd_layout`: the cluster
+  layout (two blocks a batch row, one layer a block) up to 100 hidden
+  units, the wide layout above.
 
 Layout and precision as in :mod:`.cuda_lstm`: xz1 (W, B, 4H) time-major,
 rec1, k2, rec2 (H, 4H) and b2 (4H,) in the operand dtype (float32 or
@@ -41,15 +44,16 @@ is never rounded as a whole (the chained route's projection is).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from hfrep_tpu_torch.ops import _build, cuda_lstm
 from hfrep_tpu_torch.ops.cuda_lstm import (
-    MAX_THREADS, STREAM_DTYPES, _PLAIN_ACT, _PRIME, _adj_step, _cast_like,
-    _check_f32, _check_operands, _count_launch, _device_rule, _f32, _gates,
-    _ptr, _raise_on, _rounder, _shifted, act_code, reduce_splits,
+    FWD_KS, FWD_KSP, FWD_THREADS, FWD_ZP, MAX_THREADS, STREAM_DTYPES,
+    _PLAIN_ACT, _PRIME, _adj_step, _cast_like, _check_f32, _check_operands,
+    _count_launch, _device_rule, _f32, _gates, _ptr, _raise_on, _rounder, _shifted, act_code, reduce_splits,
     rows_per_block,
 )
 
@@ -61,7 +65,9 @@ _SIGNATURES = {
     "lstm_stack_fwd": {
         "hfrep_stack_fwd": (_I, [_P] * 9                 # xz1 rec1 k2 b2 rec2 hs1 cs1 hs2 cs2
                             + [_I] * 7                   # W B H act bf16 rows device
-                            + [_P]),                     # stream
+                            + [_P]                       # stream
+                            + [_I] * 2),                 # layout threads
+        "hfrep_stack_fwd_clusters": (_I, [_I] * 3),      # H bf16 device
     },
     "lstm_stack_bwd": {
         "hfrep_stack_bwd": (_I, [_P] * 26                # operands, streams, outputs, workspace
@@ -114,6 +120,55 @@ def stack_fits(hidden: int, dtype: torch.dtype, rows: int = 1,
         return False
     return all(stack_smem_bytes(hidden, dtype, rows, k) <= smem_limit
                for k in ("stack_fwd", "stack_bwd", "stack_adj"))
+
+
+#: the forward's cluster layout (``csrc/lstm_stack_fwd.cu``): each block of
+#: a two-block cluster is ``lstm_fwd``'s register layout over one layer's
+#: recurrent matrix (FWD_THREADS threads, a quad a unit, up to 4 * FWD_KS
+#: units), at least STACK_KEEP[dtype] of a thread's FWD_KS rows in
+#: registers and the rest in shared memory, beside its part of k2
+#: (STACK_K2_ROWS rows a thread at most); layer 2's block holds a ring of
+#: STACK_RING slots, each h1_t and layer 1's part of h1_t . k2
+STACK_RING, STACK_K2_ROWS = 4, 13
+STACK_KEEP = {torch.float32: 18, torch.bfloat16: 19}
+STACK_FWD_LAYOUTS = {"cluster": 0, "wide": 1}
+
+
+def cluster_smem_bytes(hidden: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of either block of the forward's cluster
+    layout: float32 h and z buffers, the rows of the recurrent matrix past
+    STACK_KEEP[dtype] (a float4 a thread), the ring, its STACK_RING mbarriers and
+    a read counter (16 bytes);
+    the block's part of k2 (STACK_K2_ROWS x FWD_THREADS x 4 entries); a
+    staging area for half the recurrent matrix's rows, or STACK_K2_ROWS
+    rows of k2 if that is more."""
+    item = torch.empty((), dtype=dtype).element_size()
+    slot = 4 * FWD_KSP + 4 * FWD_ZP
+    fixed = (4 * FWD_KSP + 4 * FWD_ZP + 4 * (FWD_KS - STACK_KEEP[dtype]) * FWD_THREADS
+             + STACK_RING * slot + 2 * STACK_RING + 4)
+    stage = max((hidden + 1) // 2, STACK_K2_ROWS) * 4 * hidden * item
+    return fixed * 4 + STACK_K2_ROWS * FWD_THREADS * 4 * item + stage
+
+
+def stack_fwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
+                     smem_limit: int) -> tuple:
+    """The forward kernel's launch rule: ``(layout, threads, rows)``.
+
+    Up to 4 * FWD_KS hidden units the cluster layout: FWD_THREADS threads a
+    block, a cluster of two blocks (layer 1, layer 2) walking ceil(B /
+    (SMs / 2)) batch rows.  Wider, within :func:`stack_fits`, the wide
+    layout: :func:`stack_rows` rows a block and a thread per (row, unit);
+    a width the fused stack does not take raises.  Pure arithmetic on the
+    shapes and the card's limits: the wrapper never tries a layout and
+    falls back."""
+    if dtype in STREAM_DTYPES and hidden <= 4 * FWD_KS:
+        need = cluster_smem_bytes(hidden, dtype)
+        if need > smem_limit:
+            raise ValueError(f"stack_fwd kernel: the cluster layout needs {need} B of "
+                             f"shared memory; one block of this card may use {smem_limit} B")
+        return "cluster", FWD_THREADS, max(1, math.ceil(batch / max(1, sm_count // 2)))
+    rows = stack_rows(batch, hidden, dtype, sm_count, smem_limit)
+    return "wide", 32 * math.ceil(rows * hidden / 32), rows
 
 
 def stack_rows(batch: int, hidden: int, dtype: torch.dtype, sm_count: int,
@@ -171,7 +226,8 @@ def _transposed(*mats: torch.Tensor) -> tuple:
 
 def stack_fwd_cuda(xz1, rec1, k2, b2, rec2, activation: Optional[str] = "tanh",
                    with_res: bool = False):
-    """Launch ``csrc/lstm_stack_fwd.cu``: hs2 (W, B, H) float32, or with
+    """Launch ``csrc/lstm_stack_fwd.cu`` in the layout
+    :func:`stack_fwd_layout` picks: hs2 (W, B, H) float32, or with
     ``with_res`` (hs1, cs1, hs2, cs2), on CUDA tensors only."""
     act = act_code(activation)
     w, b, h = _check_stack("stack_fwd_cuda", xz1, rec1, k2, b2, rec2)
@@ -182,11 +238,16 @@ def stack_fwd_cuda(xz1, rec1, k2, b2, rec2, activation: Optional[str] = "tanh",
     out = (hs1, cs1, hs2, cs2) if with_res else hs2
     if w == 0 or b == 0:
         return out
-    dev, rows, _, stream = _setup(xz1, b, h)
+    dev = xz1.device.index if xz1.device.index is not None else torch.cuda.current_device()
+    layout, threads, rows = stack_fwd_layout(
+        h, xz1.dtype, b, torch.cuda.get_device_properties(dev).multi_processor_count,
+        cuda_lstm._lib().hfrep_max_smem_optin(dev))
+    stream = torch.cuda.current_stream(xz1.device).cuda_stream
     err = _lib("lstm_stack_fwd").hfrep_stack_fwd(
         xz1.data_ptr(), rec1.data_ptr(), k2.data_ptr(), b2.data_ptr(), rec2.data_ptr(),
         _ptr(hs1), _ptr(cs1), hs2.data_ptr(), _ptr(cs2), w, b, h, act,
-        int(xz1.dtype == torch.bfloat16), rows, dev, stream)
+        int(xz1.dtype == torch.bfloat16), rows, dev, stream, STACK_FWD_LAYOUTS[layout],
+        threads)
     _raise_on(err, "stack_fwd")
     _count_launch("stack_fwd_res" if with_res else "stack_fwd")
     return out

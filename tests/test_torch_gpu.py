@@ -409,6 +409,51 @@ def test_stack_kernels_match_plain_on_card(card, dtype, bar):
                 assert max(errs) <= bar, (w, b, act, errs)
 
 
+def _stack_fwd_case(card, dtype, w, b, h, seed):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    mat = lambda: (0.5 * torch.randn(h, 4 * h, device=card, generator=g) / h ** 0.5).to(dtype)  # noqa: E731
+    return ((0.3 * torch.randn(w, b, 4 * h, device=card, generator=g)).to(dtype), mat(), mat(),
+            (0.3 * torch.randn(4 * h, device=card, generator=g)).to(dtype), mat())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,layout", [(torch.float32, 100, "cluster"),
+                                            (torch.bfloat16, 100, "cluster"),
+                                            (torch.float32, 117, "wide"),
+                                            (torch.bfloat16, 160, "wide")])
+def test_stack_forward_layouts_match_plain_on_card(card, dtype, h, layout):
+    """The stack forward in the layout its launch rule picks (the cluster
+    at H=100, the wide one above), both modes, every activation, W in {1,
+    2, 48, 168}, B in {1, 8, 32, 64, 133}; bars: the primal abs f32 2e-5 /
+    bf16 1e-2, with_res scaled f32 1e-4 / bf16 1e-2; two launches
+    bit-equal; each launch counted once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    f32 = dtype == torch.float32
+    for w in (1, 2, 48, 168):
+        for b in (1, 8, 32, 64, 133):
+            assert cuda_lstm_stack.stack_fwd_layout(h, dtype, b, sms, limit)[0] == layout
+            weights = _stack_fwd_case(card, dtype, w, b, h, seed=w * b + h)
+            for act in ACTS:
+                for with_res, key in ((False, "stack_fwd"), (True, "stack_fwd_res")):
+                    with torch.no_grad():
+                        before = cuda_lstm.launch_counts()[key]
+                        got = cuda_lstm_stack.stack_fwd(*weights, act, with_res)
+                        assert cuda_lstm.launch_counts()[key] == before + 1
+                        again = cuda_lstm_stack.stack_fwd(*weights, act, with_res)
+                        ref = cuda_lstm_stack.stack_seq_plain(*weights, act, with_res)
+                    torch.cuda.synchronize()
+                    got, again, ref = ((x,) if torch.is_tensor(x) else x
+                                       for x in (got, again, ref))
+                    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+                    if with_res:
+                        err, bar = max(_scaled(a, r) for a, r in zip(got, ref)), 1e-4 if f32 else 1e-2
+                    else:
+                        err, bar = float((got[0] - ref[0]).abs().max()), 2e-5 if f32 else 1e-2
+                    assert err <= bar, (w, b, act, with_res, err)
+
+
 @pytest.mark.gpu
 def test_stack_wrappers_refuse_mixed_devices_and_grad(card):
     weights, _ = _stack_case(card, torch.float32, 4, 2, 0)

@@ -267,6 +267,47 @@ def test_keras_lstm_stack_bf16_tracks_f32_jax():
                      ref, name, scaled=True)
 
 
+@pytest.mark.parametrize("batch", [1, 64, 133])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [8, 100, 101, 117, 164])
+def test_stack_fwd_layout_rule(hidden, dtype, batch):
+    """The forward's launch rule on a 132-SM card: the cluster layout (two
+    blocks of 416 threads a batch row, ceil(B / 66) rows a cluster) up to
+    H=100, the wide layout (``stack_rows`` rows a block, a thread per row
+    and unit) above it within ``stack_fits``; a width the fused stack
+    refuses raises, and nothing ``stack_fits`` admits does."""
+    sms, limit = 132, cls.HOPPER_SMEM_BYTES
+    if not cls.stack_fits(hidden, dtype):
+        with pytest.raises(ValueError, match="chained route"):
+            cls.stack_fwd_layout(hidden, dtype, batch, sms, limit)
+        return
+    layout, threads, rows = cls.stack_fwd_layout(hidden, dtype, batch, sms, limit)
+    clusters = -(-batch // rows)
+    if hidden <= 100:
+        assert (layout, threads) == ("cluster", 416)
+        assert rows == -(-batch // 66) and (clusters - 1) * rows < batch
+        assert 2 * clusters <= sms                       # one wave
+        assert cls.cluster_smem_bytes(hidden, dtype) <= limit
+    else:
+        assert layout == "wide"
+        assert rows == cls.stack_rows(batch, hidden, dtype, sms, limit)
+        assert threads == 32 * -(-rows * hidden // 32) <= 1024
+    assert cls.STACK_FWD_LAYOUTS[layout] in (0, 1)
+
+
+def test_stack_fwd_cluster_shared_memory():
+    """The cluster layout's blocks: 57,200 B fixed in float32 (50,544 in
+    bf16, which keeps one more row in registers), 13 rows of k2 dealt out
+    to 416 threads, a staging area for half the recurrent matrix (at least
+    13 rows)."""
+    assert cls.cluster_smem_bytes(100, torch.float32) == 57_200 + 86_528 + 80_000
+    assert cls.cluster_smem_bytes(100, torch.bfloat16) == 50_544 + 43_264 + 40_000
+    assert cls.cluster_smem_bytes(8, torch.bfloat16) == 50_544 + 43_264 + 832
+    assert cls.cluster_smem_bytes(100, torch.float32) <= cls.HOPPER_SMEM_BYTES
+    with pytest.raises(ValueError, match="cluster layout needs"):
+        cls.stack_fwd_layout(100, torch.float32, 32, 132, 150_000)
+
+
 def test_stack_wrappers_refuse_and_eligibility_rule():
     xz1, mat = torch.zeros(4, 2, 40), torch.zeros(10, 40)
     b2, seq = torch.zeros(40), torch.zeros(4, 2, 10)
