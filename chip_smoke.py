@@ -9,10 +9,11 @@ exits non-zero on failure:
 1. build   — every ``hfrep_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
              one process per source, started together; prints ptxas's
              registers and spills per kernel (and fails if an lstm_fwd
-             or stack_fwd cluster-layout instantiation spills), the
-             forward's launch rule at H=100 and at its wide widths, the
-             stack forward's launch rule and how many of its two-block
-             clusters can be resident at once, and the dynamic shared
+             or a stack_fwd / stack_bwd cluster-layout instantiation
+             spills), the forward's launch rule at H=100 and at its wide
+             widths, the stack forward's and backward's launch rules by B
+             and how many of their two-block clusters can be resident at
+             once, and the dynamic shared
              memory each LSTM kernel (single-layer and fused stack) asks
              for at H=100;
 2. parity  — the forward kernel (primal mode) against its plain PyTorch
@@ -53,9 +54,10 @@ exits non-zero on failure:
              with_res), the backward (plain, direct cotangents,
              with_carries) and the adjoint against their plain versions,
              at the same shapes, activations, dtypes and bars; then the
-             forward's two layouts (the cluster layout at H=100 with three
-             batch rows a cluster, the wide one at H=117 f32 / 160 bf16),
-             both modes, each launched twice and bit-equal;
+             forward's and the backward's two layouts (the cluster layout
+             at H=100 with three batch rows a cluster, the wide one at
+             H=117 f32 / 160 bf16), every mode, each launched twice and
+             bit-equal;
 3. server  — the main path: ``ReplicationServer`` on ``cuda`` with the
              fixture AE head and the ``mtss_wgan_gp`` generator, then the
              ``mtss_wgan_gp_prod`` one: start, ``warm_server`` (the program
@@ -228,12 +230,14 @@ def device_ms(torch, fn, iters: int, match: str = "lstm_fwd") -> float:
 # ------------------------------------------------------------------ phases
 #: the bool template flags of each kernel, in order
 KERNEL_FLAGS = {"lstm_fwd": ("with_cs", "carry"), "lstm_bwd": ("carry",),
-                "lstm_adj": ("carry",), "stack_fwd": ("with_res",)}
+                "lstm_adj": ("carry",), "stack_fwd": ("with_res",),
+                "stack_bwd": ("directs", "carries")}
 
 
 def entry_name(mangled: str) -> str:
     """A readable name for a kernel's mangled entry: base<dtype,act,modes>."""
-    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj))(?:_wide|_cluster)?_kernel)I(f|13__nv_bfloat16)"
+    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj))(?:_wide|_cluster|_gates)?_kernel)"
+                  r"I(f|13__nv_bfloat16)"
                   r"Li(\d)E((?:Lb\dE)*)", mangled)
     if m:
         flags = re.findall(r"Lb(\d)E", m.group(5))
@@ -288,29 +292,31 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
         say(f"[build] {kernel}: dynamic shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{cuda_lstm.smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm['f32']} B a further row)")
-    lib = cuda_lstm_stack._lib("lstm_stack_fwd")
-    for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        plans = {b: cuda_lstm_stack.stack_fwd_layout(HIDDEN, dt, b, sms, limit)
-                 for b in FWD_BATCHES}
-        clusters = lib.hfrep_stack_fwd_clusters(HIDDEN, int(n == "bf16"), 0)
-        if clusters < 1:
-            fail(f"stack_fwd cluster layout: no cluster can be resident ({clusters})")
-        say(f"[build] stack_fwd layout at H={HIDDEN} {n} (layout, threads, rows a cluster) by B: "
-            + ", ".join(f"B={b} {p}" for b, p in plans.items())
-            + f"; {cuda_lstm_stack.cluster_smem_bytes(HIDDEN, dt)} B of shared memory a block; "
-            f"{clusters} clusters of 2 resident at once (cudaOccupancyMaxActiveClusters); "
-            f"no spills")
-    for h, name in STACK_WIDE_CASES:
-        dt = getattr(torch, name)
-        say(f"[build] stack_fwd layout at H={h} {name}, B=133: "
-            f"{cuda_lstm_stack.stack_fwd_layout(h, dt, 133, sms, limit)}")
+    cls = cuda_lstm_stack
+    for kernel, rule, cluster_bytes in (("stack_fwd", cls.stack_fwd_layout, cls.cluster_smem_bytes),
+                                        ("stack_bwd", cls.stack_bwd_layout,
+                                         cls.cluster_bwd_smem_bytes)):
+        resident = getattr(cls._lib(f"lstm_{kernel}"), f"hfrep_{kernel}_clusters")
+        for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            plans = {b: rule(HIDDEN, dt, b, sms, limit) for b in FWD_BATCHES}
+            clusters = resident(HIDDEN, int(n == "bf16"), 0)
+            if clusters < 1:
+                fail(f"{kernel} cluster layout: no cluster can be resident ({clusters})")
+            say(f"[build] {kernel} layout at H={HIDDEN} {n} (layout, threads, rows a cluster) "
+                "by B: " + ", ".join(f"B={b} {p}" for b, p in plans.items())
+                + f"; {cluster_bytes(HIDDEN, dt)} B of shared memory a block; {clusters} "
+                f"clusters of 2 resident at once (cudaOccupancyMaxActiveClusters); no spills")
+        for h, name in STACK_WIDE_CASES:
+            say(f"[build] {kernel} layout at H={h} {name}, B=133: "
+                f"{rule(h, getattr(torch, name), 133, sms, limit)}")
     rows = [cuda_lstm_stack.stack_rows(b, HIDDEN, torch.float32, sms, limit)
             for b in TRAIN_BATCHES]
     for kernel in ("stack_fwd", "stack_bwd", "stack_adj"):
         sm = {n: cuda_lstm_stack.stack_smem_bytes(HIDDEN, dt, 1, kernel)
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
         extra = cuda_lstm_stack.stack_smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm["f32"]
-        say(f"[build] {kernel}: dynamic shared memory at H={HIDDEN}, one row a block: "
+        wide = "" if kernel == "stack_adj" else " (wide layout)"
+        say(f"[build] {kernel}{wide}: dynamic shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{extra} B a further row); "
             f"{limit} B allowed; rows a block at B={TRAIN_BATCHES}: {rows}")
 
@@ -545,13 +551,15 @@ def phase_stack_parity(torch, cuda_lstm_stack) -> dict:
 
 
 def phase_stack_layouts(torch, cuda_lstm_stack) -> dict:
-    """The stack forward's two modes in both layouts against the plain
-    version: the cluster layout at H=100 with B=133 (three batch rows a
-    cluster), the wide layout at ``STACK_WIDE_CASES`` with B in {8, 133};
+    """The stack forward's two modes and the backward's three (plain,
+    direct cotangents, with the carries) in both layouts against the plain
+    versions: the cluster layouts at H=100 with B=133 (three batch rows a
+    cluster), the wide layouts at ``STACK_WIDE_CASES`` with B in {8, 133};
     W=48, every activation, seeded inputs (xz1 and b2 0.3 N(0,1), matrices
-    0.5 N(0,1)/sqrt(H), as the card tests).  Bars: the primal abs f32 2e-5 / bf16
-    1e-2, with_res scaled by max(1, max|plain|), f32 1e-4 / bf16 1e-2.
-    Each mode launched twice must give the same bits."""
+    0.5 N(0,1)/sqrt(H), as the card tests; the backward on the forward
+    kernel's residuals).  Bars: the primal abs f32 2e-5 / bf16 1e-2, every
+    other mode scaled by max(1, max|plain|), f32 1e-4 / bf16 1e-2.  Each
+    mode launched twice must give the same bits."""
     cls = cuda_lstm_stack
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     limit = cuda_lstm_stack.cuda_lstm._lib().hfrep_max_smem_optin(0)
@@ -561,6 +569,8 @@ def phase_stack_layouts(torch, cuda_lstm_stack) -> dict:
     for h, name, b in cases:
         dtype = getattr(torch, name)
         layout = cls.stack_fwd_layout(h, dtype, b, sms, limit)[0]
+        if cls.stack_bwd_layout(h, dtype, b, sms, limit)[0] != layout:
+            fail(f"stack_fwd and stack_bwd pick different layouts at H={h} B={b} {name}")
         g = torch.Generator(device="cuda")
         g.manual_seed(h + b + 7)
         rnd = lambda s, *shape: s * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
@@ -596,8 +606,33 @@ def phase_stack_layouts(torch, cuda_lstm_stack) -> dict:
                 if not err <= bar:
                     fail(f"stack_fwd {mode} ({layout}) disagrees with its plain version: "
                          f"{err} > {bar} at H={h} B={b} {act} {name}")
-        say(f"[stack] layout {layout} H={h} W=48 B={b} {name}: stack_fwd within its bars and "
-            f"bitwise repeatable; tanh errors: {', '.join(line)}")
+            dhs2 = rnd(0.3, 48, b, h)
+            directs = (rnd(0.3, 48, b, h), rnd(0.3, 48, b, h), rnd(0.3, 48, b, h))
+            for mode, d, carries in (("plain", None, False), ("directs", directs, False),
+                                     ("carries", None, True)):
+                with torch.no_grad():
+                    res = cls.stack_fwd_cuda(*wts, act, True)
+                    got = cls.stack_bwd_cuda(*wts, *res, dhs2, d, act, carries)
+                    again = cls.stack_bwd_cuda(*wts, *res, dhs2, d, act, carries)
+                    ref = cls.stack_bwd_plain(*wts, *res, dhs2, d, act, carries)
+                torch.cuda.synchronize()
+                for a, r in zip(got, ref):
+                    if a.shape != r.shape or not torch.isfinite(a).all():
+                        fail(f"stack_bwd {mode} ({layout}) not finite/shaped at H={h} B={b} "
+                             f"{act} {name}")
+                if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                    fail(f"stack_bwd {mode} ({layout}): two launches differ at H={h} B={b} "
+                         f"{act} {name}")
+                err, bar = max(scaled_err(a, r) for a, r in zip(got, ref)), GRAD_BARS[name]
+                key = f"{layout} stack_bwd {mode} {name}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                if act == "tanh":
+                    line.append(f"bwd {mode} {err:.2e}")
+                if not err <= bar:
+                    fail(f"stack_bwd {mode} ({layout}) disagrees with its plain version: "
+                         f"{err} > {bar} at H={h} B={b} {act} {name}")
+        say(f"[stack] layout {layout} H={h} W=48 B={b} {name}: stack_fwd and stack_bwd within "
+            f"their bars and bitwise repeatable; tanh errors: {', '.join(line)}")
     return worst
 
 
@@ -1611,7 +1646,12 @@ def main() -> None:
     rows[-3]["mode"] = "with_res (the epoch's); launches count both modes"
     rows[-3]["layouts"] = {"cluster": "H <= 100: every preset, the main path's",
                            "wide": "100 < H within stack_fits"}
-    rows[-3]["max_err_by_layout"] = stack_layouts
+    rows[-3]["max_err_by_layout"] = {k: v for k, v in stack_layouts.items() if "stack_fwd" in k}
+    rows[-2]["mode"] = "plain (the epoch's timed mode); launches count every mode"
+    rows[-2]["layout"] = "cluster, after the gate-recompute pre-pass; its time is every kernel of one call"
+    rows[-2]["layouts"] = {"cluster": "H <= 100: every preset, the main path's",
+                           "wide": "100 < H within stack_fits"}
+    rows[-2]["max_err_by_layout"] = {k: v for k, v in stack_layouts.items() if "stack_bwd" in k}
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
     kernels = {"kernels": rows}
     if args.out:

@@ -5,9 +5,9 @@
 // direct cotangents dhs1, dcs1, dcs2 on its residual streams at second
 // order) and the primal of stack_bwd_seq (with the per-step carries the
 // adjoint needs).  Walks t = W-1 .. 0, carries starting at zero, step 0's
-// previous states zero.  Per step, recomputing both layers' gates from
-// the saved states (z1 from h1_{t-1}; z2 = b2 + h1_t . k2 + h2_{t-1} .
-// rec2), layer 2 first:
+// previous states zero.  Per step, from both layers' gates recomputed from
+// the saved states (z1 = xz1 + h1_{t-1} . rec1; z2 = b2 + h1_t . k2 +
+// h2_{t-1} . rec2), layer 2 first:
 //
 //     dhT2 = dhs2_t + dh2;  dcT2 = dc2 [+ dcs2_t] + dhT2 o2 act'(act(c2_t))
 //     dz2  = [dcT2 g2 i2', dcT2 c2_{t-1} f2', dcT2 i2 act'(g2), dhT2 act(c2_t) o2']
@@ -20,8 +20,8 @@
 // sum h1_{t-1}^T dz1, dk2 = sum h1_t^T dz2, db2 = sum dz2, drec2 = sum
 // h2_{t-1}^T dz2 over the W*B rows.  Operands are float32 or bf16; every
 // vector dotted with one of them is rounded to its dtype first (h1_{t-1},
-// h1_t, h2_{t-1}, dz1, dz2), and the sums use the float32 values, as in
-// the TPU kernel.
+// h1_t, h2_{t-1}, dz1, dz2), b2 is added in float32, and the sums use the
+// float32 values, as in the TPU kernel.
 //
 // What bounds it.  At the critic's shape in the epoch (W=48, B=64, H=100,
 // float32) it must move 21.5 MB (xz1, dxz1 and the dz2 workspace 4.92 MB
@@ -30,22 +30,74 @@
 // products of 2*W*B*H*4H: three recomputes, three dots with a transposed
 // matrix, three sums) — >= 33 us at 67 TFLOP/s float32.  Neither sets the
 // pace: dh1 and dh2 of step t feed step t-1, so the sweep is W dependent
-// steps, each four dot chains and three block barriers.
+// steps.  Only two of the nine products sit on that chain (dz1 . rec1^T
+// and dz2 . rec2^T); the recompute reads saved states alone, and dz2 .
+// k2^T feeds layer 1 but not layer 2's own chain.
 //
-// What the design does about it.  One block owns a tile of batch rows and
-// walks all W steps.  rec1 sits once in dynamic shared memory with the
-// one-entry row pad of lstm_common.cuh, read by columns (the recompute)
-// and by rows (dz1 . rec1^T) without bank conflicts.  k2 and rec2 are read
-// from global memory (L2) by columns for the recompute, and through
-// transposed copies the wrapper passes (k2^T, rec2^T, (4H, H)) for the
-// dz2 dots, so those walks are by columns too and coalesced.  The walks
-// are bound by L2 latency, so each thread issues a chunk of rows' loads at
-// once through ldg_f before their FMAs (64 in flight; 3.1x faster than
-// plain loads at W=48, B=32, PERF.md).  The step's
-// staged states and both dz are in shared memory; the carries live in
-// registers (thread j produces and consumes unit j).  The sums are formed
-// after the sweep by lstm_common.cuh's outer_sum over the W*B rows (dz2
-// goes to a workspace), deterministically and without atomics.
+// The cluster layout, for H <= 4*KS = 100, which every preset width takes:
+// - The recompute leaves the chain: stack_bwd_gates_kernel forms both
+//   layers' gates for all W*B rows at once, a tiled float32 product (no
+//   tensor cores: TF32 or bf16 products of float32 operands would break the
+//   float32 bars), and writes them in place of what the sweep writes later
+//   at the same positions: layer 1's gates into dxz1, layer 2's into the
+//   dz2 workspace.
+// - The sweep (stack_bwd_cluster_kernel) runs a cluster of two blocks a
+//   batch row, one layer a block, each block 416 threads, a quad a hidden
+//   unit k: thread (k, q) holds chunks c < KS of row k's gate-q columns of
+//   its layer's recurrent matrix (entries q*H + 4c .. 4c + 3), KR1 (block
+//   0) or KR2 (block 1) chunks in registers and the rest in shared memory
+//   as a float4 each, so dh[k] = sum_m dz[m] rec[k, m] is 100 FMAs a
+//   thread against dz broadcast from shared memory as float4s, and a quad
+//   sum of two shuffles that leaves dh[k] in all four lanes.  Each lane then
+//   runs unit k's gate math itself (lane q keeps dz[q]), so the carry never
+//   leaves the quad and a step has one block barrier.
+// - k2^T's product is split by chunks: c < KH = 13 in block 1, the rest in
+//   block 0, each block's chunks dealt out in its shared memory as the rows
+//   of the recurrent matrix are.  Held whole by one block, k2 made that
+//   block the slow one in the stack forward (PERF.md).
+// - Block 1 (layer 2) walks ahead: per step it forms dz2_t from the gates,
+//   writes dz2 (float32, for the sums) [and dhT2, dcT2], and puts round(dz2)
+//   into its own dz buffer and into slot t mod D of a ring in block 0's
+//   shared memory; after the barrier, its chain dh2 = round(dz2) . rec2^T
+//   and its part of round(dz2) . k2^T, which goes into the same slot.  The
+//   stores are st.async, counting their bytes off the slot's mbarrier in
+//   block 0 (lstm_common.cuh).
+// - Block 0 (layer 1) waits on the slot, finishes dh1_in = round(dz2) .
+//   k2^T over its chunks plus block 1's part [+ dhs1], forms dz1 and dxz1
+//   [dhT1, dcT1], then its chain dh1 = round(dz1) . rec1^T.  After its
+//   barrier one thread re-arms the slot's mbarrier and stores the count of
+//   slots read into block 1, which polls it before refilling a slot.  So
+//   block 1 runs up to D = 4 steps ahead, the two reverse chains overlap,
+//   and no release or acquire at cluster scope runs in the time loop.
+// - Each lane stages its gate's value and one of the step's state values a
+//   step ahead (c_t, c_{t-1}, the direct dc, the dh input) with cp.async,
+//   which holds no registers, and the quad trades them by shuffles.  Loop
+//   offsets are 32-bit.  The direct cotangents and the carries are
+//   template flags.
+// - Registers: ptxas grants the 13 warps 128 registers a thread and fills
+//   them with the dz loads it issues early; 15 chunks in registers in
+//   float32 (15 and 16 in bf16) spill in no instantiation
+//   (tools/torch_stack_fwd_sweep.py --kernel bwd --rows), which leaves
+//   shared memory for only a third of a matrix's rows to be staged at a
+//   time in the prologue: 225,840 B a block in float32, 155,376 in bf16.
+// - Clusters loop over ceil(B / (SMs/2)) batch rows each, carries reset
+//   a row; the ring's phase runs on across rows.
+// A width whose recurrent matrices the register file cannot hold (100 < H,
+// within stack_fits) runs the wide layout (stack_bwd_kernel), the port's
+// first stack backward, unchanged: one block owns a tile of batch rows and
+// walks all W steps with the recompute on the chain; rec1 sits once in
+// dynamic shared memory with the one-entry row pad of lstm_common.cuh,
+// read by columns (the recompute) and by rows (dz1 . rec1^T); k2 and rec2
+// are read from L2 by columns for the recompute, and through transposed
+// copies the wrapper passes (k2^T, rec2^T, (4H, H)) for the dz2 dots, each
+// thread issuing a chunk of rows' loads at once through ldg_f.  The
+// wrapper chooses the layout by a rule on (H, dtype, B, SMs)
+// (cuda_lstm_stack.stack_bwd_layout) and passes it here; it never tries
+// one and falls back.  In both layouts the sums are formed after the
+// sweep by lstm_common.cuh's outer_sum over the W*B rows (dz2 goes to a
+// workspace), deterministically and without atomics.
+
+#include <cooperative_groups.h>
 
 #include "lstm_common.cuh"
 
@@ -86,6 +138,7 @@ __device__ __forceinline__ void bwd_step(float ig, float fg, float gc, float og,
   *dhT = dht;
 }
 
+// ------------------------------------------------------------ wide layout
 // rows of the L2-resident matrices loaded together before their FMAs
 // (ldg_f): KC rows of k2 and rec2 for the recompute, MC rows of k2^T and
 // rec2^T for the dz2 dots, 64 loads in flight a thread
@@ -289,6 +342,592 @@ cudaError_t launch_act(int act, const void* xz1, const void* rec1, const void* k
   }
 }
 
+
+// ----------------------------------------------------- cluster layout
+// The gate recompute, off the chain: gates (W, B, 4H) float32 of both
+// layers from the saved states, one output tile of GT_M rows x GT_N
+// columns a block, blockIdx.z the layer:
+//   layer 1: act(xz1 + round(shift(hs1)) . rec1)            -> g1
+//   layer 2: act(b2 + [round(hs1), round(shift(hs2))] . [k2; rec2])  -> g2
+// (sigmoid for i, f, o; the activation for the candidate).  Each thread
+// keeps a 4 x 4 tile of sums; the k range goes GT_K at a time through
+// shared memory, the next piece loaded into registers while the current
+// one is multiplied, so a block waits for global memory once.
+constexpr int GT_M = 64, GT_N = 64, GT_K = 16, GT_THREADS = (GT_M / 4) * (GT_N / 4);
+constexpr int GT_LA = GT_M * GT_K / GT_THREADS, GT_LB = GT_N * GT_K / GT_THREADS;
+
+// this thread's entries of the k piece at k0: the states (rounded) and the
+// matrix rows, zero outside the ranges
+template <typename T>
+__device__ __forceinline__ void gates_piece(const T* rec1, const T* k2, const T* rec2,
+                                            const float* hs1, const float* hs2, int layer,
+                                            int k0, int m0, int n0, int R, int B, int H,
+                                            float (&va)[GT_LA], float (&vb)[GT_LB]) {
+  const int G = 4 * H, K = layer ? 2 * H : H, tid = threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < GT_LA; ++u) {
+    const int i = tid + u * GT_THREADS;
+    const int r = m0 + i / GT_K, k = k0 + i % GT_K;
+    float v = 0.0f;
+    if (r < R && k < K) {
+      if (layer == 0 || k >= H) {                      // a previous state
+        const float* hp = layer == 0 ? hs1 : hs2;
+        if (r >= B) v = round_to<T>(hp[(r - B) * H + (layer == 0 ? k : k - H)]);
+      } else {
+        v = round_to<T>(hs1[r * H + k]);
+      }
+    }
+    va[u] = v;
+  }
+#pragma unroll
+  for (int u = 0; u < GT_LB; ++u) {
+    const int i = tid + u * GT_THREADS;
+    const int k = k0 + i / GT_N, n = n0 + i % GT_N;
+    float v = 0.0f;
+    if (k < K && n < G) {
+      if (layer == 0) v = to_f(rec1[k * G + n]);
+      else v = to_f(k < H ? k2[k * G + n] : rec2[(k - H) * G + n]);
+    }
+    vb[u] = v;
+  }
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(GT_THREADS)
+stack_bwd_gates_kernel(const T* __restrict__ xz1, const T* __restrict__ rec1,
+                       const T* __restrict__ k2, const T* __restrict__ b2,
+                       const T* __restrict__ rec2, const float* __restrict__ hs1,
+                       const float* __restrict__ hs2, float* __restrict__ g1,
+                       float* __restrict__ g2, int R, int B, int H) {
+  __shared__ __align__(16) float as[GT_K][GT_M + 4];   // the states, k-major
+  __shared__ __align__(16) float bs[GT_K][GT_N];       // the matrix rows
+  const int layer = blockIdx.z;
+  const int G = 4 * H, K = layer ? 2 * H : H;
+  const int m0 = blockIdx.x * GT_M, n0 = blockIdx.y * GT_N;
+  const int tid = threadIdx.x;
+  const int tx = tid % (GT_N / 4), ty = tid / (GT_N / 4);   // columns 4tx.., rows 4ty..
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+  float va[GT_LA], vb[GT_LB];
+  gates_piece(rec1, k2, rec2, hs1, hs2, layer, 0, m0, n0, R, B, H, va, vb);
+  for (int k0 = 0; k0 < K; k0 += GT_K) {
+#pragma unroll
+    for (int u = 0; u < GT_LA; ++u) {
+      const int i = tid + u * GT_THREADS;
+      as[i % GT_K][i / GT_K] = va[u];
+    }
+#pragma unroll
+    for (int u = 0; u < GT_LB; ++u) {
+      const int i = tid + u * GT_THREADS;
+      bs[i / GT_N][i % GT_N] = vb[u];
+    }
+    __syncthreads();
+    if (k0 + GT_K < K)
+      gates_piece(rec1, k2, rec2, hs1, hs2, layer, k0 + GT_K, m0, n0, R, B, H, va, vb);
+#pragma unroll
+    for (int kk = 0; kk < GT_K; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[kk][4 * ty]);
+      const float4 b = *reinterpret_cast<const float4*>(&bs[kk][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+    }
+    __syncthreads();
+  }
+  float* out = layer ? g2 : g1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + 4 * ty + i;
+    if (r >= R) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int n = n0 + 4 * tx + jj;
+      if (n >= G) continue;
+      const float z = (layer ? to_f(b2[n]) : to_f(xz1[r * G + n])) + acc[i][jj];
+      out[r * G + n] = n / H == 2 ? act_f<ACT>(z) : sigmoid_f(z);
+    }
+  }
+}
+
+namespace cb {
+
+constexpr int KS = 25;              // chunks of four columns a thread owns: H <= 4*KS
+constexpr int ZP = 104;             // a gate's stride in a dz buffer (floats)
+constexpr int THREADS = 32 * ((4 * KS + 7) / 8);   // 416: a quad per unit
+// Of a thread's KS chunks of its layer's recurrent matrix, the first KR1
+// (layer 1) or KR2 (layer 2) are held in registers, the rest in shared
+// memory: ptxas grants 13 warps 128 registers a thread, and the counts that
+// leave no instantiation spilling differ by operand type
+// (tools/torch_stack_fwd_sweep.py --kernel bwd --rows).
+constexpr int KR1_F32 = 15, KR2_F32 = 15, KR1_BF16 = 15, KR2_BF16 = 16;
+template <typename T>
+struct Keep {
+  static constexpr int r1 = KR1_F32, r2 = KR2_F32;
+};
+template <>
+struct Keep<__nv_bfloat16> {
+  static constexpr int r1 = KR1_BF16, r2 = KR2_BF16;
+};
+__host__ __device__ constexpr int kr_min(size_t item) {
+  return item == 4 ? (KR1_F32 < KR2_F32 ? KR1_F32 : KR2_F32)
+                   : (KR1_BF16 < KR2_BF16 ? KR1_BF16 : KR2_BF16);
+}
+// k2^T's product is split between the blocks: chunks c < KH of each gate's
+// columns in block 1, the rest in block 0
+constexpr int KH = 13;
+constexpr int D = 4;                // ring slots: how far layer 2 may run ahead
+// a slot: round(dz2_t) laid out as a dz buffer, then block 1's part of
+// dh1_in_t by unit
+constexpr int SLOT = 5 * ZP;
+// bytes of st.async stores a slot awaits: lane q of unit k's quad stores
+// dz2[q] and lane 0 the part, for H units
+__host__ __device__ constexpr unsigned slot_bytes(int H) { return 20u * H; }
+
+// The fixed part of a block's shared memory, in floats: two dz buffers,
+// each thread's two staged step inputs for two steps, the chunks of the
+// recurrent matrix past the fewer of KR1, KR2 (a float4 a thread each),
+// the ring and its D mbarriers (block 0), then the count of slots block 0
+// has read (block 1), padded to 16 bytes.
+__host__ __device__ constexpr int fixed_floats(size_t item) {
+  return 8 * ZP + 4 * THREADS + 4 * (KS - kr_min(item)) * THREADS + D * SLOT + 2 * D + 4;
+}
+
+// bytes of a block's chunks of k2, dealt out: chunks x THREADS x 4 entries of T
+__host__ __device__ constexpr size_t k2_bytes(size_t item) {
+  return static_cast<size_t>(KS - KH > KH ? KS - KH : KH) * THREADS * 4 * item;
+}
+
+// Dynamic shared memory of either block: the fixed part, the block's
+// chunks of k2, then a staging area for a PARTS-th of the rows of a
+// matrix (a third: room for fewer chunks in registers in float32).
+constexpr int PARTS = 3;
+__host__ __device__ inline size_t stage_bytes(int H, size_t item) {
+  return static_cast<size_t>((H + PARTS - 1) / PARTS) * 4 * H * item;
+}
+__host__ __device__ inline size_t smem_bytes(int H, size_t item) {
+  return fixed_floats(item) * sizeof(float) + k2_bytes(item) + stage_bytes(H, item);
+}
+
+// Rows [lo, lo + n) of an (H, 4H) matrix lie staged at `stage`: thread
+// (k, q), k among them, takes its chunks c < KS of row k's gate-q columns
+// into w (c < KR) and rec_s, entries past H zero.
+template <typename T, int KR, int KW>
+__device__ __forceinline__ void deal_rec(const T* stage, int lo, int n, int H, int q, int k,
+                                         bool unit, float (&w)[4][KW], float4* rec_s) {
+  const int r = k - lo, tid = threadIdx.x;
+  if (!unit || r < 0 || r >= n) return;
+  const T* src = stage + r * 4 * H + q * H;
+#pragma unroll
+  for (int c = 0; c < KS; ++c) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = 4 * c + e < H ? to_f(src[4 * c + e]) : 0.0f;
+    if (c < KR) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[e][c < KR ? c : 0] = v[e];
+    } else {
+      rec_s[(c - KR) * THREADS + tid] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The same rows of k2: thread (k, q) takes chunks c0 <= c < c1 of row k's
+// gate-q columns into k2_s at entries ((c - c0) * THREADS + tid) * 4 + e.
+template <typename T>
+__device__ __forceinline__ void deal_k2(const T* stage, int lo, int n, int H, int q, int k,
+                                        bool unit, int c0, int c1, T* k2_s) {
+  const int r = k - lo, tid = threadIdx.x;
+  if (!unit || r < 0 || r >= n) return;
+  const T* src = stage + r * 4 * H + q * H;
+  for (int c = c0; c < c1; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      k2_s[((c - c0) * THREADS + tid) * 4 + e] = 4 * c + e < H ? src[4 * c + e] : from_f<T>(0.0f);
+}
+
+// chunk c of this thread's row: from registers (c < KR) or shared memory
+template <int KR, int KW>
+__device__ __forceinline__ void weights(const float (&w)[4][KW], const float4* rec_s, int c,
+                                        int tid, float (&wk)[4]) {
+  if (c < KR) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) wk[e] = w[e][c < KR ? c : 0];
+  } else {
+    const float4 v = rec_s[(c - KR) * THREADS + tid];
+    wk[0] = v.x, wk[1] = v.y, wk[2] = v.z, wk[3] = v.w;
+  }
+}
+
+// the eight chains of a dot, summed in a fixed order
+__device__ __forceinline__ float chains(const float (&a0)[4], const float (&a1)[4]) {
+  return ((a0[0] + a1[0]) + (a0[1] + a1[1])) + ((a0[2] + a1[2]) + (a0[3] + a1[3]));
+}
+
+// this thread's part of dz . rec^T for its row: its KS chunks against the
+// dz buffer's gate-q run (float4s, broadcast within each quarter-warp)
+template <int KR, int KW>
+__device__ __forceinline__ float dot_rec(const float4* dz4, const float (&w)[4][KW],
+                                         const float4* rec_s, int tid) {
+  float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < KS; ++c) {
+    const float4 v = dz4[c];
+    const float d[4] = {v.x, v.y, v.z, v.w};
+    float wk[4];
+    weights<KR>(w, rec_s, c, tid, wk);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c & 1) a1[e] = fmaf(d[e], wk[e], a1[e]);
+      else a0[e] = fmaf(d[e], wk[e], a0[e]);
+    }
+  }
+  return chains(a0, a1);
+}
+
+// this thread's parts of dz . rec^T and of dz . k2^T over chunks c < C1,
+// in one walk over the dz buffer: each float4 is read once, and no value
+// of it is held for a second walk
+template <int KR, int C1, int KW, typename T>
+__device__ __forceinline__ float2 dot_rec_k2(const float4* dz4, const float (&w)[4][KW],
+                                             const float4* rec_s, const T* k2_s, int tid) {
+  float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < KS; ++c) {
+    const float4 v = dz4[c];
+    const float d[4] = {v.x, v.y, v.z, v.w};
+    float wk[4];
+    weights<KR>(w, rec_s, c, tid, wk);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c & 1) a1[e] = fmaf(d[e], wk[e], a1[e]);
+      else a0[e] = fmaf(d[e], wk[e], a0[e]);
+    }
+    if (c < C1) {
+      float kv[4];
+      load4(k2_s + (c * THREADS + tid) * 4, kv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = fmaf(d[e], kv[e], p[e]);
+    }
+  }
+  return make_float2(chains(a0, a1), (p[0] + p[1]) + (p[2] + p[3]));
+}
+
+// this thread's part of dz2 . k2^T over chunks C0 <= c < C1
+template <int C0, int C1, typename T>
+__device__ __forceinline__ float dot_k2(const float4* dz4, const T* k2_s, int tid) {
+  float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = C0; c < C1; ++c) {
+    const float4 v = dz4[c];
+    const float d[4] = {v.x, v.y, v.z, v.w};
+    float kv[4];
+    load4(k2_s + ((c - C0) * THREADS + tid) * 4, kv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c & 1) a1[e] = fmaf(d[e], kv[e], a1[e]);
+      else a0[e] = fmaf(d[e], kv[e], a0[e]);
+    }
+  }
+  return chains(a0, a1);
+}
+
+// the quad's sum in all four lanes, the same bits in each
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// lane `src` of this quad's value
+__device__ __forceinline__ float from_lane(float v, int base, int src) {
+  return __shfl_sync(0xffffffffu, v, base + src);
+}
+
+// Stage this lane's inputs of step t into st[0..1] with cp.async, which
+// holds no registers while the loads are in flight: its gate's value (at
+// (W, B, 4H) offset og of `gates`) and its value of the step's state
+// stream (lane 0 c_t, lane 1 c_{t-1}, lane 2 the direct dc, lane 3 the dh
+// input, at (W, B, H) offset o - back of `sp`; null is zeros).
+__device__ __forceinline__ void stage_step(float* st, const float* gates, int og,
+                                           const float* sp, int o, int back, int t, bool on) {
+  if (on) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st)),
+                 "l"(gates + og) : "memory");
+  } else {
+    st[0] = 0.0f;
+  }
+  if (on && sp != nullptr && (back == 0 || t > 0)) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 1)),
+                 "l"(sp + o - back) : "memory");
+  } else {
+    st[1] = 0.0f;
+  }
+}
+
+}  // namespace cb
+
+// Launched as clusters of two blocks of cb::THREADS threads, after
+// stack_bwd_gates_kernel has written the gates into dxz1 and dz2w;
+// grid = 2 x the clusters, cluster c walks batch rows c*rows .. c*rows +
+// rows - 1.
+template <typename T, int ACT, bool DIRECT, bool CARRIES>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cb::THREADS, 1)
+stack_bwd_cluster_kernel(const T* __restrict__ rec1, const T* __restrict__ k2,
+                         const T* __restrict__ rec2, StackBwdArgs a, int W, int B, int H,
+                         int rows) {
+  using namespace cb;
+  namespace cg = cooperative_groups;
+  constexpr int KR1 = Keep<T>::r1, KR2 = Keep<T>::r2;
+  constexpr int KRMIN = KR1 < KR2 ? KR1 : KR2, KRMAX = KR1 < KR2 ? KR2 : KR1;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float fsm[];
+  float* dz_s = fsm;                         // round(dz_t): 2 buffers (step parity) x 4 x ZP
+  float* step_s = dz_s + 8 * ZP;             // step inputs: 2 (step parity) x THREADS x 2
+  float4* rec_s = reinterpret_cast<float4*>(step_s + 4 * THREADS);   // chunks c >= KR1 or KR2
+  float* ring = reinterpret_cast<float*>(rec_s + (KS - KRMIN) * THREADS);   // D slots
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(ring + D * SLOT);  // D
+  unsigned* done = reinterpret_cast<unsigned*>(full + D);   // block 1: slots block 0 has read
+  T* k2_s = reinterpret_cast<T*>(fsm + fixed_floats(sizeof(T)));    // this block's chunks of k2
+  T* stage = k2_s + k2_bytes(sizeof(T)) / sizeof(T);        // staging area
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
+  const int q = tid & 3;                     // gate q's columns of row k; state stream q
+  const int k = (tid >> 5) * 8 + ((tid & 31) >> 2);   // hidden unit: row k of the matrices
+  const int base = tid & 28;                 // the quad's first lane
+  const bool unit = k < H;
+  const unsigned rank = cluster.block_rank();          // 0: layer 1, 1: layer 2
+  const int cid = static_cast<int>(blockIdx.x / 2);
+
+  // dz buffers and the ring start at zero; entries past H stay zero,
+  // multiplied by zero weights
+  for (int i = tid; i < 8 * ZP; i += THREADS) dz_s[i] = 0.0f;
+  for (int i = tid; i < D * SLOT; i += THREADS) ring[i] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < D; ++s) mbar_init(smem_u32(full + s), 1);
+    if (rank == 0)
+      for (int s = 0; s < D; ++s) mbar_expect(smem_u32(full + s), slot_bytes(H));   // uses 0 .. D-1
+    *reinterpret_cast<volatile unsigned*>(done) = 0u;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // this block's chunks of k2, then its layer's recurrent matrix, a
+  // PARTS-th of the rows at a time: chunks c < KR1 (KR2) into registers,
+  // the rest into shared memory
+  float w[4][KRMAX];
+#pragma unroll
+  for (int c = 0; c < KRMAX; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e][c] = 0.0f;
+  for (int c = 0; c < KS - KRMIN; ++c) rec_s[c * THREADS + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid * 4; i < static_cast<int>(k2_bytes(sizeof(T)) / sizeof(T)); i += THREADS * 4)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) k2_s[i + e] = from_f<T>(0.0f);
+  const int part = (H + PARTS - 1) / PARTS;
+  for (int lo = 0; lo < H; lo += part) {
+    const int n = min(part, H - lo);
+    copy_issue<THREADS>(k2 + static_cast<size_t>(lo) * G, stage, n * G);
+    copy_wait();
+    if (rank == 0) deal_k2(stage, lo, n, H, q, k, unit, KH, KS, k2_s);
+    else deal_k2(stage, lo, n, H, q, k, unit, 0, KH, k2_s);
+    __syncthreads();                         // the staged rows are read
+  }
+  const T* rec = rank == 0 ? rec1 : rec2;
+  for (int lo = 0; lo < H; lo += part) {
+    const int n = min(part, H - lo);
+    copy_issue<THREADS>(rec + static_cast<size_t>(lo) * G, stage, n * G);
+    copy_wait();
+    if (rank == 0) deal_rec<T, KR1>(stage, lo, n, H, q, k, unit, w, rec_s);
+    else deal_rec<T, KR2>(stage, lo, n, H, q, k, unit, w, rec_s);
+    __syncthreads();
+  }
+  cluster.sync();                            // both blocks set up before any remote access
+
+  // 32-bit element offsets (the launch checks that W*B*4H fits)
+  const int xstep = B * G;
+  const int ostep = B * H;
+  const int back = q == 1 ? ostep : 0;       // lane 1 reads c_{t-1}
+  unsigned n = 0;                            // steps so far: slot n % D, its use n / D
+  // each block runs its own loop, so that neither holds the other's values
+  if (rank == 1) {
+    // Layer 2, ahead: dz2_t into slot n of layer 1's ring, then the chain
+    // dh2 = round(dz2) . rec2^T and this block's part of round(dz2) . k2^T.
+    const unsigned ring_peer = peer_u32(smem_u32(ring), 0);
+    const float* sp = q < 2 ? a.cs2 : q == 2 ? (DIRECT ? a.dcs2 : nullptr) : a.dhs2;
+    for (int r = 0; r < rows; ++r) {
+      const int b = cid * rows + r;
+      if (b >= B) break;                     // the same for the whole cluster
+      __syncthreads();
+      float dh = 0.0f, dc = 0.0f;
+      int o = ((W - 1) * B + b) * H + (unit ? k : 0);        // (W, B, H) offset, step t
+      int og = ((W - 1) * B + b) * G + (unit ? q * H + k : 0);   // gate q's, (W, B, 4H)
+      stage_step(step_s + ((n & 1u) * THREADS + tid) * 2, a.dz2w, og, sp, o, back, W - 1, unit);
+      for (int t = W - 1; t >= 0; --t, ++n) {
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        const float* st = step_s + ((n & 1u) * THREADS + tid) * 2;
+        const float gq = st[0], sq = st[1];
+        if (t > 0)
+          stage_step(step_s + (((n + 1) & 1u) * THREADS + tid) * 2, a.dz2w, og - xstep, sp,
+                     o - ostep, back, t - 1, unit);
+        const float ig = from_lane(gq, base, 0), fg = from_lane(gq, base, 1);
+        const float gc = from_lane(gq, base, 2), og2 = from_lane(gq, base, 3);
+        const float c = from_lane(sq, base, 0), cp = from_lane(sq, base, 1);
+        const float dcs = from_lane(sq, base, 2), dhs = from_lane(sq, base, 3);
+        float dz[4], dcT, dhT;
+        bwd_step<ACT>(ig, fg, gc, og2, c, cp, dhs, dh, DIRECT ? dc + dcs : dc, dz, &dcT, &dhT);
+        dc = dcT * fg;
+        const float dzq = q == 0 ? dz[0] : q == 1 ? dz[1] : q == 2 ? dz[2] : dz[3];
+        const unsigned slot = n % D;
+        const int buf = static_cast<int>(n & 1u) * 4 * ZP;
+        if (unit) {
+          a.dz2w[og] = dzq;
+          if (CARRIES) {
+            if (q == 0) a.dhT2[o] = dhT;
+            if (q == 1) a.dcT2[o] = dcT;
+          }
+          const float rd = round_to<T>(dzq);
+          dz_s[buf + q * ZP + k] = rd;
+          if (n >= D)                        // slot n is free once layer 1 has read use n - D
+            while (ld_flag(smem_u32(done)) < n - D + 1) {
+            }
+          st_async_peer(ring_peer + 4 * (slot * SLOT + q * ZP + k), rd,
+                        peer_u32(smem_u32(full + slot), 0));
+        }
+        __syncthreads();
+        const float2 d2 = dot_rec_k2<KR2, KH>(reinterpret_cast<const float4*>(dz_s + buf + q * ZP),
+                                              w, rec_s, k2_s, tid);
+        dh = quad_sum(d2.x);
+        const float part = quad_sum(d2.y);
+        if (unit && q == 0)
+          st_async_peer(ring_peer + 4 * (slot * SLOT + 4 * ZP + k), part,
+                        peer_u32(smem_u32(full + slot), 0));
+        o -= ostep;
+        og -= xstep;
+      }
+    }
+  } else {
+    // Layer 1: dh1_in_t from slot n (this block's chunks of k2 and layer
+    // 2's part), dz1_t, then the chain dh1 = round(dz1) . rec1^T.
+    const float* sp = q < 2 ? a.cs1 : !DIRECT ? nullptr : q == 2 ? a.dcs1 : a.dhs1;
+    for (int r = 0; r < rows; ++r) {
+      const int b = cid * rows + r;
+      if (b >= B) break;
+      __syncthreads();
+      float dh = 0.0f, dc = 0.0f;
+      int o = ((W - 1) * B + b) * H + (unit ? k : 0);
+      int og = ((W - 1) * B + b) * G + (unit ? q * H + k : 0);
+      stage_step(step_s + ((n & 1u) * THREADS + tid) * 2, a.dxz1, og, sp, o, back, W - 1, unit);
+      for (int t = W - 1; t >= 0; --t, ++n) {
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        const float* st = step_s + ((n & 1u) * THREADS + tid) * 2;
+        const float gq = st[0], sq = st[1];
+        if (t > 0)
+          stage_step(step_s + (((n + 1) & 1u) * THREADS + tid) * 2, a.dxz1, og - xstep, sp,
+                     o - ostep, back, t - 1, unit);
+        const unsigned slot = n % D;
+        mbar_wait(smem_u32(full + slot), (n / D) & 1u);
+        const float* sl = ring + slot * SLOT;
+        const float part = quad_sum(dot_k2<KH, KS>(reinterpret_cast<const float4*>(sl + q * ZP),
+                                                   k2_s, tid))
+                           + (unit ? sl[4 * ZP + k] : 0.0f);
+        const float ig = from_lane(gq, base, 0), fg = from_lane(gq, base, 1);
+        const float gc = from_lane(gq, base, 2), og1 = from_lane(gq, base, 3);
+        const float c = from_lane(sq, base, 0), cp = from_lane(sq, base, 1);
+        const float dcs = from_lane(sq, base, 2), dhs = from_lane(sq, base, 3);
+        float dz[4], dcT, dhT;
+        bwd_step<ACT>(ig, fg, gc, og1, c, cp, DIRECT ? part + dhs : part, dh,
+                      DIRECT ? dc + dcs : dc, dz, &dcT, &dhT);
+        dc = dcT * fg;
+        const float dzq = q == 0 ? dz[0] : q == 1 ? dz[1] : q == 2 ? dz[2] : dz[3];
+        const int buf = static_cast<int>(n & 1u) * 4 * ZP;
+        if (unit) {
+          a.dxz1[og] = dzq;
+          if (CARRIES) {
+            if (q == 0) a.dhT1[o] = dhT;
+            if (q == 1) a.dcT1[o] = dcT;
+          }
+          dz_s[buf + q * ZP + k] = round_to<T>(dzq);
+        }
+        __syncthreads();
+        // every thread has read slot n: layer 2 may refill it
+        if (tid == THREADS - 1) {            // a thread with no unit
+          mbar_expect(smem_u32(full + slot), slot_bytes(H));   // slot n's next use, n + D
+          st_flag_peer(peer_u32(smem_u32(done), 1), n + 1);
+        }
+        dh = quad_sum(dot_rec<KR1>(reinterpret_cast<const float4*>(dz_s + buf + q * ZP), w,
+                                   rec_s, tid));
+        o -= ostep;
+        og -= xstep;
+      }
+    }
+  }
+  cluster.sync();                            // no block leaves while the other may reach it
+}
+
+template <typename T, int ACT, bool DIRECT, bool CARRIES>
+cudaError_t launch_sweep_cluster(const void* rec1, const void* k2, const void* rec2,
+                                 const StackBwdArgs& a, int W, int B, int H, int rows,
+                                 cudaStream_t stream) {
+  const size_t smem = cb::smem_bytes(H, sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(stack_bwd_cluster_kernel<T, ACT, DIRECT, CARRIES>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int clusters = (B + rows - 1) / rows;
+  stack_bwd_cluster_kernel<T, ACT, DIRECT, CARRIES><<<2 * clusters, cb::THREADS, smem, stream>>>(
+      static_cast<const T*>(rec1), static_cast<const T*>(k2), static_cast<const T*>(rec2), a,
+      W, B, H, rows);
+  return cudaGetLastError();
+}
+
+// the recompute, then the sweep
+template <typename T, int ACT>
+cudaError_t launch_cluster(const void* xz1, const void* rec1, const void* k2, const void* b2,
+                           const void* rec2, const StackBwdArgs& a, int W, int B, int H,
+                           int rows, cudaStream_t stream) {
+  if (H > 4 * cb::KS || static_cast<long long>(W) * B * 4 * H >= (1LL << 31))
+    return cudaErrorInvalidValue;                // the kernels' 32-bit offsets
+  const int R = W * B, G = 4 * H;
+  const dim3 grid((R + GT_M - 1) / GT_M, (G + GT_N - 1) / GT_N, 2);
+  stack_bwd_gates_kernel<T, ACT><<<grid, GT_THREADS, 0, stream>>>(
+      static_cast<const T*>(xz1), static_cast<const T*>(rec1), static_cast<const T*>(k2),
+      static_cast<const T*>(b2), static_cast<const T*>(rec2), a.hs1, a.hs2, a.dxz1, a.dz2w, R,
+      B, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (a.dhs1 != nullptr)
+    return a.dhT1 != nullptr
+               ? launch_sweep_cluster<T, ACT, true, true>(rec1, k2, rec2, a, W, B, H, rows, stream)
+               : launch_sweep_cluster<T, ACT, true, false>(rec1, k2, rec2, a, W, B, H, rows, stream);
+  return a.dhT1 != nullptr
+             ? launch_sweep_cluster<T, ACT, false, true>(rec1, k2, rec2, a, W, B, H, rows, stream)
+             : launch_sweep_cluster<T, ACT, false, false>(rec1, k2, rec2, a, W, B, H, rows, stream);
+}
+
+enum { LAYOUT_CLUSTER = 0, LAYOUT_WIDE = 1 };
+
+template <typename T>
+cudaError_t launch_mode(int layout, int act, const void* xz1, const void* rec1,
+                        const void* k2, const void* k2t, const void* b2, const void* rec2,
+                        const void* rec2t, const StackBwdArgs& a, int W, int B, int H,
+                        int rows, cudaStream_t s) {
+  if (layout == LAYOUT_WIDE) return launch_act<T>(act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a,
+                                                  W, B, H, rows, s);
+  if (layout != LAYOUT_CLUSTER) return cudaErrorInvalidValue;
+  switch (act) {
+    case ACT_LINEAR:
+      return launch_cluster<T, ACT_LINEAR>(xz1, rec1, k2, b2, rec2, a, W, B, H, rows, s);
+    case ACT_SIGMOID:
+      return launch_cluster<T, ACT_SIGMOID>(xz1, rec1, k2, b2, rec2, a, W, B, H, rows, s);
+    case ACT_TANH:
+      return launch_cluster<T, ACT_TANH>(xz1, rec1, k2, b2, rec2, a, W, B, H, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -296,8 +935,11 @@ extern "C" {
 // The sweep, then drec1, dk2, db2 and drec2 over the W*B rows, all on
 // `stream`.  dhs1/dcs1/dcs2 null: no direct cotangents; dhT1..dcT2 null:
 // no carries.  `dz2w` is a (W, B, 4H) float32 workspace; `part` holds
-// splits x H x 4H floats when splits > 1.  Returns the first CUDA error
-// of a launch (0 = ok).
+// splits x H x 4H floats when splits > 1.  `layout` (0 cluster, 1 wide),
+// `threads` and `rows` (batch rows a cluster, or a block) are the
+// wrapper's launch rule (cuda_lstm_stack.stack_bwd_layout); k2t and rec2t
+// (k2^T, rec2^T) are read by the wide layout only and may be null in the
+// cluster one.  Returns the first CUDA error of a launch (0 = ok).
 int hfrep_stack_bwd(const void* xz1, const void* rec1, const void* k2, const void* k2t,
                     const void* b2, const void* rec2, const void* rec2t, const void* hs1,
                     const void* cs1, const void* hs2, const void* cs2, const void* dhs2,
@@ -305,7 +947,10 @@ int hfrep_stack_bwd(const void* xz1, const void* rec1, const void* k2, const voi
                     void* dz2w, void* dhT1, void* dcT1, void* dhT2, void* dcT2,
                     void* drec1, void* dk2, void* db2, void* drec2, void* part, int W,
                     int B, int H, int act, int bf16, int rows, int splits,
-                    int rows_per_split, int device, void* stream) {
+                    int rows_per_split, int device, void* stream, int layout, int threads) {
+  const int want = layout == LAYOUT_CLUSTER ? cb::THREADS : ((rows * H + 31) / 32) * 32;
+  if (threads != want || (layout == LAYOUT_WIDE && (k2t == nullptr || rec2t == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -317,10 +962,10 @@ int hfrep_stack_bwd(const void* xz1, const void* rec1, const void* k2, const voi
       static_cast<float*>(dxz1),       static_cast<float*>(dz2w),
       static_cast<float*>(dhT1),       static_cast<float*>(dcT1),
       static_cast<float*>(dhT2),       static_cast<float*>(dcT2)};
-  e = bf16 ? launch_act<__nv_bfloat16>(act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a, W, B,
-                                      H, rows, s)
-           : launch_act<float>(act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a, W, B, H, rows,
-                               s);
+  e = bf16 ? launch_mode<__nv_bfloat16>(layout, act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a,
+                                       W, B, H, rows, s)
+           : launch_mode<float>(layout, act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a, W, B, H,
+                                rows, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int R = W * B, G = 4 * H;
   float* pt = static_cast<float*>(part);
@@ -336,6 +981,29 @@ int hfrep_stack_bwd(const void* xz1, const void* rec1, const void* k2, const voi
     e = outer_sum<1>(a.hs2, a.dz2w, nullptr, nullptr, static_cast<float*>(drec2), pt, R,
                      B, H, G, splits, rows_per_split, s);
   return static_cast<int>(e);
+}
+
+// Clusters of the cluster layout (with the carries, tanh) that can be
+// resident on `device` at once at width H, by
+// cudaOccupancyMaxActiveClusters; a negative value is a CUDA error code.
+int hfrep_stack_bwd_clusters(int H, int bf16, int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  const void* kern =
+      bf16 ? reinterpret_cast<const void*>(
+                 stack_bwd_cluster_kernel<__nv_bfloat16, ACT_TANH, false, true>)
+           : reinterpret_cast<const void*>(stack_bwd_cluster_kernel<float, ACT_TANH, false, true>);
+  const size_t smem = cb::smem_bytes(H, bf16 ? 2 : 4);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * 66, 1, 1);
+  cfg.blockDim = dim3(cb::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -93,15 +93,6 @@ namespace {
 
 using namespace hfrep;
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // rows of k2 and rec2 loaded together before their FMAs (ldg_f): each
 // thread keeps 8 * KC loads in flight
 constexpr int KC = 8;
@@ -311,34 +302,6 @@ __host__ __device__ inline size_t smem_bytes(int H, size_t item) {
   return fixed_floats(item) * sizeof(float) + k2_bytes(item) + stage_bytes(H, item);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-// Issue the copy of n elements of src to dst in shared memory: 16-byte
-// pieces through cp.async, which holds no registers, so every thread's
-// pieces are in flight at once; addresses that are not 16-byte aligned
-// (bf16 rows at an odd H) and the tail go element by element.
-template <typename T>
-__device__ void copy_issue(const T* src, T* dst, int n) {
-  const int tid = threadIdx.x;
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) % 16 == 0) {
-    const int n16 = static_cast<int>(n * sizeof(T) / 16);
-    for (int i = tid; i < n16; i += THREADS)
-      cp_async16(reinterpret_cast<uint4*>(dst) + i, reinterpret_cast<const uint4*>(src) + i);
-    done = n16 * 16 / static_cast<int>(sizeof(T));
-  }
-  for (int e = done + tid; e < n; e += THREADS) dst[e] = src[e];
-}
-
-// wait for this thread's copies, then for the block's
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  __syncthreads();
-}
-
 // Rows [lo, lo + n) of an (H, 4H) matrix lie staged at `stage`: thread
 // (j, q) takes its rows k = q*KS + kk among them, the four gate columns of
 // its unit, into w (kk < KR) and rec_s.
@@ -380,7 +343,7 @@ __device__ void deal_k2(const T* k2, T* k2_s, T* stage, int stage_elems, int kk0
     for (int r = 0; r < per && q0 + r < 4; ++r) {
       const int lo = (q0 + r) * KS + kk0;
       const int n = min(run, H - lo);
-      if (n > 0) copy_issue(k2 + static_cast<size_t>(lo) * G, stage + r * run * G, n * G);
+      if (n > 0) copy_issue<THREADS>(k2 + static_cast<size_t>(lo) * G, stage + r * run * G, n * G);
     }
     copy_wait();
     if (unit && q >= q0 && q < q0 + per)
@@ -392,16 +355,6 @@ __device__ void deal_k2(const T* k2, T* k2_s, T* stage, int stage_elems, int kk0
       }
     __syncthreads();                         // the staged runs are read
   }
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 a = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(a.x << 16), v[1] = __uint_as_float(a.x & 0xffff0000u);
-  v[2] = __uint_as_float(a.y << 16), v[3] = __uint_as_float(a.y & 0xffff0000u);
 }
 
 // row kk of this thread's four gate columns: from registers (kk < KR) or
@@ -504,7 +457,7 @@ stack_fwd_cluster_kernel(const T* __restrict__ xz1, const T* __restrict__ rec1,
   const T* rec = rank == 0 ? rec1 : rec2;
   for (int lo = 0; lo < H; lo += (H + 1) / 2) {
     const int n = min((H + 1) / 2, H - lo);
-    copy_issue(rec + static_cast<size_t>(lo) * G, stage, n * G);
+    copy_issue<THREADS>(rec + static_cast<size_t>(lo) * G, stage, n * G);
     copy_wait();
     if (rank == 0) deal_rec<T, KR1>(stage, lo, n, H, q, j, unit, w, rec_s);
     else deal_rec<T, KR2>(stage, lo, n, H, q, j, unit, w, rec_s);

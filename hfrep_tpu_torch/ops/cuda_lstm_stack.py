@@ -29,9 +29,9 @@ rule and launch counters it is built:
 * the eligibility rule — :func:`stack_fits`: the widths and dtypes whose
   three kernels fit one Hopper block; the critics take the chained
   single-layer route for the others;
-* the forward's launch rule — :func:`stack_fwd_layout`: the cluster
-  layout (two blocks a batch row, one layer a block) up to 100 hidden
-  units, the wide layout above.
+* the launch rules — :func:`stack_fwd_layout` and
+  :func:`stack_bwd_layout`: the cluster layout (two blocks a batch row,
+  one layer a block) up to 100 hidden units, the wide layout above.
 
 Layout and precision as in :mod:`.cuda_lstm`: xz1 (W, B, 4H) time-major,
 rec1, k2, rec2 (H, 4H) and b2 (4H,) in the operand dtype (float32 or
@@ -72,7 +72,9 @@ _SIGNATURES = {
     "lstm_stack_bwd": {
         "hfrep_stack_bwd": (_I, [_P] * 26                # operands, streams, outputs, workspace
                             + [_I] * 9                   # W B H act bf16 rows splits rps device
-                            + [_P]),
+                            + [_P]                       # stream
+                            + [_I] * 2),                 # layout threads
+        "hfrep_stack_bwd_clusters": (_I, [_I] * 3),      # H bf16 device
     },
     "lstm_stack_adj": {
         "hfrep_stack_adj": (_I, [_P] * 38
@@ -131,6 +133,7 @@ def stack_fits(hidden: int, dtype: torch.dtype, rows: int = 1,
 #: STACK_RING slots, each h1_t and layer 1's part of h1_t . k2
 STACK_RING, STACK_K2_ROWS = 4, 13
 STACK_KEEP = {torch.float32: 18, torch.bfloat16: 19}
+#: the layout codes of both stack sweeps' C entries
 STACK_FWD_LAYOUTS = {"cluster": 0, "wide": 1}
 
 
@@ -161,14 +164,60 @@ def stack_fwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
     a width the fused stack does not take raises.  Pure arithmetic on the
     shapes and the card's limits: the wrapper never tries a layout and
     falls back."""
+    return _stack_layout("stack_fwd", cluster_smem_bytes, hidden, dtype, batch, sm_count,
+                         smem_limit)
+
+
+def _stack_layout(kernel: str, cluster_bytes, hidden: int, dtype: torch.dtype, batch: int,
+                  sm_count: int, smem_limit: int) -> tuple:
+    """Both sweeps' launch rule, ``cluster_bytes(hidden, dtype)`` being the
+    shared memory of one block of ``kernel``'s cluster layout."""
     if dtype in STREAM_DTYPES and hidden <= 4 * FWD_KS:
-        need = cluster_smem_bytes(hidden, dtype)
+        need = cluster_bytes(hidden, dtype)
         if need > smem_limit:
-            raise ValueError(f"stack_fwd kernel: the cluster layout needs {need} B of "
+            raise ValueError(f"{kernel} kernel: the cluster layout needs {need} B of "
                              f"shared memory; one block of this card may use {smem_limit} B")
         return "cluster", FWD_THREADS, max(1, math.ceil(batch / max(1, sm_count // 2)))
     rows = stack_rows(batch, hidden, dtype, sm_count, smem_limit)
     return "wide", 32 * math.ceil(rows * hidden / 32), rows
+
+
+#: the backward's cluster layout (``csrc/lstm_stack_bwd.cu``): each block
+#: of a two-block cluster holds its layer's recurrent matrix for the
+#: transposed product, thread (k, q) FWD_KS chunks of four of row k's
+#: gate-q columns, at least STACK_BWD_KEEP[dtype] chunks in registers and
+#: the rest in shared memory, beside its chunks of k2 (STACK_BWD_K2_CHUNKS
+#: a thread at most); layer 1's block holds a ring of STACK_RING slots,
+#: each round(dz2_t) (a dz buffer of 4 x FWD_ZP floats) and layer 2's part
+#: of dz2_t . k2^T (FWD_ZP floats)
+STACK_BWD_KEEP = {torch.float32: 15, torch.bfloat16: 15}
+STACK_BWD_K2_CHUNKS = 13
+
+
+def cluster_bwd_smem_bytes(hidden: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of either block of the backward's cluster
+    layout: two float32 dz buffers, each thread's two step inputs staged
+    for two steps, the chunks of the recurrent matrix past
+    STACK_BWD_KEEP[dtype] (a float4 a thread), the ring, its STACK_RING
+    mbarriers and a read counter (16 bytes); the block's chunks of k2
+    (STACK_BWD_K2_CHUNKS x FWD_THREADS x 4 entries); a staging area for a
+    third of the recurrent matrix's rows."""
+    item = torch.empty((), dtype=dtype).element_size()
+    fixed = (8 * FWD_ZP + 4 * FWD_THREADS + 4 * (FWD_KS - STACK_BWD_KEEP[dtype]) * FWD_THREADS
+             + STACK_RING * 5 * FWD_ZP + 2 * STACK_RING + 4)
+    stage = -(-hidden // 3) * 4 * hidden * item
+    return fixed * 4 + STACK_BWD_K2_CHUNKS * FWD_THREADS * 4 * item + stage
+
+
+def stack_bwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
+                     smem_limit: int) -> tuple:
+    """The backward kernel's launch rule, the forward's
+    (:func:`stack_fwd_layout`) with the backward's shared memory: the
+    cluster layout (a pre-pass that recomputes every step's gates, then
+    two blocks a batch row) up to 4 * FWD_KS hidden units, the wide layout
+    above; a width the fused stack does not take raises."""
+    return _stack_layout("stack_bwd", cluster_bwd_smem_bytes, hidden, dtype, batch, sm_count,
+                         smem_limit)
 
 
 def stack_rows(batch: int, hidden: int, dtype: torch.dtype, sm_count: int,
@@ -257,7 +306,8 @@ def stack_bwd_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2, dhs2,
                    directs: Optional[tuple] = None,
                    activation: Optional[str] = "tanh",
                    with_carries: bool = False) -> tuple:
-    """Launch ``csrc/lstm_stack_bwd.cu``: (dxz1, drec1, dk2, db2, drec2)
+    """Launch ``csrc/lstm_stack_bwd.cu`` in the layout
+    :func:`stack_bwd_layout` picks: (dxz1, drec1, dk2, db2, drec2)
     and, with ``with_carries``, the per-step (dhT1, dcT1, dhT2, dcT2);
     every output float32.  ``directs`` = (dhs1, dcs1, dcs2) are direct
     cotangents on the residual streams (second order)."""
@@ -281,20 +331,26 @@ def stack_bwd_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2, dhs2,
         for s in (drec1, dk2, db2, drec2):
             s.zero_()
         return outs
-    dev, rows, sms, stream = _setup(xz1, b, h)
+    dev = xz1.device.index if xz1.device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    layout, threads, rows = stack_bwd_layout(h, xz1.dtype, b, sms,
+                                             cuda_lstm._lib().hfrep_max_smem_optin(dev))
+    stream = torch.cuda.current_stream(xz1.device).cuda_stream
     splits, per = reduce_splits(w * b, h, sms)
     part = torch.empty((splits, h, 4 * h), **f32) if splits > 1 else None
     dz2w = torch.empty((w, b, 4 * h), **f32)          # layer 2's dz, for its sums
     dhT1, dcT1, dhT2, dcT2 = carries if with_carries else (None,) * 4
-    k2t, rec2t = _transposed(k2, rec2)
+    # the wide layout reads k2 and rec2 transposed as well
+    k2t, rec2t = _transposed(k2, rec2) if layout == "wide" else (None, None)
     err = _lib("lstm_stack_bwd").hfrep_stack_bwd(
-        xz1.data_ptr(), rec1.data_ptr(), k2.data_ptr(), k2t.data_ptr(), b2.data_ptr(),
-        rec2.data_ptr(), rec2t.data_ptr(),
+        xz1.data_ptr(), rec1.data_ptr(), k2.data_ptr(), _ptr(k2t), b2.data_ptr(),
+        rec2.data_ptr(), _ptr(rec2t),
         hs1.data_ptr(), cs1.data_ptr(), hs2.data_ptr(), cs2.data_ptr(), dhs2.data_ptr(),
         _ptr(dhs1), _ptr(dcs1), _ptr(dcs2), dxz1.data_ptr(), dz2w.data_ptr(),
         _ptr(dhT1), _ptr(dcT1), _ptr(dhT2), _ptr(dcT2),
         drec1.data_ptr(), dk2.data_ptr(), db2.data_ptr(), drec2.data_ptr(), _ptr(part),
-        w, b, h, act, int(xz1.dtype == torch.bfloat16), rows, splits, per, dev, stream)
+        w, b, h, act, int(xz1.dtype == torch.bfloat16), rows, splits, per, dev, stream,
+        STACK_FWD_LAYOUTS[layout], threads)
     _raise_on(err, "stack_bwd")
     _count_launch("stack_bwd")
     return outs

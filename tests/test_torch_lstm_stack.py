@@ -308,6 +308,50 @@ def test_stack_fwd_cluster_shared_memory():
         cls.stack_fwd_layout(100, torch.float32, 32, 132, 150_000)
 
 
+@pytest.mark.parametrize("batch", [1, 64, 133])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [8, 100, 101, 117, 164])
+def test_stack_bwd_layout_rule(hidden, dtype, batch):
+    """The backward's launch rule on a 132-SM card: the cluster layout (two
+    blocks of 416 threads a batch row, ceil(B / 66) rows a cluster) up to
+    H=100, the wide layout (``stack_rows`` rows a block, a thread per row
+    and unit) above it within ``stack_fits``, as the forward's; a width the
+    fused stack refuses raises, and nothing ``stack_fits`` admits does."""
+    sms, limit = 132, cls.HOPPER_SMEM_BYTES
+    if not cls.stack_fits(hidden, dtype):
+        with pytest.raises(ValueError, match="chained route"):
+            cls.stack_bwd_layout(hidden, dtype, batch, sms, limit)
+        return
+    layout, threads, rows = cls.stack_bwd_layout(hidden, dtype, batch, sms, limit)
+    assert (layout, threads, rows) == cls.stack_fwd_layout(hidden, dtype, batch, sms, limit)
+    clusters = -(-batch // rows)
+    if hidden <= 100:
+        assert (layout, threads) == ("cluster", 416)
+        assert rows == -(-batch // 66) and (clusters - 1) * rows < batch
+        assert 2 * clusters <= sms                       # one wave
+        assert cls.cluster_bwd_smem_bytes(hidden, dtype) <= limit
+    else:
+        assert layout == "wide"
+        assert rows == cls.stack_rows(batch, hidden, dtype, sms, limit)
+        assert threads == 32 * -(-rows * hidden // 32) <= 1024
+    assert cls.STACK_FWD_LAYOUTS[layout] in (0, 1)
+
+
+def test_stack_bwd_cluster_shared_memory():
+    """The backward's cluster blocks: 84,912 B fixed (two dz buffers 3,328,
+    the staged step inputs 6,656, the 10 chunks past the 15 in registers
+    66,560, the ring 8,320, its mbarriers and counter 48), 13 chunks of k2
+    dealt out to 416 threads, a staging area for a third of the recurrent
+    matrix; within the card's 232,448 B, and a smaller limit raises."""
+    assert cls.STACK_BWD_KEEP == {torch.float32: 15, torch.bfloat16: 15}
+    assert cls.cluster_bwd_smem_bytes(100, torch.float32) == 84_912 + 86_528 + 54_400
+    assert cls.cluster_bwd_smem_bytes(100, torch.bfloat16) == 84_912 + 43_264 + 27_200
+    assert cls.cluster_bwd_smem_bytes(9, torch.bfloat16) == 84_912 + 43_264 + 216
+    assert cls.cluster_bwd_smem_bytes(100, torch.float32) <= cls.HOPPER_SMEM_BYTES
+    with pytest.raises(ValueError, match="cluster layout needs"):
+        cls.stack_bwd_layout(100, torch.float32, 32, 132, 200_000)
+
+
 def test_stack_wrappers_refuse_and_eligibility_rule():
     xz1, mat = torch.zeros(4, 2, 40), torch.zeros(10, 40)
     b2, seq = torch.zeros(40), torch.zeros(4, 2, 10)

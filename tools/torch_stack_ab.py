@@ -7,16 +7,20 @@ BASE_CSRC is another ``hfrep_tpu_torch/csrc`` tree (for example the
 parent commit's, unpacked with ``git archive`` into a git-ignored
 directory).  Both trees are built with ``nvcc`` into their own build
 directories; then, in the order base, change, change, base (``--rounds``
-pairs), each build times ``stack_fwd`` (with_res), ``stack_bwd`` and
-``stack_adj`` by the profiler's device time (``chip_smoke.device_ms``) at
+pairs), each build times ``stack_fwd`` (with_res), ``stack_bwd`` (with
+the carries, and plain) and ``stack_adj`` by the profiler's device time
+(``chip_smoke.device_ms``, every kernel of a call but the forward's) at
 W=48, B in {32, 64} and W=168, B=64 (H=100, tanh), in float32 and bf16,
 with each kernel's largest difference from the first build's outputs,
 and runs the MTSS-WGAN-GP epoch on the fused route (batch 32, n_critic 5)
 at both presets (W=48 and W=168): the device time of one profiled epoch,
 the host clock over three epochs and their losses.  The Python wrappers
 are this tree's: a base library whose C entry takes fewer trailing
-arguments than this tree passes (the forward's layout and threads) runs
-its own single layout and leaves the extra arguments unread.  Prints the
+arguments than this tree passes (the sweeps' layout and threads) runs
+its own single layout and leaves the extra arguments unread; a base
+backward without the cluster layout is driven through this tree's
+wrapper in the wide layout, which its C entry runs (with the transposed
+k2 and rec2 it reads).  Prints the
 card's name and power limit first and each build's ptxas register counts.
 """
 
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -56,10 +61,18 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip())
     trees = {"base": Path(args.base).resolve(), "change": _build.CSRC}
 
+    bwd_rule = cls.stack_bwd_layout
+
+    def wide_bwd_rule(hidden, dtype, batch, sm_count, smem_limit):
+        rows = cls.stack_rows(batch, hidden, dtype, sm_count, smem_limit)
+        return "wide", 32 * math.ceil(rows * hidden / 32), rows
+
     def use(name):
         _build.CSRC = trees[name]
         _build.BUILD_DIR = ROOT / "build" / f"ab-{name}"
         _build._libs.clear()
+        clustered = "hfrep_stack_bwd_clusters" in (trees[name] / "lstm_stack_bwd.cu").read_text()
+        cls.stack_bwd_layout = bwd_rule if clustered else wide_bwd_rule
 
     for name in trees:
         use(name)
@@ -82,6 +95,7 @@ def main() -> None:
                     res = cls.stack_fwd_cuda(*wts, "tanh", with_res=True)
                     dhs2 = rnd(w, b, 100)
                     bwd = cls.stack_bwd_cuda(*wts, *res, dhs2, None, "tanh", True)
+                    plain = cls.stack_bwd_cuda(*wts, *res, dhs2, None, "tanh")
                     cots = (rnd(w, b, 400), rnd(100, 400), rnd(100, 400), rnd(400),
                             rnd(100, 400))
                     adj = cls.stack_adj_cuda(*wts, *res, *bwd[5:], *cots, "tanh")
@@ -89,6 +103,8 @@ def main() -> None:
                         "stack_fwd": (lambda: cls.stack_fwd_cuda(*wts, "tanh", with_res=True), res),
                         "stack_bwd": (lambda: cls.stack_bwd_cuda(*wts, *res, dhs2, None, "tanh",
                                                                  True), bwd),
+                        "stack_bwd plain": (lambda: cls.stack_bwd_cuda(*wts, *res, dhs2, None,
+                                                                       "tanh"), plain),
                         "stack_adj": (lambda: cls.stack_adj_cuda(*wts, *res, *bwd[5:], *cots,
                                                                  "tanh"), adj)}
                     for k, (fn, outs) in calls.items():

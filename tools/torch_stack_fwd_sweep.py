@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""The stack forward's cluster layout on one card: register rows and device time.
+"""The stack sweeps' cluster layouts on one card: register rows and device time.
 
-    python3 tools/torch_stack_fwd_sweep.py [--rows] [--write] [--time]
+    python3 tools/torch_stack_fwd_sweep.py [--kernel fwd|bwd] [--rows] [--write] [--time]
 
-``--rows`` compiles ``csrc/lstm_stack_fwd.cu`` once for each pair of
+``--rows`` compiles the kernel's source (``csrc/lstm_stack_fwd.cu``, or
+``csrc/lstm_stack_bwd.cu`` with ``--kernel bwd``) once for each pair of
 register row counts (KR1 for layer 1's block, KR2 for layer 2's; the
-same pair for both operand types) and prints ptxas's spill bytes of every
-cluster-layout instantiation, by type.  ptxas grants the kernel's 13 warps
-128 registers a thread, and which pairs spill moves with any change to
-the kernel, so the counts are chosen by compiling.  With ``--write`` the
-first pair in ``PREF`` that spills in no instantiation of a type is
+same pair for both operand types; the backward's "rows" are chunks of
+four columns) and prints ptxas's spill bytes of every cluster-layout
+instantiation, by type.  ptxas grants the kernels' 13 warps 128 registers
+a thread, and which pairs spill moves with any change to a kernel, so the
+counts are chosen by compiling.  With ``--write`` the first pair in the
+kernel's preference list that spills in no instantiation of a type is
 written into the source (``KR1_F32 ...``) and into
-``cuda_lstm_stack.STACK_KEEP``.  ``--time`` prints the card's name and
-power limit, then the profiler's device time of ``stack_fwd_cuda`` (with_res
-and primal, tanh, H=100) at W in {1, 2, 48, 168} in float32 and bf16 (W=1
-reads the prologue), and of the chained pair it replaces (two
-``lstm_fwd`` with_cs launches and the layer-2 projection).  Builds go to
+``cuda_lstm_stack.STACK_KEEP`` (``STACK_BWD_KEEP``).  ``--time`` prints
+the card's name and power limit, then the profiler's device time of the
+kernel at W in {1, 2, 48, 168} in float32 and bf16 (W=1 reads the
+prologue) — ``stack_fwd_cuda`` with_res and primal, or every kernel of a
+``stack_bwd_cuda`` call in its plain and carries modes and, apart, its
+recompute, its sweep and its four weight sums (without their split
+sums) — and of the chained pair it
+replaces (two ``lstm_fwd`` with_cs launches and the layer-2 projection;
+two ``lstm_bwd`` launches and the dz2 . k2^T product).  Builds go to
 ``build/sweep/``.
 """
 
@@ -29,9 +35,20 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SRC = ROOT / "hfrep_tpu_torch" / "csrc" / "lstm_stack_fwd.cu"
+CSRC = ROOT / "hfrep_tpu_torch" / "csrc"
 PY = ROOT / "hfrep_tpu_torch" / "ops" / "cuda_lstm_stack.py"
-PREF = [(20, 20), (19, 20), (19, 19), (18, 19), (18, 18), (17, 18), (17, 17), (16, 16)]
+#: per kernel: its source, the name of its row counts in the wrapper, the
+#: pairs to compile in order of preference
+KERNELS = {
+    "fwd": ("lstm_stack_fwd.cu", "STACK_KEEP",
+            [(20, 20), (19, 20), (19, 19), (18, 19), (18, 18), (17, 18), (17, 17), (16, 16)]),
+    "bwd": ("lstm_stack_bwd.cu", "STACK_BWD_KEEP",
+            # below 15 in float32 the block's shared memory passes the card's
+            # limit (cuda_lstm_stack.cluster_bwd_smem_bytes)
+            [(19, 19), (18, 19), (18, 18), (17, 18), (17, 17), (16, 17), (16, 16), (15, 16),
+             (15, 15)]),
+}
+SRC = CSRC / KERNELS["fwd"][0]
 LINE = r"constexpr int KR1_F32 = \d+, KR2_F32 = \d+, KR1_BF16 = \d+, KR2_BF16 = \d+;"
 
 
@@ -44,7 +61,7 @@ def spills(pair: tuple) -> tuple:
     """(pair, nvcc exit code, {type: [spill bytes of each instantiation]})."""
     from hfrep_tpu_torch.ops import _build
 
-    d = ROOT / "build" / "sweep" / f"kr{pair[0]}_{pair[1]}"
+    d = ROOT / "build" / "sweep" / f"{SRC.stem}-kr{pair[0]}_{pair[1]}"
     d.mkdir(parents=True, exist_ok=True)
     for f in SRC.parent.iterdir():
         (d / f.name).write_text(f.read_text())
@@ -62,9 +79,9 @@ def spills(pair: tuple) -> tuple:
     return pair, r.returncode, out
 
 
-def rows(write: bool) -> None:
-    with ThreadPoolExecutor(len(PREF)) as ex:
-        res = list(ex.map(spills, PREF))
+def rows(write: bool, pref: list, keep: str) -> None:
+    with ThreadPoolExecutor(len(pref)) as ex:
+        res = list(ex.map(spills, pref))
     pick = {}
     for pair, rc, sp in res:
         print(f"KR1={pair[0]} KR2={pair[1]}: nvcc exit {rc}, spill bytes f32 {sp['f32']}, "
@@ -77,9 +94,54 @@ def rows(write: bool) -> None:
         if len(pick) < 2:
             sys.exit("no spill-free pair for each type")
         SRC.write_text(variant(pick["f32"], pick["bf16"]))
-        PY.write_text(re.sub(r"STACK_KEEP = \{torch.float32: \d+, torch.bfloat16: \d+\}",
-                             f"STACK_KEEP = {{torch.float32: {min(pick['f32'])}, "
+        PY.write_text(re.sub(keep + r" = \{torch.float32: \d+, torch.bfloat16: \d+\}",
+                             f"{keep} = {{torch.float32: {min(pick['f32'])}, "
                              f"torch.bfloat16: {min(pick['bf16'])}}}", PY.read_text()))
+
+
+def timing_bwd() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from hfrep_tpu_torch.ops import cuda_lstm, cuda_lstm_stack as cls
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(torch), flush=True)
+    for dt in (torch.float32, torch.bfloat16):
+        line = []
+        for w, b in ((1, 32), (2, 32), (48, 32), (48, 64), (168, 64)):
+            wts = cs.stack_inputs(torch, w, 35, b, "tanh", dt, seed=5)[2]
+            g = torch.Generator(device="cuda")
+            g.manual_seed(6)
+            with torch.no_grad():
+                res = cls.stack_fwd_cuda(*wts, "tanh", with_res=True)
+                dhs2 = 0.3 * torch.randn((w, b, 100), generator=g, device="cuda")
+                for carries in (False, True):
+                    call = lambda: cls.stack_bwd_cuda(*wts, *res, dhs2, None, "tanh", carries)  # noqa: E731
+                    parts = {k: cs.device_ms(torch, call, 20, match=m) * n
+                             for k, m, n in (("call", "", 1), ("recompute", "stack_bwd_gates", 1),
+                                             ("sweep", "stack_bwd_cluster", 1),
+                                             ("sums", "outer_sum", 4))}
+                    line.append(f"W={w} B={b} {'carries' if carries else 'plain'} "
+                                + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in parts.items())
+                                + " us")
+        print(f"stack_bwd {dt}: " + "; ".join(line), flush=True)
+    for w, b in ((48, 32), (168, 64)):
+        wts = cs.stack_inputs(torch, w, 35, b, "tanh", torch.float32, seed=5)[2]
+        xz1, rec1, k2, b2, rec2 = wts
+        with torch.no_grad():
+            hs1, cs1, _, _ = cls.stack_fwd_cuda(*wts, "tanh", with_res=True)
+            xz2 = (hs1.reshape(-1, 100) @ k2 + b2).reshape(w, b, 400).contiguous()
+            hs2, cs2 = cuda_lstm.lstm_fwd_cuda(xz2, rec2, "tanh", with_cs=True)
+            dhs2 = torch.ones_like(hs2) * 0.1
+
+            def chained():
+                dxz2, _ = cuda_lstm.lstm_bwd_cuda(xz2, rec2, hs2, cs2, dhs2, None, "tanh")
+                dh1 = (dxz2.reshape(w * b, 400) @ k2.T).reshape(w, b, 100)
+                cuda_lstm.lstm_bwd_cuda(xz1, rec1, hs1, cs1, dh1.contiguous(), None, "tanh")
+
+            ms = cs.device_ms(torch, chained, 20, match="")
+        print(f"chained pair W={w} B={b} float32: {ms * 1e3:.1f} us", flush=True)
 
 
 def timing() -> None:
@@ -115,15 +177,19 @@ def timing() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="fwd")
     ap.add_argument("--rows", action="store_true", help="compile each register row pair")
     ap.add_argument("--write", action="store_true", help="write the spill-free pairs (with --rows)")
     ap.add_argument("--time", action="store_true", help="device time on the card")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
+    global SRC
+    src, keep, pref = KERNELS[args.kernel]
+    SRC = CSRC / src
     if args.rows:
-        rows(args.write)
+        rows(args.write, pref, keep)
     if args.time:
-        timing()
+        timing() if args.kernel == "fwd" else timing_bwd()
 
 
 if __name__ == "__main__":
