@@ -9,11 +9,11 @@ exits non-zero on failure:
 1. build   — every ``hfrep_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
              one process per source, started together; prints ptxas's
              registers and spills per kernel (and fails if an lstm_fwd
-             or a stack_fwd / stack_bwd cluster-layout instantiation
-             spills), the forward's launch rule at H=100 and at its wide
-             widths, the stack forward's and backward's launch rules by B
-             and how many of their two-block clusters can be resident at
-             once, and the dynamic shared
+             or a stack_fwd / stack_bwd / stack_adj cluster-layout
+             instantiation spills), the forward's launch rule at H=100 and
+             at its wide widths, the stack forward's, backward's and
+             adjoint's launch rules by B and how many of their two-block
+             clusters can be resident at once, and the dynamic shared
              memory each LSTM kernel (single-layer and fused stack) asks
              for at H=100;
 2. parity  — the forward kernel (primal mode) against its plain PyTorch
@@ -54,10 +54,10 @@ exits non-zero on failure:
              with_res), the backward (plain, direct cotangents,
              with_carries) and the adjoint against their plain versions,
              at the same shapes, activations, dtypes and bars; then the
-             forward's and the backward's two layouts (the cluster layout
-             at H=100 with three batch rows a cluster, the wide one at
-             H=117 f32 / 160 bf16), every mode, each launched twice and
-             bit-equal;
+             forward's, the backward's and the adjoint's two layouts (the
+             cluster layout at H=100 with three batch rows a cluster, the
+             wide one at H=117 f32 / 160 bf16; the three sweeps must pick
+             the same one), every mode, each launched twice and bit-equal;
 3. server  — the main path: ``ReplicationServer`` on ``cuda`` with the
              fixture AE head and the ``mtss_wgan_gp`` generator, then the
              ``mtss_wgan_gp_prod`` one: start, ``warm_server`` (the program
@@ -231,23 +231,23 @@ def device_ms(torch, fn, iters: int, match: str = "lstm_fwd") -> float:
 #: the bool template flags of each kernel, in order
 KERNEL_FLAGS = {"lstm_fwd": ("with_cs", "carry"), "lstm_bwd": ("carry",),
                 "lstm_adj": ("carry",), "stack_fwd": ("with_res",),
-                "stack_bwd": ("directs", "carries")}
+                "stack_bwd": ("directs", "carries"), "stack_gates": ("adjoint",)}
 
 
 def entry_name(mangled: str) -> str:
     """A readable name for a kernel's mangled entry: base<dtype,act,modes>."""
-    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj))(?:_wide|_cluster|_gates)?_kernel)"
+    m = re.search(r"(((?:lstm|stack)_(?:fwd|bwd|adj|gates))(?:_wide|_cluster|_post)?_kernel)"
                   r"I(f|13__nv_bfloat16)"
-                  r"Li(\d)E((?:Lb\dE)*)", mangled)
+                  r"(?:Li(\d)E)?((?:Lb\dE)*)", mangled)
     if m:
         flags = re.findall(r"Lb(\d)E", m.group(5))
-        mode = ""
+        mode = "" if m.group(4) is None else f",act={m.group(4)}"
         for k, (name, on) in enumerate(zip(KERNEL_FLAGS.get(m.group(2), ()), flags)):
             if on == "1":
                 mode += f",{name}"
             elif k == 0 and m.group(2).endswith("fwd"):
                 mode += ",primal"
-        return f"{m.group(1)}<{'f32' if m.group(3) == 'f' else 'bf16'},act={m.group(4)}{mode}>"
+        return f"{m.group(1)}<{'f32' if m.group(3) == 'f' else 'bf16'}{mode}>"
     m = re.search(r"outer_sum_partialILi(\d)ELb(\d)E", mangled)
     if m:
         return f"outer_sum_partial<{m.group(1)}{',head' if m.group(2) == '1' else ''}>"
@@ -295,7 +295,9 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
     cls = cuda_lstm_stack
     for kernel, rule, cluster_bytes in (("stack_fwd", cls.stack_fwd_layout, cls.cluster_smem_bytes),
                                         ("stack_bwd", cls.stack_bwd_layout,
-                                         cls.cluster_bwd_smem_bytes)):
+                                         cls.cluster_bwd_smem_bytes),
+                                        ("stack_adj", cls.stack_adj_layout,
+                                         cls.cluster_adj_smem_bytes)):
         resident = getattr(cls._lib(f"lstm_{kernel}"), f"hfrep_{kernel}_clusters")
         for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             plans = {b: rule(HIDDEN, dt, b, sms, limit) for b in FWD_BATCHES}
@@ -315,8 +317,7 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
         sm = {n: cuda_lstm_stack.stack_smem_bytes(HIDDEN, dt, 1, kernel)
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
         extra = cuda_lstm_stack.stack_smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm["f32"]
-        wide = "" if kernel == "stack_adj" else " (wide layout)"
-        say(f"[build] {kernel}{wide}: dynamic shared memory at H={HIDDEN}, one row a block: "
+        say(f"[build] {kernel} (wide layout): dynamic shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{extra} B a further row); "
             f"{limit} B allowed; rows a block at B={TRAIN_BATCHES}: {rows}")
 
@@ -551,15 +552,17 @@ def phase_stack_parity(torch, cuda_lstm_stack) -> dict:
 
 
 def phase_stack_layouts(torch, cuda_lstm_stack) -> dict:
-    """The stack forward's two modes and the backward's three (plain,
-    direct cotangents, with the carries) in both layouts against the plain
-    versions: the cluster layouts at H=100 with B=133 (three batch rows a
-    cluster), the wide layouts at ``STACK_WIDE_CASES`` with B in {8, 133};
-    W=48, every activation, seeded inputs (xz1 and b2 0.3 N(0,1), matrices
-    0.5 N(0,1)/sqrt(H), as the card tests; the backward on the forward
-    kernel's residuals).  Bars: the primal abs f32 2e-5 / bf16 1e-2, every
-    other mode scaled by max(1, max|plain|), f32 1e-4 / bf16 1e-2.  Each
-    mode launched twice must give the same bits."""
+    """The stack forward's two modes, the backward's three (plain, direct
+    cotangents, with the carries) and the adjoint in both layouts against
+    the plain versions: the cluster layouts at H=100 with B=133 (three
+    batch rows a cluster), the wide layouts at ``STACK_WIDE_CASES`` with B
+    in {8, 133}; W=48, every activation, seeded inputs (xz1 and b2 0.3
+    N(0,1), matrices 0.5 N(0,1)/sqrt(H), as the card tests; the backward on
+    the forward kernel's residuals, the adjoint on those and the backward
+    kernel's carries, with seeded cotangents).  Bars: the primal abs f32
+    2e-5 / bf16 1e-2, every other mode scaled by max(1, max|plain|), f32
+    1e-4 / bf16 1e-2.  Each mode launched twice must give the same bits;
+    the three sweeps' launch rules must pick the same layout."""
     cls = cuda_lstm_stack
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     limit = cuda_lstm_stack.cuda_lstm._lib().hfrep_max_smem_optin(0)
@@ -569,8 +572,10 @@ def phase_stack_layouts(torch, cuda_lstm_stack) -> dict:
     for h, name, b in cases:
         dtype = getattr(torch, name)
         layout = cls.stack_fwd_layout(h, dtype, b, sms, limit)[0]
-        if cls.stack_bwd_layout(h, dtype, b, sms, limit)[0] != layout:
-            fail(f"stack_fwd and stack_bwd pick different layouts at H={h} B={b} {name}")
+        if {cls.stack_bwd_layout(h, dtype, b, sms, limit)[0],
+                cls.stack_adj_layout(h, dtype, b, sms, limit)[0]} != {layout}:
+            fail(f"stack_fwd, stack_bwd and stack_adj pick different layouts at H={h} B={b} "
+                 f"{name}")
         g = torch.Generator(device="cuda")
         g.manual_seed(h + b + 7)
         rnd = lambda s, *shape: s * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
@@ -631,8 +636,30 @@ def phase_stack_layouts(torch, cuda_lstm_stack) -> dict:
                 if not err <= bar:
                     fail(f"stack_bwd {mode} ({layout}) disagrees with its plain version: "
                          f"{err} > {bar} at H={h} B={b} {act} {name}")
-        say(f"[stack] layout {layout} H={h} W=48 B={b} {name}: stack_fwd and stack_bwd within "
-            f"their bars and bitwise repeatable; tanh errors: {', '.join(line)}")
+            cots = (rnd(0.3, 48, b, 4 * h), rnd(0.3, h, 4 * h), rnd(0.3, h, 4 * h),
+                    rnd(0.3, 4 * h), rnd(0.3, h, 4 * h))
+            with torch.no_grad():
+                res = cls.stack_fwd_cuda(*wts, act, True)
+                carried = cls.stack_bwd_cuda(*wts, *res, dhs2, None, act, True)[5:]
+                got = cls.stack_adj_cuda(*wts, *res, *carried, *cots, act)
+                again = cls.stack_adj_cuda(*wts, *res, *carried, *cots, act)
+                ref = cls.stack_adj_plain(*wts, *res, *carried, *cots, act)
+            torch.cuda.synchronize()
+            for a, r in zip(got, ref):
+                if a.shape != r.shape or not torch.isfinite(a).all():
+                    fail(f"stack_adj ({layout}) not finite/shaped at H={h} B={b} {act} {name}")
+            if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                fail(f"stack_adj ({layout}): two launches differ at H={h} B={b} {act} {name}")
+            err, bar = max(scaled_err(a, r) for a, r in zip(got, ref)), GRAD_BARS[name]
+            key = f"{layout} stack_adj {name}"
+            worst[key] = max(worst.get(key, 0.0), err)
+            if act == "tanh":
+                line.append(f"adj {err:.2e}")
+            if not err <= bar:
+                fail(f"stack_adj ({layout}) disagrees with its plain version: {err} > {bar} at "
+                     f"H={h} B={b} {act} {name}")
+        say(f"[stack] layout {layout} H={h} W=48 B={b} {name}: stack_fwd, stack_bwd and "
+            f"stack_adj within their bars and bitwise repeatable; tanh errors: {', '.join(line)}")
     return worst
 
 
@@ -1653,6 +1680,11 @@ def main() -> None:
                            "wide": "100 < H within stack_fits"}
     rows[-2]["max_err_by_layout"] = {k: v for k, v in stack_layouts.items() if "stack_bwd" in k}
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
+    rows[-1]["layout"] = ("cluster: the gates and v-stream pre-pass, the sweep, the transposed "
+                          "post-pass; its time is every kernel of one call")
+    rows[-1]["layouts"] = {"cluster": "H <= 100: every preset, the main path's",
+                           "wide": "100 < H within stack_fits"}
+    rows[-1]["max_err_by_layout"] = {k: v for k, v in stack_layouts.items() if "stack_adj" in k}
     kernels = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as fh:

@@ -19,16 +19,15 @@
 //     uh2p   = dz2 . vr2^T + zbar2 . rec2^T           (cot of h2_{t-1})
 //     uh1    = zbar2 . k2^T + dz2 . vk2^T             (cot of h1_t)
 //
-// with _stack_adj_call's output shift done in place (uhs1_t = uh1_t +
-// uh1p_{t+1}, ucs1_t = uc1_t + uc1p_{t+1}, uhs2_t = uh2p_{t+1} alone,
-// ucs2_t = uc2_t + uc2p_{t+1}; zero past the end), and then over the W*B
-// rows ur1 = sum mu_h1^T dz1 + h1_{t-1}^T zbar1, uk2 = sum h1_t^T zbar2 +
-// dhTbar1^T dz2, ub2 = sum zbar2, ur2 = sum mu_h2^T dz2 + h2_{t-1}^T zbar2.
-// xz1 and the weights are float32 or bf16, everything else float32.  As
-// in the TPU kernel, the vectors dotted with an operand-dtype matrix
-// (h1_{t-1}, mu_h1, zbar1, h1_t, dhTbar1, h2_{t-1}, mu_h2, zbar2) are
-// rounded to its dtype first; the products with the v-streams and the
-// sums use float32.
+// with _stack_adj_call's output shift (uhs1_t = uh1_t + uh1p_{t+1}, ucs1_t
+// = uc1_t + uc1p_{t+1}, uhs2_t = uh2p_{t+1} alone, ucs2_t = uc2_t +
+// uc2p_{t+1}; zero past the end), and then over the W*B rows ur1 = sum
+// mu_h1^T dz1 + h1_{t-1}^T zbar1, uk2 = sum h1_t^T zbar2 + dhTbar1^T dz2,
+// ub2 = sum zbar2, ur2 = sum mu_h2^T dz2 + h2_{t-1}^T zbar2.  xz1 and the
+// weights are float32 or bf16, everything else float32.  As in the TPU
+// kernel, the vectors dotted with an operand-dtype matrix (h1_{t-1},
+// mu_h1, zbar1, h1_t, dhTbar1, h2_{t-1}, mu_h2, zbar2) are rounded to its
+// dtype first; the products with the v-streams and the sums use float32.
 //
 // What bounds it.  At the penalty's shape in the epoch (W=48, B=32,
 // H=100, float32) it must move 24.3 MB (xz1, u1, uxz1 and the three
@@ -37,9 +36,61 @@
 // seven matrices and four sums 1.76 MB) — >= 7.3 us at 3.35 TB/s — and
 // do 2.6 GFLOP (21 products of 2*W*B*H*4H) — >= 38.5 us at 67 TFLOP/s
 // float32.  Neither sets the pace: mu_h1 and mu_h2 of step t feed step
-// t+1, so the sweep is W dependent steps of six dot chains.
+// t+1, so the sweep is W dependent steps.  Only two products a step sit
+// on that chain: mu_h1 . rec1 and, for layer 2, mu_h2 . rec2 plus dhTbar1
+// . k2 (layer 1 never reads layer 2).  Both layers' gates and the
+// v-stream terms read only saved states, the transposed products are
+// outputs that no step reads again, and the backward's dz reads only the
+// saved carries.
 //
-// What the design does about it.  The skeleton of lstm_adj.cu, two layers
+// The cluster layout, for H <= 4*KS = 100, which every preset width takes:
+// - The pre-pass (lstm_stack.cuh's stack_gates_kernel, shared with the
+//   stack backward) forms, for all W*B rows at once in tiled float32
+//   products, both layers' gates and the chain-free part of each layer's
+//   dzbar: base1 = u1 + h1_{t-1} . vr1, base2 = vb2 + h1_t . vk2 + h2_{t-1}
+//   . vr2 (unrounded states: v is float32).  It writes them where the
+//   sweep writes later: layer 1's gates into uxz1 (then zbar1), layer 2's
+//   into the zbar2 workspace, base1 and base2 into the dz workspaces.
+// - The sweep (stack_adj_cluster_kernel) is the stack forward's cluster
+//   (lstm_stack.cuh, hfrep::cl) with the adjoint's lane math: two blocks a
+//   batch row, one layer a block, 416 threads, a quad a hidden unit j,
+//   thread (j, q) holding k-quarter q of unit j's four gate columns of its
+//   layer's recurrent matrix, KR1 (block 0) or KR2 (block 1) of its 25
+//   rows in registers and the rest in shared memory.  Lane q starts gate
+//   q's sum at its base, and after the quad's sums (a butterfly: every
+//   lane ends with the same bits of unit j's four dzbar) each lane runs
+//   the unit's adj_step itself, so the carries mu_c and dhTbar stay in
+//   the quad and a step has one block barrier.
+// - Block 0 (layer 1) forms round(mu_h1) . rec1, and in a second loop over
+//   the same vector its rows kk < KH = 13 of round(dhTbar1_{t-1}) . k2;
+//   round(dhTbar1_t) and that k2 part go into slot t mod D of a ring in
+//   block 1's shared memory by st.async (lstm_common.cuh), as the forward
+//   hands over h1.  Block 1 (layer 2) waits on the slot, starts lane q's
+//   gate q at base2 plus block 0's part, and adds round(mu_h2) . rec2 and
+//   its rows of k2.  Block 0 runs up to D = 4 steps ahead; no release or
+//   acquire at cluster scope runs in the time loop.
+// - Each step writes zbar, dz (both float32, for the post-pass and the
+//   sums), dhTbar1 (a workspace) or udhs2, and the c-shift in registers.
+//   Each lane stages its gate, its base and one of (c_t, c_{t-1}, dhT, dcT)
+//   a step ahead with cp.async, which holds no registers.
+// - Registers: 13 warps get 128 registers a thread; 17 (block 0) and 18
+//   (block 1) rows in registers in float32, 17 and 17 in bf16, spill in
+//   no instantiation (tools/torch_stack_fwd_sweep.py --kernel adj --rows),
+//   which leaves room to stage a third of a matrix's rows in the prologue:
+//   213,552 B of shared memory a block in float32, 143,088 in bf16.
+// - The post-pass (stack_adj_post_kernel) forms the transposed products
+//   over all W*B rows with the h-shift in its row reads: uhs1_t =
+//   round(zbar2_t) . k2^T + dz2_t . vk2^T + dz1_{t+1} . vr1^T +
+//   round(zbar1_{t+1}) . rec1^T and uhs2_t = dz2_{t+1} . vr2^T +
+//   round(zbar2_{t+1}) . rec2^T, reading the matrices themselves by rows
+//   (no transposed copies); where the output has few tiles, each tile's
+//   depth is split over a cluster of two or four blocks that add their
+//   sums through distributed shared memory.
+// - Clusters loop over ceil(B / (SMs/2)) batch rows each, carries reset a
+//   row; the ring's phase runs on across rows.
+// A width whose recurrent matrices the register file cannot hold (100 < H,
+// within stack_fits) runs the wide layout (stack_adj_kernel), the port's
+// first stack adjoint, unchanged: the skeleton of lstm_adj.cu, two layers
 // deep.  One block owns a tile of batch rows and walks all W steps.  rec1
 // sits in dynamic shared memory with the one-entry row pad, read by
 // columns and by rows without bank conflicts.  k2, rec2 and the float32
@@ -53,12 +104,16 @@
 // staging the step's states, after layer 1 (u2 needs all of dhTbar1, and
 // uh1p all of dz1 and zbar1), after layer 2 (uh1 and uh2p need all of
 // dz2 and zbar2).  The carries and the output shift's previous terms
-// live in registers.  The sums are formed after the sweep by
-// lstm_common.cuh's outer_sum (dz1, dz2, zbar2 and dhTbar1 go to
-// workspaces; mu_h2 is udhs2 one step back), deterministically and
-// without atomics.
+// live in registers.  The wrapper chooses the layout by a rule on (H,
+// dtype, B, SMs) (cuda_lstm_stack.stack_adj_layout) and passes it here; it
+// never tries one and falls back.  In both layouts the sums are formed
+// after the sweep by lstm_common.cuh's outer_sum (dz1, dz2, zbar2 and
+// dhTbar1 go to workspaces; mu_h2 is udhs2 one step back),
+// deterministically and without atomics.
 
-#include "lstm_common.cuh"
+#include <cooperative_groups.h>
+
+#include "lstm_stack.cuh"
 
 namespace {
 
@@ -425,6 +480,562 @@ cudaError_t launch_act(int act, const void* xz1, const void* rec1, const void* k
   }
 }
 
+// ----------------------------------------------------- cluster layout
+namespace ca {
+
+using namespace cl;
+
+// Of a thread's KS rows of its layer's recurrent matrix, the first KR1
+// (layer 1) or KR2 (layer 2) are held in registers, the rest in shared
+// memory: ptxas grants 13 warps 128 registers a thread, and the counts that
+// leave no instantiation spilling differ by operand type
+// (tools/torch_stack_fwd_sweep.py --kernel adj --rows).
+constexpr int KR1_F32 = 17, KR2_F32 = 18, KR1_BF16 = 17, KR2_BF16 = 17;
+template <typename T>
+struct Keep {
+  static constexpr int r1 = KR1_F32, r2 = KR2_F32;
+};
+template <>
+struct Keep<__nv_bfloat16> {
+  static constexpr int r1 = KR1_BF16, r2 = KR2_BF16;
+};
+__host__ __device__ constexpr int kr_min(size_t item) {
+  return item == 4 ? (KR1_F32 < KR2_F32 ? KR1_F32 : KR2_F32)
+                   : (KR1_BF16 < KR2_BF16 ? KR1_BF16 : KR2_BF16);
+}
+constexpr int NST = 3;              // a lane's staged step inputs: gate, base, a state value
+
+// The fixed part of a block's shared memory, in floats: two h buffers
+// (step parity), each thread's staged step inputs for two steps, the rows
+// of the recurrent matrix past the fewer of KR1, KR2 (a float4 a thread
+// each), the ring and its D mbarriers (block 1), then the count of slots
+// block 1 has read (block 0), padded to 16 bytes.
+__host__ __device__ constexpr int fixed_floats(size_t item) {
+  return 8 * KSP + 2 * NST * THREADS + 4 * (KS - kr_min(item)) * THREADS + D * SLOT + 2 * D + 4;
+}
+
+// Dynamic shared memory of either block: the fixed part, the block's part
+// of k2, then a staging area for a PARTS-th of the rows of the recurrent
+// matrix, and at least one quarter's run of k2's rows (two runs at a time
+// in float32 at H=100).
+constexpr int PARTS = 3;
+__host__ __device__ inline size_t stage_bytes(int H, size_t item) {
+  const size_t part = static_cast<size_t>((H + PARTS - 1) / PARTS) * 4 * H * item;
+  const size_t run = static_cast<size_t>(KS - KH > KH ? KS - KH : KH) * 4 * H * item;
+  return part > run ? part : run;
+}
+__host__ __device__ inline size_t smem_bytes(int H, size_t item) {
+  return fixed_floats(item) * sizeof(float) + k2_bytes(item) + stage_bytes(H, item);
+}
+
+// The quad's sums of acc + acc2 gate by gate, in every lane: a butterfly,
+// whose two additions are each commutative, so all four lanes hold the
+// same bits, in the same order in every run.
+__device__ __forceinline__ void quad_sums(const float (&acc)[4], const float (&acc2)[4],
+                                          float (&out)[4]) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float v = acc[g] + acc2[g];
+    const float s = v + __shfl_xor_sync(0xffffffffu, v, 1);
+    out[g] = s + __shfl_xor_sync(0xffffffffu, s, 2);
+  }
+}
+
+// lane `src` of this quad's value
+__device__ __forceinline__ float from_lane(float v, int base, int src) {
+  return __shfl_sync(0xffffffffu, v, base + src);
+}
+
+// v[q], without indexing a register array by a runtime value
+__device__ __forceinline__ float pick(const float (&v)[4], int q) {
+  return q == 0 ? v[0] : q == 1 ? v[1] : q == 2 ? v[2] : v[3];
+}
+
+// Stage this lane's inputs of step t into st[0..2] with cp.async, which
+// holds no registers while the loads are in flight: its gate's value and
+// its base (at (W, B, 4H) offset og of `gates` and `base`) and its value of
+// the step's state stream (lane 0 c_t, lane 1 c_{t-1}, lane 2 dhT, lane 3
+// dcT, at (W, B, H) offset o - back of `sp`; zero before step 0).
+__device__ __forceinline__ void stage_step(float* st, const float* gates, const float* base,
+                                           int og, const float* sp, int o, int back, int t,
+                                           bool on) {
+  if (on) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st)),
+                 "l"(gates + og) : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 1)),
+                 "l"(base + og) : "memory");
+  } else {
+    st[0] = 0.0f;
+    st[1] = 0.0f;
+  }
+  if (on && (back == 0 || t > 0)) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 2)),
+                 "l"(sp + o - back) : "memory");
+  } else {
+    st[2] = 0.0f;
+  }
+}
+
+// this thread's part of v . rec for its unit's four gate columns, into the
+// two chains of each gate: its KS rows against the h buffer's quarter
+template <int KR, int KW>
+__device__ __forceinline__ void dot_rec(const float4* hp, const float (&w)[4][KW],
+                                        const float4* rec_s, int tid, float (&acc)[4],
+                                        float (&acc2)[4]) {
+#pragma unroll
+  for (int i = 0; i < KSP / 4; ++i) {
+    const float4 v = hp[i];
+    const float hk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = 4 * i + e;
+      if (kk >= KS) break;
+      float wk[4];
+      weights<KR>(w, rec_s, kk, tid, wk);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        if (e & 1) acc2[g] = fmaf(hk[e], wk[g], acc2[g]);
+        else acc[g] = fmaf(hk[e], wk[g], acc[g]);
+      }
+    }
+  }
+}
+
+}  // namespace ca
+
+// Launched as clusters of two blocks of cl::THREADS threads, after
+// stack_gates_kernel has written the gates into uxz1 and zb2w and the
+// bases into dz1w and dz2w; grid = 2 x the clusters, cluster c walks batch
+// rows c*rows .. c*rows + rows - 1.
+template <typename T, int ACT>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(cl::THREADS, 1)
+stack_adj_cluster_kernel(const T* __restrict__ rec1, const T* __restrict__ k2,
+                         const T* __restrict__ rec2, StackAdjArgs a, int W, int B, int H,
+                         int rows) {
+  using namespace ca;
+  namespace cg = cooperative_groups;
+  constexpr int KR1 = Keep<T>::r1, KR2 = Keep<T>::r2;
+  constexpr int KRMIN = KR1 < KR2 ? KR1 : KR2, KRMAX = KR1 < KR2 ? KR2 : KR1;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float fsm[];
+  float* h_s = fsm;                          // round(mu_h): 2 buffers (step parity) x 4 x KSP
+  float* step_s = h_s + 8 * KSP;             // step inputs: 2 (step parity) x THREADS x NST
+  float4* rec_s = reinterpret_cast<float4*>(step_s + 2 * NST * THREADS);   // rows kk >= KR1, KR2
+  float* ring = reinterpret_cast<float*>(rec_s + (KS - KRMIN) * THREADS);   // D slots
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(ring + D * SLOT);  // D
+  unsigned* done = reinterpret_cast<unsigned*>(full + D);   // block 0: slots block 1 has read
+  T* k2_s = reinterpret_cast<T*>(fsm + fixed_floats(sizeof(T)));    // this block's rows of k2
+  T* stage = k2_s + k2_bytes(sizeof(T)) / sizeof(T);        // staging area
+  const int G = 4 * H;
+  const int tid = threadIdx.x;
+  const int q = tid & 3;                     // k-quarter; gate q's sum; state stream q
+  const int j = (tid >> 5) * 8 + ((tid & 31) >> 2);   // hidden unit
+  const int base = tid & 28;                 // the quad's first lane
+  const bool unit = j < H;
+  const int hpos = (j / KS) * KSP + j % KS;  // unit j's entry in an h buffer
+  const unsigned rank = cluster.block_rank();          // 0: layer 1, 1: layer 2
+  const int cid = static_cast<int>(blockIdx.x / 2);
+
+  // h buffers and the ring start at zero; positions past H and the pads
+  // stay zero, multiplied by zero weights
+  for (int i = tid; i < 8 * KSP; i += THREADS) h_s[i] = 0.0f;
+  for (int i = tid; i < D * SLOT; i += THREADS) ring[i] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < D; ++s) mbar_init(smem_u32(full + s), 1);
+    if (rank == 1)
+      for (int s = 0; s < D; ++s) mbar_expect(smem_u32(full + s), 20 * H);   // uses 0 .. D-1
+    *reinterpret_cast<volatile unsigned*>(done) = 0u;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // this block's rows of k2, then this layer's recurrent matrix, a
+  // PARTS-th of its rows at a time: rows kk < KR1 (KR2) into registers, the
+  // rest into shared memory
+  deal_k2(k2, k2_s, stage, static_cast<int>(stage_bytes(H, sizeof(T)) / sizeof(T)),
+          rank == 0 ? 0 : KH, rank == 0 ? KH : KS, H, q, j, unit);
+  float w[4][KRMAX];
+#pragma unroll
+  for (int kk = 0; kk < KRMAX; ++kk)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) w[g][kk] = 0.0f;
+  for (int kk = 0; kk < KS - KRMIN; ++kk) rec_s[kk * THREADS + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const T* rec = rank == 0 ? rec1 : rec2;
+  const int part = (H + PARTS - 1) / PARTS;
+  for (int lo = 0; lo < H; lo += part) {
+    const int n = min(part, H - lo);
+    copy_issue<THREADS>(rec + static_cast<size_t>(lo) * G, stage, n * G);
+    copy_wait();
+    if (rank == 0) deal_rec<T, KR1>(stage, lo, n, H, q, j, unit, w, rec_s);
+    else deal_rec<T, KR2>(stage, lo, n, H, q, j, unit, w, rec_s);
+    __syncthreads();                         // the staged rows are read
+  }
+  cluster.sync();                            // both blocks set up before any remote access
+
+  // 32-bit element offsets (the launch checks that W*B*4H fits)
+  const int xstep = B * G;
+  const int ostep = B * H;
+  const int back = q == 1 ? ostep : 0;       // lane 1 reads c_{t-1}
+  unsigned n = 0;                            // steps so far: slot n % D, its use n / D
+  // each block runs its own loop, so that neither holds the other's values
+  if (rank == 0) {
+    // Layer 1.  Pass s reads round(mu_h1) = round(dhTbar1_{s-1}) once for
+    // dzbar1_s = base1_s + round(mu_h1) . rec1 (s < W) and for this block's
+    // part of round(dhTbar1_{s-1}) . k2 (s > 0), which goes to slot s-1 of
+    // layer 2's ring beside round(dhTbar1_{s-1}).
+    const unsigned ring_peer = peer_u32(smem_u32(ring), 1);   // layer 2's ring
+    const float* sp = q < 2 ? a.cs1 : q == 2 ? a.dhT1 : a.dcT1;
+    for (int r = 0; r < rows; ++r) {
+      const int b = cid * rows + r;
+      if (b >= B) break;                     // the same for the whole cluster
+      __syncthreads();                       // the last row's reads are done
+      if (unit && q == 0) h_s[hpos] = 0.0f;  // mu_h1 of step 0
+      float muc = 0.0f, uc_prev = 0.0f;
+      int o = b * H + (unit ? j : 0);        // (W, B, H) offset of step s
+      int og = b * G + (unit ? q * H + j : 0);   // gate q's, (W, B, 4H)
+      stage_step(step_s + tid * NST, a.uxz1, a.dz1w, og, sp, o, back, 0, unit);
+      __syncthreads();
+      for (int s = 0; s <= W; ++s) {
+        float gq = 0.0f, bq = 0.0f, sq = 0.0f;
+        if (s < W) {
+          asm volatile("cp.async.wait_all;" ::: "memory");
+          const float* st = step_s + ((s & 1) * THREADS + tid) * NST;
+          gq = st[0], bq = st[1], sq = st[2];
+          if (s + 1 < W)
+            stage_step(step_s + (((s + 1) & 1) * THREADS + tid) * NST, a.uxz1, a.dz1w,
+                       og + xstep, sp, o + ostep, back, s + 1, unit);
+        }
+        // dzbar1's dot, then this block's rows of k2: two loops, so that
+        // the second holds none of the first's values
+        float acc[4], acc2[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[g] = g == q ? bq : 0.0f, acc2[g] = 0.0f;
+        const float4* hp = reinterpret_cast<const float4*>(h_s + (s & 1) * 4 * KSP + q * KSP);
+        dot_rec<KR1>(hp, w, rec_s, tid, acc, acc2);
+        float dzb[4];
+        quad_sums(acc, acc2, dzb);
+        float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < (KH + 3) / 4; ++i) {
+          const float4 v = hp[i];
+          const float hk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kk = 4 * i + e;
+            if (kk >= KH) break;
+            float kv[4];
+            load4(k2_s + (kk * THREADS + tid) * 4, kv);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) p[g] = fmaf(hk[e], kv[g], p[g]);
+          }
+        }
+        const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const float pq = quad_z(p, zero, q);
+        if (unit && s > 0) {
+          const unsigned prev = (n - 1) % D;   // slot of step s-1
+          st_async_peer(ring_peer + 4 * (prev * SLOT + 4 * KSP + q * ZP + j), pq,
+                        peer_u32(smem_u32(full + prev), 1));
+        }
+        if (s == W) break;
+        const float ig = from_lane(gq, base, 0), fg = from_lane(gq, base, 1);
+        const float gc = from_lane(gq, base, 2), og1 = from_lane(gq, base, 3);
+        const float c = from_lane(sq, base, 0), cp = from_lane(sq, base, 1);
+        const float dh = from_lane(sq, base, 2), dc = from_lane(sq, base, 3);
+        float dz[4], zb[4], dhTbar, dcTbar, cpbar, cbar;
+        adj_step<ACT>(ig, fg, gc, og1, c, cp, dh, dc, muc, dzb, dz, zb, &dhTbar, &dcTbar,
+                      &cpbar, &cbar);
+        muc = dcTbar;
+        if (unit) {
+          a.uxz1[og] = pick(zb, q);
+          a.dz1w[og] = pick(dz, q);
+          if (q == 0) {
+            a.dhtb1w[o] = dhTbar;
+            const float hr = round_to<T>(dhTbar);
+            h_s[((s + 1) & 1) * 4 * KSP + hpos] = hr;
+            // round(dhTbar1_s) into slot n of layer 2's ring, once layer 2
+            // has read the slot's last use
+            const unsigned slot = n % D;
+            if (n >= D)
+              while (ld_flag(smem_u32(done)) < n - D + 1) {
+              }
+            st_async_peer(ring_peer + 4 * (slot * SLOT + hpos), hr,
+                          peer_u32(smem_u32(full + slot), 1));
+          }
+          if (q == 1 && s > 0) a.ucs1[o - ostep] = uc_prev + cpbar;
+        }
+        uc_prev = cbar;
+        o += ostep;
+        og += xstep;
+        ++n;
+        __syncthreads();
+      }
+      if (unit && q == 1) a.ucs1[o - ostep] = uc_prev;   // step W-1: nothing after it
+    }
+  } else {
+    // Layer 2: dzbar2_t = base2_t + round(dhTbar1_t) . k2 + round(mu_h2) .
+    // rec2, block 0's part of round(dhTbar1_t) . k2 taken from the ring as
+    // lane q's start for gate q.
+    const float* sp = q < 2 ? a.cs2 : q == 2 ? a.dhT2 : a.dcT2;
+    for (int r = 0; r < rows; ++r) {
+      const int b = cid * rows + r;
+      if (b >= B) break;
+      __syncthreads();
+      if (unit && q == 0) h_s[hpos] = 0.0f;  // mu_h2 of step 0
+      float muc = 0.0f, uc_prev = 0.0f;
+      int o = b * H + (unit ? j : 0);
+      int og = b * G + (unit ? q * H + j : 0);
+      stage_step(step_s + tid * NST, a.zb2w, a.dz2w, og, sp, o, back, 0, unit);
+      __syncthreads();
+      for (int t = 0; t < W; ++t, ++n) {
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        const float* st = step_s + ((t & 1) * THREADS + tid) * NST;
+        const float gq = st[0], bq = st[1], sq = st[2];
+        if (t + 1 < W)
+          stage_step(step_s + (((t + 1) & 1) * THREADS + tid) * NST, a.zb2w, a.dz2w,
+                     og + xstep, sp, o + ostep, back, t + 1, unit);
+        const unsigned slot = n % D;
+        mbar_wait(smem_u32(full + slot), (n / D) & 1u);
+        const float* sl = ring + slot * SLOT;
+        const float part1 = unit ? sl[4 * KSP + q * ZP + j] : 0.0f;
+        float acc[4], acc2[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[g] = g == q ? bq + part1 : 0.0f, acc2[g] = 0.0f;
+        // round(mu_h2) . rec2, then round(dhTbar1_t) . k2 over this block's
+        // rows, into the same chains
+        dot_rec<KR2>(reinterpret_cast<const float4*>(h_s + (t & 1) * 4 * KSP + q * KSP), w,
+                     rec_s, tid, acc, acc2);
+        const float4* h1p = reinterpret_cast<const float4*>(sl + q * KSP);
+#pragma unroll
+        for (int i = KH / 4; i < KSP / 4; ++i) {
+          const float4 u = h1p[i];
+          const float h1k[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kk = 4 * i + e;
+            if (kk < KH || kk >= KS) continue;
+            float kv[4];
+            load4(k2_s + ((kk - KH) * THREADS + tid) * 4, kv);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              if (e & 1) acc2[g] = fmaf(h1k[e], kv[g], acc2[g]);
+              else acc[g] = fmaf(h1k[e], kv[g], acc[g]);
+            }
+          }
+        }
+        float dzb[4];
+        quad_sums(acc, acc2, dzb);
+        const float ig = from_lane(gq, base, 0), fg = from_lane(gq, base, 1);
+        const float gc = from_lane(gq, base, 2), og2 = from_lane(gq, base, 3);
+        const float c = from_lane(sq, base, 0), cp = from_lane(sq, base, 1);
+        const float dh = from_lane(sq, base, 2), dc = from_lane(sq, base, 3);
+        float dz[4], zb[4], dhTbar, dcTbar, cpbar, cbar;
+        adj_step<ACT>(ig, fg, gc, og2, c, cp, dh, dc, muc, dzb, dz, zb, &dhTbar, &dcTbar,
+                      &cpbar, &cbar);
+        muc = dcTbar;
+        if (unit) {
+          a.zb2w[og] = pick(zb, q);
+          a.dz2w[og] = pick(dz, q);
+          if (q == 0) {
+            a.udhs2[o] = dhTbar;
+            h_s[((t + 1) & 1) * 4 * KSP + hpos] = round_to<T>(dhTbar);
+          }
+          if (q == 1 && t > 0) a.ucs2[o - ostep] = uc_prev + cpbar;
+        }
+        uc_prev = cbar;
+        o += ostep;
+        og += xstep;
+        __syncthreads();
+        // every thread has read slot n: layer 1 may refill it
+        if (tid == THREADS - 1) {                // a thread with no unit
+          mbar_expect(smem_u32(full + slot), 20 * H);   // slot n's next use, n + D
+          st_flag_peer(peer_u32(smem_u32(done), 0), n + 1);
+        }
+      }
+      if (unit && q == 1) a.ucs2[o - ostep] = uc_prev;
+    }
+  }
+  cluster.sync();                            // no block leaves while the other may reach it
+}
+
+// The transposed products, off the chain, with _stack_adj_call's h-shift
+// in the row reads (terms of step W are zero), over the W*B rows:
+//   output 0: uhs1_t = round(zbar2_t) . k2^T + dz2_t . vk2^T
+//                      + dz1_{t+1} . vr1^T + round(zbar1_{t+1}) . rec1^T
+//   output 1: uhs2_t = dz2_{t+1} . vr2^T + round(zbar2_{t+1}) . rec2^T
+// A row's vector is its terms' rows end to end, each padded to a whole
+// number of k pieces, and each term's (H, 4H) matrix is read by rows
+// (tile::product's transposed B).  One (W*B, H) output tile a cluster of
+// `splits` (1, 2 or 4) blocks along blockIdx.z (output = blockIdx.z /
+// splits): block `split` sums a splits-th of the pieces, so that a tile's
+// chain of pieces is shorter when there are few tiles (at the epoch's W*B a
+// block's whole chain of 100 pieces made the pass latency-bound); then
+// block `split` adds rows split, split + splits, ... of every thread's 4 x
+// 4 tile over the cluster's blocks, in split order, through distributed
+// shared memory: no atomics.
+template <typename T>
+__global__ void __launch_bounds__(tile::THREADS)
+stack_adj_post_kernel(const T* __restrict__ rec1, const T* __restrict__ k2,
+                      const T* __restrict__ rec2, StackAdjArgs a, int R, int B, int H) {
+  using namespace tile;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ __align__(16) Smem s;
+  __shared__ float4 sums[4][THREADS];       // row i of each thread's 4 x 4 tile
+  const int G = 4 * H, seg = (G + K - 1) / K * K;
+  const int m0 = blockIdx.x * M, n0 = blockIdx.y * N;
+  const int tid = threadIdx.x;
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int split = static_cast<int>(cluster.block_rank());
+  const int out = blockIdx.z / splits;
+  const int first = out ? 4 : 0;            // the output's first term
+  auto piece = [&](int k0, float (&va)[LA], float (&vb)[LB]) {
+    const int c0 = k0 % seg;
+    const float* av;                         // the term's row vectors, (W*B, 4H)
+    int shift;                               // rows: B reads step t+1
+    bool rnd;                                // rounded to the operand dtype
+    const T* mt = nullptr;                   // its matrix, operand dtype or float32
+    const float* mf = nullptr;
+    switch (first + k0 / seg) {
+      case 0: av = a.zb2w, shift = 0, rnd = true, mt = k2; break;
+      case 1: av = a.dz2w, shift = 0, rnd = false, mf = a.vk2; break;
+      case 2: av = a.dz1w, shift = B, rnd = false, mf = a.vr1; break;
+      case 3: av = a.uxz1, shift = B, rnd = true, mt = rec1; break;
+      case 4: av = a.dz2w, shift = B, rnd = false, mf = a.vr2; break;
+      default: av = a.zb2w, shift = B, rnd = true, mt = rec2; break;
+    }
+    // each load loop reads one type, and the rounding follows the loads, so
+    // that a piece's loads are all in flight at once
+#pragma unroll
+    for (int u = 0; u < LA; ++u) {
+      const int i = tid + u * THREADS;
+      const int c = c0 + i % K, row = m0 + i / K + shift;
+      va[u] = row < R && c < G ? av[row * G + c] : 0.0f;
+    }
+    if (rnd)
+#pragma unroll
+      for (int u = 0; u < LA; ++u) va[u] = round_to<T>(va[u]);
+    if (mt != nullptr) {
+#pragma unroll
+      for (int u = 0; u < LB; ++u) {
+        const int i = tid + u * THREADS;
+        const int c = c0 + i % K, n = n0 + i / K;
+        vb[u] = c < G && n < H ? to_f(mt[n * G + c]) : 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < LB; ++u) {
+        const int i = tid + u * THREADS;
+        const int c = c0 + i % K, n = n0 + i / K;
+        vb[u] = c < G && n < H ? mf[n * G + c] : 0.0f;
+      }
+    }
+  };
+  const int pieces = (out ? 2 : 4) * seg / K, per = (pieces + splits - 1) / splits;
+  float acc[4][4];
+  product<true>(piece, min(split * per, pieces) * K, min((split + 1) * per, pieces) * K, s, acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sums[i][tid] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  cluster.sync();
+  const int tx = tid % (N / 4), ty = tid / (N / 4);
+  float* o = out ? a.uhs2 : a.uhs1;
+  for (int i = split; i < 4; i += splits) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b = 0; b < splits; ++b) {
+      const float4 p = cluster.map_shared_rank(&sums[i][0], b)[tid];
+      v = b == 0 ? p : make_float4(v.x + p.x, v.y + p.y, v.z + p.z, v.w + p.w);
+    }
+    const int r = m0 + 4 * ty + i;
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+    if (r < R)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int n = n0 + 4 * tx + jj;
+        if (n < H) o[r * H + n] = vv[jj];
+      }
+  }
+  cluster.sync();                            // no block leaves while another reads its sums
+}
+
+// Blocks a post-pass output tile is split over: the most of 4, 2, 1 that
+// keeps the launch within POST_BLOCKS_PER_SM blocks an SM.  A split pays
+// while the tiles alone would leave SMs idle, and costs its reduction
+// once they fill the card (PERF.md).
+constexpr int POST_BLOCKS_PER_SM = 12;
+inline int post_splits(int tiles, int sms) {
+  for (int s = 4; s > 1; s /= 2)
+    if (s * tiles <= POST_BLOCKS_PER_SM * sms) return s;
+  return 1;
+}
+
+template <typename T, int ACT>
+cudaError_t launch_sweep_cluster(const void* rec1, const void* k2, const void* rec2,
+                                 const StackAdjArgs& a, int W, int B, int H, int rows,
+                                 cudaStream_t stream) {
+  const size_t smem = ca::smem_bytes(H, sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(stack_adj_cluster_kernel<T, ACT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int clusters = (B + rows - 1) / rows;
+  stack_adj_cluster_kernel<T, ACT><<<2 * clusters, cl::THREADS, smem, stream>>>(
+      static_cast<const T*>(rec1), static_cast<const T*>(k2), static_cast<const T*>(rec2), a,
+      W, B, H, rows);
+  return cudaGetLastError();
+}
+
+// the pre-pass, the sweep, then the post-pass
+template <typename T, int ACT>
+cudaError_t launch_cluster(const void* xz1, const void* rec1, const void* k2, const void* b2,
+                           const void* rec2, const StackAdjArgs& a, int W, int B, int H,
+                           int rows, cudaStream_t stream) {
+  if (H > 4 * cl::KS || static_cast<long long>(W) * B * 4 * H >= (1LL << 31))
+    return cudaErrorInvalidValue;                // the kernels' 32-bit offsets
+  const int R = W * B;
+  const GatesArgs g{a.hs1, a.hs2, a.uxz1, a.zb2w, a.u1, a.vr1, a.vk2, a.vb2, a.vr2,
+                    a.dz1w, a.dz2w};
+  cudaError_t e = launch_gates<T, ACT, true>(xz1, rec1, k2, b2, rec2, g, R, B, H, stream);
+  if (e == cudaSuccess) e = launch_sweep_cluster<T, ACT>(rec1, k2, rec2, a, W, B, H, rows, stream);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const dim3 tiles((R + tile::M - 1) / tile::M, (H + tile::N - 1) / tile::N, 2);
+  const int splits = post_splits(static_cast<int>(tiles.x * tiles.y * tiles.z), sms);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles.x, tiles.y, tiles.z * splits);
+  cfg.blockDim = dim3(tile::THREADS, 1, 1);
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, stack_adj_post_kernel<T>, static_cast<const T*>(rec1),
+                            static_cast<const T*>(k2), static_cast<const T*>(rec2), a, R, B, H);
+}
+
+enum { LAYOUT_CLUSTER = 0, LAYOUT_WIDE = 1 };
+
+template <typename T>
+cudaError_t launch_mode(int layout, int act, const void* xz1, const void* rec1,
+                        const void* k2, const void* k2t, const void* b2, const void* rec2,
+                        const void* rec2t, const StackAdjArgs& a, int W, int B, int H,
+                        int rows, cudaStream_t s) {
+  if (layout == LAYOUT_WIDE) return launch_act<T>(act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a,
+                                                  W, B, H, rows, s);
+  if (layout != LAYOUT_CLUSTER) return cudaErrorInvalidValue;
+  switch (act) {
+    case ACT_LINEAR:
+      return launch_cluster<T, ACT_LINEAR>(xz1, rec1, k2, b2, rec2, a, W, B, H, rows, s);
+    case ACT_SIGMOID:
+      return launch_cluster<T, ACT_SIGMOID>(xz1, rec1, k2, b2, rec2, a, W, B, H, rows, s);
+    case ACT_TANH:
+      return launch_cluster<T, ACT_TANH>(xz1, rec1, k2, b2, rec2, a, W, B, H, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -432,7 +1043,11 @@ extern "C" {
 // The sweep, then ur1, uk2, ub2 and ur2 over the W*B rows, all on
 // `stream`.  dz1w, dz2w, zb2w ((W, B, 4H)) and dhtb1w ((W, B, H)) are
 // float32 workspaces; `part` holds splits x H x 4H floats when
-// splits > 1.  Returns the first CUDA error of a launch (0 = ok).
+// splits > 1.  `layout` (0 cluster, 1 wide), `threads` and `rows` (batch
+// rows a cluster, or a block) are the wrapper's launch rule
+// (cuda_lstm_stack.stack_adj_layout); the transposed copies (k2t, rec2t,
+// vr1t, vk2t, vr2t) are read by the wide layout only and may be null in
+// the cluster one.  Returns the first CUDA error of a launch (0 = ok).
 int hfrep_stack_adj(const void* xz1, const void* rec1, const void* k2, const void* k2t,
                     const void* b2, const void* rec2, const void* rec2t, const void* vr1,
                     const void* vr1t, const void* vk2, const void* vk2t, const void* vb2,
@@ -443,7 +1058,12 @@ int hfrep_stack_adj(const void* xz1, const void* rec1, const void* k2, const voi
                     void* dz1w, void* dz2w, void* zb2w, void* dhtb1w, void* ur1,
                     void* uk2, void* ub2, void* ur2, void* part, int W, int B, int H,
                     int act, int bf16, int rows, int splits, int rows_per_split,
-                    int device, void* stream) {
+                    int device, void* stream, int layout, int threads) {
+  const int want = layout == LAYOUT_CLUSTER ? cl::THREADS : ((rows * H + 31) / 32) * 32;
+  if (threads != want || (layout == LAYOUT_WIDE &&
+                          (k2t == nullptr || rec2t == nullptr || vr1t == nullptr ||
+                           vk2t == nullptr || vr2t == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -454,10 +1074,10 @@ int hfrep_stack_adj(const void* xz1, const void* rec1, const void* k2, const voi
                        cf(dcT1), cf(dhT2),  cf(dcT2), cf(u1),   mf(uxz1),  mf(uhs1),
                        mf(ucs1), mf(uhs2),  mf(ucs2), mf(udhs2), mf(dz1w), mf(dz2w),
                        mf(zb2w), mf(dhtb1w)};
-  e = bf16 ? launch_act<__nv_bfloat16>(act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a, W, B,
-                                      H, rows, s)
-           : launch_act<float>(act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a, W, B, H, rows,
-                               s);
+  e = bf16 ? launch_mode<__nv_bfloat16>(layout, act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a,
+                                       W, B, H, rows, s)
+           : launch_mode<float>(layout, act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a, W, B, H,
+                                rows, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int R = W * B, G = 4 * H;
   float* pt = mf(part);
@@ -474,6 +1094,28 @@ int hfrep_stack_adj(const void* xz1, const void* rec1, const void* k2, const voi
     e = outer_sum<2>(a.udhs2, a.dz2w, a.hs2, a.zb2w, mf(ur2), pt, R, B, H, G, splits,
                      rows_per_split, s);
   return static_cast<int>(e);
+}
+
+// Clusters of the cluster layout (tanh) that can be resident on `device` at
+// once at width H, by cudaOccupancyMaxActiveClusters; a negative value is a
+// CUDA error code.
+int hfrep_stack_adj_clusters(int H, int bf16, int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  const void* kern = bf16 ? reinterpret_cast<const void*>(
+                                stack_adj_cluster_kernel<__nv_bfloat16, ACT_TANH>)
+                          : reinterpret_cast<const void*>(stack_adj_cluster_kernel<float, ACT_TANH>);
+  const size_t smem = ca::smem_bytes(H, bf16 ? 2 : 4);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * 66, 1, 1);
+  cfg.blockDim = dim3(cl::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // extern "C"

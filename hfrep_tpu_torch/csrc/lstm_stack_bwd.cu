@@ -35,12 +35,13 @@
 // k2^T feeds layer 1 but not layer 2's own chain.
 //
 // The cluster layout, for H <= 4*KS = 100, which every preset width takes:
-// - The recompute leaves the chain: stack_bwd_gates_kernel forms both
-//   layers' gates for all W*B rows at once, a tiled float32 product (no
-//   tensor cores: TF32 or bf16 products of float32 operands would break the
-//   float32 bars), and writes them in place of what the sweep writes later
-//   at the same positions: layer 1's gates into dxz1, layer 2's into the
-//   dz2 workspace.
+// - The recompute leaves the chain: stack_gates_kernel forms both
+//   layers' gates for all W*B rows at once, a tiled float32 product
+//   (lstm_stack.cuh, shared with the adjoint's pre-pass; no tensor cores:
+//   TF32 or bf16 products of float32 operands would break the float32
+//   bars), and writes them in place of what the sweep writes later at the
+//   same positions: layer 1's gates into dxz1, layer 2's into the dz2
+//   workspace.
 // - The sweep (stack_bwd_cluster_kernel) runs a cluster of two blocks a
 //   batch row, one layer a block, each block 416 threads, a quad a hidden
 //   unit k: thread (k, q) holds chunks c < KS of row k's gate-q columns of
@@ -99,7 +100,7 @@
 
 #include <cooperative_groups.h>
 
-#include "lstm_common.cuh"
+#include "lstm_stack.cuh"
 
 namespace {
 
@@ -344,115 +345,9 @@ cudaError_t launch_act(int act, const void* xz1, const void* rec1, const void* k
 
 
 // ----------------------------------------------------- cluster layout
-// The gate recompute, off the chain: gates (W, B, 4H) float32 of both
-// layers from the saved states, one output tile of GT_M rows x GT_N
-// columns a block, blockIdx.z the layer:
-//   layer 1: act(xz1 + round(shift(hs1)) . rec1)            -> g1
-//   layer 2: act(b2 + [round(hs1), round(shift(hs2))] . [k2; rec2])  -> g2
-// (sigmoid for i, f, o; the activation for the candidate).  Each thread
-// keeps a 4 x 4 tile of sums; the k range goes GT_K at a time through
-// shared memory, the next piece loaded into registers while the current
-// one is multiplied, so a block waits for global memory once.
-constexpr int GT_M = 64, GT_N = 64, GT_K = 16, GT_THREADS = (GT_M / 4) * (GT_N / 4);
-constexpr int GT_LA = GT_M * GT_K / GT_THREADS, GT_LB = GT_N * GT_K / GT_THREADS;
-
-// this thread's entries of the k piece at k0: the states (rounded) and the
-// matrix rows, zero outside the ranges
-template <typename T>
-__device__ __forceinline__ void gates_piece(const T* rec1, const T* k2, const T* rec2,
-                                            const float* hs1, const float* hs2, int layer,
-                                            int k0, int m0, int n0, int R, int B, int H,
-                                            float (&va)[GT_LA], float (&vb)[GT_LB]) {
-  const int G = 4 * H, K = layer ? 2 * H : H, tid = threadIdx.x;
-#pragma unroll
-  for (int u = 0; u < GT_LA; ++u) {
-    const int i = tid + u * GT_THREADS;
-    const int r = m0 + i / GT_K, k = k0 + i % GT_K;
-    float v = 0.0f;
-    if (r < R && k < K) {
-      if (layer == 0 || k >= H) {                      // a previous state
-        const float* hp = layer == 0 ? hs1 : hs2;
-        if (r >= B) v = round_to<T>(hp[(r - B) * H + (layer == 0 ? k : k - H)]);
-      } else {
-        v = round_to<T>(hs1[r * H + k]);
-      }
-    }
-    va[u] = v;
-  }
-#pragma unroll
-  for (int u = 0; u < GT_LB; ++u) {
-    const int i = tid + u * GT_THREADS;
-    const int k = k0 + i / GT_N, n = n0 + i % GT_N;
-    float v = 0.0f;
-    if (k < K && n < G) {
-      if (layer == 0) v = to_f(rec1[k * G + n]);
-      else v = to_f(k < H ? k2[k * G + n] : rec2[(k - H) * G + n]);
-    }
-    vb[u] = v;
-  }
-}
-
-template <typename T, int ACT>
-__global__ void __launch_bounds__(GT_THREADS)
-stack_bwd_gates_kernel(const T* __restrict__ xz1, const T* __restrict__ rec1,
-                       const T* __restrict__ k2, const T* __restrict__ b2,
-                       const T* __restrict__ rec2, const float* __restrict__ hs1,
-                       const float* __restrict__ hs2, float* __restrict__ g1,
-                       float* __restrict__ g2, int R, int B, int H) {
-  __shared__ __align__(16) float as[GT_K][GT_M + 4];   // the states, k-major
-  __shared__ __align__(16) float bs[GT_K][GT_N];       // the matrix rows
-  const int layer = blockIdx.z;
-  const int G = 4 * H, K = layer ? 2 * H : H;
-  const int m0 = blockIdx.x * GT_M, n0 = blockIdx.y * GT_N;
-  const int tid = threadIdx.x;
-  const int tx = tid % (GT_N / 4), ty = tid / (GT_N / 4);   // columns 4tx.., rows 4ty..
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
-  float va[GT_LA], vb[GT_LB];
-  gates_piece(rec1, k2, rec2, hs1, hs2, layer, 0, m0, n0, R, B, H, va, vb);
-  for (int k0 = 0; k0 < K; k0 += GT_K) {
-#pragma unroll
-    for (int u = 0; u < GT_LA; ++u) {
-      const int i = tid + u * GT_THREADS;
-      as[i % GT_K][i / GT_K] = va[u];
-    }
-#pragma unroll
-    for (int u = 0; u < GT_LB; ++u) {
-      const int i = tid + u * GT_THREADS;
-      bs[i / GT_N][i % GT_N] = vb[u];
-    }
-    __syncthreads();
-    if (k0 + GT_K < K)
-      gates_piece(rec1, k2, rec2, hs1, hs2, layer, k0 + GT_K, m0, n0, R, B, H, va, vb);
-#pragma unroll
-    for (int kk = 0; kk < GT_K; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&bs[kk][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
-    }
-    __syncthreads();
-  }
-  float* out = layer ? g2 : g1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + 4 * ty + i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int n = n0 + 4 * tx + jj;
-      if (n >= G) continue;
-      const float z = (layer ? to_f(b2[n]) : to_f(xz1[r * G + n])) + acc[i][jj];
-      out[r * G + n] = n / H == 2 ? act_f<ACT>(z) : sigmoid_f(z);
-    }
-  }
-}
+// The gate recompute, off the chain, is lstm_stack.cuh's
+// stack_gates_kernel: both layers' gates (W, B, 4H) float32 from the
+// saved states, a tiled product over all W*B rows.
 
 namespace cb {
 
@@ -672,7 +567,7 @@ __device__ __forceinline__ void stage_step(float* st, const float* gates, int og
 }  // namespace cb
 
 // Launched as clusters of two blocks of cb::THREADS threads, after
-// stack_bwd_gates_kernel has written the gates into dxz1 and dz2w;
+// stack_gates_kernel has written the gates into dxz1 and dz2w;
 // grid = 2 x the clusters, cluster c walks batch rows c*rows .. c*rows +
 // rows - 1.
 template <typename T, int ACT, bool DIRECT, bool CARRIES>
@@ -890,13 +785,9 @@ cudaError_t launch_cluster(const void* xz1, const void* rec1, const void* k2, co
                            int rows, cudaStream_t stream) {
   if (H > 4 * cb::KS || static_cast<long long>(W) * B * 4 * H >= (1LL << 31))
     return cudaErrorInvalidValue;                // the kernels' 32-bit offsets
-  const int R = W * B, G = 4 * H;
-  const dim3 grid((R + GT_M - 1) / GT_M, (G + GT_N - 1) / GT_N, 2);
-  stack_bwd_gates_kernel<T, ACT><<<grid, GT_THREADS, 0, stream>>>(
-      static_cast<const T*>(xz1), static_cast<const T*>(rec1), static_cast<const T*>(k2),
-      static_cast<const T*>(b2), static_cast<const T*>(rec2), a.hs1, a.hs2, a.dxz1, a.dz2w, R,
-      B, H);
-  cudaError_t e = cudaGetLastError();
+  GatesArgs g{};
+  g.hs1 = a.hs1, g.hs2 = a.hs2, g.g1 = a.dxz1, g.g2 = a.dz2w;
+  cudaError_t e = launch_gates<T, ACT, false>(xz1, rec1, k2, b2, rec2, g, W * B, B, H, stream);
   if (e != cudaSuccess) return e;
   if (a.dhs1 != nullptr)
     return a.dhT1 != nullptr

@@ -87,7 +87,7 @@
 
 #include <cstdint>
 
-#include "lstm_common.cuh"
+#include "lstm_stack.cuh"
 
 namespace {
 
@@ -246,12 +246,12 @@ cudaError_t launch_act(int act, const void* xz1, const void* rec1, const void* k
 }
 
 // ------------------------------------------------------------ cluster layout
-namespace cl {
+// The layout itself (hfrep::cl) is lstm_stack.cuh's, shared with the
+// adjoint; here are the forward's own register rows and shared memory.
+namespace cf {
 
-constexpr int KS = 25;              // k rows a thread owns: H <= 4*KS
-constexpr int KSP = 28;             // a quarter's stride in an h buffer (floats)
-constexpr int ZP = 104;             // a gate's stride in a z buffer
-constexpr int THREADS = 32 * ((4 * KS + 7) / 8);   // 416: a quad per unit
+using namespace cl;
+
 // Of a thread's KS rows of its layer's recurrent matrix, the first KR1
 // (layer 1) or KR2 (layer 2) are held in registers, the rest in shared
 // memory: ptxas grants 13 warps 128 registers a thread (lstm_fwd.cu), and
@@ -269,13 +269,6 @@ __host__ __device__ constexpr int kr_min(size_t item) {
   return item == 4 ? (KR1_F32 < KR2_F32 ? KR1_F32 : KR2_F32)
                    : (KR1_BF16 < KR2_BF16 ? KR1_BF16 : KR2_BF16);
 }
-// k2's product is split between the blocks: rows kk < KH of each quarter in
-// block 0, the rest in block 1
-constexpr int KH = 13;
-constexpr int D = 4;                // ring slots: how far layer 1 may run ahead
-// a slot: h1_t laid out as an h buffer, then block 0's part of
-// h1_t . k2 laid out as a z buffer
-constexpr int SLOT = 4 * KSP + 4 * ZP;
 
 // The fixed part of a block's shared memory, in floats: h, z, the rows of
 // the recurrent matrix past the fewer of KR1, KR2 (a float4 a thread each), the ring and its
@@ -283,11 +276,6 @@ constexpr int SLOT = 4 * KSP + 4 * ZP;
 // padded to 16 bytes.
 __host__ __device__ constexpr int fixed_floats(size_t item) {
   return 4 * KSP + 4 * ZP + 4 * (KS - kr_min(item)) * THREADS + D * SLOT + 2 * D + 4;
-}
-
-// bytes of a block's part of k2, dealt out: rows x THREADS x 4 entries of T
-__host__ __device__ constexpr size_t k2_bytes(size_t item) {
-  return static_cast<size_t>(KS - KH > KH ? KS - KH : KH) * THREADS * 4 * item;
 }
 
 // Dynamic shared memory of either block: the fixed part, the block's part
@@ -302,88 +290,6 @@ __host__ __device__ inline size_t smem_bytes(int H, size_t item) {
   return fixed_floats(item) * sizeof(float) + k2_bytes(item) + stage_bytes(H, item);
 }
 
-// Rows [lo, lo + n) of an (H, 4H) matrix lie staged at `stage`: thread
-// (j, q) takes its rows k = q*KS + kk among them, the four gate columns of
-// its unit, into w (kk < KR) and rec_s.
-template <typename T, int KR, int KW>
-__device__ __forceinline__ void deal_rec(const T* stage, int lo, int n, int H, int q, int j,
-                                         bool unit, float (&w)[4][KW], float4* rec_s) {
-  const int G = 4 * H, tid = threadIdx.x;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int k = q * KS + kk - lo;
-    if (unit && k >= 0 && k < n) {
-      float v[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) v[g] = to_f(stage[k * G + g * H + j]);
-      if (kk < KR) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g) w[g][kk < KR ? kk : 0] = v[g];
-      } else {
-        rec_s[(kk - KR) * THREADS + tid] = make_float4(v[0], v[1], v[2], v[3]);
-      }
-    }
-  }
-}
-
-// This block's rows kk0 <= kk < kk1 of each quarter of k2 into k2_s:
-// thread (j, q) row k = q*KS + kk of its unit's four gate columns at
-// entries ((kk - kk0) * THREADS + tid) * 4 + g; rows past H and units past
-// H zero.  Each quarter's rows are one contiguous run of k2; as many runs
-// as the staging area holds are copied at once, then dealt out.
-template <typename T>
-__device__ void deal_k2(const T* k2, T* k2_s, T* stage, int stage_elems, int kk0, int kk1,
-                        int H, int q, int j, bool unit) {
-  const int G = 4 * H, tid = threadIdx.x, run = kk1 - kk0;
-  for (int kk = kk0; kk < kk1; ++kk)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) k2_s[((kk - kk0) * THREADS + tid) * 4 + g] = from_f<T>(0.0f);
-  const int per = max(1, stage_elems / (run * G));     // runs staged at once
-  for (int q0 = 0; q0 < 4; q0 += per) {
-    for (int r = 0; r < per && q0 + r < 4; ++r) {
-      const int lo = (q0 + r) * KS + kk0;
-      const int n = min(run, H - lo);
-      if (n > 0) copy_issue<THREADS>(k2 + static_cast<size_t>(lo) * G, stage + r * run * G, n * G);
-    }
-    copy_wait();
-    if (unit && q >= q0 && q < q0 + per)
-      for (int kk = kk0; kk < kk1; ++kk) {
-        if (q * KS + kk >= H) break;
-        const T* src = stage + ((q - q0) * run + kk - kk0) * G + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) k2_s[((kk - kk0) * THREADS + tid) * 4 + g] = src[g * H];
-      }
-    __syncthreads();                         // the staged runs are read
-  }
-}
-
-// row kk of this thread's four gate columns: from registers (kk < KR) or
-// from shared memory
-template <int KR, int KW>
-__device__ __forceinline__ void weights(const float (&w)[4][KW], const float4* rec_s, int kk,
-                                        int tid, float (&wk)[4]) {
-  if (kk < KR) {
-#pragma unroll
-    for (int g = 0; g < 4; ++g) wk[g] = w[g][kk < KR ? kk : 0];
-  } else {
-    const float4 v = rec_s[(kk - KR) * THREADS + tid];
-    wk[0] = v.x, wk[1] = v.y, wk[2] = v.z, wk[3] = v.w;
-  }
-}
-
-// The quad's sums, scattered: lane q ends with gate q's sum of acc + acc2
-// over the quad, each gate summed once, in the same order in every run
-// (lstm_fwd.cu).
-__device__ __forceinline__ float quad_z(float (&acc)[4], const float (&acc2)[4], int q) {
-#pragma unroll
-  for (int g = 0; g < 4; ++g) acc[g] += acc2[g];
-  const bool odd = q & 1, hi = q & 2;
-  float k0 = odd ? acc[1] : acc[0], k1 = odd ? acc[3] : acc[2];
-  k0 += __shfl_xor_sync(0xffffffffu, odd ? acc[0] : acc[1], 1);
-  k1 += __shfl_xor_sync(0xffffffffu, odd ? acc[2] : acc[3], 1);
-  return (hi ? k1 : k0) + __shfl_xor_sync(0xffffffffu, hi ? k0 : k1, 2);
-}
-
 // unit u's gate math from the z buffer: c updated, h returned
 template <int ACT>
 __device__ __forceinline__ float gate_step(const float* z_s, int u, float& c) {
@@ -394,7 +300,7 @@ __device__ __forceinline__ float gate_step(const float* z_s, int u, float& c) {
   return og * act_rcp<ACT>(c);
 }
 
-}  // namespace cl
+}  // namespace cf
 
 // Launched as clusters of two blocks of cl::THREADS threads; grid = 2 x the
 // clusters, cluster c walks batch rows c*rows .. c*rows + rows - 1.
@@ -408,7 +314,7 @@ stack_fwd_cluster_kernel(const T* __restrict__ xz1, const T* __restrict__ rec1,
                          float* __restrict__ hs2,
                          float* __restrict__ cs2,     // WITH_RES only
                          int W, int B, int H, int rows) {
-  using namespace cl;
+  using namespace cf;
   namespace cg = cooperative_groups;
   constexpr int KR1 = Keep<T>::r1, KR2 = Keep<T>::r2;
   constexpr int KRMIN = KR1 < KR2 ? KR1 : KR2, KRMAX = KR1 < KR2 ? KR2 : KR1;
@@ -644,7 +550,7 @@ cudaError_t launch_cluster(const void* xz1, const void* rec1, const void* k2, co
                            int W, int B, int H, int rows, cudaStream_t stream) {
   if (H > 4 * cl::KS || static_cast<long long>(W) * B * 4 * H >= (1LL << 31))
     return cudaErrorInvalidValue;                // the kernel's 32-bit offsets
-  const size_t smem = cl::smem_bytes(H, sizeof(T));
+  const size_t smem = cf::smem_bytes(H, sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(stack_fwd_cluster_kernel<T, ACT, WITH_RES>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -737,7 +643,7 @@ int hfrep_stack_fwd_clusters(int H, int bf16, int device) {
                                 stack_fwd_cluster_kernel<__nv_bfloat16, ACT_TANH, true>)
                           : reinterpret_cast<const void*>(
                                 stack_fwd_cluster_kernel<float, ACT_TANH, true>);
-  const size_t smem = cl::smem_bytes(H, bf16 ? 2 : 4);
+  const size_t smem = cf::smem_bytes(H, bf16 ? 2 : 4);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return -static_cast<int>(e);

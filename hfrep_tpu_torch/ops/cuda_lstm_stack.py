@@ -29,9 +29,9 @@ rule and launch counters it is built:
 * the eligibility rule — :func:`stack_fits`: the widths and dtypes whose
   three kernels fit one Hopper block; the critics take the chained
   single-layer route for the others;
-* the launch rules — :func:`stack_fwd_layout` and
-  :func:`stack_bwd_layout`: the cluster layout (two blocks a batch row,
-  one layer a block) up to 100 hidden units, the wide layout above.
+* the launch rules — :func:`stack_fwd_layout`, :func:`stack_bwd_layout`
+  and :func:`stack_adj_layout`: the cluster layout (two blocks a batch
+  row, one layer a block) up to 100 hidden units, the wide layout above.
 
 Layout and precision as in :mod:`.cuda_lstm`: xz1 (W, B, 4H) time-major,
 rec1, k2, rec2 (H, 4H) and b2 (4H,) in the operand dtype (float32 or
@@ -77,9 +77,11 @@ _SIGNATURES = {
         "hfrep_stack_bwd_clusters": (_I, [_I] * 3),      # H bf16 device
     },
     "lstm_stack_adj": {
-        "hfrep_stack_adj": (_I, [_P] * 38
-                            + [_I] * 9
-                            + [_P]),
+        "hfrep_stack_adj": (_I, [_P] * 38                # operands, streams, outputs, workspace
+                            + [_I] * 9                   # W B H act bf16 rows splits rps device
+                            + [_P]                       # stream
+                            + [_I] * 2),                 # layout threads
+        "hfrep_stack_adj_clusters": (_I, [_I] * 3),      # H bf16 device
     },
 }
 
@@ -220,6 +222,46 @@ def stack_bwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
                          smem_limit)
 
 
+#: the adjoint's cluster layout (``csrc/lstm_stack_adj.cu``): the forward's
+#: (FWD_THREADS threads a block, a quad a unit, STACK_K2_ROWS rows of k2 a
+#: thread at most), at least STACK_ADJ_KEEP[dtype] of a thread's FWD_KS
+#: rows of its layer's recurrent matrix in registers; layer 2's block holds
+#: the ring of round(dhTbar1_t) and layer 1's part of its product with k2
+STACK_ADJ_KEEP = {torch.float32: 17, torch.bfloat16: 17}
+#: step inputs each thread stages: its gate, its base, one state value
+_ADJ_STAGED = 3
+
+
+def cluster_adj_smem_bytes(hidden: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of either block of the adjoint's cluster
+    layout: two float32 h buffers, each thread's _ADJ_STAGED step inputs
+    staged for two steps, the rows of the recurrent matrix past
+    STACK_ADJ_KEEP[dtype] (a float4 a thread), the ring, its STACK_RING
+    mbarriers and a read counter (16 bytes); the block's part of k2
+    (STACK_K2_ROWS x FWD_THREADS x 4 entries); a staging area for a third
+    of the recurrent matrix's rows, or STACK_K2_ROWS rows of k2 if that is
+    more."""
+    item = torch.empty((), dtype=dtype).element_size()
+    slot = 4 * FWD_KSP + 4 * FWD_ZP
+    fixed = (8 * FWD_KSP + 2 * _ADJ_STAGED * FWD_THREADS
+             + 4 * (FWD_KS - STACK_ADJ_KEEP[dtype]) * FWD_THREADS
+             + STACK_RING * slot + 2 * STACK_RING + 4)
+    stage = max(-(-hidden // 3), STACK_K2_ROWS) * 4 * hidden * item
+    return fixed * 4 + STACK_K2_ROWS * FWD_THREADS * 4 * item + stage
+
+
+def stack_adj_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
+                     smem_limit: int) -> tuple:
+    """The adjoint kernel's launch rule, the forward's
+    (:func:`stack_fwd_layout`) with the adjoint's shared memory: the
+    cluster layout (a pre-pass over every step's gates and v-stream
+    products, two blocks a batch row, a post-pass for the transposed
+    products) up to 4 * FWD_KS hidden units, the wide layout above; a
+    width the fused stack does not take raises."""
+    return _stack_layout("stack_adj", cluster_adj_smem_bytes, hidden, dtype, batch, sm_count,
+                         smem_limit)
+
+
 def stack_rows(batch: int, hidden: int, dtype: torch.dtype, sm_count: int,
                smem_limit: int) -> int:
     """Batch rows per block: :func:`~.cuda_lstm.rows_per_block`, cut
@@ -255,14 +297,6 @@ def _check_stack(fn: str, xz1, rec1, k2, b2, rec2) -> tuple:
                 f"{fn} is not differentiable itself: differentiate through "
                 f"cuda_lstm_stack.stack_seq / keras_lstm_stack")
     return w, b, h
-
-
-def _setup(xz1: torch.Tensor, b: int, h: int) -> tuple:
-    """(device index, rows per block, SM count, stream)."""
-    dev = xz1.device.index if xz1.device.index is not None else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = stack_rows(b, h, xz1.dtype, sms, cuda_lstm._lib().hfrep_max_smem_optin(dev))
-    return dev, rows, sms, torch.cuda.current_stream(xz1.device).cuda_stream
 
 
 def _transposed(*mats: torch.Tensor) -> tuple:
@@ -359,8 +393,9 @@ def stack_bwd_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2, dhs2,
 def stack_adj_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2,
                    dhT1, dcT1, dhT2, dcT2, u1, vr1, vk2, vb2, vr2,
                    activation: Optional[str] = "tanh") -> tuple:
-    """Launch ``csrc/lstm_stack_adj.cu``: given the cotangents u1 of dxz1
-    and (vr1, vk2, vb2, vr2) of (drec1, dk2, db2, drec2), those of the
+    """Launch ``csrc/lstm_stack_adj.cu`` in the layout
+    :func:`stack_adj_layout` picks: given the cotangents u1 of dxz1 and
+    (vr1, vk2, vb2, vr2) of (drec1, dk2, db2, drec2), those of the
     backward's inputs — (uxz1, ur1, uk2, ub2, ur2, uhs1, ucs1, uhs2,
     ucs2, udhs2), all float32."""
     act = act_code(activation)
@@ -381,24 +416,32 @@ def stack_adj_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2,
         for s in (ur1, uk2, ub2, ur2):
             s.zero_()
         return outs
-    dev, rows, sms, stream = _setup(xz1, b, h)
+    dev = xz1.device.index if xz1.device.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    layout, threads, rows = stack_adj_layout(h, xz1.dtype, b, sms,
+                                             cuda_lstm._lib().hfrep_max_smem_optin(dev))
+    stream = torch.cuda.current_stream(xz1.device).cuda_stream
     splits, per = reduce_splits(w * b, h, sms)
     part = torch.empty((splits, h, 4 * h), **f32) if splits > 1 else None
     # the two layers' dz, layer 2's zbar and layer 1's dhTbar, for the sums
+    # (the cluster layout's pre-pass puts the gates and v-stream terms there
+    # first)
     dz1w, dz2w, zb2w = (torch.empty((w, b, 4 * h), **f32) for _ in range(3))
     dhtb1w = torch.empty(seq, **f32)
-    k2t, rec2t, vr1t, vk2t, vr2t = _transposed(k2, rec2, vr1, vk2, vr2)
+    # the wide layout reads the five matrices transposed as well
+    k2t, rec2t, vr1t, vk2t, vr2t = (_transposed(k2, rec2, vr1, vk2, vr2) if layout == "wide"
+                                    else (None,) * 5)
     err = _lib("lstm_stack_adj").hfrep_stack_adj(
-        xz1.data_ptr(), rec1.data_ptr(), k2.data_ptr(), k2t.data_ptr(), b2.data_ptr(),
-        rec2.data_ptr(), rec2t.data_ptr(), vr1.data_ptr(), vr1t.data_ptr(),
-        vk2.data_ptr(), vk2t.data_ptr(), vb2.data_ptr(), vr2.data_ptr(), vr2t.data_ptr(),
+        xz1.data_ptr(), rec1.data_ptr(), k2.data_ptr(), _ptr(k2t), b2.data_ptr(),
+        rec2.data_ptr(), _ptr(rec2t), vr1.data_ptr(), _ptr(vr1t),
+        vk2.data_ptr(), _ptr(vk2t), vb2.data_ptr(), vr2.data_ptr(), _ptr(vr2t),
         hs1.data_ptr(), cs1.data_ptr(), hs2.data_ptr(), cs2.data_ptr(),
         dhT1.data_ptr(), dcT1.data_ptr(), dhT2.data_ptr(), dcT2.data_ptr(), u1.data_ptr(),
         uxz1.data_ptr(), uhs1.data_ptr(), ucs1.data_ptr(), uhs2.data_ptr(), ucs2.data_ptr(),
         udhs2.data_ptr(), dz1w.data_ptr(), dz2w.data_ptr(), zb2w.data_ptr(),
         dhtb1w.data_ptr(), ur1.data_ptr(), uk2.data_ptr(), ub2.data_ptr(), ur2.data_ptr(),
         _ptr(part), w, b, h, act, int(xz1.dtype == torch.bfloat16), rows, splits, per,
-        dev, stream)
+        dev, stream, STACK_FWD_LAYOUTS[layout], threads)
     _raise_on(err, "stack_adj")
     _count_launch("stack_adj")
     return outs

@@ -15,9 +15,10 @@ bf16.  The fused stack's kernels (forward, backward in every mode,
 adjoint) against their plain versions at the same scaled bars, and the
 single-layer kernels' carry modes the same way.  The forward kernel's
 four modes in both its layouts (registers at H=100 with up to two batch
-rows a block; wide at H=120 f32 and H=160 bf16), and the stack forward's
-and backward's modes in both their layouts (cluster at H=100; wide at
-H=117 f32 and H=160 bf16), each mode bit-equal over two launches.  One training epoch on
+rows a block; wide at H=120 f32 and H=160 bf16), and the stack forward's,
+backward's and adjoint's modes in both their layouts (cluster at H=100
+and H=37; wide at H=117 f32 and H=160 bf16), each mode bit-equal over
+two launches.  One training epoch on
 the card against the same epoch on the CPU plain path, on the fused and
 the chained critic route: the JAX package's bar for its kernel-vs-scan
 epoch.
@@ -496,6 +497,52 @@ def test_stack_backward_layouts_match_plain_on_card(card, dtype, h, layout):
                         assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
                         errs = [_scaled(a, r) for a, r in zip(got, ref)]
                         assert max(errs) <= bar, (w, b, act, d is not None, carries, errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,layout", [(torch.float32, 100, "cluster"),
+                                            (torch.bfloat16, 100, "cluster"),
+                                            (torch.float32, 37, "cluster"),
+                                            (torch.bfloat16, 37, "cluster"),
+                                            (torch.float32, 117, "wide"),
+                                            (torch.bfloat16, 160, "wide")])
+def test_stack_adjoint_layouts_match_plain_on_card(card, dtype, h, layout):
+    """The stack adjoint in the layout its launch rule picks (the cluster
+    at H <= 100 — its pre-pass, two-block sweep and post-pass — the wide
+    one above), every activation, W in {1, 2, 48, 168}, B in {1, 8, 32,
+    64, 133}, on the forward kernel's residuals and the backward kernel's
+    carries, with seeded cotangents: within the scaled bars f32 1e-4 /
+    bf16 1e-2 of ``stack_adj_plain``; two launches bit-equal; each launch
+    counted once; the same layout as the forward's and the backward's."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    bar = 1e-4 if dtype == torch.float32 else 1e-2
+    for w in (1, 2, 48, 168):
+        for b in (1, 8, 32, 64, 133):
+            plan = cuda_lstm_stack.stack_adj_layout(h, dtype, b, sms, limit)
+            assert plan[0] == layout
+            assert plan == cuda_lstm_stack.stack_bwd_layout(h, dtype, b, sms, limit)
+            weights = _stack_fwd_case(card, dtype, w, b, h, seed=w * b + h + 2)
+            g = torch.Generator(device=card)
+            g.manual_seed(w + b + 1)
+            rnd = lambda *shape: 0.3 * torch.randn(shape, device=card, generator=g)  # noqa: E731
+            dhs2 = rnd(w, b, h)
+            cots = (rnd(w, b, 4 * h), rnd(h, 4 * h), rnd(h, 4 * h), rnd(4 * h), rnd(h, 4 * h))
+            for act in ACTS:
+                with torch.no_grad():
+                    res = cuda_lstm_stack.stack_fwd_cuda(*weights, act, with_res=True)
+                    carries = cuda_lstm_stack.stack_bwd_cuda(*weights, *res, dhs2, None, act,
+                                                             True)[5:]
+                    before = cuda_lstm.launches_stack_adj
+                    got = cuda_lstm_stack.stack_adj(*weights, *res, *carries, *cots, act)
+                    assert cuda_lstm.launches_stack_adj == before + 1
+                    again = cuda_lstm_stack.stack_adj(*weights, *res, *carries, *cots, act)
+                    ref = cuda_lstm_stack.stack_adj_plain(*weights, *res, *carries, *cots, act)
+                torch.cuda.synchronize()
+                assert len(got) == len(ref) == 10
+                assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+                errs = [_scaled(a, r) for a, r in zip(got, ref)]
+                assert max(errs) <= bar, (w, b, act, errs)
 
 
 @pytest.mark.gpu

@@ -10,6 +10,14 @@ against the JAX package.
   every activation.  Bars atol 1e-5, with rtol 1e-4 on the adjoint; the
   W·B-row sums (drec1, dk2, db2, drec2, ur1, uk2, ub2, ur2) atol 1e-4.
   The adjoint's output shift is also held at W=1.
+* The adjoint as ``csrc/lstm_stack_adj.cu``'s cluster layout groups it
+  (a pre-pass of what reads only saved states, a chain of
+  ``round(mu_h) . rec`` and ``round(dhTbar1) . k2`` alone, a post-pass of
+  the transposed products with the h-shift in its row reads, the sums)
+  against ``stack_adj_plain`` (f32 atol 1e-5; bf16 scaled 1e-2, the
+  card's bar) and against ``_stack_adj_call`` in interpret mode at the
+  JAX bars (second order atol 2e-4, rtol 1e-4; bf16 scaled 3e-2), W in
+  {1, 2, 7}, every activation.
 * The nested autograd (``StackFwdRes`` → ``StackBwdSeq`` → the adjoint)
   at first and the penalty-shaped second order against torch's own
   double backward over the plain forward: atol 1e-5, rtol 1e-4.
@@ -21,6 +29,8 @@ against the JAX package.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -127,6 +137,90 @@ def test_stack_adj_plain_matches_pallas(activation):
     assert len(got) == len(ref) == 10
     for name, a, r in zip(ADJ_NAMES, got, ref):
         _close(a, r, atol=1e-4 if name in SUMS else 1e-5, rtol=1e-4, name=name)
+
+
+@functools.lru_cache(maxsize=None)
+def _adj_case(activation, w):
+    """_case's operands and residuals, the Pallas backward's carries."""
+    c = _case(activation, w)
+    carries = _stack_bwd_call(*(c[k] for k in WEIGHTS + RESID), c["dhs2"], None,
+                              activation, with_carries=True)[5:]
+    return c, carries
+
+
+def _adj_regrouped(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2, dhT1, dcT1, dhT2, dcT2,
+                   u1, vr1, vk2, vb2, vr2, activation):
+    """The adjoint as the kernel's cluster layout groups it: what reads only
+    saved states over all W*B rows first (both layers' gates; base1 = u1 +
+    h1_{t-1} . vr1 and base2 = vb2 + h1_t . vk2 + h2_{t-1} . vr2 from
+    unrounded states), then a chain that carries only round(mu_h1) . rec1,
+    round(dhTbar1) . k2 and round(mu_h2) . rec2, then the transposed
+    products over all rows with the h-shift in the row reads (each output
+    one product over its terms end to end), then the four sums."""
+    code = cuda_lstm.act_code(activation)
+    w, b, g = xz1.shape
+    h = g // 4
+    r1, kk, r2, bb = rec1.float(), k2.float(), rec2.float(), b2.float()
+    rnd = cuda_lstm._rounder(rec1)
+    rows = lambda s: s.reshape(w * b, -1)                                  # noqa: E731
+    nxt = lambda s: torch.cat([s[1:], torch.zeros_like(s[:1])])           # noqa: E731
+    prev = cuda_lstm._shifted
+    h1p, c1p, h2p, c2p = (prev(s) for s in (hs1, cs1, hs2, cs2))
+    z1 = (rows(xz1.float()) + rows(rnd(h1p)) @ r1).reshape(w, b, g)
+    z2 = (bb + rows(rnd(torch.cat([hs1, h2p], -1))) @ torch.cat([kk, r2])).reshape(w, b, g)
+    base1 = (rows(u1) + rows(h1p) @ vr1).reshape(w, b, g)
+    base2 = (vb2 + rows(torch.cat([hs1, h2p], -1)) @ torch.cat([vk2, vr2])).reshape(w, b, g)
+    dz1, zb1, dz2, zb2 = (torch.empty((w, b, g)) for _ in range(4))
+    dhtb1, udhs2, uc1, uc1p, uc2, uc2p = (torch.empty((w, b, h)) for _ in range(6))
+    muh1, muc1, muh2, muc2 = (torch.zeros((b, h)) for _ in range(4))
+    for t in range(w):
+        dz1[t], zb1[t], dhtb1[t], muc1, uc1p[t], uc1[t] = cuda_lstm._adj_step(
+            code, z1[t], cs1[t], c1p[t], dhT1[t], dcT1[t], muc1, base1[t] + rnd(muh1) @ r1)
+        dzbar2 = base2[t] + (rnd(dhtb1[t]) @ kk + rnd(muh2) @ r2)
+        dz2[t], zb2[t], udhs2[t], muc2, uc2p[t], uc2[t] = cuda_lstm._adj_step(
+            code, z2[t], cs2[t], c2p[t], dhT2[t], dcT2[t], muc2, dzbar2)
+        muh1, muh2 = dhtb1[t], udhs2[t]
+    uhs1 = rows(torch.cat([rnd(zb2), dz2, nxt(dz1), nxt(rnd(zb1))], -1)) @ torch.cat(
+        [kk, vk2, vr1, r1], -1).T
+    uhs2 = rows(torch.cat([nxt(dz2), nxt(rnd(zb2))], -1)) @ torch.cat([vr2, r2], -1).T
+    ur1 = rows(prev(dhtb1)).T @ rows(dz1) + rows(h1p).T @ rows(zb1)
+    uk2 = rows(hs1).T @ rows(zb2) + rows(dhtb1).T @ rows(dz2)
+    ur2 = rows(prev(udhs2)).T @ rows(dz2) + rows(h2p).T @ rows(zb2)
+    return (zb1, ur1, uk2, rows(zb2).sum(0), ur2, uhs1.reshape(w, b, h), uc1 + nxt(uc1p),
+            uhs2.reshape(w, b, h), uc2 + nxt(uc2p), udhs2)
+
+
+def _scaled(got, ref):
+    got, ref = np.asarray(got, dtype=np.float32), np.asarray(ref, dtype=np.float32)
+    return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("w", [1, 2, 7])
+def test_stack_adj_regrouped_matches_plain_and_pallas(w, activation, bf16):
+    """The cluster layout's grouping of the adjoint computes the same
+    function: against the plain step loop and the Pallas kernel, xz1 and
+    the four weights in float32 or rounded to bf16 alike in both
+    frameworks."""
+    c, carries = _adj_case(activation, w)
+    v = ("u1", "vr1", "vk2", "vb2", "vr2")
+    rest = [c[k] for k in RESID] + list(carries) + [c[k] for k in v]
+    jw = [c[k].astype(jnp.bfloat16) if bf16 else c[k] for k in WEIGHTS]
+    tw = [_t(c[k]).to(torch.bfloat16) if bf16 else _t(c[k]) for k in WEIGHTS]
+    targs = tw + [_t(x) for x in rest]
+    pallas = _stack_adj_call(*jw, *rest, activation)
+    plain = cls.stack_adj_plain(*targs, activation)
+    got = _adj_regrouped(*targs, activation)
+    assert len(got) == len(plain) == len(pallas) == 10
+    for name, a, p, r in zip(ADJ_NAMES, got, plain, pallas):
+        assert a.shape == p.shape == r.shape, name
+        if bf16:
+            assert _scaled(a, p) <= 1e-2, (name, _scaled(a, p))
+            assert _scaled(a, r) <= 3e-2, (name, _scaled(a, r))
+        else:
+            _close(a, p, atol=1e-5, name=name)
+            _close(a, r, atol=2e-4, rtol=1e-4, name=name)
 
 
 def test_stack_adj_output_shift_at_one_step():
@@ -350,6 +444,53 @@ def test_stack_bwd_cluster_shared_memory():
     assert cls.cluster_bwd_smem_bytes(100, torch.float32) <= cls.HOPPER_SMEM_BYTES
     with pytest.raises(ValueError, match="cluster layout needs"):
         cls.stack_bwd_layout(100, torch.float32, 32, 132, 200_000)
+
+
+@pytest.mark.parametrize("batch", [1, 64, 133])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [8, 100, 101, 117, 164])
+def test_stack_adj_layout_rule(hidden, dtype, batch):
+    """The adjoint's launch rule on a 132-SM card: the cluster layout (a
+    pre-pass, two blocks of 416 threads a batch row, ceil(B / 66) rows a
+    cluster, a post-pass) up to H=100, the wide layout (``stack_rows`` rows
+    a block, a thread per row and unit) above it within ``stack_fits``, the
+    same as the forward's and the backward's; a width the fused stack
+    refuses raises, and nothing ``stack_fits`` admits does."""
+    sms, limit = 132, cls.HOPPER_SMEM_BYTES
+    if not cls.stack_fits(hidden, dtype):
+        with pytest.raises(ValueError, match="chained route"):
+            cls.stack_adj_layout(hidden, dtype, batch, sms, limit)
+        return
+    layout, threads, rows = cls.stack_adj_layout(hidden, dtype, batch, sms, limit)
+    assert (layout, threads, rows) == cls.stack_fwd_layout(hidden, dtype, batch, sms, limit)
+    assert (layout, threads, rows) == cls.stack_bwd_layout(hidden, dtype, batch, sms, limit)
+    clusters = -(-batch // rows)
+    if hidden <= 100:
+        assert (layout, threads) == ("cluster", 416)
+        assert rows == -(-batch // 66) and (clusters - 1) * rows < batch
+        assert 2 * clusters <= sms                       # one wave
+        assert cls.cluster_adj_smem_bytes(hidden, dtype) <= limit
+    else:
+        assert layout == "wide"
+        assert rows == cls.stack_rows(batch, hidden, dtype, sms, limit)
+        assert threads == 32 * -(-rows * hidden // 32) <= 1024
+    assert cls.STACK_FWD_LAYOUTS[layout] in (0, 1)
+
+
+def test_stack_adj_cluster_shared_memory():
+    """The adjoint's cluster blocks: 72,624 B fixed (two h buffers 896, the
+    staged step inputs 9,984, the 8 rows past the 17 in registers 53,248,
+    the ring 8,448, its mbarriers and counter 48), 13 rows of k2 dealt out
+    to 416 threads, a staging area for a third of the recurrent matrix
+    (at least 13 rows); within the card's 232,448 B, and a smaller limit
+    raises."""
+    assert cls.STACK_ADJ_KEEP == {torch.float32: 17, torch.bfloat16: 17}
+    assert cls.cluster_adj_smem_bytes(100, torch.float32) == 72_624 + 86_528 + 54_400
+    assert cls.cluster_adj_smem_bytes(100, torch.bfloat16) == 72_624 + 43_264 + 27_200
+    assert cls.cluster_adj_smem_bytes(9, torch.bfloat16) == 72_624 + 43_264 + 936
+    assert cls.cluster_adj_smem_bytes(100, torch.float32) <= cls.HOPPER_SMEM_BYTES
+    with pytest.raises(ValueError, match="cluster layout needs"):
+        cls.stack_adj_layout(100, torch.float32, 32, 132, 190_000)
 
 
 def test_stack_wrappers_refuse_and_eligibility_rule():

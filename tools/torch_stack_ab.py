@@ -18,10 +18,10 @@ the host clock over three epochs and their losses.  The Python wrappers
 are this tree's: a base library whose C entry takes fewer trailing
 arguments than this tree passes (the sweeps' layout and threads) runs
 its own single layout and leaves the extra arguments unread; a base
-backward without the cluster layout is driven through this tree's
-wrapper in the wide layout, which its C entry runs (with the transposed
-k2 and rec2 it reads).  Prints the
-card's name and power limit first and each build's ptxas register counts.
+backward or adjoint without the cluster layout is driven through this
+tree's wrapper in the wide layout, which its C entry runs (with the
+transposed copies it reads).  Prints the card's name and power limit
+first and each build's ptxas register counts.
 """
 
 from __future__ import annotations
@@ -61,9 +61,9 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip())
     trees = {"base": Path(args.base).resolve(), "change": _build.CSRC}
 
-    bwd_rule = cls.stack_bwd_layout
+    rules = {k: getattr(cls, f"{k}_layout") for k in ("stack_bwd", "stack_adj")}
 
-    def wide_bwd_rule(hidden, dtype, batch, sm_count, smem_limit):
+    def wide_rule(hidden, dtype, batch, sm_count, smem_limit):
         rows = cls.stack_rows(batch, hidden, dtype, sm_count, smem_limit)
         return "wide", 32 * math.ceil(rows * hidden / 32), rows
 
@@ -71,8 +71,9 @@ def main() -> None:
         _build.CSRC = trees[name]
         _build.BUILD_DIR = ROOT / "build" / f"ab-{name}"
         _build._libs.clear()
-        clustered = "hfrep_stack_bwd_clusters" in (trees[name] / "lstm_stack_bwd.cu").read_text()
-        cls.stack_bwd_layout = bwd_rule if clustered else wide_bwd_rule
+        for k, rule in rules.items():
+            clustered = f"hfrep_{k}_clusters" in (trees[name] / f"lstm_{k}.cu").read_text()
+            setattr(cls, f"{k}_layout", rule if clustered else wide_rule)
 
     for name in trees:
         use(name)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The stack sweeps' cluster layouts on one card: register rows and device time.
 
-    python3 tools/torch_stack_fwd_sweep.py [--kernel fwd|bwd] [--rows] [--write] [--time]
+    python3 tools/torch_stack_fwd_sweep.py [--kernel fwd|bwd|adj] [--rows] [--write] [--time]
 
-``--rows`` compiles the kernel's source (``csrc/lstm_stack_fwd.cu``, or
-``csrc/lstm_stack_bwd.cu`` with ``--kernel bwd``) once for each pair of
+``--rows`` compiles the kernel's source (``csrc/lstm_stack_fwd.cu``,
+``csrc/lstm_stack_bwd.cu`` with ``--kernel bwd`` or
+``csrc/lstm_stack_adj.cu`` with ``--kernel adj``) once for each pair of
 register row counts (KR1 for layer 1's block, KR2 for layer 2's; the
 same pair for both operand types; the backward's "rows" are chunks of
 four columns) and prints ptxas's spill bytes of every cluster-layout
@@ -13,16 +14,17 @@ a thread, and which pairs spill moves with any change to a kernel, so the
 counts are chosen by compiling.  With ``--write`` the first pair in the
 kernel's preference list that spills in no instantiation of a type is
 written into the source (``KR1_F32 ...``) and into
-``cuda_lstm_stack.STACK_KEEP`` (``STACK_BWD_KEEP``).  ``--time`` prints
+``cuda_lstm_stack.STACK_KEEP`` (``STACK_BWD_KEEP``, ``STACK_ADJ_KEEP``).  ``--time`` prints
 the card's name and power limit, then the profiler's device time of the
 kernel at W in {1, 2, 48, 168} in float32 and bf16 (W=1 reads the
 prologue) — ``stack_fwd_cuda`` with_res and primal, or every kernel of a
 ``stack_bwd_cuda`` call in its plain and carries modes and, apart, its
 recompute, its sweep and its four weight sums (without their split
-sums) — and of the chained pair it
-replaces (two ``lstm_fwd`` with_cs launches and the layer-2 projection;
-two ``lstm_bwd`` launches and the dz2 . k2^T product).  Builds go to
-``build/sweep/``.
+sums), or every kernel of a ``stack_adj_cuda`` call and, apart, its
+pre-pass, its sweep, its post-pass and its four weight sums — and of
+the chained pair it replaces (two ``lstm_fwd`` with_cs launches and the
+layer-2 projection; two ``lstm_bwd`` launches and the dz2 . k2^T
+product; two ``lstm_adj`` launches).  Builds go to ``build/sweep/``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ KERNELS = {
             # limit (cuda_lstm_stack.cluster_bwd_smem_bytes)
             [(19, 19), (18, 19), (18, 18), (17, 18), (17, 17), (16, 17), (16, 16), (15, 16),
              (15, 15)]),
+    "adj": ("lstm_stack_adj.cu", "STACK_ADJ_KEEP",
+            # below 13 in float32 the block's shared memory passes the card's
+            # limit (cuda_lstm_stack.cluster_adj_smem_bytes)
+            [(19, 19), (18, 19), (18, 18), (17, 18), (17, 17), (16, 17), (16, 16), (15, 16),
+             (15, 15), (14, 15), (14, 14), (13, 14), (13, 13)]),
 }
 SRC = CSRC / KERNELS["fwd"][0]
 LINE = r"constexpr int KR1_F32 = \d+, KR2_F32 = \d+, KR1_BF16 = \d+, KR2_BF16 = \d+;"
@@ -119,7 +126,7 @@ def timing_bwd() -> None:
                 for carries in (False, True):
                     call = lambda: cls.stack_bwd_cuda(*wts, *res, dhs2, None, "tanh", carries)  # noqa: E731
                     parts = {k: cs.device_ms(torch, call, 20, match=m) * n
-                             for k, m, n in (("call", "", 1), ("recompute", "stack_bwd_gates", 1),
+                             for k, m, n in (("call", "", 1), ("recompute", "stack_gates", 1),
                                              ("sweep", "stack_bwd_cluster", 1),
                                              ("sums", "outer_sum", 4))}
                     line.append(f"W={w} B={b} {'carries' if carries else 'plain'} "
@@ -139,6 +146,56 @@ def timing_bwd() -> None:
                 dxz2, _ = cuda_lstm.lstm_bwd_cuda(xz2, rec2, hs2, cs2, dhs2, None, "tanh")
                 dh1 = (dxz2.reshape(w * b, 400) @ k2.T).reshape(w, b, 100)
                 cuda_lstm.lstm_bwd_cuda(xz1, rec1, hs1, cs1, dh1.contiguous(), None, "tanh")
+
+            ms = cs.device_ms(torch, chained, 20, match="")
+        print(f"chained pair W={w} B={b} float32: {ms * 1e3:.1f} us", flush=True)
+
+
+def timing_adj() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from hfrep_tpu_torch.ops import cuda_lstm, cuda_lstm_stack as cls
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(torch), flush=True)
+    for dt in (torch.float32, torch.bfloat16):
+        line = []
+        for w, b in ((1, 32), (2, 32), (48, 32), (48, 64), (168, 64)):
+            wts = cs.stack_inputs(torch, w, 35, b, "tanh", dt, seed=5)[2]
+            g = torch.Generator(device="cuda")
+            g.manual_seed(6)
+            rnd = lambda *s: 0.3 * torch.randn(s, generator=g, device="cuda")  # noqa: E731
+            with torch.no_grad():
+                res = cls.stack_fwd_cuda(*wts, "tanh", with_res=True)
+                carried = cls.stack_bwd_cuda(*wts, *res, rnd(w, b, 100), None, "tanh", True)[5:]
+                cots = (rnd(w, b, 400), rnd(100, 400), rnd(100, 400), rnd(400), rnd(100, 400))
+                call = lambda: cls.stack_adj_cuda(*wts, *res, *carried, *cots, "tanh")  # noqa: E731
+                parts = {k: cs.device_ms(torch, call, 20, match=m) * n
+                         for k, m, n in (("call", "", 1), ("pre-pass", "stack_gates", 1),
+                                         ("sweep", "stack_adj_cluster", 1),
+                                         ("post-pass", "stack_adj_post", 1),
+                                         ("sums", "outer_sum", 4))}
+            line.append(f"W={w} B={b} " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in parts.items())
+                        + f" us (sums {100 * parts['sums'] / parts['call']:.1f}% of the call)")
+        print(f"stack_adj {dt}: " + "; ".join(line), flush=True)
+    for w, b in ((48, 32), (168, 64)):
+        wts = cs.stack_inputs(torch, w, 35, b, "tanh", torch.float32, seed=5)[2]
+        xz1, rec1, k2, b2, rec2 = wts
+        g = torch.Generator(device="cuda")
+        g.manual_seed(6)
+        with torch.no_grad():
+            hs1, cs1, _, _ = cls.stack_fwd_cuda(*wts, "tanh", with_res=True)
+            xz2 = (hs1.reshape(-1, 100) @ k2 + b2).reshape(w, b, 400).contiguous()
+            hs2, cs2 = cuda_lstm.lstm_fwd_cuda(xz2, rec2, "tanh", with_cs=True)
+            dhs = 0.3 * torch.randn((w, b, 100), generator=g, device="cuda")
+            _, _, dhT, dcT = cuda_lstm.lstm_bwd_cuda(xz1, rec1, hs1, cs1, dhs, None, "tanh", True)
+            u = 0.3 * torch.randn((w, b, 400), generator=g, device="cuda")
+            v = 0.3 * torch.randn((100, 400), generator=g, device="cuda")
+
+            def chained():
+                cuda_lstm.lstm_adj_cuda(xz1, rec1, hs1, cs1, dhT, dcT, u, v, "tanh")
+                cuda_lstm.lstm_adj_cuda(xz2, rec2, hs2, cs2, dhT, dcT, u, v, "tanh")
 
             ms = cs.device_ms(torch, chained, 20, match="")
         print(f"chained pair W={w} B={b} float32: {ms * 1e3:.1f} us", flush=True)
@@ -189,7 +246,7 @@ def main() -> None:
     if args.rows:
         rows(args.write, pref, keep)
     if args.time:
-        timing() if args.kernel == "fwd" else timing_bwd()
+        {"fwd": timing, "bwd": timing_bwd, "adj": timing_adj}[args.kernel]()
 
 
 if __name__ == "__main__":
