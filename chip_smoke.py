@@ -9,13 +9,15 @@ exits non-zero on failure:
 1. build   — every ``hfrep_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
              one process per source, started together; prints ptxas's
              registers and spills per kernel (and fails if an lstm_fwd
-             or a stack_fwd / stack_bwd / stack_adj cluster-layout
-             instantiation spills), the forward's launch rule at H=100 and
-             at its wide widths, the stack forward's, backward's and
-             adjoint's launch rules by B and how many of their two-block
-             clusters can be resident at once, and the dynamic shared
-             memory each LSTM kernel (single-layer and fused stack) asks
-             for at H=100;
+             kernel, the lstm_bwd register layout, a stack_fwd /
+             stack_bwd / stack_adj cluster-layout instantiation or a
+             weight sum spills), the forward's and the backward's launch
+             rules at H=100 and at their wide widths, the stack forward's,
+             backward's and adjoint's launch rules by B and how many of
+             their two-block clusters can be resident at once, the
+             dynamic shared memory each LSTM kernel (single-layer and
+             fused stack) asks for at H=100, and the weight sums' tiles
+             and cluster sizes at the epoch's shapes;
 2. parity  — the forward kernel (primal mode) against its plain PyTorch
              version on the card, at the serving shapes (W, F) in
              {(48, 35), (168, 36)}, H=100, B in {8, 64}, activations
@@ -28,7 +30,10 @@ exits non-zero on failure:
              B=133 (two batch rows a block) and in its wide layout
              (H=120 f32, H=160 bf16; B 8 and 133), every activation,
              against the plain version at the bars below, each launched
-             twice and bit-equal;
+             twice and bit-equal; then the backward kernel's modes
+             (plain, dcs, with_carries, carry0, all three) in its register
+             layout at H=100, B=133 and its wide layout (H=117 f32, H=160
+             bf16; B 8 and 133), every activation, the same way;
    grad    — the forward kernel's with_cs mode, the backward kernel (plain,
              dcs and with_carries modes) and the adjoint kernel against
              their plain versions, at the epoch's shapes W in {48, 168},
@@ -58,6 +63,13 @@ exits non-zero on failure:
              cluster layout at H=100 with three batch rows a cluster, the
              wide one at H=117 f32 / 160 bf16; the three sweeps must pick
              the same one), every mode, each launched twice and bit-equal;
+   sums    — the weight sums alone (``weight_sum.cu``) at each launch
+             shape of the main path (one pair, two pairs, three of each,
+             the column sum) at R = W*B in {1536, 5376, 10752} against
+             their plain version (scaled 1e-4), launched twice and
+             bit-equal, and timed by the profiler beside the plain
+             version, their bound and one PyTorch call computing the same
+             function (``torch.matmul``/``bmm``/``sum``, TF32 off);
 3. server  — the main path: ``ReplicationServer`` on ``cuda`` with the
              fixture AE head and the ``mtss_wgan_gp`` generator, then the
              ``mtss_wgan_gp_prod`` one: start, ``warm_server`` (the program
@@ -79,9 +91,11 @@ exits non-zero on failure:
              the critic on its default route (the fused stack, slice 3's
              main path): ``init_gan_state`` then ``make_multi_step`` for 3
              epochs, with every launch count set to 0 just before and read
-             just after; the losses must be finite and exactly the route's
-             kernels must have launched (``ROUTE_KERNELS``).  Then 3 more
-             epochs timed (host clock around synchronised work), one epoch
+             just after; the losses must be finite, exactly the route's
+             kernels must have launched (``ROUTE_KERNELS``), and the weight
+             sums, as their C launcher counts them, as often as those
+             kernels launch them (``SUM_LAUNCHES``), 44 an epoch.  Then 3 more epochs timed (host clock
+             around synchronised work), one epoch
              under ``torch.profiler``, and one epoch on the card against
              the same epoch — same state, same draws — through the plain
              path on the CPU: d_loss and g_loss rtol 1e-4, every param
@@ -90,7 +104,9 @@ exits non-zero on failure:
              the critic on the chained route (slice 2's path, which runs
              the single-layer adjoint);
 6. timing  — CUDA events for each kernel at the served shapes, beside its
-             bound, its plain version and ``library_ms`` (cuDNN's LSTM at
+             bound, its plain version and ``library_ms`` (the backward and
+             the adjoint also by the profiler's device time of every kernel
+             of a call; cuDNN's LSTM at
              tanh: the forward in training mode for with_cs, backward =
              forward-and-backward minus forward for lstm_bwd; none for the
              adjoint: no PyTorch call computes it, the cuDNN RNN has no
@@ -104,7 +120,8 @@ exits non-zero on failure:
              device time by kernel name and the device's busy share.
 
 The last lines are the card's name and power limit, one JSON object
-listing each ported kernel, and ``{"ok": true, "device": {...}}``.
+listing each ported kernel (and each weight-sum launch shape), and
+``{"ok": true, "device": {...}}``.
 TF32 is off for matmuls and cuDNN, so every float32 product is full
 float32.
 """
@@ -152,6 +169,28 @@ WIDE_CASES = ((120, "float32"), (160, "bfloat16"))
 #: (H, dtype) of the stack forward's wide layout: widths past the cluster
 #: layout's 100, within stack_fits
 STACK_WIDE_CASES = ((117, "float32"), (160, "bfloat16"))
+#: the weight sums' launch shapes on the main path: (name, sums a launch,
+#: pairs, M) — lstm_bwd's drec, lstm_adj's urec, stack_bwd's three products,
+#: stack_adj's three, and the bias sums (db2, ub2) — and their rows R = W*B
+#: at the epoch's shapes (W=48 B=32, W=168 B=32, W=168 B=64)
+SUM_SHAPES = (("1 pair", 1, 1, HIDDEN), ("2 pairs", 1, 2, HIDDEN),
+              ("3 x 1 pair", 3, 1, HIDDEN), ("3 x 2 pairs", 3, 2, HIDDEN),
+              ("column", 1, 1, 1))
+SUM_ROWS = (1536, 5376, 10752)
+#: where each TPU kernel forms the sums of that shape in its own body
+SUM_REPLACES = {"1 pair": "hfrep_tpu/ops/pallas_lstm.py:336",
+                "2 pairs": "hfrep_tpu/ops/pallas_lstm.py:520",
+                "3 x 1 pair": "hfrep_tpu/ops/pallas_lstm_stack.py:176",
+                "3 x 2 pairs": "hfrep_tpu/ops/pallas_lstm_stack.py:357",
+                "column": "hfrep_tpu/ops/pallas_lstm_stack.py:178"}
+#: the kernels whose one launch makes one weight-sum launch of each shape
+#: (the C launcher counts the sums, cuda_lstm.weight_sum_launches; the
+#: wrappers count the kernels), and the weight-sum launches of an epoch on
+#: either critic route: 2 + 16 + 5 + 21 fused, 34 + 10 chained
+SUM_LAUNCHES_PER_EPOCH = 44
+SUM_LAUNCHES = {"1 pair": ("lstm_bwd", "lstm_bwd_carry"), "2 pairs": ("lstm_adj", "lstm_adj_carry"),
+                "3 x 1 pair": ("stack_bwd",), "3 x 2 pairs": ("stack_adj",),
+                "column": ("stack_bwd", "stack_adj")}
 TRAIN_EPOCHS = 3
 TRAIN_BATCHES = (32, 64)        # penalty and generator passes; critic scores (2B)
 #: the kernels each critic route's epoch must launch, and no others: the
@@ -198,33 +237,77 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, match: str = "lstm_fwd") -> float:
-    """Mean device time, in ms, of one call of ``fn``, from
-    ``torch.profiler``'s device events over ``iters`` calls.  With a
-    ``match`` that names the one kernel a call launches, its time over
-    its own count of events (so a window the profiler did not record
-    whole is not read as a short one); with ``match=""``, every kernel of
-    the calls over ``iters``.  A kernel shorter than its wrapper's host
-    time leaves the card idle between back-to-back launches, and
-    ``time_ms`` then measures the host."""
+def traced(torch, warm, run):
+    """``torch.profiler`` (host and device) over ``run()`` alone: ``warm()``
+    runs first in the profiler's warm-up step, which starts the tracer and
+    drops its events.  Without it, in this program's long process, the
+    first kernels of a window went unrecorded (a call's first one or two
+    kernels, or the first calls of a one-kernel call)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof
+
+
+def device_events(prof) -> list:
+    """``(name, count, device us)`` of each kernel in a profile, from the
+    device's own events only: a CPU-side op (``aten::mul``, an autograd
+    node) also reports the device time of the kernels it launched, and
+    summing both counts them twice; the profiler's step markers
+    (``ProfilerStep#``, listed as device events under a schedule) are left
+    out."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for ev in prof.key_averages():
+        if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                or ev.key.startswith("ProfilerStep")):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        out.append((ev.key, ev.count, t))
+    return out
+
+
+def device_ms(torch, fn, iters: int, match="lstm_fwd", tries: int = 5) -> float:
+    """Device time, in ms, of one call of ``fn``: the profiler's device
+    events, over ``iters`` calls (:func:`traced`), of the kernels whose name
+    holds ``match`` (a string, or a tuple of strings of which one must
+    match; "" every kernel), summed and divided by ``iters``.  A window the
+    profiler did not record whole — no such event, or a kernel seen a
+    number of times that is not a multiple of ``iters`` — is profiled
+    again, up to ``tries`` windows in all; after that the result is nan,
+    and the last window's counts that were not whole are printed.  A
+    kernel shorter than its wrapper's host time leaves the card idle
+    between back-to-back launches, and ``time_ms`` then measures the host."""
+    names = (match,) if isinstance(match, str) else tuple(match)
+
+    def run():
+        for _ in range(iters):
+            fn()
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us, calls = 0.0, 0
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA or match not in ev.key:
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
-        calls += ev.count
-    calls = calls if match else iters
-    return us / calls / 1e3 if us and calls else float("nan")
+    for _ in range(tries):
+        us, torn = 0.0, []
+        for key, count, t in device_events(traced(torch, fn, run)):
+            if not any(n in key for n in names):
+                continue
+            us += t
+            if count % iters:
+                torn.append(f"{key[:48]} x{count}")
+        if us and not torn:
+            return us / iters / 1e3
+    say(f"[profiler] no whole window of {iters} calls in {tries} (match {match!r}): "
+        + ("; ".join(torn) or "no event"))
+    return float("nan")
 
 
 # ------------------------------------------------------------------ phases
@@ -248,10 +331,21 @@ def entry_name(mangled: str) -> str:
             elif k == 0 and m.group(2).endswith("fwd"):
                 mode += ",primal"
         return f"{m.group(1)}<{'f32' if m.group(3) == 'f' else 'bf16'}{mode}>"
-    m = re.search(r"outer_sum_partialILi(\d)ELb(\d)E", mangled)
+    m = re.search(r"weight_sum_kernelILi(\d)E", mangled)
     if m:
-        return f"outer_sum_partial<{m.group(1)}{',head' if m.group(2) == '1' else ''}>"
-    return "sum_splits" if "sum_splits" in mangled else mangled
+        return f"weight_sum<{'float4' if m.group(1) == '4' else 'scalar'}>"
+    m = re.search(r"col_sum_kernelILi(\d)E", mangled)
+    if m:
+        return f"col_sum<{'float4' if m.group(1) == '4' else 'scalar'}>"
+    return mangled
+
+
+def no_spill(source: str, entry: str) -> bool:
+    """The instantiations the build phase holds to no spills: every
+    lstm_fwd kernel, the register layout of lstm_bwd, the stack sweeps'
+    cluster layouts and the weight sums."""
+    return (source == "lstm_fwd" or "_cluster_" in entry
+            or entry.startswith(("lstm_bwd_kernel<", "weight_sum<", "col_sum<")))
 
 
 def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
@@ -269,11 +363,11 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
             elif "registers" in line or "spill" in line:
                 say(f"[build] {name} {entry}: {line.split(':', 1)[-1].strip()}")
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if ((name == "lstm_fwd" or "_cluster_" in (entry or "")) and m
+                if (no_spill(name, entry or "") and m
                         and (int(m.group(1)) or int(m.group(2)))):
                     spilled.append(entry)
     if spilled:
-        fail(f"a register-layout kernel spills registers in {spilled}")
+        fail(f"a register-layout kernel or a weight sum spills registers in {spilled}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
     for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -287,11 +381,25 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
         say(f"[build] lstm_fwd layout at H={h} {name}, B=133: "
             f"{cuda_lstm.fwd_layout(h, dt, 133, sms, limit)}, "
             f"{cuda_lstm.smem_bytes(h, dt, -(-133 // sms))} B of shared memory")
+    for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        plans = {b: cuda_lstm.bwd_layout(HIDDEN, dt, b, sms, limit) for b in FWD_BATCHES}
+        say(f"[build] lstm_bwd layout at H={HIDDEN} {n} (layout, threads, rows a block) by B: "
+            + ", ".join(f"B={b} {p}" for b, p in plans.items())
+            + f"; {cuda_lstm.reg_bwd_smem_bytes(HIDDEN, dt)} B of shared memory "
+            f"({cuda_lstm.BWD_KEEP[dt]} of {cuda_lstm.FWD_KS} chunks in registers); no spills")
+    for h, name in STACK_WIDE_CASES:
+        say(f"[build] lstm_bwd layout at H={h} {name}, B=133: "
+            f"{cuda_lstm.bwd_layout(h, getattr(torch, name), 133, sms, limit)}")
     for kernel in ("lstm_bwd", "lstm_adj"):
         sm = {n: cuda_lstm.smem_bytes(HIDDEN, dt, 1, kernel)
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
-        say(f"[build] {kernel}: dynamic shared memory at H={HIDDEN}, one row a block: "
+        say(f"[build] {kernel}{' (wide layout)' if kernel == 'lstm_bwd' else ''}: dynamic "
+            f"shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{cuda_lstm.smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm['f32']} B a further row)")
+    for shape, nsum, npair, m in SUM_SHAPES:
+        plans = {r: cuda_lstm.sum_plan(nsum, npair, r, m, 4 * HIDDEN, sms) for r in SUM_ROWS}
+        say(f"[build] weight sums {shape} (tiles, pieces, blocks a tile) by R = W*B: "
+            + ", ".join(f"R={r} {p}" for r, p in plans.items()))
     cls = cuda_lstm_stack
     for kernel, rule, cluster_bytes in (("stack_fwd", cls.stack_fwd_layout, cls.cluster_smem_bytes),
                                         ("stack_bwd", cls.stack_bwd_layout,
@@ -663,6 +771,153 @@ def phase_stack_layouts(torch, cuda_lstm_stack) -> dict:
     return worst
 
 
+#: the backward's modes: (name, dcs, with_carries, carry0)
+BWD_MODES = (("plain", False, False, False), ("dcs", True, False, False),
+             ("carries", False, True, False), ("carry0", False, False, True),
+             ("carry0 dcs carries", True, True, True))
+
+
+def phase_bwd_layouts(torch, cuda_lstm) -> dict:
+    """The backward kernel's modes in both layouts against the plain
+    version: the register layout at H=100 with B=133 (two batch rows a
+    block), the wide layout at ``STACK_WIDE_CASES`` (H=117 f32, H=160 bf16)
+    with B in {8, 133}; W=48, every activation, on the forward kernel's
+    residuals, seeded inputs (xz 0.3 N(0,1), rec 0.5 N(0,1)/sqrt(H), carry
+    0.5 N(0,1), cotangents 0.3 N(0,1)).  Bars scaled by max(1, max|plain|),
+    f32 1e-4 / bf16 1e-2.  Each mode launched twice must give the same
+    bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    cases = [(HIDDEN, "float32", 133), (HIDDEN, "bfloat16", 133)]
+    cases += [(h, name, b) for h, name in STACK_WIDE_CASES for b in (8, 133)]
+    worst = {}
+    for h, name, b in cases:
+        dtype = getattr(torch, name)
+        layout = cuda_lstm.bwd_layout(h, dtype, b, sms, limit)[0]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(h + b + 11)
+        rnd = lambda s, *shape: s * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+        xz, rec = rnd(0.3, 48, b, 4 * h).to(dtype), rnd(0.5 / h ** 0.5, h, 4 * h).to(dtype)
+        carry = (rnd(0.5, b, h), rnd(0.5, b, h))
+        dhs, dcs, dc_fin = rnd(0.3, 48, b, h), rnd(0.3, 48, b, h), rnd(0.3, b, h)
+        line = []
+        for act in ACTS:
+            for mode, with_dcs, carries, carried in BWD_MODES:
+                c = carry if carried else None
+                with torch.no_grad():
+                    hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True, c)
+                    args = (xz, rec, hs, cs, dhs, dcs if with_dcs else None, act, carries, c,
+                            dc_fin if carried else None)
+                    got = cuda_lstm.lstm_bwd_cuda(*args)
+                    again = cuda_lstm.lstm_bwd_cuda(*args)
+                    ref = cuda_lstm.lstm_bwd_plain(*args)
+                torch.cuda.synchronize()
+                for a, r in zip(got, ref):
+                    if a.shape != r.shape or not torch.isfinite(a).all():
+                        fail(f"lstm_bwd {mode} ({layout}) not finite/shaped at H={h} B={b} "
+                             f"{act} {name}")
+                if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                    fail(f"lstm_bwd {mode} ({layout}): two launches differ at H={h} B={b} "
+                         f"{act} {name}")
+                err, bar = max(scaled_err(a, r) for a, r in zip(got, ref)), GRAD_BARS[name]
+                key = f"{layout} lstm_bwd {mode} {name}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                if act == "tanh":
+                    line.append(f"{mode} {err:.2e}")
+                if not err <= bar:
+                    fail(f"lstm_bwd {mode} ({layout}) disagrees with its plain version: "
+                         f"{err} > {bar} at H={h} B={b} {act} {name}")
+        say(f"[layout] lstm_bwd {layout} H={h} W=48 B={b} {name}: every mode within its bar "
+            f"and bitwise repeatable; tanh errors: {', '.join(line)}")
+    return worst
+
+
+def sum_case(torch, g, nsum, npair, r, m):
+    """Seeded operands of a weight-sum launch: ``nsum`` sums of ``npair``
+    pairs over ``r`` rows, shift 32 (the epoch's B), no heads; A and B
+    N(0,1) (A None for the column sum)."""
+    return [([(None if m == 1 else torch.randn((r, m), generator=g, device="cuda"),
+               torch.randn((r, 4 * HIDDEN), generator=g, device="cuda"), None)
+              for _ in range(npair)], 32) for _ in range(nsum)]
+
+
+def sum_bound_ms(nsum, npair, r, m) -> tuple:
+    """Least time of a weight-sum launch: 2 * R * M * N operations a pair
+    and a sum over 67 TFLOP/s float32, against each A and B read once and
+    each C written once over 3.35 TB/s (a column sum reads no A)."""
+    n = 4 * HIDDEN
+    ops = 2.0 * nsum * npair * r * m * n
+    nbytes = 4.0 * (nsum * npair * r * ((m if m > 1 else 0) + n) + nsum * m * n)
+    t_ops = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_sums(torch, cuda_lstm) -> list:
+    """The weight sums alone (``weight_sums_cuda``) at each shape the main
+    path gives them (``SUM_SHAPES`` at ``SUM_ROWS``) against
+    ``weight_sum_plain`` on the same inputs (scaled bar 1e-4: up to 2 x
+    10,752 rows summed in another order), each launched twice and
+    bit-equal; then timed by the profiler's device time beside the plain
+    version, the bound and one PyTorch call computing the same function
+    (``library_ms``, float32, TF32 off): ``torch.matmul`` of the shifted
+    A^T and B (two pairs stacked along the rows), ``torch.bmm`` for three
+    sums, ``torch.sum`` for the column sum."""
+    rows = []
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    for r in SUM_ROWS:
+        for shape, nsum, npair, m in SUM_SHAPES:
+            sums = sum_case(torch, g, nsum, npair, r, m)
+            with torch.no_grad():
+                got = cuda_lstm.weight_sums_cuda(sums)
+                again = cuda_lstm.weight_sums_cuda(sums)
+                ref = [cuda_lstm.weight_sum_plain(t, sh) for t, sh in sums]
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"weight sum {shape} R={r}: two launches differ")
+            for a, b in zip(got, ref):
+                if a.shape != b.shape or not torch.isfinite(a).all():
+                    fail(f"weight sum {shape} R={r}: not finite/shaped")
+            err = max(scaled_err(a, b) for a, b in zip(got, ref))
+            abs_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            if not err <= GRAD_BARS["float32"]:
+                fail(f"weight sum {shape} R={r} disagrees with its plain version: {err}")
+            if m == 1:
+                col = torch.cat([b for _, b, _ in sums[0][0]])
+                library = lambda: torch.sum(col, 0)  # noqa: E731
+            else:
+                a_t = torch.stack([torch.cat([torch.cat([torch.zeros((sh, m), device="cuda"),
+                                                         a[:r - sh]]) for a, _, _ in t])
+                                   for t, sh in sums])
+                b_t = torch.stack([torch.cat([b for _, b, _ in t]) for t, _ in sums])
+                if nsum == 1:
+                    a0, b0 = a_t[0].T, b_t[0]
+                    library = lambda: torch.matmul(a0, b0)  # noqa: E731
+                else:
+                    a_tt = a_t.transpose(1, 2)
+                    library = lambda: torch.bmm(a_tt, b_t)  # noqa: E731
+            with torch.no_grad():
+                ms = device_ms(torch, lambda: cuda_lstm.weight_sums_cuda(sums), 20,
+                               match="hfrep::ws::")
+                events = time_ms(torch, lambda: cuda_lstm.weight_sums_cuda(sums), 50)
+                plain = device_ms(torch, lambda: [cuda_lstm.weight_sum_plain(t, sh)
+                                                  for t, sh in sums], 10, match="")
+                lib_ms = device_ms(torch, library, 20, match="")
+            bnd, by = sum_bound_ms(nsum, npair, r, m)
+            splits = cuda_lstm.sum_plan(nsum, npair, r, m, 4 * HIDDEN,
+                                        torch.cuda.get_device_properties(0).multi_processor_count)[2]
+            rows.append({"shape": shape, "R": r, "sums": nsum, "pairs": npair, "M": m,
+                         "N": 4 * HIDDEN, "blocks_a_tile": splits, "max_abs_err": abs_err,
+                         "max_scaled_err": err, "ms": ms, "events_ms": events,
+                         "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bnd,
+                         "bound_by": by})
+            say(f"[sums] {shape:11s} R={r:5d}: scaled err {err:.2e}, bit-equal; device "
+                f"{ms:.4f} ms ({splits} blocks a tile; CUDA events {events:.4f}), plain "
+                f"{plain:.4f} ms, torch {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
+    return rows
+
+
 def check_answers(torch, np, srv, futures, panels, preset_cfg) -> None:
     """Every answer finite and shaped; a few held against the plain path
     of the same models on the CPU."""
@@ -752,34 +1007,29 @@ def phase_server(torch, np, cuda_lstm) -> dict:
 
 
 def device_time_by_name(prof) -> dict:
-    """Device time by kernel name, from the device's own events only: a
-    CPU-side op (``aten::mul``, an autograd node) also reports the device
-    time of the kernels it launched, and summing both counts them twice."""
-    from torch.autograd import DeviceType
-
+    """Device time by kernel name (:func:`device_events`)."""
     by_name = {}
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+    for key, _, dev_us in device_events(prof):
         if dev_us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us
+            by_name[key] = by_name.get(key, 0.0) + dev_us
     return by_name
 
 
 def profile_epoch(torch, step, state, draws) -> dict:
-    """One epoch under ``torch.profiler``: device time by kernel name and
-    the device's busy share of the epoch's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    """One epoch under ``torch.profiler`` (:func:`traced`, an epoch in its
+    warm-up step): device time by kernel name and the device's busy share
+    of the epoch's wall time."""
+    wall = []
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
         t0 = time.perf_counter()
         step(state, draws)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        wall.append((time.perf_counter() - t0) * 1e6)
+
+    torch.cuda.synchronize()
+    prof = traced(torch, lambda: step(state, draws), run)
+    wall_us = wall[0]
     by_name = device_time_by_name(prof)
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -854,6 +1104,9 @@ def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = cuda_lstm.launch_counts()
+        by_key = cuda_lstm.weight_sum_launches()
+        sum_launches = {name: by_key[(nsum, npair, m == 1)]
+                        for name, nsum, npair, m in SUM_SHAPES}
         d_loss, g_loss = metrics["d_loss"].cpu(), metrics["g_loss"].cpu()
         if d_loss.shape != (TRAIN_EPOCHS,) or not (torch.isfinite(d_loss).all()
                                                    and torch.isfinite(g_loss).all()):
@@ -862,10 +1115,17 @@ def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
         if launched != ROUTE_KERNELS[route]:
             fail(f"{preset} ({route} route): the epochs launched {sorted(launched)}, "
                  f"expected {sorted(ROUTE_KERNELS[route])} ({launches})")
+        by_shape = {k: sum(launches[n] for n in names) for k, names in SUM_LAUNCHES.items()}
+        if (sum_launches != by_shape or sum(by_key.values()) != sum(sum_launches.values())
+                or sum(by_key.values()) != SUM_LAUNCHES_PER_EPOCH * TRAIN_EPOCHS):
+            fail(f"{preset} ({route} route): weight-sum launches {sum_launches} (of "
+                 f"{sum(by_key.values())}), expected {by_shape} from the kernels' launches, "
+                 f"{SUM_LAUNCHES_PER_EPOCH} an epoch")
         per_epoch = {n: c / TRAIN_EPOCHS for n, c in launches.items() if c}
         say(f"{tag} {preset} W={w}: {TRAIN_EPOCHS} epochs in {first_s:.2f} s; d_loss "
             f"{[round(float(x), 5) for x in d_loss]}, g_loss {[round(float(x), 5) for x in g_loss]}; "
-            f"launches per epoch: " + ", ".join(f"{n} {c:g}" for n, c in per_epoch.items()))
+            f"launches per epoch: " + ", ".join(f"{n} {c:g}" for n, c in per_epoch.items())
+            + f"; weight sums {sum(sum_launches.values()) / TRAIN_EPOCHS:g}")
         t0 = time.perf_counter()
         state, _ = multi(state, generator=g)
         torch.cuda.synchronize()
@@ -893,7 +1153,7 @@ def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
         if not parity["ok"]:
             fail(f"{preset}: the card's epoch differs from the CPU plain path: {parity}")
         out.append({"route": route, "preset": preset, "W": w, "F": mcfg.features,
-                    "launches": launches,
+                    "launches": launches, "weight_sum_launches": sum_launches,
                     "launches_per_epoch": per_epoch, "d_loss": d_loss.tolist(),
                     "g_loss": g_loss.tolist(), "first_epochs_s": first_s,
                     "ms_per_epoch": ms_epoch, "profile": prof, "parity": parity})
@@ -1024,7 +1284,10 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
                     primal = time_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(xz, rec, "tanh"), 50)
                     dev = {"lstm_fwd_cs": device_ms(torch, calls["lstm_fwd_cs"][0], 30),
                            "primal": device_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(
-                               xz, rec, "tanh"), 30)}
+                               xz, rec, "tanh"), 30),
+                           # every kernel of a call: pre-pass, sweep, weight sum
+                           "lstm_bwd": device_ms(torch, calls["lstm_bwd"][0], 30, match=""),
+                           "lstm_adj": device_ms(torch, calls["lstm_adj"][0], 20, match="")}
                 library = {"lstm_fwd_cs": None, "lstm_bwd": None, "lstm_adj": None}
                 if name == "float32":
                     lstm = torch.nn.LSTM(f, h).cuda()
@@ -1061,6 +1324,9 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
                                  f"{primal:.4f}, device {dev['primal']:.4f})")
                         if "library" in dev:
                             lib_s += f" (device {dev['library']:.4f})"
+                    else:
+                        rows[-1]["device_ms"] = dev[k]
+                        extra = f" (device {dev[k]:.4f}, every kernel of a call)"
                     say(f"[timing] {k:11s} W={w:3d} B={b:2d} {name:8s}: kernel {ms:.4f} ms{extra}, "
                         f"plain {plain:.3f} ms, cuDNN {lib_s} ms, bound {bnd:.5f} ms ({by})")
     return rows
@@ -1508,9 +1774,8 @@ def phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack) -> list:
 def phase_profile(torch) -> list:
     """``torch.profiler`` over 20 sample dispatches of the generator at
     the served batch (bucket 8), per preset: device time by kernel name
-    and the device's busy share of the window."""
-    from torch.profiler import ProfilerActivity, profile
-
+    and the device's busy share of the window (:func:`traced`, a dispatch
+    in its warm-up step)."""
     from hfrep_tpu_torch.serve import aot
     from hfrep_tpu_torch.serve.fixture import fixture_gen_model
 
@@ -1525,12 +1790,17 @@ def phase_profile(torch) -> list:
         for z in noises[:3]:
             fn(z).cpu()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = []
+
+        def run():
             t0 = time.perf_counter()
             for z in noises:
                 fn(z).cpu()                      # the server copies each answer out
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+            wall.append((time.perf_counter() - t0) * 1e6)
+
+        prof = traced(torch, lambda: fn(noises[0]).cpu(), run)
+        wall_us = wall[0]
         by_name = device_time_by_name(prof)
         busy_us = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -1575,11 +1845,13 @@ def main() -> None:
     phase_build(torch, _build, cuda_lstm, cuda_lstm_stack)
     worst = phase_parity(torch, cuda_lstm)
     layouts = phase_fwd_layouts(torch, cuda_lstm)
+    bwd_layouts = phase_bwd_layouts(torch, cuda_lstm)
     grad = phase_grad_parity(torch, cuda_lstm)
     carry = phase_carry_parity(torch, cuda_lstm)
     carry_path = phase_carry_path(torch, cuda_lstm)
     stack = phase_stack_parity(torch, cuda_lstm_stack)
     stack_layouts = phase_stack_layouts(torch, cuda_lstm_stack)
+    sums = phase_sums(torch, cuda_lstm)
     server = phase_server(torch, np, cuda_lstm)
     train = phase_train(torch, cuda_lstm, "auto")
     train_chained = phase_train(torch, cuda_lstm, "chained", TRAIN_PRESETS[:1])
@@ -1626,7 +1898,12 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": "W=48 B=32 H=100 float32"})
         if "device_ms" in r:
-            rows[-1].update(device_ms=r["device_ms"], library_device_ms=r["library_device_ms"])
+            rows[-1].update(device_ms=r["device_ms"],
+                            library_device_ms=r.get("library_device_ms"))
+    rows[-2]["layouts"] = {"registers": "H <= 100: every preset, the main path's; a gate "
+                                        "pre-pass, the quad sweep and the weight sum",
+                           "wide": "100 < H within one block's shared memory"}
+    rows[-2]["max_err_by_layout"] = bwd_layouts
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
     # the carry modes: launches from the carry path's run (phase_carry_path)
     timed = {r["kernel"]: r for r in carry_timing}
@@ -1685,6 +1962,28 @@ def main() -> None:
     rows[-1]["layouts"] = {"cluster": "H <= 100: every preset, the main path's",
                            "wide": "100 < H within stack_fits"}
     rows[-1]["max_err_by_layout"] = {k: v for k, v in stack_layouts.items() if "stack_adj" in k}
+    # the weight sums, one row a launch shape at W=48 B=32 (R=1536); their
+    # launches as the C launcher counted them in the main path's runs
+    for shape, nsum, npair, m in SUM_SHAPES:
+        at = {r["R"]: r for r in sums if r["shape"] == shape}
+        r = at[SUM_ROWS[0]]
+        rows.append({
+            "name": f"weight_sum ({shape})", "route": "cuda",
+            "source": "hfrep_tpu_torch/csrc/weight_sum.cuh", "replaces": SUM_REPLACES[shape],
+            "launches": sum(run["weight_sum_launches"][shape]
+                            for run in train + train_chained),
+            "launches_by_path": {p: sum(run["weight_sum_launches"][shape] for run in runs)
+                                 for p, runs in (("train_fused", train),
+                                                 ("train_chained", train_chained))},
+            "max_abs_err": max(x["max_abs_err"] for x in at.values()),
+            "max_scaled_err": max(x["max_scaled_err"] for x in at.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": "torch.sum" if m == 1 else "torch.bmm" if nsum > 1 else "torch.matmul",
+            "shape": f"{nsum} sum(s) of {npair} pair(s), R=1536 M={m} N={4 * HIDDEN} float32",
+            "by_rows": {str(x["R"]): {k: x[k] for k in ("ms", "library_ms", "bound_ms",
+                                                         "plain_ms", "blocks_a_tile")}
+                        for x in at.values()}})
     kernels = {"kernels": rows}
     if args.out:
         with open(args.out, "w") as fh:
@@ -1694,6 +1993,7 @@ def main() -> None:
                        "carry_parity": carry, "carry_path": carry_path,
                        "carry_timing": carry_timing,
                        "parity_max_abs_err": worst, "fwd_layouts": layouts,
+                       "bwd_layouts": bwd_layouts, "sums": sums,
                        "grad_parity": grad,
                        "stack_parity": stack, "stack_layouts": stack_layouts,
                        "profile": profiled}, fh, indent=1)

@@ -57,9 +57,9 @@
 // memory, two block barriers a step.  urec is reduced afterwards by a
 // second kernel over the W*B rows the sweep wrote (udhs is mu_h moved
 // one step; dz goes to a workspace), deterministically and without
-// atomics (lstm_common.cuh: outer_sum).
+// atomics (weight_sum.cuh).
 
-#include "lstm_common.cuh"
+#include "weight_sum.cuh"
 
 namespace {
 
@@ -292,8 +292,7 @@ cudaError_t launch_act(const AdjArgs& a, int act, cudaStream_t s) {
 // The sweep, then urec = sum mu_h^T dz + h_{t-1}^T zbar over the W*B rows
 // (in carry mode mu_h0 and h0 are the heads of mu_h and h_{t-1}), both on
 // `stream`.
-int run(const AdjArgs& a, void* urec, void* part, int act, int bf16, int splits,
-        int rows_per_split, int device, void* stream) {
+int run(const AdjArgs& a, void* urec, int act, int bf16, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -304,9 +303,11 @@ int run(const AdjArgs& a, void* urec, void* part, int act, int bf16, int splits,
   else
     e = carry ? launch_act<float, true>(a, act, s) : launch_act<float, false>(a, act, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = outer_sum<2>(a.udhs, a.dzw, a.hs, a.uxz, static_cast<float*>(urec),
-                   static_cast<float*>(part), a.W * a.B, a.B, a.H, 4 * a.H, splits,
-                   rows_per_split, s, a.muh0, a.h0);
+  ws::Batch sum{};
+  sum.n = 1;
+  sum.s[0] = ws::sum_of(static_cast<float*>(urec), a.B, a.udhs, a.dzw, a.muh0, a.hs, a.uxz,
+                        a.h0);
+  e = ws::weight_sums(sum, 2, a.W * a.B, a.H, 4 * a.H, s);
   return static_cast<int>(e);
 }
 
@@ -315,14 +316,12 @@ int run(const AdjArgs& a, void* urec, void* part, int act, int bf16, int splits,
 extern "C" {
 
 // The sweep and urec on `stream`.  `dzw` is a (W, B, 4H) float32
-// workspace for dz; `part` holds splits x H x 4H floats when splits > 1.
-// Returns the first CUDA error of a launch (0 = ok).
+// workspace for dz.  Returns the first CUDA error of a launch (0 = ok).
 int hfrep_lstm_adj(const void* xz, const void* rec, const void* v, const void* hs,
                    const void* cs, const void* dhT, const void* dcT, const void* u,
                    void* uxz, void* uhs, void* ucs, void* udhs, void* urec,
-                   void* dzw, void* part, int W, int B, int H, int act, int bf16,
-                   int rows, int splits, int rows_per_split, int device,
-                   void* stream) {
+                   void* dzw, int W, int B, int H, int act, int bf16, int rows,
+                   int device, void* stream) {
   const AdjArgs a{xz, rec, static_cast<const float*>(v), static_cast<const float*>(hs),
                   static_cast<const float*>(cs), static_cast<const float*>(dhT),
                   static_cast<const float*>(dcT), static_cast<const float*>(u),
@@ -330,7 +329,7 @@ int hfrep_lstm_adj(const void* xz, const void* rec, const void* v, const void* h
                   static_cast<float*>(uhs), static_cast<float*>(ucs),
                   static_cast<float*>(udhs), static_cast<float*>(dzw), nullptr, nullptr,
                   nullptr, W, B, H, rows};
-  return run(a, urec, part, act, bf16, splits, rows_per_split, device, stream);
+  return run(a, urec, act, bf16, device, stream);
 }
 
 // The carry mode: h0, c0 (B, H) the injected state, muh0 and muc0 (B, H;
@@ -341,9 +340,8 @@ int hfrep_lstm_adj_carry(const void* xz, const void* rec, const void* v,
                          const void* dcT, const void* u, const void* h0,
                          const void* c0, const void* muh0, const void* muc0,
                          void* uxz, void* uhs, void* ucs, void* udhs, void* urec,
-                         void* dzw, void* udcfin, void* uh0, void* uc0, void* part,
-                         int W, int B, int H, int act, int bf16, int rows,
-                         int splits, int rows_per_split, int device, void* stream) {
+                         void* dzw, void* udcfin, void* uh0, void* uc0, int W, int B,
+                         int H, int act, int bf16, int rows, int device, void* stream) {
   if (h0 == nullptr || c0 == nullptr || udcfin == nullptr || uh0 == nullptr ||
       uc0 == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -356,7 +354,7 @@ int hfrep_lstm_adj_carry(const void* xz, const void* rec, const void* v,
                   static_cast<float*>(ucs), static_cast<float*>(udhs),
                   static_cast<float*>(dzw), static_cast<float*>(udcfin),
                   static_cast<float*>(uh0), static_cast<float*>(uc0), W, B, H, rows};
-  return run(a, urec, part, act, bf16, splits, rows_per_split, device, stream);
+  return run(a, urec, act, bf16, device, stream);
 }
 
 }  // extern "C"

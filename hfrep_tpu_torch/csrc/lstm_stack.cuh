@@ -1,5 +1,5 @@
 // Pieces shared by the fused two-layer stack's kernels
-// (lstm_stack_{fwd,bwd,adj}.cu):
+// (lstm_stack_{fwd,bwd,adj}.cu) and the single-layer backward (lstm_bwd.cu):
 //
 // - the cluster layout of the products that run a row vector into an
 //   (H, 4H) matrix (hfrep::cl): a block of 416 threads, a quad a hidden
@@ -7,10 +7,14 @@
 //   (rows k = q*KS + kk), some rows in registers and the rest in shared
 //   memory, and a block's part of k2's rows dealt out beside them.  The
 //   stack forward (h . rec) and the adjoint (mu_h . rec) run it;
+// - the backward sweeps' quad layout (hfrep::bq): a quad a hidden unit
+//   holding its row of the recurrent matrix for dz . rec^T, in the stack
+//   backward's cluster and the single-layer backward's register layout;
 // - the tiled float32 products over all W*B rows (hfrep::tile) and the
 //   kernel that forms both layers' gates from the saved states with them,
 //   the pre-pass of the stack backward and of the adjoint (which also forms
-//   its chain-free v-stream products there).  No tensor cores: TF32 or bf16
+//   its chain-free v-stream products there) and, its first product alone,
+//   of the single-layer backward.  No tensor cores: TF32 or bf16
 //   products of float32 operands would break the float32 bars.
 
 #pragma once
@@ -122,6 +126,121 @@ __device__ __forceinline__ float quad_z(float (&acc)[4], const float (&acc2)[4],
 
 }  // namespace cl
 
+// ------------------------------------------- the backward sweeps' quad layout
+// A block of THREADS threads, a quad a hidden unit k: thread (k, q) holds
+// chunks c < KS of row k's gate-q columns of an (H, 4H) matrix (entries
+// q*H + 4c .. 4c + 3), the first KR in registers and the rest in shared
+// memory as a float4 each, so dh[k] = sum_m dz[m] rec[k, m] is KS float4
+// FMAs a thread against dz broadcast from shared memory, and a quad sum of
+// two shuffles.  The stack backward's cluster (lstm_stack_bwd.cu) and the
+// single-layer backward's register layout (lstm_bwd.cu) run it.
+namespace bq {
+
+constexpr int KS = 25;              // chunks of four columns a thread owns: H <= 4*KS
+constexpr int ZP = 104;             // a gate's stride in a dz buffer (floats)
+constexpr int THREADS = 32 * ((4 * KS + 7) / 8);   // 416: a quad per unit
+
+// Rows [lo, lo + n) of an (H, 4H) matrix lie staged at `stage`: thread
+// (k, q), k among them, takes its chunks c < KS of row k's gate-q columns
+// into w (c < KR) and rec_s, entries past H zero.
+template <typename T, int KR, int KW>
+__device__ __forceinline__ void deal_rec(const T* stage, int lo, int n, int H, int q, int k,
+                                         bool unit, float (&w)[4][KW], float4* rec_s) {
+  const int r = k - lo, tid = threadIdx.x;
+  if (!unit || r < 0 || r >= n) return;
+  const T* src = stage + r * 4 * H + q * H;
+#pragma unroll
+  for (int c = 0; c < KS; ++c) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = 4 * c + e < H ? to_f(src[4 * c + e]) : 0.0f;
+    if (c < KR) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[e][c < KR ? c : 0] = v[e];
+    } else {
+      rec_s[(c - KR) * THREADS + tid] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// chunk c of this thread's row: from registers (c < KR) or shared memory
+template <int KR, int KW>
+__device__ __forceinline__ void weights(const float (&w)[4][KW], const float4* rec_s, int c,
+                                        int tid, float (&wk)[4]) {
+  if (c < KR) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) wk[e] = w[e][c < KR ? c : 0];
+  } else {
+    const float4 v = rec_s[(c - KR) * THREADS + tid];
+    wk[0] = v.x, wk[1] = v.y, wk[2] = v.z, wk[3] = v.w;
+  }
+}
+
+// the eight chains of a dot, summed in a fixed order
+__device__ __forceinline__ float chains(const float (&a0)[4], const float (&a1)[4]) {
+  return ((a0[0] + a1[0]) + (a0[1] + a1[1])) + ((a0[2] + a1[2]) + (a0[3] + a1[3]));
+}
+
+// this thread's part of dz . rec^T for its row: its KS chunks against the
+// dz buffer's gate-q run (float4s, broadcast within each quarter-warp)
+template <int KR, int KW>
+__device__ __forceinline__ float dot_rec(const float4* dz4, const float (&w)[4][KW],
+                                         const float4* rec_s, int tid) {
+  float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < KS; ++c) {
+    const float4 v = dz4[c];
+    const float d[4] = {v.x, v.y, v.z, v.w};
+    float wk[4];
+    weights<KR>(w, rec_s, c, tid, wk);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c & 1) a1[e] = fmaf(d[e], wk[e], a1[e]);
+      else a0[e] = fmaf(d[e], wk[e], a0[e]);
+    }
+  }
+  return chains(a0, a1);
+}
+
+// the quad's sum in all four lanes, the same bits in each
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// lane `src` of this quad's value
+__device__ __forceinline__ float from_lane(float v, int base, int src) {
+  return __shfl_sync(0xffffffffu, v, base + src);
+}
+
+// Stage this lane's inputs of step t into st[0..1] with cp.async, which
+// holds no registers while the loads are in flight: its gate's value (at
+// (W, B, 4H) offset og of `gates`) and its value of the step's state
+// stream (lane 0 c_t, lane 1 c_{t-1}, lane 2 the direct dc, lane 3 the dh
+// input, at (W, B, H) offset o - back of `sp`; null is zeros).  Lane 1's
+// c_{-1} is zero, or *first (the carry mode's c0) where given.
+__device__ __forceinline__ void stage_step(float* st, const float* gates, int og,
+                                           const float* sp, int o, int back, int t, bool on,
+                                           const float* first = nullptr) {
+  if (on) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st)),
+                 "l"(gates + og) : "memory");
+  } else {
+    st[0] = 0.0f;
+  }
+  if (on && sp != nullptr && (back == 0 || t > 0)) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 1)),
+                 "l"(sp + o - back) : "memory");
+  } else if (on && first != nullptr && back != 0) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 1)),
+                 "l"(first) : "memory");
+  } else {
+    st[1] = 0.0f;
+  }
+}
+
+}  // namespace bq
+
 // ------------------------------------------------ products over the W*B rows
 namespace tile {
 
@@ -189,7 +308,9 @@ __device__ __forceinline__ void product(Piece piece, int k_begin, int k_end, Sme
 //   0: act(xz1 + round(shift(hs1)) . rec1)                         -> g1
 //   1: act(b2 + [round(hs1), round(shift(hs2))] . [k2; rec2])      -> g2
 // (sigmoid for i, f, o; the activation for the candidate; shift(s) is the
-// previous step's s, zero at t = 0).  With V (the adjoint's pre-pass) also
+// previous step's s, zero at t = 0, or the head h0 where given: the
+// single-layer backward's carry mode runs product 0 alone).  With V (the
+// adjoint's pre-pass) also
 // the chain-free part of each layer's dzbar, from unrounded states and the
 // float32 v-streams:
 //   2: u1 + shift(hs1) . vr1                                        -> v1
@@ -206,6 +327,7 @@ struct GatesArgs {
   const float* vr2;
   float* v1;           // (W, B, 4H) outputs
   float* v2;
+  const float* h0;     // (B, H) layer 1's state before step 0; null: zeros
 };
 
 template <typename T, int ACT, bool V>
@@ -232,6 +354,7 @@ stack_gates_kernel(const T* __restrict__ xz1, const T* __restrict__ rec1,
         if (layer == 0 || k >= H) {                      // a previous state
           const float* hp = layer == 0 ? a.hs1 : a.hs2;
           if (r >= B) v = hp[(r - B) * H + (layer == 0 ? k : k - H)];
+          else if (layer == 0 && a.h0 != nullptr) v = a.h0[r * H + k];
         } else {
           v = a.hs1[r * H + k];
         }
@@ -286,12 +409,14 @@ stack_gates_kernel(const T* __restrict__ xz1, const T* __restrict__ rec1,
 }
 
 // Launch stack_gates_kernel over the W*B rows on `stream`: the two gate
-// products, and with V the two v-stream products.
+// products, and with V the two v-stream products; with `one_layer` the
+// first gate product alone (k2, b2 and rec2 unread).
 template <typename T, int ACT, bool V>
 cudaError_t launch_gates(const void* xz1, const void* rec1, const void* k2, const void* b2,
                          const void* rec2, const GatesArgs& a, int R, int B, int H,
-                         cudaStream_t stream) {
-  const dim3 grid((R + tile::M - 1) / tile::M, (4 * H + tile::N - 1) / tile::N, V ? 4 : 2);
+                         cudaStream_t stream, bool one_layer = false) {
+  const dim3 grid((R + tile::M - 1) / tile::M, (4 * H + tile::N - 1) / tile::N,
+                  one_layer ? 1 : V ? 4 : 2);
   stack_gates_kernel<T, ACT, V><<<grid, tile::THREADS, 0, stream>>>(
       static_cast<const T*>(xz1), static_cast<const T*>(rec1), static_cast<const T*>(k2),
       static_cast<const T*>(b2), static_cast<const T*>(rec2), a, R, B, H);

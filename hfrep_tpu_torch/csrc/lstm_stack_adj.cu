@@ -107,13 +107,15 @@
 // live in registers.  The wrapper chooses the layout by a rule on (H,
 // dtype, B, SMs) (cuda_lstm_stack.stack_adj_layout) and passes it here; it
 // never tries one and falls back.  In both layouts the sums are formed
-// after the sweep by lstm_common.cuh's outer_sum (dz1, dz2, zbar2 and
-// dhTbar1 go to workspaces; mu_h2 is udhs2 one step back),
-// deterministically and without atomics.
+// after the sweep by weight_sum.cuh (dz1, dz2, zbar2 and dhTbar1 go to
+// workspaces; mu_h2 is udhs2 one step back): ur1, uk2 and ur2, two pairs
+// each, in one launch, ub2 in another, deterministically and without
+// atomics.
 
 #include <cooperative_groups.h>
 
 #include "lstm_stack.cuh"
+#include "weight_sum.cuh"
 
 namespace {
 
@@ -1042,9 +1044,8 @@ extern "C" {
 
 // The sweep, then ur1, uk2, ub2 and ur2 over the W*B rows, all on
 // `stream`.  dz1w, dz2w, zb2w ((W, B, 4H)) and dhtb1w ((W, B, H)) are
-// float32 workspaces; `part` holds splits x H x 4H floats when
-// splits > 1.  `layout` (0 cluster, 1 wide), `threads` and `rows` (batch
-// rows a cluster, or a block) are the wrapper's launch rule
+// float32 workspaces.  `layout` (0 cluster, 1 wide), `threads` and
+// `rows` (batch rows a cluster, or a block) are the wrapper's launch rule
 // (cuda_lstm_stack.stack_adj_layout); the transposed copies (k2t, rec2t,
 // vr1t, vk2t, vr2t) are read by the wide layout only and may be null in
 // the cluster one.  Returns the first CUDA error of a launch (0 = ok).
@@ -1056,9 +1057,8 @@ int hfrep_stack_adj(const void* xz1, const void* rec1, const void* k2, const voi
                     const void* dhT2, const void* dcT2, const void* u1, void* uxz1,
                     void* uhs1, void* ucs1, void* uhs2, void* ucs2, void* udhs2,
                     void* dz1w, void* dz2w, void* zb2w, void* dhtb1w, void* ur1,
-                    void* uk2, void* ub2, void* ur2, void* part, int W, int B, int H,
-                    int act, int bf16, int rows, int splits, int rows_per_split,
-                    int device, void* stream, int layout, int threads) {
+                    void* uk2, void* ub2, void* ur2, int W, int B, int H, int act,
+                    int bf16, int rows, int device, void* stream, int layout, int threads) {
   const int want = layout == LAYOUT_CLUSTER ? cl::THREADS : ((rows * H + 31) / 32) * 32;
   if (threads != want || (layout == LAYOUT_WIDE &&
                           (k2t == nullptr || rec2t == nullptr || vr1t == nullptr ||
@@ -1079,20 +1079,19 @@ int hfrep_stack_adj(const void* xz1, const void* rec1, const void* k2, const voi
            : launch_mode<float>(layout, act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a, W, B, H,
                                 rows, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int R = W * B, G = 4 * H;
-  float* pt = mf(part);
-  // mu_h1 of step t is dhTbar1 of step t-1, mu_h2 is udhs2 of step t-1
-  e = outer_sum<2>(a.dhtb1w, a.dz1w, a.hs1, a.uxz1, mf(ur1), pt, R, B, H, G, splits,
-                   rows_per_split, s);
-  if (e == cudaSuccess)
-    e = outer_sum<2>(a.hs1, a.zb2w, a.dhtb1w, a.dz2w, mf(uk2), pt, R, 0, H, G, splits,
-                     rows_per_split, s);
-  if (e == cudaSuccess)
-    e = outer_sum<1>(nullptr, a.zb2w, nullptr, nullptr, mf(ub2), pt, R, 0, 1, G, splits,
-                     rows_per_split, s);
-  if (e == cudaSuccess)
-    e = outer_sum<2>(a.udhs2, a.dz2w, a.hs2, a.zb2w, mf(ur2), pt, R, B, H, G, splits,
-                     rows_per_split, s);
+  // mu_h1 of step t is dhTbar1 of step t-1, mu_h2 is udhs2 of step t-1:
+  // ur1, uk2 and ur2 in one launch, then ub2
+  ws::Batch sums{};
+  sums.n = 3;
+  sums.s[0] = ws::sum_of(mf(ur1), B, a.dhtb1w, a.dz1w, nullptr, a.hs1, a.uxz1);
+  sums.s[1] = ws::sum_of(mf(uk2), 0, a.hs1, a.zb2w, nullptr, a.dhtb1w, a.dz2w);
+  sums.s[2] = ws::sum_of(mf(ur2), B, a.udhs2, a.dz2w, nullptr, a.hs2, a.zb2w);
+  e = ws::weight_sums(sums, 2, W * B, H, 4 * H, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ws::Batch bias{};
+  bias.n = 1;
+  bias.s[0] = ws::sum_of(mf(ub2), 0, nullptr, a.zb2w);
+  e = ws::weight_sums(bias, 1, W * B, 1, 4 * H, s);
   return static_cast<int>(e);
 }
 

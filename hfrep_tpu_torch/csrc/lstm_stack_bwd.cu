@@ -95,12 +95,14 @@
 // wrapper chooses the layout by a rule on (H, dtype, B, SMs)
 // (cuda_lstm_stack.stack_bwd_layout) and passes it here; it never tries
 // one and falls back.  In both layouts the sums are formed after the
-// sweep by lstm_common.cuh's outer_sum over the W*B rows (dz2 goes to a
-// workspace), deterministically and without atomics.
+// sweep by weight_sum.cuh over the W*B rows (dz2 goes to a workspace):
+// drec1, dk2 and drec2 in one launch, db2 in another, deterministically
+// and without atomics.
 
 #include <cooperative_groups.h>
 
 #include "lstm_stack.cuh"
+#include "weight_sum.cuh"
 
 namespace {
 
@@ -351,9 +353,7 @@ cudaError_t launch_act(int act, const void* xz1, const void* rec1, const void* k
 
 namespace cb {
 
-constexpr int KS = 25;              // chunks of four columns a thread owns: H <= 4*KS
-constexpr int ZP = 104;             // a gate's stride in a dz buffer (floats)
-constexpr int THREADS = 32 * ((4 * KS + 7) / 8);   // 416: a quad per unit
+using namespace bq;
 // Of a thread's KS chunks of its layer's recurrent matrix, the first KR1
 // (layer 1) or KR2 (layer 2) are held in registers, the rest in shared
 // memory: ptxas grants 13 warps 128 registers a thread, and the counts that
@@ -408,29 +408,6 @@ __host__ __device__ inline size_t smem_bytes(int H, size_t item) {
   return fixed_floats(item) * sizeof(float) + k2_bytes(item) + stage_bytes(H, item);
 }
 
-// Rows [lo, lo + n) of an (H, 4H) matrix lie staged at `stage`: thread
-// (k, q), k among them, takes its chunks c < KS of row k's gate-q columns
-// into w (c < KR) and rec_s, entries past H zero.
-template <typename T, int KR, int KW>
-__device__ __forceinline__ void deal_rec(const T* stage, int lo, int n, int H, int q, int k,
-                                         bool unit, float (&w)[4][KW], float4* rec_s) {
-  const int r = k - lo, tid = threadIdx.x;
-  if (!unit || r < 0 || r >= n) return;
-  const T* src = stage + r * 4 * H + q * H;
-#pragma unroll
-  for (int c = 0; c < KS; ++c) {
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = 4 * c + e < H ? to_f(src[4 * c + e]) : 0.0f;
-    if (c < KR) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) w[e][c < KR ? c : 0] = v[e];
-    } else {
-      rec_s[(c - KR) * THREADS + tid] = make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
 // The same rows of k2: thread (k, q) takes chunks c0 <= c < c1 of row k's
 // gate-q columns into k2_s at entries ((c - c0) * THREADS + tid) * 4 + e.
 template <typename T>
@@ -443,45 +420,6 @@ __device__ __forceinline__ void deal_k2(const T* stage, int lo, int n, int H, in
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       k2_s[((c - c0) * THREADS + tid) * 4 + e] = 4 * c + e < H ? src[4 * c + e] : from_f<T>(0.0f);
-}
-
-// chunk c of this thread's row: from registers (c < KR) or shared memory
-template <int KR, int KW>
-__device__ __forceinline__ void weights(const float (&w)[4][KW], const float4* rec_s, int c,
-                                        int tid, float (&wk)[4]) {
-  if (c < KR) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) wk[e] = w[e][c < KR ? c : 0];
-  } else {
-    const float4 v = rec_s[(c - KR) * THREADS + tid];
-    wk[0] = v.x, wk[1] = v.y, wk[2] = v.z, wk[3] = v.w;
-  }
-}
-
-// the eight chains of a dot, summed in a fixed order
-__device__ __forceinline__ float chains(const float (&a0)[4], const float (&a1)[4]) {
-  return ((a0[0] + a1[0]) + (a0[1] + a1[1])) + ((a0[2] + a1[2]) + (a0[3] + a1[3]));
-}
-
-// this thread's part of dz . rec^T for its row: its KS chunks against the
-// dz buffer's gate-q run (float4s, broadcast within each quarter-warp)
-template <int KR, int KW>
-__device__ __forceinline__ float dot_rec(const float4* dz4, const float (&w)[4][KW],
-                                         const float4* rec_s, int tid) {
-  float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int c = 0; c < KS; ++c) {
-    const float4 v = dz4[c];
-    const float d[4] = {v.x, v.y, v.z, v.w};
-    float wk[4];
-    weights<KR>(w, rec_s, c, tid, wk);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (c & 1) a1[e] = fmaf(d[e], wk[e], a1[e]);
-      else a0[e] = fmaf(d[e], wk[e], a0[e]);
-    }
-  }
-  return chains(a0, a1);
 }
 
 // this thread's parts of dz . rec^T and of dz . k2^T over chunks c < C1,
@@ -530,38 +468,6 @@ __device__ __forceinline__ float dot_k2(const float4* dz4, const T* k2_s, int ti
     }
   }
   return chains(a0, a1);
-}
-
-// the quad's sum in all four lanes, the same bits in each
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// lane `src` of this quad's value
-__device__ __forceinline__ float from_lane(float v, int base, int src) {
-  return __shfl_sync(0xffffffffu, v, base + src);
-}
-
-// Stage this lane's inputs of step t into st[0..1] with cp.async, which
-// holds no registers while the loads are in flight: its gate's value (at
-// (W, B, 4H) offset og of `gates`) and its value of the step's state
-// stream (lane 0 c_t, lane 1 c_{t-1}, lane 2 the direct dc, lane 3 the dh
-// input, at (W, B, H) offset o - back of `sp`; null is zeros).
-__device__ __forceinline__ void stage_step(float* st, const float* gates, int og,
-                                           const float* sp, int o, int back, int t, bool on) {
-  if (on) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st)),
-                 "l"(gates + og) : "memory");
-  } else {
-    st[0] = 0.0f;
-  }
-  if (on && sp != nullptr && (back == 0 || t > 0)) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 1)),
-                 "l"(sp + o - back) : "memory");
-  } else {
-    st[1] = 0.0f;
-  }
 }
 
 }  // namespace cb
@@ -825,20 +731,19 @@ extern "C" {
 
 // The sweep, then drec1, dk2, db2 and drec2 over the W*B rows, all on
 // `stream`.  dhs1/dcs1/dcs2 null: no direct cotangents; dhT1..dcT2 null:
-// no carries.  `dz2w` is a (W, B, 4H) float32 workspace; `part` holds
-// splits x H x 4H floats when splits > 1.  `layout` (0 cluster, 1 wide),
-// `threads` and `rows` (batch rows a cluster, or a block) are the
-// wrapper's launch rule (cuda_lstm_stack.stack_bwd_layout); k2t and rec2t
-// (k2^T, rec2^T) are read by the wide layout only and may be null in the
-// cluster one.  Returns the first CUDA error of a launch (0 = ok).
+// no carries.  `dz2w` is a (W, B, 4H) float32 workspace.  `layout` (0
+// cluster, 1 wide), `threads` and `rows` (batch rows a cluster, or a
+// block) are the wrapper's launch rule (cuda_lstm_stack.stack_bwd_layout);
+// k2t and rec2t (k2^T, rec2^T) are read by the wide layout only and may
+// be null in the cluster one.  Returns the first CUDA error of a launch (0 = ok).
 int hfrep_stack_bwd(const void* xz1, const void* rec1, const void* k2, const void* k2t,
                     const void* b2, const void* rec2, const void* rec2t, const void* hs1,
                     const void* cs1, const void* hs2, const void* cs2, const void* dhs2,
                     const void* dhs1, const void* dcs1, const void* dcs2, void* dxz1,
                     void* dz2w, void* dhT1, void* dcT1, void* dhT2, void* dcT2,
-                    void* drec1, void* dk2, void* db2, void* drec2, void* part, int W,
-                    int B, int H, int act, int bf16, int rows, int splits,
-                    int rows_per_split, int device, void* stream, int layout, int threads) {
+                    void* drec1, void* dk2, void* db2, void* drec2, int W, int B, int H,
+                    int act, int bf16, int rows, int device, void* stream, int layout,
+                    int threads) {
   const int want = layout == LAYOUT_CLUSTER ? cb::THREADS : ((rows * H + 31) / 32) * 32;
   if (threads != want || (layout == LAYOUT_WIDE && (k2t == nullptr || rec2t == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -858,19 +763,19 @@ int hfrep_stack_bwd(const void* xz1, const void* rec1, const void* k2, const voi
            : launch_mode<float>(layout, act, xz1, rec1, k2, k2t, b2, rec2, rec2t, a, W, B, H,
                                 rows, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int R = W * B, G = 4 * H;
-  float* pt = static_cast<float*>(part);
-  e = outer_sum<1>(a.hs1, a.dxz1, nullptr, nullptr, static_cast<float*>(drec1), pt, R, B,
-                   H, G, splits, rows_per_split, s);
-  if (e == cudaSuccess)
-    e = outer_sum<1>(a.hs1, a.dz2w, nullptr, nullptr, static_cast<float*>(dk2), pt, R, 0,
-                     H, G, splits, rows_per_split, s);
-  if (e == cudaSuccess)
-    e = outer_sum<1>(nullptr, a.dz2w, nullptr, nullptr, static_cast<float*>(db2), pt, R,
-                     0, 1, G, splits, rows_per_split, s);
-  if (e == cudaSuccess)
-    e = outer_sum<1>(a.hs2, a.dz2w, nullptr, nullptr, static_cast<float*>(drec2), pt, R,
-                     B, H, G, splits, rows_per_split, s);
+  // drec1 = sum h1_{t-1}^T dz1, dk2 = sum h1_t^T dz2 and drec2 = sum
+  // h2_{t-1}^T dz2 in one launch, then db2 = sum dz2
+  ws::Batch sums{};
+  sums.n = 3;
+  sums.s[0] = ws::sum_of(static_cast<float*>(drec1), B, a.hs1, a.dxz1);
+  sums.s[1] = ws::sum_of(static_cast<float*>(dk2), 0, a.hs1, a.dz2w);
+  sums.s[2] = ws::sum_of(static_cast<float*>(drec2), B, a.hs2, a.dz2w);
+  e = ws::weight_sums(sums, 1, W * B, H, 4 * H, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ws::Batch bias{};
+  bias.n = 1;
+  bias.s[0] = ws::sum_of(static_cast<float*>(db2), 0, nullptr, a.dz2w);
+  e = ws::weight_sums(bias, 1, W * B, 1, 4 * H, s);
   return static_cast<int>(e);
 }
 

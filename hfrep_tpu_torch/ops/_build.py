@@ -107,6 +107,12 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def loaded() -> Dict[str, ctypes.CDLL]:
+    """The libraries loaded so far, by source name."""
+    with _lock:
+        return dict(_libs)
+
+
 def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed.
 

@@ -64,8 +64,12 @@ _PRIME = {0: torch.ones_like, 1: lambda a: a * (1.0 - a), 2: lambda a: 1.0 - a *
 _PRIME2 = {0: torch.zeros_like, 1: lambda a: 1.0 - 2.0 * a, 2: lambda a: -2.0 * a}
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 MAX_THREADS = 1024
-#: the reduction kernel's output tile edge (``lstm_common.cuh``: OS_TILE)
-REDUCE_TILE = 32
+#: the weight sums (``csrc/weight_sum.cuh``): a block's output tile
+#: (WS_TILE x WS_TILE) and its rows a piece (WS_K); the column sum's
+#: columns a block with float4 loads (WS_COLS); the split rule's most
+#: blocks an output tile, blocks an SM and pieces a block; most sums a launch
+WS_TILE, WS_K, WS_COLS = 64, 16, 64
+WS_MAX_SPLITS, WS_BLOCKS_PER_SM, WS_MIN_PIECES, WS_MAX_SUMS = 16, 8, 4, 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -82,21 +86,35 @@ _SIGNATURES = {
         "hfrep_cuda_error_string": (ctypes.c_char_p, [_I]),
     },
     "lstm_bwd": {
-        "hfrep_lstm_bwd": (_I, [_P] * 11                 # xz rec hs cs dhs dcs dxz dhT dcT drec part
-                           + [_I] * 9                    # W B H act bf16 rows splits rps device
-                           + [_P]),                      # stream
-        # xz rec hs cs dhs dcs h0 c0 dcfin dxz dhT dcT dh0 dc0 drec part
-        "hfrep_lstm_bwd_carry": (_I, [_P] * 16 + [_I] * 9 + [_P]),
+        "hfrep_lstm_bwd": (_I, [_P] * 10                 # xz rec hs cs dhs dcs dxz dhT dcT drec
+                           + [_I] * 7                    # W B H act bf16 rows device
+                           + [_P]                        # stream
+                           + [_I] * 2),                  # layout threads
+        # xz rec hs cs dhs dcs h0 c0 dcfin dxz dhT dcT dh0 dc0 drec
+        "hfrep_lstm_bwd_carry": (_I, [_P] * 15 + [_I] * 7 + [_P] + [_I] * 2),
     },
     "lstm_adj": {
-        "hfrep_lstm_adj": (_I, [_P] * 15                 # xz rec v hs cs dhT dcT u uxz uhs ucs udhs urec dzw part
-                           + [_I] * 9
+        "hfrep_lstm_adj": (_I, [_P] * 14                 # xz rec v hs cs dhT dcT u uxz uhs ucs udhs urec dzw
+                           + [_I] * 7
                            + [_P]),
         # xz rec v hs cs dhT dcT u h0 c0 muh0 muc0 uxz uhs ucs udhs urec dzw
-        # udcfin uh0 uc0 part
-        "hfrep_lstm_adj_carry": (_I, [_P] * 22 + [_I] * 9 + [_P]),
+        # udcfin uh0 uc0
+        "hfrep_lstm_adj_carry": (_I, [_P] * 21 + [_I] * 7 + [_P]),
+    },
+    "weight_sum": {
+        # a b head out (arrays of pointers), shift (array of ints)
+        "hfrep_weight_sum": (_I, [ctypes.POINTER(_P)] * 4 + [ctypes.POINTER(_I)]
+                             + [_I] * 7          # nsum npair R M N splits device
+                             + [_P]),            # stream
+        "hfrep_weight_sum_splits": (_I, [_I] * 6),   # nsum npair R M N sms
     },
 }
+#: every library that launches weight sums (``csrc/weight_sum.cuh``)
+#: exports its own launch counters: (out, reset) -> their number
+WS_COUNTER_SIGNATURE = {
+    "hfrep_weight_sum_launches": (_I, [ctypes.POINTER(ctypes.c_longlong), _I])}
+for _name in ("lstm_bwd", "lstm_adj", "weight_sum"):
+    _SIGNATURES[_name].update(WS_COUNTER_SIGNATURE)
 
 #: kernel launches, one counter per kernel and mode, each a plain int
 #: raised by one where its wrapper launches (reset with
@@ -128,6 +146,7 @@ def reset_launches() -> None:
     with _count_lock:
         for var in _COUNTERS.values():
             globals()[var] = 0
+    weight_sum_launches(reset=True)
 
 
 def launch_counts() -> dict:
@@ -141,6 +160,30 @@ def launch_counts() -> dict:
 def _count_launch(kernel: str) -> None:
     with _count_lock:
         globals()[_COUNTERS[kernel]] += 1
+
+
+def weight_sum_launches(reset: bool = False) -> dict:
+    """The weight sums' launches (``csrc/weight_sum.cuh``), as counted in
+    C where ``weight_sums`` launches them, summed over the loaded libraries
+    (the backward and adjoint entries and ``weight_sum.cu``'s): ``{(sums a
+    launch, pairs, column sum): launches}`` for 1 to WS_MAX_SUMS sums, 1
+    or 2 pairs, the M > 1 kernel (False) and the column sum (True).
+    ``reset``: set the counters to zero as they are read (as
+    :func:`reset_launches` does).  A library not yet loaded has launched
+    nothing; none is built to be asked."""
+    keys = [(nsum, npair, column) for column in (False, True) for npair in (1, 2)
+            for nsum in range(1, WS_MAX_SUMS + 1)]
+    total = dict.fromkeys(keys, 0)
+    buf = (ctypes.c_longlong * len(keys))()
+    for lib in _build.loaded().values():
+        read = getattr(lib, "hfrep_weight_sum_launches", None)
+        if read is None:
+            continue
+        if read(buf, int(reset)) != len(keys):
+            raise RuntimeError("weight_sum.cuh's launch shapes differ from weight_sum_launches'")
+        for k, n in zip(keys, buf):
+            total[k] += n
+    return total
 
 
 def act_code(activation: Optional[str]) -> int:
@@ -228,15 +271,77 @@ def fwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
     return "wide", 32 * math.ceil(rows * hidden / 32), rows
 
 
-def reduce_splits(nrows: int, hidden: int, sm_count: int) -> tuple:
-    """How the drec/urec reduction cuts its ``nrows`` = W·B rows:
-    ``(splits, rows_per_split)``, enough slices that the (H, 4H) tiles
-    times the slices give about four blocks an SM."""
-    tiles = math.ceil(4 * hidden / REDUCE_TILE) * math.ceil(hidden / REDUCE_TILE)
-    want = max(1, math.ceil(4 * sm_count / tiles))
-    per = math.ceil(math.ceil(nrows / want) / REDUCE_TILE) * REDUCE_TILE
-    per = max(per, REDUCE_TILE)
-    return math.ceil(nrows / per), per
+#: the backward's register layout (``csrc/lstm_bwd.cu``): the stack
+#: backward's quad layout (FWD_THREADS threads, a quad a unit, FWD_KS chunks
+#: of four columns a thread), BWD_KEEP[dtype] chunks in registers and the
+#: rest in shared memory; the prologue stages rec a BWD_PARTS-th of its rows
+#: at a time
+BWD_KEEP = {torch.float32: 17, torch.bfloat16: 17}
+BWD_PARTS = 2
+BWD_LAYOUTS = {"registers": 0, "wide": 1}
+
+
+def reg_bwd_smem_bytes(hidden: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the backward's register layout: two
+    float32 dz buffers (4 x FWD_ZP floats each), each thread's two step
+    inputs staged for two steps, the chunks of rec past BWD_KEEP[dtype] (a
+    float4 a thread), and a staging area for a BWD_PARTS-th of rec's rows
+    in the operand dtype."""
+    item = torch.empty((), dtype=dtype).element_size()
+    fixed = 8 * FWD_ZP + 4 * FWD_THREADS + 4 * (FWD_KS - BWD_KEEP[dtype]) * FWD_THREADS
+    return fixed * 4 + -(-hidden // BWD_PARTS) * 4 * hidden * item
+
+
+def bwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
+               smem_limit: int) -> tuple:
+    """The backward kernel's launch rule: ``(layout, threads, rows)``.
+
+    Up to 4 * FWD_KS hidden units the register layout (a gate-recompute
+    pre-pass, then FWD_THREADS threads a block, a quad per unit holding its
+    row of rec, ceil(B / SMs) batch rows a block walked one after another).
+    Wider, the wide layout under :func:`check_fits` (which raises what it
+    refuses), with :func:`rows_per_block` rows a block and a thread per
+    (row, unit).  Pure arithmetic on the shapes and the card's limits: the
+    wrapper never tries a layout and falls back."""
+    if hidden <= 4 * FWD_KS:
+        need = reg_bwd_smem_bytes(hidden, dtype)
+        if need > smem_limit:
+            raise ValueError(f"lstm_bwd kernel: the register layout needs {need} B of "
+                             f"shared memory; one block of this card may use {smem_limit} B")
+        return "registers", FWD_THREADS, max(1, math.ceil(batch / sm_count))
+    rows = rows_per_block(batch, hidden, sm_count)
+    check_fits(hidden, dtype, rows, smem_limit, "lstm_bwd")
+    return "wide", 32 * math.ceil(rows * hidden / 32), rows
+
+
+def sum_plan(nsum: int, npair: int, nrows: int, m: int, n: int, sm_count: int) -> tuple:
+    """How ``csrc/weight_sum.cuh`` launches ``nsum`` sums of ``npair``
+    pairs over ``nrows`` rows, each C (m, n), operands aligned:
+    ``(tiles, pieces, splits)`` — the output tiles of the launch (64 x 64
+    a block; for m = 1 the column sum's WS_COLS columns), the pieces of
+    WS_K rows in a tile's k range, and the blocks of the cluster each
+    tile's k range is split over (:func:`sum_splits`).  The C++ twin is
+    ``hfrep_weight_sum_splits``."""
+    if m == 1:
+        tiles = math.ceil(n / WS_COLS) * nsum
+    else:
+        tiles = math.ceil(n / WS_TILE) * math.ceil(m / WS_TILE) * nsum
+    pieces = npair * math.ceil(nrows / WS_K)
+    return tiles, pieces, sum_splits(tiles, pieces, sm_count)
+
+
+def sum_splits(tiles: int, pieces: int, sm_count: int) -> int:
+    """The weight sums' split rule: the most of 16, 8, 4, 2, 1 blocks an
+    output tile that keeps the launch within WS_BLOCKS_PER_SM blocks an SM
+    and gives each block at least WS_MIN_PIECES pieces.  A split shortens
+    each block's chain of pieces when the (H, 4H) tiles alone would leave
+    most SMs idle; its cost is the cluster's reduction."""
+    s = WS_MAX_SPLITS
+    while s > 1:
+        if s * tiles <= WS_BLOCKS_PER_SM * sm_count and pieces >= s * WS_MIN_PIECES:
+            return s
+        s //= 2
+    return 1
 
 
 def _lib(name: str = "lstm_fwd"):
@@ -390,7 +495,8 @@ def lstm_bwd_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
                   with_carries: bool = False,
                   carry: Optional[tuple] = None,
                   dc_fin: Optional[torch.Tensor] = None) -> tuple:
-    """Launch ``csrc/lstm_bwd.cu``: (dxz (W, B, 4H), drec (H, 4H)) and,
+    """Launch ``csrc/lstm_bwd.cu`` in the layout :func:`bwd_layout` picks:
+    (dxz (W, B, 4H), drec (H, 4H)) and,
     with ``with_carries``, the per-step (dhT, dcT) (W, B, H); every output
     float32.  ``dcs`` is an optional direct cotangent on cs.  ``carry`` =
     (h0, c0) is the carry0 mode: step 0's previous state is (h0, c0), the
@@ -422,21 +528,22 @@ def lstm_bwd_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
             if dc_fin is not None:
                 dc0.copy_(dc_fin)
         return outs
-    dev, rows, sms, stream = _launch_setup(xz, b, h, "lstm_bwd")
-    splits, per = reduce_splits(w * b, h, sms)
-    part = torch.empty((splits, h, 4 * h), **f32) if splits > 1 else None
+    dev = xz.device.index if xz.device.index is not None else torch.cuda.current_device()
+    layout, threads, rows = bwd_layout(
+        h, xz.dtype, b, torch.cuda.get_device_properties(dev).multi_processor_count,
+        _lib().hfrep_max_smem_optin(dev))
+    stream = torch.cuda.current_stream(xz.device).cuda_stream
     bf16 = int(xz.dtype == torch.bfloat16)
+    plan = (w, b, h, act, bf16, rows, dev, stream, BWD_LAYOUTS[layout], threads)
     if carry is None:
         err = _lib("lstm_bwd").hfrep_lstm_bwd(
             xz.data_ptr(), rec.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-            _ptr(dcs), dxz.data_ptr(), _ptr(dhT), _ptr(dcT), drec.data_ptr(), _ptr(part),
-            w, b, h, act, bf16, rows, splits, per, dev, stream)
+            _ptr(dcs), dxz.data_ptr(), _ptr(dhT), _ptr(dcT), drec.data_ptr(), *plan)
     else:
         err = _lib("lstm_bwd").hfrep_lstm_bwd_carry(
             xz.data_ptr(), rec.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
             _ptr(dcs), h0.data_ptr(), c0.data_ptr(), _ptr(dc_fin), dxz.data_ptr(),
-            _ptr(dhT), _ptr(dcT), dh0.data_ptr(), dc0.data_ptr(), drec.data_ptr(),
-            _ptr(part), w, b, h, act, bf16, rows, splits, per, dev, stream)
+            _ptr(dhT), _ptr(dcT), dh0.data_ptr(), dc0.data_ptr(), drec.data_ptr(), *plan)
     _raise_on(err, "lstm_bwd")
     _count_launch("lstm_bwd" if carry is None else "lstm_bwd_carry")
     return outs
@@ -480,16 +587,14 @@ def lstm_adj_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
             tail[0].copy_(muc0)
         return outs
     dev, rows, sms, stream = _launch_setup(xz, b, h, "lstm_adj")
-    splits, per = reduce_splits(w * b, h, sms)
-    part = torch.empty((splits, h, 4 * h), **f32) if splits > 1 else None
     dzw = torch.empty((w, b, 4 * h), **f32)          # the backward's dz, for urec
     bf16 = int(xz.dtype == torch.bfloat16)
     if carry is None:
         err = _lib("lstm_adj").hfrep_lstm_adj(
             xz.data_ptr(), rec.data_ptr(), v.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             dhT.data_ptr(), dcT.data_ptr(), u.data_ptr(), uxz.data_ptr(), uhs.data_ptr(),
-            ucs.data_ptr(), udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(), _ptr(part),
-            w, b, h, act, bf16, rows, splits, per, dev, stream)
+            ucs.data_ptr(), udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(),
+            w, b, h, act, bf16, rows, dev, stream)
     else:
         udcfin, uh0, uc0 = tail
         err = _lib("lstm_adj").hfrep_lstm_adj_carry(
@@ -497,11 +602,76 @@ def lstm_adj_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
             dhT.data_ptr(), dcT.data_ptr(), u.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             _ptr(muh0), _ptr(muc0), uxz.data_ptr(), uhs.data_ptr(), ucs.data_ptr(),
             udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(), udcfin.data_ptr(),
-            uh0.data_ptr(), uc0.data_ptr(), _ptr(part),
-            w, b, h, act, bf16, rows, splits, per, dev, stream)
+            uh0.data_ptr(), uc0.data_ptr(),
+            w, b, h, act, bf16, rows, dev, stream)
     _raise_on(err, "lstm_adj")
     _count_launch("lstm_adj" if carry is None else "lstm_adj_carry")
     return outs
+
+
+def weight_sums_cuda(sums, splits: int = 0) -> list:
+    """Launch the weight sums alone (``csrc/weight_sum.cu``): each of the
+    one to three ``sums`` is ``(terms, shift)``, its terms one or two
+    ``(a, b, head)`` — a (R, M) or None (a column of ones), b (R, N), head
+    (shift, M) or None (zeros) — float32 CUDA tensors, every sum of the
+    same R, M, N and number of terms; returns each sum's C (M, N) float32,
+    the function of :func:`weight_sum_plain`.  ``splits`` 0 takes the
+    rule's cluster size (:func:`sum_plan`), else 1, 2, 4, 8 or 16.  The
+    launch is counted in C (:func:`weight_sum_launches`).  The card tests,
+    ``chip_smoke.py`` and ``tools/torch_weight_sum.py`` call it; the
+    backward and adjoint entries launch the same kernels themselves."""
+    if not 1 <= len(sums) <= WS_MAX_SUMS:
+        raise ValueError(f"weight_sums_cuda takes 1 to {WS_MAX_SUMS} sums, got {len(sums)}")
+    npair = len(sums[0][0])
+    b0 = sums[0][0][0][1]
+    r, n = b0.shape
+    a0 = next((a for terms, _ in sums for a, _, _ in terms if a is not None), None)
+    m = 1 if a0 is None else a0.shape[1]
+    dev = b0.device
+    a_p, b_p, h_p, shifts = [], [], [], []
+    for terms, shift in sums:
+        if len(terms) != npair or npair not in (1, 2):
+            raise ValueError("weight_sums_cuda: every sum has the same one or two terms")
+        for a, b, head in terms:
+            _check_f32("weight_sums_cuda", dev, {"a": (a, (r, m)), "b": (b, (r, n)),
+                                                 "head": (head, (shift, m))})
+            if not b.is_cuda:
+                raise ValueError(f"weight_sums_cuda runs on CUDA tensors; got b on {b.device}")
+            a_p.append(_ptr(a))
+            b_p.append(b.data_ptr())
+            h_p.append(_ptr(head))
+        shifts.append(shift)
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = [torch.empty((m, n), **f32) for _ in sums]
+    ptrs = lambda v: (_P * len(v))(*v)         # noqa: E731
+    err = _lib("weight_sum").hfrep_weight_sum(
+        ptrs(a_p), ptrs(b_p), ptrs(h_p), ptrs([o.data_ptr() for o in outs]),
+        (_I * len(shifts))(*shifts), len(sums), npair, r, m, n, splits,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "weight_sum")
+    return outs
+
+
+def weight_sum_plain(terms, shift: int) -> torch.Tensor:
+    """The weight sums' function as plain torch: C = sum over ``terms``
+    ``(a, b, head)`` of a'^T b, a' being a moved down by ``shift`` rows
+    with ``head`` (shift, M) on top (None: zeros); a None is a column of
+    ones (M = 1), whose C is b's column sums.  (M, N) float32: drec and its
+    siblings in the backward's and the adjoint's plain versions."""
+    out = None
+    for a, b, head in terms:
+        r = b.shape[0]
+        if a is None:
+            c = b[shift:].sum(0, keepdim=True)
+            if head is not None:
+                c = c + head[:r].T @ b[:shift]
+        else:
+            top = head if head is not None else torch.zeros(
+                (shift, a.shape[1]), dtype=a.dtype, device=a.device)
+            c = torch.cat([top, a])[:r].T @ b
+        out = c if out is None else out + c
+    return out
 
 
 # ------------------------------------------------------ the plain versions
@@ -607,7 +777,8 @@ def lstm_bwd_plain(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
         dcT[t] = dc
         dh_c = rnd(dz) @ rec32.T
         dc_c = dc * f
-    drec = h_prev.reshape(w * b, h).T @ dxz.reshape(w * b, g)
+    drec = weight_sum_plain([(hs.reshape(w * b, h), dxz.reshape(w * b, g),
+                              None if h0 is None else h0.float())], b)
     outs = (dxz, drec, dhT, dcT) if with_carries else (dxz, drec)
     return outs if carry is None else outs + (dh_c, dc_c)
 

@@ -51,10 +51,10 @@ import torch
 
 from hfrep_tpu_torch.ops import _build, cuda_lstm
 from hfrep_tpu_torch.ops.cuda_lstm import (
-    FWD_KS, FWD_KSP, FWD_THREADS, FWD_ZP, MAX_THREADS, STREAM_DTYPES,
+    FWD_KS, FWD_KSP, FWD_THREADS, FWD_ZP, MAX_THREADS, STREAM_DTYPES, WS_COUNTER_SIGNATURE,
     _PLAIN_ACT, _PRIME, _adj_step, _cast_like, _check_f32, _check_operands,
-    _count_launch, _device_rule, _f32, _gates, _ptr, _raise_on, _rounder, _shifted, act_code, reduce_splits,
-    rows_per_block,
+    _count_launch, _device_rule, _f32, _gates, _ptr, _raise_on, _rounder, _shifted, act_code,
+    rows_per_block, weight_sum_plain,
 )
 
 #: dynamic shared memory one Hopper (sm_90) block may opt into
@@ -70,18 +70,20 @@ _SIGNATURES = {
         "hfrep_stack_fwd_clusters": (_I, [_I] * 3),      # H bf16 device
     },
     "lstm_stack_bwd": {
-        "hfrep_stack_bwd": (_I, [_P] * 26                # operands, streams, outputs, workspace
-                            + [_I] * 9                   # W B H act bf16 rows splits rps device
+        "hfrep_stack_bwd": (_I, [_P] * 25                # operands, streams, outputs, workspace
+                            + [_I] * 7                   # W B H act bf16 rows device
                             + [_P]                       # stream
                             + [_I] * 2),                 # layout threads
         "hfrep_stack_bwd_clusters": (_I, [_I] * 3),      # H bf16 device
+        **WS_COUNTER_SIGNATURE,
     },
     "lstm_stack_adj": {
-        "hfrep_stack_adj": (_I, [_P] * 38                # operands, streams, outputs, workspace
-                            + [_I] * 9                   # W B H act bf16 rows splits rps device
+        "hfrep_stack_adj": (_I, [_P] * 37                # operands, streams, outputs, workspaces
+                            + [_I] * 7                   # W B H act bf16 rows device
                             + [_P]                       # stream
                             + [_I] * 2),                 # layout threads
         "hfrep_stack_adj_clusters": (_I, [_I] * 3),      # H bf16 device
+        **WS_COUNTER_SIGNATURE,
     },
 }
 
@@ -370,8 +372,6 @@ def stack_bwd_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2, dhs2,
     layout, threads, rows = stack_bwd_layout(h, xz1.dtype, b, sms,
                                              cuda_lstm._lib().hfrep_max_smem_optin(dev))
     stream = torch.cuda.current_stream(xz1.device).cuda_stream
-    splits, per = reduce_splits(w * b, h, sms)
-    part = torch.empty((splits, h, 4 * h), **f32) if splits > 1 else None
     dz2w = torch.empty((w, b, 4 * h), **f32)          # layer 2's dz, for its sums
     dhT1, dcT1, dhT2, dcT2 = carries if with_carries else (None,) * 4
     # the wide layout reads k2 and rec2 transposed as well
@@ -382,8 +382,8 @@ def stack_bwd_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2, dhs2,
         hs1.data_ptr(), cs1.data_ptr(), hs2.data_ptr(), cs2.data_ptr(), dhs2.data_ptr(),
         _ptr(dhs1), _ptr(dcs1), _ptr(dcs2), dxz1.data_ptr(), dz2w.data_ptr(),
         _ptr(dhT1), _ptr(dcT1), _ptr(dhT2), _ptr(dcT2),
-        drec1.data_ptr(), dk2.data_ptr(), db2.data_ptr(), drec2.data_ptr(), _ptr(part),
-        w, b, h, act, int(xz1.dtype == torch.bfloat16), rows, splits, per, dev, stream,
+        drec1.data_ptr(), dk2.data_ptr(), db2.data_ptr(), drec2.data_ptr(),
+        w, b, h, act, int(xz1.dtype == torch.bfloat16), rows, dev, stream,
         STACK_FWD_LAYOUTS[layout], threads)
     _raise_on(err, "stack_bwd")
     _count_launch("stack_bwd")
@@ -421,8 +421,6 @@ def stack_adj_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2,
     layout, threads, rows = stack_adj_layout(h, xz1.dtype, b, sms,
                                              cuda_lstm._lib().hfrep_max_smem_optin(dev))
     stream = torch.cuda.current_stream(xz1.device).cuda_stream
-    splits, per = reduce_splits(w * b, h, sms)
-    part = torch.empty((splits, h, 4 * h), **f32) if splits > 1 else None
     # the two layers' dz, layer 2's zbar and layer 1's dhTbar, for the sums
     # (the cluster layout's pre-pass puts the gates and v-stream terms there
     # first)
@@ -440,7 +438,7 @@ def stack_adj_cuda(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2,
         uxz1.data_ptr(), uhs1.data_ptr(), ucs1.data_ptr(), uhs2.data_ptr(), ucs2.data_ptr(),
         udhs2.data_ptr(), dz1w.data_ptr(), dz2w.data_ptr(), zb2w.data_ptr(),
         dhtb1w.data_ptr(), ur1.data_ptr(), uk2.data_ptr(), ub2.data_ptr(), ur2.data_ptr(),
-        _ptr(part), w, b, h, act, int(xz1.dtype == torch.bfloat16), rows, splits, per,
+        w, b, h, act, int(xz1.dtype == torch.bfloat16), rows,
         dev, stream, STACK_FWD_LAYOUTS[layout], threads)
     _raise_on(err, "stack_adj")
     _count_launch("stack_adj")
@@ -525,10 +523,11 @@ def stack_bwd_plain(xz1, rec1, k2, b2, rec2, hs1, cs1, hs2, cs2, dhs2,
         dh1, dc1 = rnd(dz1) @ r1.T, dcT1 * f1
         dh2, dc2 = rnd(dz2) @ r2.T, dcT2 * f2
     rows = lambda s: s.reshape(w * b, -1)          # noqa: E731
-    drec1 = rows(h1p).T @ rows(dxz1)
-    dk2 = rows(hs1).T @ rows(dz2s)
-    drec2 = rows(h2p).T @ rows(dz2s)
-    out = (dxz1, drec1, dk2, rows(dz2s).sum(0), drec2)
+    drec1 = weight_sum_plain([(rows(hs1), rows(dxz1), None)], b)
+    dk2 = weight_sum_plain([(rows(hs1), rows(dz2s), None)], 0)
+    db2 = weight_sum_plain([(None, rows(dz2s), None)], 0)[0]
+    drec2 = weight_sum_plain([(rows(hs2), rows(dz2s), None)], b)
+    out = (dxz1, drec1, dk2, db2, drec2)
     return out + tuple(carries) if with_carries else out
 
 

@@ -15,13 +15,16 @@ bf16.  The fused stack's kernels (forward, backward in every mode,
 adjoint) against their plain versions at the same scaled bars, and the
 single-layer kernels' carry modes the same way.  The forward kernel's
 four modes in both its layouts (registers at H=100 with up to two batch
-rows a block; wide at H=120 f32 and H=160 bf16), and the stack forward's,
-backward's and adjoint's modes in both their layouts (cluster at H=100
-and H=37; wide at H=117 f32 and H=160 bf16), each mode bit-equal over
-two launches.  One training epoch on
-the card against the same epoch on the CPU plain path, on the fused and
-the chained critic route: the JAX package's bar for its kernel-vs-scan
-epoch.
+rows a block; wide at H=120 f32 and H=160 bf16), the backward's modes
+in both its layouts (registers at H=100 and H=37; wide at H=117 f32 and
+H=160 bf16), and the stack forward's, backward's and adjoint's modes in
+both their layouts (cluster at H=100 and H=37; wide at H=117 f32 and
+H=160 bf16), each mode bit-equal over two launches.  The weight sums
+alone against their plain version in float64 (scaled 1e-4), bit-equal
+over two launches, a zero head giving the bits of no head.  One
+training epoch on the card against the same epoch on the CPU plain path,
+on the fused and the chained critic route: the JAX package's bar for its
+kernel-vs-scan epoch.
 """
 
 from __future__ import annotations
@@ -223,6 +226,111 @@ def test_backward_and_adjoint_kernels_match_plain_on_card(card, dtype, bar):
                 assert cuda_lstm.launches_adj == before + 1
                 ref = cuda_lstm.lstm_adj_plain(xz, rec, hs, cs, dhT, dcT, u, v, act)
                 assert all(_scaled(a, r) <= bar for a, r in zip(got, ref))
+
+
+#: the backward's modes: (dcs, with_carries, carry0)
+BWD_MODES = [(False, False, False), (True, False, False), (False, True, False),
+             (False, False, True), (True, True, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,layout", [(torch.float32, 100, "registers"),
+                                            (torch.bfloat16, 100, "registers"),
+                                            (torch.float32, 37, "registers"),
+                                            (torch.bfloat16, 37, "registers"),
+                                            (torch.float32, 117, "wide"),
+                                            (torch.bfloat16, 160, "wide")])
+def test_backward_layouts_match_plain_on_card(card, dtype, h, layout):
+    """The single-layer backward in the layout its launch rule picks (the
+    register layout at H <= 100 — its gate-recompute pre-pass and quad
+    sweep; at H=37 a part-filled last chunk — the wide one above) in its
+    modes (plain, dcs, with_carries, carry0 with dc_fin, and all three
+    together), every activation, W in {1, 2, 48, 168}, B in {1, 8, 32, 64,
+    133}, on the forward kernel's residuals: within the scaled bars f32
+    1e-4 / bf16 1e-2 of ``lstm_bwd_plain``; two launches bit-equal; each
+    launch counted once, with its weight sum."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    bar = 1e-4 if dtype == torch.float32 else 1e-2
+    for w in (1, 2, 48, 168):
+        for b in (1, 8, 32, 64, 133):
+            assert cuda_lstm.bwd_layout(h, dtype, b, sms, limit)[0] == layout
+            g = torch.Generator(device=card)
+            g.manual_seed(w * b + h)
+            rnd = lambda *s: torch.randn(s, device=card, generator=g)  # noqa: E731
+            xz = (0.3 * rnd(w, b, 4 * h)).to(dtype)
+            rec = (0.5 * rnd(h, 4 * h) / h ** 0.5).to(dtype)
+            carry = (0.5 * rnd(b, h), 0.5 * rnd(b, h))
+            dhs, dcs, dc_fin = 0.3 * rnd(w, b, h), 0.3 * rnd(w, b, h), 0.3 * rnd(b, h)
+            for act in ACTS:
+                with torch.no_grad():
+                    for with_dcs, carries, carried in BWD_MODES:
+                        c = carry if carried else None
+                        hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True, c)
+                        args = (xz, rec, hs, cs, dhs, dcs if with_dcs else None, act, carries,
+                                c, dc_fin if carried else None)
+                        key = "lstm_bwd_carry" if carried else "lstm_bwd"
+                        before = (cuda_lstm.launch_counts()[key],
+                                  cuda_lstm.weight_sum_launches()[(1, 1, False)])
+                        got = cuda_lstm.lstm_bwd(*args)
+                        assert (cuda_lstm.launch_counts()[key],
+                                cuda_lstm.weight_sum_launches()[(1, 1, False)]) == (
+                                    before[0] + 1, before[1] + 1)
+                        again = cuda_lstm.lstm_bwd(*args)
+                        ref = cuda_lstm.lstm_bwd_plain(*args)
+                        torch.cuda.synchronize()
+                        assert len(got) == len(ref)
+                        assert all(torch.equal(x, y) for x, y in zip(got, again))
+                        errs = [_scaled(x, r) for x, r in zip(got, ref)]
+                        assert max(errs) <= bar, (w, b, act, with_dcs, carries, carried, errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("npair", [1, 2])
+def test_weight_sums_match_plain_on_card(card, npair):
+    """The weight sums alone (``csrc/weight_sum.cu``) against
+    ``weight_sum_plain`` in float64 at W in {1, 48, 168} x B in {1, 32, 64,
+    133} rows, M in {100, 1} (the column sum), one sum and three, with and
+    without heads, the rule's cluster size and each forced one: scaled
+    error within 1e-4 (sums of up to 2 x 22,344 rows in another order); two
+    launches bit-equal; a zero head gives the bits of no head; the C++
+    split rule is ``sum_splits``; each launch counted once."""
+    g = torch.Generator(device=card)
+    g.manual_seed(npair)
+    rnd = lambda *s: torch.randn(s, device=card, generator=g)  # noqa: E731
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = cuda_lstm._lib("weight_sum")
+    for w in (1, 48, 168):
+        for b in (1, 32, 64, 133):
+            r = w * b
+            for m, nsum, heads in ((100, 1, False), (100, 1, True), (100, 3, True),
+                                   (1, 1, False)):
+                sums = [([(None if m == 1 else rnd(r, m), rnd(r, 400),
+                           rnd(b, m) if heads else None) for _ in range(npair)], b)
+                        for _ in range(nsum)]
+                refs = [cuda_lstm.weight_sum_plain(
+                    [(None if a is None else a.double(), bb.double(),
+                      None if h is None else h.double()) for a, bb, h in t], s)
+                        for t, s in sums]
+                shape = (nsum, npair, m == 1)
+                for splits in (0, 1, 2, 4, 8, 16):
+                    before = cuda_lstm.weight_sum_launches()
+                    got = cuda_lstm.weight_sums_cuda(sums, splits)
+                    after = cuda_lstm.weight_sum_launches()
+                    assert {k: after[k] - before[k] for k in after} == {
+                        k: int(k == shape) for k in after}
+                    again = cuda_lstm.weight_sums_cuda(sums, splits)
+                    torch.cuda.synchronize()
+                    for x, y, ref in zip(got, again, refs):
+                        assert torch.equal(x, y)
+                        assert _scaled(x.double(), ref) <= 1e-4, (w, b, m, nsum, heads, splits)
+                if heads:
+                    zero = [([(a, bb, torch.zeros_like(h)) for a, bb, h in t], s) for t, s in sums]
+                    none = [([(a, bb, None) for a, bb, _ in t], s) for t, s in sums]
+                    assert all(torch.equal(x, y) for x, y in zip(
+                        cuda_lstm.weight_sums_cuda(zero), cuda_lstm.weight_sums_cuda(none)))
+                assert (lib.hfrep_weight_sum_splits(nsum, npair, r, m, 400, sms)
+                        == cuda_lstm.sum_plan(nsum, npair, r, m, 400, sms)[2])
 
 
 def _carry_case(card, dtype, w, b, seed):
@@ -570,6 +678,13 @@ EPOCH_LAUNCHES = {
 }
 for _counts in EPOCH_LAUNCHES.values():       # the epochs launch no carry mode
     _counts.update(lstm_fwd_carry=0, lstm_fwd_cs_carry=0, lstm_bwd_carry=0, lstm_adj_carry=0)
+#: the weight sums' launches in that epoch, by (sums a launch, pairs, column
+#: sum), as the C launcher counts them: lstm_bwd's drec, lstm_adj's urec,
+#: stack_bwd's and stack_adj's three products and their bias sum; 44 each
+EPOCH_SUM_LAUNCHES = {
+    "auto": {(1, 1, False): 2, (3, 1, False): 16, (3, 2, False): 5, (1, 1, True): 21},
+    "chained": {(1, 1, False): 34, (1, 2, False): 10},
+}
 
 
 @pytest.mark.gpu
@@ -592,6 +707,8 @@ def test_epoch_on_card_matches_cpu_plain_path(card, stack):
     cuda_lstm.reset_launches()
     state, m = make_train_step(pair, tcfg, dataset)(state, draws)
     assert cuda_lstm.launch_counts() == EPOCH_LAUNCHES[stack]
+    assert {k: n for k, n in cuda_lstm.weight_sum_launches().items() if n} == (
+        EPOCH_SUM_LAUNCHES[stack])
     cpu_draws = Draws(draws.idx.cpu(), draws.noises.cpu(), draws.alphas.cpu())
     cpu_state, mc = make_train_step(build_gan(cfg.model, device="cpu"), tcfg,
                                     dataset.cpu())(cpu_state, cpu_draws)

@@ -252,8 +252,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         cuda_lstm.check_fits(100, torch.float32, 10, hopper, kernel)
         with pytest.raises(ValueError, match="shared memory"):
             cuda_lstm.check_fits(240, torch.float32, 1, hopper, kernel)
-    assert cuda_lstm.reduce_splits(48 * 32, 100, 132) == (10, 160)
-    assert cuda_lstm.reduce_splits(5, 100, 132) == (1, 32)
+    assert cuda_lstm.sum_plan(1, 1, 48 * 32, 100, 400, 132) == (14, 96, 16)
+    assert cuda_lstm.sum_plan(1, 1, 5, 100, 400, 132) == (14, 1, 1)
     cuda_lstm.reset_launches()
     assert cuda_lstm.launch_counts() == {"lstm_fwd": 0, "lstm_fwd_cs": 0,
                                          "lstm_bwd": 0, "lstm_adj": 0,

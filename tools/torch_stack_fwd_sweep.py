@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""The stack sweeps' cluster layouts on one card: register rows and device time.
+"""The stack sweeps' cluster layouts, and the single-layer backward's register
+layout, on one card: register rows and device time.
 
-    python3 tools/torch_stack_fwd_sweep.py [--kernel fwd|bwd|adj] [--rows] [--write] [--time]
+    python3 tools/torch_stack_fwd_sweep.py [--kernel fwd|bwd|adj|lstm_bwd] [--rows] [--write] [--time]
 
 ``--rows`` compiles the kernel's source (``csrc/lstm_stack_fwd.cu``,
-``csrc/lstm_stack_bwd.cu`` with ``--kernel bwd`` or
-``csrc/lstm_stack_adj.cu`` with ``--kernel adj``) once for each pair of
-register row counts (KR1 for layer 1's block, KR2 for layer 2's; the
-same pair for both operand types; the backward's "rows" are chunks of
-four columns) and prints ptxas's spill bytes of every cluster-layout
-instantiation, by type.  ptxas grants the kernels' 13 warps 128 registers
+``csrc/lstm_stack_bwd.cu`` with ``--kernel bwd``,
+``csrc/lstm_stack_adj.cu`` with ``--kernel adj`` or ``csrc/lstm_bwd.cu``
+with ``--kernel lstm_bwd``) once for each pair of register row counts
+(KR1 for layer 1's block, KR2 for layer 2's; the same pair for both
+operand types; the backwards' "rows" are chunks of four columns; the
+single-layer backward's one count is KR) and prints ptxas's spill bytes
+of every cluster-layout (register-layout) instantiation, by type.  ptxas grants the kernels' 13 warps 128 registers
 a thread, and which pairs spill moves with any change to a kernel, so the
 counts are chosen by compiling.  With ``--write`` the first pair in the
 kernel's preference list that spills in no instantiation of a type is
 written into the source (``KR1_F32 ...``) and into
-``cuda_lstm_stack.STACK_KEEP`` (``STACK_BWD_KEEP``, ``STACK_ADJ_KEEP``).  ``--time`` prints
+``cuda_lstm_stack.STACK_KEEP`` (``STACK_BWD_KEEP``, ``STACK_ADJ_KEEP``;
+``cuda_lstm.BWD_KEEP`` for the single-layer backward).  ``--time`` prints
 the card's name and power limit, then the profiler's device time of the
 kernel at W in {1, 2, 48, 168} in float32 and bf16 (W=1 reads the
 prologue) — ``stack_fwd_cuda`` with_res and primal, or every kernel of a
@@ -24,7 +27,10 @@ sums), or every kernel of a ``stack_adj_cuda`` call and, apart, its
 pre-pass, its sweep, its post-pass and its four weight sums — and of
 the chained pair it replaces (two ``lstm_fwd`` with_cs launches and the
 layer-2 projection; two ``lstm_bwd`` launches and the dz2 . k2^T
-product; two ``lstm_adj`` launches).  Builds go to ``build/sweep/``.
+product; two ``lstm_adj`` launches) — or, for ``lstm_bwd``, every kernel
+of an ``lstm_bwd_cuda`` call and, apart, its gate recompute, its sweep
+and its weight sum, sigmoid and tanh, beside the same call in the wide
+layout.  Builds go to ``build/sweep/``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "hfrep_tpu_torch" / "csrc"
 PY = ROOT / "hfrep_tpu_torch" / "ops" / "cuda_lstm_stack.py"
+PY_LSTM = ROOT / "hfrep_tpu_torch" / "ops" / "cuda_lstm.py"
 #: per kernel: its source, the name of its row counts in the wrapper, the
 #: pairs to compile in order of preference
 KERNELS = {
@@ -54,14 +61,26 @@ KERNELS = {
             # limit (cuda_lstm_stack.cluster_adj_smem_bytes)
             [(19, 19), (18, 19), (18, 18), (17, 18), (17, 17), (16, 17), (16, 16), (15, 16),
              (15, 15), (14, 15), (14, 14), (13, 14), (13, 13)]),
+    # one count (KR) a type; pairs (KR, KR)
+    "lstm_bwd": ("lstm_bwd.cu", "BWD_KEEP", [(r, r) for r in range(25, 13, -1)]),
 }
 SRC = CSRC / KERNELS["fwd"][0]
 LINE = r"constexpr int KR1_F32 = \d+, KR2_F32 = \d+, KR1_BF16 = \d+, KR2_BF16 = \d+;"
+LINE_ONE = r"constexpr int KR_F32 = \d+, KR_BF16 = \d+;"
 
 
 def variant(f32: tuple, bf16: tuple) -> str:
+    if SRC.name == "lstm_bwd.cu":
+        return re.sub(LINE_ONE, f"constexpr int KR_F32 = {f32[0]}, KR_BF16 = {bf16[0]};",
+                      SRC.read_text())
     return re.sub(LINE, f"constexpr int KR1_F32 = {f32[0]}, KR2_F32 = {f32[1]}, "
                         f"KR1_BF16 = {bf16[0]}, KR2_BF16 = {bf16[1]};", SRC.read_text())
+
+
+def checked(entry: str) -> bool:
+    """An instantiation whose register rows the counts set: the cluster
+    layouts' sweeps, or the single-layer backward's register layout."""
+    return "lstm_bwd_kernel" in entry if SRC.name == "lstm_bwd.cu" else "cluster" in entry
 
 
 def spills(pair: tuple) -> tuple:
@@ -81,7 +100,7 @@ def spills(pair: tuple) -> tuple:
         if m:
             entry = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and entry and "cluster" in entry:
+        if m and entry and checked(entry):
             out["bf16" if "nv_bfloat16" in entry else "f32"].append(int(m.group(1)) + int(m.group(2)))
     return pair, r.returncode, out
 
@@ -101,9 +120,10 @@ def rows(write: bool, pref: list, keep: str) -> None:
         if len(pick) < 2:
             sys.exit("no spill-free pair for each type")
         SRC.write_text(variant(pick["f32"], pick["bf16"]))
-        PY.write_text(re.sub(keep + r" = \{torch.float32: \d+, torch.bfloat16: \d+\}",
+        py = PY_LSTM if SRC.name == "lstm_bwd.cu" else PY
+        py.write_text(re.sub(keep + r" = \{torch.float32: \d+, torch.bfloat16: \d+\}",
                              f"{keep} = {{torch.float32: {min(pick['f32'])}, "
-                             f"torch.bfloat16: {min(pick['bf16'])}}}", PY.read_text()))
+                             f"torch.bfloat16: {min(pick['bf16'])}}}", py.read_text()))
 
 
 def timing_bwd() -> None:
@@ -125,10 +145,10 @@ def timing_bwd() -> None:
                 dhs2 = 0.3 * torch.randn((w, b, 100), generator=g, device="cuda")
                 for carries in (False, True):
                     call = lambda: cls.stack_bwd_cuda(*wts, *res, dhs2, None, "tanh", carries)  # noqa: E731
-                    parts = {k: cs.device_ms(torch, call, 20, match=m) * n
-                             for k, m, n in (("call", "", 1), ("recompute", "stack_gates", 1),
-                                             ("sweep", "stack_bwd_cluster", 1),
-                                             ("sums", "outer_sum", 4))}
+                    parts = {k: cs.device_ms(torch, call, 20, match=m)
+                             for k, m in (("call", ""), ("recompute", "stack_gates"),
+                                          ("sweep", "stack_bwd_cluster"),
+                                          ("sums", "hfrep::ws::"))}
                     line.append(f"W={w} B={b} {'carries' if carries else 'plain'} "
                                 + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in parts.items())
                                 + " us")
@@ -151,6 +171,43 @@ def timing_bwd() -> None:
         print(f"chained pair W={w} B={b} float32: {ms * 1e3:.1f} us", flush=True)
 
 
+def timing_lstm_bwd() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from hfrep_tpu_torch.ops import cuda_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(torch), flush=True)
+    def wide(hidden, dtype, batch, sm_count, smem_limit):
+        rows = cuda_lstm.rows_per_block(batch, hidden, sm_count)
+        return "wide", 32 * -(-rows * hidden // 32), rows
+
+    rule = cuda_lstm.bwd_layout
+    for dt in (torch.float32, torch.bfloat16):
+        for act in ("sigmoid", "tanh"):
+            line = []
+            for w, b in ((1, 32), (2, 32), (48, 32), (48, 64), (168, 32), (168, 64)):
+                _, _, xz, rec = cs.lstm_inputs(torch, w, 35, b, act, dt, seed=3)
+                g = torch.Generator(device="cuda")
+                g.manual_seed(4)
+                with torch.no_grad():
+                    hs, cs_ = cuda_lstm.lstm_fwd_cuda(xz, rec, act, with_cs=True)
+                    dhs = 0.3 * torch.randn((w, b, 100), generator=g, device="cuda")
+                    call = lambda: cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs_, dhs, None, act)  # noqa: E731
+                    parts = {k: cs.device_ms(torch, call, 20, match=m)
+                             for k, m in (("call", ""), ("recompute", "stack_gates"),
+                                          ("sweep", "lstm_bwd_kernel"), ("sum", "hfrep::ws::"))}
+                    cuda_lstm.bwd_layout = wide
+                    try:
+                        parts["wide call"] = cs.device_ms(torch, call, 20, match="")
+                    finally:
+                        cuda_lstm.bwd_layout = rule
+                line.append(f"W={w} B={b} " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                                       for k, v in parts.items()) + " us")
+            print(f"lstm_bwd {dt} {act}: " + "; ".join(line), flush=True)
+
+
 def timing_adj() -> None:
     import torch
 
@@ -171,11 +228,11 @@ def timing_adj() -> None:
                 carried = cls.stack_bwd_cuda(*wts, *res, rnd(w, b, 100), None, "tanh", True)[5:]
                 cots = (rnd(w, b, 400), rnd(100, 400), rnd(100, 400), rnd(400), rnd(100, 400))
                 call = lambda: cls.stack_adj_cuda(*wts, *res, *carried, *cots, "tanh")  # noqa: E731
-                parts = {k: cs.device_ms(torch, call, 20, match=m) * n
-                         for k, m, n in (("call", "", 1), ("pre-pass", "stack_gates", 1),
-                                         ("sweep", "stack_adj_cluster", 1),
-                                         ("post-pass", "stack_adj_post", 1),
-                                         ("sums", "outer_sum", 4))}
+                parts = {k: cs.device_ms(torch, call, 20, match=m)
+                         for k, m in (("call", ""), ("pre-pass", "stack_gates"),
+                                      ("sweep", "stack_adj_cluster"),
+                                      ("post-pass", "stack_adj_post"),
+                                      ("sums", "hfrep::ws::"))}
             line.append(f"W={w} B={b} " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in parts.items())
                         + f" us (sums {100 * parts['sums'] / parts['call']:.1f}% of the call)")
         print(f"stack_adj {dt}: " + "; ".join(line), flush=True)
@@ -246,7 +303,8 @@ def main() -> None:
     if args.rows:
         rows(args.write, pref, keep)
     if args.time:
-        {"fwd": timing, "bwd": timing_bwd, "adj": timing_adj}[args.kernel]()
+        {"fwd": timing, "bwd": timing_bwd, "adj": timing_adj,
+         "lstm_bwd": timing_lstm_bwd}[args.kernel]()
 
 
 if __name__ == "__main__":
