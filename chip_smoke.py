@@ -9,10 +9,12 @@ exits non-zero on failure:
 1. build   — every ``hfrep_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
              one process per source, started together; prints ptxas's
              registers and spills per kernel (and fails if an lstm_fwd
-             kernel, the lstm_bwd register layout, a stack_fwd /
-             stack_bwd / stack_adj cluster-layout instantiation or a
-             weight sum spills), the forward's and the backward's launch
-             rules at H=100 and at their wide widths, the stack forward's,
+             kernel, the lstm_bwd or lstm_adj register layout, a
+             stack_fwd / stack_bwd / stack_adj cluster-layout
+             instantiation or a weight sum spills, or if lstm_adj's
+             pre-pass or post-pass did not build), the forward's, the
+             backward's and the adjoint's launch rules at H=100 and at
+             their wide widths, the stack forward's,
              backward's and adjoint's launch rules by B and how many of
              their two-block clusters can be resident at once, the
              dynamic shared memory each LSTM kernel (single-layer and
@@ -33,7 +35,11 @@ exits non-zero on failure:
              twice and bit-equal; then the backward kernel's modes
              (plain, dcs, with_carries, carry0, all three) in its register
              layout at H=100, B=133 and its wide layout (H=117 f32, H=160
-             bf16; B 8 and 133), every activation, the same way;
+             bf16; B 8 and 133), every activation, the same way; then the
+             adjoint kernel's two modes (carry-free; carry from a nonzero
+             carry, with mu0 and with a null mu0) in its register layout
+             (pre-pass, sweep, post-pass) at H=100, B=133 and its wide
+             layout at the same widths and batches, the same way;
    grad    — the forward kernel's with_cs mode, the backward kernel (plain,
              dcs and with_carries modes) and the adjoint kernel against
              their plain versions, at the epoch's shapes W in {48, 168},
@@ -106,13 +112,16 @@ exits non-zero on failure:
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
-             of a call; cuDNN's LSTM at
+             of a call, the adjoint's split into its pre-pass, sweep,
+             post-pass and weight sum; cuDNN's LSTM at
              tanh: the forward in training mode for with_cs, backward =
              forward-and-backward minus forward for lstm_bwd; none for the
              adjoint: no PyTorch call computes it, the cuDNN RNN has no
              double backward); each carry mode at W=48, B=32 beside its
              carry-free mode, its bound, its plain version and cuDNN's
-             LSTM called with hx=(h0, c0); each stack kernel also beside
+             LSTM called with hx=(h0, c0) (the adjoint's carry mode also
+             by device time, split into its passes); each stack kernel
+             also beside
              the chained single-layer pair it replaces, its library the
              two-layer cuDNN LSTM, with the profiler's device time of the
              kernel, the pair and cuDNN;
@@ -342,10 +351,11 @@ def entry_name(mangled: str) -> str:
 
 def no_spill(source: str, entry: str) -> bool:
     """The instantiations the build phase holds to no spills: every
-    lstm_fwd kernel, the register layout of lstm_bwd, the stack sweeps'
-    cluster layouts and the weight sums."""
+    lstm_fwd kernel, the register layouts of lstm_bwd and lstm_adj, the
+    stack sweeps' cluster layouts and the weight sums."""
     return (source == "lstm_fwd" or "_cluster_" in entry
-            or entry.startswith(("lstm_bwd_kernel<", "weight_sum<", "col_sum<")))
+            or entry.startswith(("lstm_bwd_kernel<", "lstm_adj_kernel<", "weight_sum<",
+                                 "col_sum<")))
 
 
 def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
@@ -353,13 +363,14 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
     logs = _build.build_all()
     say(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s: "
         f"{', '.join(sorted(logs))}")
-    spilled = []
+    spilled, entries = [], {}
     for name, log in sorted(logs.items()):
         entry = None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
                 entry = entry_name(m.group(1))
+                entries.setdefault(name, []).append(entry)
             elif "registers" in line or "spill" in line:
                 say(f"[build] {name} {entry}: {line.split(':', 1)[-1].strip()}")
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -368,6 +379,14 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
                     spilled.append(entry)
     if spilled:
         fail(f"a register-layout kernel or a weight sum spills registers in {spilled}")
+    # the adjoint's register layout: its pre-pass (the gates kernel with the
+    # v-stream products), its sweep and its post-pass, in both types
+    adj_entries = entries.get("lstm_adj", [])
+    for kind in ("stack_gates_kernel<f32", "stack_gates_kernel<bf16", "lstm_adj_kernel<f32",
+                 "lstm_adj_kernel<bf16", "lstm_adj_post_kernel<f32", "lstm_adj_post_kernel<bf16"):
+        if not any(e.startswith(kind) and ("gates" not in kind or "adjoint" in e)
+                   for e in adj_entries):
+            fail(f"lstm_adj.cu built no {kind}...> kernel: {adj_entries}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
     for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -390,10 +409,19 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
     for h, name in STACK_WIDE_CASES:
         say(f"[build] lstm_bwd layout at H={h} {name}, B=133: "
             f"{cuda_lstm.bwd_layout(h, getattr(torch, name), 133, sms, limit)}")
+    for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        plans = {b: cuda_lstm.adj_layout(HIDDEN, dt, b, sms, limit) for b in FWD_BATCHES}
+        say(f"[build] lstm_adj layout at H={HIDDEN} {n} (layout, threads, rows a block) by B: "
+            + ", ".join(f"B={b} {p}" for b, p in plans.items())
+            + f"; {cuda_lstm.reg_adj_smem_bytes(HIDDEN, dt)} B of shared memory "
+            f"({cuda_lstm.ADJ_KEEP[dt]} of {cuda_lstm.FWD_KS} rows in registers); no spills")
+    for h, name in STACK_WIDE_CASES:
+        say(f"[build] lstm_adj layout at H={h} {name}, B=133: "
+            f"{cuda_lstm.adj_layout(h, getattr(torch, name), 133, sms, limit)}")
     for kernel in ("lstm_bwd", "lstm_adj"):
         sm = {n: cuda_lstm.smem_bytes(HIDDEN, dt, 1, kernel)
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
-        say(f"[build] {kernel}{' (wide layout)' if kernel == 'lstm_bwd' else ''}: dynamic "
+        say(f"[build] {kernel} (wide layout): dynamic "
             f"shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{cuda_lstm.smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm['f32']} B a further row)")
     for shape, nsum, npair, m in SUM_SHAPES:
@@ -832,6 +860,69 @@ def phase_bwd_layouts(torch, cuda_lstm) -> dict:
     return worst
 
 
+#: the adjoint's modes: (name, carry, mu0)
+ADJ_MODES = (("carry-free", False, False), ("carry", True, True),
+             ("carry, null mu0", True, False))
+
+
+def phase_adj_layouts(torch, cuda_lstm) -> dict:
+    """The adjoint kernel's modes in both layouts against the plain
+    version: the register layout at H=100 with B=133 (two batch rows a
+    block), the wide layout at ``STACK_WIDE_CASES`` (H=117 f32, H=160 bf16)
+    with B in {8, 133}; W=48, every activation, on the forward kernel's
+    residuals and the backward kernel's carries, seeded inputs (xz 0.3
+    N(0,1), rec 0.5 N(0,1)/sqrt(H), carry 0.5 N(0,1), cotangents and mu0
+    0.3 N(0,1)); the carry mode from a nonzero carry with mu0 and with a
+    null mu0.  Bars scaled by max(1, max|plain|), f32 1e-4 / bf16 1e-2.
+    Each mode launched twice must give the same bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    cases = [(HIDDEN, "float32", 133), (HIDDEN, "bfloat16", 133)]
+    cases += [(h, name, b) for h, name in STACK_WIDE_CASES for b in (8, 133)]
+    worst = {}
+    for h, name, b in cases:
+        dtype = getattr(torch, name)
+        layout = cuda_lstm.adj_layout(h, dtype, b, sms, limit)[0]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(h + b + 13)
+        rnd = lambda s, *shape: s * torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+        xz, rec = rnd(0.3, 48, b, 4 * h).to(dtype), rnd(0.5 / h ** 0.5, h, 4 * h).to(dtype)
+        carry = (rnd(0.5, b, h), rnd(0.5, b, h))
+        dhs, dc_fin = rnd(0.3, 48, b, h), rnd(0.3, b, h)
+        u, v, mu0 = rnd(0.3, 48, b, 4 * h), rnd(0.3, h, 4 * h), (rnd(0.3, b, h), rnd(0.3, b, h))
+        line = []
+        for act in ACTS:
+            for mode, carried, with_mu in ADJ_MODES:
+                c = carry if carried else None
+                with torch.no_grad():
+                    hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True, c)
+                    dhT, dcT = cuda_lstm.lstm_bwd_cuda(xz, rec, hs, cs, dhs, None, act, True, c,
+                                                       dc_fin if carried else None)[2:4]
+                    args = (xz, rec, hs, cs, dhT, dcT, u, v, act, c, mu0 if with_mu else None)
+                    got = cuda_lstm.lstm_adj_cuda(*args)
+                    again = cuda_lstm.lstm_adj_cuda(*args)
+                    ref = cuda_lstm.lstm_adj_plain(*args)
+                torch.cuda.synchronize()
+                for a, r in zip(got, ref):
+                    if a.shape != r.shape or not torch.isfinite(a).all():
+                        fail(f"lstm_adj {mode} ({layout}) not finite/shaped at H={h} B={b} "
+                             f"{act} {name}")
+                if len(got) != len(ref) or not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                    fail(f"lstm_adj {mode} ({layout}): two launches differ at H={h} B={b} "
+                         f"{act} {name}")
+                err, bar = max(scaled_err(a, r) for a, r in zip(got, ref)), GRAD_BARS[name]
+                key = f"{layout} lstm_adj {mode} {name}"
+                worst[key] = max(worst.get(key, 0.0), err)
+                if act == "tanh":
+                    line.append(f"{mode} {err:.2e}")
+                if not err <= bar:
+                    fail(f"lstm_adj {mode} ({layout}) disagrees with its plain version: "
+                         f"{err} > {bar} at H={h} B={b} {act} {name}")
+        say(f"[layout] lstm_adj {layout} H={h} W=48 B={b} {name}: every mode within its bar "
+            f"and bitwise repeatable; tanh errors: {', '.join(line)}")
+    return worst
+
+
 def sum_case(torch, g, nsum, npair, r, m):
     """Seeded operands of a weight-sum launch: ``nsum`` sums of ``npair``
     pairs over ``r`` rows, shift 32 (the epoch's B), no heads; A and B
@@ -1251,6 +1342,21 @@ def grad_bounds(w, b, h, dtype_name) -> dict:
     return out
 
 
+#: the passes of an lstm_adj call in its register layout, by kernel name
+ADJ_PASSES = (("pre-pass", "stack_gates"), ("sweep", "lstm_adj_kernel"),
+              ("post-pass", "lstm_adj_post"), ("sum", "hfrep::ws::"))
+
+
+def adj_passes(torch, call) -> dict:
+    """The profiler's device time, in ms, of each pass of one ``lstm_adj``
+    call (:data:`ADJ_PASSES`), each by :func:`device_ms`."""
+    return {k: device_ms(torch, call, 20, match=m) for k, m in ADJ_PASSES}
+
+
+def passes_text(parts: dict) -> str:
+    return ", ".join(f"{k} {v * 1e3:.1f}" for k, v in parts.items()) + " us"
+
+
 def phase_grad_timing(torch, cuda_lstm) -> list:
     rows = []
     h = HIDDEN
@@ -1288,6 +1394,7 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
                            # every kernel of a call: pre-pass, sweep, weight sum
                            "lstm_bwd": device_ms(torch, calls["lstm_bwd"][0], 30, match=""),
                            "lstm_adj": device_ms(torch, calls["lstm_adj"][0], 20, match="")}
+                    adj_split = adj_passes(torch, calls["lstm_adj"][0])
                 library = {"lstm_fwd_cs": None, "lstm_bwd": None, "lstm_adj": None}
                 if name == "float32":
                     lstm = torch.nn.LSTM(f, h).cuda()
@@ -1327,6 +1434,10 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
                     else:
                         rows[-1]["device_ms"] = dev[k]
                         extra = f" (device {dev[k]:.4f}, every kernel of a call)"
+                        if k == "lstm_adj":
+                            rows[-1]["device_ms_by_pass"] = adj_split
+                            extra = (f" (device {dev[k]:.4f}, every kernel of a call: "
+                                     f"{passes_text(adj_split)})")
                     say(f"[timing] {k:11s} W={w:3d} B={b:2d} {name:8s}: kernel {ms:.4f} ms{extra}, "
                         f"plain {plain:.3f} ms, cuDNN {lib_s} ms, bound {bnd:.5f} ms ({by})")
     return rows
@@ -1572,6 +1683,10 @@ def phase_carry_timing(torch, cuda_lstm) -> list:
                  for k, (kern, free, plain) in calls.items()}
         dev = {k: (device_ms(torch, calls[k][0], 30), device_ms(torch, calls[k][1], 30))
                for k in ("lstm_fwd_carry", "lstm_fwd_cs_carry")}
+        # the adjoint's carry mode: every kernel of a call, and its passes
+        dev["lstm_adj_carry"] = tuple(device_ms(torch, calls["lstm_adj_carry"][i], 20, match="")
+                                      for i in (0, 1))
+        adj_split = adj_passes(torch, calls["lstm_adj_carry"][0])
     lstm = torch.nn.LSTM(f, h).cuda()
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(layer.kernel.T)
@@ -1607,10 +1722,14 @@ def phase_carry_timing(torch, cuda_lstm) -> list:
             f"{plain:.3f} ms, cuDNN with hx {lib_s} ms, bound {bnd:.5f} ms ({by})")
         if k in dev:
             rows[-1].update(device_ms=dev[k][0], carry_free_device_ms=dev[k][1],
-                            library_device_ms=lib_dev[k])
+                            library_device_ms=lib_dev.get(k))
+            lib_s = "n/a" if k not in lib_dev else f"{lib_dev[k]:.4f}"
             say(f"[timing] {k:17s} W={w} B={b} float32: device {dev[k][0]:.4f} ms "
                 f"({dev[k][0] / w * 1e3:.3f} us a step; carry-free {dev[k][1]:.4f}), "
-                f"cuDNN with hx device {lib_dev[k]:.4f} ms")
+                f"cuDNN with hx device {lib_s} ms")
+        if k == "lstm_adj_carry":
+            rows[-1]["device_ms_by_pass"] = adj_split
+            say(f"[timing] {k:17s} W={w} B={b} float32: device by pass {passes_text(adj_split)}")
     return rows
 
 
@@ -1846,6 +1965,7 @@ def main() -> None:
     worst = phase_parity(torch, cuda_lstm)
     layouts = phase_fwd_layouts(torch, cuda_lstm)
     bwd_layouts = phase_bwd_layouts(torch, cuda_lstm)
+    adj_layouts = phase_adj_layouts(torch, cuda_lstm)
     grad = phase_grad_parity(torch, cuda_lstm)
     carry = phase_carry_parity(torch, cuda_lstm)
     carry_path = phase_carry_path(torch, cuda_lstm)
@@ -1905,6 +2025,14 @@ def main() -> None:
                            "wide": "100 < H within one block's shared memory"}
     rows[-2]["max_err_by_layout"] = bwd_layouts
     rows[-1]["library"] = "none: no PyTorch call computes it (the cuDNN RNN has no double backward)"
+    rows[-1]["layouts"] = {"registers": "H <= 100: every preset, the main path's; a gates and "
+                                        "v-product pre-pass, the quad sweep, the transposed "
+                                        "post-pass and the weight sum",
+                           "wide": "100 < H within one block's shared memory"}
+    rows[-1]["max_err_by_layout"] = adj_layouts
+    rows[-1]["device_ms_by_pass"] = next(
+        x for x in grad_timing if x["kernel"] == "lstm_adj" and x["W"] == 48 and x["B"] == 32
+        and x["dtype"] == "float32")["device_ms_by_pass"]
     # the carry modes: launches from the carry path's run (phase_carry_path)
     timed = {r["kernel"]: r for r in carry_timing}
     path_launches = carry_path["launches"]
@@ -1925,6 +2053,8 @@ def main() -> None:
             "library_ms": r["library_ms"], "shape": "W=48 B=32 H=100 float32"})
         if "device_ms" in r:
             rows[-1].update(device_ms=r["device_ms"], library_device_ms=r["library_device_ms"])
+        if "device_ms_by_pass" in r:
+            rows[-1]["device_ms_by_pass"] = r["device_ms_by_pass"]
     primal = timed["lstm_fwd_carry"]
     rows[-3]["mode"] = "with_cs carry (the differentiable path's); launches count both modes"
     rows[-3]["primal_carry"] = {k: primal[k] for k in ("ms", "device_ms", "carry_free_ms",
@@ -1993,7 +2123,7 @@ def main() -> None:
                        "carry_parity": carry, "carry_path": carry_path,
                        "carry_timing": carry_timing,
                        "parity_max_abs_err": worst, "fwd_layouts": layouts,
-                       "bwd_layouts": bwd_layouts, "sums": sums,
+                       "bwd_layouts": bwd_layouts, "adj_layouts": adj_layouts, "sums": sums,
                        "grad_parity": grad,
                        "stack_parity": stack, "stack_layouts": stack_layouts,
                        "profile": profiled}, fh, indent=1)

@@ -1,21 +1,25 @@
 // Pieces shared by the fused two-layer stack's kernels
-// (lstm_stack_{fwd,bwd,adj}.cu) and the single-layer backward (lstm_bwd.cu):
+// (lstm_stack_{fwd,bwd,adj}.cu) and the single-layer backward and adjoint
+// (lstm_bwd.cu, lstm_adj.cu):
 //
 // - the cluster layout of the products that run a row vector into an
 //   (H, 4H) matrix (hfrep::cl): a block of 416 threads, a quad a hidden
 //   unit j, thread (j, q) holding k-quarter q of unit j's four gate columns
 //   (rows k = q*KS + kk), some rows in registers and the rest in shared
 //   memory, and a block's part of k2's rows dealt out beside them.  The
-//   stack forward (h . rec) and the adjoint (mu_h . rec) run it;
+//   stack forward (h . rec) and the adjoints (mu_h . rec; the stack's
+//   cluster and the single-layer register layout) run it, the adjoints
+//   with their lane math (hfrep::adj);
 // - the backward sweeps' quad layout (hfrep::bq): a quad a hidden unit
 //   holding its row of the recurrent matrix for dz . rec^T, in the stack
 //   backward's cluster and the single-layer backward's register layout;
 // - the tiled float32 products over all W*B rows (hfrep::tile) and the
 //   kernel that forms both layers' gates from the saved states with them,
 //   the pre-pass of the stack backward and of the adjoint (which also forms
-//   its chain-free v-stream products there) and, its first product alone,
-//   of the single-layer backward.  No tensor cores: TF32 or bf16
-//   products of float32 operands would break the float32 bars.
+//   its chain-free v-stream products there) and, its first layer alone,
+//   of the single-layer backward (the gates) and adjoint (the gates and
+//   the v-stream product).  No tensor cores: TF32 or bf16 products of
+//   float32 operands would break the float32 bars.
 
 #pragma once
 
@@ -241,6 +245,139 @@ __device__ __forceinline__ void stage_step(float* st, const float* gates, int og
 
 }  // namespace bq
 
+// ------------------------------------------------ the adjoints' lane math
+// The adjoint sweeps on the cluster layout: the stack adjoint's cluster
+// (lstm_stack_adj.cu) and the single-layer adjoint's register layout
+// (lstm_adj.cu).  A lane stages its step inputs a step ahead, starts gate
+// q's sum at its base, adds its k-quarter of round(mu_h) . rec, and after
+// the quad's butterfly runs its unit's adj_step itself.
+namespace adj {
+
+// The single-layer adjoint step of unit j from its gate values: given
+// the backward's carries dh, dc and the cotangent dzb[4] of dz, fills
+// dz[4] (the backward's dz, recomputed) and zb[4] (the cotangent of z)
+// and returns dhTbar, dcTbar, cpbar (cot of c_{t-1}) and cbar (of c_t).
+template <int ACT>
+__device__ __forceinline__ void adj_step(float ig, float fg, float gc, float og,
+                                         float c, float cp, float dh, float dc,
+                                         float muc, const float* dzb, float* dz,
+                                         float* zb, float* dhTbar_out,
+                                         float* dcTbar_out, float* cpbar_out,
+                                         float* cbar_out) {
+  const float a_c = act_f<ACT>(c);
+  const float qi = ig * (1.0f - ig), qf = fg * (1.0f - fg), qo = og * (1.0f - og);
+  const float pg = act_prime<ACT>(gc), pa = act_prime<ACT>(a_c);
+  const float ppg = act_prime2<ACT>(gc), ppa = act_prime2<ACT>(a_c);
+  const float d_out = dh * a_c;
+  dz[0] = dc * gc * qi;
+  dz[1] = dc * cp * qf;
+  dz[2] = dc * ig * pg;
+  dz[3] = d_out * qo;
+  float dcTbar = muc * fg;
+  float fbar = muc * dc;
+  dcTbar += dzb[0] * gc * qi;
+  float gbar = dzb[0] * dc * qi;
+  float ibar = dzb[0] * dc * gc * (1.0f - 2.0f * ig);
+  dcTbar += dzb[1] * cp * qf;
+  *cpbar_out = dzb[1] * dc * qf;
+  fbar += dzb[1] * dc * cp * (1.0f - 2.0f * fg);
+  dcTbar += dzb[2] * ig * pg;
+  ibar += dzb[2] * dc * pg;
+  gbar += dzb[2] * dc * ig * ppg;
+  const float dobar = dzb[3] * qo;
+  float obar = dzb[3] * d_out * (1.0f - 2.0f * og);
+  float dhTbar = dcTbar * og * pa;
+  obar += dcTbar * dh * pa;
+  float aCbar = dcTbar * dh * og * ppa;
+  dhTbar += dobar * a_c;
+  aCbar += dobar * dh;
+  zb[0] = ibar * qi;
+  zb[1] = fbar * qf;
+  zb[2] = gbar * pg;
+  zb[3] = obar * qo;
+  *dhTbar_out = dhTbar;
+  *dcTbar_out = dcTbar;
+  *cbar_out = aCbar * pa;
+}
+
+// The quad's sums of acc + acc2 gate by gate, in every lane: a butterfly,
+// whose two additions are each commutative, so all four lanes hold the
+// same bits, in the same order in every run.
+__device__ __forceinline__ void quad_sums(const float (&acc)[4], const float (&acc2)[4],
+                                          float (&out)[4]) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float v = acc[g] + acc2[g];
+    const float s = v + __shfl_xor_sync(0xffffffffu, v, 1);
+    out[g] = s + __shfl_xor_sync(0xffffffffu, s, 2);
+  }
+}
+
+using bq::from_lane;   // lane `src` of this quad's value
+
+// v[q], without indexing a register array by a runtime value
+__device__ __forceinline__ float pick(const float (&v)[4], int q) {
+  return q == 0 ? v[0] : q == 1 ? v[1] : q == 2 ? v[2] : v[3];
+}
+
+constexpr int NST = 3;              // a lane's staged step inputs: gate, base, a state value
+
+// Stage this lane's inputs of step t into st[0..2] with cp.async, which
+// holds no registers while the loads are in flight: its gate's value and
+// its base (at (W, B, 4H) offset og of `gates` and `base`) and its value of
+// the step's state stream (lane 0 c_t, lane 1 c_{t-1}, lane 2 dhT, lane 3
+// dcT, at (W, B, H) offset o - back of `sp`).  Lane 1's c_{-1} is zero, or
+// *first (the carry mode's c0) where given.
+__device__ __forceinline__ void stage_step(float* st, const float* gates, const float* base,
+                                           int og, const float* sp, int o, int back, int t,
+                                           bool on, const float* first = nullptr) {
+  if (on) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st)),
+                 "l"(gates + og) : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 1)),
+                 "l"(base + og) : "memory");
+  } else {
+    st[0] = 0.0f;
+    st[1] = 0.0f;
+  }
+  if (on && (back == 0 || t > 0)) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 2)),
+                 "l"(sp + o - back) : "memory");
+  } else if (on && first != nullptr) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 2)),
+                 "l"(first) : "memory");
+  } else {
+    st[2] = 0.0f;
+  }
+}
+
+// this thread's part of v . rec for its unit's four gate columns, into the
+// two chains of each gate: its KS rows against the h buffer's quarter
+template <int KR, int KW>
+__device__ __forceinline__ void dot_rec(const float4* hp, const float (&w)[4][KW],
+                                        const float4* rec_s, int tid, float (&acc)[4],
+                                        float (&acc2)[4]) {
+#pragma unroll
+  for (int i = 0; i < cl::KSP / 4; ++i) {
+    const float4 v = hp[i];
+    const float hk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = 4 * i + e;
+      if (kk >= cl::KS) break;
+      float wk[4];
+      cl::weights<KR>(w, rec_s, kk, tid, wk);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        if (e & 1) acc2[g] = fmaf(hk[e], wk[g], acc2[g]);
+        else acc[g] = fmaf(hk[e], wk[g], acc[g]);
+      }
+    }
+  }
+}
+
+}  // namespace adj
+
 // ------------------------------------------------ products over the W*B rows
 namespace tile {
 
@@ -337,8 +474,12 @@ stack_gates_kernel(const T* __restrict__ xz1, const T* __restrict__ rec1,
                    const T* __restrict__ rec2, GatesArgs a, int R, int B, int H) {
   using namespace tile;
   __shared__ __align__(16) Smem s;
-  const int layer = blockIdx.z & 1;
-  const bool vp = V && blockIdx.z >= 2;     // a v-stream product
+  // with V, a grid of two products is layer 1's pair, products 0 and 2
+  // (the single-layer adjoint's pre-pass)
+  const int z = V && gridDim.z == 2 ? 2 * static_cast<int>(blockIdx.z)
+                                    : static_cast<int>(blockIdx.z);
+  const int layer = z & 1;
+  const bool vp = V && z >= 2;              // a v-stream product
   const int G = 4 * H, depth = layer ? 2 * H : H;
   const int m0 = blockIdx.x * M, n0 = blockIdx.y * N;
   const int tid = threadIdx.x;
@@ -410,17 +551,30 @@ stack_gates_kernel(const T* __restrict__ xz1, const T* __restrict__ rec1,
 
 // Launch stack_gates_kernel over the W*B rows on `stream`: the two gate
 // products, and with V the two v-stream products; with `one_layer` the
-// first gate product alone (k2, b2 and rec2 unread).
+// first layer's alone, its gate product (and with V its v-stream product:
+// products 0 and 2), k2, b2 and rec2 unread.
 template <typename T, int ACT, bool V>
 cudaError_t launch_gates(const void* xz1, const void* rec1, const void* k2, const void* b2,
                          const void* rec2, const GatesArgs& a, int R, int B, int H,
                          cudaStream_t stream, bool one_layer = false) {
   const dim3 grid((R + tile::M - 1) / tile::M, (4 * H + tile::N - 1) / tile::N,
-                  one_layer ? 1 : V ? 4 : 2);
+                  (one_layer ? 1 : 2) * (V ? 2 : 1));
   stack_gates_kernel<T, ACT, V><<<grid, tile::THREADS, 0, stream>>>(
       static_cast<const T*>(xz1), static_cast<const T*>(rec1), static_cast<const T*>(k2),
       static_cast<const T*>(b2), static_cast<const T*>(rec2), a, R, B, H);
   return cudaGetLastError();
+}
+
+// Blocks a post-pass output tile (the adjoints' transposed products,
+// lstm_stack_adj.cu and lstm_adj.cu) is split over: the most of 4, 2, 1
+// that keeps the launch within POST_BLOCKS_PER_SM blocks an SM.  A split
+// pays while the tiles alone would leave SMs idle, and costs its reduction
+// once they fill the card (PERF.md).
+constexpr int POST_BLOCKS_PER_SM = 12;
+inline int post_splits(int tiles, int sms) {
+  for (int s = 4; s > 1; s /= 2)
+    if (s * tiles <= POST_BLOCKS_PER_SM * sms) return s;
+  return 1;
 }
 
 }  // namespace hfrep

@@ -120,6 +120,7 @@
 namespace {
 
 using namespace hfrep;
+using namespace hfrep::adj;   // adj_step and the cluster sweep's lane pieces
 
 struct StackAdjArgs {
   const float* vr1;    // (H, 4H) and its transpose (4H, H)
@@ -149,53 +150,6 @@ struct StackAdjArgs {
   float* zb2w;
   float* dhtb1w;
 };
-
-// The single-layer adjoint step of unit j from its gate values: given
-// the backward's carries dh, dc and the cotangent dzb[4] of dz, fills
-// dz[4] (the backward's dz, recomputed) and zb[4] (the cotangent of z)
-// and returns dhTbar, dcTbar, cpbar (cot of c_{t-1}) and cbar (of c_t).
-template <int ACT>
-__device__ __forceinline__ void adj_step(float ig, float fg, float gc, float og,
-                                         float c, float cp, float dh, float dc,
-                                         float muc, const float* dzb, float* dz,
-                                         float* zb, float* dhTbar_out,
-                                         float* dcTbar_out, float* cpbar_out,
-                                         float* cbar_out) {
-  const float a_c = act_f<ACT>(c);
-  const float qi = ig * (1.0f - ig), qf = fg * (1.0f - fg), qo = og * (1.0f - og);
-  const float pg = act_prime<ACT>(gc), pa = act_prime<ACT>(a_c);
-  const float ppg = act_prime2<ACT>(gc), ppa = act_prime2<ACT>(a_c);
-  const float d_out = dh * a_c;
-  dz[0] = dc * gc * qi;
-  dz[1] = dc * cp * qf;
-  dz[2] = dc * ig * pg;
-  dz[3] = d_out * qo;
-  float dcTbar = muc * fg;
-  float fbar = muc * dc;
-  dcTbar += dzb[0] * gc * qi;
-  float gbar = dzb[0] * dc * qi;
-  float ibar = dzb[0] * dc * gc * (1.0f - 2.0f * ig);
-  dcTbar += dzb[1] * cp * qf;
-  *cpbar_out = dzb[1] * dc * qf;
-  fbar += dzb[1] * dc * cp * (1.0f - 2.0f * fg);
-  dcTbar += dzb[2] * ig * pg;
-  ibar += dzb[2] * dc * pg;
-  gbar += dzb[2] * dc * ig * ppg;
-  const float dobar = dzb[3] * qo;
-  float obar = dzb[3] * d_out * (1.0f - 2.0f * og);
-  float dhTbar = dcTbar * og * pa;
-  obar += dcTbar * dh * pa;
-  float aCbar = dcTbar * dh * og * ppa;
-  dhTbar += dobar * a_c;
-  aCbar += dobar * dh;
-  zb[0] = ibar * qi;
-  zb[1] = fbar * qf;
-  zb[2] = gbar * pg;
-  zb[3] = obar * qo;
-  *dhTbar_out = dhTbar;
-  *dcTbar_out = dcTbar;
-  *cbar_out = aCbar * pa;
-}
 
 // rows of the L2-resident matrices loaded together before their FMAs
 // (ldg_f), 64 loads in flight a thread: 2 KC rows of vr1, KC/2 rows of
@@ -505,7 +459,6 @@ __host__ __device__ constexpr int kr_min(size_t item) {
   return item == 4 ? (KR1_F32 < KR2_F32 ? KR1_F32 : KR2_F32)
                    : (KR1_BF16 < KR2_BF16 ? KR1_BF16 : KR2_BF16);
 }
-constexpr int NST = 3;              // a lane's staged step inputs: gate, base, a state value
 
 // The fixed part of a block's shared memory, in floats: two h buffers
 // (step parity), each thread's staged step inputs for two steps, the rows
@@ -528,79 +481,6 @@ __host__ __device__ inline size_t stage_bytes(int H, size_t item) {
 }
 __host__ __device__ inline size_t smem_bytes(int H, size_t item) {
   return fixed_floats(item) * sizeof(float) + k2_bytes(item) + stage_bytes(H, item);
-}
-
-// The quad's sums of acc + acc2 gate by gate, in every lane: a butterfly,
-// whose two additions are each commutative, so all four lanes hold the
-// same bits, in the same order in every run.
-__device__ __forceinline__ void quad_sums(const float (&acc)[4], const float (&acc2)[4],
-                                          float (&out)[4]) {
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const float v = acc[g] + acc2[g];
-    const float s = v + __shfl_xor_sync(0xffffffffu, v, 1);
-    out[g] = s + __shfl_xor_sync(0xffffffffu, s, 2);
-  }
-}
-
-// lane `src` of this quad's value
-__device__ __forceinline__ float from_lane(float v, int base, int src) {
-  return __shfl_sync(0xffffffffu, v, base + src);
-}
-
-// v[q], without indexing a register array by a runtime value
-__device__ __forceinline__ float pick(const float (&v)[4], int q) {
-  return q == 0 ? v[0] : q == 1 ? v[1] : q == 2 ? v[2] : v[3];
-}
-
-// Stage this lane's inputs of step t into st[0..2] with cp.async, which
-// holds no registers while the loads are in flight: its gate's value and
-// its base (at (W, B, 4H) offset og of `gates` and `base`) and its value of
-// the step's state stream (lane 0 c_t, lane 1 c_{t-1}, lane 2 dhT, lane 3
-// dcT, at (W, B, H) offset o - back of `sp`; zero before step 0).
-__device__ __forceinline__ void stage_step(float* st, const float* gates, const float* base,
-                                           int og, const float* sp, int o, int back, int t,
-                                           bool on) {
-  if (on) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st)),
-                 "l"(gates + og) : "memory");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 1)),
-                 "l"(base + og) : "memory");
-  } else {
-    st[0] = 0.0f;
-    st[1] = 0.0f;
-  }
-  if (on && (back == 0 || t > 0)) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(st + 2)),
-                 "l"(sp + o - back) : "memory");
-  } else {
-    st[2] = 0.0f;
-  }
-}
-
-// this thread's part of v . rec for its unit's four gate columns, into the
-// two chains of each gate: its KS rows against the h buffer's quarter
-template <int KR, int KW>
-__device__ __forceinline__ void dot_rec(const float4* hp, const float (&w)[4][KW],
-                                        const float4* rec_s, int tid, float (&acc)[4],
-                                        float (&acc2)[4]) {
-#pragma unroll
-  for (int i = 0; i < KSP / 4; ++i) {
-    const float4 v = hp[i];
-    const float hk[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kk = 4 * i + e;
-      if (kk >= KS) break;
-      float wk[4];
-      weights<KR>(w, rec_s, kk, tid, wk);
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        if (e & 1) acc2[g] = fmaf(hk[e], wk[g], acc2[g]);
-        else acc[g] = fmaf(hk[e], wk[g], acc[g]);
-      }
-    }
-  }
 }
 
 }  // namespace ca
@@ -954,17 +834,6 @@ stack_adj_post_kernel(const T* __restrict__ rec1, const T* __restrict__ k2,
       }
   }
   cluster.sync();                            // no block leaves while another reads its sums
-}
-
-// Blocks a post-pass output tile is split over: the most of 4, 2, 1 that
-// keeps the launch within POST_BLOCKS_PER_SM blocks an SM.  A split pays
-// while the tiles alone would leave SMs idle, and costs its reduction
-// once they fill the card (PERF.md).
-constexpr int POST_BLOCKS_PER_SM = 12;
-inline int post_splits(int tiles, int sms) {
-  for (int s = 4; s > 1; s /= 2)
-    if (s * tiles <= POST_BLOCKS_PER_SM * sms) return s;
-  return 1;
 }
 
 template <typename T, int ACT>

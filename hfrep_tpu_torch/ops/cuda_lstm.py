@@ -95,11 +95,12 @@ _SIGNATURES = {
     },
     "lstm_adj": {
         "hfrep_lstm_adj": (_I, [_P] * 14                 # xz rec v hs cs dhT dcT u uxz uhs ucs udhs urec dzw
-                           + [_I] * 7
-                           + [_P]),
+                           + [_I] * 7                    # W B H act bf16 rows device
+                           + [_P]                        # stream
+                           + [_I] * 2),                  # layout threads
         # xz rec v hs cs dhT dcT u h0 c0 muh0 muc0 uxz uhs ucs udhs urec dzw
         # udcfin uh0 uc0
-        "hfrep_lstm_adj_carry": (_I, [_P] * 21 + [_I] * 7 + [_P]),
+        "hfrep_lstm_adj_carry": (_I, [_P] * 21 + [_I] * 7 + [_P] + [_I] * 2),
     },
     "weight_sum": {
         # a b head out (arrays of pointers), shift (array of ints)
@@ -213,10 +214,13 @@ def smem_bytes(hidden: int, dtype: torch.dtype, rows: int = 1,
     of FWD_ZP), the rows of rec not held in registers (float32), and rec
     itself in the operand dtype, staged there once; nothing grows with the
     rows.  Wider, the wide layout: rec plus two h buffers per row, in the
-    operand dtype.  lstm_bwd and lstm_adj: rec with a one-entry row pad
-    (rounded up to 16 B), plus float32 staging per batch row — h_{t-1}
-    and dz (5H) for the backward; h_{t-1}, mu_h, dz and zbar (10H) for
-    the adjoint."""
+    operand dtype.  lstm_bwd and lstm_adj in their wide layouts (the
+    layout rules :func:`bwd_layout` and :func:`adj_layout` take them above
+    4 * FWD_KS hidden units; their register layouts are
+    :func:`reg_bwd_smem_bytes` and :func:`reg_adj_smem_bytes`): rec with
+    a one-entry row pad (rounded up to 16 B), plus float32 staging per
+    batch row — h_{t-1} and dz (5H) for the backward; h_{t-1}, mu_h, dz
+    and zbar (10H) for the adjoint."""
     item = torch.empty((), dtype=dtype).element_size()
     if kernel == "lstm_fwd" and hidden <= 4 * FWD_KS:
         own = 4 * FWD_KSP + 4 * FWD_ZP + (FWD_KS - FWD_KEEP) * 4 * FWD_THREADS
@@ -292,26 +296,71 @@ def reg_bwd_smem_bytes(hidden: int, dtype: torch.dtype) -> int:
     return fixed * 4 + -(-hidden // BWD_PARTS) * 4 * hidden * item
 
 
-def bwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
-               smem_limit: int) -> tuple:
-    """The backward kernel's launch rule: ``(layout, threads, rows)``.
-
-    Up to 4 * FWD_KS hidden units the register layout (a gate-recompute
-    pre-pass, then FWD_THREADS threads a block, a quad per unit holding its
-    row of rec, ceil(B / SMs) batch rows a block walked one after another).
-    Wider, the wide layout under :func:`check_fits` (which raises what it
-    refuses), with :func:`rows_per_block` rows a block and a thread per
-    (row, unit).  Pure arithmetic on the shapes and the card's limits: the
-    wrapper never tries a layout and falls back."""
+def _quad_layout(kernel: str, reg_bytes: int, hidden: int, dtype: torch.dtype, batch: int,
+                 sm_count: int, smem_limit: int) -> tuple:
+    """The single-layer backward's and adjoint's launch rule:
+    ``(layout, threads, rows)``.  Up to 4 * FWD_KS hidden units the
+    register layout, which needs ``reg_bytes`` of shared memory: a pre-pass
+    of tiled products, then FWD_THREADS threads a block, a quad per unit
+    holding its part of rec, ceil(B / SMs) batch rows a block walked one
+    after another.  Wider, the wide layout under :func:`check_fits` (which
+    raises what it refuses), with :func:`rows_per_block` rows a block and a
+    thread per (row, unit).  Pure arithmetic on the shapes and the card's
+    limits: the wrapper never tries a layout and falls back."""
     if hidden <= 4 * FWD_KS:
-        need = reg_bwd_smem_bytes(hidden, dtype)
-        if need > smem_limit:
-            raise ValueError(f"lstm_bwd kernel: the register layout needs {need} B of "
+        if reg_bytes > smem_limit:
+            raise ValueError(f"{kernel} kernel: the register layout needs {reg_bytes} B of "
                              f"shared memory; one block of this card may use {smem_limit} B")
         return "registers", FWD_THREADS, max(1, math.ceil(batch / sm_count))
     rows = rows_per_block(batch, hidden, sm_count)
-    check_fits(hidden, dtype, rows, smem_limit, "lstm_bwd")
+    check_fits(hidden, dtype, rows, smem_limit, kernel)
     return "wide", 32 * math.ceil(rows * hidden / 32), rows
+
+
+def bwd_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
+               smem_limit: int) -> tuple:
+    """The backward kernel's launch rule (:func:`_quad_layout`): the
+    register layout (a gate-recompute pre-pass, then a quad per unit
+    holding its row of rec) up to 4 * FWD_KS hidden units, the wide layout
+    above."""
+    return _quad_layout("lstm_bwd", reg_bwd_smem_bytes(hidden, dtype), hidden, dtype, batch,
+                        sm_count, smem_limit)
+
+
+#: the adjoint's register layout (``csrc/lstm_adj.cu``): the stack
+#: adjoint's cluster block on one layer (FWD_THREADS threads, a quad a unit,
+#: thread (j, q) holding FWD_KS rows of k-quarter q of unit j's four gate
+#: columns), ADJ_KEEP[dtype] rows in registers and the rest in shared
+#: memory; each thread stages _ADJ_STAGED step inputs (its gate, its base,
+#: one state value); the prologue stages rec an ADJ_PARTS-th of its rows at
+#: a time
+ADJ_KEEP = {torch.float32: 21, torch.bfloat16: 21}
+ADJ_PARTS = 2
+ADJ_LAYOUTS = {"registers": 0, "wide": 1}
+_ADJ_STAGED = 3
+
+
+def reg_adj_smem_bytes(hidden: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the adjoint's register layout: two float32
+    h buffers (4 x FWD_KSP floats each), each thread's _ADJ_STAGED step
+    inputs staged for two steps, the rows of rec past ADJ_KEEP[dtype] (a
+    float4 a thread), and a staging area for an ADJ_PARTS-th of rec's rows
+    in the operand dtype."""
+    item = torch.empty((), dtype=dtype).element_size()
+    fixed = (8 * FWD_KSP + 2 * _ADJ_STAGED * FWD_THREADS
+             + 4 * (FWD_KS - ADJ_KEEP[dtype]) * FWD_THREADS)
+    return fixed * 4 + -(-hidden // ADJ_PARTS) * 4 * hidden * item
+
+
+def adj_layout(hidden: int, dtype: torch.dtype, batch: int, sm_count: int,
+               smem_limit: int) -> tuple:
+    """The adjoint kernel's launch rule (:func:`_quad_layout`): the
+    register layout (a pre-pass of the gates and u + h_{t-1} . v, a quad
+    per unit holding its k-quarter of rec for round(mu_h) . rec, a
+    post-pass of the transposed products) up to 4 * FWD_KS hidden units,
+    the wide layout above; both modes alike."""
+    return _quad_layout("lstm_adj", reg_adj_smem_bytes(hidden, dtype), hidden, dtype, batch,
+                        sm_count, smem_limit)
 
 
 def sum_plan(nsum: int, npair: int, nrows: int, m: int, n: int, sm_count: int) -> tuple:
@@ -426,16 +475,6 @@ def _check_carry(fn: str, device: torch.device, state: tuple, named: dict) -> No
             f"{fn} is not differentiable itself: differentiate through "
             f"cuda_lstm.lstm_seq_carry, whose autograd runs the backward and "
             f"adjoint kernels")
-
-
-def _launch_setup(xz: torch.Tensor, b: int, h: int, kernel: str) -> tuple:
-    """(device index, rows per block, SM count, stream), after the fit
-    check."""
-    dev = xz.device.index if xz.device.index is not None else torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = rows_per_block(b, h, sms)
-    check_fits(h, xz.dtype, rows, _lib().hfrep_max_smem_optin(dev), kernel)
-    return dev, rows, sms, torch.cuda.current_stream(xz.device).cuda_stream
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -555,7 +594,8 @@ def lstm_adj_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
                   activation: Optional[str] = "tanh",
                   carry: Optional[tuple] = None,
                   mu0: Optional[tuple] = None) -> tuple:
-    """Launch ``csrc/lstm_adj.cu``: given u = cot(dxz) (W, B, 4H) and
+    """Launch ``csrc/lstm_adj.cu`` in the layout :func:`adj_layout` picks:
+    given u = cot(dxz) (W, B, 4H) and
     v = cot(drec) (H, 4H), the cotangents (uxz, urec, uhs, ucs, udhs) of
     the backward's inputs xz, rec, hs, cs and dhs, all float32.  Carry
     mode: ``carry`` = (h0, c0) the backward's injected state and ``mu0`` =
@@ -586,15 +626,19 @@ def lstm_adj_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
         if tail and muc0 is not None:
             tail[0].copy_(muc0)
         return outs
-    dev, rows, sms, stream = _launch_setup(xz, b, h, "lstm_adj")
+    dev = xz.device.index if xz.device.index is not None else torch.cuda.current_device()
+    layout, threads, rows = adj_layout(
+        h, xz.dtype, b, torch.cuda.get_device_properties(dev).multi_processor_count,
+        _lib().hfrep_max_smem_optin(dev))
+    stream = torch.cuda.current_stream(xz.device).cuda_stream
     dzw = torch.empty((w, b, 4 * h), **f32)          # the backward's dz, for urec
     bf16 = int(xz.dtype == torch.bfloat16)
+    plan = (w, b, h, act, bf16, rows, dev, stream, ADJ_LAYOUTS[layout], threads)
     if carry is None:
         err = _lib("lstm_adj").hfrep_lstm_adj(
             xz.data_ptr(), rec.data_ptr(), v.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             dhT.data_ptr(), dcT.data_ptr(), u.data_ptr(), uxz.data_ptr(), uhs.data_ptr(),
-            ucs.data_ptr(), udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(),
-            w, b, h, act, bf16, rows, dev, stream)
+            ucs.data_ptr(), udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(), *plan)
     else:
         udcfin, uh0, uc0 = tail
         err = _lib("lstm_adj").hfrep_lstm_adj_carry(
@@ -602,8 +646,7 @@ def lstm_adj_cuda(xz: torch.Tensor, rec: torch.Tensor, hs: torch.Tensor,
             dhT.data_ptr(), dcT.data_ptr(), u.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             _ptr(muh0), _ptr(muc0), uxz.data_ptr(), uhs.data_ptr(), ucs.data_ptr(),
             udhs.data_ptr(), urec.data_ptr(), dzw.data_ptr(), udcfin.data_ptr(),
-            uh0.data_ptr(), uc0.data_ptr(),
-            w, b, h, act, bf16, rows, dev, stream)
+            uh0.data_ptr(), uc0.data_ptr(), *plan)
     _raise_on(err, "lstm_adj")
     _count_launch("lstm_adj" if carry is None else "lstm_adj_carry")
     return outs
@@ -904,8 +947,10 @@ def lstm_bwd(xz, rec, hs, cs, dhs, dcs=None, activation="tanh",
 
 def lstm_adj(xz, rec, hs, cs, dhT, dcT, u, v, activation="tanh", carry=None,
              mu0=None) -> tuple:
-    """The adjoint sweep: the kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
+    """The adjoint sweep: on a CUDA tensor the kernel, in the layout
+    :func:`adj_layout` picks (the register layout's pre-pass, sweep and
+    post-pass at H <= 4 * FWD_KS, the wide layout above; no fallback), on a
+    CPU tensor the plain version."""
     fn = lstm_adj_cuda if _device_rule(xz, "adjoint") else lstm_adj_plain
     return fn(xz, rec, hs, cs, dhT, dcT, u, v, activation, carry, mu0)
 

@@ -17,7 +17,8 @@ single-layer kernels' carry modes the same way.  The forward kernel's
 four modes in both its layouts (registers at H=100 with up to two batch
 rows a block; wide at H=120 f32 and H=160 bf16), the backward's modes
 in both its layouts (registers at H=100 and H=37; wide at H=117 f32 and
-H=160 bf16), and the stack forward's, backward's and adjoint's modes in
+H=160 bf16), the adjoint's two modes in both its layouts (the same
+widths), and the stack forward's, backward's and adjoint's modes in
 both their layouts (cluster at H=100 and H=37; wide at H=117 f32 and
 H=160 bf16), each mode bit-equal over two launches.  The weight sums
 alone against their plain version in float64 (scaled 1e-4), bit-equal
@@ -283,6 +284,67 @@ def test_backward_layouts_match_plain_on_card(card, dtype, h, layout):
                         assert all(torch.equal(x, y) for x, y in zip(got, again))
                         errs = [_scaled(x, r) for x, r in zip(got, ref)]
                         assert max(errs) <= bar, (w, b, act, with_dcs, carries, carried, errs)
+
+
+#: the adjoint's modes: (carry, mu0)
+ADJ_MODES = [(False, False), (True, True), (True, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,layout", [(torch.float32, 100, "registers"),
+                                            (torch.bfloat16, 100, "registers"),
+                                            (torch.float32, 37, "registers"),
+                                            (torch.bfloat16, 37, "registers"),
+                                            (torch.float32, 117, "wide"),
+                                            (torch.bfloat16, 160, "wide")])
+def test_adjoint_layouts_match_plain_on_card(card, dtype, h, layout):
+    """The single-layer adjoint in the layout its launch rule picks (the
+    register layout at H <= 100 — its gates and v-product pre-pass, quad
+    sweep and transposed post-pass; at H=37 a part-filled last quarter —
+    the wide one above) in both modes (carry-free; the carry mode from a
+    nonzero carry with mu0, and with a null mu0), every activation, W in
+    {1, 2, 48, 168}, B in {1, 8, 32, 64, 133}, on the forward kernel's
+    residuals and the backward kernel's carries: within the scaled bars
+    f32 1e-4 / bf16 1e-2 of ``lstm_adj_plain``; two launches bit-equal;
+    each launch counted once, with its two-pair weight sum."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limit = cuda_lstm._lib().hfrep_max_smem_optin(0)
+    bar = 1e-4 if dtype == torch.float32 else 1e-2
+    for w in (1, 2, 48, 168):
+        for b in (1, 8, 32, 64, 133):
+            assert cuda_lstm.adj_layout(h, dtype, b, sms, limit)[0] == layout
+            g = torch.Generator(device=card)
+            g.manual_seed(w * b + h + 1)
+            rnd = lambda *s: torch.randn(s, device=card, generator=g)  # noqa: E731
+            xz = (0.3 * rnd(w, b, 4 * h)).to(dtype)
+            rec = (0.5 * rnd(h, 4 * h) / h ** 0.5).to(dtype)
+            carry = (0.5 * rnd(b, h), 0.5 * rnd(b, h))
+            dhs, dc_fin = 0.3 * rnd(w, b, h), 0.3 * rnd(b, h)
+            u, v = 0.3 * rnd(w, b, 4 * h), 0.3 * rnd(h, 4 * h)
+            mu0 = (0.3 * rnd(b, h), 0.3 * rnd(b, h))
+            for act in ACTS:
+                with torch.no_grad():
+                    for carried, with_mu in ADJ_MODES:
+                        c = carry if carried else None
+                        hs, cs = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True, c)
+                        dhT, dcT = cuda_lstm.lstm_bwd_cuda(
+                            xz, rec, hs, cs, dhs, None, act, True, c,
+                            dc_fin if carried else None)[2:4]
+                        args = (xz, rec, hs, cs, dhT, dcT, u, v, act, c, mu0 if with_mu else None)
+                        key = "lstm_adj_carry" if carried else "lstm_adj"
+                        before = (cuda_lstm.launch_counts()[key],
+                                  cuda_lstm.weight_sum_launches()[(1, 2, False)])
+                        got = cuda_lstm.lstm_adj(*args)
+                        assert (cuda_lstm.launch_counts()[key],
+                                cuda_lstm.weight_sum_launches()[(1, 2, False)]) == (
+                                    before[0] + 1, before[1] + 1)
+                        again = cuda_lstm.lstm_adj(*args)
+                        ref = cuda_lstm.lstm_adj_plain(*args)
+                        torch.cuda.synchronize()
+                        assert len(got) == len(ref) == (8 if carried else 5)
+                        assert all(torch.equal(x, y) for x, y in zip(got, again))
+                        errs = [_scaled(x, r) for x, r in zip(got, ref)]
+                        assert max(errs) <= bar, (w, b, act, carried, with_mu, errs)
 
 
 @pytest.mark.gpu

@@ -1,9 +1,10 @@
-"""The weight sums and the single-layer backward's register layout, on the CPU.
+"""The weight sums and the single-layer backward's and adjoint's register
+layouts, on the CPU.
 
 * The launch rules as pure functions: ``cuda_lstm.sum_splits`` /
   ``sum_plan`` (the weight sums' cluster size, the twin of
-  ``csrc/weight_sum.cuh``'s ``splits_for``) and ``bwd_layout`` (the
-  backward's layout).
+  ``csrc/weight_sum.cuh``'s ``splits_for``), ``bwd_layout`` (the
+  backward's layout) and ``adj_layout`` (the adjoint's).
 * A torch emulation of the weight sums' order — each output tile's k
   range in pieces of WS_K rows (pair 0's rows, then pair 1's, each padded
   to whole pieces), split over the cluster's blocks, each block summing
@@ -20,6 +21,13 @@
   dc_fin, all together): atol 1e-5, rtol 1e-4; in the carry modes the
   atol scaled by max(1, max|ref|), as tests/test_torch_lstm_carry.py holds
   the plain carry backward to the Pallas kernel.
+* The adjoint's register-layout regrouping — every step's gates and
+  u + h_{t-1} . v from two products over all W*B rows first (the
+  pre-pass), then the forward chain adding round(mu_h) . rec, then every
+  row's transposed products at once (the post-pass) and urec — against
+  ``lstm_adj_plain`` and the Pallas ``_adj_kernel`` in interpret mode, in
+  both modes (the carry mode with mu0): atol 1e-5 (urec 1e-4, its W-step
+  sum), rtol 1e-4, the carry mode's atol scaled as above.
 """
 
 from __future__ import annotations
@@ -115,6 +123,28 @@ def test_bwd_layout_rule():
         cuda_lstm.bwd_layout(120, torch.float32, 8, 132, HOPPER_SMEM)
     with pytest.raises(ValueError, match="register layout needs"):
         cuda_lstm.bwd_layout(100, torch.float32, 8, 132, 100_000)
+
+
+def test_adj_layout_rule():
+    """The backward's rule with the adjoint's shared memory: the register
+    layout at H <= 4 * FWD_KS, ceil(B / SMs) rows a block, in both modes;
+    the wide layout above under ``check_fits``, which refuses what does not
+    fit a block."""
+    for dt in (torch.float32, torch.bfloat16):
+        for b, rows in ((1, 1), (32, 1), (132, 1), (133, 2), (300, 3)):
+            assert cuda_lstm.adj_layout(100, dt, b, 132, HOPPER_SMEM) == ("registers", 416, rows)
+        assert cuda_lstm.adj_layout(37, dt, 8, 132, HOPPER_SMEM)[0] == "registers"
+        need = cuda_lstm.reg_adj_smem_bytes(100, dt)
+        assert need <= HOPPER_SMEM
+        assert cuda_lstm.reg_adj_smem_bytes(37, dt) < need
+    assert cuda_lstm.reg_adj_smem_bytes(100, torch.float32) == 117_504
+    assert cuda_lstm.adj_layout(117, torch.float32, 133, 132, HOPPER_SMEM) == ("wide", 256, 2)
+    assert cuda_lstm.adj_layout(160, torch.bfloat16, 8, 132, HOPPER_SMEM) == ("wide", 160, 1)
+    assert cuda_lstm.adj_layout(160, torch.bfloat16, 133, 132, HOPPER_SMEM) == ("wide", 320, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_lstm.adj_layout(120, torch.float32, 8, 132, HOPPER_SMEM)
+    with pytest.raises(ValueError, match="lstm_adj kernel: the register layout needs"):
+        cuda_lstm.adj_layout(100, torch.float32, 8, 132, 100_000)
 
 
 # ------------------------------------------------------- the sums' order
@@ -249,3 +279,64 @@ def test_regrouped_bwd_matches_plain_and_pallas(activation, mode):
         scale = max(1.0, float(np.abs(np.asarray(r)).max())) if carried else 1.0
         _close(a, p, atol=1e-5 * scale, name=f"{name} vs lstm_bwd_plain")
         _close(a, r, atol=1e-5 * scale, name=f"{name} vs the Pallas kernel")
+
+
+# -------------------------------------------- the adjoint's regrouping
+def _regrouped_adj(xz, rec, hs, cs, dhT, dcT, u, v, activation, carry, mu0):
+    """The register layout's order of work in plain torch: the pre-pass's
+    gates and base = u + h_{t-1} . v for every step at once, the forward
+    chain adding round(mu_h) . rec to the base, then the post-pass's
+    transposed products for every row at once, and urec."""
+    code = cuda_lstm.act_code(activation)
+    w, b, g = xz.shape
+    h = g // 4
+    rec32 = rec.float()
+    rnd = cuda_lstm._rounder(rec)
+    h0, c0 = (None, None) if carry is None else carry
+    h_prev, c_prev = cuda_lstm._shifted(hs, h0), cuda_lstm._shifted(cs, c0)
+    rows = lambda x, n: x.reshape(w * b, n)  # noqa: E731
+    z = xz.float() + (rnd(rows(h_prev, h)) @ rec32).reshape(w, b, g)
+    base = u + (rows(h_prev, h) @ v).reshape(w, b, g)
+    muh0, muc0 = (None, None) if mu0 is None else mu0
+    muh = torch.zeros((b, h)) if muh0 is None else muh0
+    muc = torch.zeros((b, h)) if muc0 is None else muc0
+    uxz, dzs = torch.empty((w, b, g)), torch.empty((w, b, g))
+    udhs, ucp, uc = (torch.empty((w, b, h)) for _ in range(3))
+    for t in range(w):
+        dz, zbar, dhTbar, dcTbar, cpbar, cbar = cuda_lstm._adj_step(
+            code, z[t], cs[t], c_prev[t], dhT[t], dcT[t], muc, base[t] + rnd(muh) @ rec32)
+        uxz[t], dzs[t], udhs[t], ucp[t], uc[t] = zbar, dz, dhTbar, cpbar, cbar
+        muh, muc = dhTbar, dcTbar
+    uhp = (rows(dzs, g) @ v.T + rnd(rows(uxz, g)) @ rec32.T).reshape(w, b, h)
+    zero = torch.zeros_like(uhp[:1])
+    uhs = torch.cat([uhp[1:], zero])
+    ucs = uc + torch.cat([ucp[1:], zero])
+    urec = cuda_lstm.weight_sum_plain([(rows(udhs, h), rows(dzs, g), muh0),
+                                       (rows(hs, h), rows(uxz, g), h0)], b)
+    out = (uxz, urec, uhs, ucs, udhs)
+    return out if carry is None else out + (muc, uhp[0], ucp[0])
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("activation", ACTS)
+def test_regrouped_adj_matches_plain_and_pallas(activation, carried):
+    c = _case(activation, carried)
+    cj = (c["h0"], c["c0"]) if carried else None
+    _, _, dhT, dcT, *_ = _bwd_call(c["xz"], c["rec"], c["hs"], c["cs"], c["dhs"], None,
+                                   activation, with_carries=True, carry=cj,
+                                   dc_fin=c["dc_fin"] if carried else None)
+    mu0 = (c["muh0"], c["muc0"]) if carried else None
+    ref = _adj_call(c["xz"], c["rec"], c["hs"], c["cs"], dhT, dcT, c["u"], c["v"], activation,
+                    carry=cj, mu0=mu0)
+    args = (*(_t(c[k]) for k in ("xz", "rec", "hs", "cs")), _t(dhT), _t(dcT), _t(c["u"]),
+            _t(c["v"]), activation, None if cj is None else (_t(cj[0]), _t(cj[1])),
+            None if mu0 is None else (_t(mu0[0]), _t(mu0[1])))
+    got = _regrouped_adj(*args)
+    plain = cuda_lstm.lstm_adj_plain(*args)
+    names = ("uxz", "urec", "uhs", "ucs", "udhs") + (("u_dcfin", "uh0", "uc0") if carried else ())
+    assert len(got) == len(plain) == len(ref) == len(names)
+    for name, a, p, r in zip(names, got, plain, ref):
+        scale = max(1.0, float(np.abs(np.asarray(r)).max())) if carried else 1.0
+        atol = (1e-4 if name == "urec" else 1e-5) * scale
+        _close(a, p, atol=atol, name=f"{name} vs lstm_adj_plain")
+        _close(a, r, atol=atol, name=f"{name} vs the Pallas kernel")

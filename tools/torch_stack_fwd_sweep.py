@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""The stack sweeps' cluster layouts, and the single-layer backward's register
-layout, on one card: register rows and device time.
+"""The stack sweeps' cluster layouts, and the single-layer backward's and
+adjoint's register layouts, on one card: register rows and device time.
 
-    python3 tools/torch_stack_fwd_sweep.py [--kernel fwd|bwd|adj|lstm_bwd] [--rows] [--write] [--time]
+    python3 tools/torch_stack_fwd_sweep.py [--kernel fwd|bwd|adj|lstm_bwd|lstm_adj] [--rows] [--write] [--time]
 
 ``--rows`` compiles the kernel's source (``csrc/lstm_stack_fwd.cu``,
 ``csrc/lstm_stack_bwd.cu`` with ``--kernel bwd``,
-``csrc/lstm_stack_adj.cu`` with ``--kernel adj`` or ``csrc/lstm_bwd.cu``
-with ``--kernel lstm_bwd``) once for each pair of register row counts
+``csrc/lstm_stack_adj.cu`` with ``--kernel adj``, ``csrc/lstm_bwd.cu``
+with ``--kernel lstm_bwd`` or ``csrc/lstm_adj.cu`` with ``--kernel
+lstm_adj``) once for each pair of register row counts
 (KR1 for layer 1's block, KR2 for layer 2's; the same pair for both
 operand types; the backwards' "rows" are chunks of four columns; the
-single-layer backward's one count is KR) and prints ptxas's spill bytes
+single-layer kernels' one count is KR) and prints ptxas's spill bytes
 of every cluster-layout (register-layout) instantiation, by type.  ptxas grants the kernels' 13 warps 128 registers
 a thread, and which pairs spill moves with any change to a kernel, so the
 counts are chosen by compiling.  With ``--write`` the first pair in the
 kernel's preference list that spills in no instantiation of a type is
 written into the source (``KR1_F32 ...``) and into
 ``cuda_lstm_stack.STACK_KEEP`` (``STACK_BWD_KEEP``, ``STACK_ADJ_KEEP``;
-``cuda_lstm.BWD_KEEP`` for the single-layer backward).  ``--time`` prints
+``cuda_lstm.BWD_KEEP`` and ``ADJ_KEEP`` for the single-layer backward and
+adjoint).  ``--time`` prints
 the card's name and power limit, then the profiler's device time of the
 kernel at W in {1, 2, 48, 168} in float32 and bf16 (W=1 reads the
 prologue) — ``stack_fwd_cuda`` with_res and primal, or every kernel of a
@@ -30,7 +32,11 @@ layer-2 projection; two ``lstm_bwd`` launches and the dz2 . k2^T
 product; two ``lstm_adj`` launches) — or, for ``lstm_bwd``, every kernel
 of an ``lstm_bwd_cuda`` call and, apart, its gate recompute, its sweep
 and its weight sum, sigmoid and tanh, beside the same call in the wide
-layout.  Builds go to ``build/sweep/``.
+layout — or, for ``lstm_adj``, every kernel of an ``lstm_adj_cuda`` call
+in both modes (the carry mode with a nonzero carry and mu0) and, apart,
+its pre-pass, its sweep, its post-pass and its weight sum, sigmoid and
+tanh, beside the same call in the wide layout.  Builds go to
+``build/sweep/``.
 """
 
 from __future__ import annotations
@@ -63,14 +69,17 @@ KERNELS = {
              (15, 15), (14, 15), (14, 14), (13, 14), (13, 13)]),
     # one count (KR) a type; pairs (KR, KR)
     "lstm_bwd": ("lstm_bwd.cu", "BWD_KEEP", [(r, r) for r in range(25, 13, -1)]),
+    "lstm_adj": ("lstm_adj.cu", "ADJ_KEEP", [(r, r) for r in range(25, 12, -1)]),
 }
+#: the single-layer sources: one count a type, their keep in cuda_lstm.py
+ONE_COUNT = ("lstm_bwd.cu", "lstm_adj.cu")
 SRC = CSRC / KERNELS["fwd"][0]
 LINE = r"constexpr int KR1_F32 = \d+, KR2_F32 = \d+, KR1_BF16 = \d+, KR2_BF16 = \d+;"
 LINE_ONE = r"constexpr int KR_F32 = \d+, KR_BF16 = \d+;"
 
 
 def variant(f32: tuple, bf16: tuple) -> str:
-    if SRC.name == "lstm_bwd.cu":
+    if SRC.name in ONE_COUNT:
         return re.sub(LINE_ONE, f"constexpr int KR_F32 = {f32[0]}, KR_BF16 = {bf16[0]};",
                       SRC.read_text())
     return re.sub(LINE, f"constexpr int KR1_F32 = {f32[0]}, KR2_F32 = {f32[1]}, "
@@ -79,8 +88,11 @@ def variant(f32: tuple, bf16: tuple) -> str:
 
 def checked(entry: str) -> bool:
     """An instantiation whose register rows the counts set: the cluster
-    layouts' sweeps, or the single-layer backward's register layout."""
-    return "lstm_bwd_kernel" in entry if SRC.name == "lstm_bwd.cu" else "cluster" in entry
+    layouts' sweeps, or the single-layer backward's or adjoint's register
+    layout."""
+    if SRC.name in ONE_COUNT:
+        return f"{SRC.stem}_kernel" in entry
+    return "cluster" in entry
 
 
 def spills(pair: tuple) -> tuple:
@@ -120,7 +132,7 @@ def rows(write: bool, pref: list, keep: str) -> None:
         if len(pick) < 2:
             sys.exit("no spill-free pair for each type")
         SRC.write_text(variant(pick["f32"], pick["bf16"]))
-        py = PY_LSTM if SRC.name == "lstm_bwd.cu" else PY
+        py = PY_LSTM if SRC.name in ONE_COUNT else PY
         py.write_text(re.sub(keep + r" = \{torch.float32: \d+, torch.bfloat16: \d+\}",
                              f"{keep} = {{torch.float32: {min(pick['f32'])}, "
                              f"torch.bfloat16: {min(pick['bf16'])}}}", py.read_text()))
@@ -206,6 +218,53 @@ def timing_lstm_bwd() -> None:
                 line.append(f"W={w} B={b} " + ", ".join(f"{k} {v * 1e3:.1f}"
                                                        for k, v in parts.items()) + " us")
             print(f"lstm_bwd {dt} {act}: " + "; ".join(line), flush=True)
+
+
+def timing_lstm_adj() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from hfrep_tpu_torch.ops import cuda_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(torch), flush=True)
+
+    def wide(hidden, dtype, batch, sm_count, smem_limit):
+        rows = cuda_lstm.rows_per_block(batch, hidden, sm_count)
+        return "wide", 32 * -(-rows * hidden // 32), rows
+
+    rule = cuda_lstm.adj_layout
+    for dt in (torch.float32, torch.bfloat16):
+        for act in ("sigmoid", "tanh"):
+            for carried in (False, True):
+                line = []
+                for w, b in ((1, 32), (2, 32), (42, 32), (48, 32), (168, 64)):
+                    _, _, xz, rec = cs.lstm_inputs(torch, w, 35, b, act, dt, seed=3)
+                    carry, c = cs.carry_draws(torch, w, b, seed=4)
+                    if not carried:
+                        carry = None
+                    with torch.no_grad():
+                        hs, cs_ = cuda_lstm.lstm_fwd_cuda(xz, rec, act, True, carry)
+                        dhT, dcT = cuda_lstm.lstm_bwd_cuda(
+                            xz, rec, hs, cs_, c["dhs"], None, act, True, carry,
+                            c["dc_fin"] if carried else None)[2:4]
+                        mu0 = c["mu0"] if carried else None
+                        call = lambda: cuda_lstm.lstm_adj_cuda(  # noqa: E731
+                            xz, rec, hs, cs_, dhT, dcT, c["u"], c["v"], act, carry, mu0)
+                        parts = {k: cs.device_ms(torch, call, 20, match=m)
+                                 for k, m in (("call", ""), ("pre-pass", "stack_gates"),
+                                              ("sweep", "lstm_adj_kernel"),
+                                              ("post-pass", "lstm_adj_post"),
+                                              ("sum", "hfrep::ws::"))}
+                        cuda_lstm.adj_layout = wide
+                        try:
+                            parts["wide call"] = cs.device_ms(torch, call, 20, match="")
+                        finally:
+                            cuda_lstm.adj_layout = rule
+                    line.append(f"W={w} B={b} " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                                           for k, v in parts.items()) + " us")
+                print(f"lstm_adj{' carry' if carried else ''} {dt} {act}: " + "; ".join(line),
+                      flush=True)
 
 
 def timing_adj() -> None:
@@ -304,7 +363,7 @@ def main() -> None:
         rows(args.write, pref, keep)
     if args.time:
         {"fwd": timing, "bwd": timing_bwd, "adj": timing_adj,
-         "lstm_bwd": timing_lstm_bwd}[args.kernel]()
+         "lstm_bwd": timing_lstm_bwd, "lstm_adj": timing_lstm_adj}[args.kernel]()
 
 
 if __name__ == "__main__":
