@@ -109,6 +109,27 @@ exits non-zero on failure:
              kernel-vs-scan epoch).  The same for ``mtss_wgan_gp`` with
              the critic on the chained route (slice 2's path, which runs
              the single-layer adjoint);
+5b. trainer — the training loop (``GanTrainer``) on the committed panel
+             (``results/rederived_cleaned`` through ``load_panel`` and
+             ``build_gan_dataset``): ``mtss_wgan_gp`` at (48, 35) for 12
+             epochs at 5 a block (two blocks, checkpoints after 5 and 10,
+             two remainder epochs) on the fused route, with the launch
+             counts set to 0 just before and read just after: the history
+             covers epochs 0-11 with finite losses, and the epochs launched
+             exactly the train phase's per-epoch counts, 44 weight sums an
+             epoch; its ``steps_per_sec`` beside the train phase's
+             ms/epoch, and the same loop's with no checkpoint to write
+             (15 epochs); a checkpoint saved and restored (timed); a fresh
+             trainer restored from ``ckpt_5`` and trained on to 12 is bit
+             for bit the straight run (every param and slot, the history
+             from epoch 5, the draw stream); the newest checkpoint
+             truncated, ``restore_checkpoint()`` falls back to ``ckpt_5``;
+             ``generate_block(3, 64)`` twice is bit-equal and finite.  Then
+             the ``train-gan`` verb in this process at
+             ``mtss_wgan_gp_prod`` (168, 36) for 5 epochs with a checkpoint
+             and samples, and ``serve --gan-checkpoint`` on that checkpoint
+             with 32 requests, every other one a sample: each must end in a
+             result;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -1251,6 +1272,217 @@ def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
     return out
 
 
+#: the trainer phase: the committed panel, (a) mtss_wgan_gp for 12 epochs at
+#: 5 a block (two blocks, checkpoints after 5 and 10, two remainder epochs),
+#: (b) the train-gan verb at mtss_wgan_gp_prod, then serve --gan-checkpoint
+CLEANED_DIR = "results/rederived_cleaned"
+TRAINER_EPOCHS, TRAINER_SPC, TRAINER_RESUME_AT = 12, 5, 5
+BARE_EPOCHS = 15            # three blocks: a warm one, then two pipelined
+CLI_EPOCHS, CLI_REQUESTS = 5, 32
+
+
+def state_tensors(tr) -> list:
+    """Every tensor of a trainer's state: params, then optimizer slots."""
+    out = [t for m in (tr.state.generator, tr.state.discriminator)
+           for t in m.state_dict().values()]
+    for slots in (tr.state.g_opt, tr.state.d_opt):
+        for k in sorted(slots):
+            if isinstance(slots[k], dict):
+                out += [slots[k][n] for n in sorted(slots[k])]
+    return out
+
+
+def run_cli(argv) -> tuple:
+    """``hfrep_tpu_torch.experiments.cli.main(argv)`` in this process, its
+    standard output captured and echoed."""
+    import contextlib
+    import io
+
+    from hfrep_tpu_torch.experiments.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_trainer(torch, np, cuda_lstm, train) -> dict:
+    """The port's training loop on the committed panel (``GanTrainer``
+    through ``load_panel`` and ``build_gan_dataset``), its resume, its
+    checkpoint fall-back and ``generate_block``; then the ``train-gan``
+    and ``serve --gan-checkpoint`` verbs."""
+    import tempfile
+
+    from hfrep_tpu_torch.config import get_preset
+    from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
+    from hfrep_tpu_torch.train.trainer import GanTrainer
+
+    tag = "[trainer]"
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    per_epoch = next(r for r in train if r["preset"] == "mtss_wgan_gp")["launches_per_epoch"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) mtss_wgan_gp at (48, 35) on the fused route
+        base = get_preset("mtss_wgan_gp")
+        ck = os.path.join(tmp, "ck")
+        cfg = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, steps_per_call=TRAINER_SPC, checkpoint_every=TRAINER_SPC,
+            checkpoint_dir=ck))
+        t0 = time.perf_counter()
+        panel = load_panel(cleaned, device="cuda")
+        ds = build_gan_dataset(cfg.data, cfg.data.seed, panel)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if tuple(ds.windows.shape) != (cfg.data.n_sample, 48, 35) or ds.windows.device.type != "cuda":
+            fail(f"trainer: dataset {tuple(ds.windows.shape)} on {ds.windows.device}")
+        tr = GanTrainer(cfg, ds, device="cuda")
+        torch.cuda.synchronize()
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        tr.train(TRAINER_EPOCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cuda_lstm.launch_counts()
+        by_key = cuda_lstm.weight_sum_launches()
+        sum_launches = {name: by_key[(nsum, npair, m == 1)] for name, nsum, npair, m in SUM_SHAPES}
+        epochs = [h["epoch"] for h in tr.history]
+        if epochs != list(range(TRAINER_EPOCHS)) or not all(
+                np.isfinite(h["d_loss"]) and np.isfinite(h["g_loss"]) for h in tr.history):
+            fail(f"trainer: history epochs {epochs}, losses {tr.history}")
+        launched = {n for n, c in launches.items() if c > 0}
+        want = {n: round(per_epoch[n] * TRAINER_EPOCHS) for n in ROUTE_KERNELS["auto"]}
+        if launched != ROUTE_KERNELS["auto"] or any(launches[n] != c for n, c in want.items()):
+            fail(f"trainer: the epochs launched {launches}, expected {want} "
+                 f"(the train phase's per-epoch counts times {TRAINER_EPOCHS})")
+        by_shape = {k: sum(launches[n] for n in names) for k, names in SUM_LAUNCHES.items()}
+        if (sum_launches != by_shape
+                or sum(by_key.values()) != SUM_LAUNCHES_PER_EPOCH * TRAINER_EPOCHS):
+            fail(f"trainer: weight-sum launches {sum_launches} (of {sum(by_key.values())}), "
+                 f"expected {by_shape}, {SUM_LAUNCHES_PER_EPOCH} an epoch")
+        sps = tr.steps_per_sec
+        samples = [{"steps": n, "s": s, "warmup": w} for n, s, w in tr.timer.samples]
+        train_ms = next(r for r in train if r["preset"] == "mtss_wgan_gp")["ms_per_epoch"]
+        say(f"{tag} mtss_wgan_gp W=48 on the committed panel ({panel.n_months} months, "
+            f"load and dataset {load_s:.3f} s): {TRAINER_EPOCHS} epochs at {TRAINER_SPC} a "
+            f"block in {wall:.2f} s; d_loss {[round(h['d_loss'], 5) for h in tr.history]}; "
+            f"launches per epoch as the train phase's: " + ", ".join(
+                f"{n} {launches[n] / TRAINER_EPOCHS:g}" for n in sorted(want))
+            + f"; weight sums {sum(by_key.values()) / TRAINER_EPOCHS:g}")
+        say(f"{tag} steps_per_sec {sps:.3f} ({1e3 / sps:.2f} ms/epoch, host clock, "
+            f"steady windows synchronised) against the train phase's {train_ms:.2f} ms/epoch "
+            f"in this run; timer samples {[(s['steps'], round(s['s'], 4), s['warmup']) for s in samples]}")
+        # the loop alone: the same schedule's blocks with no checkpoint
+        # to write (the staged write runs on the host, in the steady window)
+        bare = GanTrainer(dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, checkpoint_dir=None)), ds, device="cuda")
+        bare.train(BARE_EPOCHS)
+        bare_sps = bare.steps_per_sec
+        say(f"{tag} the loop without checkpoints, {BARE_EPOCHS} epochs at {TRAINER_SPC} a "
+            f"block: steps_per_sec {bare_sps:.3f} ({1e3 / bare_sps:.2f} ms/epoch); timer "
+            f"samples {[(n, round(t, 4), w) for n, t, w in bare.timer.samples]}")
+        # checkpoint save and restore, timed apart from the loop
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = tr.save_checkpoint(os.path.join(tmp, "timed", f"ckpt_{tr.epoch}"))
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(timed, f)) for f in os.listdir(timed))
+        probe = GanTrainer(cfg, ds, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe.restore_checkpoint(timed)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for a, b in zip(state_tensors(tr), state_tensors(probe))):
+            fail("trainer: a restored checkpoint differs from the state saved")
+        # resume from ckpt_5: bit for bit the straight run's
+        resumed = GanTrainer(cfg, ds, device="cuda")
+        at = resumed.restore_checkpoint(os.path.join(ck, f"ckpt_{TRAINER_RESUME_AT}"))
+        resumed.train(TRAINER_EPOCHS - TRAINER_RESUME_AT)
+        torch.cuda.synchronize()
+        pairs = list(zip(state_tensors(tr), state_tensors(resumed)))
+        n_diff = sum(not torch.equal(a, b) for a, b in pairs)
+        hist_equal = resumed.history == tr.history[TRAINER_RESUME_AT:]
+        gen_equal = torch.equal(resumed.gen.get_state(), tr.gen.get_state())
+        say(f"{tag} resumed from {os.path.basename(at)} to epoch {resumed.epoch}: "
+            f"{len(pairs) - n_diff} of {len(pairs)} state tensors bit-equal to the straight run, "
+            f"history from epoch {TRAINER_RESUME_AT} equal {hist_equal}, draw stream equal "
+            f"{gen_equal}; checkpoint ({ckpt_bytes} bytes) save {save_s * 1e3:.1f} ms, restore "
+            f"{restore_s * 1e3:.1f} ms")
+        if n_diff or not hist_equal or not gen_equal or resumed.epoch != TRAINER_EPOCHS:
+            fail(f"trainer: the resumed run differs from the straight run ({n_diff} tensors, "
+                 f"history equal {hist_equal}, draw stream equal {gen_equal})")
+        # a torn newest checkpoint: the walk falls back to the previous good one
+        newest = os.path.join(ck, f"ckpt_{TRAINER_EPOCHS - TRAINER_EPOCHS % TRAINER_SPC}",
+                              "checkpoint.pt")
+        os.truncate(newest, os.path.getsize(newest) // 2)
+        fallback = GanTrainer(cfg, ds, device="cuda")
+        got = fallback.restore_checkpoint()
+        say(f"{tag} newest checkpoint truncated: restore_checkpoint() fell back to "
+            f"{os.path.basename(got)} (epoch {fallback.epoch})")
+        if os.path.basename(got) != f"ckpt_{TRAINER_RESUME_AT}" or fallback.epoch != TRAINER_RESUME_AT:
+            fail(f"trainer: the fall-back restored {got!r}, not ckpt_{TRAINER_RESUME_AT}")
+        # generate_block: pure in (stream_seed, seq)
+        a = tr.generate_block(3, 64)
+        b = tr.generate_block(3, 64)
+        if a.shape != (64, 48, 35) or not torch.isfinite(a).all() or not torch.equal(a, b):
+            fail(f"trainer: generate_block(3, 64) shape {tuple(a.shape)}, finite "
+                 f"{bool(torch.isfinite(a).all())}, repeatable {bool(torch.equal(a, b))}")
+        say(f"{tag} generate_block(seq=3, 64) twice: bit-equal, finite, shape {tuple(a.shape)}")
+        out.update(preset="mtss_wgan_gp", W=48, F=35, epochs=TRAINER_EPOCHS,
+                   steps_per_call=TRAINER_SPC, launches=launches,
+                   weight_sum_launches=sum_launches, steps_per_sec=sps, ms_per_epoch=1e3 / sps,
+                   train_phase_ms_per_epoch=train_ms, timer_samples=samples, wall_s=wall,
+                   load_s=load_s, d_loss=[h["d_loss"] for h in tr.history],
+                   g_loss=[h["g_loss"] for h in tr.history], checkpoint_save_ms=save_s * 1e3,
+                   checkpoint_restore_ms=restore_s * 1e3, checkpoint_bytes=ckpt_bytes,
+                   no_checkpoint_steps_per_sec=bare_sps,
+                   no_checkpoint_timer_samples=[list(x) for x in bare.timer.samples])
+
+        # (b) the train-gan verb at mtss_wgan_gp_prod (168, 36), then serve
+        prod = os.path.join(tmp, "prod")
+        samples_out = os.path.join(tmp, "s.npy")
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp_prod", "--epochs",
+                            str(CLI_EPOCHS), "--cleaned-dir", cleaned, "--checkpoint-dir", prod,
+                            "--samples-out", samples_out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        out["cli_launches"] = cuda_lstm.launch_counts()
+        by_key = cuda_lstm.weight_sum_launches()
+        out["cli_weight_sum_launches"] = {name: by_key[(nsum, npair, m == 1)]
+                                          for name, nsum, npair, m in SUM_SHAPES}
+        for line in text.splitlines():
+            say(f"{tag} train-gan: {line}")
+        ckpt_path = os.path.join(prod, f"ckpt_{CLI_EPOCHS}")
+        cube = np.load(samples_out) if os.path.exists(samples_out) else None
+        if (rc != 0 or f"trained mtss_wgan_gp for {CLI_EPOCHS} epochs (" not in text
+                or not os.path.isdir(ckpt_path) or cube is None
+                or cube.shape != (10, 168, 36) or not np.isfinite(cube).all()):
+            fail(f"trainer: train-gan rc {rc}, checkpoint {os.path.isdir(ckpt_path)}, "
+                 f"samples {None if cube is None else cube.shape}")
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        rc, text = run_cli(["serve", "--preset", "mtss_wgan_gp_prod", "--cleaned-dir", cleaned,
+                            "--gan-checkpoint", ckpt_path, "--requests", str(CLI_REQUESTS),
+                            "--sample-every", "2", "--timeout-ms", "30000"])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        out["serve_launches"] = cuda_lstm.launch_counts()
+        report = json.loads(text)["report"] if rc == 0 else {}
+        say(f"{tag} serve --gan-checkpoint {os.path.basename(ckpt_path)}: rc {rc}; submitted "
+            f"{report.get('submitted')}, terminal {report.get('terminal')}, results "
+            f"{report.get('results')}; p50 {report.get('p50_ms')} ms; lstm_fwd launches "
+            f"{out['serve_launches']['lstm_fwd']}; train-gan {cli_s:.1f} s, serve {serve_s:.1f} s")
+        if (rc != 0 or not report["submitted"] == report["terminal"] == report["results"]
+                == CLI_REQUESTS or out["serve_launches"]["lstm_fwd"] < 1):
+            fail(f"trainer: serve --gan-checkpoint rc {rc}, report {report}")
+        out.update(cli_s=cli_s, serve_s=serve_s,
+                   serve={k: report[k] for k in ("submitted", "terminal", "results",
+                                                 "p50_ms", "p95_ms", "qps")})
+    return out
+
+
 def bound_ms(w, b, h, dtype_name) -> tuple:
     item = 4 if dtype_name == "float32" else 2
     nbytes = (w * b * 4 * h + h * 4 * h) * item + w * b * h * 4
@@ -1975,6 +2207,7 @@ def main() -> None:
     server = phase_server(torch, np, cuda_lstm)
     train = phase_train(torch, cuda_lstm, "auto")
     train_chained = phase_train(torch, cuda_lstm, "chained", TRAIN_PRESETS[:1])
+    trainer = phase_trainer(torch, np, cuda_lstm, train)
     timing = phase_timing(torch, cuda_lstm)
     grad_timing = phase_grad_timing(torch, cuda_lstm)
     carry_timing = phase_carry_timing(torch, cuda_lstm)
@@ -1982,11 +2215,15 @@ def main() -> None:
     profiled = phase_profile(torch)
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
 
-    # launches on the main paths: the fused epochs (slice 3) and the
-    # chained ones (slice 2), each read just after its own run
+    # launches on the main paths: the fused epochs (slice 3), the chained
+    # ones (slice 2), the trainer's 12 epochs on the committed panel and the
+    # train-gan verb (slice 12), each read just after its own run
     by_route = {}
-    for route, runs in (("train_fused", train), ("train_chained", train_chained)):
-        counts = {k: sum(r["launches"][k] for r in runs) for k in cuda_lstm.launch_counts()}
+    for route, runs in (("train_fused", [r["launches"] for r in train]),
+                        ("train_chained", [r["launches"] for r in train_chained]),
+                        ("trainer", [trainer["launches"]]),
+                        ("train_gan_cli", [trainer["cli_launches"]])):
+        counts = {k: sum(r[k] for r in runs) for k in cuda_lstm.launch_counts()}
         counts["stack_fwd"] += counts.pop("stack_fwd_res")
         by_route[route] = counts
     trained = {k: sum(c[k] for c in by_route.values()) for k in by_route["train_fused"]}
@@ -1994,8 +2231,10 @@ def main() -> None:
     rows = [{
         "name": "lstm_fwd", "route": "cuda",
         "source": "hfrep_tpu_torch/csrc/lstm_fwd.cu", "replaces": TPU_KERNEL,
-        "launches": server["launches"] + trained["lstm_fwd"],
+        "launches": (server["launches"] + trained["lstm_fwd"]
+                     + trainer["serve_launches"]["lstm_fwd"]),
         "launches_by_path": {"serve": server["launches"],
+                             "serve_gan_checkpoint": trainer["serve_launches"]["lstm_fwd"],
                              **{p: c["lstm_fwd"] for p, c in by_route.items()}},
         "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
         "max_err_by_layout": layouts, "us_per_step": head["us_per_step"],
@@ -2100,11 +2339,14 @@ def main() -> None:
         rows.append({
             "name": f"weight_sum ({shape})", "route": "cuda",
             "source": "hfrep_tpu_torch/csrc/weight_sum.cuh", "replaces": SUM_REPLACES[shape],
-            "launches": sum(run["weight_sum_launches"][shape]
-                            for run in train + train_chained),
-            "launches_by_path": {p: sum(run["weight_sum_launches"][shape] for run in runs)
-                                 for p, runs in (("train_fused", train),
-                                                 ("train_chained", train_chained))},
+            "launches": (sum(run["weight_sum_launches"][shape]
+                             for run in train + train_chained + [trainer])
+                         + trainer["cli_weight_sum_launches"][shape]),
+            "launches_by_path": {**{p: sum(run["weight_sum_launches"][shape] for run in runs)
+                                    for p, runs in (("train_fused", train),
+                                                    ("train_chained", train_chained),
+                                                    ("trainer", [trainer]))},
+                                 "train_gan_cli": trainer["cli_weight_sum_launches"][shape]},
             "max_abs_err": max(x["max_abs_err"] for x in at.values()),
             "max_scaled_err": max(x["max_scaled_err"] for x in at.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2118,7 +2360,7 @@ def main() -> None:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
-                       "train_chained": train_chained, "timing": timing,
+                       "train_chained": train_chained, "trainer": trainer, "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,
                        "carry_timing": carry_timing,

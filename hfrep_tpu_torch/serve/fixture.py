@@ -43,12 +43,15 @@ def fixture_gen_model(preset: str = "mtss_wgan_gp", seed: int = 1,
 
 
 def fixture_server(cfg: ServeConfig, preset: Optional[str] = "mtss_wgan_gp",
-                   seed: int = 0, device: DeviceLike = None) -> ReplicationServer:
-    """A started server with the fixture AE head and (unless ``preset``
-    is None) the preset's generator."""
+                   seed: int = 0, device: DeviceLike = None,
+                   gen_model: Optional[GenServeModel] = None) -> ReplicationServer:
+    """A started server with the fixture AE head and a generator:
+    ``gen_model`` when given (a trained one), else the preset's at
+    Keras-default init, or none when ``preset`` is None."""
     dev = resolve_device(device)
-    gen = (None if preset is None
-           else fixture_gen_model(preset, seed=seed + 1, device=dev))
+    gen = gen_model
+    if gen is None and preset is not None:
+        gen = fixture_gen_model(preset, seed=seed + 1, device=dev)
     return ReplicationServer(cfg, ae_model=fixture_ae_model(seed=seed, device=dev),
                              gen_model=gen).start()
 

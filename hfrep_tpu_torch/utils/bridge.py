@@ -79,3 +79,37 @@ def gan_state_from_flax(g_tree: Mapping, d_tree: Mapping, pair):
     gen = from_flax(g_tree, copy.deepcopy(pair.generator))
     disc = from_flax(d_tree, copy.deepcopy(pair.discriminator))
     return fresh_state(pair.loss, gen, disc)
+
+
+def _slots_from_optax(opt_state, module: nn.Module, loss: str) -> dict:
+    """The port's optimizer slots for ``module`` from an optax state as
+    numpy: RMSprop's ``(ScaleByRmsState(nu), ...)`` or Adam's
+    ``(ScaleByAdamState(count, mu, nu), ...)``."""
+    from hfrep_tpu_torch.train.states import Adam, optimizer_class
+
+    first = opt_state[0]
+
+    def by_name(tree) -> dict:
+        holder = from_flax(tree, copy.deepcopy(module))
+        return {k: p.detach().clone() for k, p in holder.named_parameters()}
+
+    if optimizer_class(loss) is Adam:
+        return {"mu": by_name(first.mu), "nu": by_name(first.nu),
+                "count": int(np.asarray(first.count))}
+    return {"nu": by_name(first.nu)}
+
+
+def gan_state_from_jax(state, pair):
+    """A training state carrying a whole JAX ``GanState`` whose leaves
+    are numpy arrays (``jax.tree_util.tree_map(np.asarray, state)``):
+    the params into copies of ``pair``'s networks, the optax RMSprop
+    ``nu`` or Adam ``mu``/``nu``/``count`` into the port's slots, and
+    ``step``."""
+    from hfrep_tpu_torch.train.states import GanState
+
+    gen = from_flax(state.g_params, copy.deepcopy(pair.generator))
+    disc = from_flax(state.d_params, copy.deepcopy(pair.discriminator))
+    return GanState(generator=gen, discriminator=disc,
+                    g_opt=_slots_from_optax(state.g_opt, gen, pair.loss),
+                    d_opt=_slots_from_optax(state.d_opt, disc, pair.loss),
+                    step=int(np.asarray(state.step)))
