@@ -130,6 +130,26 @@ exits non-zero on failure:
              and samples, and ``serve --gan-checkpoint`` on that checkpoint
              with 32 requests, every other one a sample: each must end in a
              result;
+5c. sweep  — the replication engine on the committed panel: (a) the
+             chunked sweep of 21 latent lanes, 40 epochs at 10 a chunk, on
+             the card and on the CPU from the same init and permutations
+             (drawn on the CPU): losses rtol 1e-4, params atol 1e-5 + rtol
+             1e-4, stop epochs equal; then ``sweep_evaluate`` of those
+             params on both: fit metrics rtol 1e-4 (atol 1e-6), the
+             pseudo-inverse's outputs (ante, post, turnover, Sharpe) 1e-3
+             scaled by max(1, max|CPU|); the device's busy share of a
+             profiled 10-epoch drive at the real (168) and the augmented
+             (1,848) rows.  (b) ``python -m hfrep_tpu_torch sweep`` in this
+             process at ``AEConfig()`` (1000-epoch cap, early stopping),
+             latents 1:21, ``--stats``: real only; from the trainer phase's
+             ``mtss_wgan_gp_prod`` checkpoint (the dense augmented path);
+             from it and a second ``train-gan`` checkpoint (the padded
+             multi path).  Each run: every file written and every number
+             finite, epochs dispatched >= the largest stop epoch, overshoot
+             <= 1, ``lstm_fwd`` launched exactly twice a checkpoint and no
+             other kernel; the real-only best OOS R² mean within the JAX
+             package's 24-seed envelope on this panel widened by 0.05 a
+             side; wall seconds, epochs and chunks dispatched recorded;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -164,8 +184,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
@@ -1306,13 +1328,12 @@ def run_cli(argv) -> tuple:
     return rc, buf.getvalue()
 
 
-def phase_trainer(torch, np, cuda_lstm, train) -> dict:
+def phase_trainer(torch, np, cuda_lstm, train, keep: str) -> dict:
     """The port's training loop on the committed panel (``GanTrainer``
     through ``load_panel`` and ``build_gan_dataset``), its resume, its
     checkpoint fall-back and ``generate_block``; then the ``train-gan``
-    and ``serve --gan-checkpoint`` verbs."""
-    import tempfile
-
+    and ``serve --gan-checkpoint`` verbs, ``train-gan`` writing its
+    checkpoint under ``keep`` for the sweep phase."""
     from hfrep_tpu_torch.config import get_preset
     from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
     from hfrep_tpu_torch.train.trainer import GanTrainer
@@ -1439,7 +1460,7 @@ def phase_trainer(torch, np, cuda_lstm, train) -> dict:
                    no_checkpoint_timer_samples=[list(x) for x in bare.timer.samples])
 
         # (b) the train-gan verb at mtss_wgan_gp_prod (168, 36), then serve
-        prod = os.path.join(tmp, "prod")
+        prod = os.path.join(keep, "prod")
         samples_out = os.path.join(tmp, "s.npy")
         cuda_lstm.reset_launches()
         t0 = time.perf_counter()
@@ -1477,9 +1498,267 @@ def phase_trainer(torch, np, cuda_lstm, train) -> dict:
         if (rc != 0 or not report["submitted"] == report["terminal"] == report["results"]
                 == CLI_REQUESTS or out["serve_launches"]["lstm_fwd"] < 1):
             fail(f"trainer: serve --gan-checkpoint rc {rc}, report {report}")
-        out.update(cli_s=cli_s, serve_s=serve_s,
+        out.update(cli_s=cli_s, serve_s=serve_s, cli_checkpoint=ckpt_path,
                    serve={k: report[k] for k in ("submitted", "terminal", "results",
                                                  "p50_ms", "p95_ms", "qps")})
+    return out
+
+
+#: the sweep phase: the committed panel's 21 latent lanes; (a) at a cut
+#: depth against the CPU from the same draws, (b) the verb at full depth
+SWEEP_LATENTS = list(range(1, 22))
+SWEEP_CMP_EPOCHS, SWEEP_CMP_CHUNK, SWEEP_SEED = 40, 10, 11
+SWEEP_PROFILE_EPOCHS = 10
+SWEEP_SECOND_CKPT_EPOCHS = 2
+ENVELOPE = "results/seed_envelope_rederived/envelope.json"
+COMMITTED_SWEEP = "results/sweep_real_rederived/summary.json"
+ENVELOPE_MARGIN = 0.05
+PINV_OUTPUTS = ("ante", "post", "turnover", "sharpe_ante", "sharpe_post")
+
+
+def csv_numbers(path: str) -> list:
+    """Every cell of a CSV written by the sweep (header and index column
+    apart) as a float; an empty cell (a NaN) fails."""
+    import csv
+
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    try:
+        return [float(c) for r in rows[1:] for c in r[1:]]
+    except ValueError as e:
+        fail(f"sweep: {path} has a cell that is not a number ({e})")
+
+
+def sweep_outputs(np, out_dir: str, stats: bool) -> dict:
+    """Check one dataset's sweep outputs: every file written, every number
+    finite.  Returns its fit metrics' stop epochs and its summary."""
+    import csv
+
+    names = ["fit_metrics.csv", "sharpe_ante.csv", "sharpe_post.csv", "turnover.csv",
+             "summary.json", "ante.npy", "post.npy", "train_loss.npy", "val_loss.npy"]
+    if stats:
+        names += [f"stats_{n}.csv" for n in ("replication", "replication_ante", "benchmark")]
+    missing = [n for n in names if not os.path.isfile(os.path.join(out_dir, n))]
+    if missing:
+        fail(f"sweep: {out_dir} lacks {missing}")
+    for n in names:
+        path = os.path.join(out_dir, n)
+        if n.endswith(".csv"):
+            vals = csv_numbers(path)
+        elif n.endswith(".npy"):
+            vals = np.load(path)
+            if n.endswith("loss.npy"):          # NaN after a lane's stop, by design
+                vals = vals[:, :1]
+        else:
+            continue
+        if not np.all(np.isfinite(vals)):
+            fail(f"sweep: {path} has a number that is not finite")
+    with open(os.path.join(out_dir, "fit_metrics.csv"), newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    with open(os.path.join(out_dir, "summary.json")) as fh:
+        summary = json.load(fh)
+    return {"stop_epochs": [int(r["stop_epoch"]) for r in rows], "summary": summary}
+
+
+def profile_drive(torch, engine, cfg, xs) -> dict:
+    """``torch.profiler`` over a short lane-sweep drive on the card (its
+    warm-up step the same drive): the device's busy share of the window.
+    The profiler's own host cost lengthens the window."""
+    def drive():
+        engine.sweep_autoencoders_chunked(1, xs, cfg, SWEEP_LATENTS, device="cuda")
+
+    wall = []
+
+    def run():
+        t0 = time.perf_counter()
+        drive()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e6)
+
+    by_name = device_time_by_name(traced(torch, drive, run))
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"rows": int(xs.shape[0]), "epochs": cfg.epochs, "wall_us": wall[0],
+            "device_busy_us": busy, "busy_share": busy / wall[0] if busy else None,
+            "top": [{"name": k[:80], "us": v} for k, v in top]}
+
+
+def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
+    """The replication engine and the ``sweep`` verb on the committed panel:
+    (a) the chunked 21-lane sweep on the card against the CPU from the
+    same draws, and its evaluation; (b) the verb at full width and depth,
+    real only, from the trainer phase's checkpoint, and from two
+    checkpoints (the padded multi path), each checked and timed."""
+    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch.core import scaler
+    from hfrep_tpu_torch.core.data import load_panel
+    from hfrep_tpu_torch.replication import engine
+
+    tag = "[sweep]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    cleaned = os.path.join(root, CLEANED_DIR)
+    out = {}
+
+    # (a) the card against the CPU, the same init and permutations
+    panel = load_panel(cleaned, device="cpu")
+    x_train, x_test, _, y_test = panel.train_test_split()
+    xs = scaler.fit_transform(x_train)[1]
+    n_train = int(xs.shape[0] * 0.75)
+    cfg = AEConfig(epochs=SWEEP_CMP_EPOCHS, chunk_epochs=SWEEP_CMP_CHUNK)
+    g = torch.Generator()
+    g.manual_seed(SWEEP_SEED)
+    lanes = (len(SWEEP_LATENTS),)
+    init = engine.keras_init_params(g, lanes, xs.shape[1], max(SWEEP_LATENTS), "cpu")
+    perms = engine.PermStream(SWEEP_SEED, lanes, n_train, torch.device("cpu"))
+    runs, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        runs[dev] = engine.sweep_autoencoders_chunked(
+            0, xs, cfg, SWEEP_LATENTS, init_params=init, device=dev,
+            perm_source=lambda pos, n, dev=dev: perms(pos, n).to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    (cpu, cstats), (gpu, gstats) = runs["cpu"], runs["cuda"]
+    stop_equal = torch.equal(cpu.stop_epoch, gpu.stop_epoch.cpu())
+    loss_err = max(float(torch.nan_to_num((getattr(gpu, k).cpu() - getattr(cpu, k)).abs()
+                                          / getattr(cpu, k).abs(), 0.0).max())
+                   for k in ("train_loss", "val_loss"))
+    nan_equal = all(torch.equal(getattr(gpu, k).cpu().isnan(), getattr(cpu, k).isnan())
+                    for k in ("train_loss", "val_loss"))
+    param_excess = max(float(((gpu.params[k].cpu() - cpu.params[k]).abs()
+                              - (1e-5 + 1e-4 * cpu.params[k].abs())).max())
+                       for k in cpu.params)
+    say(f"{tag} (a) {len(SWEEP_LATENTS)} lanes x {SWEEP_CMP_EPOCHS} epochs at "
+        f"{SWEEP_CMP_CHUNK} a chunk, the same draws: card {secs['cuda']:.2f} s "
+        f"({1e3 * secs['cuda'] / gstats.epochs_dispatched:.2f} ms/epoch, host clock), CPU "
+        f"{secs['cpu']:.2f} s; losses max rel err {loss_err:.3g} (bar 1e-4), NaNs equal "
+        f"{nan_equal}; params max excess over atol 1e-5 + rtol 1e-4 {param_excess:.3g} "
+        f"(<= 0 passes); stop epochs equal {stop_equal} {gpu.stop_epoch.tolist()}")
+    if not (stop_equal and nan_equal and loss_err <= 1e-4 and param_excess <= 0
+            and cstats == gstats):
+        fail(f"sweep: the card's lane sweep differs from the CPU's (losses {loss_err}, "
+             f"params {param_excess}, stops {gpu.stop_epoch.tolist()} against "
+             f"{cpu.stop_epoch.tolist()}, stats {gstats} against {cstats})")
+    masks = torch.stack([engine.latent_mask(d, max(SWEEP_LATENTS), device="cpu")
+                         for d in SWEEP_LATENTS])
+    rf = panel.rf[x_train.shape[0]:]
+    ecfg = AEConfig(latent_dim=max(SWEEP_LATENTS))
+    evs, ev_s = {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        evs[dev] = {k: v.cpu() for k, v in engine.sweep_evaluate(
+            ecfg, xs.to(dev), x_test.to(dev), y_test.to(dev), rf.to(dev),
+            panel.factors.to(dev), {k: v.to(dev) for k, v in cpu.params.items()},
+            masks.to(dev)).items()}
+        ev_s[dev] = time.perf_counter() - t0
+    fit_err, pinv_err = 0.0, 0.0
+    for k, want in evs["cpu"].items():
+        got = evs["cuda"][k]
+        if not bool(torch.isfinite(got).all()):
+            fail(f"sweep: the card's {k} is not finite")
+        if k in PINV_OUTPUTS:
+            pinv_err = max(pinv_err, float((got - want).abs().max())
+                           / max(1.0, float(want.abs().max())))
+        else:
+            fit_err = max(fit_err, float(((got - want).abs() / (1e-6 + want.abs())).max()))
+    say(f"{tag} (a) sweep_evaluate on the card against the CPU: fit metrics max rel err "
+        f"{fit_err:.3g} (bar 1e-4, atol 1e-6), the pseudo-inverse's outputs max scaled err "
+        f"{pinv_err:.3g} (bar 1e-3); card {ev_s['cuda']:.2f} s, CPU {ev_s['cpu']:.2f} s")
+    if fit_err > 1e-4 or pinv_err > 1e-3:
+        fail(f"sweep: sweep_evaluate on the card differs from the CPU's (fit {fit_err}, "
+             f"pseudo-inverse outputs {pinv_err})")
+    out["card_vs_cpu"] = {
+        "lanes": len(SWEEP_LATENTS), "epochs": SWEEP_CMP_EPOCHS, "chunk_epochs": SWEEP_CMP_CHUNK,
+        "card_s": secs["cuda"], "cpu_s": secs["cpu"],
+        "card_ms_per_epoch": 1e3 * secs["cuda"] / gstats.epochs_dispatched,
+        "loss_max_rel_err": loss_err, "param_max_excess": param_excess,
+        "stop_epochs": gpu.stop_epoch.tolist(), "fit_max_rel_err": fit_err,
+        "pinv_max_scaled_err": pinv_err, "eval_card_s": ev_s["cuda"], "eval_cpu_s": ev_s["cpu"]}
+
+    # the device's busy share of a short drive, at the real and the augmented rows
+    pcfg = AEConfig(epochs=SWEEP_PROFILE_EPOCHS, chunk_epochs=SWEEP_PROFILE_EPOCHS)
+    synth = torch.rand((10 * 168, xs.shape[1]), generator=g)
+    out["profile"] = []
+    for rows in (xs, torch.cat([synth, xs])):
+        prof = profile_drive(torch, engine, pcfg, rows.to("cuda"))
+        out["profile"].append(prof)
+        share = prof["busy_share"]
+        say(f"{tag} profile: {prof['rows']} rows, {prof['epochs']} epochs of 21 lanes: "
+            f"{prof['wall_us'] / 1e3:.1f} ms under the profiler, device busy "
+            f"{prof['device_busy_us'] / 1e3:.2f} ms ("
+            + (f"{100 * share:.1f}%" if share else "not measured") + "); top: "
+            + ", ".join(f"{t['name'][:40]} {t['us']:.0f} us" for t in prof["top"][:3]))
+
+    # (b) the verb at full width and depth
+    rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp_prod", "--epochs",
+                        str(SWEEP_SECOND_CKPT_EPOCHS), "--cleaned-dir", cleaned,
+                        "--checkpoint-dir", os.path.join(keep, "prod_b"), "--quiet"])
+    second = os.path.join(keep, "prod_b", f"ckpt_{SWEEP_SECOND_CKPT_EPOCHS}")
+    if rc != 0 or not os.path.isdir(second):
+        fail(f"sweep: the second train-gan run failed (rc {rc})")
+    with open(os.path.join(root, ENVELOPE)) as fh:
+        envelope = json.load(fh)["envelope"]
+    with open(os.path.join(root, COMMITTED_SWEEP)) as fh:
+        committed = json.load(fh)
+    lo = envelope["best_oos_mean"]["min"] - ENVELOPE_MARGIN
+    hi = envelope["best_oos_mean"]["max"] + ENVELOPE_MARGIN
+    runs_b = {}
+    for name, ckpts in (("real", []), ("augmented", [gan_checkpoint]),
+                        ("multi", [gan_checkpoint, second])):
+        dest = os.path.join(keep, f"sweep_{name}")
+        argv = ["sweep", "--cleaned-dir", cleaned, "--latents", "1:21", "--out", dest,
+                "--stats", "--preset", "mtss_wgan_gp_prod"]
+        for c in ckpts:
+            argv += ["--gan-checkpoint", c]
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        rc, text = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cuda_lstm.launch_counts()
+        if rc != 0:
+            fail(f"sweep: the {name} run exited {rc}")
+        with open(os.path.join(dest, "chunk_stats.json")) as fh:
+            cs = json.load(fh)
+        sets = (["real"] + [d for d in sorted(os.listdir(dest)) if d.startswith("gen_")]
+                if len(ckpts) > 1 else [None])
+        checked = {s: sweep_outputs(np, dest if s is None else os.path.join(dest, s), True)
+                   for s in sets}
+        max_stop = max(e for c in checked.values() for e in c["stop_epochs"])
+        others = {k: v for k, v in launches.items() if k != "lstm_fwd" and v}
+        row = {"checkpoints": len(ckpts), "wall_s": wall, "chunk_stats": cs,
+               "max_stop_epoch": max_stop, "lstm_fwd_launches": launches["lstm_fwd"],
+               "ms_per_dispatched_epoch": 1e3 * wall / cs["epochs_dispatched"],
+               "summaries": {str(s): c["summary"]["best_oos_r2"] for s, c in checked.items()},
+               "stop_epochs": {str(s): c["stop_epochs"] for s, c in checked.items()}}
+        runs_b[name] = row
+        say(f"{tag} (b) sweep {name} ({len(ckpts)} checkpoint(s)): {wall:.1f} s, "
+            f"{cs['epochs_dispatched']} epochs in {cs['chunks_dispatched']} chunks "
+            f"({row['ms_per_dispatched_epoch']:.2f} ms an epoch of the verb's wall), "
+            f"{cs['lanes']} lanes, {cs['lanes_stopped']} stopped, overshoot "
+            f"{cs['overshoot_chunks']}, largest stop epoch {max_stop}; lstm_fwd launches "
+            f"{launches['lstm_fwd']}; best OOS R2 " + ", ".join(
+                f"{s}: latent {v['latent']} mean {v['mean']:.4f}"
+                for s, v in row["summaries"].items()))
+        if (cs["epochs_dispatched"] < max_stop or cs["overshoot_chunks"] > 1
+                or cs["epochs_total"] != 1000):
+            fail(f"sweep: {name}'s chunk stats {cs} against the largest stop epoch {max_stop}")
+        if launches["lstm_fwd"] != 2 * len(ckpts) or others:
+            fail(f"sweep: {name} launched lstm_fwd {launches['lstm_fwd']} times (expected "
+                 f"{2 * len(ckpts)}) and {others}")
+    best = runs_b["real"]["summaries"]["None"]
+    say(f"{tag} real only: best OOS R2 mean {best['mean']:.4f} at latent {best['latent']}; "
+        f"the JAX package's 24 seeds {envelope['best_oos_mean']['min']:.4f}.."
+        f"{envelope['best_oos_mean']['max']:.4f} (gate {lo:.4f}..{hi:.4f}), best latents "
+        f"{envelope['best_oos_latent_counts']}; the committed sweep's latent "
+        f"{committed['best_oos_r2']['latent']} mean {committed['best_oos_r2']['mean']:.4f}")
+    if not lo <= best["mean"] <= hi:
+        fail(f"sweep: the real-only best OOS R2 mean {best['mean']} is outside {lo}..{hi}")
+    out["runs"] = runs_b
+    out["envelope_gate"] = [lo, hi]
+    out["sweep_gan_checkpoint_launches"] = (runs_b["augmented"]["lstm_fwd_launches"]
+                                            + runs_b["multi"]["lstm_fwd_launches"])
     return out
 
 
@@ -2207,7 +2486,12 @@ def main() -> None:
     server = phase_server(torch, np, cuda_lstm)
     train = phase_train(torch, cuda_lstm, "auto")
     train_chained = phase_train(torch, cuda_lstm, "chained", TRAIN_PRESETS[:1])
-    trainer = phase_trainer(torch, np, cuda_lstm, train)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        trainer = phase_trainer(torch, np, cuda_lstm, train, keep)
+        sweep = phase_sweep(torch, np, cuda_lstm, keep, trainer["cli_checkpoint"])
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     timing = phase_timing(torch, cuda_lstm)
     grad_timing = phase_grad_timing(torch, cuda_lstm)
     carry_timing = phase_carry_timing(torch, cuda_lstm)
@@ -2232,9 +2516,11 @@ def main() -> None:
         "name": "lstm_fwd", "route": "cuda",
         "source": "hfrep_tpu_torch/csrc/lstm_fwd.cu", "replaces": TPU_KERNEL,
         "launches": (server["launches"] + trained["lstm_fwd"]
-                     + trainer["serve_launches"]["lstm_fwd"]),
+                     + trainer["serve_launches"]["lstm_fwd"]
+                     + sweep["sweep_gan_checkpoint_launches"]),
         "launches_by_path": {"serve": server["launches"],
                              "serve_gan_checkpoint": trainer["serve_launches"]["lstm_fwd"],
+                             "sweep_gan_checkpoint": sweep["sweep_gan_checkpoint_launches"],
                              **{p: c["lstm_fwd"] for p, c in by_route.items()}},
         "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
         "max_err_by_layout": layouts, "us_per_step": head["us_per_step"],
@@ -2360,7 +2646,8 @@ def main() -> None:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
-                       "train_chained": train_chained, "trainer": trainer, "timing": timing,
+                       "train_chained": train_chained, "trainer": trainer, "sweep": sweep,
+                       "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,
                        "carry_timing": carry_timing,

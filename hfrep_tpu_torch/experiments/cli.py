@@ -2,13 +2,16 @@
 
     clean       raw vendor files → cleaned_data/ (needs pandas)
     train-gan   train a GAN preset on the cleaned panel, checkpoint, sample
+    sweep       latent-dim sweep (real only, or GAN-augmented via
+                --gan-checkpoint), tables, summary and --stats
     serve       the replication-server drill, optionally sampling a
                 trained generator from a checkpoint (--gan-checkpoint)
 
 Every verb runs on the card unless ``--device cpu`` is given.  Not
 offered yet (ROADMAP): the mesh flags, ``--profile-dir``, ``--obs-dir``,
-``--eval``, ``--export-h5``, ``--dtype``, and the verbs ``eval-gan``,
-``sweep``, ``pipeline``, ``scenario`` and ``sample-h5``.
+``--eval``, ``--export-h5``, ``--dtype``, ``sweep``'s ``--h5-generator``,
+``--resume`` and ``--plots``, and the verbs ``eval-gan``, ``pipeline``,
+``scenario`` and ``sample-h5``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -52,6 +56,32 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="consecutive rollbacks before giving up (with --nan-guard)")
     t.add_argument("--quiet", action="store_true")
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    s = sub.add_parser("sweep", help="latent-dim sweep (cells 5-33 / 51-69)")
+    s.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
+    s.add_argument("--latents", default="1:21", help="'lo:hi' inclusive, or comma list")
+    s.add_argument("--out", required=True)
+    s.add_argument("--gan-checkpoint", action="append", default=None,
+                   help="generator checkpoint: run the GAN-augmented sweep.  "
+                        "Repeatable: K checkpoints train the real and the K "
+                        "augmented sets as one (K+1)-dataset lane grid with the "
+                        "padded semantics (weighted validation mean, padded "
+                        "batch stream)")
+    s.add_argument("--preset", default="mtss_wgan_gp_prod",
+                   help="preset the checkpoints were trained with")
+    s.add_argument("--n-gen-windows", type=int, default=10)
+    s.add_argument("--epochs", type=int, default=None, help="AE epochs override")
+    s.add_argument("--chunk-epochs", type=int, default=None,
+                   help="epochs a chunk of the early-exit drive (0 = one "
+                        "chunk; the results are the same either way)")
+    s.add_argument("--stats", action="store_true",
+                   help="the stats battery of the best latent (cell 25): "
+                        "Omega/Sharpe/cVaR/CEQ/skew/kurt, FF3F/FF5F alphas, "
+                        "HK+GRS spanning of each HF index vs its replication")
+    s.add_argument("--ff3", default="/root/reference/data/F-F_Research_Data_Factors_daily.CSV")
+    s.add_argument("--ff5",
+                   default="/root/reference/data/F-F_Research_Data_5_Factors_2x3_daily.CSV")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     sv = sub.add_parser("serve", help="replication-server drill")
     sv.add_argument("--requests", type=int, default=2000, help="queries to offer")
@@ -147,6 +177,119 @@ def cmd_train_gan(args) -> int:
     return 0
 
 
+def _parse_latents(spec: str):
+    if ":" in spec:
+        lo, hi = spec.split(":")
+        return list(range(int(lo), int(hi) + 1))
+    return [int(x) for x in spec.split(",")]
+
+
+def _sample_augmentations(args):
+    """Sample every ``--gan-checkpoint``; a source's output subdir and its
+    sampling draws follow its checkpoint's stem, not the flag's position."""
+    from hfrep_tpu_torch.experiments.augment import (sample_generator, source_labels,
+                                                     source_sample_key)
+
+    augs, names = [], []
+    if args.gan_checkpoint:
+        trainer, _ = _make_trainer(args.preset, args.cleaned_dir, quiet=True,
+                                   device=args.device)
+        for ckpt, label in zip(args.gan_checkpoint, source_labels(args.gan_checkpoint)):
+            trainer.restore_checkpoint(ckpt)
+            augs.append(sample_generator(trainer, source_sample_key(label,
+                                                                    device=trainer.device),
+                                         n_windows=args.n_gen_windows))
+            names.append(f"gen_{label}")
+    return augs, names
+
+
+def _write_chunk_stats(stats, out_dir: str) -> dict:
+    doc = dict(stats._asdict(), epochs_saved=stats.epochs_saved)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chunk_stats.json"), "w") as f:
+        json.dump(doc, f, indent=2)
+    return doc
+
+
+def cmd_sweep(args) -> int:
+    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch.core.data import load_panel
+    from hfrep_tpu_torch.experiments.augment import (augment_training_set,
+                                                     augment_training_sets)
+    from hfrep_tpu_torch.experiments.sweep import run_sweep, run_sweep_multi
+
+    panel = load_panel(args.cleaned_dir, device=args.device)
+    x_train, x_test, y_train, y_test = panel.train_test_split()
+    rf_test = panel.rf[x_train.shape[0]:]
+    cfg = AEConfig()
+    if args.epochs:
+        cfg = dataclasses.replace(cfg, epochs=args.epochs)
+    if args.chunk_epochs is not None:
+        cfg = dataclasses.replace(cfg, chunk_epochs=args.chunk_epochs)
+    latents = _parse_latents(args.latents)
+
+    augs, gen_names = _sample_augmentations(args)
+    if len(augs) > 1:
+        # K generators: the real and the K augmented training sets as one
+        # (K+1) x L lane grid, padded to the longest
+        multi = run_sweep_multi(
+            augment_training_sets(x_train, y_train, augs), x_test, y_test, rf_test,
+            panel.factors, cfg, latents, strategy_names=panel.hf_names,
+            dataset_names=["real"] + gen_names, device=args.device)
+        multi.save(args.out)
+        doc = {name: res.summary() for name, res in zip(multi.dataset_names, multi.results)}
+        doc["chunk_stats"] = _write_chunk_stats(multi.chunk_stats, args.out)
+        print(json.dumps(doc, indent=2, default=str))
+        rc = 0
+        for name, res in zip(multi.dataset_names, multi.results):
+            rc |= _sweep_outputs(args, res, os.path.join(args.out, name), panel, y_test,
+                                 rf_test)
+        return rc
+
+    if augs:
+        x_train, y_train = augment_training_set(x_train, y_train, augs[0])
+        print(f"augmented training set: {x_train.shape[0]} rows "
+              f"({augs[0].factors.shape[0]} synthetic)")
+    result = run_sweep(x_train, y_train, x_test, y_test, rf_test, panel.factors, cfg,
+                       latents, strategy_names=panel.hf_names, device=args.device)
+    result.save(args.out)
+    if result.chunk_stats is not None:
+        _write_chunk_stats(result.chunk_stats, args.out)
+    print(json.dumps(result.summary(), indent=2, default=str))
+    return _sweep_outputs(args, result, args.out, panel, y_test, rf_test)
+
+
+def _sweep_outputs(args, result, out_dir, panel, y_test, rf_test) -> int:
+    from hfrep_tpu_torch.experiments import report
+
+    os.makedirs(out_dir, exist_ok=True)
+    if not args.stats:
+        return 0
+    i_best = int(np.argmax(result.oos_r2_mean))
+    p = result.post[i_best]
+    actual = y_test.cpu().numpy()[-p.shape[0]:]
+    rf_aligned = rf_test.cpu().numpy().reshape(-1)[-p.shape[0]:]
+    # the spanning set is the factor/ETF universe, as the notebook's
+    # data_analysis(..., span=factor_etf_data) (cells 25/28); OOS stats
+    # window 2010-05 to 2022-04 (cell 25)
+    span_set = panel.factors.cpu().numpy()[-p.shape[0]:]
+    start, end = "2010-05-31", "2022-04-30"
+    for flag, path in (("--ff3", args.ff3), ("--ff5", args.ff5)):
+        if not os.path.exists(path):
+            print(f"warning: {flag} file {path} not found — "
+                  "FF alpha columns will be omitted", file=sys.stderr)
+    # post (cell 25 second loop), ante (cells 31/65), actual HF (cell 28)
+    for name, returns in (("replication", p), ("replication_ante", result.ante[i_best]),
+                          ("benchmark", actual)):
+        table = report.stats_table(returns, panel.hf_names, rf=rf_aligned,
+                                   ff3_path=args.ff3, ff5_path=args.ff5, span=span_set,
+                                   start=start, end=end)
+        path = os.path.join(out_dir, f"stats_{name}.csv")
+        table.to_csv(path)
+        print(f"stats: {path}")
+    return 0
+
+
 def cmd_serve(args) -> int:
     from hfrep_tpu_torch.serve.aot import GenServeModel
     from hfrep_tpu_torch.serve.fixture import fixture_server, warm_server
@@ -188,7 +331,8 @@ def cmd_serve(args) -> int:
         server.stop()
 
 
-COMMANDS = {"clean": cmd_clean, "train-gan": cmd_train_gan, "serve": cmd_serve}
+COMMANDS = {"clean": cmd_clean, "train-gan": cmd_train_gan, "sweep": cmd_sweep,
+            "serve": cmd_serve}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -59,3 +59,22 @@ def latent_mask(latent_dim: int, max_latent: int,
     """(max_latent,) float32 mask with ones in the first ``latent_dim`` slots."""
     dev = resolve_device(device)
     return (torch.arange(max_latent, device=dev) < latent_dim).to(torch.float32)
+
+
+# ------------------------------------------------ the lane grid's batched form
+def ae_encode(x: torch.Tensor, encoder_kernel: torch.Tensor,
+              latent_mask: Optional[torch.Tensor] = None, slope: float = 0.2) -> torch.Tensor:
+    """:meth:`Autoencoder.encode` with the kernel passed in: ``x`` (..., R, F)
+    against ``encoder_kernel`` (..., F, M), leading (lane) dims broadcast;
+    ``latent_mask`` (..., M) masks each lane's latent columns."""
+    z = leaky_relu(x @ encoder_kernel, slope)
+    if latent_mask is not None:
+        z = z * latent_mask.to(z.dtype).unsqueeze(-2)
+    return z
+
+
+def ae_apply(x: torch.Tensor, encoder_kernel: torch.Tensor, decoder_kernel: torch.Tensor,
+             latent_mask: Optional[torch.Tensor] = None, slope: float = 0.2) -> torch.Tensor:
+    """:meth:`Autoencoder.forward` over a lane grid: (..., R, F) → (..., R, F)."""
+    return leaky_relu(ae_encode(x, encoder_kernel, latent_mask, slope) @ decoder_kernel,
+                      slope)

@@ -25,7 +25,11 @@ alone against their plain version in float64 (scaled 1e-4), bit-equal
 over two launches, a zero head giving the bits of no head.  One
 training epoch on the card against the same epoch on the CPU plain path,
 on the fused and the chained critic route: the JAX package's bar for its
-kernel-vs-scan epoch.
+kernel-vs-scan epoch.  The replication engine's lane sweep on the card
+against the CPU from the same draws (losses rtol 1e-4, params atol 1e-5
++ rtol 1e-4, stop epochs equal; the evaluation's fit metrics rtol 1e-4,
+its pseudo-inverse outputs 1e-3 scaled), and its chunked drive with the
+stop flag read one chunk behind bit-equal to the serial drive.
 """
 
 from __future__ import annotations
@@ -809,3 +813,73 @@ def test_server_on_card_runs_the_kernel(card):
         srv.stop()
     assert report["terminal"] == report["submitted"] == report["results"] == 16
     assert cuda_lstm.launches >= 2
+
+
+def _sweep_inputs():
+    from pathlib import Path
+
+    from hfrep_tpu_torch.core import scaler
+    from hfrep_tpu_torch.core.data import load_panel
+
+    panel = load_panel(Path(__file__).resolve().parents[1] / "results" / "rederived_cleaned",
+                       device="cpu")
+    x_train, x_test, _, y_test = panel.train_test_split()
+    return panel, scaler.fit_transform(x_train)[1], x_test, y_test
+
+
+@pytest.mark.gpu
+def test_lane_sweep_on_card_matches_cpu(card):
+    import numpy as np
+
+    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch.replication import engine
+
+    panel, xs, x_test, y_test = _sweep_inputs()
+    lats = [1, 7, 21]
+    cfg = AEConfig(epochs=30, chunk_epochs=10, latent_dim=21)
+    g = torch.Generator()
+    g.manual_seed(3)
+    init = engine.keras_init_params(g, (3,), 22, 21, "cpu")
+    perms = engine.PermStream(5, (3,), 126, torch.device("cpu"))
+    runs = {dev: engine.sweep_autoencoders_chunked(
+        0, xs, cfg, lats, init_params=init, device=dev,
+        perm_source=lambda pos, n: perms(pos, n).to(dev))[0] for dev in ("cpu", "cuda")}
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    assert torch.equal(cpu.stop_epoch, gpu.stop_epoch.cpu())
+    for k in cpu.params:
+        torch.testing.assert_close(gpu.params[k].cpu(), cpu.params[k], atol=1e-5, rtol=1e-4)
+    for k in ("train_loss", "val_loss"):
+        torch.testing.assert_close(getattr(gpu, k).cpu(), getattr(cpu, k), atol=0, rtol=1e-4,
+                                   equal_nan=True)
+    masks = torch.stack([engine.latent_mask(d, 21, device="cpu") for d in lats])
+    rf = panel.rf[168:]
+    evs = {dev: engine.sweep_evaluate(cfg, xs.to(dev), x_test.to(dev), y_test.to(dev),
+                                      rf.to(dev), panel.factors.to(dev),
+                                      {k: v.to(dev) for k, v in cpu.params.items()},
+                                      masks.to(dev)) for dev in ("cpu", "cuda")}
+    for k, want in evs["cpu"].items():
+        got = evs["cuda"][k].cpu()
+        if k in ("ante", "post", "turnover", "sharpe_ante", "sharpe_post"):
+            err = (got - want).abs().max() / max(1.0, float(want.abs().max()))
+            assert float(err) < 1e-3, k
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+
+
+@pytest.mark.gpu
+def test_double_buffered_drive_on_card_is_bitwise_serial(card):
+    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch.replication import engine
+
+    _, xs, _, _ = _sweep_inputs()
+    out = {}
+    for db in (True, False):
+        cfg = AEConfig(epochs=40, chunk_epochs=7, patience=2, lr=0.05, double_buffer=db)
+        out[db] = engine.sweep_autoencoders_chunked(7, xs, cfg, [1, 3, 21], device="cuda")
+    (a, sa), (b, sb) = out[True], out[False]
+    assert sa.overshoot_chunks <= 1 and sb.overshoot_chunks == 0
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k])
+    assert torch.equal(a.stop_epoch, b.stop_epoch)
+    assert torch.equal(a.val_loss.view(torch.int32), b.val_loss.view(torch.int32))
