@@ -135,7 +135,8 @@ exits non-zero on failure:
              the card and on the CPU from the same init and permutations
              (drawn on the CPU): losses rtol 1e-4, params atol 1e-5 + rtol
              1e-4, stop epochs equal; then ``sweep_evaluate`` of those
-             params on both: fit metrics rtol 1e-4 (atol 1e-6), the
+             params on both: fit metrics |card - CPU| <= 1e-6 + 1e-4
+             |CPU| (allclose's rtol 1e-4, atol 1e-6), the
              pseudo-inverse's outputs (ante, post, turnover, Sharpe) 1e-3
              scaled by max(1, max|CPU|); the device's busy share of a
              profiled 10-epoch drive at the real (168) and the augmented
@@ -1514,6 +1515,7 @@ ENVELOPE = "results/seed_envelope_rederived/envelope.json"
 COMMITTED_SWEEP = "results/sweep_real_rederived/summary.json"
 ENVELOPE_MARGIN = 0.05
 PINV_OUTPUTS = ("ante", "post", "turnover", "sharpe_ante", "sharpe_post")
+FIT_RTOL, FIT_ATOL = 1e-4, 1e-6          # the fit metrics, card against CPU
 
 
 def csv_numbers(path: str) -> list:
@@ -1652,20 +1654,24 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
             panel.factors.to(dev), {k: v.to(dev) for k, v in cpu.params.items()},
             masks.to(dev)).items()}
         ev_s[dev] = time.perf_counter() - t0
-    fit_err, pinv_err = 0.0, 0.0
+    errs = {}
     for k, want in evs["cpu"].items():
         got = evs["cuda"][k]
         if not bool(torch.isfinite(got).all()):
             fail(f"sweep: the card's {k} is not finite")
         if k in PINV_OUTPUTS:
-            pinv_err = max(pinv_err, float((got - want).abs().max())
-                           / max(1.0, float(want.abs().max())))
+            errs[k] = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
         else:
-            fit_err = max(fit_err, float(((got - want).abs() / (1e-6 + want.abs())).max()))
-    say(f"{tag} (a) sweep_evaluate on the card against the CPU: fit metrics max rel err "
-        f"{fit_err:.3g} (bar 1e-4, atol 1e-6), the pseudo-inverse's outputs max scaled err "
-        f"{pinv_err:.3g} (bar 1e-3); card {ev_s['cuda']:.2f} s, CPU {ev_s['cpu']:.2f} s")
-    if fit_err > 1e-4 or pinv_err > 1e-3:
+            # allclose's measure: a per-prefix R² near 0 has no relative precision
+            errs[k] = float(((got - want).abs() / (FIT_ATOL + FIT_RTOL * want.abs())).max())
+    fit_err = max(v for k, v in errs.items() if k not in PINV_OUTPUTS)
+    pinv_err = max(errs[k] for k in PINV_OUTPUTS)
+    say(f"{tag} (a) sweep_evaluate on the card against the CPU: fit metrics max "
+        f"|card - CPU| / ({FIT_ATOL:g} + {FIT_RTOL:g} |CPU|) {fit_err:.3g} (<= 1 passes), the "
+        f"pseudo-inverse's outputs max scaled err {pinv_err:.3g} (bar 1e-3); by output "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; card {ev_s['cuda']:.2f} s, CPU {ev_s['cpu']:.2f} s")
+    if fit_err > 1.0 or pinv_err > 1e-3:
         fail(f"sweep: sweep_evaluate on the card differs from the CPU's (fit {fit_err}, "
              f"pseudo-inverse outputs {pinv_err})")
     out["card_vs_cpu"] = {
@@ -1673,7 +1679,8 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
         "card_s": secs["cuda"], "cpu_s": secs["cpu"],
         "card_ms_per_epoch": 1e3 * secs["cuda"] / gstats.epochs_dispatched,
         "loss_max_rel_err": loss_err, "param_max_excess": param_excess,
-        "stop_epochs": gpu.stop_epoch.tolist(), "fit_max_rel_err": fit_err,
+        "stop_epochs": gpu.stop_epoch.tolist(), "fit_max_allclose_ratio": fit_err,
+        "err_by_output": errs,
         "pinv_max_scaled_err": pinv_err, "eval_card_s": ev_s["cuda"], "eval_cpu_s": ev_s["cpu"]}
 
     # the device's busy share of a short drive, at the real and the augmented rows

@@ -1,4 +1,5 @@
-"""``python -m hfrep_tpu_torch``: the port's CLI (:mod:`hfrep_tpu_torch.experiments.cli`)."""
+"""``python -m hfrep_tpu_torch``: the port's CLI (:mod:`hfrep_tpu_torch.experiments.cli`),
+with the verbs ``clean``, ``train-gan``, ``sweep`` and ``serve``."""
 
 import sys
 

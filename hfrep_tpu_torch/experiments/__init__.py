@@ -1,1 +1,2 @@
-"""Experiment flows of the port: the CLI (``python -m hfrep_tpu_torch``)."""
+"""Experiment flows of the port: GAN augmentation, the latent sweep, its
+reports and the CLI (``python -m hfrep_tpu_torch``)."""

@@ -40,10 +40,8 @@ class Autoencoder(nn.Module):
 
     def encode(self, x: torch.Tensor,
                latent_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        z = leaky_relu(self._cast(x) @ self._cast(self.encoder_kernel), self.slope)
-        if latent_mask is not None:
-            z = z * latent_mask.to(z.dtype)
-        return z
+        return ae_encode(self._cast(x), self._cast(self.encoder_kernel), latent_mask,
+                         self.slope)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return leaky_relu(self._cast(z) @ self._cast(self.decoder_kernel),

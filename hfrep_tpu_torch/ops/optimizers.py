@@ -87,7 +87,5 @@ class KerasNadam:
         state.m_schedule.copy_(keep(state.m_schedule, m_sched_t))
 
 
-def keras_nadam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-                eps: float = 1e-7) -> KerasNadam:
-    """The JAX package's constructor name."""
-    return KerasNadam(learning_rate, b1, b2, eps)
+#: the JAX package's name
+keras_nadam = KerasNadam

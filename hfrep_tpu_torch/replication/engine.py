@@ -186,11 +186,9 @@ class _Grid:
         self.base_w = (torch.arange(self.padded, device=dev) < self.n_train).to(torch.float32)
         self.pad_order = torch.zeros(self.padded - self.n_train, dtype=torch.int64, device=dev)
         fm = self.f * self.m
-        enc = torch.as_tensor(init_params["encoder_kernel"], dtype=torch.float32)
-        dec = torch.as_tensor(init_params["decoder_kernel"], dtype=torch.float32)
         # both kernels of a lane in one flat row: one optimizer update a step
-        self.flat = torch.cat([enc.reshape(d, self.l, fm), dec.reshape(d, self.l, fm)],
-                              dim=-1).to(dev).contiguous()
+        self.flat = torch.cat([init_params["encoder_kernel"].reshape(d, self.l, fm),
+                               init_params["decoder_kernel"].reshape(d, self.l, fm)], dim=-1)
         self.tx = keras_nadam(cfg.lr, b1=0.9, b2=0.999, eps=1e-7)
         self.opt = self.tx.init([self.flat], (d, self.l))
         self.best_val = torch.full((d, self.l), math.inf, dtype=torch.float32, device=dev)
@@ -525,7 +523,7 @@ def ante_weights(cfg: AEConfig, params: dict, mask: Optional[torch.Tensor],
     """Ex-ante replication returns and strategy weights
     (``Autoencoder_encapsulate.py:133-201``): ``(ante (..., P, S), weights
     (..., P, F, S))``.  The encoder sees the raw test returns (``:140``)."""
-    rf = torch.as_tensor(rf, dtype=torch.float32, device=x_test.device).reshape(-1, 1)
+    rf = _tensor(rf, x_test.device).reshape(-1, 1)
     enc, dec = _kernels(params)
     factors = ae_encode(x_test, enc, mask, cfg.leaky_slope)         # (..., T, M)
     n_windows = x_test.shape[0] - window                            # :148 range

@@ -27,10 +27,11 @@ from hfrep_tpu_torch.core.data import Frame
 from hfrep_tpu_torch.ops.rolling import ols_beta
 
 
-def _t(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
-    dev = like.device if like is not None else None
-    return torch.as_tensor(np.array(x) if not isinstance(x, torch.Tensor) else x,
-                           dtype=torch.float32, device=dev)
+def _t(x, device: Optional[torch.device] = None) -> torch.Tensor:
+    """float32, on ``device`` or where ``x`` lies; numpy input is copied."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+    return x.to(device if device is not None else x.device, torch.float32)
 
 
 def omega_ratio(returns, threshold: float = 0.0) -> torch.Tensor:
@@ -157,10 +158,10 @@ def data_analysis(df, rf=None, three_factor=None, five_factor=None,
     in the reference's column order."""
     from hfrep_tpu_torch.replication import spanning
 
-    r = _t(df, df if isinstance(df, torch.Tensor) else None)
+    r = _t(df)
     t = r.shape[0]
     rf_arr = (torch.zeros((t,), device=r.device) if rf is None
-              else _t(rf, r).reshape(-1))
+              else _t(rf, r.device).reshape(-1))
     rh = r.cpu().numpy()
     out: Dict[str, np.ndarray] = {
         "Omega(0%)": omega_ratio(r, 0.0).cpu().numpy(),
@@ -174,12 +175,12 @@ def data_analysis(df, rf=None, three_factor=None, five_factor=None,
         "Kurtosis": _kurtosis(rh),
     }
     if real_data and three_factor is not None:
-        out["FF3F_alpha"] = ols_alpha(r, _t(three_factor, r)).cpu().numpy()
+        out["FF3F_alpha"] = ols_alpha(r, _t(three_factor, r.device)).cpu().numpy()
     if real_data and five_factor is not None:
-        out["FF5F_alpha"] = ols_alpha(r, _t(five_factor, r)).cpu().numpy()
+        out["FF5F_alpha"] = ols_alpha(r, _t(five_factor, r.device)).cpu().numpy()
     if span is not None:
         hk_f, hk_p, grs_f, grs_p = [], [], [], []
-        span_t = _t(span, r)
+        span_t = _t(span, r.device)
         for j in range(r.shape[1]):
             f_stat, p = spanning.hktest(r[:, j:j + 1], span_t)
             hk_f.append(float(f_stat)); hk_p.append(float(p))

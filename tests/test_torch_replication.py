@@ -336,8 +336,8 @@ def test_data_analysis_matches_jax(panel, tmp_path):
 def _sf_at(test: str, f_stat, t: int, n: int, k: int) -> float:
     """The float64 F survival function at JAX's statistic, with the test's
     degrees of freedom.  The p-values are held to it and not to JAX's,
-    which takes ``betainc`` in float32: at HK's F = 1.38 (13 dof pairs of
-    the committed panel) JAX's p misses float64's by 1.2e-5."""
+    which takes ``betainc`` in float32: on the committed panel JAX's HK
+    p-values miss float64's by more than the 1e-5 bar."""
     from scipy import stats
 
     if test == "HK":
