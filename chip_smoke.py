@@ -76,8 +76,9 @@ exits non-zero on failure:
              bit-equal, and timed by the profiler beside the plain
              version, their bound and one PyTorch call computing the same
              function (``torch.matmul``/``bmm``/``sum``, TF32 off);
-3. server  — the main path: ``ReplicationServer`` on ``cuda`` with the
-             fixture AE head and the ``mtss_wgan_gp`` generator, then the
+3. server  — the main path: ``ReplicationServer`` on ``cuda`` with an AE
+             head at ``AEConfig()`` widths (Keras-default init, 22 factors)
+             and the ``mtss_wgan_gp`` generator, then the
              ``mtss_wgan_gp_prod`` one: start, ``warm_server`` (the program
              grid plus one real batch per path), 64 requests through
              ``drive_load(..., sample_every=2)``, drain.  Launch counts
@@ -151,6 +152,37 @@ exits non-zero on failure:
              other kernel; the real-only best OOS R² mean within the JAX
              package's 24-seed envelope on this panel widened by 0.05 a
              side; wall seconds, epochs and chunks dispatched recorded;
+5d. eval   — the metrics: ``train-gan --eval`` at ``mtss_wgan_gp`` for 2
+             epochs with a checkpoint and 500 samples (launches: the train
+             phase's per-epoch counts twice, and 2 lstm_fwd for the samples
+             and 2 for the eval's 500, exactly), then ``eval-gan`` on those
+             samples: exit 0 and 12 finite metrics in ``--out``; then
+             ``GanEval`` on the card and on the CPU over the same cubes — the
+             first 500 real windows of the committed panel at both presets
+             against 500 fakes of that checkpoint (W=48) and of the trainer
+             phase's ``train-gan`` checkpoint (W=168) — held at the CPU
+             tests' bars (``metric_check``: FID 1e-5 scaled by max(1, tr S1 +
+             tr S2), the MMDs 1e-5 scaled by their kernel means,
+             R2_relative_error 1e-3 scaled, kl/js rtol 1e-5 and the
+             Inception score through its log, the rest rtol 1e-6); the
+             fakes launch 2 lstm_fwd each and GanEval no kernel;
+5e. scenario — the scenario factory on the committed panel: (a) the
+             conditional mtss_wgan_gp epoch (W=24, 22 factors + 3 regimes,
+             n_critic 1, B=32) for 3 counted epochs on each critic route,
+             its launches exactly ``COND_ROUTE_LAUNCHES`` an epoch and 12
+             weight sums, then one epoch against the CPU plain path on the
+             same draws (d_loss, g_loss rtol 1e-4; params atol 1e-5 + rtol
+             1e-4); (b) ``scenario bank --family mtss_wgan_gp
+             --train-epochs 30`` twice into fresh dirs: 12 blocks written,
+             the fused route's counts for 30 epochs and 2 lstm_fwd a block,
+             every block digest of the second run the first's; (c)
+             ``scenario walkforward`` on the panel and ``scenario
+             universe`` at its defaults (64 funds, 360 months, 22 factors;
+             both 24 windows x latents 1:8, 1000-epoch cap): every file
+             written, every number finite, no kernel launched; the
+             walk-forward grid (6 windows x 8 latents x 20 epochs) on the
+             card against the CPU from the same draws at the sweep phase's
+             bars;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -1102,17 +1134,20 @@ def check_answers(torch, np, srv, futures, panels, preset_cfg) -> None:
 
 
 def phase_server(torch, np, cuda_lstm) -> dict:
-    from hfrep_tpu_torch.config import get_preset
-    from hfrep_tpu_torch.serve.fixture import fixture_server, warm_server
+    from hfrep_tpu_torch.config import AEConfig, get_preset
+    from hfrep_tpu_torch.serve.fixture import fixture_server, init_ae_model, warm_server
     from hfrep_tpu_torch.serve.loadgen import drive_load, make_panels
     from hfrep_tpu_torch.serve.server import ServeConfig
 
+    # the AE head: AEConfig() widths (the paper's 22 factors), Keras-default init
     panels = make_panels(0, 22, (12, 48, 96, 200))
     out = {"launches": 0, "runs": []}
+    say("[server] AE head: AEConfig() widths (22 factors, latent 21), Keras-default init")
     for preset in ("mtss_wgan_gp", "mtss_wgan_gp_prod"):
         cuda_lstm.reset_launches()
         t0 = time.perf_counter()
-        srv = fixture_server(ServeConfig(), preset=preset, device="cuda")
+        srv = fixture_server(ServeConfig(), preset=preset, device="cuda",
+                             ae_model=init_ae_model(AEConfig(), device="cuda"))
         programs = warm_server(srv, panels)     # program grid + one batch per path
         report = drive_load(srv, 64, panels, sample_every=2, timeout_ms=30000,
                             keep_futures=True)
@@ -1173,21 +1208,20 @@ def profile_epoch(torch, step, state, draws) -> dict:
             "top": [{"name": k[:80], "us": v} for k, v in top]}
 
 
-def epoch_parity(torch, mcfg, tcfg, pair, dataset, state, draws) -> dict:
+def epoch_parity(torch, step_on, state, draws) -> dict:
     """One epoch on the card and the same epoch — a copy of the state (its
     critic route included), the same draws — through the plain path on
-    the CPU."""
-    from hfrep_tpu_torch.models.registry import build_gan
-    from hfrep_tpu_torch.train import Draws, make_train_step
+    the CPU.  ``step_on(device)`` builds the epoch step on ``"cuda"`` or
+    ``"cpu"``."""
+    from hfrep_tpu_torch.train import Draws
 
     cpu_state = state.to("cpu")
     cpu_draws = Draws(*(None if t is None else t.cpu()
                         for t in (draws.idx, draws.noises, draws.alphas)))
-    state, m = make_train_step(pair, tcfg, dataset)(state, draws)
+    state, m = step_on("cuda")(state, draws)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cpu_pair = build_gan(mcfg, device="cpu")
-    cpu_state, mc = make_train_step(cpu_pair, tcfg, dataset.cpu())(cpu_state, cpu_draws)
+    cpu_state, mc = step_on("cpu")(cpu_state, cpu_draws)
     cpu_s = time.perf_counter() - t0
     rel = {k: abs(float(m[k]) - float(mc[k])) / max(abs(float(mc[k])), 1e-30)
            for k in ("d_loss", "g_loss")}
@@ -1268,8 +1302,11 @@ def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
         one = dataclasses.replace(tcfg, steps_per_call=1)
         prof = profile_epoch(torch, make_train_step(pair, one, dataset), state,
                              sample_draws(g, pair, one, dataset))
-        parity = epoch_parity(torch, mcfg, one, pair, dataset, state,
-                              sample_draws(g, pair, one, dataset))
+        cpu_pair = build_gan(mcfg, device="cpu")
+        parity = epoch_parity(
+            torch, lambda dev: make_train_step(pair if dev == "cuda" else cpu_pair, one,
+                                               dataset.to(dev)),
+            state, sample_draws(g, pair, one, dataset))
         busy = ("not measured" if not prof["device_busy_us"] else
                 f"device busy {prof['device_busy_us']:.0f} of {prof['wall_us']:.0f} us "
                 f"({100 * prof['busy_share']:.1f}%)")
@@ -1766,6 +1803,408 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
     out["envelope_gate"] = [lo, hi]
     out["sweep_gan_checkpoint_launches"] = (runs_b["augmented"]["lstm_fwd_launches"]
                                             + runs_b["multi"]["lstm_fwd_launches"])
+    return out
+
+
+def sum_launches_by_shape(cuda_lstm) -> dict:
+    """The weight sums' launches since the last reset, by launch shape."""
+    by_key = cuda_lstm.weight_sum_launches()
+    return {name: by_key[(nsum, npair, m == 1)] for name, nsum, npair, m in SUM_SHAPES}
+
+
+def check_route_launches(what: str, launches: dict, sums: dict, per_epoch: dict,
+                         epochs: int, extra_fwd: int = 0) -> None:
+    """Fail unless exactly ``per_epoch`` times ``epochs`` launched (plus
+    ``extra_fwd`` lstm_fwd sampling launches) and the weight sums as often
+    as those kernels launch them."""
+    want = {k: c * epochs for k, c in per_epoch.items()}
+    want["lstm_fwd"] = want.get("lstm_fwd", 0) + extra_fwd
+    got = {k: c for k, c in launches.items() if c}
+    if got != {k: c for k, c in want.items() if c}:
+        fail(f"{what}: launched {got}, expected exactly {want}")
+    by_shape = {k: sum(launches[n] for n in names) for k, names in SUM_LAUNCHES.items()}
+    if sums != by_shape:
+        fail(f"{what}: weight-sum launches {sums}, expected {by_shape} from the kernels' "
+             "launches")
+
+
+#: the eval phase: 500 fakes against the first 500 real windows, as
+#: train-gan --eval scores them; train-gan --eval for 2 epochs
+EVAL_N, EVAL_CLI_EPOCHS = 500, 2
+
+
+def metric_check(np, name: str, got: float, want: float, real, fake) -> float:
+    """|card - CPU| over the CPU tests' bar for metric ``name``
+    (``tests/test_torch_metrics.py``); <= 1 passes.  FID: 1e-5 scaled by
+    max(1, tr S1 + tr S2); the MMDs: 1e-5 scaled by max(1, the kernel
+    means' magnitudes); R2_relative_error: 1e-3 scaled by max(1, |CPU|);
+    kl_div, js_div: rtol 1e-5, atol 1e-7; Inception_score through its log
+    at that bar (two infinities agree); the rest rtol 1e-6, atol 1e-7."""
+    import math
+
+    if name == "Inception_score":
+        if math.isinf(got) and math.isinf(want):
+            return 0.0
+        got, want = math.log(got), math.log(want)
+    d = abs(got - want)
+    r = real.reshape(-1, real.shape[-1]).astype(np.float64)
+    f = fake.reshape(-1, fake.shape[-1]).astype(np.float64)
+    if name == "FID":
+        scale = max(1.0, np.trace(np.cov(r, rowvar=False)) + np.trace(np.cov(f, rowvar=False)))
+        return d / (1e-5 * scale)
+    if name.endswith("MMD"):
+        a, b = real.mean(axis=0).astype(np.float64), fake.mean(axis=0).astype(np.float64)
+
+        def k(x, y):
+            if name == "linear_MMD":
+                return x @ y.T
+            if name == "poly_MMD":
+                return (x @ y.T) ** 2
+            sq = (x * x).sum(1)[:, None] + (y * y).sum(1)[None] - 2 * x @ y.T
+            return np.exp(-np.maximum(sq, 0))
+
+        scale = max(1.0, abs(k(a, a).mean()) + abs(k(b, b).mean()) + 2 * abs(k(a, b).mean()))
+        return d / (1e-5 * scale)
+    if name == "R2_relative_error":
+        return d / (1e-3 * max(1.0, abs(want)))
+    if name in ("kl_div", "js_div", "Inception_score"):
+        return d / (1e-7 + 1e-5 * abs(want))
+    return d / (1e-7 + 1e-6 * abs(want))
+
+
+def phase_eval(torch, np, cuda_lstm, train, keep: str, gan_checkpoint: str) -> dict:
+    """The metrics on the card: (a) ``train-gan --eval`` at mtss_wgan_gp for
+    2 epochs with a checkpoint and 500 samples, its launches gated
+    exactly, then ``eval-gan`` on those samples: exit 0 and 12 finite
+    metrics in ``--out``; (b) GanEval on the card and on the CPU over the
+    same cubes — the first 500 real windows of the committed panel at
+    both presets against 500 fakes of the (a) checkpoint and of the
+    trainer phase's ``train-gan`` checkpoint — held at the CPU tests'
+    bars (:func:`metric_check`)."""
+    from hfrep_tpu_torch.config import get_preset
+    from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
+    from hfrep_tpu_torch.metrics.gan_eval import GanEval
+    from hfrep_tpu_torch.train.trainer import GanTrainer
+
+    tag = "[eval]"
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    per_epoch = next(r for r in train if r["preset"] == "mtss_wgan_gp")["launches_per_epoch"]
+    out = {}
+    # (a) train-gan --eval, then eval-gan on its samples
+    ck = os.path.join(keep, "eval48")
+    cube_path = os.path.join(keep, "eval_cube.npy")
+    cuda_lstm.reset_launches()
+    t0 = time.perf_counter()
+    rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp", "--epochs",
+                        str(EVAL_CLI_EPOCHS), "--cleaned-dir", cleaned, "--checkpoint-dir", ck,
+                        "--samples-out", cube_path, "--n-samples", str(EVAL_N), "--quiet",
+                        "--eval"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches, sums = cuda_lstm.launch_counts(), sum_launches_by_shape(cuda_lstm)
+    doc = json.loads(text[text.index("{"):]) if rc == 0 and "{" in text else {}
+    say(f"{tag} train-gan --eval, mtss_wgan_gp, {EVAL_CLI_EPOCHS} epochs: rc {rc}, {cli_s:.1f} s; "
+        f"metrics {doc}")
+    if rc != 0 or len(doc) != 12 or not all(np.isfinite(v) for v in doc.values()):
+        fail(f"eval: train-gan --eval rc {rc}, metrics {doc}")
+    # the epochs, then 2 lstm_fwd for the samples and 2 for the eval's 500
+    check_route_launches("eval: train-gan --eval", launches, sums, per_epoch,
+                         EVAL_CLI_EPOCHS, extra_fwd=4)
+    out.update(cli_eval_metrics=doc, cli_eval_s=cli_s, launches=launches,
+               weight_sum_launches=sums)
+    eval_out = os.path.join(keep, "eval.json")
+    t0 = time.perf_counter()
+    rc, text = run_cli(["eval-gan", "--samples", cube_path, "--preset", "mtss_wgan_gp",
+                        "--cleaned-dir", cleaned, "--out", eval_out])
+    eval_s = time.perf_counter() - t0
+    got = {}
+    if rc == 0 and os.path.isfile(eval_out):
+        with open(eval_out) as fh:
+            got = json.load(fh)
+    say(f"{tag} eval-gan on the {EVAL_N}-window cube: rc {rc}, {eval_s:.1f} s; --out {got}")
+    if rc != 0 or len(got) != 12 or not all(np.isfinite(v) for v in got.values()):
+        fail(f"eval: eval-gan rc {rc}, metrics {got}")
+    out.update(eval_gan_metrics=got, eval_gan_s=eval_s)
+
+    # (b) GanEval on the card against the CPU over the same cubes
+    out["card_vs_cpu"] = []
+    panel = load_panel(cleaned, device="cuda")
+    for preset, ckpt_path in (("mtss_wgan_gp", os.path.join(ck, f"ckpt_{EVAL_CLI_EPOCHS}")),
+                              ("mtss_wgan_gp_prod", gan_checkpoint)):
+        cfg = get_preset(preset)
+        ds = build_gan_dataset(cfg.data, cfg.data.seed, panel)
+        tr = GanTrainer(cfg, ds, device="cuda")
+        tr.restore_checkpoint(ckpt_path)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(11)
+        cuda_lstm.reset_launches()
+        fake = tr.generate(EVAL_N, generator=g, unscale=False)
+        torch.cuda.synchronize()
+        fake_launches = cuda_lstm.launch_counts()
+        for k, c in fake_launches.items():
+            launches[k] += c
+        real = ds.windows[:EVAL_N]
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        card = GanEval(real, fake, ds.windows).run_all()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        eval_launches = {k: c for k, c in cuda_lstm.launch_counts().items() if c}
+        t0 = time.perf_counter()
+        cpu = GanEval(real.cpu(), fake.cpu(), ds.windows.cpu()).run_all()
+        cpu_s = time.perf_counter() - t0
+        rn, fn = real.cpu().numpy(), fake.cpu().numpy()
+        ratios = {k: metric_check(np, k, card[k], cpu[k], rn, fn) for k in cpu}
+        worst = max(ratios, key=ratios.get)
+        say(f"{tag} {preset} W={cfg.model.window}: GanEval of {EVAL_N} fakes "
+            f"({os.path.basename(ckpt_path)}) on the card {card_s:.2f} s, CPU {cpu_s:.2f} s; "
+            f"card vs CPU |diff| / bar, <= 1 passes: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items())
+            + f"; card {card}")
+        if (fake_launches["lstm_fwd"] != 2 or sum(fake_launches.values()) != 2
+                or eval_launches):
+            fail(f"eval: {preset}: the fakes launched {fake_launches} (2 lstm_fwd), "
+                 f"GanEval {eval_launches} (none)")
+        if ratios[worst] > 1.0 or list(card) != list(cpu):
+            fail(f"eval: {preset}: GanEval on the card differs from the CPU's at {worst} "
+                 f"({card[worst]} against {cpu[worst]}, {ratios[worst]:.3g} of its bar)")
+        out["card_vs_cpu"].append({"preset": preset, "W": cfg.model.window,
+                                   "checkpoint": os.path.basename(ckpt_path), "card": card,
+                                   "cpu": cpu, "ratio_to_bar": ratios, "card_s": card_s,
+                                   "cpu_s": cpu_s})
+    out["launches"] = launches
+    return out
+
+
+#: the scenario phase: the conditional mtss_wgan_gp epoch (W=24, the
+#: panel's 22 factors + 3 regimes, n_critic 1, B=32) on each critic route.
+#: Per epoch: the unconditional epoch's counts (2/2/2/11/16/5 fused,
+#: 2/24/34/10 chained: the fake pass, 5 critic iterations, the generator
+#: update) less 4 critic iterations (fused stack_fwd_res 2, stack_bwd 3,
+#: stack_adj 1 each; chained lstm_fwd_cs 4, lstm_bwd 6, lstm_adj 2 each);
+#: the weight sums 2 + 4 + 1 + 5 fused, 10 + 2 chained
+COND_ROUTE_LAUNCHES = {
+    "auto": {"lstm_fwd": 2, "lstm_fwd_cs": 2, "lstm_bwd": 2, "stack_fwd_res": 3,
+             "stack_bwd": 4, "stack_adj": 1},
+    "chained": {"lstm_fwd": 2, "lstm_fwd_cs": 8, "lstm_bwd": 10, "lstm_adj": 2},
+}
+COND_SUM_LAUNCHES_PER_EPOCH = 12
+COND_W, COND_REGIMES, COND_EPOCHS = 24, 3, 3
+BANK_EPOCHS, BANK_BLOCKS, BANK_BLOCK_SIZE = 30, 4, 16
+#: the walk-forward and universe verbs at their defaults (start 120, 24
+#: windows, horizon 36, latents 1:8: 192 lanes, the AE's 1000-epoch cap);
+#: the grid's card against CPU cut to WF_CMP_WINDOWS windows and
+#: WF_CMP_EPOCHS epochs (the CPU's time)
+WF_EPOCHS = 1000
+WF_CMP_WINDOWS, WF_CMP_EPOCHS, WF_CMP_CHUNK, WF_SEED = 6, 20, 10, 13
+WF_LATENTS = list(range(1, 9))
+
+
+def walkforward_outputs(np, out_dir: str, windows: int, latents: int) -> dict:
+    """Check a walk-forward's files: every one written, every number
+    finite; returns the manifest."""
+    names = ["walkforward.csv", "walkforward_ante.csv", "walkforward.json"]
+    missing = [n for n in names if not os.path.isfile(os.path.join(out_dir, n))]
+    if missing:
+        fail(f"scenario: {out_dir} lacks {missing}")
+    for n in names[:2]:
+        vals = csv_numbers(os.path.join(out_dir, n))
+        if len(vals) != windows * latents or not np.all(np.isfinite(vals)):
+            fail(f"scenario: {n} has {len(vals)} cells or one not finite")
+    with open(os.path.join(out_dir, "walkforward.json")) as fh:
+        manifest = json.load(fh)
+    if len(manifest["windows"]) != windows:
+        fail(f"scenario: {out_dir} manifest lists {len(manifest['windows'])} windows")
+    for name in manifest["windows"]:
+        with np.load(os.path.join(out_dir, "windows", name, "scores.npz")) as z:
+            if not all(np.all(np.isfinite(z[k])) for k in ("sharpe_ante", "sharpe_post")):
+                fail(f"scenario: {name}'s scores are not finite")
+    return manifest
+
+
+def phase_scenario(torch, np, cuda_lstm, keep: str) -> dict:
+    """The scenario factory on the committed panel: (a) the conditional
+    mtss_wgan_gp epoch on the card, each critic route, its launches gated
+    exactly, one epoch against the CPU plain path on the same draws;
+    (b) ``scenario bank --family mtss_wgan_gp --train-epochs 30``, twice:
+    the bank written, every block digest reproduced; (c) ``scenario
+    walkforward`` on the panel and ``scenario universe`` at its defaults
+    (64 funds, 360 months, 22 factors), every file written and every
+    number finite, and the walk-forward grid's training on the card
+    against the CPU's from the same draws."""
+    from hfrep_tpu_torch.config import AEConfig, ModelConfig, TrainConfig
+    from hfrep_tpu_torch.core import scaler
+    from hfrep_tpu_torch.core.data import load_panel
+    from hfrep_tpu_torch.replication import engine
+    from hfrep_tpu_torch.scenario import regimes as reg
+    from hfrep_tpu_torch.scenario import walkforward
+    from hfrep_tpu_torch.scenario.conditional import _pair_of, sliding_windows
+    from hfrep_tpu_torch.train import (init_conditional_state, make_conditional_step,
+                                       make_multi_step, sample_draws)
+
+    tag = "[scenario]"
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    panel = load_panel(cleaned, device="cpu")
+    out = {"epochs": []}
+
+    # (a) the conditional epoch on each critic route
+    x = panel.factors.numpy()
+    labels = reg.label_regimes(x, 12, COND_REGIMES)
+    windows = sliding_windows(scaler.fit_transform(panel.factors)[1].numpy(), COND_W)
+    conds = reg.window_conditions(labels, COND_W, COND_REGIMES)
+    ds, cond = torch.from_numpy(windows).cuda(), torch.from_numpy(conds).cuda()
+    mcfg = ModelConfig(family="mtss_wgan_gp", features=x.shape[1], window=COND_W)
+    tcfg = TrainConfig(batch_size=32, n_critic=1, steps_per_call=COND_EPOCHS)
+    one = dataclasses.replace(tcfg, steps_per_call=1)
+    for k, route in enumerate(("auto", "chained")):
+        state = init_conditional_state(200 + k, mcfg, COND_REGIMES, device="cuda")
+        state.discriminator.body.stack = route
+        pair = _pair_of(state, mcfg)
+        multi = make_multi_step(pair, tcfg, ds, step=make_conditional_step(pair, tcfg, ds, cond))
+        g = torch.Generator(device="cuda")
+        g.manual_seed(300 + k)
+        torch.cuda.synchronize()
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = multi(state, generator=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, sums = cuda_lstm.launch_counts(), sum_launches_by_shape(cuda_lstm)
+        d_loss, g_loss = metrics["d_loss"].cpu(), metrics["g_loss"].cpu()
+        if not (torch.isfinite(d_loss).all() and torch.isfinite(g_loss).all()):
+            fail(f"scenario: {route} conditional losses not finite: {d_loss}, {g_loss}")
+        check_route_launches(f"scenario: the conditional epochs ({route} route)", launches,
+                             sums, COND_ROUTE_LAUNCHES[route], COND_EPOCHS)
+        if sum(sums.values()) != COND_SUM_LAUNCHES_PER_EPOCH * COND_EPOCHS:
+            fail(f"scenario: {route}: {sum(sums.values())} weight-sum launches, expected "
+                 f"{COND_SUM_LAUNCHES_PER_EPOCH} an epoch")
+        cpu_pair = _pair_of(state.to("cpu"), mcfg)
+        parity = epoch_parity(
+            torch, lambda dev: make_conditional_step(pair if dev == "cuda" else cpu_pair, one,
+                                                     ds.to(dev), cond.to(dev)),
+            state, sample_draws(g, pair, one, ds))
+        say(f"{tag} (a) conditional mtss_wgan_gp W={COND_W} F={x.shape[1]}+{COND_REGIMES} "
+            f"({len(windows)} windows), {route} route: {COND_EPOCHS} epochs in {wall:.2f} s, "
+            f"d_loss {[round(float(v), 5) for v in d_loss]}; launches per epoch "
+            + ", ".join(f"{n} {c / COND_EPOCHS:g}" for n, c in launches.items() if c)
+            + f", weight sums {sum(sums.values()) / COND_EPOCHS:g}; one epoch card vs CPU: "
+            f"d_loss rel {parity['loss_rel_diff']['d_loss']:.2e}, g_loss rel "
+            f"{parity['loss_rel_diff']['g_loss']:.2e} (limit 1e-4), params worst "
+            f"|diff|/(1e-5+1e-4|cpu|) {parity['param_worst_ratio']:.3f} at "
+            f"{parity['param_worst_at']} (limit 1)")
+        if not parity["ok"]:
+            fail(f"scenario: the card's conditional epoch ({route}) differs from the CPU "
+                 f"plain path: {parity}")
+        out["epochs"].append({"route": route, "W": COND_W, "F": x.shape[1],
+                              "regimes": COND_REGIMES, "launches": launches,
+                              "weight_sum_launches": sums, "wall_s": wall,
+                              "d_loss": d_loss.tolist(), "g_loss": g_loss.tolist(),
+                              "parity": parity})
+
+    # (b) the bank verb, twice with the same seed
+    banks = []
+    for i in range(2):
+        dest = os.path.join(keep, f"bank{i}")
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        rc, text = run_cli(["scenario", "bank", "--family", "mtss_wgan_gp", "--train-epochs",
+                            str(BANK_EPOCHS), "--cleaned-dir", cleaned, "--out", dest])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, sums = cuda_lstm.launch_counts(), sum_launches_by_shape(cuda_lstm)
+        if rc != 0 or not os.path.isfile(os.path.join(dest, "bank.json")):
+            fail(f"scenario: bank run {i} rc {rc}")
+        with open(os.path.join(dest, "bank.json")) as fh:
+            manifest = json.load(fh)
+        n_blocks = COND_REGIMES * BANK_BLOCKS
+        for name in manifest["block_digests"]:
+            arr = np.load(os.path.join(dest, "blocks", name, "samples.npy"))
+            if arr.shape != (BANK_BLOCK_SIZE, COND_W, x.shape[1]) or not np.isfinite(arr).all():
+                fail(f"scenario: bank block {name} shape {arr.shape} or not finite")
+        if len(manifest["block_digests"]) != n_blocks:
+            fail(f"scenario: the bank holds {len(manifest['block_digests'])} blocks")
+        # the epochs on the fused route, then 2 lstm_fwd a block
+        check_route_launches(f"scenario: bank run {i}", launches, sums,
+                             COND_ROUTE_LAUNCHES["auto"], BANK_EPOCHS, extra_fwd=2 * n_blocks)
+        banks.append({"wall_s": wall, "launches": launches, "weight_sum_launches": sums,
+                      "aggregate_digest": manifest["aggregate_digest"],
+                      "block_digests": manifest["block_digests"]})
+    same = banks[0]["block_digests"] == banks[1]["block_digests"]
+    say(f"{tag} (b) scenario bank --family mtss_wgan_gp --train-epochs {BANK_EPOCHS}: "
+        f"{COND_REGIMES * BANK_BLOCKS} blocks of {BANK_BLOCK_SIZE}, {banks[0]['wall_s']:.1f} s "
+        f"and {banks[1]['wall_s']:.1f} s; a second run reproduces every block digest: {same} "
+        f"(aggregate {banks[0]['aggregate_digest'][:16]}); launches "
+        + ", ".join(f"{n} {c}" for n, c in banks[0]["launches"].items() if c))
+    if not same or banks[0]["aggregate_digest"] != banks[1]["aggregate_digest"]:
+        fail("scenario: the second bank run's digests differ from the first's")
+    out["bank"] = banks[0]
+    out["bank_second_wall_s"] = banks[1]["wall_s"]
+
+    # (c) the walk-forward and universe verbs, then the grid against the CPU
+    out["verbs"] = {}
+    for mode, extra in (("walkforward", ["--cleaned-dir", cleaned]), ("universe", [])):
+        dest = os.path.join(keep, mode)
+        cuda_lstm.reset_launches()
+        t0 = time.perf_counter()
+        rc, text = run_cli(["scenario", mode, "--out", dest, "--epochs", str(WF_EPOCHS)] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: c for k, c in cuda_lstm.launch_counts().items() if c}
+        if rc != 0:
+            fail(f"scenario: {mode} rc {rc}")
+        doc = json.loads(text[:text.index("\nsurface: ")])
+        manifest = walkforward_outputs(np, dest, 24, len(WF_LATENTS))
+        st = doc["stats"]
+        say(f"{tag} (c) scenario {mode} ({st['funds']} funds, {st['months']} months): "
+            f"{wall:.1f} s, {st['lanes']} lanes, pad waste {st['pad_waste_frac']:.4f}, train "
+            f"{st['train_secs']} s, eval {st['eval_secs']} s, {st['windows_per_sec']} windows/s; "
+            f"chunks {st['chunk_stats']}; mean Sharpe post "
+            f"{manifest['summary']['mean_sharpe_post']}; kernels launched {launched}")
+        if launched:
+            fail(f"scenario: {mode} launched {launched}: the AE path has no hand kernel")
+        out["verbs"][mode] = {"wall_s": wall, "stats": st,
+                              "mean_sharpe_post": manifest["summary"]["mean_sharpe_post"]}
+    spec = walkforward.WalkForwardSpec(start=120, n_windows=WF_CMP_WINDOWS, horizon=36)
+    cfg = AEConfig(epochs=WF_CMP_EPOCHS, chunk_epochs=WF_CMP_CHUNK,
+                   latent_dim=max(WF_LATENTS))
+    lanes = (WF_CMP_WINDOWS, len(WF_LATENTS))
+    gen = torch.Generator()
+    gen.manual_seed(WF_SEED)
+    init = engine.keras_init_params(gen, lanes, x.shape[1], max(WF_LATENTS), "cpu")
+    n_train = int(spec.train_rows(WF_CMP_WINDOWS - 1) * (1.0 - cfg.val_split))
+    perms = engine.PermStream(WF_SEED, lanes, n_train, torch.device("cpu"))
+    runs, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        runs[dev] = walkforward._train_grid(
+            0, x, spec, cfg, WF_LATENTS, init_params=init, device=dev,
+            perm_source=lambda pos, n, dev=dev: perms(pos, n).to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    (cpu, cstats, _), (gpu, gstats, _) = runs["cpu"], runs["cuda"]
+    stop_equal = torch.equal(cpu.stop_epoch, gpu.stop_epoch.cpu())
+    loss_err = max(float(torch.nan_to_num((getattr(gpu, k).cpu() - getattr(cpu, k)).abs()
+                                          / getattr(cpu, k).abs(), 0.0).max())
+                   for k in ("train_loss", "val_loss"))
+    nan_equal = all(torch.equal(getattr(gpu, k).cpu().isnan(), getattr(cpu, k).isnan())
+                    for k in ("train_loss", "val_loss"))
+    param_excess = max(float(((gpu.params[k].cpu() - cpu.params[k]).abs()
+                              - (1e-5 + 1e-4 * cpu.params[k].abs())).max())
+                       for k in cpu.params)
+    say(f"{tag} (c) the walk-forward grid, {WF_CMP_WINDOWS} windows x {len(WF_LATENTS)} "
+        f"latents x {WF_CMP_EPOCHS} epochs, the same draws: card {secs['cuda']:.2f} s, CPU "
+        f"{secs['cpu']:.2f} s; losses max rel err {loss_err:.3g} (bar 1e-4), NaNs equal "
+        f"{nan_equal}; params max excess over atol 1e-5 + rtol 1e-4 {param_excess:.3g} "
+        f"(<= 0 passes); stop epochs equal {stop_equal}")
+    if not (stop_equal and nan_equal and loss_err <= 1e-4 and param_excess <= 0
+            and cstats == gstats):
+        fail(f"scenario: the card's walk-forward grid differs from the CPU's (losses "
+             f"{loss_err}, params {param_excess}, stats {gstats} against {cstats})")
+    out["grid_card_vs_cpu"] = {"windows": WF_CMP_WINDOWS, "latents": len(WF_LATENTS),
+                               "epochs": WF_CMP_EPOCHS, "card_s": secs["cuda"],
+                               "cpu_s": secs["cpu"], "loss_max_rel_err": loss_err,
+                               "param_max_excess": param_excess}
     return out
 
 
@@ -2497,6 +2936,8 @@ def main() -> None:
     try:
         trainer = phase_trainer(torch, np, cuda_lstm, train, keep)
         sweep = phase_sweep(torch, np, cuda_lstm, keep, trainer["cli_checkpoint"])
+        evaluation = phase_eval(torch, np, cuda_lstm, train, keep, trainer["cli_checkpoint"])
+        scenario = phase_scenario(torch, np, cuda_lstm, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     timing = phase_timing(torch, cuda_lstm)
@@ -2508,12 +2949,17 @@ def main() -> None:
 
     # launches on the main paths: the fused epochs (slice 3), the chained
     # ones (slice 2), the trainer's 12 epochs on the committed panel and the
-    # train-gan verb (slice 12), each read just after its own run
+    # train-gan verb (slice 12), the metrics' train-gan --eval and fakes, the
+    # conditional epochs on both routes and the first bank run (slice 14),
+    # each read just after its own run
     by_route = {}
     for route, runs in (("train_fused", [r["launches"] for r in train]),
                         ("train_chained", [r["launches"] for r in train_chained]),
                         ("trainer", [trainer["launches"]]),
-                        ("train_gan_cli", [trainer["cli_launches"]])):
+                        ("train_gan_cli", [trainer["cli_launches"]]),
+                        ("eval", [evaluation["launches"]]),
+                        ("scenario_epoch", [r["launches"] for r in scenario["epochs"]]),
+                        ("scenario_bank", [scenario["bank"]["launches"]])):
         counts = {k: sum(r[k] for r in runs) for k in cuda_lstm.launch_counts()}
         counts["stack_fwd"] += counts.pop("stack_fwd_res")
         by_route[route] = counts
@@ -2626,20 +3072,21 @@ def main() -> None:
     rows[-1]["max_err_by_layout"] = {k: v for k, v in stack_layouts.items() if "stack_adj" in k}
     # the weight sums, one row a launch shape at W=48 B=32 (R=1536); their
     # launches as the C launcher counted them in the main path's runs
+    sum_runs = (("train_fused", train), ("train_chained", train_chained),
+                ("trainer", [trainer]),
+                ("train_gan_cli", [{"weight_sum_launches": trainer["cli_weight_sum_launches"]}]),
+                ("eval", [evaluation]), ("scenario_epoch", scenario["epochs"]),
+                ("scenario_bank", [scenario["bank"]]))
+    by_path = {shape: {p: sum(run["weight_sum_launches"][shape] for run in runs)
+                       for p, runs in sum_runs} for shape, _, _, _ in SUM_SHAPES}
     for shape, nsum, npair, m in SUM_SHAPES:
         at = {r["R"]: r for r in sums if r["shape"] == shape}
         r = at[SUM_ROWS[0]]
         rows.append({
             "name": f"weight_sum ({shape})", "route": "cuda",
             "source": "hfrep_tpu_torch/csrc/weight_sum.cuh", "replaces": SUM_REPLACES[shape],
-            "launches": (sum(run["weight_sum_launches"][shape]
-                             for run in train + train_chained + [trainer])
-                         + trainer["cli_weight_sum_launches"][shape]),
-            "launches_by_path": {**{p: sum(run["weight_sum_launches"][shape] for run in runs)
-                                    for p, runs in (("train_fused", train),
-                                                    ("train_chained", train_chained),
-                                                    ("trainer", [trainer]))},
-                                 "train_gan_cli": trainer["cli_weight_sum_launches"][shape]},
+            "launches": sum(by_path[shape].values()),
+            "launches_by_path": by_path[shape],
             "max_abs_err": max(x["max_abs_err"] for x in at.values()),
             "max_scaled_err": max(x["max_scaled_err"] for x in at.values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2654,6 +3101,7 @@ def main() -> None:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
                        "train_chained": train_chained, "trainer": trainer, "sweep": sweep,
+                       "eval": evaluation, "scenario": scenario,
                        "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,

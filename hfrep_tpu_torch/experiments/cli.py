@@ -1,17 +1,23 @@
 """``python -m hfrep_tpu_torch``: the port's CLI (``hfrep_tpu/experiments/cli.py``).
 
     clean       raw vendor files → cleaned_data/ (needs pandas)
-    train-gan   train a GAN preset on the cleaned panel, checkpoint, sample
+    train-gan   train a GAN preset on the cleaned panel, checkpoint, sample;
+                --eval scores 500 samples with the 12 metrics
+    eval-gan    12-metric eval of a saved sample cube against real windows
     sweep       latent-dim sweep (real only, or GAN-augmented via
                 --gan-checkpoint), tables, summary and --stats
     serve       the replication-server drill, optionally sampling a
                 trained generator from a checkpoint (--gan-checkpoint)
+    scenario    the scenario factory: conditional stress banks (bank),
+                walk-forward sweeps (walkforward), synthetic universes
+                (universe)
 
 Every verb runs on the card unless ``--device cpu`` is given.  Not
 offered yet (ROADMAP): the mesh flags, ``--profile-dir``, ``--obs-dir``,
-``--eval``, ``--export-h5``, ``--dtype``, ``sweep``'s ``--h5-generator``,
-``--resume`` and ``--plots``, and the verbs ``eval-gan``, ``pipeline``,
-``scenario`` and ``sample-h5``.
+``--export-h5``, ``--dtype``, ``eval-gan``'s and ``--eval``'s
+``--eyeball`` plot, ``sweep``'s ``--h5-generator``, ``--resume`` and
+``--plots``, ``scenario``'s drain into exit 75 (``run_drive``), and the
+verbs ``pipeline`` and ``sample-h5``.
 """
 
 from __future__ import annotations
@@ -55,7 +61,15 @@ def _build_parser() -> argparse.ArgumentParser:
     t.add_argument("--max-recoveries", type=int, default=3,
                    help="consecutive rollbacks before giving up (with --nan-guard)")
     t.add_argument("--quiet", action="store_true")
+    t.add_argument("--eval", action="store_true", help="run the 12-metric suite after training")
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    e = sub.add_parser("eval-gan", help="score a saved sample cube")
+    e.add_argument("--samples", required=True, help=".npy cube, inverse-scaled returns")
+    e.add_argument("--preset", default="mtss_wgan_gp")
+    e.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
+    e.add_argument("--out", default=None, help="write metrics JSON here")
+    e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     s = sub.add_parser("sweep", help="latent-dim sweep (cells 5-33 / 51-69)")
     s.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
@@ -101,6 +115,60 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="preset the --gan-checkpoint was trained with")
     sv.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
     sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    sc = sub.add_parser(
+        "scenario",
+        help="scenario factory: conditional stress banks, walk-forward regime "
+             "sweeps, synthetic-universe drives (a re-run reuses the state "
+             "that verifies)")
+    sc.add_argument("mode", choices=["bank", "walkforward", "universe"])
+    sc.add_argument("--out", required=True)
+    sc.add_argument("--resume", action="store_true",
+                    help="continue an interrupted run: bank blocks and window scores "
+                         "that verify are kept, as is a trained walk-forward grid")
+    sc.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
+    sc.add_argument("--fixture", action="store_true",
+                    help="run on the deterministic fabricated panel instead of "
+                         "cleaned data (no data files needed)")
+    # bank knobs
+    sc.add_argument("--family", default="gan", help="conditional GAN family (bank mode)")
+    sc.add_argument("--n-regimes", type=int, default=3,
+                    help="vol-state regimes the labeler bins the panel into "
+                         "(= condition vector width)")
+    sc.add_argument("--regime-window", type=int, default=12,
+                    help="trailing months the vol-state labeler looks at")
+    sc.add_argument("--regimes", default=None,
+                    help="comma list of regimes to bank (default: all)")
+    sc.add_argument("--blocks", type=int, default=4, help="sample blocks per regime")
+    sc.add_argument("--block-size", type=int, default=16, help="windows per block")
+    sc.add_argument("--stream-seed", type=int, default=0)
+    sc.add_argument("--train-epochs", type=int, default=30,
+                    help="conditional GAN training epochs before banking "
+                         "(0 = the initialised generator)")
+    sc.add_argument("--gan-window", type=int, default=24,
+                    help="window length of the conditional training windows / bank samples")
+    # walk-forward / universe knobs
+    sc.add_argument("--latents", default="1:8", help="'lo:hi' inclusive, or comma list")
+    sc.add_argument("--start", type=int, default=120,
+                    help="training months of the first walk-forward window")
+    sc.add_argument("--step", type=int, default=1,
+                    help="months the training window grows per roll")
+    sc.add_argument("--windows", type=int, default=24,
+                    help="walk-forward windows (lanes = windows x latents)")
+    sc.add_argument("--horizon", type=int, default=36,
+                    help="OOS months scored per window")
+    sc.add_argument("--epochs", type=int, default=None, help="AE epochs override")
+    sc.add_argument("--chunk-epochs", type=int, default=None,
+                    help="AEConfig.chunk_epochs override")
+    sc.add_argument("--ols-window", type=int, default=None,
+                    help="AEConfig.ols_window override")
+    # universe knobs
+    sc.add_argument("--funds", type=int, default=64, help="synthetic hedge funds (universe mode)")
+    sc.add_argument("--months", type=int, default=360, help="synthetic months (universe mode)")
+    sc.add_argument("--n-factors", type=int, default=22,
+                    help="synthetic factor columns (universe mode)")
+    sc.add_argument("--seed", type=int, default=0)
+    sc.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
@@ -174,6 +242,56 @@ def cmd_train_gan(args) -> int:
         cube = trainer.generate(args.n_samples, generator=g).cpu().numpy()
         np.save(args.samples_out, cube)
         print(f"samples: {args.samples_out} {tuple(cube.shape)}")
+    if args.eval:
+        _eval_trainer_samples(trainer)
+    return 0
+
+
+def _eval_trainer_samples(trainer) -> dict:
+    """The 12 metrics of 500 samples (scaler space) from the trained
+    generator against the dataset's windows."""
+    import torch
+
+    from hfrep_tpu_torch.metrics.gan_eval import GanEval
+
+    windows = trainer.windows
+    n = min(500, windows.shape[0])
+    g = torch.Generator(device=trainer.device)
+    g.manual_seed(11)
+    fake = trainer.generate(n, generator=g, unscale=False)
+    res = GanEval(windows[:n], fake, windows).run_all()
+    print(json.dumps(res, indent=2))
+    return res
+
+
+def cmd_eval_gan(args) -> int:
+    import torch
+
+    from hfrep_tpu_torch.config import get_preset
+    from hfrep_tpu_torch.core import scaler as mm
+    from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
+    from hfrep_tpu_torch.metrics.gan_eval import GanEval
+
+    cfg = get_preset(args.preset)
+    panel = load_panel(args.cleaned_dir, device=args.device)
+    ds = build_gan_dataset(cfg.data, cfg.data.seed, panel)
+    cube = np.load(args.samples)
+    if cube.ndim != 3 or tuple(cube.shape[1:]) != tuple(ds.windows.shape[1:]):
+        print(f"sample cube has shape {cube.shape} but preset "
+              f"{args.preset!r} builds (N, {ds.windows.shape[1]}, "
+              f"{ds.windows.shape[2]}) windows; pass the matching --preset "
+              "((168, 36) production cubes need mtss_wgan_gp_prod)",
+              file=sys.stderr)
+        return 2
+    # samples are stored inverse-scaled; move them back into scaler space
+    flat = torch.from_numpy(np.asarray(cube, np.float32).reshape(-1, cube.shape[2]))
+    fake = mm.transform(ds.scaler, flat.to(ds.windows.device)).reshape(cube.shape)
+    n = min(cube.shape[0], ds.windows.shape[0])
+    res = GanEval(ds.windows[:n], fake[:n], ds.windows).run_all()
+    print(json.dumps(res, indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=2)
     return 0
 
 
@@ -291,8 +409,9 @@ def _sweep_outputs(args, result, out_dir, panel, y_test, rf_test) -> int:
 
 
 def cmd_serve(args) -> int:
+    from hfrep_tpu_torch.config import AEConfig
     from hfrep_tpu_torch.serve.aot import GenServeModel
-    from hfrep_tpu_torch.serve.fixture import fixture_server, warm_server
+    from hfrep_tpu_torch.serve.fixture import fixture_server, init_ae_model, warm_server
     from hfrep_tpu_torch.serve.loadgen import drive_load, make_panels
     from hfrep_tpu_torch.serve.server import ServeConfig
 
@@ -311,11 +430,13 @@ def cmd_serve(args) -> int:
                        row_buckets=(32, 64, 128))
     timeout_ms = (args.timeout_ms if args.timeout_ms is not None
                   else scfg.request_timeout_ms)
-    # the fixture AE head is at AEConfig() widths: 22 factors
+    # the AE head: AEConfig() widths (22 factors), Keras-default init
     panels = make_panels(23, 22, (32, 64, 96), variants=8)
-    server = fixture_server(scfg, preset=None, gen_model=gen_model, device=args.device)
+    server = fixture_server(scfg, preset=None, gen_model=gen_model, device=args.device,
+                            ae_model=init_ae_model(AEConfig(), device=args.device))
     try:
         n_programs = warm_server(server, panels)
+        print("serving: AE head at AEConfig() widths, Keras-default init", file=sys.stderr)
         print(f"serving: {n_programs} programs resident; offering "
               f"{args.requests} queries (deadline {timeout_ms:.0f}ms)", file=sys.stderr)
         report = drive_load(server, args.requests, panels, timeout_ms=timeout_ms,
@@ -331,8 +452,90 @@ def cmd_serve(args) -> int:
         server.stop()
 
 
-COMMANDS = {"clean": cmd_clean, "train-gan": cmd_train_gan, "sweep": cmd_sweep,
-            "serve": cmd_serve}
+def _scenario_panel(args):
+    """The panel of the bank and walk-forward modes: the cleaned panel, or
+    under ``--fixture`` the fabricated one, built once in a private tmp
+    dir and published with one rename (a killed first run leaves no
+    half-written dir; a concurrent loser discards its copy)."""
+    import shutil
+    import tempfile
+
+    from hfrep_tpu_torch.core.data import load_panel
+    from hfrep_tpu_torch.utils.fixture_data import write_cleaned_fixture
+
+    d = args.cleaned_dir
+    if args.fixture:
+        d = os.path.join(tempfile.gettempdir(), f"hfrep_torch_scenario_fixture_{os.getuid()}")
+        if not os.path.isdir(d):
+            tmp = f"{d}.tmp-{os.getpid()}"
+            write_cleaned_fixture(tmp)
+            try:
+                os.replace(tmp, d)
+            except OSError:
+                shutil.rmtree(tmp, ignore_errors=True)
+                if not os.path.isdir(d):
+                    raise
+    return load_panel(d, device="cpu")
+
+
+def cmd_scenario(args) -> int:
+    from hfrep_tpu_torch.config import AEConfig, ModelConfig, TrainConfig
+    from hfrep_tpu_torch.scenario import regimes as reg
+    from hfrep_tpu_torch.scenario.walkforward import WalkForwardSpec, run_walkforward
+
+    if args.mode == "bank":
+        from hfrep_tpu_torch.core import scaler as mm
+        from hfrep_tpu_torch.scenario.conditional import (generate_bank, sliding_windows,
+                                                          train_conditional)
+        panel = _scenario_panel(args)
+        x = panel.factors.numpy()
+        labels = reg.label_regimes(x, window=args.regime_window, n_regimes=args.n_regimes)
+        _, scaled = mm.fit_transform(panel.factors)
+        windows = sliding_windows(scaled.numpy(), args.gan_window)
+        conds = reg.window_conditions(labels, args.gan_window, args.n_regimes)
+        mcfg = ModelConfig(family=args.family, features=x.shape[1], window=args.gan_window)
+        tcfg = TrainConfig(n_critic=1, seed=args.seed,
+                           steps_per_call=min(50, max(1, args.train_epochs)))
+        bundle = train_conditional(mcfg, tcfg, windows, conds, args.train_epochs,
+                                   seed=args.seed, device=args.device)
+        regimes = [int(v) for v in args.regimes.split(",")] if args.regimes else None
+        manifest = generate_bank(bundle, args.out, regimes=regimes, blocks=args.blocks,
+                                 block_size=args.block_size, stream_seed=args.stream_seed)
+        print(json.dumps({
+            "aggregate_digest": manifest["aggregate_digest"],
+            "blocks": len(manifest["block_digests"]),
+            "generated": manifest["generated"],
+            "regime_months": reg.regime_counts(labels, args.n_regimes).tolist()}, indent=2))
+        print(f"bank: {os.path.join(args.out, 'bank.json')}")
+        return 0
+
+    cfg = AEConfig(seed=args.seed)
+    for field, value in (("epochs", args.epochs), ("chunk_epochs", args.chunk_epochs),
+                         ("ols_window", args.ols_window)):
+        if value is not None:
+            cfg = dataclasses.replace(cfg, **{field: value})
+    latents = _parse_latents(args.latents)
+    spec = WalkForwardSpec(start=args.start, n_windows=args.windows, horizon=args.horizon,
+                           step=args.step)
+    if args.mode == "walkforward":
+        panel = _scenario_panel(args)
+        res = run_walkforward(panel.factors.numpy(), panel.hf.numpy(), panel.rf.numpy(),
+                              spec, cfg, latents, args.out, resume=args.resume,
+                              device=args.device)
+    else:                                             # universe
+        from hfrep_tpu_torch.scenario.universe import UniverseSpec, drive_universe
+        uspec = UniverseSpec(funds=args.funds, months=args.months,
+                             n_factors=args.n_factors, seed=args.seed)
+        res = drive_universe(uspec, spec, cfg, latents, args.out, resume=args.resume,
+                             device=args.device)
+    print(json.dumps({"stats": res["stats"], "summary": res["manifest"]["summary"]},
+                     indent=2, default=str))
+    print(f"surface: {os.path.join(args.out, 'walkforward.csv')}")
+    return 0
+
+
+COMMANDS = {"clean": cmd_clean, "train-gan": cmd_train_gan, "eval-gan": cmd_eval_gan,
+            "sweep": cmd_sweep, "serve": cmd_serve, "scenario": cmd_scenario}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

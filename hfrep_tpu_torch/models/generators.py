@@ -7,7 +7,10 @@
   ``LSTM(100, act=sigmoid) → LayerNorm → LSTM(100, act=sigmoid)
   → LeakyReLU(0.2) → LayerNorm → Dense(F)``.
 
-Noise has the shape of the output window, (B, W, F).  :data:`FLAX_NAMES`
+Noise has the shape of the output window, (B, W, F), unless
+``in_features`` widens the input: a conditional generator's first layer
+takes the noise with the condition concatenated, F + C columns
+(:mod:`hfrep_tpu_torch.models.conditional`).  :data:`FLAX_NAMES`
 on each class maps the JAX param tree's submodule names to this
 module's attributes (:mod:`hfrep_tpu_torch.utils.bridge`).
 """
@@ -33,13 +36,14 @@ class DenseGenerator(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  param_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_features: Optional[int] = None):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev,
                   generator=generator)
         self.slope = slope
-        self.dense0 = KerasDense(features, hidden, activation="sigmoid", **kw)
+        self.dense0 = KerasDense(in_features or features, hidden, activation="sigmoid", **kw)
         self.norm0 = KerasLayerNorm(hidden, **kw)
         self.dense1 = KerasDense(hidden, hidden, activation="sigmoid", **kw)
         self.norm1 = KerasLayerNorm(hidden, **kw)
@@ -60,13 +64,14 @@ class LSTMGenerator(nn.Module):
                  dtype: Optional[torch.dtype] = None,
                  param_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_features: Optional[int] = None):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev,
                   generator=generator)
         self.slope = slope
-        self.lstm0 = KerasLSTM(features, hidden, activation="sigmoid", **kw)
+        self.lstm0 = KerasLSTM(in_features or features, hidden, activation="sigmoid", **kw)
         self.norm0 = KerasLayerNorm(hidden, **kw)
         self.lstm1 = KerasLSTM(hidden, hidden, activation="sigmoid", **kw)
         self.norm1 = KerasLayerNorm(hidden, **kw)

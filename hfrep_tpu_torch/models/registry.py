@@ -54,22 +54,27 @@ def _family(cfg: ModelConfig) -> tuple:
 
 
 def build_generator(cfg: ModelConfig, device: DeviceLike = None,
-                    generator: Optional[torch.Generator] = None) -> nn.Module:
+                    generator: Optional[torch.Generator] = None,
+                    in_features: Optional[int] = None) -> nn.Module:
     """The family's generator at ``cfg``'s widths and precision policy,
-    Keras-default initialised from ``generator``."""
+    Keras-default initialised from ``generator``; ``in_features`` widens
+    its input (a conditional body's)."""
     g_cls = _family(cfg)[0]
     policy = policy_from(cfg.dtype, cfg.param_dtype)
     return g_cls(features=cfg.features, hidden=cfg.hidden, slope=cfg.leaky_slope,
                  dtype=dtype_of(cfg.dtype) if cfg.dtype else None,
-                 param_dtype=policy.param_dtype, device=device, generator=generator)
+                 param_dtype=policy.param_dtype, device=device, generator=generator,
+                 in_features=in_features)
 
 
 def build_discriminator(cfg: ModelConfig, device: DeviceLike = None,
-                        generator: Optional[torch.Generator] = None) -> nn.Module:
-    """The family's critic for (``cfg.window``, ``cfg.features``) windows."""
+                        generator: Optional[torch.Generator] = None,
+                        in_features: Optional[int] = None) -> nn.Module:
+    """The family's critic for (``cfg.window``, ``cfg.features``) windows,
+    or ``in_features`` columns (a conditional body's)."""
     d_cls = _family(cfg)[1]
     policy = policy_from(cfg.dtype, cfg.param_dtype)
-    kw = dict(features=cfg.features, window=cfg.window, hidden=cfg.hidden,
+    kw = dict(features=in_features or cfg.features, window=cfg.window, hidden=cfg.hidden,
               dtype=dtype_of(cfg.dtype) if cfg.dtype else None,
               param_dtype=policy.param_dtype, device=device, generator=generator)
     if d_cls in (DenseCritic, LSTMCritic):
@@ -87,3 +92,11 @@ def build_gan(cfg: ModelConfig, device: DeviceLike = None,
     disc = build_discriminator(cfg, dev, generator)
     return GanPair(generator=gen, discriminator=disc, loss=loss,
                    family=cfg.family, policy=policy_from(cfg.dtype, cfg.param_dtype))
+
+
+def build_conditional_gan(cfg: ModelConfig, cond_dim: int, device: DeviceLike = None,
+                          generator: Optional[torch.Generator] = None) -> GanPair:
+    """:func:`~hfrep_tpu_torch.models.conditional.build_conditional_gan`:
+    the literal :func:`build_gan` pair when ``cond_dim`` is 0."""
+    from hfrep_tpu_torch.models.conditional import build_conditional_gan as build
+    return build(cfg, cond_dim, device=device, generator=generator)

@@ -151,3 +151,17 @@ def init_gan_state(seed: int, mcfg: ModelConfig,
     gen.manual_seed(seed)
     pair = build_gan(mcfg, device=device, generator=gen)
     return fresh_state(pair.loss, pair.generator, pair.discriminator)
+
+
+def init_conditional_state(seed: int, mcfg: ModelConfig, cond_dim: int,
+                           device: DeviceLike = None) -> GanState:
+    """:func:`init_gan_state` for a conditional pair: both networks take
+    ``(input, cond)``, their first layers ``features + cond_dim`` wide
+    (:func:`~hfrep_tpu_torch.models.conditional.build_conditional_gan`),
+    from one CPU generator seeded with ``seed``, the generator first."""
+    from hfrep_tpu_torch.models.conditional import build_conditional_gan
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    pair = build_conditional_gan(mcfg, cond_dim, device=device, generator=gen)
+    return fresh_state(pair.loss, pair.generator, pair.discriminator)

@@ -27,8 +27,11 @@ the noises and α.  JAX's threefry and torch's generators never give the
 same numbers, so a test hands one JAX epoch's draws to the port's step;
 :func:`sample_draws` makes them on the device for ordinary runs.
 
-Left out of this port, named in ROADMAP: the in-graph health block, the
-mesh hooks (``shard_data``, ``apply_fns``) and ``make_conditional_step``.
+:func:`make_conditional_step` is the scenario factory's regime-conditioned
+epoch over the same :class:`Draws`.
+
+Left out of this port, named in ROADMAP: the in-graph health block and
+the mesh hooks (``shard_data``, ``apply_fns``).
 """
 
 from __future__ import annotations
@@ -107,20 +110,11 @@ def _cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cat([a.to(dt), b.to(dt)], dim=0)
 
 
-def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
-                    ) -> Callable[[GanState, Draws], Tuple[GanState, Metrics]]:
-    """Build ``step(state, draws) -> (state, metrics)`` for one epoch.
-
-    The step updates ``state``'s networks and slots in place and returns
-    it; metrics are 0-d float32 tensors on the device (no host sync).
-    ``tcfg.fuse_gd`` changes nothing here: the JAX step uses it to emit
-    an n_critic == 1 epoch as straight-line code instead of a size-1
-    traced loop, and the port runs eagerly with no traced loop at all.
-    """
+def _updates(pair: GanPair, tcfg: TrainConfig):
+    """``(d_update, g_update)``: each takes ``(state, loss)``, applies one
+    optimizer update of its network's parameters in place and returns the
+    detached loss; ``g_update`` also counts the step."""
     g_tx, d_tx = make_optimizers(pair, tcfg)
-    acc = pair.policy.accum
-    clip, gp_w = tcfg.clip_value, tcfg.gp_weight
-    window, features = dataset.shape[1], dataset.shape[2]
 
     def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor) -> None:
         params = params_of(module)
@@ -136,6 +130,24 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
         _update(state.generator, g_tx, state.g_opt, loss)
         state.step += 1
         return loss.detach()
+
+    return d_update, g_update
+
+
+def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
+                    ) -> Callable[[GanState, Draws], Tuple[GanState, Metrics]]:
+    """Build ``step(state, draws) -> (state, metrics)`` for one epoch.
+
+    The step updates ``state``'s networks and slots in place and returns
+    it; metrics are 0-d float32 tensors on the device (no host sync).
+    ``tcfg.fuse_gd`` changes nothing here: the JAX step uses it to emit
+    an n_critic == 1 epoch as straight-line code instead of a size-1
+    traced loop, and the port runs eagerly with no traced loop at all.
+    """
+    d_update, g_update = _updates(pair, tcfg)
+    acc = pair.policy.accum
+    clip, gp_w = tcfg.clip_value, tcfg.gp_weight
+    window, features = dataset.shape[1], dataset.shape[2]
 
     def _fakes(state: GanState, noises: torch.Tensor) -> torch.Tensor:
         """n_critic fake batches as ONE generator pass, no gradient."""
@@ -201,16 +213,88 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
     return {"bce": bce_step, "wgan_clip": wgan_step, "wgan_gp": wgan_gp_step}[pair.loss]
 
 
-def make_multi_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor):
+def make_conditional_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
+                          conditions) -> Callable[[GanState, Draws], Tuple[GanState, Metrics]]:
+    """The conditional (cGAN) epoch of the scenario factory
+    (``hfrep_tpu/train/steps.py:415-563``).
+
+    ``pair`` is a :func:`~hfrep_tpu_torch.models.conditional.build_conditional_gan`
+    pair whose members take ``(input, cond)``; ``conditions`` is the (N, C)
+    condition matrix aligned row for row with ``dataset``.  Each real
+    batch rides with its own conditions (one index gather serves both),
+    and fakes are generated and scored under the same conditions, so the
+    critic compares windows of one regime.  Per family the loss is the
+    unconditional step's, over the same :class:`Draws`, with JAX's
+    conditional differences: each critic iteration generates its own fake
+    batch; the generator update takes the last iteration's indices (for
+    its conditions) and noise; the penalty differentiates the critic with
+    respect to x̂ only (the condition is a constant inside it); the bce
+    metrics carry no ``d_acc``.
+    """
+    d_update, g_update = _updates(pair, tcfg)
+    acc = pair.policy.accum
+    conditions = torch.as_tensor(conditions).to(dataset.device, torch.float32)
+    if conditions.dim() != 2 or conditions.shape[0] != dataset.shape[0]:
+        raise ValueError(
+            f"conditions {tuple(conditions.shape)} do not align with dataset "
+            f"{tuple(dataset.shape)}: one condition vector per training window")
+    clip, gp_w = tcfg.clip_value, tcfg.gp_weight
+
+    def _real(idx):
+        return dataset[idx], conditions[idx]
+
+    def bce_step(state: GanState, draws: Draws):
+        real, cond = _real(draws.idx)
+        g, d = state.generator, state.discriminator
+        with torch.no_grad():
+            fake = g(draws.noises[0], cond)
+        l_real = d_update(state, _bce_logits(acc(d(real, cond)), 1.0))
+        l_fake = d_update(state, _bce_logits(acc(d(fake, cond)), 0.0))
+        g_loss = g_update(state, _bce_logits(acc(d(g(draws.noises[1], cond), cond)), 1.0))
+        return state, {"d_loss": 0.5 * (l_real + l_fake), "g_loss": g_loss}
+
+    def wasserstein_step(state: GanState, draws: Draws):
+        g, d = state.generator, state.discriminator
+        d_loss = None
+        for i in range(tcfg.n_critic):
+            real, cond = _real(draws.idx[i])
+            with torch.no_grad():
+                fake = g(draws.noises[i], cond)
+            if pair.loss == "wgan_gp":
+                alpha = draws.alphas[i]
+                interp = alpha * real + (1.0 - alpha) * fake
+                b = real.shape[0]
+                scores = acc(d(_cat(real, fake), _cat(cond, cond)))
+                gp = gradient_penalty(lambda x, c=cond: d(x, c), interp)
+                d_loss = d_update(state, (-scores[:b]).mean() + scores[b:].mean() + gp_w * gp)
+            else:
+                l_real = d_update(state, (-acc(d(real, cond))).mean())
+                l_fake = d_update(state, acc(d(fake, cond)).mean())
+                with torch.no_grad():
+                    for p in d.parameters():
+                        p.clamp_(-clip, clip)
+                d_loss = 0.5 * (l_real + l_fake)
+        # the generator trains on the last critic iteration's draws
+        cond_g = conditions[draws.idx[-1]]
+        g_loss = g_update(state, (-acc(d(g(draws.noises[-1], cond_g), cond_g))).mean())
+        return state, {"d_loss": d_loss, "g_loss": g_loss}
+
+    return bce_step if pair.loss == "bce" else wasserstein_step
+
+
+def make_multi_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
+                    step: Optional[Callable] = None):
     """``tcfg.steps_per_call`` epochs per call, in a Python loop.
 
     Returns ``fn(state, draws=None, generator=None) -> (state, metrics)``:
     ``draws`` is a list of one :class:`Draws` per epoch, or ``None`` to
     sample each epoch's from ``generator`` (:func:`sample_draws`).
     Metrics are stacked, one entry per epoch, as the JAX scan stacks
-    them.
+    them.  ``step`` overrides the epoch step (e.g.
+    :func:`make_conditional_step`'s) while keeping the loop.
     """
-    step = make_train_step(pair, tcfg, dataset)
+    if step is None:
+        step = make_train_step(pair, tcfg, dataset)
     n = tcfg.steps_per_call
 
     def multi(state: GanState, draws: Optional[List[Draws]] = None,

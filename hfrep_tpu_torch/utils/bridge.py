@@ -9,6 +9,8 @@ The port keeps the Keras layout in its parameters (``kernel`` is
 Names: a module class's ``FLAX_NAMES`` maps a Flax submodule name
 (``KerasLSTM_0``) to the attribute holding its counterpart (``lstm0``);
 every generator and critic class carries one.
+A conditional network (``models/conditional.py``) nests its body under
+``body``, as Flax names the field.
 Flax's inner wrappers (``LayerNorm_0`` inside ``KerasLayerNorm``,
 ``Dense_0`` inside ``KerasDense``) have no module of their own here:
 their params live on the Keras-level module.
@@ -104,7 +106,8 @@ def gan_state_from_jax(state, pair):
     are numpy arrays (``jax.tree_util.tree_map(np.asarray, state)``):
     the params into copies of ``pair``'s networks, the optax RMSprop
     ``nu`` or Adam ``mu``/``nu``/``count`` into the port's slots, and
-    ``step``."""
+    ``step``.  A conditional pair's state (``init_conditional_state``)
+    carries across the same way, its trees nested under ``body``."""
     from hfrep_tpu_torch.train.states import GanState
 
     gen = from_flax(state.g_params, copy.deepcopy(pair.generator))

@@ -44,7 +44,8 @@ from hfrep_tpu_torch.config import get_preset
 from hfrep_tpu_torch.models.registry import build_gan
 from hfrep_tpu_torch.ops import cuda_lstm, cuda_lstm_stack
 from hfrep_tpu_torch.serve import aot
-from hfrep_tpu_torch.serve.fixture import fixture_gen_model, fixture_server
+from hfrep_tpu_torch.serve.fixture import (fixture_gen_model, fixture_server,
+                                           init_ae_model)
 from hfrep_tpu_torch.serve.loadgen import drive_load, make_panels
 from hfrep_tpu_torch.serve.server import ServeConfig
 from hfrep_tpu_torch.train import Draws, init_gan_state, make_train_step, sample_draws
@@ -803,7 +804,8 @@ def test_generator_on_card_matches_cpu_plain_path(card, preset):
 
 @pytest.mark.gpu
 def test_server_on_card_runs_the_kernel(card):
-    srv = fixture_server(ServeConfig(request_timeout_ms=60000.0), device=card)
+    srv = fixture_server(ServeConfig(request_timeout_ms=60000.0), device=card,
+                         ae_model=init_ae_model(device=card))
     try:
         srv.warm()
         cuda_lstm.reset_launches()

@@ -37,7 +37,7 @@ from hfrep_tpu_torch.config import AEConfig, ModelConfig
 from hfrep_tpu_torch.serve import aot
 from hfrep_tpu_torch.serve.admission import Draining, Overloaded, WorkerFault
 from hfrep_tpu_torch.serve.fixture import (fixture_ae_model, fixture_gen_model,
-                                           fixture_server, warm_server)
+                                           fixture_server, init_ae_model, warm_server)
 from hfrep_tpu_torch.serve.loadgen import drive_load, make_panels
 from hfrep_tpu_torch.serve.server import ReplicationServer, ServeConfig
 
@@ -186,7 +186,7 @@ def test_sample_noise_is_pure_in_seed_and_sequence():
 
 # ------------------------------------------------------------ the envelope
 def test_breaker_degrades_stale_then_recovers():
-    srv = ReplicationServer(_cpu_cfg(), ae_model=fixture_ae_model(device="cpu")).start()
+    srv = ReplicationServer(_cpu_cfg(), ae_model=init_ae_model(device="cpu")).start()
     try:
         ok = srv.replicate(_panel(10), timeout_ms=30000)
         wait([ok], timeout=30)
@@ -212,7 +212,7 @@ def test_breaker_degrades_stale_then_recovers():
 
 
 def test_worker_death_requeues_once_then_fails_typed():
-    srv = ReplicationServer(_cpu_cfg(), ae_model=fixture_ae_model(device="cpu"))
+    srv = ReplicationServer(_cpu_cfg(), ae_model=init_ae_model(device="cpu"))
     kills = iter([True, False])
     srv._kill_point = lambda: next(kills, False)
     srv.start()
@@ -233,7 +233,7 @@ def test_worker_death_requeues_once_then_fails_typed():
 
 def test_drain_flushes_then_rejects_and_overload_sheds():
     srv = fixture_server(_cpu_cfg(max_queue=2, batch_window_ms=200.0), preset=None,
-                         device="cpu")
+                         device="cpu", ae_model=init_ae_model(device="cpu"))
     futs = [srv.replicate(_panel(10), timeout_ms=30000) for _ in range(4)]
     shed = [f for f in futs if f.done() and isinstance(f.exception(), Overloaded)]
     assert len(shed) == 2
@@ -251,7 +251,8 @@ def test_drain_flushes_then_rejects_and_overload_sheds():
 
 
 def test_warm_server_pushes_both_paths():
-    srv = fixture_server(_cpu_cfg(workers=2), device="cpu")
+    srv = fixture_server(_cpu_cfg(workers=2), device="cpu",
+                         ae_model=init_ae_model(device="cpu"))
     try:
         assert warm_server(srv, make_panels(0, FEATS, (12,))) == 4
         stats = srv.stats()
@@ -303,6 +304,8 @@ def test_entry_points_without_device_raise_when_there_is_no_card():
         pytest.skip("a card is present: device=None rightly runs there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fixture_ae_model()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_ae_model()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fixture_gen_model("mtss_wgan_gp")
     with pytest.raises(RuntimeError, match="no CUDA device"):
