@@ -183,6 +183,24 @@ exits non-zero on failure:
              walk-forward grid (6 windows x 8 latents x 20 epochs) on the
              card against the CPU from the same draws at the sweep phase's
              bars;
+5f. pipeline — the actor fabric through ``python -m hfrep_tpu_torch
+             pipeline --device cuda``, every run's AE cut to 200 epochs
+             (``PIPE_EPOCHS``; ``AEConfig()``'s cap is 1000): (a) one
+             generator actor sampling the trainer phase's W=168
+             ``train-gan`` checkpoint (2 blocks of 10 windows) into 2
+             consumer actors running the augmented 21-latent sweep at
+             ``AEConfig()`` widths: exit 0, ``pipeline.json``
+             assembled, the generator's own stream showing exactly 4
+             ``lstm_fwd`` launches (2 a block) and no other kernel, the
+             consumers' none; (b) the same plan under
+             ``HFREP_FAULTS=sigterm@item=1`` exits 75 and ``--resume`` gives
+             a ``pipeline.json`` byte-equal to (a)'s; (c) 2 fixture sources
+             (22 factors, 168 rows, 2 blocks, 2 consumers, items taking 1 s)
+             under ``HFREP_FAULTS=kill@actor=1``: exit 0, at least one
+             restart, and one item's ``sweep.npz`` equal bit for bit to
+             ``sweep_item_arrays`` on the same panel and seed in this
+             process; each run's wall seconds, restarts and queue depth
+             over time (the parent's stream) printed;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -2208,6 +2226,188 @@ def phase_scenario(torch, np, cuda_lstm, keep: str) -> dict:
     return out
 
 
+#: the pipeline phase: the verb on the trainer phase's W=168 checkpoint, the
+#: AE at AEConfig() widths, latents 1-21 (the paper's sweep); (c) fixture
+#: items at the committed panel's 22 factors and 168 training months
+PIPE_BLOCKS, PIPE_GEN_WINDOWS, PIPE_CONSUMERS = 2, 10, 2
+PIPE_FIXTURE = ["--fixture-sources", "2", "--fixture-feats", "22", "--fixture-rows", "168"]
+#: seconds a fixture item takes in (c), the sampling latency the kill needs
+#: its producer alive for (the bytes do not depend on it)
+PIPE_GEN_DELAY = 1.0
+#: AE epochs of the phase's runs, cut from AEConfig()'s 1000-epoch cap to
+#: hold the phase near 2 minutes (at full depth it took 172.9 s on the
+#: H100, tools/torch_pipeline_phase.py)
+PIPE_EPOCHS = 200
+PIPE_TIMEOUT_S = 420
+
+
+def actor_streams(run_dir: str) -> dict:
+    """Every actor's event records under ``<run_dir>/actors``, each
+    incarnation's stream (a restarted member rotates its earlier one to
+    ``events-<n>.jsonl``) in order."""
+    out = {}
+    root = os.path.join(run_dir, "actors")
+    for name in sorted(os.listdir(root)):
+        files = sorted(f for f in os.listdir(os.path.join(root, name))
+                       if f.startswith("events") and f.endswith(".jsonl"))
+        recs = []
+        for f in files:
+            with open(os.path.join(root, name, f)) as fh:
+                recs += [json.loads(line) for line in fh if line.strip()]
+        out[name] = recs
+    return out
+
+
+def stream_launches(records: list) -> dict:
+    """The hand kernels' launches an actor wrote into its stream as
+    ``launches/<kernel>`` counters (the sum of their deltas)."""
+    counts = {}
+    for r in records:
+        if r.get("type") == "metric" and str(r.get("name", "")).startswith("launches/"):
+            k = r["name"][len("launches/"):]
+            counts[k] = counts.get(k, 0) + int(r["delta"])
+    return counts
+
+
+def run_pipeline_verb(args: list, env_extra: dict) -> tuple:
+    """``python -m hfrep_tpu_torch pipeline ARGS`` from the checkout's root
+    on the card: (exit code, wall seconds, stdout, stderr)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "hfrep_tpu_torch", "pipeline", "--device",
+                           "cuda"] + args, cwd=root, env=env, capture_output=True, text=True,
+                          timeout=PIPE_TIMEOUT_S)
+    return proc.returncode, time.perf_counter() - t0, proc.stdout, proc.stderr
+
+
+def pipeline_report(name: str, rc: int, wall: float, stdout: str, stderr: str,
+                    obs_dir: str) -> dict:
+    """The parent stream's restarts and queue depth over time, printed."""
+    with open(os.path.join(obs_dir, "events.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    depth = [(round(r["t"], 2), r["value"]) for r in recs
+             if r.get("name") == "orchestrate/queue_depth"]
+    restarts = sum(1 for r in recs if r.get("name") == "actor_restart")
+    say(f"[pipeline] {name}: exit {rc} in {wall:.1f} s; restarts {restarts}; queue depth "
+        f"(t s, items) {depth}")
+    for line in stderr.splitlines():
+        if "preempted" in line or "Error" in line or "error" in line:
+            say(f"[pipeline] {name} stderr: {line}")
+    return {"rc": rc, "wall_s": wall, "restarts": restarts, "queue_depth": depth}
+
+
+def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS) -> dict:
+    """The actor fabric through ``python -m hfrep_tpu_torch pipeline`` on the
+    card: (a) the undisturbed run (one generator actor sampling the
+    trainer phase's W=168 checkpoint, 2 blocks of 10 windows, 2 consumers
+    running the augmented 21-latent sweep at ``AEConfig()``): exit 0, every
+    result published, ``pipeline.json`` assembled, the generator's stream
+    showing exactly 4 ``lstm_fwd`` launches and no other kernel, the
+    consumers' none; (b) the same plan under ``HFREP_FAULTS=sigterm@item=1``
+    exits 75, ``--resume`` then exits 0 with ``pipeline.json`` byte-equal to
+    (a)'s; (c) 2 fixture sources (22 factors, 168 rows) under
+    ``HFREP_FAULTS=kill@actor=1``: exit 0, at least one restart, and an
+    item's ``sweep.npz`` equal to ``sweep_item_arrays`` on the same panel
+    and seed in this process, bit for bit.  ``epochs`` caps the AE epochs
+    of every run (None: ``AEConfig()``'s 1000)."""
+    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch.orchestrate.actors import _fixture_panel, result_name
+    from hfrep_tpu_torch.replication import engine
+    from hfrep_tpu_torch.train.trainer import seed_mix
+
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    gan = ["--gan-checkpoint", gan_checkpoint, "--preset", "mtss_wgan_gp_prod", "--blocks",
+           str(PIPE_BLOCKS), "--n-gen-windows", str(PIPE_GEN_WINDOWS), "--consumers",
+           str(PIPE_CONSUMERS), "--latents", "1:21", "--cleaned-dir", cleaned,
+           "--drain-timeout", "120"]
+    depth = [] if epochs is None else ["--epochs", str(epochs)]
+    gan += depth
+    out = {"epochs": epochs}
+
+    # (a) undisturbed
+    a_out, a_obs = os.path.join(keep, "pipe_a"), os.path.join(keep, "pipe_a_obs")
+    rc, wall, stdout, stderr = run_pipeline_verb(gan + ["--out", a_out, "--obs-dir", a_obs], {})
+    out["a"] = pipeline_report("(a) undisturbed", rc, wall, stdout, stderr, a_obs)
+    if rc != 0 or not os.path.isfile(os.path.join(a_out, "pipeline.json")):
+        fail(f"pipeline (a): exit {rc}\n{stderr[-3000:]}")
+    with open(os.path.join(a_out, "pipeline.json"), "rb") as fh:
+        want = fh.read()
+    doc = json.loads(want)
+    items = doc["sources"]["g0"]["items"]
+    if sorted(items) != [f"{i:05d}" for i in range(PIPE_BLOCKS)]:
+        fail(f"pipeline (a): items {sorted(items)}")
+    for seq in range(PIPE_BLOCKS):
+        summary = os.path.join(a_out, "results", result_name("g0", seq), "summary.json")
+        with open(summary) as fh:
+            best = json.load(fh)["best_oos_r2"]["mean"]
+        if not np.isfinite(best):
+            fail(f"pipeline (a): item {seq}'s best OOS R2 is {best}")
+    streams = actor_streams(a_obs)
+    launches = {name: stream_launches(recs) for name, recs in streams.items()}
+    say(f"[pipeline] (a) launches by actor, from their streams: {launches}")
+    gen = launches.get("gen_g0", {})
+    if gen != {"lstm_fwd": 2 * PIPE_BLOCKS} or any(launches.get(f"cons{c}")
+                                                     for c in range(PIPE_CONSUMERS)):
+        fail(f"pipeline (a): launches {launches}; expected lstm_fwd "
+             f"{2 * PIPE_BLOCKS} from gen_g0 and nothing else")
+    out["a"].update(launches=launches, items=items)
+
+    # (b) drained at the generator's first item boundary, then resumed
+    b_out = os.path.join(keep, "pipe_b")
+    rc, wall, stdout, stderr = run_pipeline_verb(
+        gan + ["--out", b_out, "--obs-dir", os.path.join(keep, "pipe_b_obs")],
+        {"HFREP_FAULTS": "sigterm@item=1"})
+    out["b_drained"] = pipeline_report("(b) sigterm@item=1", rc, wall, stdout, stderr,
+                                       os.path.join(keep, "pipe_b_obs"))
+    if rc != 75:
+        fail(f"pipeline (b): the drained run exited {rc}, not 75\n{stderr[-3000:]}")
+    rc, wall, stdout, stderr = run_pipeline_verb(
+        gan + ["--out", b_out, "--resume", "--obs-dir", os.path.join(keep, "pipe_b2_obs")], {})
+    out["b_resumed"] = pipeline_report("(b) --resume", rc, wall, stdout, stderr,
+                                       os.path.join(keep, "pipe_b2_obs"))
+    with open(os.path.join(b_out, "pipeline.json"), "rb") as fh:
+        same = fh.read() == want
+    say(f"[pipeline] (b) the resumed pipeline.json equals (a)'s byte for byte: {same}")
+    if rc != 0 or not same:
+        fail(f"pipeline (b): resume exit {rc}, pipeline.json equal {same}\n{stderr[-3000:]}")
+
+    # (c) a killed producer, and one item against this process
+    c_out, c_obs = os.path.join(keep, "pipe_c"), os.path.join(keep, "pipe_c_obs")
+    rc, wall, stdout, stderr = run_pipeline_verb(
+        PIPE_FIXTURE + depth + ["--blocks", str(PIPE_BLOCKS), "--consumers", str(PIPE_CONSUMERS),
+                        "--latents", "1:21", "--gen-delay", str(PIPE_GEN_DELAY),
+                        "--out", c_out, "--obs-dir", c_obs],
+        {"HFREP_FAULTS": "kill@actor=1"})
+    out["c"] = pipeline_report("(c) kill@actor=1", rc, wall, stdout, stderr, c_obs)
+    if rc != 0 or out["c"]["restarts"] < 1:
+        fail(f"pipeline (c): exit {rc}, restarts {out['c']['restarts']}\n{stderr[-3000:]}")
+    cfg = dataclasses.replace(AEConfig(), n_factors=22, latent_dim=21)
+    if epochs is not None:
+        cfg = dataclasses.replace(cfg, epochs=epochs)
+    source_idx, seq = 1, PIPE_BLOCKS - 1
+    t0 = time.perf_counter()
+    direct = engine.sweep_item_arrays(seed_mix(cfg.seed, source_idx, seq),
+                                      _fixture_panel(0, source_idx, seq, 168, 22), cfg,
+                                      list(range(1, 22)), device="cuda")
+    direct_s = time.perf_counter() - t0
+    with np.load(os.path.join(c_out, "results", result_name(f"f{source_idx}", seq),
+                              "sweep.npz")) as z:
+        published = {k: z[k] for k in z.files}
+    bitwise = (sorted(published) == sorted(direct)
+               and all(published[k].dtype == direct[k].dtype
+                       and published[k].tobytes() == direct[k].tobytes() for k in direct))
+    say(f"[pipeline] (c) item f{source_idx}/{seq}: the published sweep.npz equals "
+        f"sweep_item_arrays in this process bit for bit: {bitwise} (stop epochs "
+        f"{direct['stop_epoch'].tolist()}, {int(direct['chunks_dispatched'])} chunks, "
+        f"{direct_s:.1f} s here)")
+    if not bitwise:
+        fail("pipeline (c): the published item differs from sweep_item_arrays here")
+    out["c"].update(item_bitwise=bitwise, direct_s=direct_s,
+                    launches={n: stream_launches(r) for n, r in actor_streams(c_obs).items()})
+    return out
+
+
 def bound_ms(w, b, h, dtype_name) -> tuple:
     item = 4 if dtype_name == "float32" else 2
     nbytes = (w * b * 4 * h + h * 4 * h) * item + w * b * h * 4
@@ -2938,6 +3138,7 @@ def main() -> None:
         sweep = phase_sweep(torch, np, cuda_lstm, keep, trainer["cli_checkpoint"])
         evaluation = phase_eval(torch, np, cuda_lstm, train, keep, trainer["cli_checkpoint"])
         scenario = phase_scenario(torch, np, cuda_lstm, keep)
+        pipeline = phase_pipeline(torch, np, keep, trainer["cli_checkpoint"])
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     timing = phase_timing(torch, cuda_lstm)
@@ -2970,10 +3171,12 @@ def main() -> None:
         "source": "hfrep_tpu_torch/csrc/lstm_fwd.cu", "replaces": TPU_KERNEL,
         "launches": (server["launches"] + trained["lstm_fwd"]
                      + trainer["serve_launches"]["lstm_fwd"]
-                     + sweep["sweep_gan_checkpoint_launches"]),
+                     + sweep["sweep_gan_checkpoint_launches"]
+                     + pipeline["a"]["launches"]["gen_g0"]["lstm_fwd"]),
         "launches_by_path": {"serve": server["launches"],
                              "serve_gan_checkpoint": trainer["serve_launches"]["lstm_fwd"],
                              "sweep_gan_checkpoint": sweep["sweep_gan_checkpoint_launches"],
+                             "pipeline": pipeline["a"]["launches"]["gen_g0"]["lstm_fwd"],
                              **{p: c["lstm_fwd"] for p, c in by_route.items()}},
         "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
         "max_err_by_layout": layouts, "us_per_step": head["us_per_step"],
@@ -3101,7 +3304,7 @@ def main() -> None:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
                        "train_chained": train_chained, "trainer": trainer, "sweep": sweep,
-                       "eval": evaluation, "scenario": scenario,
+                       "eval": evaluation, "scenario": scenario, "pipeline": pipeline,
                        "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,

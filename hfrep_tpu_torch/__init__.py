@@ -3,7 +3,8 @@
 The JAX package beside this one is the reference; this package holds
 its counterpart module by module (same layout: ``config``, ``core``,
 ``ops``, ``models``, ``train``, ``replication``, ``metrics``,
-``scenario``, ``serve``, ``experiments``, ``utils``), imports ``torch`` and never
+``scenario``, ``serve``, ``obs``, ``resilience``, ``orchestrate``,
+``experiments``, ``utils``), imports ``torch`` and never
 ``jax``, and keeps its own copy of anything it needs from the JAX
 package.  Every Pallas kernel on a ported path is a kernel written by
 hand for Hopper under ``csrc/``, built with ``nvcc`` at first use

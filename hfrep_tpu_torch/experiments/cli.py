@@ -6,18 +6,27 @@
     eval-gan    12-metric eval of a saved sample cube against real windows
     sweep       latent-dim sweep (real only, or GAN-augmented via
                 --gan-checkpoint), tables, summary and --stats
+    pipeline    the async actor fabric: generator actors streaming sample
+                blocks (or fixture panels) into AE sweep consumers over a
+                bounded spool queue, supervised (restart on loss, a
+                coordinated drain on SIGTERM)
     serve       the replication-server drill, optionally sampling a
                 trained generator from a checkpoint (--gan-checkpoint)
     scenario    the scenario factory: conditional stress banks (bank),
                 walk-forward sweeps (walkforward), synthetic universes
                 (universe)
 
-Every verb runs on the card unless ``--device cpu`` is given.  Not
-offered yet (ROADMAP): the mesh flags, ``--profile-dir``, ``--obs-dir``,
+Every verb runs on the card unless ``--device cpu`` is given.
+``train-gan``, ``sweep``, ``pipeline``, ``serve`` and ``scenario`` run in
+the drive envelope (:func:`~hfrep_tpu_torch.resilience.drive.run_drive`):
+a SIGTERM drains at the next safe boundary into exit 75, re-run with
+``--resume`` to continue (``sweep --resume`` keeps chunk snapshots under
+``<out>/_resume``); a storage error that outlasts the retry policy exits
+74; ``--obs-dir`` (or ``HFREP_OBS_DIR``) writes the telemetry stream.
+Not offered yet (ROADMAP): the mesh flags, ``--profile-dir``,
 ``--export-h5``, ``--dtype``, ``eval-gan``'s and ``--eval``'s
-``--eyeball`` plot, ``sweep``'s ``--h5-generator``, ``--resume`` and
-``--plots``, ``scenario``'s drain into exit 75 (``run_drive``), and the
-verbs ``pipeline`` and ``sample-h5``.
+``--eyeball`` plot, ``sweep``'s ``--h5-generator`` and ``--plots``, and
+the verb ``sample-h5``.
 """
 
 from __future__ import annotations
@@ -62,6 +71,9 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="consecutive rollbacks before giving up (with --nan-guard)")
     t.add_argument("--quiet", action="store_true")
     t.add_argument("--eval", action="store_true", help="run the 12-metric suite after training")
+    t.add_argument("--obs-dir", default=None,
+                   help="telemetry run dir: the train span, block ledger windows, "
+                        "checkpoint spans, metric gauges")
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     e = sub.add_parser("eval-gan", help="score a saved sample cube")
@@ -88,6 +100,11 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("--chunk-epochs", type=int, default=None,
                    help="epochs a chunk of the early-exit drive (0 = one "
                         "chunk; the results are the same either way)")
+    s.add_argument("--resume", action="store_true",
+                   help="preemption-safe sweep: snapshot the lane state at every "
+                        "chunk boundary under <out>/_resume, drain on SIGTERM (exit "
+                        "75), and resume from the last completed chunk of a killed "
+                        "run with results bit-identical to an uninterrupted one")
     s.add_argument("--stats", action="store_true",
                    help="the stats battery of the best latent (cell 25): "
                         "Omega/Sharpe/cVaR/CEQ/skew/kurt, FF3F/FF5F alphas, "
@@ -95,7 +112,68 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("--ff3", default="/root/reference/data/F-F_Research_Data_Factors_daily.CSV")
     s.add_argument("--ff5",
                    default="/root/reference/data/F-F_Research_Data_5_Factors_2x3_daily.CSV")
+    s.add_argument("--obs-dir", default=None,
+                   help="telemetry run dir: chunk stats, snapshot and drain events")
     s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    pl = sub.add_parser(
+        "pipeline",
+        help="async actor fabric: GAN synthesis streaming into AE sweep consumers "
+             "over a bounded queue (survives losing any member, drains pod-wide on "
+             "SIGTERM into exit 75)")
+    pl.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
+    pl.add_argument("--preset", default="mtss_wgan_gp_prod",
+                    help="preset the --gan-checkpoint was trained with")
+    plsrc = pl.add_mutually_exclusive_group(required=True)
+    plsrc.add_argument("--gan-checkpoint", action="append", default=None,
+                       help="generator checkpoint; repeatable — one generator actor per "
+                            "checkpoint, each streaming --blocks sample blocks; "
+                            "consumers run the GAN-augmented sweep per block")
+    plsrc.add_argument("--fixture-sources", type=int, default=None, metavar="K",
+                       help="K deterministic synthetic generator actors (no cleaned "
+                            "data or checkpoint needed)")
+    plsrc.add_argument("--scenario-sources", type=int, default=None, metavar="K",
+                       help="K conditional scenario-bank generator actors: source k "
+                            "streams regime k mod --scenario-regimes")
+    pl.add_argument("--scenario-regimes", type=int, default=3,
+                    help="regime count for --scenario-sources")
+    pl.add_argument("--blocks", type=int, default=4,
+                    help="sample blocks per generator actor, streamed item-wise with "
+                         "a sub-block snapshot after every item")
+    pl.add_argument("--n-gen-windows", type=int, default=10,
+                    help="windows per sample block (gan sources)")
+    pl.add_argument("--latents", default="1:21", help="'lo:hi' inclusive, or comma list")
+    pl.add_argument("--consumers", type=int, default=1,
+                    help="AE sweep consumer actors pulling from the queue")
+    pl.add_argument("--queue-capacity", type=int, default=4,
+                    help="spool bound: generators block (backpressure) while this "
+                         "many items are unclaimed")
+    pl.add_argument("--epochs", type=int, default=None, help="AE epochs override")
+    pl.add_argument("--chunk-epochs", type=int, default=None,
+                    help="AEConfig.chunk_epochs override")
+    pl.add_argument("--fixture-rows", type=int, default=120,
+                    help="panel rows per fixture item")
+    pl.add_argument("--fixture-feats", type=int, default=16,
+                    help="panel features per fixture item (the AE input width)")
+    pl.add_argument("--gen-delay", type=float, default=0.0,
+                    help="seconds a fixture item takes to produce, the latency of "
+                         "real GAN sampling (wall clock only; the bytes are the same)")
+    pl.add_argument("--stream-seed", type=int, default=0,
+                    help="seed of the item streams: every item is a pure function "
+                         "of (seed, source, seq)")
+    pl.add_argument("--drain-timeout", type=float, default=30.0,
+                    help="seconds the coordinated drain barrier waits for every "
+                         "member before escalating stragglers with SIGKILL")
+    pl.add_argument("--out", required=True)
+    pl.add_argument("--resume", action="store_true",
+                    help="continue a killed/drained pipeline: orphaned claims are "
+                         "requeued, generators fast-forward via their snapshots, "
+                         "consumers skip published results")
+    pl.add_argument("--obs-dir", default=None,
+                    help="telemetry run dir: actor lifecycle events, queue depth "
+                         "gauge, restart counters (each actor streams into "
+                         "<dir>/actors/<name>, its kernel launches among them)")
+    pl.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     sv = sub.add_parser("serve", help="replication-server drill")
     sv.add_argument("--requests", type=int, default=2000, help="queries to offer")
@@ -114,6 +192,7 @@ def _build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--preset", default="mtss_wgan_gp_prod",
                     help="preset the --gan-checkpoint was trained with")
     sv.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
+    sv.add_argument("--obs-dir", default=None, help="telemetry run dir")
     sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     sc = sub.add_parser(
@@ -168,6 +247,7 @@ def _build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--n-factors", type=int, default=22,
                     help="synthetic factor columns (universe mode)")
     sc.add_argument("--seed", type=int, default=0)
+    sc.add_argument("--obs-dir", default=None, help="telemetry run dir")
     sc.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -205,7 +285,23 @@ def _make_trainer(preset: str, cleaned_dir: str, checkpoint_dir: Optional[str] =
     return trainer, cfg
 
 
+def _obs_dir(args) -> Optional[str]:
+    return args.obs_dir or os.environ.get("HFREP_OBS_DIR")
+
+
+def _drive(name: str, impl, args, **kw) -> int:
+    """Run a verb's body in the drive envelope of the registered spec
+    ``name``: exit 75 on a drain, 74 on a persistent storage error."""
+    from hfrep_tpu_torch.resilience.drive import DRIVE_REGISTRY, run_drive
+    return run_drive(DRIVE_REGISTRY[name], lambda: impl(args), obs_dir=_obs_dir(args),
+                     session_meta={"command": args.cmd}, **kw)
+
+
 def cmd_train_gan(args) -> int:
+    return _drive("gan_ckpt", _cmd_train_gan_impl, args)
+
+
+def _cmd_train_gan_impl(args) -> int:
     trainer, cfg = _make_trainer(
         args.preset, args.cleaned_dir, args.checkpoint_dir, args.quiet,
         nan_guard=args.nan_guard, max_recoveries=args.max_recoveries,
@@ -330,6 +426,13 @@ def _write_chunk_stats(stats, out_dir: str) -> dict:
 
 
 def cmd_sweep(args) -> int:
+    # only the --resume path has a snapshot to come back to
+    hint = ("re-run the same command to resume from the last chunk" if args.resume else
+            "no snapshot was kept (run with --resume to make the sweep resumable)")
+    return _drive("ae_sweep", _cmd_sweep_impl, args, drain_hint=hint)
+
+
+def _cmd_sweep_impl(args) -> int:
     from hfrep_tpu_torch.config import AEConfig
     from hfrep_tpu_torch.core.data import load_panel
     from hfrep_tpu_torch.experiments.augment import (augment_training_set,
@@ -345,6 +448,7 @@ def cmd_sweep(args) -> int:
     if args.chunk_epochs is not None:
         cfg = dataclasses.replace(cfg, chunk_epochs=args.chunk_epochs)
     latents = _parse_latents(args.latents)
+    resume_dir = os.path.join(args.out, "_resume") if args.resume else None
 
     augs, gen_names = _sample_augmentations(args)
     if len(augs) > 1:
@@ -353,7 +457,7 @@ def cmd_sweep(args) -> int:
         multi = run_sweep_multi(
             augment_training_sets(x_train, y_train, augs), x_test, y_test, rf_test,
             panel.factors, cfg, latents, strategy_names=panel.hf_names,
-            dataset_names=["real"] + gen_names, device=args.device)
+            dataset_names=["real"] + gen_names, device=args.device, resume_dir=resume_dir)
         multi.save(args.out)
         doc = {name: res.summary() for name, res in zip(multi.dataset_names, multi.results)}
         doc["chunk_stats"] = _write_chunk_stats(multi.chunk_stats, args.out)
@@ -369,7 +473,8 @@ def cmd_sweep(args) -> int:
         print(f"augmented training set: {x_train.shape[0]} rows "
               f"({augs[0].factors.shape[0]} synthetic)")
     result = run_sweep(x_train, y_train, x_test, y_test, rf_test, panel.factors, cfg,
-                       latents, strategy_names=panel.hf_names, device=args.device)
+                       latents, strategy_names=panel.hf_names, device=args.device,
+                       resume_dir=resume_dir)
     result.save(args.out)
     if result.chunk_stats is not None:
         _write_chunk_stats(result.chunk_stats, args.out)
@@ -408,7 +513,65 @@ def _sweep_outputs(args, result, out_dir, panel, y_test, rf_test) -> int:
     return 0
 
 
+def cmd_pipeline(args) -> int:
+    return _drive("pipeline", _cmd_pipeline_impl, args)
+
+
+def _cmd_pipeline_impl(args) -> int:
+    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch.orchestrate import (PipelinePlan, PipelineStateError, SourceSpec,
+                                             run_pipeline)
+
+    cfg = AEConfig()
+    if args.epochs:
+        cfg = dataclasses.replace(cfg, epochs=args.epochs)
+    if args.chunk_epochs is not None:
+        cfg = dataclasses.replace(cfg, chunk_epochs=args.chunk_epochs)
+    if args.gan_checkpoint:
+        sources = [SourceSpec(name=f"g{i}", mode="gan",
+                              params={"preset": args.preset, "checkpoint": ck,
+                                      "n_gen_windows": args.n_gen_windows})
+                   for i, ck in enumerate(args.gan_checkpoint)]
+        consume_mode = "augment"
+    else:
+        cfg = dataclasses.replace(cfg, n_factors=args.fixture_feats,
+                                  latent_dim=min(cfg.latent_dim, args.fixture_feats))
+        consume_mode = "direct"
+        if args.scenario_sources:
+            sources = [SourceSpec(name=f"s{i}", mode="scenario",
+                                  params={"rows": args.fixture_rows,
+                                          "feats": args.fixture_feats,
+                                          "regime": i % args.scenario_regimes,
+                                          "n_regimes": args.scenario_regimes})
+                       for i in range(args.scenario_sources)]
+        else:
+            params = {"rows": args.fixture_rows, "feats": args.fixture_feats}
+            if args.gen_delay:
+                params["gen_delay"] = args.gen_delay
+            sources = [SourceSpec(name=f"f{i}", mode="fixture", params=dict(params))
+                       for i in range(args.fixture_sources)]
+    plan = PipelinePlan(
+        out_dir=args.out, sources=sources, blocks=args.blocks, consumers=args.consumers,
+        capacity=args.queue_capacity, ae_cfg=cfg, latent_dims=_parse_latents(args.latents),
+        consume_mode=consume_mode, cleaned_dir=args.cleaned_dir,
+        stream_seed=args.stream_seed, device=args.device,
+        drain_timeout=args.drain_timeout, timeout=None)
+    try:
+        out = run_pipeline(plan, resume=args.resume)
+    except PipelineStateError as e:
+        print(f"pipeline: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps({"sources": sorted(out["summary"]["sources"]), "blocks": args.blocks,
+                      "consumers": args.consumers, **out["stats"]}, indent=2))
+    print(f"assembled: {os.path.join(args.out, 'pipeline.json')}")
+    return 0
+
+
 def cmd_serve(args) -> int:
+    return _drive("serve_load", _cmd_serve_impl, args)
+
+
+def _cmd_serve_impl(args) -> int:
     from hfrep_tpu_torch.config import AEConfig
     from hfrep_tpu_torch.serve.aot import GenServeModel
     from hfrep_tpu_torch.serve.fixture import fixture_server, init_ae_model, warm_server
@@ -479,6 +642,13 @@ def _scenario_panel(args):
 
 
 def cmd_scenario(args) -> int:
+    # one verb, two registered drives: the bank is the conditional-GAN
+    # drive; walkforward and universe ride the walkforward spec
+    return _drive("scenario_bank" if args.mode == "bank" else "walkforward",
+                  _cmd_scenario_impl, args)
+
+
+def _cmd_scenario_impl(args) -> int:
     from hfrep_tpu_torch.config import AEConfig, ModelConfig, TrainConfig
     from hfrep_tpu_torch.scenario import regimes as reg
     from hfrep_tpu_torch.scenario.walkforward import WalkForwardSpec, run_walkforward
@@ -535,9 +705,19 @@ def cmd_scenario(args) -> int:
 
 
 COMMANDS = {"clean": cmd_clean, "train-gan": cmd_train_gan, "eval-gan": cmd_eval_gan,
-            "sweep": cmd_sweep, "serve": cmd_serve, "scenario": cmd_scenario}
+            "sweep": cmd_sweep, "pipeline": cmd_pipeline, "serve": cmd_serve,
+            "scenario": cmd_scenario}
+#: the verbs that open their own telemetry session in the drive envelope
+DRIVES = ("train-gan", "sweep", "pipeline", "serve", "scenario")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    from hfrep_tpu_torch import obs
+
     args = _build_parser().parse_args(argv)
-    return COMMANDS[args.cmd](args)
+    if args.cmd not in DRIVES:
+        obs.maybe_enable_from_env()      # HFREP_OBS_DIR opt-in for the others
+    try:
+        return COMMANDS[args.cmd](args)
+    finally:
+        obs.disable()                    # no-op unless something enabled obs

@@ -31,7 +31,8 @@ from hfrep_tpu_torch.core.device import DeviceLike
 from hfrep_tpu_torch.models.autoencoder import latent_mask
 from hfrep_tpu_torch.replication import perf_stats
 from hfrep_tpu_torch.replication.engine import (ChunkStats, PermSource, ReplicationEngine,
-                                                stack_padded, sweep_autoencoders,
+                                                emit_chunk_stats, stack_padded,
+                                                sweep_autoencoders,
                                                 sweep_autoencoders_chunked,
                                                 sweep_autoencoders_multi, sweep_evaluate)
 
@@ -124,23 +125,29 @@ def run_sweep(x_train, y_train, x_test, y_test, rf_test, factor_full,
               strategy_names: Optional[Sequence[str]] = None,
               init_params: Optional[dict] = None,
               perm_source: Optional[PermSource] = None,
-              device: DeviceLike = None) -> SweepResult:
+              device: DeviceLike = None, resume_dir: Optional[str] = None) -> SweepResult:
     """Train every latent width as one lane grid, then evaluate it.
 
     ``x_train``/``y_train`` may be GAN-augmented (synthetic rows above the
     real ones); ``x_test``/``y_test``/``rf_test`` are the real OOS panels
     and ``factor_full`` the full factor panel the costs draw their
     covariance windows from.  ``init_params``/``perm_source`` are the
-    engine's draw seams (lane-leading)."""
+    engine's draw seams (lane-leading).  ``resume_dir`` keeps the chunked
+    drive's snapshots there and resumes from them (chunked drive only)."""
     cfg = cfg or AEConfig()
     seed = cfg.seed if seed is None else seed
     latent_dims = list(latent_dims)
     cfg = dataclasses.replace(cfg, latent_dim=max(latent_dims))
     engine = ReplicationEngine(x_train, y_train, x_test, y_test, cfg, device=device)
     stats = None
+    if resume_dir is not None and not (cfg.chunk_epochs and cfg.chunk_epochs > 0):
+        raise ValueError("resume_dir requires the chunked drive (cfg.chunk_epochs > 0): "
+                         "a monolithic sweep has no chunk boundary to resume from")
     if cfg.chunk_epochs and cfg.chunk_epochs > 0:
         swept, stats = sweep_autoencoders_chunked(seed, engine.x_train, cfg, latent_dims,
-                                                  init_params, perm_source, engine.device)
+                                                  init_params, perm_source, engine.device,
+                                                  resume_dir=resume_dir)
+        emit_chunk_stats(stats)
     else:
         swept = sweep_autoencoders(seed, engine.x_train, cfg, latent_dims, init_params,
                                    perm_source, engine.device)
@@ -203,7 +210,8 @@ def run_sweep_multi(datasets, x_test, y_test, rf_test, factor_full,
                     dataset_names: Optional[Sequence[str]] = None,
                     init_params: Optional[dict] = None,
                     perm_source: Optional[PermSource] = None,
-                    device: DeviceLike = None) -> MultiSweepResult:
+                    device: DeviceLike = None,
+                    resume_dir: Optional[str] = None) -> MultiSweepResult:
     """K+1 training sets × L latent widths as one (K+1, L) lane grid.
 
     ``datasets`` holds ``(x_train, y_train)`` pairs (the real set and K
@@ -211,7 +219,8 @@ def run_sweep_multi(datasets, x_test, y_test, rf_test, factor_full,
     its own train-set params, padded to the longest
     (:func:`~hfrep_tpu_torch.replication.engine.stack_padded`) and trained
     with the padded semantics, whose sample weights hide the padding;
-    each is then evaluated on its unpadded panel."""
+    each is then evaluated on its unpadded panel.  ``resume_dir`` as in
+    :func:`run_sweep`."""
     cfg = cfg or AEConfig()
     seed = cfg.seed if seed is None else seed
     latent_dims = list(latent_dims)
@@ -224,7 +233,9 @@ def run_sweep_multi(datasets, x_test, y_test, rf_test, factor_full,
                for x, y in datasets]
     x_stack, n_rows = stack_padded([e.x_train for e in engines])
     swept, stats = sweep_autoencoders_multi(seed, x_stack, n_rows, cfg, latent_dims,
-                                            init_params, perm_source, engines[0].device)
+                                            init_params, perm_source, engines[0].device,
+                                            resume_dir=resume_dir)
+    emit_chunk_stats(stats)
     results = [
         _evaluate_sweep(engine, cfg, rf_test, factor_full,
                         {k: v[d] for k, v in swept.params.items()}, latent_dims,

@@ -3,9 +3,9 @@
 
 The console formatter reproduces the reference's print lines for
 eyeball comparison, including the WGAN quirk of printing ``1 − d_loss``
-(``GAN/WGAN.py:208``) while WGAN-GP prints raw losses.  The JAX logger
-also forwards every record into the obs event stream; the port has no
-such stream yet.
+(``GAN/WGAN.py:208``) while WGAN-GP prints raw losses.  With telemetry
+on, every record is also forwarded into the obs event stream as
+``train/<key>`` gauges: one logging call site, two sinks.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import IO, Mapping, Optional
 
 import numpy as np
 import torch
+
+from hfrep_tpu_torch.obs import get_obs
 
 
 def _to_py(v):
@@ -46,6 +48,11 @@ class MetricLogger:
         rec.update({k: _to_py(v) for k, v in metrics.items()})
         if self._fh:
             self._fh.write(json.dumps(rec) + "\n")
+        obs = get_obs()
+        if obs.enabled:
+            for k, v in rec.items():
+                if k not in ("step", "t") and isinstance(v, (int, float)):
+                    obs.gauge(f"train/{k}").set(v, step=int(step))
         if self.echo:
             print(self.format_line(step, rec))
 

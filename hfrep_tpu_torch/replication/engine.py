@@ -36,8 +36,19 @@ flag one chunk behind (a copy into pinned memory behind a CUDA event).
 Chunked and monolithic drives, with the flag read either way, give
 bit-identical results: each epoch's work depends only on the epoch.
 
-Not in this port yet (ROADMAP): ``resume_dir`` snapshots, the ``mesh``
-path, the health traces, ``sweep_item_arrays`` and the bf16 policy.
+``resume_dir`` makes a chunked drive preemption-safe: at every chunk
+boundary the lane carry (params, Nadam slots, early-stopping registers),
+the traces so far and the epoch position are persisted there
+(:class:`~hfrep_tpu_torch.resilience.snapshot.ChunkSnapshot`, the stop
+flag then read at the boundary, not one chunk behind), a SIGTERM drains
+at the boundary (:class:`~hfrep_tpu_torch.resilience.Preempted`), and a
+re-run with the same arguments resumes from the last completed chunk
+bit-identically: the permutations are a pure function of the seed and
+the epoch.  Every chunked drive crosses the ``chunk`` boundary of the
+resilience layer, snapshot or not.
+
+Not in this port yet (ROADMAP): the ``mesh`` path, the health traces
+and the bf16 policy.
 """
 
 from __future__ import annotations
@@ -49,11 +60,13 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hfrep_tpu_torch import resilience
 from hfrep_tpu_torch.config import AEConfig
 from hfrep_tpu_torch.core import costs
 from hfrep_tpu_torch.core import scaler as mm
 from hfrep_tpu_torch.core.device import DeviceLike, resolve_device
 from hfrep_tpu_torch.models.autoencoder import ae_apply, ae_encode, latent_mask
+from hfrep_tpu_torch.obs import get_obs
 from hfrep_tpu_torch.ops.optimizers import keras_nadam
 from hfrep_tpu_torch.ops.rolling import (_window_stack, expanding_minmax_scale,
                                          rolling_ols_beta)
@@ -260,6 +273,18 @@ class _Grid:
         enc, dec = self.kernels(self.flat)
         return {"encoder_kernel": enc.clone(), "decoder_kernel": dec.clone()}
 
+    def carry(self) -> dict:
+        """The live training state a chunk boundary snapshots."""
+        return {"flat": self.flat, "count": self.opt.count,
+                "m_schedule": self.opt.m_schedule, "mu": self.opt.mu[0],
+                "nu": self.opt.nu[0], "best_val": self.best_val, "wait": self.wait,
+                "stopped": self.stopped}
+
+    def load(self, carry: dict) -> None:
+        """Copy a snapshot's carry into the live state, in place."""
+        for k, t in self.carry().items():
+            t.copy_(carry[k])
+
 
 class _Flag:
     """A stop flag on its way to the host: on a card, a non-blocking copy
@@ -280,8 +305,26 @@ class _Flag:
         return bool(self.host)
 
 
+def _concat_traces(traces: list) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.cat([t[i] for t in traces], dim=-1) for i in range(3))
+
+
+def _snapshot_save_failed(snapshot, pos: int, e: OSError) -> None:
+    """A chunk snapshot is a resume optimisation: a write that outlasts
+    the retry policy costs resume granularity (the last snapshot that
+    landed, or a fresh start, both bit-identical), never the drive."""
+    import sys
+
+    obs = get_obs()
+    obs.counter("resilience/snapshot_save_failures").inc()
+    obs.event("snapshot_save_failed", path=str(snapshot.path), epoch=pos, error=str(e))
+    print(f"warning: chunk snapshot {snapshot.path} not saved ({e}); "
+          "resume granularity degraded, training continues", file=sys.stderr)
+
+
 def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: int,
-                  double_buffer: bool = True):
+                  double_buffer: bool = True, snapshot=None, grid: Optional["_Grid"] = None,
+                  cross: bool = True):
     """The host side of chunked early-exit training: ``chunk_fn(pos,
     length)`` runs ``length`` epochs and returns their traces; between
     chunks the host reads ``all(stopped)`` and stops once it holds.  With
@@ -290,12 +333,33 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
     whose outputs are the padding values (frozen lanes, NaN losses, True
     flags), so the result is the serial drive's.  The epochs not run are
     padded with NaN losses and True flags, the values the monolithic
-    drive computes for them.  Returns ``(traces, epochs_dispatched,
-    chunks_dispatched, overshoot_chunks)``."""
+    drive computes for them.
+
+    ``snapshot`` (a :class:`~hfrep_tpu_torch.resilience.snapshot.
+    ChunkSnapshot` of ``grid``'s carry) loads the resume state before the
+    loop and saves it at every boundary; its drive reads the flag at the
+    boundary (the snapshot records it).  Every boundary crosses
+    ``resilience.boundary("chunk")`` (unless ``cross`` is False: the
+    monolithic drive, one scan in the JAX package, has no boundary),
+    where injected faults fire and a requested drain raises
+    :class:`~hfrep_tpu_torch.resilience.Preempted` with the state
+    already on disk.  Returns ``(traces,
+    epochs_dispatched, chunks_dispatched, overshoot_chunks)``."""
     chunk = int(chunk_epochs) if chunk_epochs and chunk_epochs > 0 else epochs
     traces: list = []
     pos = chunks = overshoot = 0
     stopped_all = False
+    if snapshot is not None:
+        double_buffer = False
+        loaded = snapshot.load(grid.carry())
+        if loaded is not None:
+            carry, tr, pos, chunks, stopped_all = loaded
+            grid.load(carry)
+            traces.append(tuple(t.to(stopped.device) for t in tr))
+            obs = get_obs()
+            obs.counter("resilience/resumes").inc()
+            obs.event("chunk_resume", pos=pos, chunks=chunks, epochs=epochs,
+                      path=str(snapshot.path))
     pending: Optional[_Flag] = None
     while pos < epochs and not stopped_all:
         length = min(chunk, epochs - pos)
@@ -311,7 +375,24 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
             pending = flag
         elif pos < epochs:
             stopped_all = bool(torch.all(stopped))
-    out = tuple(torch.cat([t[i] for t in traces], dim=-1) for i in range(3))
+        if snapshot is not None and not resilience.drain_requested():
+            # a drain already requested (a SIGTERM during the chunk) skips
+            # this boundary's write: the resume replays the chunk from the
+            # committed predecessor, bit-identically
+            try:
+                snapshot.save(grid.carry(), _concat_traces(traces), pos, chunks,
+                              stopped_all)
+            except OSError as e:
+                _snapshot_save_failed(snapshot, pos, e)
+        if not cross:
+            continue
+        try:
+            resilience.boundary("chunk")
+        except resilience.Preempted as e:
+            raise resilience.Preempted(
+                site=e.site, reason=e.reason, epoch=pos,
+                snapshot=str(snapshot.path) if snapshot is not None else None) from None
+    out = _concat_traces(traces)
     if pos < epochs:
         lead = out[0].shape[:-1]
         pad = lead + (epochs - pos,)
@@ -337,22 +418,41 @@ def _stop_epoch(stop_trace: torch.Tensor, epochs: int) -> torch.Tensor:
 def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
                 lead: Tuple[int, ...], init_params: Optional[dict],
                 perm_source: Optional[PermSource], device: DeviceLike,
-                monolithic: bool = False) -> Tuple[AEResult, ChunkStats]:
+                monolithic: bool = False, resume_dir: Optional[str] = None
+                ) -> Tuple[AEResult, ChunkStats]:
     """The shared drive of every training entry point: ``lead`` is the
-    grid's shape as the caller sees it, () / (L,) / (D, L)."""
+    grid's shape as the caller sees it, () / (L,) / (D, L).
+
+    ``resume_dir`` keeps chunk snapshots there; their fingerprint covers
+    the config, the grid's kind and lanes, the seed and a digest of the
+    operands (data, masks, row counts, given init), so a snapshot of
+    another drive is refused.  A ``perm_source`` seam is outside the
+    fingerprint: a resume must pass the same one."""
     _check_dtype(cfg)
+    if resume_dir is not None and (monolithic or not cfg.chunk_epochs):
+        raise ValueError("resume_dir requires the chunked drive (cfg.chunk_epochs > 0): "
+                         "a monolithic drive has no chunk boundary to resume from")
     dev = resolve_device(device)
     x = _tensor(x, dev)
     d = x.shape[0] if x.dim() == 3 else 1
     x = x if x.dim() == 3 else x[None]
     masks = masks.to(dev)
     grid_shape = (d, masks.shape[0])
+    given_init = init_params is not None
     if init_params is None:
         g = torch.Generator()
         g.manual_seed(seed_mix(seed, 1))
         init_params = keras_init_params(g, lead, x.shape[-1], cfg.latent_dim, dev)
     init_params = {k: _tensor(v, dev) for k, v in init_params.items()}
-    with torch.no_grad():
+    snap = None
+    if resume_dir is not None:
+        from hfrep_tpu_torch.resilience.snapshot import ChunkSnapshot, digest_arrays
+        snap = ChunkSnapshot(resume_dir, fingerprint={
+            "cfg": list(dataclasses.astuple(cfg)),
+            "kind": ("single", "lanes", "multi")[len(lead)], "lanes": list(lead),
+            "seed": int(seed),
+            "operands": digest_arrays(x, masks, rows_info, init_params if given_init else None)})
+    with torch.no_grad(), resilience.graceful_drain():
         grid = _Grid(cfg, x, masks, rows_info, init_params, d)
         if perm_source is None:
             perm_source = PermStream(seed_mix(seed, 2), lead, grid.n_train, dev)
@@ -363,7 +463,7 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
 
         (tl, vl, st), dispatched, chunks, overshoot = _drive_chunks(
             chunk_fn, grid.stopped, cfg.epochs, 0 if monolithic else cfg.chunk_epochs,
-            double_buffer=cfg.double_buffer)
+            double_buffer=cfg.double_buffer, snapshot=snap, grid=grid, cross=not monolithic)
         params = {k: v.reshape(lead + v.shape[2:]) for k, v in grid.params().items()}
         tl, vl, st = (t.reshape(lead + (cfg.epochs,)) for t in (tl, vl, st))
         stop_epoch = _stop_epoch(st, cfg.epochs)
@@ -375,6 +475,8 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
                        lanes=int(np.prod(grid_shape)),
                        lanes_stopped=int(torch.sum(stop_epoch < cfg.epochs)),
                        overshoot_chunks=overshoot)
+    if snap is not None:
+        snap.clear()
     return res, stats
 
 
@@ -403,13 +505,15 @@ def train_autoencoder_chunked(seed: int, x_train_scaled, cfg: AEConfig,
                               mask: Optional[torch.Tensor] = None,
                               init_params: Optional[dict] = None,
                               perm_source: Optional[PermSource] = None,
-                              device: DeviceLike = None) -> Tuple[AEResult, ChunkStats]:
+                              device: DeviceLike = None, resume_dir: Optional[str] = None,
+                              ) -> Tuple[AEResult, ChunkStats]:
     """:func:`train_autoencoder` as a chunked early-exit drive:
     ``cfg.chunk_epochs`` epochs a chunk, no chunk after early stopping
-    fired; bit-identical to the monolithic drive."""
+    fired; bit-identical to the monolithic drive.  ``resume_dir`` keeps
+    chunk snapshots and resumes from them."""
     m = torch.ones(cfg.latent_dim) if mask is None else torch.as_tensor(mask).cpu()
     return _train_grid(cfg, seed, x_train_scaled, m.reshape(1, -1), None, (), init_params,
-                       perm_source, device)
+                       perm_source, device, resume_dir=resume_dir)
 
 
 def sweep_autoencoders(seed: int, x_train_scaled, cfg: AEConfig,
@@ -426,12 +530,13 @@ def sweep_autoencoders(seed: int, x_train_scaled, cfg: AEConfig,
 def sweep_autoencoders_chunked(seed: int, x_train_scaled, cfg: AEConfig,
                                latent_dims: Sequence[int], init_params: Optional[dict] = None,
                                perm_source: Optional[PermSource] = None,
-                               device: DeviceLike = None) -> Tuple[AEResult, ChunkStats]:
+                               device: DeviceLike = None, resume_dir: Optional[str] = None,
+                               ) -> Tuple[AEResult, ChunkStats]:
     """:func:`sweep_autoencoders` as a chunked early-exit drive: chunks run
     until every lane has stopped; bit-identical to the monolithic sweep."""
     cfg, masks = _sweep_masks(cfg, latent_dims)
     return _train_grid(cfg, seed, x_train_scaled, masks, None, (len(latent_dims),),
-                       init_params, perm_source, device)
+                       init_params, perm_source, device, resume_dir=resume_dir)
 
 
 def stack_padded(x_list: Sequence) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -448,19 +553,22 @@ def stack_padded(x_list: Sequence) -> Tuple[torch.Tensor, torch.Tensor]:
 def sweep_autoencoders_padded(seed: int, x_pad, n_rows, cfg: AEConfig,
                               latent_dims: Sequence[int], init_params: Optional[dict] = None,
                               perm_source: Optional[PermSource] = None,
-                              device: DeviceLike = None) -> Tuple[AEResult, ChunkStats]:
+                              device: DeviceLike = None, resume_dir: Optional[str] = None,
+                              ) -> Tuple[AEResult, ChunkStats]:
     """One padded dataset's latent sweep: ``x_pad`` (T_max, F) holds
     ``n_rows`` real rows, then zeros; the unit that
     :func:`sweep_autoencoders_multi` batches across datasets."""
     cfg, masks = _sweep_masks(cfg, latent_dims)
     return _train_grid(cfg, seed, x_pad, masks, _rows_info(cfg, n_rows),
-                       (len(latent_dims),), init_params, perm_source, device)
+                       (len(latent_dims),), init_params, perm_source, device,
+                       resume_dir=resume_dir)
 
 
 def sweep_autoencoders_multi(seed: int, x_stack, n_rows, cfg: AEConfig,
                              latent_dims: Sequence[int], init_params: Optional[dict] = None,
                              perm_source: Optional[PermSource] = None,
-                             device: DeviceLike = None) -> Tuple[AEResult, ChunkStats]:
+                             device: DeviceLike = None, resume_dir: Optional[str] = None,
+                             ) -> Tuple[AEResult, ChunkStats]:
     """Every (dataset, latent) pair as one lane of a (D, L) grid:
     ``x_stack`` the :func:`stack_padded` cube of the real and the
     augmented training sets, ``n_rows`` their row counts.  Chunks run
@@ -468,7 +576,47 @@ def sweep_autoencoders_multi(seed: int, x_stack, n_rows, cfg: AEConfig,
     cfg, masks = _sweep_masks(cfg, latent_dims)
     d = int(torch.as_tensor(x_stack).shape[0])
     return _train_grid(cfg, seed, x_stack, masks, _rows_info(cfg, n_rows),
-                       (d, len(latent_dims)), init_params, perm_source, device)
+                       (d, len(latent_dims)), init_params, perm_source, device,
+                       resume_dir=resume_dir)
+
+
+def sweep_item_arrays(seed: int, panel, cfg: AEConfig, latent_dims: Sequence[int],
+                      init_params: Optional[dict] = None,
+                      perm_source: Optional[PermSource] = None,
+                      device: DeviceLike = None) -> dict:
+    """One queue item's latent sweep as a flat ``{name: np.ndarray}`` dict
+    ready for an ``npz`` artifact (the actors' entry point).
+
+    A pure function of ``(seed, panel, cfg, latent_dims)`` on a given
+    device — the property the fabric's kill→resume bit-identity rests on
+    — with the JAX artifact's names and dtypes: ``param_<name>`` per
+    parameter with its leading lane axis, ``stop_epoch`` (int32), the
+    loss traces and ``chunks_dispatched``.  Runs the chunked early-exit
+    drive on the panel as given (already scaled)."""
+    res, stats = sweep_autoencoders_chunked(seed, panel, cfg, list(latent_dims),
+                                            init_params, perm_source, device)
+    out = {f"param_{k}": v.cpu().numpy() for k, v in sorted(res.params.items())}
+    out["stop_epoch"] = res.stop_epoch.cpu().numpy().astype(np.int32)
+    out["train_loss"] = res.train_loss.cpu().numpy()
+    out["val_loss"] = res.val_loss.cpu().numpy()
+    out["chunks_dispatched"] = np.asarray(stats.chunks_dispatched)
+    return out
+
+
+def emit_chunk_stats(stats: Optional[ChunkStats]) -> None:
+    """Publish a chunked drive's savings as obs gauges (no-op when
+    telemetry is off or the drive ran monolithically)."""
+    if stats is None:
+        return
+    obs = get_obs()
+    if not obs.enabled:
+        return
+    obs.gauge("ae/epochs_saved").set(int(stats.epochs_saved),
+                                     epochs_total=int(stats.epochs_total),
+                                     chunk_epochs=int(stats.chunk_epochs),
+                                     overshoot_chunks=int(stats.overshoot_chunks))
+    obs.gauge("ae/lanes_stopped").set(int(stats.lanes_stopped), lanes=int(stats.lanes))
+    obs.counter("ae_chunks_dispatched").inc(int(stats.chunks_dispatched))
 
 
 # ------------------------------------------------------ pure evaluation

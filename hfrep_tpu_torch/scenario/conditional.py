@@ -21,14 +21,14 @@ Layout under ``out_dir``::
     blocks/r<regime>_<seq>/samples.npy   atomic per-block artifacts
     bank.json                            manifest: digests + config
 
-Not ported yet (ROADMAP): the resilience layer's ``graceful_drain`` and
-``boundary`` (SIGTERM drains at a block boundary), the obs events and
-the health tail of the training drive; they are named no-op stubs below.
+A SIGTERM drains at the next ``gan_block`` (training) or ``bank_block``
+(a published block) boundary (:class:`~hfrep_tpu_torch.resilience.Preempted`):
+a re-run keeps every block that verifies.  Not ported yet (ROADMAP): the
+health tail of the training drive, a named no-op stub below.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from hfrep_tpu_torch import resilience
 from hfrep_tpu_torch.config import ModelConfig, TrainConfig
 from hfrep_tpu_torch.core.device import DeviceLike, resolve_device
 from hfrep_tpu_torch.core.precision import policy_from
@@ -56,15 +57,6 @@ BANK_MANIFEST = "bank.json"
 
 
 # ------------------------------------------------- hooks of later layers
-def _graceful_drain():
-    """Stub of ``resilience.graceful_drain``: the SIGTERM handler's scope."""
-    return contextlib.nullcontext()
-
-
-def _boundary(site: str) -> None:
-    """Stub of ``resilience.boundary``: a requested drain exits here."""
-
-
 def _emit_conditional_health(metrics, epochs: int, state: GanState) -> None:
     """Stub of the drive's health tail (``health/*`` gauges and the
     nonfinite tripwire at site ``gan_block``)."""
@@ -136,7 +128,7 @@ def train_conditional(mcfg: ModelConfig, tcfg: TrainConfig, windows, conditions,
             gen.manual_seed(seed_mix(seed, 1))
         done = 0
         multis = {}                    # steps_per_call -> multi-step
-        with _graceful_drain():
+        with resilience.graceful_drain():
             while done < epochs:
                 # clamp the last call so the drive trains EXACTLY `epochs`
                 # (an overshoot would change every bank digest downstream)
@@ -149,7 +141,7 @@ def train_conditional(mcfg: ModelConfig, tcfg: TrainConfig, windows, conditions,
                 state, metrics = multis[spc](state, draws=draws, generator=gen)
                 done += spc
                 if done < epochs:
-                    _boundary("gan_block")
+                    resilience.boundary("gan_block")
     _emit_conditional_health(metrics, epochs, state)
     windows_shape = np.shape(windows)
     return ConditionalBundle(
@@ -250,7 +242,7 @@ def generate_bank(bundle: ConditionalBundle, out_dir, *,
     sample = _sample_fn(bundle)
     digests: Dict[str, str] = {}
     generated = 0
-    with _graceful_drain():
+    with resilience.graceful_drain():
         for regime in regime_list:
             if not 0 <= int(regime) < bundle.n_regimes:
                 raise ValueError(f"regime {regime} outside [0, {bundle.n_regimes})")
@@ -276,7 +268,7 @@ def generate_bank(bundle: ConditionalBundle, out_dir, *,
                     meta = ckpt.read_meta(dst)
                     generated += 1
                 digests[block_name(regime, seq)] = meta["checksum"]["digest"]
-                _boundary("bank_block")
+                resilience.boundary("bank_block")
     manifest = {
         "stream_seed": int(stream_seed),
         "n_regimes": int(bundle.n_regimes),

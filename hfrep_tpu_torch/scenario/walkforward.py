@@ -10,13 +10,14 @@ ragged row counts of the expanding windows are what the padded grid's
 per-dataset split is for.  Each window's lanes are scored in one batched
 evaluation at the fixed horizon.
 
-Resume: the trained lane grid is persisted once as an atomic artifact,
-so a run killed while scoring never retrains, and each window's scores
-publish atomically, so a re-run scores only the gap; state from another
-(spec, cfg, data) is refused by its fingerprint.  Not ported yet
-(ROADMAP): the engine's chunk snapshots (``resume_dir``), so a drain
-during training does not resume mid-training, and the resilience
-layer's drain and the wall-clock ledger (named no-op stubs below).
+Resume: the grid's training keeps the engine's chunk snapshots under
+``_resume/chunks`` (a drain mid-training resumes from the last chunk),
+the trained lane grid is persisted once as an atomic artifact, so a run
+killed while scoring never retrains, and each window's scores publish
+atomically, so a re-run scores only the gap; state from another (spec,
+cfg, data) is refused by its fingerprint.  A SIGTERM drains at the next
+chunk or ``window`` boundary (:class:`~hfrep_tpu_torch.resilience.Preempted`);
+each scored window closes a wall-clock ledger window.
 
 Artifacts under ``out_dir``::
 
@@ -24,7 +25,8 @@ Artifacts under ``out_dir``::
     walkforward.json             spec + per-window digests + summary
     walkforward.csv              sharpe_post surface (window × latent)
     walkforward_ante.csv         sharpe_ante surface
-    _resume/                     the trained-grid artifact (cleared on completion)
+    _resume/                     chunk snapshots, the trained-grid artifact
+                                 (cleared on completion)
 
 The CSVs are written with the ``csv`` module, byte for byte what the
 JAX package's pandas ``to_csv`` writes for the same surfaces.
@@ -32,36 +34,26 @@ JAX package's pandas ``to_csv`` writes for the same surfaces.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import hashlib
 import json
 import os
 import shutil
 import sys
-import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from hfrep_tpu_torch import resilience
 from hfrep_tpu_torch.config import AEConfig
 from hfrep_tpu_torch.core.device import DeviceLike, resolve_device
+from hfrep_tpu_torch.obs import timeline
 from hfrep_tpu_torch.replication.engine import AEResult, PermSource
+from hfrep_tpu_torch.resilience.snapshot import digest_arrays
 
 TRAINED_GRID = "trained_grid"
 MANIFEST = "walkforward.json"
-
-
-# ------------------------------------------------- hooks of later layers
-def _graceful_drain():
-    """Stub of ``resilience.graceful_drain``: the SIGTERM handler's scope."""
-    return contextlib.nullcontext()
-
-
-def _boundary(site: str) -> None:
-    """Stub of ``resilience.boundary``: a requested drain exits here."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,22 +99,6 @@ def validate_spec(spec: WalkForwardSpec, cfg: AEConfig, total_months: int) -> No
                 "refuses rather than truncating the split")
 
 
-def digest_arrays(*arrays) -> str:
-    """Order-sensitive sha256 over dtype, shape and bytes of arrays
-    (``hfrep_tpu/resilience/snapshot.py``'s, for flat arrays); ``None``
-    hashes as a marker."""
-    h = hashlib.sha256()
-    for a in arrays:
-        if a is None:
-            h.update(b"<none>")
-            continue
-        arr = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-        h.update(str(arr.dtype).encode())
-        h.update(str(arr.shape).encode())
-        h.update(arr.tobytes())
-    return h.hexdigest()
-
-
 def _fingerprint(spec: WalkForwardSpec, cfg: AEConfig, latent_dims: Sequence[int],
                  x, y, rf) -> dict:
     return {"spec": list(dataclasses.astuple(spec)),
@@ -133,15 +109,17 @@ def _fingerprint(spec: WalkForwardSpec, cfg: AEConfig, latent_dims: Sequence[int
 
 def _train_grid(seed: int, x, spec: WalkForwardSpec, cfg: AEConfig,
                 latent_dims: Sequence[int], init_params: Optional[dict] = None,
-                perm_source: Optional[PermSource] = None, device: DeviceLike = None):
+                perm_source: Optional[PermSource] = None, device: DeviceLike = None,
+                resume_dir: Optional[str] = None):
     """Train every (window, latent) lane as one padded grid.
 
     Expanding prefixes are MinMax-scaled each with its own train-set
     params (ReplicationEngine semantics), stacked ragged and driven
     through the multi-dataset grid.  ``init_params`` / ``perm_source``
     are the engine's draw seams, with the grid's (n_windows, L) leading
-    dims.  Returns ``(AEResult, ChunkStats, n_rows)``, the result's arrays
-    leading ``(n_windows, L)``."""
+    dims; ``resume_dir`` the engine's chunk snapshots.  Returns
+    ``(AEResult, ChunkStats, n_rows)``, the result's arrays leading
+    ``(n_windows, L)``."""
     from hfrep_tpu_torch.core import scaler as mm
     from hfrep_tpu_torch.replication.engine import stack_padded, sweep_autoencoders_multi
 
@@ -150,7 +128,7 @@ def _train_grid(seed: int, x, spec: WalkForwardSpec, cfg: AEConfig,
     x_stack, n_rows = stack_padded(prefixes)
     res, stats = sweep_autoencoders_multi(seed, x_stack, n_rows, cfg, list(latent_dims),
                                           init_params=init_params, perm_source=perm_source,
-                                          device=device)
+                                          device=device, resume_dir=resume_dir)
     return res, stats, n_rows
 
 
@@ -240,12 +218,13 @@ def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
     resume_root = out / "_resume"
     fingerprint = _fingerprint(spec, cfg, latent_dims, x, y, rf)
 
-    t0 = time.perf_counter()
+    t0 = timeline.clock()
     grid = _load_grid(resume_root / TRAINED_GRID, fingerprint, dev)
     stats = None
     if grid is None:
         resume_root.mkdir(parents=True, exist_ok=True)
-        grid, stats, _ = _train_grid(cfg.seed, x, spec, cfg, latent_dims, device=dev)
+        grid, stats, _ = _train_grid(cfg.seed, x, spec, cfg, latent_dims, device=dev,
+                                     resume_dir=str(resume_root / "chunks"))
         try:
             _save_grid(resume_root / TRAINED_GRID, grid, fingerprint)
         except OSError as e:
@@ -255,7 +234,7 @@ def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
                   "scoring will retrain", file=sys.stderr)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    train_secs = time.perf_counter() - t0
+    train_secs = timeline.clock() - t0
 
     masks = torch.stack([latent_mask(d, cfg.latent_dim, device=dev) for d in latent_dims])
     eval_fn = _make_window_eval(cfg)
@@ -264,10 +243,11 @@ def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
     digests: Dict[str, str] = {}
     surface_post = np.empty((spec.n_windows, len(latent_dims), y.shape[1]), np.float32)
     surface_ante = np.empty_like(surface_post)
-    t1 = time.perf_counter()
+    t1 = timeline.clock()
     x_d, y_d, rf_d = (torch.from_numpy(a).to(dev) for a in (x, y, rf))
-    with _graceful_drain():
+    with resilience.graceful_drain():
         for w in range(spec.n_windows):
+            t_w0 = timeline.clock()
             name = f"w_{w:04d}"
             dst = windows_dir / name
             meta = None
@@ -302,10 +282,12 @@ def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
                 surface_ante[w] = z["sharpe_ante"]
                 surface_post[w] = z["sharpe_post"]
             digests[name] = meta["checksum"]["digest"]
+            timeline.flush_window(timeline.clock() - t_w0, drive="walkforward",
+                                  steps=1, window=w)
             # the window boundary: a requested drain exits here with every
             # published score intact (a re-run scores the gap)
-            _boundary("window")
-    eval_secs = time.perf_counter() - t1
+            resilience.boundary("window")
+    eval_secs = timeline.clock() - t1
 
     manifest = _assemble(out, spec, cfg, latent_dims, digests, surface_post, surface_ante)
     shutil.rmtree(resume_root, ignore_errors=True)

@@ -1,6 +1,6 @@
 """Deadline-aware micro-batching with admission control
-(``hfrep_tpu/serve/batcher.py``; the fault-injection boundary and the
-telemetry events of the JAX package are not ported yet).
+(``hfrep_tpu/serve/batcher.py``; its fault-injection boundary is the
+JAX package's ``batcher`` site, its telemetry events are not ported yet).
 
 The replication programs are batched device computations — serving one
 request per dispatch wastes the whole width of the machine, while
@@ -38,6 +38,7 @@ import time
 from concurrent.futures import Future, InvalidStateError
 from typing import Callable, List, Optional, Tuple
 
+from hfrep_tpu_torch import resilience
 from hfrep_tpu_torch.serve.admission import (
     DeadlineExceeded,
     Draining,
@@ -186,8 +187,12 @@ class MicroBatcher:
                     self._cond.wait(min(remaining, 0.05))
                 else:
                     self._cond.wait(0.05)
-        # a member may have expired since the batch closed; it must miss
-        # NOW, not ride into the dispatch
+        # fault-injection boundary: ``stall@batcher`` sleeps here and
+        # ``sigterm@batcher``/``preempt@batcher`` land a drain — batch
+        # formation is the serving loop's natural boundary site
+        resilience.tick("batcher")
+        # a member may have expired since the batch closed (or during a
+        # stall); it must miss NOW, not ride into the dispatch
         live = [r for r in batch if not self._expired(r)]
         return live if live else []
 

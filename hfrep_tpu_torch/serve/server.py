@@ -14,8 +14,11 @@ terminal outcome per submitted request.  The envelope is the reference's:
 micro-batching with deadlines and a bounded queue, a circuit breaker
 that answers from the last-good cache (flagged ``stale``) while open,
 requeue-once of a dead worker's batch, ``warm``, ``drain`` and
-``stats``.  The JAX server's fault-injection points and telemetry
-events (``hfrep_tpu.resilience``, ``hfrep_tpu.obs``) are not ported yet.
+``stats``.  Its fault-injection points are the JAX server's:
+``kill@serve_worker`` kills the worker holding the Nth dispatched batch,
+``io_fail@serve_result`` fails a request's result publication TYPED
+(:class:`~hfrep_tpu_torch.serve.admission.WorkerFault`).  The JAX
+server's telemetry events and per-request trace IDs are not ported yet.
 
 Sample noise comes from a ``torch.Generator`` on the model's device,
 seeded from ``(cfg.seed, dispatch sequence number)``; its draws differ
@@ -34,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hfrep_tpu_torch import resilience
 from hfrep_tpu_torch.serve import aot
 from hfrep_tpu_torch.serve.admission import (
     OPEN,
@@ -337,10 +341,9 @@ class ReplicationServer:
                     self._idle.notify_all()
 
     def _kill_point(self) -> bool:
-        """Worker-death injection site (the JAX server's
-        ``kill@serve_worker``); never fires until the fault-injection
-        layer is ported."""
-        return False
+        """Worker-death injection site: True when ``kill@serve_worker=N``
+        fires for this dispatched batch."""
+        return resilience.actor_kill_point("serve_worker")
 
     def _fail_over(self, batch: List[ServeRequest]) -> None:
         """A batch whose worker died: retry once, then typed failure."""
@@ -378,12 +381,30 @@ class ReplicationServer:
             return
         # breaker and ledger first, futures last: a client that sees its
         # future done may read the breaker state at once
-        self.breaker.record_success()
-        with self._lock:
-            self._last_good[kind] = values[-1]
+        ok = True
         now = self._clock()
+        settled: List[Tuple[ServeRequest, object, Optional[float]]] = []
         for r, value in zip(batch, values):
-            latency = (now - r.arrival) * 1e3
+            try:
+                # the result-publish boundary: ``io_fail@serve_result``
+                # raises the injected EIO here — the request then fails
+                # TYPED (WorkerFault), never silently
+                resilience.io_point("serve_result")
+            except OSError as e:
+                ok = False
+                self.breaker.record_failure(cause="serve_result EIO")
+                self.outcomes.inc("worker_faults")
+                settled.append((r, WorkerFault(r.id, f"result publish: {e}"), None))
+                continue
+            settled.append((r, value, (now - r.arrival) * 1e3))
+        if ok:
+            self.breaker.record_success()
+            with self._lock:
+                self._last_good[kind] = values[-1]
+        for r, value, latency in settled:
+            if latency is None:
+                r.finish(error=value)
+                continue
             if r.finish(value=ServeResult(request_id=r.id, kind=kind,
                                           value=value, latency_ms=latency,
                                           batch_size=len(batch))):

@@ -23,26 +23,36 @@ rollback reseeds it with ``seed_mix(seed, epoch, 7919 + recoveries)``;
 :meth:`GanTrainer.generate_block` draws its noise from a fresh generator
 seeded with ``seed_mix(stream_seed, seq)``.
 
+Preemption: :meth:`GanTrainer.train` runs under
+:func:`~hfrep_tpu_torch.resilience.graceful_drain`; every block boundary
+crosses ``resilience.tick("block")`` (where injected faults fire), and a
+requested drain (SIGTERM) lands the staged checkpoint, writes a final
+one when a checkpoint dir is configured, and raises
+:class:`~hfrep_tpu_torch.resilience.Preempted` — the CLI's exit 75,
+resumed bit for bit by ``--resume``.  With telemetry on, the run is a
+``train`` span with ``train_start``/``train_end`` events, memory
+snapshots and the ``steps_per_sec`` gauge, each checkpoint a
+``checkpoint`` span, each sample a ``generate`` span, and every block a
+wall-clock ledger window (:class:`~hfrep_tpu_torch.obs.timeline.BlockTimer`).
+
 Left out until their layers are ported (ROADMAP): the mesh paths, the
-obs spans, gauges and wall-clock ledger, the in-graph health boundary,
-and the resilience layer: ``tick`` and ``graceful_drain`` are named
-no-op stubs below; the SIGTERM drain into a final checkpoint and
-``Preempted`` (the JAX ``_drain_now``) come with that layer.
+``mfu`` gauge (``obs/flops.py``) and the in-graph health boundary.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from hfrep_tpu_torch import resilience
 from hfrep_tpu_torch.config import ExperimentConfig
 from hfrep_tpu_torch.core import scaler as mm
 from hfrep_tpu_torch.core.data import GanDataset
 from hfrep_tpu_torch.core.device import DeviceLike, resolve_device
 from hfrep_tpu_torch.models.registry import build_gan
+from hfrep_tpu_torch.obs import get_obs, instrument_step
 from hfrep_tpu_torch.obs.metriclog import MetricLogger
 from hfrep_tpu_torch.obs.timeline import BlockTimer
 from hfrep_tpu_torch.train.states import GanState, init_gan_state
@@ -72,16 +82,6 @@ def seed_mix(*words: int) -> int:
     return h
 
 
-# ------------------------------------------------- hooks of later layers
-def _tick(site: str) -> None:
-    """Stub of ``resilience.tick``: injected faults fire at a boundary."""
-
-
-def _graceful_drain():
-    """Stub of ``resilience.graceful_drain``: the SIGTERM handler's scope."""
-    return contextlib.nullcontext()
-
-
 class GanTrainer:
     def __init__(self, cfg: ExperimentConfig, dataset: Union[GanDataset, torch.Tensor],
                  logger: Optional[MetricLogger] = None, nan_guard: bool = False,
@@ -100,7 +100,11 @@ class GanTrainer:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed_mix(cfg.train.seed, 1))
         self.draw_source = draw_source
-        self._multi = make_multi_step(self.pair, cfg.train, self.windows)
+        # the build-time telemetry hook: with obs on, a compile:multi_step
+        # span for the first block and a dispatch counter after it
+        self._multi = instrument_step(
+            make_multi_step(self.pair, cfg.train, self.windows), "multi_step",
+            batch=cfg.train.batch_size, steps_per_call=cfg.train.steps_per_call)
         self._single_step = None
         style = {"bce": "gan", "wgan_clip": "wgan", "wgan_gp": "wgan_gp"}[self.pair.loss]
         self.logger = logger or MetricLogger(echo=False, echo_style=style)
@@ -124,8 +128,27 @@ class GanTrainer:
 
     # ------------------------------------------------------------ training
     def train(self, epochs: Optional[int] = None) -> GanState:
-        with _graceful_drain():
-            return self._train_loop(epochs)
+        """Run the schedule under the drain handler; with telemetry on,
+        the run is a ``train`` span with the config merged into
+        ``run.json``."""
+        obs = get_obs()
+        with resilience.graceful_drain():
+            if not obs.enabled:
+                return self._train_loop(epochs)
+            from hfrep_tpu_torch.obs import manifest
+            obs.annotate(config=manifest.config_dict(self.cfg))
+            n = epochs if epochs is not None else self.cfg.train.epochs
+            obs.event("train_start", family=self.cfg.model.family, epochs=n,
+                      start_epoch=self.epoch, steps_per_call=self.cfg.train.steps_per_call,
+                      device=str(self.device))
+            obs.memory_snapshot(phase="train_start")
+            with obs.span("train", epochs=n):
+                state = self._train_loop(epochs)
+            obs.memory_snapshot(phase="train_end")
+            obs.gauge("steps_per_sec").set(self.timer.steps_per_sec)
+            obs.event("train_end", epoch=self.epoch, recoveries=self.recoveries)
+            obs.flush()
+            return state
 
     def _train_loop(self, epochs: Optional[int] = None) -> GanState:
         tcfg = self.cfg.train
@@ -189,7 +212,11 @@ class GanTrainer:
                     else:
                         self._commit_pending_ckpt()   # one slot: land the prior
                         self._stage_checkpoint()
-                _tick("block")
+                resilience.tick("block")        # injected faults fire here
+                if resilience.drain_requested():
+                    close_steady()
+                    flush_pending()
+                    self._drain_now()
             close_steady()
             flush_pending()
             self._commit_pending_ckpt()
@@ -220,9 +247,26 @@ class GanTrainer:
             if (tcfg.checkpoint_dir and tcfg.checkpoint_every > 0
                     and self.epoch % tcfg.checkpoint_every == 0):
                 self.save_checkpoint()
-            _tick("block")
+            resilience.tick("block")
+            if resilience.drain_requested():
+                self._drain_now()
         self.logger.flush()
         return self.state
+
+    def _drain_now(self) -> None:
+        """Graceful preemption at a block boundary: land the staged
+        checkpoint, write a final one (when a checkpoint dir is
+        configured), flush the metric log, announce the drain, and raise
+        :class:`~hfrep_tpu_torch.resilience.Preempted` — the CLI's
+        resumable exit instead of a death mid-write."""
+        self._commit_pending_ckpt()
+        path = self.save_checkpoint() if self.cfg.train.checkpoint_dir else None
+        try:
+            self.logger.flush()
+        except Exception:
+            pass
+        get_obs().event("preempt_drain", epoch=self.epoch, checkpoint=path)
+        raise resilience.Preempted(site="block", epoch=self.epoch, snapshot=path)
 
     def _next_block(self) -> int:
         block, self.block = self.block, self.block + 1
@@ -322,13 +366,19 @@ class GanTrainer:
             return
         tree, path, epoch = self._pending_ckpt
         self._pending_ckpt = None
-        ckpt.save(path, tree, metadata=self._meta(epoch),
-                  keep=self.cfg.train.checkpoint_keep)
+        obs = get_obs()
+        with obs.span("checkpoint", epoch=epoch, path=str(path)):
+            ckpt.save(path, tree, metadata=self._meta(epoch),
+                      keep=self.cfg.train.checkpoint_keep)
+        obs.counter("checkpoints").inc()
 
     def save_checkpoint(self, path: Optional[str] = None) -> str:
         path = path or f"{self.cfg.train.checkpoint_dir}/ckpt_{self.epoch}"
-        ckpt.save(path, self._ckpt_tree(), metadata=self._meta(self.epoch),
-                  keep=self.cfg.train.checkpoint_keep)
+        obs = get_obs()
+        with obs.span("checkpoint", epoch=self.epoch, path=str(path)):
+            ckpt.save(path, self._ckpt_tree(), metadata=self._meta(self.epoch),
+                      keep=self.cfg.train.checkpoint_keep)
+        obs.counter("checkpoints").inc()
         return path
 
     def restore_checkpoint(self, path: Optional[str] = None) -> str:
@@ -399,7 +449,12 @@ class GanTrainer:
             noise = torch.randn((n_samples, w, f), generator=generator, device=self.device)
         else:
             noise = torch.as_tensor(noise).to(self.device, torch.float32)
-        out = self.state.generator(noise)
+        obs = get_obs()
+        # with telemetry on the span synchronises: it times the samples'
+        # device work, not their launches
+        with obs.span("generate", sync_on=noise if obs.enabled else None,
+                      n_samples=int(noise.shape[0])):
+            out = self.state.generator(noise)
         if unscale and self.scaler is not None:
             out = mm.inverse_transform(self.scaler, out)
         return out

@@ -16,19 +16,22 @@ checkpoint and rejects a torn one.
   first, each candidate's ``.prev`` right after it, and falls back.
 * **Retention**: ``save(..., keep=N)`` prunes all but the newest N
   numbered siblings (``ckpt_<n>``).
+* **Fault injection and retry**: every write passes the
+  ``resilience.io_point`` of its site (``ckpt_save``, ``snapshot_save``,
+  ``result_save``, ...) inside :func:`~hfrep_tpu_torch.resilience.retry_io`
+  (bounded full-jitter backoff), then ``resilience.post_save`` (injected
+  torn/corrupt directives); the write's time books into the wall-clock
+  ledger's ``checkpoint`` or ``host_io`` category; each fallback past a
+  bad checkpoint is a ``ckpt_fallback`` event and counter.
 
 Only the payload differs from the JAX package's: one ``torch.save`` file
 (``checkpoint.pt``) of CPU tensors and plain Python values, read back
 with ``torch.load(weights_only=True)``, which unpickles tensors and
-builtins only.  The JAX module's fault-injection, retry and wall-clock
-hooks (``resilience.io_point``, ``retry_io``, ``post_save``,
-``timeline.timed``, the obs fallback events) are named no-op stubs
-below until the port has those layers.
+builtins only.
 """
 
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import json
 import os
@@ -38,6 +41,9 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
+from hfrep_tpu_torch import resilience
+from hfrep_tpu_torch.obs import get_obs, timeline
+
 META_NAME = "meta.json"
 PAYLOAD_NAME = "checkpoint.pt"
 
@@ -45,29 +51,6 @@ PAYLOAD_NAME = "checkpoint.pt"
 class CheckpointCorrupt(RuntimeError):
     """A checkpoint failed checksum verification or cannot be decoded
     (torn write, bit rot, truncation)."""
-
-
-# ------------------------------------------------- hooks of later layers
-def _io_point(site: str) -> None:
-    """Stub of ``resilience.io_point``: an injected I/O fault fires here."""
-
-
-def _retry_io(fn: Callable[[], Any], what: str) -> Any:
-    """Stub of ``resilience.retry_io``: one attempt, no retry policy."""
-    return fn()
-
-
-def _post_save(site: str, path: Path) -> None:
-    """Stub of ``resilience.post_save``: injected torn/corrupt directives."""
-
-
-def _timed(category: str):
-    """Stub of ``obs.timeline.timed``: the wall-clock ledger's window."""
-    return contextlib.nullcontext()
-
-
-def _event(name: str, **fields) -> None:
-    """Stub of the obs stream's ``event`` (and its fallback counter)."""
 
 
 # ---------------------------------------------------------------- checksum
@@ -183,7 +166,7 @@ def write_atomic(path, writer: Callable[[Path], Optional[dict]],
     tmp = dst.parent / f".{dst.name}.tmp-{os.getpid()}"
 
     def _write():
-        _io_point(io_site)
+        resilience.io_point(io_site)
         if tmp.exists():                # a failed earlier attempt
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
@@ -195,15 +178,15 @@ def write_atomic(path, writer: Callable[[Path], Optional[dict]],
         (tmp / META_NAME).write_text(json.dumps(meta, indent=2, default=str))
         _atomic_publish(tmp, dst, keep_prev=keep_prev)
 
-    with _timed("checkpoint" if fault_site in ("ckpt", "snapshot") else "host_io"):
+    with timeline.timed("checkpoint" if fault_site in ("ckpt", "snapshot") else "host_io"):
         try:
             if retry:
-                _retry_io(_write, what=io_site)
+                resilience.retry_io(_write, what=io_site)
             else:
                 _write()
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        _post_save(fault_site, dst)
+        resilience.post_save(fault_site, dst)
     return dst
 
 
@@ -253,7 +236,7 @@ def save(path: str, tree: Any, metadata: Optional[dict] = None,
     ``metadata`` as a checkpoint.  ``keep > 0`` prunes all but the newest
     ``keep`` siblings sharing this one's numbered naming (``ckpt_<n>``)."""
     p = Path(path).absolute()
-    with _timed("checkpoint"):
+    with timeline.timed("checkpoint"):
         tree = to_host(tree)
     write_atomic(p, lambda tmp: _write_payload(tmp, tree), metadata)
     if keep > 0:
@@ -316,14 +299,16 @@ def restore_latest_good(dirpath: str, prefix: str = "ckpt_",
                 out = restore(str(attempt))
             except (CheckpointCorrupt, FileNotFoundError) as e:
                 errors.append(f"{attempt.name}: {e}")
-                _event("ckpt_fallback", skipped=attempt.name, error=str(e))
+                obs = get_obs()
+                obs.counter("resilience/ckpt_fallbacks").inc()
+                obs.event("ckpt_fallback", skipped=attempt.name, error=str(e))
                 continue
             return out, str(attempt)
     detail = (f"no restorable checkpoint under {dirpath}: "
               + "; ".join(errors))
     if on_exhausted == "fresh":
-        _event("ckpt_fallback_exhausted", dir=str(dirpath),
-               candidates=len(entries), error="; ".join(errors))
+        get_obs().event("ckpt_fallback_exhausted", dir=str(dirpath),
+                        candidates=len(entries), error="; ".join(errors))
         return None, ""
     raise CheckpointCorrupt(detail)
 
