@@ -150,7 +150,8 @@ exits non-zero on failure:
              finite, epochs dispatched >= the largest stop epoch, overshoot
              <= 1, ``lstm_fwd`` launched exactly twice a checkpoint and no
              other kernel; the real-only best OOS R² mean within the JAX
-             package's 24-seed envelope on this panel widened by 0.05 a
+             package's 24-seed envelopes on this panel (its TPU run and
+             its CPU run, each) widened by 0.05 a
              side; wall seconds, epochs and chunks dispatched recorded;
 5d. eval   — the metrics: ``train-gan --eval`` at ``mtss_wgan_gp`` for 2
              epochs with a checkpoint and 500 samples (launches: the train
@@ -201,6 +202,30 @@ exits non-zero on failure:
              ``sweep_item_arrays`` on the same panel and seed in this
              process; each run's wall seconds, restarts and queue depth
              over time (the parent's stream) printed;
+5g. health — the in-step health block (``HFREP_HEALTH``): ``GanTrainer``
+             at ``mtss_wgan_gp`` on the committed panel, 15 epochs at 5 a
+             block on the fused route and 5 on the chained route, each
+             with health off and then on from the same draws under an obs
+             session, launch counts set to 0 just before each run and read
+             just after: both runs bit-equal (every param and slot, the
+             history), each launching exactly the train phase's per-epoch
+             counts and 44 weight sums an epoch, the five health values
+             finite, the ``mfu`` gauge finite; health's cost as the median
+             of 24 pairs of steady blocks, off and on back to back; a NaN
+             planted in one generator parameter under the armed tripwire
+             raises ``NumericFault`` with a forensic dump; the
+             chunked AE drive (21 lanes, 40 epochs at 10 a chunk) bit-equal
+             with health off and on, its ``health/ae_*`` gauges written;
+             ``train-gan --profile-dir`` for 2 epochs: one trace, linked
+             in ``run.json``, holding the hand kernels' device events;
+5h. serve_drain — ``python -m hfrep_tpu_torch serve --device cuda`` from the
+             trainer phase's W=168 checkpoint, every other query a sample,
+             waves of 32: undisturbed (256 queries) it exits 0 with the
+             same set of traces admitted and completed in its stream, one
+             a request, the serve events, one ``serve_load`` ledger window and
+             ``lstm_fwd`` launched in its own stream; sent SIGTERM after its
+             "offering" line (4,000 queries) it exits 75 and its drained
+             document has ``terminal == submitted``;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -230,8 +255,10 @@ float32.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -1567,6 +1594,10 @@ SWEEP_CMP_EPOCHS, SWEEP_CMP_CHUNK, SWEEP_SEED = 40, 10, 11
 SWEEP_PROFILE_EPOCHS = 10
 SWEEP_SECOND_CKPT_EPOCHS = 2
 ENVELOPE = "results/seed_envelope_rederived/envelope.json"
+#: the same 24 seeds of the JAX package run on the CPU
+#: (``tools/seed_envelope.py --seeds 24 --cleaned-dir results/rederived_cleaned``):
+#: the platform moves the envelope, so the sweep is held to both
+CPU_ENVELOPE = "results/seed_envelope_rederived_cpu/envelope.json"
 COMMITTED_SWEEP = "results/sweep_real_rederived/summary.json"
 ENVELOPE_MARGIN = 0.05
 PINV_OUTPUTS = ("ante", "post", "turnover", "sharpe_ante", "sharpe_post")
@@ -1765,6 +1796,10 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
         committed = json.load(fh)
     lo = envelope["best_oos_mean"]["min"] - ENVELOPE_MARGIN
     hi = envelope["best_oos_mean"]["max"] + ENVELOPE_MARGIN
+    with open(os.path.join(root, CPU_ENVELOPE)) as fh:
+        cpu_envelope = json.load(fh)["envelope"]
+    cpu_lo = cpu_envelope["best_oos_mean"]["min"] - ENVELOPE_MARGIN
+    cpu_hi = cpu_envelope["best_oos_mean"]["max"] + ENVELOPE_MARGIN
     runs_b = {}
     for name, ckpts in (("real", []), ("augmented", [gan_checkpoint]),
                         ("multi", [gan_checkpoint, second])):
@@ -1814,11 +1849,17 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
         f"the JAX package's 24 seeds {envelope['best_oos_mean']['min']:.4f}.."
         f"{envelope['best_oos_mean']['max']:.4f} (gate {lo:.4f}..{hi:.4f}), best latents "
         f"{envelope['best_oos_latent_counts']}; the committed sweep's latent "
-        f"{committed['best_oos_r2']['latent']} mean {committed['best_oos_r2']['mean']:.4f}")
+        f"{committed['best_oos_r2']['latent']} mean {committed['best_oos_r2']['mean']:.4f}; "
+        f"the same 24 seeds on the CPU {cpu_envelope['best_oos_mean']['min']:.4f}.."
+        f"{cpu_envelope['best_oos_mean']['max']:.4f} (gate {cpu_lo:.4f}..{cpu_hi:.4f})")
     if not lo <= best["mean"] <= hi:
         fail(f"sweep: the real-only best OOS R2 mean {best['mean']} is outside {lo}..{hi}")
+    if not cpu_lo <= best["mean"] <= cpu_hi:
+        fail(f"sweep: the real-only best OOS R2 mean {best['mean']} is outside the CPU "
+             f"envelope's {cpu_lo}..{cpu_hi}")
     out["runs"] = runs_b
     out["envelope_gate"] = [lo, hi]
+    out["cpu_envelope_gate"] = [cpu_lo, cpu_hi]
     out["sweep_gan_checkpoint_launches"] = (runs_b["augmented"]["lstm_fwd_launches"]
                                             + runs_b["multi"]["lstm_fwd_launches"])
     return out
@@ -2405,6 +2446,321 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
         fail("pipeline (c): the published item differs from sweep_item_arrays here")
     out["c"].update(item_bitwise=bitwise, direct_s=direct_s,
                     launches={n: stream_launches(r) for n, r in actor_streams(c_obs).items()})
+    return out
+
+
+#: the health phase: the trainer phase's preset on the committed panel,
+#: 15 epochs at 5 a block on the fused route (a warm block, two steady
+#: ones), one block on the chained route, each with health off and on;
+#: the chunked AE drive at 40 epochs
+HEALTH_SPC, HEALTH_FUSED_EPOCHS = 5, 15
+HEALTH_AE_EPOCHS, HEALTH_AE_CHUNK = 40, 10
+#: health's cost: steady blocks of HEALTH_SPC epochs, alternated off and on
+HEALTH_COST_PAIRS = 24
+#: ``train-gan --profile-dir``: epochs captured
+PROFILE_EPOCHS = 2
+#: the hand kernels' names, as the profiler's trace spells them
+HAND_KERNELS = ("lstm_fwd_", "lstm_bwd_", "lstm_adj_", "stack_fwd_", "stack_bwd_",
+                "stack_adj_", "stack_gates_", "weight_sum_", "col_sum_")
+
+
+def stream_records(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "events.jsonl")) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def phase_health(torch, np, cuda_lstm, train, train_chained) -> dict:
+    """The in-step health block on the card (``hfrep_tpu_torch.obs.health``):
+    the same trainer run from the same draws with health off and on must
+    end bit-equal, launch the route's kernels exactly as the train phase
+    counted them an epoch, and carry five finite health values and a
+    finite ``mfu`` gauge; a NaN planted in a parameter trips
+    ``NumericFault`` under the armed tripwire with a forensic dump; the
+    chunked AE drive ends bit-equal with health off and on.  Health's cost
+    is the median of pairs of steady blocks run back to back, off and on;
+    ``train-gan --profile-dir`` leaves one trace with the hand kernels in
+    it."""
+    import contextlib
+
+    import hfrep_tpu_torch.obs as obs_pkg
+    from hfrep_tpu_torch.config import AEConfig, get_preset
+    from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
+    from hfrep_tpu_torch.obs import health
+    from hfrep_tpu_torch.replication.engine import sweep_autoencoders_chunked
+    from hfrep_tpu_torch.train.trainer import GanTrainer
+    from hfrep_tpu_torch.utils.fixture_data import scaled_panel
+
+    tag = "[health]"
+    t_phase = time.perf_counter()
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    base = get_preset("mtss_wgan_gp")
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, steps_per_call=HEALTH_SPC, checkpoint_dir=None))
+    ds = build_gan_dataset(cfg.data, cfg.data.seed, load_panel(cleaned, device="cuda"))
+    out = {"routes": {}}
+    try:
+        for route, runs, epochs in (("auto", train, HEALTH_FUSED_EPOCHS),
+                                    ("chained", train_chained, HEALTH_SPC)):
+            per_epoch = next(r for r in runs if r["preset"] == "mtss_wgan_gp")[
+                "launches_per_epoch"]
+            want = {n: round(per_epoch[n] * epochs) for n in ROUTE_KERNELS[route]}
+            runs_by = {}
+            for on in (False, True):
+                health.configure(health.HealthConfig() if on else None)
+                with tempfile.TemporaryDirectory() as run_dir:
+                    with obs_pkg.session(run_dir, command="chip_smoke health"):
+                        tr = GanTrainer(cfg, ds, device="cuda")
+                        tr.state.discriminator.stack = route
+                        torch.cuda.synchronize()
+                        cuda_lstm.reset_launches()
+                        tr.train(epochs)
+                        torch.cuda.synchronize()
+                        launches = cuda_lstm.launch_counts()
+                        by_key = cuda_lstm.weight_sum_launches()
+                        sums = sum(by_key.values())
+                    mfu = [r["value"] for r in stream_records(run_dir)
+                           if r.get("type") == "metric" and r.get("name") == "mfu"]
+                launched = {n for n, c in launches.items() if c > 0}
+                if (launched != ROUTE_KERNELS[route]
+                        or any(launches[n] != c for n, c in want.items())
+                        or sums != SUM_LAUNCHES_PER_EPOCH * epochs):
+                    fail(f"health ({route}, health {'on' if on else 'off'}): launched "
+                         f"{launches} and {sums} weight sums, expected {want} and "
+                         f"{SUM_LAUNCHES_PER_EPOCH * epochs}")
+                runs_by[on] = {"trainer": tr, "tensors": state_tensors(tr),
+                               "history": tr.history,
+                               "sps": tr.steps_per_sec, "launches": launches,
+                               "weight_sums": sums, "mfu": mfu,
+                               "by_shape": {name: by_key[(nsum, npair, m == 1)]
+                                            for name, nsum, npair, m in SUM_SHAPES},
+                               "samples": [(n, round(s, 4), w) for n, s, w in tr.timer.samples]}
+            off, on = runs_by[False], runs_by[True]
+            n_diff = sum(not torch.equal(a, b) for a, b in zip(off["tensors"], on["tensors"]))
+            hist_same = all(a[k] == b[k] for a, b in zip(off["history"], on["history"])
+                            for k in a)
+            last = {k: v for k, v in on["history"][-1].items() if k.startswith("health_")}
+            if n_diff or not hist_same or len(off["history"]) != epochs:
+                fail(f"health ({route}): health on changed the run: {n_diff} tensors differ, "
+                     f"history equal {hist_same}")
+            if sorted(last) != sorted(health.STEP_KEYS) or not all(
+                    np.isfinite(v) for v in last.values()) or last["health_nonfinite"] != 0:
+                fail(f"health ({route}): the health values {last}")
+            if len(on["mfu"]) != 1 or not np.isfinite(on["mfu"][0]) or not on["mfu"][0] > 0:
+                fail(f"health ({route}): the mfu gauge {on['mfu']}")
+            # the cost: steady blocks, off and on alternated (on first in every
+            # other pair), each timed to the card's end
+            walls = {False: [], True: []}
+            for i in range(HEALTH_COST_PAIRS):
+                for side in ((False, True) if i % 2 == 0 else (True, False)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs_by[side]["trainer"].train(HEALTH_SPC)
+                    torch.cuda.synchronize()
+                    walls[side].append(time.perf_counter() - t0)
+            med_off, med_on = (float(np.median(walls[k])) for k in (False, True))
+            # each pair's blocks ran back to back, on one state of the host
+            ratios = [b / a - 1.0 for a, b in zip(walls[False], walls[True])]
+            overhead = float(np.median(ratios))
+            q1, q3 = (float(q) for q in np.percentile(ratios, (25, 75)))
+            say(f"{tag} {route} route, mtss_wgan_gp W=48, {epochs} epochs at {HEALTH_SPC} a "
+                f"block, health off then on from the same draws: every param and slot "
+                f"bit-equal, history equal; launches as the train phase's "
+                + ", ".join(f"{n} {launches[n] / epochs:g}" for n in sorted(want))
+                + f" an epoch and {sums // epochs} weight sums, both runs; health "
+                + ", ".join(f"{k[7:]} {v:.6g}" for k, v in sorted(last.items()))
+                + f"; steps_per_sec off {off['sps']:.3f}, on {on['sps']:.3f} (samples off "
+                f"{off['samples']}, on {on['samples']}); mfu {on['mfu'][0]:.6g} of the BF16 "
+                f"peak; cost over {HEALTH_COST_PAIRS} alternated pairs of {HEALTH_SPC}-epoch "
+                f"blocks: median block {1e3 * med_off:.3f} ms off, {1e3 * med_on:.3f} ms on "
+                f"(health costs {100 * overhead:.2f}% as the median pair, quartiles "
+                f"{100 * q1:.2f}% and {100 * q3:.2f}%, pairs {100 * min(ratios):.2f}% to "
+                f"{100 * max(ratios):.2f}%) on {card_line(torch)}")
+            out["routes"][route] = {
+                "epochs": epochs, "launches": on["launches"], "weight_sums": on["weight_sums"],
+                "weight_sum_launches": on["by_shape"],
+                "launches_off": off["launches"], "health": last,
+                "steps_per_sec_off": off["sps"], "steps_per_sec_on": on["sps"],
+                "block_s_off": walls[False], "block_s_on": walls[True],
+                "overhead": overhead, "overhead_quartiles": [q1, q3],
+                "pair_overheads": ratios, "mfu": on["mfu"][0]}
+        # the tripwire: a NaN in one parameter under HFREP_HEALTH=abort
+        with tempfile.TemporaryDirectory() as dump_dir:
+            health.configure(health.HealthConfig(abort_on_nonfinite=True, dump_dir=dump_dir))
+            tr = GanTrainer(cfg, ds, device="cuda")
+            with torch.no_grad():
+                next(tr.state.generator.parameters()).view(-1)[0] = float("nan")
+            try:
+                tr.train(HEALTH_SPC)
+                fail("health: a NaN parameter did not trip NumericFault")
+            except health.NumericFault as e:
+                dump = e.dump
+                dumped = bool(dump) and os.path.exists(os.path.join(dump, "carry.npz"))
+                if not dumped or not e.nonfinite:
+                    fail(f"health: NumericFault {e} without a forensic dump")
+                say(f"{tag} tripwire: a NaN in one generator parameter raised NumericFault "
+                    f"at site {e.site}, epoch {e.epoch}, {int(e.nonfinite)} nonfinite; "
+                    f"forensic dump {os.path.basename(dump)} written")
+                out["tripwire"] = {"site": e.site, "epoch": e.epoch, "nonfinite": e.nonfinite}
+        # the chunked AE drive, health off and on
+        xs = scaled_panel(168, 22, seed=3)
+        ae_cfg = dataclasses.replace(AEConfig(), epochs=HEALTH_AE_EPOCHS,
+                                     chunk_epochs=HEALTH_AE_CHUNK)
+        results = {}
+        for on in (False, True):
+            health.configure(health.HealthConfig() if on else None)
+            with tempfile.TemporaryDirectory() as run_dir:
+                with obs_pkg.session(run_dir, command="chip_smoke health"):
+                    res, stats = sweep_autoencoders_chunked(7, xs, ae_cfg, list(range(1, 22)),
+                                                            device="cuda")
+                    torch.cuda.synchronize()
+                gauges = {r["name"]: r["value"] for r in stream_records(run_dir)
+                          if r.get("type") == "metric"
+                          and str(r.get("name", "")).startswith("health/ae_")}
+            results[on] = (res, stats, gauges)
+        (a, sa, _), (b, sb, gauges) = results[False], results[True]
+        same = (all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+                and torch.equal(a.stop_epoch, b.stop_epoch)
+                and all(torch.equal(torch.nan_to_num(x, nan=-1.0), torch.nan_to_num(y, nan=-1.0))
+                        for x, y in ((a.train_loss, b.train_loss), (a.val_loss, b.val_loss))))
+        if not same or sa.epochs_dispatched != sb.epochs_dispatched:
+            fail("health: the chunked AE drive differs with health on")
+        if sorted(gauges) != ["health/ae_grad_norm", "health/ae_nonfinite",
+                              "health/ae_param_norm"] or gauges["health/ae_nonfinite"] != 0:
+            fail(f"health: the AE drive's gauges {gauges}")
+        say(f"{tag} chunked AE drive, 21 lanes, {HEALTH_AE_EPOCHS} epochs at "
+            f"{HEALTH_AE_CHUNK} a chunk: health on = off bit for bit ({sb.epochs_dispatched} "
+            f"epochs dispatched); last gauges {gauges}")
+        out["ae"] = {"gauges": gauges, "epochs_dispatched": sb.epochs_dispatched}
+    finally:
+        health.configure(None)
+    # train-gan --profile-dir: a torch.profiler capture around the hand kernels
+    with tempfile.TemporaryDirectory() as prof_root:
+        prof_dir, run_dir = os.path.join(prof_root, "prof"), os.path.join(prof_root, "obs")
+        cuda_lstm.reset_launches()
+        rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp", "--epochs",
+                            str(PROFILE_EPOCHS), "--cleaned-dir", cleaned, "--device", "cuda",
+                            "--profile-dir", prof_dir, "--obs-dir", run_dir, "--quiet"])
+        torch.cuda.synchronize()
+        launched = sum(cuda_lstm.launch_counts().values())
+        traces = sorted(glob.glob(os.path.join(prof_dir, "trace-*.json")))
+        events = []
+        if traces:
+            with open(traces[0]) as f:
+                events = json.load(f).get("traceEvents", [])
+        ours = collections.Counter(
+            next(n for n in HAND_KERNELS if n in e.get("name", "")) for e in events
+            if e.get("cat") == "kernel" and any(n in e.get("name", "") for n in HAND_KERNELS))
+        with open(os.path.join(run_dir, "run.json")) as f:
+            linked = json.load(f).get("traces", [])
+        if rc != 0 or len(traces) != 1 or not ours or not launched or len(linked) != 1:
+            fail(f"health: train-gan --profile-dir exited {rc}, traces {traces}, hand kernels "
+                 f"in the trace {dict(ours)}, {launched} launches, run.json traces {linked}")
+        say(f"{tag} train-gan --profile-dir, {PROFILE_EPOCHS} epochs: one trace "
+            f"({os.path.getsize(traces[0])} bytes, linked in run.json), the hand kernels' "
+            f"device events in it {dict(sorted(ours.items()))}; {launched} launches counted")
+        out["profile"] = {"trace_bytes": os.path.getsize(traces[0]), "kernels": dict(ours),
+                          "launches": launched}
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
+    return out
+
+
+#: the serve_drain phase: the serve verb as a subprocess on the card
+SERVE_REQUESTS, SERVE_WAVE, SERVE_DRAIN_REQUESTS = 256, 32, 4000
+SERVE_TIMEOUT_S = 300
+
+
+def run_serve_verb(args: list, sigterm: bool) -> tuple:
+    """``python -m hfrep_tpu_torch serve --device cuda ARGS`` from the
+    checkout's root; with ``sigterm`` a SIGTERM once it prints its
+    "offering" line.  (exit code, wall seconds, stdout, stderr)."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "hfrep_tpu_torch", "serve", "--device",
+                             "cuda"] + args, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    err = []
+    try:
+        if sigterm:
+            for line in proc.stderr:
+                err.append(line)
+                if "offering" in line:
+                    proc.send_signal(signal.SIGTERM)
+                    break
+        stdout, rest = proc.communicate(timeout=SERVE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, time.perf_counter() - t0, stdout, "".join(err) + rest
+
+
+def phase_serve_drain(torch, np, keep: str, gan_checkpoint: str) -> dict:
+    """The ``serve`` verb on the card from the trainer phase's W=168
+    checkpoint, every other query a sample: undisturbed it exits 0 with
+    the same traces admitted and completed in its stream, one a request,
+    the serve events and one ``serve_load`` window and ``lstm_fwd`` launched; sent SIGTERM after its "offering"
+    line it drains into exit 75 with ``terminal == submitted``."""
+    tag = "[serve_drain]"
+    t_phase = time.perf_counter()
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    common = ["--gan-checkpoint", gan_checkpoint, "--preset", "mtss_wgan_gp_prod",
+              "--cleaned-dir", cleaned, "--sample-every", "2", "--wave", str(SERVE_WAVE)]
+    out = {}
+    run_a = os.path.join(keep, "serve_obs_a")
+    rc, wall, stdout, stderr = run_serve_verb(
+        common + ["--requests", str(SERVE_REQUESTS), "--timeout-ms", "30000",
+                  "--obs-dir", run_a], sigterm=False)
+    if rc != 0:
+        fail(f"serve_drain: the undisturbed run exited {rc}: {stderr[-2000:]}")
+    doc = json.loads(stdout)
+    report, stats = doc["report"], doc["stats"]
+    recs = stream_records(run_a)
+    names = {r.get("name") for r in recs if r.get("type") == "event"}
+    windows = [r for r in recs if r.get("name") == "timeline_window"
+               and r.get("drive") == "serve_load"]
+    launches = stream_launches(recs)
+    # every request the server took, the warm-up's included, has one
+    # trace admitted and completed
+    admitted = {r.get("trace") for r in recs if r.get("name") == "serve_admit"}
+    completed = {r.get("trace") for r in recs if r.get("name") == "serve_complete"}
+    if (not report["submitted"] == report["terminal"] == report["results"] == SERVE_REQUESTS
+            or admitted != completed or len(admitted) != stats["submitted"]
+            or stats["terminal"] != stats["submitted"]
+            or not {"serve_admit", "serve_dispatch", "serve_complete"} <= names
+            or len(windows) != 1 or launches.get("lstm_fwd", 0) < 1):
+        fail(f"serve_drain: undisturbed report {report}, {len(admitted)} traces admitted, "
+             f"{len(completed)} completed, {len(admitted ^ completed)} not in both, events "
+             f"{sorted(names)}, {len(windows)} serve_load windows, launches {launches}")
+    say(f"{tag} undisturbed: exit 0 in {wall:.1f} s; {report['submitted']} submitted, "
+        f"{report['results']} results; {len(admitted)} traces admitted, each completed "
+        f"in the stream ({stats['submitted']} requests with the warm-up's); p50 "
+        f"{report['p50_ms']} ms, p95 {report['p95_ms']} ms, qps "
+        f"{report['qps']}; one serve_load window ({windows[0]['wall_ms']} ms, categories "
+        f"{windows[0]['cat_ms']}); the member's launches {launches}")
+    out["a"] = {"rc": rc, "wall_s": wall, "launches": launches, "report": report}
+    run_b = os.path.join(keep, "serve_obs_b")
+    rc, wall, stdout, stderr = run_serve_verb(
+        common + ["--requests", str(SERVE_DRAIN_REQUESTS), "--max-queue", "100000",
+                  "--timeout-ms", "600000", "--obs-dir", run_b], sigterm=True)
+    try:
+        doc = json.loads(stdout[stdout.index("{"):stdout.rindex("}") + 1])
+    except ValueError:
+        doc = {}
+    drained = doc.get("drained", {})
+    if (rc != 75 or drained.get("reason") != "SIGTERM"
+            or drained.get("terminal") != drained.get("submitted")):
+        fail(f"serve_drain: the SIGTERM run exited {rc}, drained {drained}: {stderr[-2000:]}")
+    drain_events = [r for r in stream_records(run_b) if r.get("name") == "serve_drain"]
+    say(f"{tag} SIGTERM after the offering line: exit 75 in {wall:.1f} s; drained "
+        f"{drained['submitted']} submitted = {drained['terminal']} terminal "
+        f"({drained['results']} results, flushed {drained['flushed']}); serve_drain events "
+        f"{len(drain_events)}; launches {stream_launches(stream_records(run_b))}")
+    out["b"] = {"rc": rc, "wall_s": wall, "drained": drained}
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
     return out
 
 
@@ -3139,6 +3495,8 @@ def main() -> None:
         evaluation = phase_eval(torch, np, cuda_lstm, train, keep, trainer["cli_checkpoint"])
         scenario = phase_scenario(torch, np, cuda_lstm, keep)
         pipeline = phase_pipeline(torch, np, keep, trainer["cli_checkpoint"])
+        health = phase_health(torch, np, cuda_lstm, train, train_chained)
+        serve_drain = phase_serve_drain(torch, np, keep, trainer["cli_checkpoint"])
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     timing = phase_timing(torch, cuda_lstm)
@@ -3160,7 +3518,9 @@ def main() -> None:
                         ("train_gan_cli", [trainer["cli_launches"]]),
                         ("eval", [evaluation["launches"]]),
                         ("scenario_epoch", [r["launches"] for r in scenario["epochs"]]),
-                        ("scenario_bank", [scenario["bank"]["launches"]])):
+                        ("scenario_bank", [scenario["bank"]["launches"]]),
+                        ("health_fused", [health["routes"]["auto"]["launches"]]),
+                        ("health_chained", [health["routes"]["chained"]["launches"]])):
         counts = {k: sum(r[k] for r in runs) for k in cuda_lstm.launch_counts()}
         counts["stack_fwd"] += counts.pop("stack_fwd_res")
         by_route[route] = counts
@@ -3172,8 +3532,10 @@ def main() -> None:
         "launches": (server["launches"] + trained["lstm_fwd"]
                      + trainer["serve_launches"]["lstm_fwd"]
                      + sweep["sweep_gan_checkpoint_launches"]
-                     + pipeline["a"]["launches"]["gen_g0"]["lstm_fwd"]),
+                     + pipeline["a"]["launches"]["gen_g0"]["lstm_fwd"]
+                     + serve_drain["a"]["launches"]["lstm_fwd"]),
         "launches_by_path": {"serve": server["launches"],
+                             "serve_drain": serve_drain["a"]["launches"]["lstm_fwd"],
                              "serve_gan_checkpoint": trainer["serve_launches"]["lstm_fwd"],
                              "sweep_gan_checkpoint": sweep["sweep_gan_checkpoint_launches"],
                              "pipeline": pipeline["a"]["launches"]["gen_g0"]["lstm_fwd"],
@@ -3279,7 +3641,9 @@ def main() -> None:
                 ("trainer", [trainer]),
                 ("train_gan_cli", [{"weight_sum_launches": trainer["cli_weight_sum_launches"]}]),
                 ("eval", [evaluation]), ("scenario_epoch", scenario["epochs"]),
-                ("scenario_bank", [scenario["bank"]]))
+                ("scenario_bank", [scenario["bank"]]),
+                ("health_fused", [health["routes"]["auto"]]),
+                ("health_chained", [health["routes"]["chained"]]))
     by_path = {shape: {p: sum(run["weight_sum_launches"][shape] for run in runs)
                        for p, runs in sum_runs} for shape, _, _, _ in SUM_SHAPES}
     for shape, nsum, npair, m in SUM_SHAPES:
@@ -3305,6 +3669,7 @@ def main() -> None:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
                        "train_chained": train_chained, "trainer": trainer, "sweep": sweep,
                        "eval": evaluation, "scenario": scenario, "pipeline": pipeline,
+                       "health": health, "serve_drain": serve_drain,
                        "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,

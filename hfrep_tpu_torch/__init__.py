@@ -16,3 +16,18 @@ on a machine with no card a call that did not ask for the CPU raises
 
 Importing this package builds nothing and loads no kernel.
 """
+
+import os
+
+# The CPU path's matmuls run in MKL, whose GEMM is not reproducible from
+# run to run in its default mode: at two threads the first projection of
+# a process's generator forward came out in a second bit pattern in 8 of
+# 600 fresh processes under load (2 of 600 in plain AUTO, 0 of 600 in
+# AUTO,STRICT; tools/torch_cpu_drift.py), and the pipeline's resume
+# contract rests on items being pure functions of their coordinates.
+# MKL's strict conditional numerical reproducibility in its AUTO branch
+# (the fastest code path for the processor) gives the same bits in every
+# run at a given thread count, the bits the default mode gives in most
+# runs.  MKL reads the setting at its first call, so it is set here,
+# before the port makes one; an explicit MKL_CBWR wins.
+os.environ.setdefault("MKL_CBWR", "AUTO,STRICT")

@@ -9,8 +9,9 @@ real training rows (cell 50).
 
 A source's sampling draws come from a device ``torch.Generator`` seeded
 from its label (:func:`source_sample_key`), so they differ from the JAX
-package's threefry draws by design.  Not ported yet (ROADMAP):
-``sample_keras_generator``, the ``.h5`` import.
+package's threefry draws by design.  :func:`sample_keras_generator`
+samples a reference Keras ``.h5`` artifact (it needs ``h5py``, imported
+only there: the card's path never calls it).
 """
 
 from __future__ import annotations
@@ -77,6 +78,32 @@ def sample_generator(trainer, generator: Optional[torch.Generator] = None,
     (its own scaler, carried through checkpoints, undoes the scaling) and
     split the cube; ``noise`` (n, W, F) replaces the draw."""
     cube = trainer.generate(n_windows, generator=generator, noise=noise, unscale=True)
+    return split_cube(cube, n_factors=n_factors, n_hf=n_hf)
+
+
+def sample_keras_generator(path: str, generator: Optional[torch.Generator], panel: Panel,
+                           n_windows: int = 10, n_factors: int = 22, n_hf: int = 13,
+                           noise: Optional[torch.Tensor] = None,
+                           device: DeviceLike = None) -> AugmentedData:
+    """The notebook's cells 42-48 from a Keras ``.h5`` artifact: load the
+    generator (:func:`~hfrep_tpu_torch.utils.keras_import.load_keras_generator`),
+    sample ``normal(0, 1, (N, W, F))`` noise from ``generator`` on
+    ``device`` (cell 43; ``noise`` replaces the draw), inverse-scale with
+    the panel-refit MinMax scaler (cell 47) and split (cell 48).  Whether
+    the cube carries an rf column is read from its own width: 36 → 22
+    factors, 13 HF and rf; 35 → no rf."""
+    from hfrep_tpu_torch.utils.keras_import import load_keras_generator
+
+    dev = resolve_device(device)
+    module, _, (window, features) = load_keras_generator(path, device=dev)
+    if noise is None:
+        noise = torch.randn((n_windows, window, features), generator=generator, device=dev)
+    else:
+        noise = torch.as_tensor(noise).to(dev, torch.float32)
+    with torch.no_grad():
+        cube_scaled = module(noise)
+    include_rf = cube_scaled.shape[2] > n_factors + n_hf
+    cube = inverse_scale_cube(cube_scaled, panel, include_rf=include_rf)
     return split_cube(cube, n_factors=n_factors, n_hf=n_hf)
 
 

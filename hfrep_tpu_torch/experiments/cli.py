@@ -15,6 +15,8 @@
     scenario    the scenario factory: conditional stress banks (bank),
                 walk-forward sweeps (walkforward), synthetic universes
                 (universe)
+    sample-h5   sample a reference Keras .h5 generator into an
+                inverse-scaled cube (needs h5py)
 
 Every verb runs on the card unless ``--device cpu`` is given.
 ``train-gan``, ``sweep``, ``pipeline``, ``serve`` and ``scenario`` run in
@@ -23,10 +25,11 @@ a SIGTERM drains at the next safe boundary into exit 75, re-run with
 ``--resume`` to continue (``sweep --resume`` keeps chunk snapshots under
 ``<out>/_resume``); a storage error that outlasts the retry policy exits
 74; ``--obs-dir`` (or ``HFREP_OBS_DIR``) writes the telemetry stream.
-Not offered yet (ROADMAP): the mesh flags, ``--profile-dir``,
-``--export-h5``, ``--dtype``, ``eval-gan``'s and ``--eval``'s
-``--eyeball`` plot, ``sweep``'s ``--h5-generator`` and ``--plots``, and
-the verb ``sample-h5``.
+The Keras and plotting extras (``sample-h5``, ``train-gan --export-h5``,
+``sweep --h5-generator`` and ``--plots``, ``eval-gan --eyeball``) import
+h5py, TensorFlow and matplotlib inside themselves: they run where those
+are installed, never on the card's path.  Not offered yet (ROADMAP): the
+mesh flags and ``--dtype``.
 """
 
 from __future__ import annotations
@@ -71,6 +74,12 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="consecutive rollbacks before giving up (with --nan-guard)")
     t.add_argument("--quiet", action="store_true")
     t.add_argument("--eval", action="store_true", help="run the 12-metric suite after training")
+    t.add_argument("--export-h5", default=None,
+                   help="also write the trained generator as a reference-compatible "
+                        "Keras .h5 (loads in the notebook's cell 42; needs tensorflow)")
+    t.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the first two blocks here "
+                        "(linked into run.json under --obs-dir)")
     t.add_argument("--obs-dir", default=None,
                    help="telemetry run dir: the train span, block ledger windows, "
                         "checkpoint spans, metric gauges")
@@ -81,18 +90,25 @@ def _build_parser() -> argparse.ArgumentParser:
     e.add_argument("--preset", default="mtss_wgan_gp")
     e.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
     e.add_argument("--out", default=None, help="write metrics JSON here")
+    e.add_argument("--eyeball", default=None,
+                   help="write the ECDF 'eyeball' grid plot here (.png; needs matplotlib)")
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     s = sub.add_parser("sweep", help="latent-dim sweep (cells 5-33 / 51-69)")
     s.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
     s.add_argument("--latents", default="1:21", help="'lo:hi' inclusive, or comma list")
     s.add_argument("--out", required=True)
-    s.add_argument("--gan-checkpoint", action="append", default=None,
-                   help="generator checkpoint: run the GAN-augmented sweep.  "
-                        "Repeatable: K checkpoints train the real and the K "
-                        "augmented sets as one (K+1)-dataset lane grid with the "
-                        "padded semantics (weighted validation mean, padded "
-                        "batch stream)")
+    src = s.add_mutually_exclusive_group()
+    src.add_argument("--gan-checkpoint", action="append", default=None,
+                     help="generator checkpoint: run the GAN-augmented sweep.  "
+                          "Repeatable: K checkpoints train the real and the K "
+                          "augmented sets as one (K+1)-dataset lane grid with the "
+                          "padded semantics (weighted validation mean, padded "
+                          "batch stream)")
+    src.add_argument("--h5-generator", action="append", default=None,
+                     help="reference Keras .h5 generator artifact: run the "
+                          "GAN-augmented sweep from it (notebook cell 42; needs h5py).  "
+                          "Repeatable, batched as --gan-checkpoint")
     s.add_argument("--preset", default="mtss_wgan_gp_prod",
                    help="preset the checkpoints were trained with")
     s.add_argument("--n-gen-windows", type=int, default=10)
@@ -105,6 +121,9 @@ def _build_parser() -> argparse.ArgumentParser:
                         "chunk boundary under <out>/_resume, drain on SIGTERM (exit "
                         "75), and resume from the last completed chunk of a killed "
                         "run with results bit-identical to an uninterrupted one")
+    s.add_argument("--plots", action="store_true",
+                   help="cumulative-return, AE loss and Omega-curve charts of the best "
+                        "latent (.png; needs matplotlib)")
     s.add_argument("--stats", action="store_true",
                    help="the stats battery of the best latent (cell 25): "
                         "Omega/Sharpe/cVaR/CEQ/skew/kurt, FF3F/FF5F alphas, "
@@ -175,14 +194,20 @@ def _build_parser() -> argparse.ArgumentParser:
                          "<dir>/actors/<name>, its kernel launches among them)")
     pl.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
-    sv = sub.add_parser("serve", help="replication-server drill")
+    sv = sub.add_parser("serve", help="replication-server drill; SIGTERM drains (stop "
+                                      "admitting, flush in-flight) into exit 75")
     sv.add_argument("--requests", type=int, default=2000, help="queries to offer")
+    sv.add_argument("--wave", type=int, default=256,
+                    help="queries offered per wave; the drain flag is polled between waves")
     sv.add_argument("--timeout-ms", type=float, default=None,
                     help="per-request deadline (default: the envelope's)")
     sv.add_argument("--max-batch", type=int, default=8)
     sv.add_argument("--batch-window-ms", type=float, default=5.0)
     sv.add_argument("--max-queue", type=int, default=256)
     sv.add_argument("--workers", type=int, default=2)
+    sv.add_argument("--fixture-feats", type=int, default=16,
+                    help="width of the fixture replication head (trained at start-up; "
+                         "no cleaned data needed)")
     sv.add_argument("--sample-every", type=int, default=0,
                     help="every Nth query samples the generator (needs "
                          "--gan-checkpoint)")
@@ -249,6 +274,15 @@ def _build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--seed", type=int, default=0)
     sc.add_argument("--obs-dir", default=None, help="telemetry run dir")
     sc.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    h = sub.add_parser("sample-h5", help="sample a reference Keras .h5 generator into an "
+                                         "inverse-scaled cube (.npy; needs h5py)")
+    h.add_argument("--h5", required=True, help="trained_generator/*.h5 artifact")
+    h.add_argument("--out", required=True, help="output .npy path")
+    h.add_argument("--n-windows", type=int, default=10)
+    h.add_argument("--cleaned-dir", default=DataConfig.cleaned_dir)
+    h.add_argument("--seed", type=int, default=0)
+    h.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
@@ -324,7 +358,20 @@ def _cmd_train_gan_impl(args) -> int:
             else:
                 print("no restorable checkpoint (all candidates corrupt); "
                       "training from scratch")
-    trainer.train(epochs=target)
+    if args.profile_dir and target:
+        from hfrep_tpu_torch.obs import trace_capture
+
+        # a bounded window (the first block, which builds the kernels, and
+        # one steady block): a trace of a whole run would not open
+        traced = min(target, 2 * cfg.train.steps_per_call)
+        with trace_capture(args.profile_dir, epochs=traced):
+            trainer.train(epochs=traced)
+        print(f"profile: {args.profile_dir} (first {traced} epochs)")
+        trainer.train(epochs=target - traced)
+    else:
+        if args.profile_dir:
+            print("no epochs to run; nothing to profile")
+        trainer.train(epochs=target)
     rate = (f" ({trainer.steps_per_sec:.2f} steps/s)"
             if trainer.timer.samples else " (schedule already complete)")
     print(f"trained {cfg.model.family} for {trainer.epoch} epochs{rate}")
@@ -340,6 +387,10 @@ def _cmd_train_gan_impl(args) -> int:
         print(f"samples: {args.samples_out} {tuple(cube.shape)}")
     if args.eval:
         _eval_trainer_samples(trainer)
+    if args.export_h5:
+        from hfrep_tpu_torch.utils.keras_export import export_keras_generator
+        path = export_keras_generator(cfg.model, trainer.state.generator, args.export_h5)
+        print(f"keras artifact: {path}")
     return 0
 
 
@@ -383,11 +434,15 @@ def cmd_eval_gan(args) -> int:
     flat = torch.from_numpy(np.asarray(cube, np.float32).reshape(-1, cube.shape[2]))
     fake = mm.transform(ds.scaler, flat.to(ds.windows.device)).reshape(cube.shape)
     n = min(cube.shape[0], ds.windows.shape[0])
-    res = GanEval(ds.windows[:n], fake[:n], ds.windows).run_all()
+    suite = GanEval(ds.windows[:n], fake[:n], ds.windows, model_name=[args.preset])
+    res = suite.run_all()
     print(json.dumps(res, indent=2))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=2)
+    if args.eyeball:
+        suite.eyeball(args.eyeball)
+        print(f"eyeball plot: {args.eyeball}")
     return 0
 
 
@@ -398,10 +453,12 @@ def _parse_latents(spec: str):
     return [int(x) for x in spec.split(",")]
 
 
-def _sample_augmentations(args):
-    """Sample every ``--gan-checkpoint``; a source's output subdir and its
-    sampling draws follow its checkpoint's stem, not the flag's position."""
-    from hfrep_tpu_torch.experiments.augment import (sample_generator, source_labels,
+def _sample_augmentations(args, panel):
+    """Sample every ``--gan-checkpoint`` or ``--h5-generator`` source; a
+    source's output subdir and its sampling draws follow its artifact's
+    stem, not the flag's position."""
+    from hfrep_tpu_torch.experiments.augment import (sample_generator,
+                                                     sample_keras_generator, source_labels,
                                                      source_sample_key)
 
     augs, names = [], []
@@ -413,6 +470,12 @@ def _sample_augmentations(args):
             augs.append(sample_generator(trainer, source_sample_key(label,
                                                                     device=trainer.device),
                                          n_windows=args.n_gen_windows))
+            names.append(f"gen_{label}")
+    elif args.h5_generator:
+        for h5, label in zip(args.h5_generator, source_labels(args.h5_generator)):
+            augs.append(sample_keras_generator(
+                h5, source_sample_key(label, device=args.device), panel,
+                n_windows=args.n_gen_windows, device=args.device))
             names.append(f"gen_{label}")
     return augs, names
 
@@ -450,7 +513,7 @@ def _cmd_sweep_impl(args) -> int:
     latents = _parse_latents(args.latents)
     resume_dir = os.path.join(args.out, "_resume") if args.resume else None
 
-    augs, gen_names = _sample_augmentations(args)
+    augs, gen_names = _sample_augmentations(args, panel)
     if len(augs) > 1:
         # K generators: the real and the K augmented training sets as one
         # (K+1) x L lane grid, padded to the longest
@@ -486,11 +549,26 @@ def _sweep_outputs(args, result, out_dir, panel, y_test, rf_test) -> int:
     from hfrep_tpu_torch.experiments import report
 
     os.makedirs(out_dir, exist_ok=True)
-    if not args.stats:
+    if not (args.stats or args.plots):
         return 0
     i_best = int(np.argmax(result.oos_r2_mean))
     p = result.post[i_best]
     actual = y_test.cpu().numpy()[-p.shape[0]:]
+    if args.plots:
+        # ex-ante, ex-post and real a strategy (Autoencoder_encapsulate.py:226-243)
+        for path in (
+                report.multiplot(p, actual, panel.hf_names,
+                                 os.path.join(out_dir, "cumulative_returns.png"),
+                                 labels=("replication (ex-post)", "actual"),
+                                 ante=result.ante[i_best]),
+                report.ae_loss_curves(result.train_loss, result.val_loss,
+                                      result.latent_dims,
+                                      os.path.join(out_dir, "ae_loss_curves.png")),
+                report.omega_curve_grid(p, actual, panel.hf_names,
+                                        os.path.join(out_dir, "omega_curves.png"))):
+            print(f"plot: {path}")
+    if not args.stats:
+        return 0
     rf_aligned = rf_test.cpu().numpy().reshape(-1)[-p.shape[0]:]
     # the spanning set is the factor/ETF universe, as the notebook's
     # data_analysis(..., span=factor_etf_data) (cells 25/28); OOS stats
@@ -572,9 +650,10 @@ def cmd_serve(args) -> int:
 
 
 def _cmd_serve_impl(args) -> int:
-    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch import resilience
+    from hfrep_tpu_torch.obs import emit_launch_counts, get_obs
     from hfrep_tpu_torch.serve.aot import GenServeModel
-    from hfrep_tpu_torch.serve.fixture import fixture_server, init_ae_model, warm_server
+    from hfrep_tpu_torch.serve.fixture import fixture_ae_model, fixture_server, warm_server
     from hfrep_tpu_torch.serve.loadgen import drive_load, make_panels
     from hfrep_tpu_torch.serve.server import ServeConfig
 
@@ -583,7 +662,7 @@ def _cmd_serve_impl(args) -> int:
     gen_model = None
     if args.gan_checkpoint:
         trainer, cfg = _make_trainer(args.preset, args.cleaned_dir, quiet=True,
-                                           device=args.device)
+                                     device=args.device)
         trainer.restore_checkpoint(args.gan_checkpoint)
         module = copy.deepcopy(trainer.state.generator).eval().requires_grad_(False)
         gen_model = GenServeModel(cfg=cfg.model, module=module)
@@ -593,26 +672,50 @@ def _cmd_serve_impl(args) -> int:
                        row_buckets=(32, 64, 128))
     timeout_ms = (args.timeout_ms if args.timeout_ms is not None
                   else scfg.request_timeout_ms)
-    # the AE head: AEConfig() widths (22 factors), Keras-default init
-    panels = make_panels(23, 22, (32, 64, 96), variants=8)
-    server = fixture_server(scfg, preset=None, gen_model=gen_model, device=args.device,
-                            ae_model=init_ae_model(AEConfig(), device=args.device))
-    try:
-        n_programs = warm_server(server, panels)
-        print("serving: AE head at AEConfig() widths, Keras-default init", file=sys.stderr)
-        print(f"serving: {n_programs} programs resident; offering "
-              f"{args.requests} queries (deadline {timeout_ms:.0f}ms)", file=sys.stderr)
-        report = drive_load(server, args.requests, panels, timeout_ms=timeout_ms,
-                            sample_every=args.sample_every)
-        print(json.dumps({"report": report, "stats": server.stats()}, indent=2,
-                         default=str))
-        ledger = server.outcomes.as_dict()
-        if ledger["terminal"] != ledger["submitted"]:
-            print(f"serve: OUTCOME LEAK: {ledger}", file=sys.stderr)
-            return 1
-        return 0
-    finally:
-        server.stop()
+    obs = get_obs()
+    obs.annotate(config={"serve": {"max_batch": scfg.max_batch, "deadline_ms": timeout_ms,
+                                   "max_queue": scfg.max_queue, "workers": scfg.workers}})
+    panels = make_panels(23, args.fixture_feats, (32, 64, 96), variants=8)
+    with resilience.graceful_drain():
+        # the fixture head, trained at start-up
+        server = fixture_server(scfg, preset=None, gen_model=gen_model, device=args.device,
+                                ae_model=fixture_ae_model(feats=args.fixture_feats,
+                                                          device=args.device))
+        try:
+            n_programs = warm_server(server, panels)
+            print(f"serving: {n_programs} programs resident; offering "
+                  f"{args.requests} queries (deadline {timeout_ms:.0f}ms)", file=sys.stderr)
+
+            def on_wave(done: int) -> None:
+                if resilience.drain_requested():
+                    doc = server.drain(reason="SIGTERM", timeout=30.0)
+                    print(json.dumps({"drained": doc, "stats": server.stats()},
+                                     indent=2, default=str))
+                    raise resilience.Preempted(site="serve", reason="drain requested",
+                                               epoch=done)
+
+            report = drive_load(server, args.requests, panels, timeout_ms=timeout_ms,
+                                sample_every=args.sample_every, wave=args.wave,
+                                on_wave=on_wave)
+            # a drain requested after the last wave (every future already
+            # awaited) still stops, flushes and exits 75
+            on_wave(args.requests)
+            for name, value in (("serve/qps", report["qps"]),
+                                ("serve/p50_ms", report["p50_ms"]),
+                                ("serve/p95_ms", report["p95_ms"]),
+                                ("serve/shed_rate", report["shed_rate"])):
+                if value is not None:
+                    obs.gauge(name).set(float(value))
+            print(json.dumps({"report": report, "stats": server.stats()}, indent=2,
+                             default=str))
+            ledger = server.outcomes.as_dict()
+            if ledger["terminal"] != ledger["submitted"]:
+                print(f"serve: OUTCOME LEAK: {ledger}", file=sys.stderr)
+                return 1
+            return 0
+        finally:
+            server.stop()
+            emit_launch_counts()
 
 
 def _scenario_panel(args):
@@ -704,9 +807,27 @@ def _cmd_scenario_impl(args) -> int:
     return 0
 
 
+def cmd_sample_h5(args) -> int:
+    import torch
+
+    from hfrep_tpu_torch.core.data import load_panel
+    from hfrep_tpu_torch.experiments.augment import sample_keras_generator
+    from hfrep_tpu_torch.train.trainer import seed_mix
+
+    panel = load_panel(args.cleaned_dir, device=args.device)
+    g = torch.Generator(device=panel.factors.device)
+    g.manual_seed(seed_mix(args.seed))
+    aug = sample_keras_generator(args.h5, g, panel, n_windows=args.n_windows,
+                                 device=args.device)
+    cube = aug.raw_windows.cpu().numpy()
+    np.save(args.out, cube)
+    print(f"samples: {args.out} {tuple(cube.shape)}")
+    return 0
+
+
 COMMANDS = {"clean": cmd_clean, "train-gan": cmd_train_gan, "eval-gan": cmd_eval_gan,
             "sweep": cmd_sweep, "pipeline": cmd_pipeline, "serve": cmd_serve,
-            "scenario": cmd_scenario}
+            "scenario": cmd_scenario, "sample-h5": cmd_sample_h5}
 #: the verbs that open their own telemetry session in the drive envelope
 DRIVES = ("train-gan", "sweep", "pipeline", "serve", "scenario")
 

@@ -1,8 +1,12 @@
-"""Reporting: the stats table (``hfrep_tpu/experiments/report.py``;
-``autoencoder_v4.ipynb`` cells 23-38), written with ``csv``.
+"""Reporting: the stats table and the report charts
+(``hfrep_tpu/experiments/report.py``; ``autoencoder_v4.ipynb`` cells
+23-38).
 
-Not ported yet (ROADMAP): the three plots (``multiplot``,
-``ae_loss_curves``, ``omega_curve_grid``), which need matplotlib.
+The table is written with ``csv``.  The charts (:func:`multiplot`,
+:func:`ae_loss_curves`, :func:`omega_curve_grid`) are offline PNGs drawn
+with matplotlib under its ``Agg`` backend, imported inside the function
+that draws: the card's machine has no matplotlib, and only ``sweep
+--plots`` draws.
 """
 
 from __future__ import annotations
@@ -15,6 +19,89 @@ import numpy as np
 
 from hfrep_tpu_torch.experiments.sweep import write_table
 from hfrep_tpu_torch.replication import perf_stats
+
+
+def _panel_grid(n_panels: int, ncols: int, panel_size: tuple, draw, path: str) -> str:
+    """Lay out ``n_panels`` axes, call ``draw(ax, j)`` on each, blank the
+    leftovers, save to ``path``."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    nrows = -(-n_panels // ncols)
+    fig, axes = plt.subplots(nrows, ncols,
+                             figsize=(panel_size[0] * ncols, panel_size[1] * nrows),
+                             squeeze=False)
+    for j in range(nrows * ncols):
+        ax = axes[j // ncols][j % ncols]
+        if j >= n_panels:
+            ax.axis("off")
+            continue
+        draw(ax, j)
+        ax.legend(fontsize=7)
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
+
+
+def multiplot(replication: np.ndarray, actual: np.ndarray, names: Sequence[str],
+              path: str, ncols: int = 3, labels: tuple = ("replication", "actual"),
+              ante: Optional[np.ndarray] = None,
+              ante_label: str = "replication (ex-ante)",
+              reference_compat: bool = False) -> str:
+    """Cumulative-return grid, one panel a strategy (cell 38): replicated
+    against actual index, compounded from monthly returns; ``ante`` adds
+    the ex-ante series of ``Autoencoder_encapsulate.py:226-243``.
+    ``reference_compat`` draws the reference's ``np.cumsum`` of raw
+    returns instead of compounding."""
+    cum = ((lambda r: np.cumsum(r)) if reference_compat
+           else (lambda r: np.cumprod(1.0 + r) - 1.0))
+    replication, actual = np.asarray(replication), np.asarray(actual)
+
+    def draw(ax, j):
+        # colours pinned a series, so the optional ante line takes no slot
+        if ante is not None:
+            ax.plot(cum(np.asarray(ante)[:, j]), label=ante_label, linestyle="--", color="C2")
+        ax.plot(cum(replication[:, j]), label=labels[0], color="C0")
+        ax.plot(cum(actual[:, j]), label=labels[1], color="C1")
+        ax.set_title(names[j], fontsize=9)
+
+    return _panel_grid(replication.shape[1], ncols, (4.2, 3.0), draw, path)
+
+
+def ae_loss_curves(train_loss: np.ndarray, val_loss: np.ndarray,
+                   latent_dims: Sequence[int], path: str, ncols: int = 4) -> str:
+    """Per-latent AE train/val loss curves (``Autoencoder_encapsulate.py:97-105``);
+    the traces are NaN after the early stop, so each panel ends there."""
+    def draw(ax, j):
+        tl, vl = np.asarray(train_loss[j]), np.asarray(val_loss[j])
+        live = np.isfinite(tl)
+        ax.plot(np.arange(len(tl))[live], tl[live], label="train")
+        ax.plot(np.arange(len(vl))[live], vl[live], label="val")
+        ax.set_title(f"latent={latent_dims[j]}", fontsize=9)
+        ax.set_yscale("log")
+
+    return _panel_grid(len(latent_dims), ncols, (3.6, 2.6), draw, path)
+
+
+def omega_curve_grid(replication: np.ndarray, actual: np.ndarray, names: Sequence[str],
+                     path: str, ncols: int = 3, thresholds=None,
+                     labels: tuple = ("replication", "actual")) -> str:
+    """Omega-ratio curves a strategy (cells 23/38): Ω(τ) of replication and
+    actual index over a threshold grid."""
+    thresholds = thresholds if thresholds is not None else np.linspace(0, 0.2, 50)
+    rep_curves = perf_stats.omega_curve(replication, thresholds)   # (T, S)
+    act_curves = perf_stats.omega_curve(actual, thresholds)
+
+    def draw(ax, j):
+        ax.plot(thresholds, rep_curves[:, j], label=labels[0])
+        ax.plot(thresholds, act_curves[:, j], label=labels[1])
+        ax.set_title(names[j], fontsize=9)
+        ax.set_xlabel("threshold", fontsize=7)
+
+    return _panel_grid(np.asarray(replication).shape[1], ncols, (4.2, 3.0), draw, path)
 
 
 @dataclasses.dataclass

@@ -18,14 +18,15 @@ Two reference bugs are fixed by default, each behind a
   (``GAN/GAN_eval.py:397-398``), so the reported difference is 0; the
   corrected metric compares real with ``fake``.
 
-Not ported (ROADMAP): ``to_frame`` (pandas) and ``eyeball``
-(matplotlib), which the card machine lacks.
+``GanEval.to_frame`` (pandas) and ``GanEval.eyeball`` (matplotlib)
+import their libraries inside themselves: the card's machine has
+neither, and its path never calls them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -381,14 +382,15 @@ class GanEval:
     """The reference's ``GAN_eval`` class (``GAN/GAN_eval.py:15-27``):
     real/fake/dataset cubes; ``run_all`` evaluates the whole battery on
     the device ``real`` lies on (numpy arrays: the CPU).  The display
-    metadata (``subplot_title``, ``model_name``) served only ``eyeball``
-    and ``to_frame``, which are not ported."""
+    metadata (``subplot_title``, ``model_name``) serves ``eyeball`` and
+    ``to_frame``."""
 
     METRICS = ("ACF", "FID", "Inception_score", "R2_relative_error",
                "gaussian_MMD", "js_div", "kl_div", "ks_test", "linear_MMD",
                "lp_dist", "poly_MMD", "wasserstein")
 
-    def __init__(self, real, fake, dataset, reference_compat: bool = False):
+    def __init__(self, real, fake, dataset, subplot_title: Optional[Sequence[str]] = None,
+                 model_name: Optional[Sequence[str]] = None, reference_compat: bool = False):
         dev = real.device if isinstance(real, torch.Tensor) else torch.device("cpu")
         real, fake, dataset = (_as_tensor(a, dev) for a in (real, fake, dataset))
         if real.dim() != fake.dim():
@@ -396,6 +398,8 @@ class GanEval:
         if real.shape != fake.shape:
             raise ValueError("real/fake shape mismatch")
         self.real, self.fake, self.dataset = real, fake, dataset
+        self.subplot_title = list(subplot_title or [])
+        self.model_name = list(model_name or ["model"])
         self.reference_compat = reference_compat
 
     # reference-name methods
@@ -440,12 +444,54 @@ class GanEval:
     def wasserstein(self):
         return float(wasserstein(self.real, self.fake))
 
-    def run_all(self, verbose: bool = False) -> Dict[str, float]:
+    def run_all(self, verbose: bool = False,
+                eyeball: Optional[str] = None) -> Dict[str, float]:
         """All 12 metrics, alphabetical (``GAN_eval.py:447-458``, the
-        reference's ``dir(self)`` order)."""
+        reference's ``dir(self)`` order); ``eyeball`` (a path) also
+        draws the ECDF grid there."""
         res = {}
         for i, name in enumerate(self.METRICS):
             res[name] = getattr(self, name)()
             if verbose:
                 print(f"{i + 1} out of {len(self.METRICS)} done.")
+        if eyeball:
+            self.eyeball(eyeball)
         return res
+
+    def to_frame(self, res: Optional[Dict[str, float]] = None):
+        """The metrics as a one-column pandas DataFrame named for the model."""
+        import pandas as pd
+        res = res or self.run_all()
+        return pd.DataFrame({self.model_name[0]: list(res.values())}, index=list(res))
+
+    def eyeball(self, path: Optional[str] = None, ncols: int = 3):
+        """Per-feature ECDF overlay grid (``GAN_eval.py:407-445``) saved to
+        ``path`` under matplotlib's ``Agg`` backend."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        real = _flatten_rows(self.real).cpu().numpy()
+        fake = _flatten_rows(self.fake).cpu().numpy()
+        n_feat = real.shape[1]
+        nrows = int(np.ceil(n_feat / ncols))
+        fig, ax = plt.subplots(nrows, ncols, figsize=(20, max(4, 2.5 * nrows)))
+        ax = np.asarray(ax).reshape(nrows, ncols)
+        titles = self.subplot_title or [f"feature {i}" for i in range(n_feat)]
+
+        def ecdf(col, grid):
+            return np.searchsorted(np.sort(col), grid, side="right") / len(col)
+
+        for i in range(n_feat):
+            r, c = divmod(i, ncols)
+            xs = np.linspace(real[:, i].min(), real[:, i].max(), 50)
+            ax[r, c].step(xs, ecdf(real[:, i], xs))
+            ax[r, c].step(xs, ecdf(fake[:, i], xs))
+            ax[r, c].set_title(titles[i] if i < len(titles) else f"feature {i}")
+            ax[r, c].legend(["True", "Generated"], loc="upper left")
+        fig.suptitle(self.model_name[0], y=1.0, fontsize=24)
+        fig.tight_layout()
+        if path:
+            fig.savefig(path, dpi=80, bbox_inches="tight")
+        plt.close(fig)
+        return path

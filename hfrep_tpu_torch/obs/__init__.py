@@ -548,6 +548,26 @@ def trace_capture(log_dir=None, **attrs):
                                   secs=round(dur, 6))
 
 
+def emit_launch_counts() -> None:
+    """The hand kernels' launches of this process (the wrappers' counts and
+    the weight sums as their C launcher counts them), as ``launches/<kernel>``
+    counters in the process's own stream; nothing without a telemetry dir.
+    A process on the card (a pipeline member, a verb run as a subprocess)
+    reports its launches this way."""
+    obs = get_obs()
+    if not obs.enabled:
+        return
+    from hfrep_tpu_torch.ops import cuda_lstm
+
+    counts = dict(cuda_lstm.launch_counts())
+    counts.update({f"weight_sum ({k})": v
+                   for k, v in cuda_lstm.weight_sum_launches().items()})
+    for kernel, n in sorted(counts.items()):
+        if n:
+            obs.counter(f"launches/{kernel}").inc(int(n), kernel=kernel)
+    obs.flush()
+
+
 def maybe_enable_from_env() -> Optional[Obs]:
     """Honor ``HFREP_OBS_DIR`` so entry points opt in without a flag."""
     run_dir = os.environ.get("HFREP_OBS_DIR")

@@ -141,6 +141,12 @@ def account(category: str, seconds: float) -> None:
     _LEDGER.add(category, seconds)
 
 
+def note_sync(seconds: float) -> None:
+    """Host time blocked on the device at a boundary the drive already
+    pays (a device-to-host copy): the ``device_compute`` category."""
+    account("device_compute", seconds)
+
+
 def note_obs_self(seconds: float) -> None:
     """``Obs._emit``'s self-measurement hook (the ``obs_self`` category)."""
     account("obs_self", seconds)

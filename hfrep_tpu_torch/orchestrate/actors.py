@@ -248,25 +248,6 @@ def _consumer_loop(name: str, payload: dict) -> None:
         resilience.boundary("item")
 
 
-def _emit_launch_counts() -> None:
-    """The hand kernels' launches of this process (the wrappers' counts and
-    the weight sums as their C launcher counts them), as counters in the
-    member's own stream; nothing without a telemetry dir."""
-    from hfrep_tpu_torch.obs import get_obs
-    from hfrep_tpu_torch.ops import cuda_lstm
-
-    obs = get_obs()
-    if not obs.enabled:
-        return
-    counts = dict(cuda_lstm.launch_counts())
-    counts.update({f"weight_sum ({k})": v
-                   for k, v in cuda_lstm.weight_sum_launches().items()})
-    for kernel, n in sorted(counts.items()):
-        if n:
-            obs.counter(f"launches/{kernel}").inc(int(n), kernel=kernel)
-    obs.flush()
-
-
 # ------------------------------------------------------------- bootstrap
 def actor_main(name: str, role: str, payload: dict) -> None:
     """Entry point of a spawned member process: resolves the member's
@@ -275,6 +256,7 @@ def actor_main(name: str, role: str, payload: dict) -> None:
     and maps the drain contract onto exit codes."""
     from hfrep_tpu_torch import resilience
     from hfrep_tpu_torch.core.device import resolve_device
+    from hfrep_tpu_torch.obs import emit_launch_counts
     from hfrep_tpu_torch.resilience.drive import DRIVE_REGISTRY, run_drive
 
     resolve_device(payload["device"])
@@ -291,7 +273,7 @@ def actor_main(name: str, role: str, payload: dict) -> None:
             print(f"{name}: {e}", file=sys.stderr)
             return EXIT_GAP
         finally:
-            _emit_launch_counts()
+            emit_launch_counts()
         return 0
 
     def on_preempt(e) -> None:

@@ -47,8 +47,19 @@ bit-identically: the permutations are a pure function of the seed and
 the epoch.  Every chunked drive crosses the ``chunk`` boundary of the
 resilience layer, snapshot or not.
 
-Not in this port yet (ROADMAP): the ``mesh`` path, the health traces
-and the bf16 policy.
+Health (:mod:`hfrep_tpu_torch.obs.health`, decided when a drive starts):
+each epoch also traces every lane's gradient norm over the epoch's
+batches (NaN once the lane has stopped) and the nonfinite count of its
+kept params and validation loss.  They are read at the chunk boundary
+the host already syncs at (the drive then reads the stop flag there,
+not one chunk behind) and at the drive's end, with the grid's param
+norm, as the ``health/ae_*`` gauges; under ``HFREP_HEALTH=abort`` a
+nonfinite count writes a forensic dump of the carry and raises
+:class:`~hfrep_tpu_torch.obs.health.NumericFault`.  The training itself
+is bit-identical either way, and a chunk snapshot records the health
+setting: a resume across a toggle is refused.
+
+Not in this port yet (ROADMAP): the ``mesh`` path and the bf16 policy.
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ from hfrep_tpu_torch.core import scaler as mm
 from hfrep_tpu_torch.core.device import DeviceLike, resolve_device
 from hfrep_tpu_torch.models.autoencoder import ae_apply, ae_encode, latent_mask
 from hfrep_tpu_torch.obs import get_obs
+from hfrep_tpu_torch.obs import health as health_mod
 from hfrep_tpu_torch.ops.optimizers import keras_nadam
 from hfrep_tpu_torch.ops.rolling import (_window_stack, expanding_minmax_scale,
                                          rolling_ols_beta)
@@ -177,8 +189,9 @@ class _Grid:
     semantics' (n_rows, n_train_eff), each (D,), or None (dense)."""
 
     def __init__(self, cfg: AEConfig, x: torch.Tensor, masks: torch.Tensor, rows_info,
-                 init_params: dict, d: int):
+                 init_params: dict, d: int, health: bool = False):
         self.cfg = cfg
+        self.health = health
         dev = x.device
         self.dx, n, self.f = x.shape
         self.d, self.l, self.m = d, masks.shape[0], masks.shape[1]
@@ -223,9 +236,24 @@ class _Grid:
             return torch.mean(err, dim=-1)
         return torch.sum(err * w, dim=-1) / torch.clamp(torch.sum(w, dim=-1), min=1.0)
 
-    def epoch(self, perm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def sq_norms(self, flat: torch.Tensor) -> torch.Tensor:
+        """Each lane's Σ‖leaf‖² in the JAX leaf order (decoder, then
+        encoder), float32, (D, L)."""
+        fm = self.f * self.m
+        return (torch.sum(torch.square(flat[..., fm:]), dim=-1)
+                + torch.sum(torch.square(flat[..., :fm]), dim=-1))
+
+    def param_norm(self) -> torch.Tensor:
+        """The global norm of every lane's kernels (the JAX carry's
+        params tree: decoder, then encoder)."""
+        fm = self.f * self.m
+        return torch.sqrt(torch.sum(torch.square(self.flat[..., fm:]))
+                          + torch.sum(torch.square(self.flat[..., :fm])))
+
+    def epoch(self, perm: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """One epoch on every lane (``perm`` (D, L, n_train)), in place;
-        returns its (train loss, val loss), each (D, L)."""
+        returns its (train loss, val loss), each (D, L), and with health
+        on also (grad norm, nonfinite count)."""
         cfg, d, l = self.cfg, self.d, self.l
         order = torch.cat([perm, self.pad_order.expand(d, l, -1)], dim=-1)
         weights = self.base_w.expand(d, l, -1)
@@ -235,7 +263,7 @@ class _Grid:
             xs = self.x_fit[0][order]                                    # (D, L, P, F)
         else:
             xs = self.x_fit[torch.arange(d, device=order.device)[:, None, None], order]
-        losses = []
+        losses, gsq = [], []
         bs = cfg.batch_size
         for i in range(self.n_batches):
             xb, w = xs[:, :, i * bs:(i + 1) * bs], weights[:, :, i * bs:(i + 1) * bs]
@@ -243,6 +271,8 @@ class _Grid:
             with torch.enable_grad():
                 loss = self.mse(p, xb, w)
                 (grad,) = torch.autograd.grad(loss.sum(), p)
+            if self.health:
+                gsq.append(self.sq_norms(grad))
             self.tx.step([self.flat], [grad], self.opt, frozen=self.stopped)
             losses.append(loss.detach())
         stopped = self.stopped
@@ -255,19 +285,26 @@ class _Grid:
         newly = ~stopped & (self.wait >= cfg.patience)
         train_loss = torch.where(stopped, self._nan, torch.stack(losses).mean(dim=0))
         val_out = torch.where(stopped, self._nan, val)
+        out = (train_loss, val_out)
+        if self.health:
+            # NaN after the lane stopped, like the losses; the count covers
+            # the kept params and the epoch's validation loss
+            gn = torch.where(stopped, self._nan, torch.sqrt(torch.stack(gsq).sum(dim=0)))
+            nf = (torch.sum((~torch.isfinite(self.flat)).float(), dim=-1)
+                  + (~torch.isfinite(val)).float())
+            out = out + (gn, nf)
         self.stopped.copy_(stopped | newly)
-        return train_loss, val_out
+        return out
 
     def run(self, perms: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """``perms.shape[-2]`` epochs; traces (train, val, stopped), each
-        (D, L, epochs)."""
-        tl, vl, st = [], [], []
+        (D, L, epochs), and with health on (grad norm, nonfinite)."""
+        traces = [[] for _ in range(5 if self.health else 3)]
         for e in range(perms.shape[-2]):
-            a, b = self.epoch(perms[..., e, :])
-            tl.append(a)
-            vl.append(b)
-            st.append(self.stopped.clone())
-        return tuple(torch.stack(t, dim=-1) for t in (tl, vl, st))
+            out = self.epoch(perms[..., e, :])
+            for t, v in zip(traces, out[:2] + (self.stopped.clone(),) + out[2:]):
+                t.append(v)
+        return tuple(torch.stack(t, dim=-1) for t in traces)
 
     def params(self) -> dict:
         enc, dec = self.kernels(self.flat)
@@ -306,7 +343,36 @@ class _Flag:
 
 
 def _concat_traces(traces: list) -> Tuple[torch.Tensor, ...]:
-    return tuple(torch.cat([t[i] for t in traces], dim=-1) for i in range(3))
+    """Per-chunk trace tuples joined along the epoch axis: (train loss,
+    val loss, stopped), and on a health-armed drive (grad norm, nonfinite)."""
+    return tuple(torch.cat([t[i] for t in traces], dim=-1) for i in range(len(traces[0])))
+
+
+def _emit_ae_health(grid: "_Grid", gn: float, nf: float, pn: float, epoch: int,
+                    snapshot) -> None:
+    """Publish one AE boundary's health scalars; under
+    ``abort_on_nonfinite`` a nonfinite count writes a forensic dump of the
+    carry (the failing chunk's snapshot is not yet written, so a resume
+    replays it) and raises :class:`~hfrep_tpu_torch.obs.health.NumericFault`."""
+    obs = get_obs()
+    if obs.enabled:
+        obs.gauge("health/ae_grad_norm").set(gn, epoch=epoch)
+        obs.gauge("health/ae_nonfinite").set(nf, epoch=epoch)
+        obs.gauge("health/ae_param_norm").set(pn, epoch=epoch)
+    health_mod.tripwire("chunk", epoch, nf, grid.carry(),
+                        {"grad_norm": gn, "param_norm": pn},
+                        fallback=str(snapshot.dir) if snapshot is not None else None)
+
+
+def _health_scalars(grid: "_Grid", tr: Tuple[torch.Tensor, ...], last: int):
+    """(grad norm, nonfinite, param norm) of epoch ``last`` of the traces
+    ``tr`` as device tensors: the lanes' largest grad norm (NaN when every
+    lane's is NaN, as ``jnp.nanmax``), their summed nonfinite count, the
+    grid's param norm."""
+    gn = tr[3][..., last]
+    gn = torch.where(torch.isnan(gn), torch.full_like(gn, -math.inf), gn).max()
+    gn = torch.where(gn == -math.inf, torch.full_like(gn, math.nan), gn)
+    return gn, torch.nansum(tr[4][..., last]), grid.param_norm()
 
 
 def _snapshot_save_failed(snapshot, pos: int, e: OSError) -> None:
@@ -338,7 +404,9 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
     ``snapshot`` (a :class:`~hfrep_tpu_torch.resilience.snapshot.
     ChunkSnapshot` of ``grid``'s carry) loads the resume state before the
     loop and saves it at every boundary; its drive reads the flag at the
-    boundary (the snapshot records it).  Every boundary crosses
+    boundary (the snapshot records it), as does a drive of a health-armed
+    ``grid``, whose boundary health scalars join that read
+    (:func:`_emit_ae_health`).  Every boundary crosses
     ``resilience.boundary("chunk")`` (unless ``cross`` is False: the
     monolithic drive, one scan in the JAX package, has no boundary),
     where injected faults fire and a requested drain raises
@@ -349,8 +417,10 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
     traces: list = []
     pos = chunks = overshoot = 0
     stopped_all = False
-    if snapshot is not None:
+    health = grid is not None and grid.health
+    if snapshot is not None or health:
         double_buffer = False
+    if snapshot is not None:
         loaded = snapshot.load(grid.carry())
         if loaded is not None:
             carry, tr, pos, chunks, stopped_all = loaded
@@ -374,7 +444,14 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
                     overshoot = 1
             pending = flag
         elif pos < epochs:
-            stopped_all = bool(torch.all(stopped))
+            if health:
+                flag, *vals = (float(v) for v in torch.stack(
+                    (torch.all(stopped).float(),) + _health_scalars(grid, traces[-1], -1)
+                ).cpu())
+                stopped_all = bool(flag)
+                _emit_ae_health(grid, *vals, pos, snapshot)
+            else:
+                stopped_all = bool(torch.all(stopped))
         if snapshot is not None and not resilience.drain_requested():
             # a drain already requested (a SIGTERM during the chunk) skips
             # this boundary's write: the resume replays the chunk from the
@@ -396,9 +473,10 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
     if pos < epochs:
         lead = out[0].shape[:-1]
         pad = lead + (epochs - pos,)
-        out = (torch.cat([out[0], out[0].new_full(pad, math.nan)], dim=-1),
-               torch.cat([out[1], out[1].new_full(pad, math.nan)], dim=-1),
-               torch.cat([out[2], out[2].new_ones(pad)], dim=-1))
+        # the stop trace pads True, every other trace NaN: the values the
+        # monolithic drive computes for the epochs not run
+        out = tuple(torch.cat([t, t.new_ones(pad) if i == 2 else t.new_full(pad, math.nan)],
+                              dim=-1) for i, t in enumerate(out))
     return out, pos, chunks, overshoot
 
 
@@ -433,6 +511,7 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
         raise ValueError("resume_dir requires the chunked drive (cfg.chunk_epochs > 0): "
                          "a monolithic drive has no chunk boundary to resume from")
     dev = resolve_device(device)
+    health = health_mod.active() is not None
     x = _tensor(x, dev)
     d = x.shape[0] if x.dim() == 3 else 1
     x = x if x.dim() == 3 else x[None]
@@ -451,9 +530,12 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
             "cfg": list(dataclasses.astuple(cfg)),
             "kind": ("single", "lanes", "multi")[len(lead)], "lanes": list(lead),
             "seed": int(seed),
+            # health changes the persisted trace arity: a resume must not
+            # adopt a snapshot of the other setting
+            "health": health,
             "operands": digest_arrays(x, masks, rows_info, init_params if given_init else None)})
     with torch.no_grad(), resilience.graceful_drain():
-        grid = _Grid(cfg, x, masks, rows_info, init_params, d)
+        grid = _Grid(cfg, x, masks, rows_info, init_params, d, health=health)
         if perm_source is None:
             perm_source = PermStream(seed_mix(seed, 2), lead, grid.n_train, dev)
 
@@ -461,9 +543,16 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
             perms = perm_source(pos, length).to(dev, torch.int64)
             return grid.run(perms.reshape(grid_shape + (length, grid.n_train)))
 
-        (tl, vl, st), dispatched, chunks, overshoot = _drive_chunks(
+        traces, dispatched, chunks, overshoot = _drive_chunks(
             chunk_fn, grid.stopped, cfg.epochs, 0 if monolithic else cfg.chunk_epochs,
             double_buffer=cfg.double_buffer, snapshot=snap, grid=grid, cross=not monolithic)
+        tl, vl, st = traces[:3]
+        if health and not monolithic:
+            # the drive's end: the last dispatched epoch's health scalars
+            # (the monolithic drive, one scan in the JAX package, has none)
+            gn, nf, pn = (float(v) for v in torch.stack(
+                _health_scalars(grid, traces, max(0, dispatched - 1))).cpu())
+            _emit_ae_health(grid, gn, nf, pn, dispatched, snap)
         params = {k: v.reshape(lead + v.shape[2:]) for k, v in grid.params().items()}
         tl, vl, st = (t.reshape(lead + (cfg.epochs,)) for t in (tl, vl, st))
         stop_epoch = _stop_epoch(st, cfg.epochs)

@@ -23,8 +23,11 @@ Layout under ``out_dir``::
 
 A SIGTERM drains at the next ``gan_block`` (training) or ``bank_block``
 (a published block) boundary (:class:`~hfrep_tpu_torch.resilience.Preempted`):
-a re-run keeps every block that verifies.  Not ported yet (ROADMAP): the
-health tail of the training drive, a named no-op stub below.
+a re-run keeps every block that verifies.  With health on
+(:mod:`hfrep_tpu_torch.obs.health`) the training drive's last metrics
+carry the ``health_*`` values, read once after training (the drive
+syncs nowhere else) as the ``health/*`` gauges, with the nonfinite
+tripwire at site ``gan_block``.
 """
 
 from __future__ import annotations
@@ -56,10 +59,20 @@ from hfrep_tpu_torch.utils import checkpoint as ckpt
 BANK_MANIFEST = "bank.json"
 
 
-# ------------------------------------------------- hooks of later layers
 def _emit_conditional_health(metrics, epochs: int, state: GanState) -> None:
-    """Stub of the drive's health tail (``health/*`` gauges and the
-    nonfinite tripwire at site ``gan_block``)."""
+    """The health tail of the conditional drive: the last call's
+    ``health_*`` metrics (present only when health armed the step) as the
+    trainer's ``health/*`` gauges, and its nonfinite tripwire at site
+    ``gan_block`` with a forensic dump of both networks' params."""
+    from hfrep_tpu_torch.obs import health as health_mod
+
+    if not metrics or "health_nonfinite" not in metrics:
+        return
+    host = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+    health_mod.gan_boundary(host, epochs - 1, "gan_block",
+                            {"g_params": dict(state.generator.named_parameters()),
+                             "d_params": dict(state.discriminator.named_parameters())},
+                            drive="conditional")
 
 
 def block_name(regime: int, seq: int) -> str:

@@ -1,8 +1,7 @@
 """Admission control + circuit breaking (``hfrep_tpu/serve/admission.py``).
 
-Pure Python and identical to the reference apart from telemetry: the
-breaker's open/close events of the JAX package's ``obs`` layer are not
-ported yet.
+Pure Python and identical to the reference, the breaker's
+``serve_breaker_open`` / ``serve_breaker_close`` events included.
 
 A serving layer that melts under load is worse than none — the SRE
 failure modes are queueing to death (every request admitted, every
@@ -181,6 +180,7 @@ class CircuitBreaker:
             if self._state in (HALF_OPEN, OPEN):
                 self._state = CLOSED
                 self._probe_out = False
+                self._emit("serve_breaker_close")
 
     def record_failure(self, cause: str = "worker_fault") -> None:
         with self._lock:
@@ -211,6 +211,7 @@ class CircuitBreaker:
         self._probe_out = False
         self.trips += 1
         self.last_trip_reason = reason
+        self._emit("serve_breaker_open", reason=reason)
 
     def _maybe_half_open(self) -> None:
         # lock held by caller
@@ -218,3 +219,11 @@ class CircuitBreaker:
                 and self._clock() - self._opened_at >= self.cooldown_s):
             self._state = HALF_OPEN
             self._probe_out = False
+
+    @staticmethod
+    def _emit(name: str, **attrs) -> None:
+        try:
+            from hfrep_tpu_torch.obs import get_obs
+            get_obs().event(name, **attrs)
+        except Exception:
+            pass

@@ -208,11 +208,20 @@ class ProgramCache:
             fn = build()
             self.compiles += 1
             self._programs[key] = fn
+            evicted = None
             if len(self._programs) > self.capacity:
-                self._programs.popitem(last=False)
+                evicted, _ = self._programs.popitem(last=False)
                 self.evictions += 1
         if self.on_compile is not None and not self.warming:
             self.on_compile()
+        try:
+            from hfrep_tpu_torch.obs import get_obs
+            obs = get_obs()
+            obs.counter("serve/compiles").inc(key=str(key))
+            if evicted is not None:
+                obs.event("serve_evict", key=str(evicted), capacity=self.capacity)
+        except Exception:
+            pass
         return fn
 
 

@@ -1,6 +1,6 @@
 """Deadline-aware micro-batching with admission control
 (``hfrep_tpu/serve/batcher.py``; its fault-injection boundary is the
-JAX package's ``batcher`` site, its telemetry events are not ported yet).
+JAX package's ``batcher`` site, its events the JAX package's).
 
 The replication programs are batched device computations — serving one
 request per dispatch wastes the whole width of the machine, while
@@ -21,10 +21,10 @@ Two SRE properties live here because this is the only place they can:
 * **deadline cancellation** — every request carries an absolute
   deadline; a request still queued when it expires is completed with
   :class:`~hfrep_tpu_torch.serve.admission.DeadlineExceeded` *at the batcher*
-  before any device work is paid for it.  The expiry check runs on every
-  wait wake-up AND once more after the batch is formed, so a request
-  delayed past its deadline misses loudly instead of riding into a
-  dispatch nobody awaits.
+  (a ``serve_deadline_miss`` event) before any device work is paid for
+  it.  The expiry check runs on every wait wake-up AND once more after
+  the batch is formed, so a request delayed past its deadline misses
+  loudly instead of riding into a dispatch nobody awaits.
 
 The batcher never computes: workers call :meth:`next_batch` and own the
 dispatch.  All state lives under one condition variable.
@@ -68,6 +68,12 @@ class ServeRequest:
     deadline: float
     future: Future = dataclasses.field(default_factory=Future)
     retries: int = 0
+    #: correlation ID minted (or caller-supplied) at submit, carried on
+    #: every event of this request's lifecycle
+    trace_id: str = ""
+    #: whether this request's events enter the stream (the 1-in-N
+    #: ``event_log_every`` sampling decision, made once at admit)
+    log: bool = True
 
     def finish(self, value=None, error: Optional[Exception] = None) -> bool:
         """Resolve the request exactly once; False if already terminal.
@@ -201,10 +207,22 @@ class MicroBatcher:
         if now < req.deadline:
             return False
         late_ms = (now - req.deadline) * 1e3
-        if (req.finish(error=DeadlineExceeded(req.id, late_ms))
-                and self.on_deadline_miss is not None):
-            self.on_deadline_miss(req, late_ms)
+        if req.finish(error=DeadlineExceeded(req.id, late_ms)):
+            self._emit_miss(req, late_ms)
         return True
+
+    def _emit_miss(self, req: ServeRequest, late_ms: float) -> None:
+        if self.on_deadline_miss is not None:
+            self.on_deadline_miss(req, late_ms)
+        if not req.log:
+            return
+        try:
+            from hfrep_tpu_torch.obs import get_obs
+            get_obs().event("serve_deadline_miss", request=req.id,
+                            kind=req.kind, late_ms=round(late_ms, 3),
+                            trace=req.trace_id)
+        except Exception:
+            pass
 
     def _expire_locked(self) -> None:
         self._queue = [r for r in self._queue if not self._expired(r)]

@@ -1,20 +1,21 @@
 """Load generation + outcome classification (``hfrep_tpu/serve/loadgen.py``).
 
-Requests are submitted open-loop, every future is awaited to its
-terminal outcome, and the report classifies all of them.  Latency
+Requests are submitted open-loop in waves, every future is awaited to
+its terminal outcome, and the report classifies all of them.  Latency
 numbers are the server-side per-request latencies of fresh results
-(admission → result publish, queue wait included).  The JAX version's
-wall-clock ledger (``timeline``) is not ported yet.
+(admission → result publish, queue wait included).  The whole offered
+load is one ``serve_load`` window of the wall-clock ledger
+(:mod:`~hfrep_tpu_torch.obs.timeline`).
 """
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import Future, wait
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from hfrep_tpu_torch.obs import timeline
 from hfrep_tpu_torch.serve.admission import (
     DeadlineExceeded,
     Draining,
@@ -85,29 +86,55 @@ def classify(futures: List[Future]) -> dict:
 def drive_load(server, total: int, panels: Sequence[np.ndarray], *,
                timeout_ms: Optional[float] = None,
                sample_every: int = 0,
+               wave: int = 512,
+               on_wave: Optional[Callable[[int], None]] = None,
+               trace_prefix: Optional[str] = None,
                keep_futures: bool = False) -> dict:
-    """Offer ``total`` queries and account for every terminal outcome.
+    """Offer ``total`` queries in waves of ``wave`` and account for every
+    terminal outcome.
 
     ``sample_every > 0`` turns every Nth request into a one-window
     ``sample`` query (when the server carries a generator).
-    ``keep_futures`` adds the awaited futures, in submission order, under
-    ``"futures"`` so a caller can check answers.
+    ``on_wave(submitted)`` runs after each wave: the verb's drain poll,
+    which may raise to stop the load (the futures already offered are
+    still awaited).  ``trace_prefix`` submits request ``j`` with the
+    trace ID ``<prefix><j:06d>`` and adds the IDs under ``"trace_ids"``;
+    None lets the server mint them.  ``keep_futures`` adds the awaited
+    futures, in submission order, under ``"futures"`` so a caller can
+    check answers.
     """
     futures: List[Future] = []
-    t0 = time.perf_counter()
+    trace_ids: List[str] = []
+    t0 = timeline.clock()
+    submitted = 0
     try:
-        for j in range(total):
-            if (sample_every and server.gen_model is not None
-                    and j % sample_every == sample_every - 1):
-                futures.append(server.sample(1, timeout_ms=timeout_ms))
-            else:
-                futures.append(server.replicate(panels[j % len(panels)],
-                                                timeout_ms=timeout_ms))
+        while submitted < total:
+            n = min(wave, total - submitted)
+            for j in range(submitted, submitted + n):
+                tid = None
+                if trace_prefix is not None:
+                    tid = f"{trace_prefix}{j:06d}"
+                    trace_ids.append(tid)
+                if (sample_every and server.gen_model is not None
+                        and j % sample_every == sample_every - 1):
+                    futures.append(server.sample(1, timeout_ms=timeout_ms,
+                                                 trace_id=tid))
+                else:
+                    futures.append(server.replicate(panels[j % len(panels)],
+                                                    timeout_ms=timeout_ms,
+                                                    trace_id=tid))
+            submitted += n
+            if on_wave is not None:
+                on_wave(submitted)
     finally:
         wait(futures)
-        wall = time.perf_counter() - t0
-    submitted = len(futures)
+        wall = timeline.clock() - t0
+    # one ledger window for the whole load: the workers booked queue_wait,
+    # dispatch and device_compute into the shared ledger as they served it
+    timeline.flush_window(wall, drive="serve_load", steps=submitted)
     doc = classify(futures)
+    if trace_prefix is not None:
+        doc["trace_ids"] = trace_ids
     lat = sorted(doc.pop("latencies_ms"))
     done = doc["results"] + doc["stale"]
     doc.update({

@@ -17,8 +17,17 @@ requeue-once of a dead worker's batch, ``warm``, ``drain`` and
 ``stats``.  Its fault-injection points are the JAX server's:
 ``kill@serve_worker`` kills the worker holding the Nth dispatched batch,
 ``io_fail@serve_result`` fails a request's result publication TYPED
-(:class:`~hfrep_tpu_torch.serve.admission.WorkerFault`).  The JAX
-server's telemetry events and per-request trace IDs are not ported yet.
+(:class:`~hfrep_tpu_torch.serve.admission.WorkerFault`).
+
+Telemetry is the JAX server's: every request carries a trace ID (the
+caller's, else its request id) on each event of its lifecycle —
+``serve_admit``, ``serve_shed``, ``serve_degraded``, the batch-level
+``serve_dispatch`` (its ``traces`` list), ``serve_complete``,
+``serve_fault``, the batcher's ``serve_deadline_miss`` — sampled 1 in
+``event_log_every`` requests (counters and the outcome ledger stay
+exact); the workers book ``queue_wait`` and ``dispatch`` into the
+wall-clock ledger (:mod:`~hfrep_tpu_torch.obs.timeline`), and a drain
+emits ``serve_drain``.
 
 Sample noise comes from a ``torch.Generator`` on the model's device,
 seeded from ``(cfg.seed, dispatch sequence number)``; its draws differ
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 
 from hfrep_tpu_torch import resilience
+from hfrep_tpu_torch.obs import timeline
 from hfrep_tpu_torch.serve import aot
 from hfrep_tpu_torch.serve.admission import (
     OPEN,
@@ -70,6 +80,9 @@ class ServeConfig:
     compile_storm: int = 16         # program builds per window that trip OPEN
     compile_window_s: float = 10.0
     seed: int = 0                   # noise stream for `sample` requests
+    event_log_every: int = 1        # per-request events sampled 1 in N;
+                                    # counters and the outcome ledger stay
+                                    # exact, only the event stream thins
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,38 +224,60 @@ class ReplicationServer:
                 self._idle.wait(0.05)
             flushed = flushed and self._in_flight == 0
         self.stop()
-        return {"reason": reason, "flushed": bool(flushed),
-                **self.outcomes.as_dict()}
+        doc = {"reason": reason, "flushed": bool(flushed),
+               **self.outcomes.as_dict()}
+        self._emit("serve_drain", reason=reason, flushed=bool(flushed),
+                   terminal=doc["terminal"], submitted=doc["submitted"])
+        return doc
 
     # ------------------------------------------------------------ admission
     def submit(self, kind: str, payload,
-               timeout_ms: Optional[float] = None) -> Future:
+               timeout_ms: Optional[float] = None,
+               trace_id: Optional[str] = None) -> Future:
         """Admit one query; ALWAYS returns a future that terminates.
         Typed rejections (shed, draining, closed, invalid) resolve the
-        future immediately."""
+        future immediately.  ``trace_id`` is the caller's correlation ID
+        (None: the request id); every event of the request carries it."""
         self.outcomes.inc("submitted")
         now = self._clock()
-        rid = f"r{next(self._ids)}"
+        idnum = next(self._ids)
+        rid = f"r{idnum}"
+        trace = trace_id or rid
+        log = (self.cfg.event_log_every <= 1
+               or idnum % self.cfg.event_log_every == 0)
         budget = (self.cfg.request_timeout_ms
                   if timeout_ms is None else float(timeout_ms))
         try:
             bucket = self._bucket(kind, payload)
         except (ValueError, aot.BucketError) as e:
             self.outcomes.inc("invalid")
+            if log:
+                self._emit("serve_fault", request=rid, trace=trace,
+                           cause=f"invalid: {e}")
             return self._rejected(InvalidRequest(str(e)))
         req = ServeRequest(id=rid, kind=kind, payload=payload, bucket=bucket,
-                           arrival=now, deadline=now + budget / 1e3)
+                           arrival=now, deadline=now + budget / 1e3,
+                           trace_id=trace, log=log)
+        if log:
+            self._emit("serve_admit", request=rid, kind=kind,
+                       bucket=str(bucket), timeout_ms=budget, trace=trace)
         # breaker-open fast path: degraded answer over queueing to death
         if self.breaker.state == OPEN:
-            return self._degrade_or_shed(req)
+            return self._degrade_or_shed(req, "breaker open", log=log)
         try:
             self.batcher.submit(req)
         except Overloaded as e:
             self.outcomes.inc("shed")
+            if log:
+                self._emit("serve_shed", request=rid, reason="queue_full",
+                           depth=e.depth, bound=e.bound, trace=trace)
             req.finish(error=e)
             return req.future
         except Draining as e:
             self.outcomes.inc("drain_rejected")
+            if log:
+                self._emit("serve_shed", request=rid, reason="draining",
+                           trace=trace)
             req.finish(error=e)
             return req.future
         except ServerClosed as e:
@@ -250,15 +285,19 @@ class ReplicationServer:
             req.finish(error=e)
             return req.future
         self.outcomes.inc("admitted")
+        self._gauge_depth()
         return req.future
 
-    def replicate(self, panel, timeout_ms: Optional[float] = None) -> Future:
+    def replicate(self, panel, timeout_ms: Optional[float] = None,
+                  trace_id: Optional[str] = None) -> Future:
         return self.submit("replicate", np.asarray(panel, np.float32),
-                           timeout_ms=timeout_ms)
+                           timeout_ms=timeout_ms, trace_id=trace_id)
 
     def sample(self, n_windows: int,
-               timeout_ms: Optional[float] = None) -> Future:
-        return self.submit("sample", int(n_windows), timeout_ms=timeout_ms)
+               timeout_ms: Optional[float] = None,
+               trace_id: Optional[str] = None) -> Future:
+        return self.submit("sample", int(n_windows), timeout_ms=timeout_ms,
+                           trace_id=trace_id)
 
     def _bucket(self, kind: str, payload) -> Tuple:
         if kind == "replicate":
@@ -285,7 +324,8 @@ class ReplicationServer:
         f.set_exception(err)
         return f
 
-    def _degrade_or_shed(self, req: ServeRequest) -> Future:
+    def _degrade_or_shed(self, req: ServeRequest, why: str,
+                         log: bool = True) -> Future:
         with self._lock:
             cached = self._last_good.get(req.kind)
         if cached is not None:
@@ -294,8 +334,14 @@ class ReplicationServer:
             req.finish(value=ServeResult(
                 request_id=req.id, kind=req.kind, value=cached,
                 latency_ms=latency, stale=True))
+            if log:
+                self._emit("serve_degraded", request=req.id, reason=why,
+                           trace=req.trace_id)
         else:
             self.outcomes.inc("shed")
+            if log:
+                self._emit("serve_shed", request=req.id, reason=why,
+                           trace=req.trace_id)
             req.finish(error=Overloaded(depth=self.batcher.depth,
                                         bound=self.cfg.max_queue))
         return req.future
@@ -311,6 +357,8 @@ class ReplicationServer:
             batch = e.args[0] if e.args else []
             self.outcomes.inc("worker_kills")
             self.breaker.record_failure(cause="worker killed")
+            self._emit("serve_worker_exit", worker=idx, kind="killed",
+                       in_flight=len(batch))
             self._fail_over(batch)
             with self._lock:
                 self._in_flight -= len(batch)
@@ -324,9 +372,14 @@ class ReplicationServer:
             with self._lock:
                 if not self._running:
                     return
-            batch = self.batcher.next_batch(timeout=0.05)
+            # measure the batch wait always, book it only when a batch
+            # arrived: an idle worker's empty polls are no drive's
+            # queue_wait
+            with timeline.timed(None) as tm_wait:
+                batch = self.batcher.next_batch(timeout=0.05)
             if not batch:
                 continue
+            timeline.account("queue_wait", tm_wait.s)
             with self._lock:
                 self._in_flight += len(batch)
             # a kill must raise here, outside the try/finally below: the
@@ -339,6 +392,7 @@ class ReplicationServer:
                 with self._lock:
                     self._in_flight -= len(batch)
                     self._idle.notify_all()
+            self._gauge_depth()
 
     def _kill_point(self) -> bool:
         """Worker-death injection site: True when ``kill@serve_worker=N``
@@ -359,6 +413,9 @@ class ReplicationServer:
             self.batcher.requeue(retry)
         for r in dead:
             self.outcomes.inc("worker_faults")
+            if r.log:
+                self._emit("serve_fault", request=r.id, trace=r.trace_id,
+                           cause="worker died twice")
             r.finish(error=WorkerFault(r.id, "worker died twice"))
 
     # ------------------------------------------------------------- dispatch
@@ -366,17 +423,32 @@ class ReplicationServer:
         kind = batch[0].kind
         if not self.breaker.allow():
             for r in batch:
-                self._degrade_or_shed(r)
+                self._degrade_or_shed(r, "breaker open at dispatch")
             return
+        t_disp = self._clock()
+        if any(r.log for r in batch):
+            # one batch-level hop event: its traces list attributes the
+            # batch-wait → dispatch hop to every logged member
+            self._emit("serve_dispatch", kind=kind,
+                       bucket=str(batch[0].bucket), batch=len(batch),
+                       traces=[r.trace_id for r in batch if r.log],
+                       max_wait_ms=round(
+                           (t_disp - min(r.arrival for r in batch)) * 1e3, 3))
         try:
-            if kind == "replicate":
-                values = self._run_replicate(batch)
-            else:
-                values = self._run_sample(batch)
+            with timeline.timed("dispatch"):
+                # the run helpers book their device-to-host copies apart,
+                # so this frame's exclusive remainder is host dispatch
+                if kind == "replicate":
+                    values = self._run_replicate(batch)
+                else:
+                    values = self._run_sample(batch)
         except Exception as e:           # build/execute failure of the batch
             self.breaker.record_failure(cause=type(e).__name__)
             for r in batch:
                 self.outcomes.inc("worker_faults")
+                if r.log:
+                    self._emit("serve_fault", request=r.id, trace=r.trace_id,
+                               cause=f"{type(e).__name__}: {e}")
                 r.finish(error=WorkerFault(r.id, f"{type(e).__name__}: {e}"))
             return
         # breaker and ledger first, futures last: a client that sees its
@@ -394,6 +466,9 @@ class ReplicationServer:
                 ok = False
                 self.breaker.record_failure(cause="serve_result EIO")
                 self.outcomes.inc("worker_faults")
+                if r.log:
+                    self._emit("serve_fault", request=r.id, trace=r.trace_id,
+                               cause=f"result publish: {e}")
                 settled.append((r, WorkerFault(r.id, f"result publish: {e}"), None))
                 continue
             settled.append((r, value, (now - r.arrival) * 1e3))
@@ -410,6 +485,13 @@ class ReplicationServer:
                                           batch_size=len(batch))):
                 self.outcomes.inc("results")
                 self._note_latency(latency)
+                if r.log:
+                    self._emit("serve_complete", request=r.id,
+                               trace=r.trace_id, kind=kind,
+                               queue_ms=round((t_disp - r.arrival) * 1e3, 3),
+                               exec_ms=round((now - t_disp) * 1e3, 3),
+                               latency_ms=round(latency, 3),
+                               batch=len(batch))
 
     def warm(self) -> int:
         """Build the full program grid — every (kind, batch bucket, shape
@@ -464,8 +546,10 @@ class ReplicationServer:
                                         model.cfg.n_factors, device=model.device)
         fn = self._replicate_program(bsz, rows)
         recon, err = fn(x, n_rows, self._ae_mask())
+        t_s = timeline.clock()
         recon = recon.float().cpu().numpy()
         err = err.float().cpu().numpy()
+        timeline.note_sync(timeline.clock() - t_s)
         return [{"reconstruction": recon[i][: r.payload.shape[0]],
                  "recon_mse": float(err[i]),
                  "weights": model.decoder_host}
@@ -496,7 +580,10 @@ class ReplicationServer:
                                  next(self._dispatch_seq))
             noise = torch.randn((bucket, w, f), generator=g,
                                 device=model.device, dtype=torch.float32)
-            windows = fn(noise).float().cpu().numpy()
+            out_dev = fn(noise)
+            t_s = timeline.clock()
+            windows = out_dev.float().cpu().numpy()
+            timeline.note_sync(timeline.clock() - t_s)
             off = 0
             for r in chunk:
                 n = int(r.payload)
@@ -512,6 +599,28 @@ class ReplicationServer:
         with self._lock:
             if len(self._latencies) < 65536:
                 self._latencies.append(ms)
+        try:
+            from hfrep_tpu_torch.obs import get_obs
+            get_obs().histogram("serve/latency_ms").observe(ms)
+        except Exception:
+            pass
+
+    def _gauge_depth(self) -> None:
+        try:
+            from hfrep_tpu_torch.obs import get_obs
+            obs = get_obs()
+            if obs.enabled:
+                obs.gauge("serve/queue_depth").set(self.batcher.depth)
+        except Exception:
+            pass
+
+    @staticmethod
+    def _emit(name: str, **attrs) -> None:
+        try:
+            from hfrep_tpu_torch.obs import get_obs
+            get_obs().event(name, **attrs)
+        except Exception:
+            pass
 
     def latency_percentiles(self) -> dict:
         from hfrep_tpu_torch.serve.loadgen import percentile

@@ -30,8 +30,17 @@ same numbers, so a test hands one JAX epoch's draws to the port's step;
 :func:`make_conditional_step` is the scenario factory's regime-conditioned
 epoch over the same :class:`Draws`.
 
-Left out of this port, named in ROADMAP: the in-graph health block and
-the mesh hooks (``shard_data``, ``apply_fns``).
+Health (:mod:`hfrep_tpu_torch.obs.health`) is decided when a step is
+built: off, the step runs exactly its plain code; on, it also returns
+the five ``health_*`` metrics as device tensors — the generator's and
+the critic's gradient norms (the critic's of the last critic
+iteration), the update norm against a copy of the parameters taken at
+the epoch's start (the optimizers update in place), the parameter norm
+and the count of nonfinite parameters and losses — all from values the
+step already holds, so the trajectory is bit-identical either way.
+
+Left out of this port, named in ROADMAP: the mesh hooks (``shard_data``,
+``apply_fns``).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from torch import nn
 
 from hfrep_tpu_torch.config import TrainConfig
 from hfrep_tpu_torch.models.registry import GanPair
+from hfrep_tpu_torch.obs import health as health_mod
 from hfrep_tpu_torch.train.states import GanState, make_optimizers, params_of
 
 Metrics = dict
@@ -110,28 +120,88 @@ def _cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cat([a.to(dt), b.to(dt)], dim=0)
 
 
-def _updates(pair: GanPair, tcfg: TrainConfig):
+class _Health:
+    """The health block of one built step (``hfrep_tpu/train/steps.py``'s
+    ``_health_metrics``): the updates report their gradients here, and
+    :meth:`metrics` turns them into the five ``health_*`` tensors.  Every
+    sum runs over the parameters in the JAX leaf order, each tree joined
+    into one vector (:func:`~hfrep_tpu_torch.obs.health.flat`)."""
+
+    def __init__(self, pair: GanPair):
+        self.g_order = health_mod.jax_order(pair.generator)
+        self.d_order = health_mod.jax_order(pair.discriminator)
+
+    def _leaves(self, state: GanState) -> List[torch.Tensor]:
+        g, d = params_of(state.generator), params_of(state.discriminator)
+        # the JAX tree {"g": ..., "d": ...} flattens "d" first
+        return [d[k] for k in self.d_order] + [g[k] for k in self.g_order]
+
+    def begin(self, state: GanState) -> None:
+        """The epoch's starting parameters, copied (the optimizers update
+        in place)."""
+        self.old = health_mod.flat(self._leaves(state))
+        self.d_sq = self.g_sq = None
+
+    def critic_iteration(self) -> None:
+        """A new critic iteration: the last iteration's norm wins."""
+        self.d_sq = None
+
+    def critic_grads(self, grads: dict) -> None:
+        sq = health_mod.tree_sq_norm([grads[k] for k in self.d_order])
+        self.d_sq = sq if self.d_sq is None else self.d_sq + sq
+
+    def generator_grads(self, grads: dict) -> None:
+        self.g_sq = health_mod.tree_sq_norm([grads[k] for k in self.g_order])
+
+    @torch.no_grad()
+    def metrics(self, state: GanState, losses) -> Metrics:
+        new = health_mod.flat(self._leaves(state))
+        nonfinite = health_mod.tree_nonfinite(new)
+        for v in losses:
+            nonfinite = nonfinite + torch.sum(~torch.isfinite(v.float())).float()
+        out = {"health_g_grad_norm": torch.sqrt(self.g_sq),
+               "health_d_grad_norm": torch.sqrt(self.d_sq),
+               "health_update_norm": torch.sqrt(health_mod.tree_update_sq_norm(self.old, new)),
+               "health_param_norm": health_mod.tree_norm(new),
+               "health_nonfinite": nonfinite}
+        self.old = None
+        return out
+
+
+def _updates(pair: GanPair, tcfg: TrainConfig, health: Optional[_Health] = None):
     """``(d_update, g_update)``: each takes ``(state, loss)``, applies one
     optimizer update of its network's parameters in place and returns the
-    detached loss; ``g_update`` also counts the step."""
+    detached loss; ``g_update`` also counts the step.  With ``health``
+    the updates hand it their gradients."""
     g_tx, d_tx = make_optimizers(pair, tcfg)
 
-    def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor) -> None:
+    def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor) -> dict:
         params = params_of(module)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        tx.update(params, {k: torch.zeros_like(p) if g is None else g
-                           for (k, p), g in zip(params.items(), grads)}, slots)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        tx.update(params, grads, slots)
+        return grads
 
     def d_update(state: GanState, loss: torch.Tensor) -> torch.Tensor:
-        _update(state.discriminator, d_tx, state.d_opt, loss)
+        grads = _update(state.discriminator, d_tx, state.d_opt, loss)
+        if health is not None:
+            health.critic_grads(grads)
         return loss.detach()
 
     def g_update(state: GanState, loss: torch.Tensor) -> torch.Tensor:
-        _update(state.generator, g_tx, state.g_opt, loss)
+        grads = _update(state.generator, g_tx, state.g_opt, loss)
+        if health is not None:
+            health.generator_grads(grads)
         state.step += 1
         return loss.detach()
 
     return d_update, g_update
+
+
+def _health(pair: GanPair) -> Optional[_Health]:
+    """The build-time gate: a health block when health is on, else None."""
+    return _Health(pair) if health_mod.active() is not None else None
 
 
 def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
@@ -143,8 +213,11 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
     ``tcfg.fuse_gd`` changes nothing here: the JAX step uses it to emit
     an n_critic == 1 epoch as straight-line code instead of a size-1
     traced loop, and the port runs eagerly with no traced loop at all.
+    With health on (decided here, at build time) the metrics also carry
+    the five ``health_*`` values.
     """
-    d_update, g_update = _updates(pair, tcfg)
+    health = _health(pair)
+    d_update, g_update = _updates(pair, tcfg, health)
     acc = pair.policy.accum
     clip, gp_w = tcfg.clip_value, tcfg.gp_weight
     window, features = dataset.shape[1], dataset.shape[2]
@@ -156,8 +229,16 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
             out = state.generator(noises.reshape(n * b, window, features))
         return out.reshape(noises.shape[:2] + out.shape[1:])
 
+    def _wasserstein_metrics(state: GanState, d_loss, g_loss) -> Metrics:
+        metrics = {"d_loss": d_loss, "g_loss": g_loss}
+        if health is not None:
+            metrics.update(health.metrics(state, (d_loss, g_loss)))
+        return metrics
+
     # ------------------------------------------------------------------ bce
     def bce_step(state: GanState, draws: Draws):
+        if health is not None:
+            health.begin(state)
         real = dataset[draws.idx]
         with torch.no_grad():
             fake = state.generator(draws.noises[0])
@@ -170,15 +251,22 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
         l_fake = d_update(state, _bce_logits(logits, 0.0))
         g_loss = g_update(state, _bce_logits(
             acc(d(state.generator(draws.noises[1]))), 1.0))
-        return state, {"d_loss": 0.5 * (l_real + l_fake),
-                       "d_acc": 0.5 * (acc_r + acc_f), "g_loss": g_loss}
+        metrics = {"d_loss": 0.5 * (l_real + l_fake),
+                   "d_acc": 0.5 * (acc_r + acc_f), "g_loss": g_loss}
+        if health is not None:
+            metrics.update(health.metrics(state, (l_real, l_fake, g_loss)))
+        return state, metrics
 
     # ------------------------------------------------------------ wgan_clip
     def wgan_step(state: GanState, draws: Draws):
+        if health is not None:
+            health.begin(state)
         fakes = _fakes(state, draws.noises)
         d = state.discriminator
         d_loss = None
         for i in range(tcfg.n_critic):
+            if health is not None:
+                health.critic_iteration()
             real = dataset[draws.idx[i]]
             l_real = d_update(state, (-acc(d(real))).mean())
             l_fake = d_update(state, acc(d(fakes[i])).mean())
@@ -188,7 +276,7 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
             d_loss = 0.5 * (l_real + l_fake)
         # the reference reuses the final critic-loop noise
         g_loss = g_update(state, (-acc(d(state.generator(draws.noises[-1])))).mean())
-        return state, {"d_loss": d_loss, "g_loss": g_loss}
+        return state, _wasserstein_metrics(state, d_loss, g_loss)
 
     # -------------------------------------------------------------- wgan_gp
     def gp_critic_loss(d: nn.Module, real, fake, alpha) -> torch.Tensor:
@@ -200,15 +288,19 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
         return w_loss + gp_w * gp
 
     def wgan_gp_step(state: GanState, draws: Draws):
+        if health is not None:
+            health.begin(state)
         fakes = _fakes(state, draws.noises)
         d = state.discriminator
         d_loss = None
         for i in range(tcfg.n_critic):
+            if health is not None:
+                health.critic_iteration()
             real = dataset[draws.idx[i]]
             d_loss = d_update(state, gp_critic_loss(d, real, fakes[i], draws.alphas[i]))
         # the reference reuses the final critic-loop noise
         g_loss = g_update(state, (-acc(d(state.generator(draws.noises[-1])))).mean())
-        return state, {"d_loss": d_loss, "g_loss": g_loss}
+        return state, _wasserstein_metrics(state, d_loss, g_loss)
 
     return {"bce": bce_step, "wgan_clip": wgan_step, "wgan_gp": wgan_gp_step}[pair.loss]
 
@@ -229,9 +321,11 @@ def make_conditional_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tenso
     batch; the generator update takes the last iteration's indices (for
     its conditions) and noise; the penalty differentiates the critic with
     respect to x̂ only (the condition is a constant inside it); the bce
-    metrics carry no ``d_acc``.
+    metrics carry no ``d_acc``.  Health is gated as in
+    :func:`make_train_step`.
     """
-    d_update, g_update = _updates(pair, tcfg)
+    health = _health(pair)
+    d_update, g_update = _updates(pair, tcfg, health)
     acc = pair.policy.accum
     conditions = torch.as_tensor(conditions).to(dataset.device, torch.float32)
     if conditions.dim() != 2 or conditions.shape[0] != dataset.shape[0]:
@@ -244,6 +338,8 @@ def make_conditional_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tenso
         return dataset[idx], conditions[idx]
 
     def bce_step(state: GanState, draws: Draws):
+        if health is not None:
+            health.begin(state)
         real, cond = _real(draws.idx)
         g, d = state.generator, state.discriminator
         with torch.no_grad():
@@ -251,12 +347,19 @@ def make_conditional_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tenso
         l_real = d_update(state, _bce_logits(acc(d(real, cond)), 1.0))
         l_fake = d_update(state, _bce_logits(acc(d(fake, cond)), 0.0))
         g_loss = g_update(state, _bce_logits(acc(d(g(draws.noises[1], cond), cond)), 1.0))
-        return state, {"d_loss": 0.5 * (l_real + l_fake), "g_loss": g_loss}
+        metrics = {"d_loss": 0.5 * (l_real + l_fake), "g_loss": g_loss}
+        if health is not None:
+            metrics.update(health.metrics(state, (l_real, l_fake, g_loss)))
+        return state, metrics
 
     def wasserstein_step(state: GanState, draws: Draws):
+        if health is not None:
+            health.begin(state)
         g, d = state.generator, state.discriminator
         d_loss = None
         for i in range(tcfg.n_critic):
+            if health is not None:
+                health.critic_iteration()
             real, cond = _real(draws.idx[i])
             with torch.no_grad():
                 fake = g(draws.noises[i], cond)
@@ -277,7 +380,10 @@ def make_conditional_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tenso
         # the generator trains on the last critic iteration's draws
         cond_g = conditions[draws.idx[-1]]
         g_loss = g_update(state, (-acc(d(g(draws.noises[-1], cond_g), cond_g))).mean())
-        return state, {"d_loss": d_loss, "g_loss": g_loss}
+        metrics = {"d_loss": d_loss, "g_loss": g_loss}
+        if health is not None:
+            metrics.update(health.metrics(state, (d_loss, g_loss)))
+        return state, metrics
 
     return bce_step if pair.loss == "bce" else wasserstein_step
 

@@ -33,10 +33,18 @@ resumed bit for bit by ``--resume``.  With telemetry on, the run is a
 ``train`` span with ``train_start``/``train_end`` events, memory
 snapshots and the ``steps_per_sec`` gauge, each checkpoint a
 ``checkpoint`` span, each sample a ``generate`` span, and every block a
-wall-clock ledger window (:class:`~hfrep_tpu_torch.obs.timeline.BlockTimer`).
+wall-clock ledger window (:class:`~hfrep_tpu_torch.obs.timeline.BlockTimer`);
+the flagship family also sets the ``mfu`` gauge
+(:func:`hfrep_tpu_torch.obs.flops.mfu`).
 
-Left out until their layers are ported (ROADMAP): the mesh paths, the
-``mfu`` gauge (``obs/flops.py``) and the in-graph health boundary.
+Health (:mod:`hfrep_tpu_torch.obs.health`, on when the trainer is built):
+each block's ``health_*`` metrics ride the metrics fetch the trainer
+already makes and surface as ``health/*`` gauges; a nonfinite count
+emits ``numeric_fault``, and under ``HFREP_HEALTH=abort`` writes a
+forensic dump of the whole checkpoint tree and raises
+:class:`~hfrep_tpu_torch.obs.health.NumericFault`.
+
+Left out until its layer is ported (ROADMAP): the mesh paths.
 """
 
 from __future__ import annotations
@@ -145,7 +153,14 @@ class GanTrainer:
             with obs.span("train", epochs=n):
                 state = self._train_loop(epochs)
             obs.memory_snapshot(phase="train_end")
-            obs.gauge("steps_per_sec").set(self.timer.steps_per_sec)
+            sps = self.timer.steps_per_sec
+            obs.gauge("steps_per_sec").set(sps)
+            if self.cfg.model.family == "mtss_wgan_gp":
+                # the analytic FLOPs model is the flagship's (obs/flops.py)
+                from hfrep_tpu_torch.obs import flops
+                m = self.cfg.model
+                obs.gauge("mfu").set(flops.mfu(sps, m.window, m.features, m.hidden,
+                                               self.cfg.train.batch_size))
             obs.event("train_end", epoch=self.epoch, recoveries=self.recoveries)
             obs.flush()
             return state
@@ -324,6 +339,18 @@ class GanTrainer:
             self.history.append({"epoch": e, **{k: float(v) for k, v in rec.items()}})
             if e % self.cfg.train.log_every == 0:
                 self.logger.log(e, rec)
+        if "health_nonfinite" in host:
+            self._health_boundary(host, n, base_epoch)
+
+    def _health_boundary(self, host: dict, n: int, base_epoch: int) -> None:
+        """A block's health values (already on the host: they rode the
+        metrics fetch) as ``health/*`` gauges, and the nonfinite
+        tripwire with a forensic dump of the live checkpoint tree."""
+        from hfrep_tpu_torch.obs import health as health_mod
+        if float(np.nansum(host["health_nonfinite"])) > 0:
+            self.logger.flush()         # the log up to the fault, before a raise
+        health_mod.gan_boundary(host, base_epoch + n - 1, "block", self._ckpt_tree(),
+                                fallback=self.cfg.train.checkpoint_dir)
 
     @property
     def steps_per_sec(self) -> float:

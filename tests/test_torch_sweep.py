@@ -352,7 +352,8 @@ def test_the_sweep_path_imports_no_pandas(tmp_path):
             "rc = main(['sweep', '--device', 'cpu', '--cleaned-dir', sys.argv[2],"
             " '--latents', '1:2', '--epochs', '3', '--out', sys.argv[3], '--stats',"
             " '--ff3', sys.argv[4]]);"
-            "bad = [m for m in ('pandas', 'matplotlib', 'jax') if m in sys.modules];"
+            "bad = [m for m in ('pandas', 'matplotlib', 'jax', 'h5py', 'tensorflow')"
+            " if m in sys.modules];"
             "assert rc == 0 and not bad, bad;"
             "print('ok')")
     ff3 = tmp_path / "ff3.csv"

@@ -1,0 +1,229 @@
+#!/usr/bin/env python3
+"""How often the port's first generator forward on the CPU comes out in
+another bit pattern, over fresh processes, per MKL reproducibility mode;
+and what each mode costs the CPU path's matmuls.
+
+    python tools/torch_cpu_drift.py [--rounds 20] [--concurrent 3] [--threads 2]
+                                    [--mode default --mode AUTO_STRICT ...] [--out F]
+    python tools/torch_cpu_drift.py --pipeline 20 [--checkpoint CK] [--mode ...] [--out F]
+    python tools/torch_cpu_drift.py --bench 5 [--threads 2] [--out F]
+
+Each fresh process builds the ``mtss_wgan_gp_prod`` trainer on the
+committed panel (``results/rederived_cleaned``, W=168, Keras-default
+weights from its seed) on the CPU, runs the first generator forward of
+``generate_block(0, 10)`` and prints the digest of the first LSTM's
+output, the layer where the drift shows.  A round starts ``--concurrent``
+processes of each mode at once, so the machine is loaded as a pipeline's
+members load it.  Modes (``--mode``, repeatable; all by default):
+``default`` (``MKL_CBWR`` empty: MKL's default, no reproducibility),
+``AUTO``, ``AUTO_STRICT`` (``AUTO,STRICT``, what the port sets at import)
+and ``COMPATIBLE``.  Prints, per mode, each digest and how many processes
+gave it; ``--out`` also writes the counts as JSON.
+
+``--pipeline N`` instead reruns the original symptom: the ``pipeline``
+verb on the CPU (one generator actor and two consumers, ``--blocks 2
+--epochs 4``, from a W=168 checkpoint that ``train-gan --epochs 2``
+makes first, or ``--checkpoint``) N times a mode, the modes alternated,
+and counts the patterns of its items' digests (one an item).
+
+``--bench N`` instead times, in one fresh process a mode, alternated N
+times with nothing else running: 20 first-LSTM forwards of the generator
+(B=10, W=168, F=36) and 50 of each GEMM at the sweep's shapes.  Prints
+each mode's median seconds per op.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import hashlib
+import json
+import os
+import platform
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODES = {"default": "", "AUTO": "AUTO", "AUTO_STRICT": "AUTO,STRICT",
+         "COMPATIBLE": "COMPATIBLE"}
+#: the sweep's GEMMs: (m, k) @ (k, n)
+SWEEP_GEMMS = ((1848, 22, 21), (22, 1848, 21), (64, 1848, 22), (100, 1848, 100))
+
+
+def _first_lstm(torch):
+    sys.path.insert(0, ROOT)
+    from hfrep_tpu_torch.experiments.cli import _make_trainer
+    from hfrep_tpu_torch.train.trainer import seed_mix
+
+    tr, _ = _make_trainer("mtss_wgan_gp_prod", os.path.join(ROOT, "results/rederived_cleaned"),
+                          quiet=True, device="cpu")
+    g = torch.Generator()
+    g.manual_seed(seed_mix(0, 0))
+    return tr.state.generator.lstm0, torch.randn((10, 168, 36), generator=g)
+
+
+def child() -> None:
+    import torch
+
+    lstm0, z = _first_lstm(torch)
+    with torch.no_grad():
+        h = lstm0(z)
+    print(hashlib.sha256(h.numpy().tobytes()).hexdigest()[:12])
+
+
+def bench_child() -> None:
+    import torch
+
+    lstm0, z = _first_lstm(torch)
+    from hfrep_tpu_torch.obs.timeline import clock
+    g = torch.Generator()
+    g.manual_seed(1)
+    gemms = [(torch.randn((m, k), generator=g), torch.randn((k, n), generator=g))
+             for m, k, n in SWEEP_GEMMS]
+    out = {}
+    with torch.no_grad():
+        lstm0(z)
+        t0 = clock()
+        for _ in range(20):
+            lstm0(z)
+        out["lstm0 (10,168,36)"] = (clock() - t0) / 20
+        for (m, k, n), (a, b) in zip(SWEEP_GEMMS, gemms):
+            a @ b
+            t0 = clock()
+            for _ in range(50):
+                a @ b
+            out[f"gemm ({m},{k})x({k},{n})"] = (clock() - t0) / 50
+    print(json.dumps(out))
+
+
+def _env(mode: str, threads: int) -> dict:
+    return dict(os.environ, MKL_CBWR=MODES[mode], OMP_NUM_THREADS=str(threads))
+
+
+def _host() -> dict:
+    import torch
+    return {"machine": platform.machine(), "cpus": os.cpu_count(), "torch": torch.__version__,
+            "blas": torch.backends.mkl.is_available() and "mkl"}
+
+
+def count(args, modes) -> dict:
+    counts = {m: collections.Counter() for m in modes}
+    for r in range(args.rounds):
+        procs = []
+        for mode in modes:
+            procs += [(mode, subprocess.Popen([sys.executable, __file__, "--child"],
+                                              env=_env(mode, args.threads),
+                                              stdout=subprocess.PIPE, text=True))
+                      for _ in range(args.concurrent)]
+        for mode, p in procs:
+            out, _ = p.communicate()
+            counts[mode][out.strip() or f"exit {p.returncode}"] += 1
+        print(f"round {r + 1}/{args.rounds}: " + "; ".join(
+            f"{m} {dict(c)}" for m, c in counts.items()), flush=True)
+    for mode, c in counts.items():
+        print(f"{mode}: {sum(c.values())} processes, {len(c)} pattern(s): {dict(c)}")
+    return {"rounds": args.rounds, "concurrent": args.concurrent, "threads": args.threads,
+            "host": _host(), "counts": {m: dict(c) for m, c in counts.items()}}
+
+
+def _verb(argv, env) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "hfrep_tpu_torch"] + argv, cwd=ROOT, env=env,
+                          capture_output=True, text=True, check=True)
+
+
+def _items_digest(out_dir: str) -> str:
+    """``item=digest`` for each item's array and CSV files, in item order."""
+    results = os.path.join(out_dir, "results")
+    out = []
+    for item in sorted(os.listdir(results)):
+        path = os.path.join(results, item)
+        if not os.path.isdir(path):
+            continue
+        h = hashlib.sha256()
+        for name in sorted(os.listdir(path)):
+            if name.endswith((".npy", ".npz", ".csv")):
+                h.update(name.encode())
+                with open(os.path.join(path, name), "rb") as f:
+                    h.update(f.read())
+        out.append(f"{item}={h.hexdigest()[:8]}")
+    return " ".join(out)
+
+
+def pipeline(args, modes) -> dict:
+    import shutil
+    import tempfile
+
+    env_base = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=str(args.threads))
+    cleaned = os.path.join(ROOT, "results/rederived_cleaned")
+    counts = {m: collections.Counter() for m in modes}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = args.checkpoint
+        if ck is None:
+            _verb(["train-gan", "--device", "cpu", "--preset", "mtss_wgan_gp_prod", "--epochs",
+                   "2", "--cleaned-dir", cleaned, "--checkpoint-dir", os.path.join(tmp, "ck"),
+                   "--quiet"], env_base)
+            ck = os.path.join(tmp, "ck", "ckpt_2")
+        for i in range(args.pipeline):
+            for mode in (modes if i % 2 == 0 else modes[::-1]):
+                out = os.path.join(tmp, "pl")
+                shutil.rmtree(out, ignore_errors=True)
+                _verb(["pipeline", "--device", "cpu", "--gan-checkpoint", ck, "--preset",
+                       "mtss_wgan_gp_prod", "--cleaned-dir", cleaned, "--blocks", "2",
+                       "--consumers", "2", "--epochs", "4", "--out", out],
+                      dict(env_base, MKL_CBWR=MODES[mode]))
+                counts[mode][_items_digest(out)] += 1
+            print(f"run {i + 1}/{args.pipeline}: " + "; ".join(
+                f"{m} {dict(c)}" for m, c in counts.items()), flush=True)
+    for mode, c in counts.items():
+        print(f"{mode}: {sum(c.values())} pipeline runs, {len(c)} pattern(s): {dict(c)}")
+    return {"pipeline_runs": args.pipeline, "threads": args.threads, "host": _host(),
+            "counts": {m: dict(c) for m, c in counts.items()}}
+
+
+def bench(args, modes) -> dict:
+    runs = {m: collections.defaultdict(list) for m in modes}
+    for i in range(args.bench):
+        for mode in (modes if i % 2 == 0 else modes[::-1]):
+            out = subprocess.run([sys.executable, __file__, "--bench-child"],
+                                 env=_env(mode, args.threads), capture_output=True, text=True,
+                                 check=True).stdout
+            for op, s in json.loads(out.splitlines()[-1]).items():
+                runs[mode][op].append(s)
+    med = {m: {op: statistics.median(v) for op, v in ops.items()} for m, ops in runs.items()}
+    for op in med[modes[0]]:
+        print(f"{op}: " + "; ".join(f"{m} {med[m][op] * 1e3:.4f} ms" for m in modes))
+    return {"alternations": args.bench, "threads": args.threads, "host": _host(),
+            "median_s": med, "runs_s": {m: dict(ops) for m, ops in runs.items()}}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--concurrent", type=int, default=3)
+    ap.add_argument("--threads", type=int, default=2)
+    ap.add_argument("--mode", action="append", choices=sorted(MODES))
+    ap.add_argument("--pipeline", type=int, default=0, metavar="N")
+    ap.add_argument("--checkpoint", default=None, help="the pipeline's W=168 checkpoint")
+    ap.add_argument("--bench", type=int, default=0, metavar="N")
+    ap.add_argument("--out", default=None, help="also write the result as JSON here")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--bench-child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        child()
+        return
+    if args.bench_child:
+        bench_child()
+        return
+    modes = args.mode or list(MODES)
+    doc = (pipeline(args, modes) if args.pipeline else bench(args, modes) if args.bench
+           else count(args, modes))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
+
+
+if __name__ == "__main__":
+    main()
