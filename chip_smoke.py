@@ -226,6 +226,29 @@ exits non-zero on failure:
              ``lstm_fwd`` launched in its own stream; sent SIGTERM after its
              "offering" line (4,000 queries) it exits 75 and its drained
              document has ``terminal == submitted``;
+5i. obs_tier — the obs analysis tier (``python -m hfrep_tpu_torch.obs``,
+             its verbs run in this process) over the run dirs the phases
+             above wrote: ``report``, ``gate``, ``timeline`` and ``slo
+             --self-test`` exit 0; ``report --format json`` of the trainer
+             phase's ``train-gan`` run reads backend ``cuda``, a finite
+             ``steps_per_sec`` and ``mfu`` and the launch counters the
+             phase counted; a 12-epoch ``train-gan`` at ``mtss_wgan_gp``
+             under ``HFREP_OBS_ROTATE_BYTES`` rotates its live stream
+             into at least 2 ``rollup/chunk-*.jsonl`` while the kernels
+             run (its stream's launch counters: the fused route's
+             kernels, a whole number a epoch, 44 weight sums an epoch),
+             every chunk parsing whole, and after ``compact`` its
+             report (but ``run_dir``) and ledger are unchanged; three such
+             runs ingested into a fresh history share one key with backend
+             ``cuda``, and ``gate --min-runs 3`` of a fourth gives a
+             well-formed verdict on ``steps_per_sec`` (baseline median,
+             MAD), the same on a second gate (pass or fail is recorded,
+             not required); ``report --trace`` renders admit, dispatch and
+             complete for a trace of ``serve_drain``'s undisturbed run and
+             every admitted trace has a terminal event; ``export`` gives
+             the ``serve/*`` gauges as Prometheus text, ``tail --once``
+             one frame, ``slo`` over both serve runs as replicas a
+             well-formed result;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -1547,9 +1570,10 @@ def phase_trainer(torch, np, cuda_lstm, train, keep: str) -> dict:
         samples_out = os.path.join(tmp, "s.npy")
         cuda_lstm.reset_launches()
         t0 = time.perf_counter()
+        cli_obs = os.path.join(keep, "prod_obs")
         rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp_prod", "--epochs",
                             str(CLI_EPOCHS), "--cleaned-dir", cleaned, "--checkpoint-dir", prod,
-                            "--samples-out", samples_out])
+                            "--samples-out", samples_out, "--obs-dir", cli_obs])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         out["cli_launches"] = cuda_lstm.launch_counts()
@@ -1581,7 +1605,7 @@ def phase_trainer(torch, np, cuda_lstm, train, keep: str) -> dict:
         if (rc != 0 or not report["submitted"] == report["terminal"] == report["results"]
                 == CLI_REQUESTS or out["serve_launches"]["lstm_fwd"] < 1):
             fail(f"trainer: serve --gan-checkpoint rc {rc}, report {report}")
-        out.update(cli_s=cli_s, serve_s=serve_s, cli_checkpoint=ckpt_path,
+        out.update(cli_s=cli_s, serve_s=serve_s, cli_checkpoint=ckpt_path, cli_obs_dir=cli_obs,
                    serve={k: report[k] for k in ("submitted", "terminal", "results",
                                                  "p50_ms", "p95_ms", "qps")})
     return out
@@ -2285,16 +2309,17 @@ PIPE_TIMEOUT_S = 420
 def actor_streams(run_dir: str) -> dict:
     """Every actor's event records under ``<run_dir>/actors``, each
     incarnation's stream (a restarted member rotates its earlier one to
-    ``events-<n>.jsonl``) in order."""
+    ``events-<n>.jsonl``) in order, the live one with the chunks its
+    writer rotated aside (``report.iter_event_files``, ``load_events``)."""
+    from hfrep_tpu_torch.obs import report
+
     out = {}
     root = os.path.join(run_dir, "actors")
     for name in sorted(os.listdir(root)):
-        files = sorted(f for f in os.listdir(os.path.join(root, name))
-                       if f.startswith("events") and f.endswith(".jsonl"))
         recs = []
-        for f in files:
-            with open(os.path.join(root, name, f)) as fh:
-                recs += [json.loads(line) for line in fh if line.strip()]
+        for f in report.iter_event_files([os.path.join(root, name)]):
+            recs += (report.load_events(f.parent) if f.name == report.EVENTS_NAME
+                     else report.load_jsonl(f, report.parse_event))
         out[name] = recs
     return out
 
@@ -2325,8 +2350,7 @@ def run_pipeline_verb(args: list, env_extra: dict) -> tuple:
 def pipeline_report(name: str, rc: int, wall: float, stdout: str, stderr: str,
                     obs_dir: str) -> dict:
     """The parent stream's restarts and queue depth over time, printed."""
-    with open(os.path.join(obs_dir, "events.jsonl")) as fh:
-        recs = [json.loads(line) for line in fh if line.strip()]
+    recs = stream_records(obs_dir)
     depth = [(round(r["t"], 2), r["value"]) for r in recs
              if r.get("name") == "orchestrate/queue_depth"]
     restarts = sum(1 for r in recs if r.get("name") == "actor_restart")
@@ -2465,8 +2489,9 @@ HAND_KERNELS = ("lstm_fwd_", "lstm_bwd_", "lstm_adj_", "stack_fwd_", "stack_bwd_
 
 
 def stream_records(run_dir: str) -> list:
-    with open(os.path.join(run_dir, "events.jsonl")) as fh:
-        return [json.loads(line) for line in fh if line.strip()]
+    """A run dir's records, the chunks a rotation moved aside included."""
+    from hfrep_tpu_torch.obs import report
+    return report.load_events(run_dir)
 
 
 def phase_health(torch, np, cuda_lstm, train, train_chained) -> dict:
@@ -2759,6 +2784,212 @@ def phase_serve_drain(torch, np, keep: str, gan_checkpoint: str) -> dict:
         f"({drained['results']} results, flushed {drained['flushed']}); serve_drain events "
         f"{len(drain_events)}; launches {stream_launches(stream_records(run_b))}")
     out["b"] = {"rc": rc, "wall_s": wall, "drained": drained}
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
+    return out
+
+
+#: the obs_tier phase: ``train-gan`` at mtss_wgan_gp, 12 epochs (its
+#: preset's 50-epoch blocks leave 12 one-epoch blocks of ~14 records,
+#: ~2.2 KiB), with the live stream rotated past 4 KiB (the writer checks
+#: its size every 32 records); four such runs, three into the history
+OBS_EPOCHS, OBS_ROTATE_BYTES, OBS_RUNS = 12, 4096, 4
+
+
+def run_obs(argv) -> tuple:
+    """``python -m hfrep_tpu_torch.obs ARGV`` in this process: (exit code,
+    standard output); a refusal of argparse comes back as its exit code."""
+    import contextlib
+    import io
+
+    from hfrep_tpu_torch.obs.report import main as obs_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = obs_main([str(a) for a in argv])
+        except SystemExit as e:
+            rc = e.code
+    return rc, buf.getvalue()
+
+
+def without_run_dir(text: str) -> dict:
+    doc = json.loads(text)
+    doc.pop("run_dir", None)
+    return doc
+
+
+def phase_obs_tier(torch, np, keep: str, cli_obs: str, cli_launches: dict) -> dict:
+    """The obs analysis tier over the run dirs the earlier phases wrote
+    (module docstring, 5i)."""
+    from hfrep_tpu_torch.obs import report, rollup
+    from hfrep_tpu_torch.ops import cuda_lstm
+
+    tag = "[obs_tier]"
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    # (a) the self-tests, on the port's copies of the committed fixtures
+    for verb in ("report", "gate", "timeline", "slo"):
+        rc, text = run_obs([verb, "--self-test"])
+        if rc != 0:
+            fail(f"obs_tier: {verb} --self-test exited {rc}: {text[-2000:]}")
+    say(f"{tag} report, gate, timeline and slo --self-test: exit 0")
+
+    # (b) the trainer phase's train-gan run (W=168) as the report reads it
+    rc, text = run_obs(["report", "--format", "json", cli_obs])
+    doc = json.loads(text) if rc == 0 else {}
+    counted = {k[len("launches/"):]: v for k, v in doc.get("counters", {}).items()
+               if k.startswith("launches/")}
+    want = {k: v for k, v in cli_launches.items() if v}
+    if (rc != 0 or doc["backend"] != "cuda" or not np.isfinite(doc["steps_per_sec"])
+            or not np.isfinite(doc["mfu"]) or not doc["mfu"] > 0
+            or any(counted.get(k) != v for k, v in want.items())):
+        fail(f"obs_tier: report of the train-gan run: rc {rc}, backend {doc.get('backend')}, "
+             f"steps/s {doc.get('steps_per_sec')}, mfu {doc.get('mfu')}, launch counters "
+             f"{counted} against the phase's {want}")
+    say(f"{tag} report of train-gan (mtss_wgan_gp_prod): backend cuda, "
+        f"{doc['steps_per_sec']} steps/s, mfu {doc['mfu']} of the BF16 peak, launch "
+        f"counters {counted}")
+    out["train_gan"] = {k: doc[k] for k in ("backend", "steps_per_sec", "mfu", "n_events")}
+    out["train_gan"]["launches"] = counted
+
+    # (c) live rotation: train-gan runs under HFREP_OBS_ROTATE_BYTES
+    cleaned = os.path.join(root, CLEANED_DIR)
+    prior = os.environ.get("HFREP_OBS_ROTATE_BYTES")
+    os.environ["HFREP_OBS_ROTATE_BYTES"] = str(OBS_ROTATE_BYTES)
+    runs, walls = [], []
+    try:
+        for i in range(OBS_RUNS):
+            run_dir = os.path.join(keep, f"obs_rot_{i}")
+            # the verb writes this process's launch counts into its stream
+            cuda_lstm.reset_launches()
+            t0 = time.perf_counter()
+            rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp", "--epochs",
+                                str(OBS_EPOCHS), "--cleaned-dir", cleaned, "--obs-dir", run_dir,
+                                "--quiet"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if rc != 0:
+                fail(f"obs_tier: train-gan with rotation, run {i}: rc {rc}: {text[-2000:]}")
+            runs.append(run_dir)
+    finally:
+        if prior is None:
+            os.environ.pop("HFREP_OBS_ROTATE_BYTES", None)
+        else:
+            os.environ["HFREP_OBS_ROTATE_BYTES"] = prior
+    run0 = runs[0]
+    chunks = rollup.chunk_files(run0)
+    chunk_recs = [report.load_jsonl(c, report.parse_event, strict=True) for c in chunks]
+    all_recs = report.load_events(run0, strict=True)
+    launched = stream_launches(all_recs)
+    kernels = {k: v for k, v in launched.items() if not k.startswith("weight_sum")}
+    sums = sum(v for k, v in launched.items() if k.startswith("weight_sum"))
+    if (len(chunks) < 2 or not any(r.get("name") == "block" for r in chunk_recs[0])
+            or set(kernels) != ROUTE_KERNELS["auto"]
+            or any(v % OBS_EPOCHS for v in kernels.values())
+            or sums != SUM_LAUNCHES_PER_EPOCH * OBS_EPOCHS):
+        fail(f"obs_tier: rotation at {OBS_ROTATE_BYTES} B left {len(chunks)} chunk(s) "
+             f"({[len(r) for r in chunk_recs]} records), launches {launched}")
+    raw_bytes = sum(os.path.getsize(c) for c in chunks) + os.path.getsize(
+        os.path.join(run0, report.EVENTS_NAME))
+    rc_a, before = run_obs(["report", "--format", "json", run0])
+    rc_l, ledger_before = run_obs(["timeline", "--format", "json", run0])
+    rc_c, text = run_obs(["compact", run0, "--format", "json"])
+    rc_b, after = run_obs(["report", "--format", "json", run0])
+    rc_m, ledger_after = run_obs(["timeline", "--format", "json", run0])
+    compacted = json.loads(text)[0] if rc_c == 0 else {}
+    disk_after = rollup.disk_footprint(run0)
+    if (rc_a != 0 or rc_b != 0 or rc_c != 0 or rc_l != rc_m
+            or without_run_dir(before) != without_run_dir(after)
+            or ledger_before != ledger_after or rollup.chunk_files(run0)
+            or len(compacted.get("compacted", [])) != len(chunks)):
+        fail(f"obs_tier: compaction changed the reading: report rc {rc_a}/{rc_b}, timeline "
+             f"rc {rc_l}/{rc_m}, compact rc {rc_c} {compacted}; reports equal "
+             f"{rc_a == rc_b == 0 and without_run_dir(before) == without_run_dir(after)}, "
+             f"ledgers equal {ledger_before == ledger_after}")
+    say(f"{tag} chunks rotated: {len(chunks)} at {OBS_ROTATE_BYTES} B "
+        f"({[len(r) for r in chunk_recs]} records, {len(all_recs)} in all; launches "
+        f"{launched}); train-gan walls {[round(w, 2) for w in walls]} s")
+    say(f"{tag} bytes before compaction {raw_bytes}, after {disk_after} "
+        f"({compacted['records_compacted']} records compacted); report and ledger equal")
+    out["rotation"] = {"chunks": len(chunks), "chunk_records": [len(r) for r in chunk_recs],
+                       "records": len(all_recs), "bytes_before": raw_bytes,
+                       "bytes_after": disk_after, "train_gan_walls_s": walls}
+    rc, text = run_obs(["report", cli_obs, run0])
+    if rc != 0:
+        fail(f"obs_tier: report A B exited {rc}")
+    for line in text.splitlines():
+        say(f"{tag} report diff: {line}")
+
+    # (d) the history: three runs ingested, the fourth gated twice
+    hist = os.path.join(keep, "history.jsonl")
+    keys = []
+    for run_dir in runs[1:]:
+        rc, text = run_obs(["ingest", run_dir, "--history", hist])
+        rec = json.loads(text) if rc == 0 else {}
+        if rc != 0 or not rec.get("ingested"):
+            fail(f"obs_tier: ingest {run_dir}: rc {rc} {text[-500:]}")
+        keys.append(rec["key"])
+    if any(k != keys[0] for k in keys) or keys[0]["backend"] != "cuda":
+        fail(f"obs_tier: the ingested runs' keys {keys}")
+    gates = [run_obs(["gate", run0, "--history", hist, "--min-runs", "3", "--format", "json"])
+             for _ in range(2)]
+    verdict = json.loads(gates[0][1]) if gates[0][0] in (0, 1) else {}
+    spc = [c for c in verdict.get("checks", []) if c["metric"] == "steps_per_sec"]
+    if (gates[0] != gates[1] or len(spc) != 1 or spc[0]["status"] not in ("ok", "regression")
+            or spc[0]["baseline"] is None or spc[0]["mad"] is None
+            or verdict["n_comparable"] != 3):
+        fail(f"obs_tier: gate: rc {gates[0][0]} / {gates[1][0]}, same "
+             f"{gates[0] == gates[1]}, verdict {gates[0][1][-3000:]}")
+    say(f"{tag} history key {keys[0]}")
+    say(f"{tag} gate verdict (rc {gates[0][0]}, the same on a second gate): "
+        + json.dumps(verdict, separators=(",", ":")))
+    out["gate"] = {"rc": gates[0][0], "ok": verdict["ok"], "regressions": verdict["regressions"],
+                   "drifts": verdict["drifts"], "steps_per_sec": spc[0], "key": keys[0]}
+
+    # (e) --trace over serve_drain's undisturbed stream
+    serve_a, serve_b = os.path.join(keep, "serve_obs_a"), os.path.join(keep, "serve_obs_b")
+    idx = report.trace_index([serve_a])
+    admitted = sorted(t for t, recs in idx.items()
+                      if any(r.get("name") == "serve_admit" for r in recs))
+    orphans = [t for t in admitted if not report.has_terminal(idx[t])]
+    trace = admitted[len(admitted) // 2] if admitted else ""
+    rc, text = run_obs(["report", "--trace", trace, serve_a])
+    hops = [text.find(f" {n} ") for n in ("serve_admit", "serve_dispatch", "serve_complete")]
+    if (not admitted or orphans or rc != 0 or min(hops) < 0 or hops != sorted(hops)
+            or "terminal: yes" not in text):
+        fail(f"obs_tier: --trace: {len(admitted)} admitted, {len(orphans)} without a "
+             f"terminal event; {trace}: rc {rc}\n{text[-2000:]}")
+    for line in text.splitlines():
+        say(f"{tag} trace: {line}")
+    say(f"{tag} {len(admitted)} traces admitted in serve_obs_a, each with a terminal event")
+    out["trace"] = {"admitted": len(admitted), "orphans": len(orphans), "shown": trace}
+
+    # (f) the live and fleet views
+    rc_e, prom = run_obs(["export", serve_a])
+    rc_t, frame = run_obs(["tail", serve_a, "--once"])
+    fleet = os.path.join(keep, "fleet")
+    shutil.copytree(serve_a, os.path.join(fleet, "replica_a"))
+    shutil.copytree(serve_b, os.path.join(fleet, "replica_b"))
+    rc_s, text = run_obs(["slo", fleet, "--format", "json"])
+    slo = json.loads(text) if rc_s in (0, 1) else {}
+    serve_gauges = [ln for ln in prom.splitlines()
+                    if ln.startswith("hfrep_serve_") and not ln.startswith("# ")]
+    if (rc_e != 0 or not serve_gauges or "# TYPE hfrep_serve_" not in prom or rc_t != 0
+            or not frame.startswith("flight recorder") or rc_s not in (0, 1)
+            or slo.get("evaluated") != 3 or slo.get("fleet", {}).get("replicas") != 2):
+        fail(f"obs_tier: export rc {rc_e} ({len(serve_gauges)} serve/* lines), tail rc {rc_t}, "
+             f"slo rc {rc_s}: {text[-2000:]}")
+    say(f"{tag} export: {len(prom.splitlines())} lines, {len(serve_gauges)} serve/* "
+        f"samples; tail --once: {len(frame.splitlines())} lines")
+    for line in frame.splitlines():
+        say(f"{tag} tail: {line}")
+    say(f"{tag} slo over serve_obs_a and serve_obs_b (rc {rc_s}): " + json.dumps(
+        {"slos": [{k: row[k] for k in ("name", "target", "fast", "slow", "breach")}
+                  for row in slo["slos"]], "fleet": slo["fleet"]}, separators=(",", ":")))
+    out["slo"] = {"rc": rc_s, "breaches": slo["breaches"], "worst_burn": slo["worst_burn"],
+                  "ledger": slo["fleet"]["ledger"]}
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
     return out
@@ -3497,6 +3728,8 @@ def main() -> None:
         pipeline = phase_pipeline(torch, np, keep, trainer["cli_checkpoint"])
         health = phase_health(torch, np, cuda_lstm, train, train_chained)
         serve_drain = phase_serve_drain(torch, np, keep, trainer["cli_checkpoint"])
+        obs_tier = phase_obs_tier(torch, np, keep, trainer["cli_obs_dir"],
+                                  trainer["cli_launches"])
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     timing = phase_timing(torch, cuda_lstm)
@@ -3669,7 +3902,7 @@ def main() -> None:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
                        "train_chained": train_chained, "trainer": trainer, "sweep": sweep,
                        "eval": evaluation, "scenario": scenario, "pipeline": pipeline,
-                       "health": health, "serve_drain": serve_drain,
+                       "health": health, "serve_drain": serve_drain, "obs_tier": obs_tier,
                        "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,

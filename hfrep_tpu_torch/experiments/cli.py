@@ -391,6 +391,10 @@ def _cmd_train_gan_impl(args) -> int:
         from hfrep_tpu_torch.utils.keras_export import export_keras_generator
         path = export_keras_generator(cfg.model, trainer.state.generator, args.export_h5)
         print(f"keras artifact: {path}")
+    # the hand kernels' launches, as launches/<kernel> counters in the
+    # run's stream (nothing without a telemetry dir)
+    from hfrep_tpu_torch.obs import emit_launch_counts
+    emit_launch_counts()
     return 0
 
 

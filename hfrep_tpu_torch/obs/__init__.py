@@ -24,10 +24,11 @@ No-op when disabled: the module singleton starts as :data:`NULL` and
 every hook costs one attribute check while telemetry is off.  Telemetry
 is host-side only; enabling it changes no kernel launch and no result.
 
-The JAX module's analysis hooks — live-stream rotation into the rollup
-tier, the crash-forensics bundle, the program fingerprints and the
-dispatch attribution window — are named no-op hooks below until the
-obs-analysis modules are ported (ROADMAP).
+Past ``HFREP_OBS_ROTATE_BYTES`` the writer rotates its live stream into
+the rollup tier's next chunk (:mod:`hfrep_tpu_torch.obs.rollup`), as the
+JAX module does.  The JAX module's other analysis hooks — the
+crash-forensics bundle and the dispatch attribution window — are named
+no-op hooks below until their modules are ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -195,12 +196,6 @@ _NULL_CTX = contextlib.nullcontext()
 
 
 # ------------------------------------------------- hooks of later layers
-def _rotation_target(run_dir: Path) -> Optional[Path]:
-    """Stub of the rollup tier's chunk naming (``rollup.next_chunk_index``):
-    None, so the live stream is never rotated."""
-    return None
-
-
 def _crash_bundle(obs: "Obs", exc: BaseException) -> None:
     """Stub of ``obs.crash.write_crash_bundle``: the flight recorder."""
 
@@ -289,18 +284,26 @@ class Obs:
             self._timeline.note_obs_self(time.perf_counter() - t_emit)
 
     def _rotate_live(self) -> None:
-        """Writer-side rotation of the live stream into the rollup tier's
-        next chunk; without that tier (:func:`_rotation_target` is None)
-        the stream stays where it is."""
-        target = _rotation_target(self.run_dir)
-        if target is None:
-            return
+        """Writer-side rotation: flush and close the live stream, rename it
+        to the rollup tier's next chunk (``rollup/chunk-<n>.jsonl``, which
+        ``obs compact`` folds into segments and pinned evidence), reopen a
+        fresh one.  Only the writer can do this safely: an external rename
+        would leave this process appending to the renamed file through its
+        held handle.  Best-effort like every telemetry write: the worst
+        failure leaves the stream unrotated."""
         fh, self._fh = self._fh, None
         try:
             fh.flush()
             fh.close()
-            target.parent.mkdir(parents=True, exist_ok=True)
-            self.events_path.rename(target)
+        except OSError:
+            pass
+        try:
+            from hfrep_tpu_torch.obs import rollup as _rollup
+            chunk_dir = self.run_dir / _rollup.ROLLUP_DIR
+            chunk_dir.mkdir(parents=True, exist_ok=True)
+            if self.events_path.exists() and self.events_path.stat().st_size > 0:
+                self.events_path.rename(
+                    chunk_dir / f"chunk-{_rollup.next_chunk_index(self.run_dir)}.jsonl")
         except OSError:
             pass
         try:

@@ -36,6 +36,11 @@ from hfrep_tpu_torch.utils.contracts import ContractError, contract
 PEAK_BF16 = 989.4e12
 #: NVIDIA H100 SXM5 FP32 (non-tensor) peak (datasheet), FLOP/s
 PEAK_F32 = 66.9e12
+#: the JAX package's own MFU denominator (``hfrep_tpu/obs/flops.py``'s
+#: ``PEAK_BF16``, its TPU's bf16 peak), FLOP/s: not a number of the port's
+#: card.  The obs report quotes a run the JAX package wrote against it
+#: (``report.mfu_peak``), so reading such a run gives that package's MFU.
+REFERENCE_PEAK_BF16 = 197e12
 B, H, N_CRITIC = 32, 100, 5
 
 

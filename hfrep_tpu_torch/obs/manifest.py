@@ -160,3 +160,8 @@ def add_trace_link(run_dir, trace_dir, **extra) -> None:
         run_dir,
         lambda doc: doc.setdefault("traces", []).append(
             {"path": str(trace_dir), **extra}))
+
+
+def read_manifest(run_dir) -> dict:
+    path = Path(run_dir) / MANIFEST_NAME
+    return json.loads(path.read_text())

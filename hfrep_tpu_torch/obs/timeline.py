@@ -23,23 +23,22 @@ is the ledger's invariant.  Three moving parts:
 * **reconstruction** — :func:`build_trace` renders a run dir's event
   stream as a Chrome-trace/perfetto ``trace.json``, and
   :func:`ledger_from_events` re-derives the whole-run ledger from the
-  ``timeline_window`` records.  Both read only the records the JAX
-  package's compaction keeps verbatim (:func:`pin_record`), and give the
-  JAX module's output byte for byte on the same run dir.
+  ``timeline_window`` records.  Both read only the records compaction
+  keeps verbatim (:func:`hfrep_tpu_torch.obs.rollup.pin_record`), so
+  their output is byte-identical on a rotated and compacted run dir and
+  on the raw original, and is the JAX module's byte for byte.
 
 Call sites time through :func:`clock` / :func:`stopwatch` / :func:`timed`
 so measured wall time stays inside the plane; all three work with
 telemetry off (:func:`timed` still measures; it just books nothing).
 
 Not ported yet (ROADMAP): the dispatch attribution window (``attrib``,
-whose dispatch seconds :class:`BlockTimer` hands over as 0) and the
-rollup compaction leg of :func:`self_test`.
+whose dispatch seconds :class:`BlockTimer` hands over as 0).
 """
 
 from __future__ import annotations
 
 import json
-import re
 import sys
 import threading
 import time
@@ -49,7 +48,9 @@ from typing import Dict, List, Optional
 import torch
 
 from hfrep_tpu_torch.core.device import DeviceLike
-from hfrep_tpu_torch.obs import EVENT_TYPES, SCHEMA_VERSION, get_obs
+from hfrep_tpu_torch.obs import get_obs
+from hfrep_tpu_torch.obs.report import EVENTS_NAME, SchemaError, load_events
+from hfrep_tpu_torch.obs.rollup import pin_record
 
 #: every ledger category, in rendering order.  ``device_compute`` is host
 #: time measurably blocked on the device (boundary syncs); ``dispatch``
@@ -68,12 +69,6 @@ CONSERVATION_ABS_TOL_MS = 0.5
 
 #: the ``self_test`` gate's ceiling on ``timeline/obs_self_frac``
 OBS_SELF_FRAC_MAX = 0.01
-
-EVENTS_NAME = "events.jsonl"
-
-
-class SchemaError(ValueError):
-    """An event line failed schema validation."""
 
 
 def clock() -> float:
@@ -320,104 +315,6 @@ class BlockTimer:
         self.samples.clear()
 
 
-# ------------------------------------------------------- reading streams
-#: per-type required fields, beyond the common ``v``/``t``/``type``
-_REQUIRED_FIELDS = {
-    "span": ("name", "dur", "depth"),
-    "metric": ("kind", "name", "value"),
-    "memory": ("high_water",),
-    "event": ("name",),
-}
-_CHUNK_RE = re.compile(r"^chunk-(\d+)\.jsonl$")
-_PINNED_RE = re.compile(r"^pinned-(\d+)\.jsonl$")
-
-
-def parse_event(line: str, lineno: int = 0) -> Optional[dict]:
-    """Parse and validate one JSONL line (the JAX report's schema check);
-    blank lines return None."""
-    line = line.strip()
-    if not line:
-        return None
-    try:
-        rec = json.loads(line)
-    except json.JSONDecodeError as e:
-        raise SchemaError(f"line {lineno}: not JSON ({e})") from e
-    if not isinstance(rec, dict):
-        raise SchemaError(f"line {lineno}: event must be an object")
-    if rec.get("v") != SCHEMA_VERSION:
-        raise SchemaError(f"line {lineno}: schema version {rec.get('v')!r}, "
-                          f"expected {SCHEMA_VERSION}")
-    etype = rec.get("type")
-    if etype not in EVENT_TYPES:
-        raise SchemaError(f"line {lineno}: unknown event type {etype!r}")
-    if not isinstance(rec.get("t"), (int, float)):
-        raise SchemaError(f"line {lineno}: missing/invalid timestamp 't'")
-    for field in _REQUIRED_FIELDS[etype]:
-        if field not in rec:
-            raise SchemaError(f"line {lineno}: {etype} event missing {field!r}")
-    return rec
-
-
-def _load_jsonl(path, strict: bool, torn_hint: str) -> List[dict]:
-    """Torn-tail-tolerant loader: a final line missing its newline that
-    fails to parse is dropped with a warning (a killed writer tears
-    exactly there); ``strict=True`` raises for it too."""
-    path = Path(path)
-    records = []
-    with open(path) as fh:
-        lines = fh.readlines()
-    for i, line in enumerate(lines, 1):
-        try:
-            rec = parse_event(line, i)
-        except SchemaError:
-            if not strict and i == len(lines) and not line.endswith("\n"):
-                print(f"warning: {path}: dropped torn final line {i} "
-                      f"({torn_hint})", file=sys.stderr)
-                break
-            raise
-        if rec is not None:
-            records.append(rec)
-    return records
-
-
-def _numbered(run_dir, pattern) -> List[Path]:
-    ru = Path(run_dir) / "rollup"
-    if not ru.is_dir():
-        return []
-    found = [(int(m.group(1)), p) for p in ru.iterdir()
-             for m in [pattern.match(p.name)] if m]
-    return [p for _, p in sorted(found)]
-
-
-def load_events(run_dir, strict: bool = False) -> List[dict]:
-    """A run dir's event records in stream order: the compacted tier's
-    pinned records, then rotated chunks, then the live tail (the JAX
-    report's ``load_events``)."""
-    records: List[dict] = []
-    for pf in _numbered(run_dir, _PINNED_RE):
-        records.extend(_load_jsonl(pf, strict, "compactor was likely killed mid-publish"))
-    for cf in _numbered(run_dir, _CHUNK_RE):
-        records.extend(_load_jsonl(cf, strict, "writer was likely killed mid-rotation"))
-    records.extend(_load_jsonl(Path(run_dir) / EVENTS_NAME, strict,
-                               "run was likely killed mid-write"))
-    return records
-
-
-def pin_record(rec: dict) -> bool:
-    """The JAX compaction's verbatim-preservation rule (``rollup.pin_record``):
-    events, memory snapshots and the evidence-bearing spans stay whole."""
-    etype = rec["type"]
-    if etype in ("event", "memory"):
-        return True
-    if etype == "span":
-        return bool(rec.get("warmup")
-                    or rec["name"] == "block"
-                    or str(rec["name"]).startswith("compile:")
-                    or isinstance(rec.get("trace"), str)
-                    or isinstance(rec.get("traces"), list))
-    return False
-
-
 # ------------------------------------------------------- reconstruction
 def _trace_records(run_dir) -> List[dict]:
     return [r for r in load_events(run_dir) if pin_record(r)]
@@ -586,12 +483,13 @@ def _expect(cond: bool, msg: str) -> None:
 
 def self_test() -> int:
     """The accumulator's conservation algebra, the hand-computed fixture
-    ledger, torn-tail degradation and the ``obs_self_frac`` < 1%
-    ceiling.  JSON on stdout, diagnostics on stderr, 0/1."""
+    ledger, the compaction byte-identity discipline, torn-tail
+    degradation and the ``obs_self_frac`` < 1% ceiling.  JSON on stdout,
+    diagnostics on stderr, 0/1."""
     import shutil
     import tempfile
 
-    from hfrep_tpu_torch.obs import session
+    from hfrep_tpu_torch.obs import rollup, session
     try:
         # nested timed() books exclusive time; account() inside a frame
         # moves, never duplicates
@@ -643,9 +541,16 @@ def self_test() -> int:
         _expect(doc["fracs"]["unattributed"] < 0.10,
                 f"unattributed_frac {doc['fracs']['unattributed']}")
 
-        # torn tail: a kill mid-write drops the final window; the ledger
-        # shrinks its covered set and grows unattributed
+        # compaction equivalence: rotate and compact a copy of the same
+        # basename (the trace embeds the run dir's name), byte-equal trace
+        raw = build_trace(fx)
         with tempfile.TemporaryDirectory() as td:
+            cp = Path(td) / fx.name
+            shutil.copytree(fx, cp)
+            rollup.compact(cp, force_rotate=True)
+            _expect(build_trace(cp) == raw, "trace bytes differ on the compacted dir")
+            # torn tail: a kill mid-write drops the final window; the
+            # ledger shrinks its covered set and grows unattributed
             tp = Path(td) / "torn"
             shutil.copytree(fx, tp)
             lines = (tp / EVENTS_NAME).read_text().splitlines(keepends=True)
@@ -669,6 +574,7 @@ def self_test() -> int:
                     "obs_self_frac": obs_self_frac,
                     "unattributed_frac": doc["fracs"]["unattributed"],
                     "overlap_frac": doc["overlap_frac"]},
+        "compaction_byte_identical": True,
         "torn_tail": {"windows": torn_doc["windows"],
                       "unattributed_frac": torn_doc["fracs"]["unattributed"]},
     }))

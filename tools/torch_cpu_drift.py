@@ -5,7 +5,8 @@ and what each mode costs the CPU path's matmuls.
 
     python tools/torch_cpu_drift.py [--rounds 20] [--concurrent 3] [--threads 2]
                                     [--mode default --mode AUTO_STRICT ...] [--out F]
-    python tools/torch_cpu_drift.py --pipeline 20 [--checkpoint CK] [--mode ...] [--out F]
+    python tools/torch_cpu_drift.py --pipeline 20 [--checkpoint CK] [--mode ...]
+                                    [--parallel 1] [--out F]
     python tools/torch_cpu_drift.py --bench 5 [--threads 2] [--out F]
 
 Each fresh process builds the ``mtss_wgan_gp_prod`` trainer on the
@@ -24,7 +25,18 @@ gave it; ``--out`` also writes the counts as JSON.
 verb on the CPU (one generator actor and two consumers, ``--blocks 2
 --epochs 4``, from a W=168 checkpoint that ``train-gan --epochs 2``
 makes first, or ``--checkpoint``) N times a mode, the modes alternated,
-and counts the patterns of its items' digests (one an item).
+``--parallel`` runs at once, and counts the patterns of its items'
+digests (one an item).  Each run also digests every stage of every item
+inside the members: the block as the generator actor puts it on the
+spool (``block``), the arrays as a consumer claims them (``claimed``),
+the augmented training set (``augmented``), each sweep lane's training
+losses (``lanes``) and the published files (``result``); and which
+consumer swept each item as its how-manieth (``order_by_result``).  The JSON then
+counts the patterns of each stage, and for every run whose result is not
+the most common one names the first stage at which it left the most
+common run.  The stage hooks ride in the members through the spawn
+start method, which imports this script in each member as
+``__mp_main__``.
 
 ``--bench N`` instead times, in one fresh process a mode, alternated N
 times with nothing else running: 20 first-LSTM forwards of the generator
@@ -49,6 +61,80 @@ MODES = {"default": "", "AUTO": "AUTO", "AUTO_STRICT": "AUTO,STRICT",
          "COMPATIBLE": "COMPATIBLE"}
 #: the sweep's GEMMs: (m, k) @ (k, n)
 SWEEP_GEMMS = ((1848, 22, 21), (22, 1848, 21), (64, 1848, 22), (100, 1848, 100))
+#: the file the members append their stage digests to (one JSON line a stage)
+DIGEST_ENV = "TORCH_CPU_DRIFT_DIGESTS"
+#: the pipeline's stages in the order an item passes them
+STAGES = ("block", "claimed", "augmented", "lanes", "result")
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        a = a.detach().cpu().numpy() if hasattr(a, "detach") else a
+        h.update(str(a.dtype).encode() + str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:8]
+
+
+def _record(stage: str, item: str, digest: str) -> None:
+    line = json.dumps({"stage": stage, "item": item, "digest": digest}) + "\n"
+    fd = os.open(os.environ[DIGEST_ENV], os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+    try:
+        os.write(fd, line.encode())
+    finally:
+        os.close(fd)
+
+
+def _install_stage_hooks() -> None:
+    """Wrap the spool's ``put``, the consumer and the sweep so that each
+    stage of an item is digested where it happens (see the docstring)."""
+    sys.path.insert(0, ROOT)
+    from hfrep_tpu_torch.experiments import augment, sweep
+    from hfrep_tpu_torch.orchestrate import actors, queue
+
+    put = queue.SpoolQueue.put
+
+    def put_digested(self, source, seq, arrays, *a, **kw):
+        _record("block", f"{source}_{seq:05d}", _digest(*(arrays[k] for k in sorted(arrays))))
+        return put(self, source, seq, arrays, *a, **kw)
+
+    queue.SpoolQueue.put = put_digested
+    current = {}
+    make_consumer = actors._make_consumer
+
+    def make_consumer_digested(payload):
+        consume = make_consumer(payload)
+        sources = list(payload["sources"])
+
+        def consume_digested(source_idx, seq, arrays, tmp_dir):
+            current["item"] = f"{sources[source_idx]}_{seq:05d}"
+            current["nth"] = current.get("nth", 0) + 1
+            _record("order", current["item"], f"{os.getpid()}#{current['nth']}")
+            _record("claimed", current["item"],
+                    _digest(*(arrays[k] for k in sorted(arrays))))
+            return consume(source_idx, seq, arrays, tmp_dir)
+        return consume_digested
+
+    actors._make_consumer = make_consumer_digested
+    augment_set, run_sweep = augment.augment_training_set, sweep.run_sweep
+
+    def augment_digested(*a, **kw):
+        x, y = augment_set(*a, **kw)
+        _record("augmented", current["item"], _digest(x, y))
+        return x, y
+
+    def run_sweep_digested(*a, **kw):
+        res = run_sweep(*a, **kw)
+        _record("lanes", current["item"],
+                ",".join(_digest(row) for row in res.train_loss))
+        return res
+
+    augment.augment_training_set = augment_digested
+    sweep.run_sweep = run_sweep_digested
+
+
+if __name__ == "__mp_main__" and os.environ.get(DIGEST_ENV):
+    _install_stage_hooks()
 
 
 def _first_lstm(torch):
@@ -132,6 +218,49 @@ def _verb(argv, env) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, check=True)
 
 
+def pipeline_child(argv) -> int:
+    """The ``pipeline`` verb with the stage hooks in this process and, by
+    the spawn start method, in every member it starts."""
+    _install_stage_hooks()
+    from hfrep_tpu_torch.experiments.cli import main as cli_main
+    return cli_main(argv)
+
+
+def _stages(digest_file: str, out_dir: str) -> dict:
+    """``{stage: "item=digest ..."}`` for one run, items in order; a stage
+    seen twice for an item (a duplicate delivery) keeps every digest."""
+    seen = collections.defaultdict(lambda: collections.defaultdict(list))
+    with open(digest_file) as f:
+        for line in f:
+            r = json.loads(line)
+            seen[r["stage"]][r["item"]].append(r["digest"])
+    out = {st: " ".join(f"{it}={'/'.join(d)}" for it, d in sorted(seen[st].items()))
+           for st in STAGES[:-1]}
+    out["result"] = _items_digest(out_dir)
+    # which consumer swept each item, and as its how-manieth: consumers
+    # named c0, c1, ... in the order of the items they took first
+    pids = {}
+    order = []
+    for it, d in sorted(seen["order"].items()):
+        for x in d:
+            pid, nth = x.split("#")
+            order.append(f"{it}=c{pids.setdefault(pid, len(pids))}#{nth}")
+    out["order"] = " ".join(order)
+    return out
+
+
+def _first_departures(runs: list) -> dict:
+    """For each run whose result is not the most common one, the first
+    stage at which it differs from a run of the most common result."""
+    common = collections.Counter(r["result"] for r in runs).most_common(1)[0][0]
+    ref = next(r for r in runs if r["result"] == common)
+    out = collections.Counter()
+    for r in runs:
+        if r["result"] != common:
+            out[next((st for st in STAGES if r[st] != ref[st]), "none")] += 1
+    return dict(out)
+
+
 def _items_digest(out_dir: str) -> str:
     """``item=digest`` for each item's array and CSV files, in item order."""
     results = os.path.join(out_dir, "results")
@@ -157,6 +286,7 @@ def pipeline(args, modes) -> dict:
     env_base = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=str(args.threads))
     cleaned = os.path.join(ROOT, "results/rederived_cleaned")
     counts = {m: collections.Counter() for m in modes}
+    runs = {m: [] for m in modes}
     with tempfile.TemporaryDirectory() as tmp:
         ck = args.checkpoint
         if ck is None:
@@ -164,21 +294,43 @@ def pipeline(args, modes) -> dict:
                    "2", "--cleaned-dir", cleaned, "--checkpoint-dir", os.path.join(tmp, "ck"),
                    "--quiet"], env_base)
             ck = os.path.join(tmp, "ck", "ckpt_2")
-        for i in range(args.pipeline):
-            for mode in (modes if i % 2 == 0 else modes[::-1]):
-                out = os.path.join(tmp, "pl")
+        order = [mode for i in range(args.pipeline) for mode in (modes if i % 2 == 0
+                                                                  else modes[::-1])]
+        for start in range(0, len(order), args.parallel):
+            procs = []
+            for slot, mode in enumerate(order[start:start + args.parallel]):
+                out = os.path.join(tmp, f"pl{slot}")
+                digests = os.path.join(tmp, f"digests{slot}.jsonl")
                 shutil.rmtree(out, ignore_errors=True)
-                _verb(["pipeline", "--device", "cpu", "--gan-checkpoint", ck, "--preset",
-                       "mtss_wgan_gp_prod", "--cleaned-dir", cleaned, "--blocks", "2",
-                       "--consumers", "2", "--epochs", "4", "--out", out],
-                      dict(env_base, MKL_CBWR=MODES[mode]))
-                counts[mode][_items_digest(out)] += 1
-            print(f"run {i + 1}/{args.pipeline}: " + "; ".join(
+                if os.path.exists(digests):
+                    os.remove(digests)
+                argv = ["pipeline", "--device", "cpu", "--gan-checkpoint", ck, "--preset",
+                        "mtss_wgan_gp_prod", "--cleaned-dir", cleaned, "--blocks", "2",
+                        "--consumers", "2", "--epochs", "4", "--out", out]
+                env = dict(env_base, MKL_CBWR=MODES[mode], **{DIGEST_ENV: digests})
+                procs.append((mode, out, digests, subprocess.Popen(
+                    [sys.executable, __file__, "--pipeline-child", "--"] + argv, cwd=ROOT,
+                    env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)))
+            for mode, out, digests, p in procs:
+                _, err = p.communicate()
+                if p.returncode != 0:
+                    raise SystemExit(f"pipeline run exited {p.returncode}:\n{err[-4000:]}")
+                stages = _stages(digests, out)
+                runs[mode].append(stages)
+                counts[mode][stages["result"]] += 1
+            print(f"runs {start + len(procs)}/{len(order)}: " + "; ".join(
                 f"{m} {dict(c)}" for m, c in counts.items()), flush=True)
     for mode, c in counts.items():
         print(f"{mode}: {sum(c.values())} pipeline runs, {len(c)} pattern(s): {dict(c)}")
-    return {"pipeline_runs": args.pipeline, "threads": args.threads, "host": _host(),
-            "counts": {m: dict(c) for m, c in counts.items()}}
+        print(f"{mode}: first stage that differs: {_first_departures(runs[mode])}")
+    return {"pipeline_runs": args.pipeline, "parallel": args.parallel,
+            "threads": args.threads, "host": _host(),
+            "counts": {m: dict(c) for m, c in counts.items()},
+            "stage_counts": {m: {st: dict(collections.Counter(r[st] for r in runs[m]))
+                                 for st in STAGES} for m in modes},
+            "first_departure": {m: _first_departures(runs[m]) for m in modes},
+            "order_by_result": {m: dict(collections.Counter(f"{r['order']} -> {r['result']}"
+                                                            for r in runs[m])) for m in modes}}
 
 
 def bench(args, modes) -> dict:
@@ -205,10 +357,13 @@ def main() -> None:
     ap.add_argument("--mode", action="append", choices=sorted(MODES))
     ap.add_argument("--pipeline", type=int, default=0, metavar="N")
     ap.add_argument("--checkpoint", default=None, help="the pipeline's W=168 checkpoint")
+    ap.add_argument("--parallel", type=int, default=1, help="pipeline runs at once")
     ap.add_argument("--bench", type=int, default=0, metavar="N")
     ap.add_argument("--out", default=None, help="also write the result as JSON here")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--bench-child", action="store_true", help=argparse.SUPPRESS)
+    if sys.argv[1:2] == ["--pipeline-child"]:
+        sys.exit(pipeline_child(sys.argv[3:]))
     args = ap.parse_args()
     if args.child:
         child()
