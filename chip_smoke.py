@@ -249,6 +249,30 @@ exits non-zero on failure:
              the ``serve/*`` gauges as Prometheus text, ``tail --once``
              one frame, ``slo`` over both serve runs as replicas a
              well-formed result;
+5j. forensics — the analysis tier's second part on the card's runs:
+             ``obs profile`` digests the ``health`` phase's ``train-gan
+             --profile-dir`` trace (every hand kernel that run launched
+             with device busy time > 0, the union of device busy time
+             within the traced wall); that run's ``run.json`` ``programs``
+             name every kernel library it had loaded, each digest the
+             sha256 of its ``.so``; two 12-epoch ``train-gan`` runs carry
+             finite ``attrib/*`` gauges and the ledger's ``unattributed``
+             share of their steady windows is recorded; ``explain`` of the
+             two gives no ``program`` finding, and of a copy of one with
+             one library digest changed, a finding naming that kernel;
+             ``crash-drill --device cuda`` exits 0; the ``ae_sweep`` chaos
+             subject drained on the card (``preempt@chunk=1``) exits 75
+             with a crash bundle that ``verify_bundle`` and the checkpoint
+             checksum accept and ``report --crash`` renders;
+5k. chaos  — ``python -m hfrep_tpu_torch.resilience`` on the card:
+             ``drives --check`` names only the ``ae_mesh`` gap;
+             then at once: ``selftest --device cuda`` exits 0 with the
+             JAX selftest's keys; ``--replay-corpus`` and a seeded soak
+             over the fast subjects (3 schedules) end with no violation;
+             the ``_planted`` canary is found and shrunk to
+             ``io_fail@result_save=1``; the
+             ``gan_ckpt`` subject's own stream carries the fused route's
+             kernel launches;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -283,6 +307,7 @@ import copy
 import dataclasses
 import glob
 import json
+import math
 import os
 import re
 import shutil
@@ -2494,7 +2519,42 @@ def stream_records(run_dir: str) -> list:
     return report.load_events(run_dir)
 
 
-def phase_health(torch, np, cuda_lstm, train, train_chained) -> dict:
+def profiled_train_gan(torch, cuda_lstm, keep: str, cleaned: str, tag: str) -> dict:
+    """``train-gan --profile-dir --obs-dir`` for :data:`PROFILE_EPOCHS`
+    epochs on the card: one trace with the hand kernels' device events,
+    linked in ``run.json``; both dirs stay under ``keep``."""
+    # the capture and its run dir stay under ``keep`` for the forensics phase
+    from hfrep_tpu_torch.ops import _build
+    prof_root = tempfile.mkdtemp(prefix="health_profile_", dir=keep)
+    prof_dir, run_dir = os.path.join(prof_root, "prof"), os.path.join(prof_root, "obs")
+    cuda_lstm.reset_launches()
+    rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp", "--epochs",
+                        str(PROFILE_EPOCHS), "--cleaned-dir", cleaned, "--device", "cuda",
+                        "--profile-dir", prof_dir, "--obs-dir", run_dir, "--quiet"])
+    torch.cuda.synchronize()
+    launched = sum(cuda_lstm.launch_counts().values())
+    traces = sorted(glob.glob(os.path.join(prof_dir, "trace-*.json")))
+    events = []
+    if traces:
+        with open(traces[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+    ours = collections.Counter(
+        next(n for n in HAND_KERNELS if n in e.get("name", "")) for e in events
+        if e.get("cat") == "kernel" and any(n in e.get("name", "") for n in HAND_KERNELS))
+    with open(os.path.join(run_dir, "run.json")) as f:
+        linked = json.load(f).get("traces", [])
+    if rc != 0 or len(traces) != 1 or not ours or not launched or len(linked) != 1:
+        fail(f"health: train-gan --profile-dir exited {rc}, traces {traces}, hand kernels "
+             f"in the trace {dict(ours)}, {launched} launches, run.json traces {linked}")
+    say(f"{tag} train-gan --profile-dir, {PROFILE_EPOCHS} epochs: one trace "
+        f"({os.path.getsize(traces[0])} bytes, linked in run.json), the hand kernels' "
+        f"device events in it {dict(sorted(ours.items()))}; {launched} launches counted")
+    return {"trace_bytes": os.path.getsize(traces[0]), "kernels": dict(ours),
+            "launches": launched, "run_dir": run_dir, "prof_dir": prof_dir,
+            "libraries": _build.loaded_paths()}
+
+
+def phase_health(torch, np, cuda_lstm, train, train_chained, keep: str) -> dict:
     """The in-step health block on the card (``hfrep_tpu_torch.obs.health``):
     the same trainer run from the same draws with health off and on must
     end bit-equal, launch the route's kernels exactly as the train phase
@@ -2659,32 +2719,7 @@ def phase_health(torch, np, cuda_lstm, train, train_chained) -> dict:
     finally:
         health.configure(None)
     # train-gan --profile-dir: a torch.profiler capture around the hand kernels
-    with tempfile.TemporaryDirectory() as prof_root:
-        prof_dir, run_dir = os.path.join(prof_root, "prof"), os.path.join(prof_root, "obs")
-        cuda_lstm.reset_launches()
-        rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp", "--epochs",
-                            str(PROFILE_EPOCHS), "--cleaned-dir", cleaned, "--device", "cuda",
-                            "--profile-dir", prof_dir, "--obs-dir", run_dir, "--quiet"])
-        torch.cuda.synchronize()
-        launched = sum(cuda_lstm.launch_counts().values())
-        traces = sorted(glob.glob(os.path.join(prof_dir, "trace-*.json")))
-        events = []
-        if traces:
-            with open(traces[0]) as f:
-                events = json.load(f).get("traceEvents", [])
-        ours = collections.Counter(
-            next(n for n in HAND_KERNELS if n in e.get("name", "")) for e in events
-            if e.get("cat") == "kernel" and any(n in e.get("name", "") for n in HAND_KERNELS))
-        with open(os.path.join(run_dir, "run.json")) as f:
-            linked = json.load(f).get("traces", [])
-        if rc != 0 or len(traces) != 1 or not ours or not launched or len(linked) != 1:
-            fail(f"health: train-gan --profile-dir exited {rc}, traces {traces}, hand kernels "
-                 f"in the trace {dict(ours)}, {launched} launches, run.json traces {linked}")
-        say(f"{tag} train-gan --profile-dir, {PROFILE_EPOCHS} epochs: one trace "
-            f"({os.path.getsize(traces[0])} bytes, linked in run.json), the hand kernels' "
-            f"device events in it {dict(sorted(ours.items()))}; {launched} launches counted")
-        out["profile"] = {"trace_bytes": os.path.getsize(traces[0]), "kernels": dict(ours),
-                          "launches": launched}
+    out["profile"] = profiled_train_gan(torch, cuda_lstm, keep, cleaned, tag)
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
     return out
@@ -2990,6 +3025,324 @@ def phase_obs_tier(torch, np, keep: str, cli_obs: str, cli_launches: dict) -> di
                   for row in slo["slos"]], "fleet": slo["fleet"]}, separators=(",", ":")))
     out["slo"] = {"rc": rc_s, "breaches": slo["breaches"], "worst_burn": slo["worst_burn"],
                   "ledger": slo["fleet"]["ledger"]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
+    return out
+
+
+#: the forensics phase: two ``train-gan`` runs at mtss_wgan_gp, 12 epochs
+#: each (cut from 5000, as ``obs_tier``'s), and the chaos subject drained
+FORENSICS_EPOCHS = 12
+#: the chaos phase: the soak's seed and its fixed number of schedules (cut
+#: from one a fast subject, 7, to 3: the script's time limit), and the
+#: spawned legs' time limits
+CHAOS_SEED, CHAOS_SCHEDULES = 11, 3
+CHAOS_TIMEOUT_S, SELFTEST_TIMEOUT_S = 600, 420
+
+
+def start_module(module: str, args: list, env_extra=None) -> tuple:
+    """``python -m MODULE ARGS`` from the checkout's root, started as a
+    subprocess: ``(process, start time)`` for :func:`finish_module`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("HFREP_FAULTS", "HFREP_OBS_DIR", "HFREP_HISTORY", "HFREP_HEALTH")}
+    env["PYTHONPATH"] = root
+    env.update(env_extra or {})
+    proc = subprocess.Popen([sys.executable, "-m", module, *map(str, args)], cwd=root,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, time.perf_counter()
+
+
+def finish_module(started: tuple, timeout: float) -> tuple:
+    """Wait for a :func:`start_module` process: (exit code, stdout,
+    stderr, wall seconds); past ``timeout`` it is killed and the phase
+    fails."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{' '.join(proc.args[2:5])} overran {timeout} s")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def run_module(module: str, args: list, timeout: float, env_extra=None) -> tuple:
+    """``python -m MODULE ARGS`` as a subprocess, waited for: (exit code,
+    stdout, stderr, wall seconds)."""
+    return finish_module(start_module(module, args, env_extra), timeout)
+
+
+def window_shares(records: list) -> dict:
+    """The ledger's category shares over a run's steady ``gan_block``
+    windows: ``{category: ms / wall ms}``."""
+    wins = [r for r in records if r.get("name") == "timeline_window"
+            and r.get("drive") == "gan_block" and not r.get("warmup")]
+    wall = sum(w["wall_ms"] for w in wins)
+    if not wins or not wall > 0:
+        return {}
+    cats = collections.Counter()
+    for w in wins:
+        cats.update(w["cat_ms"])
+    return {c: v / wall for c, v in sorted(cats.items())} | {"windows": len(wins),
+                                                             "wall_ms": wall}
+
+
+def phase_forensics(torch, np, cuda_lstm, keep: str, health: dict) -> dict:
+    """The analysis tier's second part on the card's runs: the profile
+    digest of the ``health`` phase's capture, the kernel-library
+    fingerprints in its manifest, the dispatch attribution and the ledger
+    of two steady ``train-gan`` runs, ``explain`` of them (unchanged, then
+    with one library digest changed), ``crash-drill`` and a drained chaos
+    subject's crash bundle."""
+    import hashlib
+
+    from hfrep_tpu_torch.obs import crash
+    from hfrep_tpu_torch.utils import checkpoint as ckpt
+
+    tag = "[forensics]"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    prof = health["profile"]
+    # (a) the profile digest of the capture
+    rc, text = run_obs(["profile", prof["run_dir"], "--format", "json", "--top", "0"])
+    doc = json.loads(text) if rc == 0 else {}
+    caps = [c for c in doc.get("captures", []) if "error" not in c]
+    if rc != 0 or len(caps) != 1:
+        fail(f"forensics: obs profile exited {rc} with captures {doc.get('captures')}")
+    cap = caps[0]
+    busy = {k: sum(r["total_s"] for r in cap["ops"] if k in r["op"]) for k in prof["kernels"]}
+    if not all(v > 0 for v in busy.values()) or not cap["busy_s"] <= cap["wall_s"]:
+        fail(f"forensics: kernel busy {busy}, union {cap['busy_s']} s of a traced wall "
+             f"{cap['wall_s']} s")
+    say(f"{tag} obs profile: {cap['n_events']} device events, busy {cap['busy_s'] * 1e3:.3f} ms "
+        f"(interval union) of {cap['wall_s'] * 1e3:.3f} ms traced; each hand kernel's busy ms "
+        + ", ".join(f"{k.rstrip('_')} {v * 1e3:.3f}" for k, v in sorted(busy.items()))
+        + "; regions " + ", ".join(f"{r['region']} {r['busy_s'] * 1e3:.3f}"
+                                   for r in cap["regions"]))
+    out["profile"] = {"busy_s": cap["busy_s"], "wall_s": cap["wall_s"],
+                      "n_events": cap["n_events"], "kernel_busy_s": busy,
+                      "regions": cap["regions"]}
+    # (b) the manifest's program fingerprints: every library loaded
+    with open(os.path.join(prof["run_dir"], "run.json")) as f:
+        programs = json.load(f).get("programs", {})
+    # each compile boundary of the run (``compile:<step>``) names every
+    # library loaded by its first call: ``compile:<step>:<library>``
+    boundaries = sorted({k.rsplit(":", 1)[0] for k in programs if k.count(":") == 2})
+    if not boundaries:
+        fail(f"forensics: no kernel-library fingerprint in run.json programs {sorted(programs)}")
+    prefix = boundaries[-1] + ":"
+    named = {k[len(prefix):]: v for k, v in programs.items() if k.startswith(prefix)}
+    if set(named) != set(prof["libraries"]):
+        fail(f"forensics: run.json programs {sorted(named)} against the loaded libraries "
+             f"{sorted(prof['libraries'])}")
+    for lib, path in prof["libraries"].items():
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        if [p["hlo_sha256"] for p in named[lib]] != [digest]:
+            fail(f"forensics: {lib}'s recorded digest {named[lib]} is not its .so's {digest}")
+    say(f"{tag} run.json programs at {boundaries}: {len(named)} kernel libraries, each "
+        f"digest its .so's "
+        f"sha256 ({', '.join(sorted(named))}); registers max "
+        + ", ".join(f"{k} {v[0]['memory']['registers_max']}" for k, v in sorted(named.items())
+                    if v[0].get("memory")))
+    out["libraries"] = {k: v[0] for k, v in named.items()}
+    # (c) attribution and the ledger over two steady runs
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    runs = []
+    for name in ("a", "b"):
+        run_dir = os.path.join(keep, f"forensics_{name}")
+        cuda_lstm.reset_launches()
+        rc, _ = run_cli(["train-gan", "--preset", "mtss_wgan_gp", "--epochs",
+                         str(FORENSICS_EPOCHS), "--cleaned-dir", cleaned, "--device", "cuda",
+                         "--obs-dir", run_dir, "--quiet"])
+        torch.cuda.synchronize()
+        if rc != 0:
+            fail(f"forensics: train-gan {name} exited {rc}")
+        runs.append(run_dir)
+    recs = stream_records(runs[0])
+    gauges = [r for r in recs if r.get("type") == "metric"
+              and str(r.get("name", "")).startswith("attrib/")]
+    frac = [g["value"] for g in gauges if g["name"] == "attrib/dispatch_frac"]
+    if not gauges or not all(isinstance(g["value"], (int, float)) and math.isfinite(g["value"])
+                             for g in gauges) or not all(0.0 <= v <= 1.0 for v in frac):
+        fail(f"forensics: attrib gauges {gauges[:6]}")
+    shares = window_shares(recs)
+    if not shares:
+        fail("forensics: no steady gan_block ledger window")
+    last = {g["name"]: g["value"] for g in gauges}
+    say(f"{tag} train-gan x2, {FORENSICS_EPOCHS} epochs: {len(gauges)} finite attrib gauges, "
+        f"last dispatch {last['attrib/dispatch_ms']} ms / compute {last['attrib/compute_ms']} "
+        f"ms / frac {last['attrib/dispatch_frac']}; the ledger over {shares['windows']} steady "
+        f"windows ({shares['wall_ms']:.1f} ms): unattributed {shares['unattributed']:.4f}, "
+        f"dispatch {shares['dispatch']:.4f}, device_compute {shares['device_compute']:.4f}, "
+        f"obs_self {shares['obs_self']:.4f}")
+    out["attrib"] = {"gauges": len(gauges), "last": last, "window_shares": shares}
+    # (d) explain: unchanged, then one library digest changed in a copy
+    rc, text = run_obs(["explain", runs[0], runs[1], "--format", "json"])
+    same = json.loads(text) if rc == 0 else {}
+    if rc != 0 or any(f["kind"] == "program" for f in same.get("findings", [])):
+        fail(f"forensics: explain of two unchanged runs exited {rc}: {same.get('findings')}")
+    edited = os.path.join(keep, "forensics_b_edited")
+    shutil.copytree(runs[1], edited)
+    with open(os.path.join(runs[1], "run.json")) as f:
+        b_programs = json.load(f)["programs"]
+    victim = next(k for k in sorted(b_programs) if k.endswith(":lstm_stack_bwd"))
+    forged = "f" * 64
+    for path in [os.path.join(edited, "run.json")] + sorted(
+            glob.glob(os.path.join(edited, "**", "events*.jsonl"), recursive=True)):
+        with open(path) as f:
+            body = f.read()
+        old_digest = b_programs[victim][0]["hlo_sha256"]
+        with open(path, "w") as f:
+            f.write(body.replace(old_digest, forged))
+    rc, text = run_obs(["explain", runs[0], edited, "--format", "json"])
+    diff = json.loads(text) if rc == 0 else {}
+    hits = [f for f in diff.get("findings", []) if f["kind"] == "program"
+            and f["detail"].get("program") == victim]
+    if rc != 0 or not hits:
+        fail(f"forensics: explain missed the changed {victim}: {diff.get('findings')}")
+    say(f"{tag} explain: unchanged runs give {len(same['findings'])} finding(s), no program "
+        f"finding; one library digest changed gives rank {hits[0]['rank']}: "
+        f"{hits[0]['summary'][:110]}")
+    out["explain"] = {"unchanged_findings": [f["kind"] for f in same["findings"]],
+                      "changed": hits[0]["summary"]}
+    # (e) crash-drill on the card, and a drained subject's bundle
+    rc, text, err, wall = run_module("hfrep_tpu_torch.obs", ["crash-drill", "--device", "cuda"],
+                                     timeout=300)
+    drill = json.loads(text.strip().splitlines()[-1]) if rc == 0 and text.strip() else {}
+    if rc != 0 or drill.get("self_check") != "ok":
+        fail(f"forensics: crash-drill --device cuda exited {rc}: {text[-800:]} {err[-1500:]}")
+    say(f"{tag} crash-drill --device cuda: exit 0 in {wall:.1f} s, bundled "
+        f"{drill['bundled_exception']}, {drill['rendered_lines']} rendered lines")
+    subj = os.path.join(keep, "forensics_drained")
+    rc, text, err, wall = run_module(
+        "hfrep_tpu_torch.resilience", ["chaos-subject", "ae_sweep", "--out", subj, "--device",
+                                       "cuda"], timeout=300,
+        env_extra={"HFREP_FAULTS": "preempt@chunk=1"})
+    bundle = crash.find_bundle(os.path.join(subj, "obs"))
+    if rc != 75 or bundle is None or crash.verify_bundle(bundle):
+        fail(f"forensics: the drained ae_sweep subject exited {rc} with bundle {bundle}: "
+             f"{err[-1500:]}")
+    ckpt.verify(bundle)
+    rc, text = run_obs(["report", "--crash", os.path.join(subj, "obs")])
+    if rc != 0 or "Preempted" not in text:
+        fail(f"forensics: report --crash exited {rc}: {text[-800:]}")
+    say(f"{tag} ae_sweep subject drained on the card (preempt@chunk=1): exit 75 in {wall:.1f} s, "
+        f"bundle {os.path.basename(bundle)} complete and checksummed; report --crash renders "
+        f"{text.count(chr(10)) + 1} lines")
+    out["drained_subject_wall_s"] = wall
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
+    return out
+
+
+#: the fused critic route's kernels (the ``gan_ckpt`` subject trains mtss_wgan_gp)
+FUSED_KERNELS = ("lstm_fwd", "lstm_fwd_cs", "lstm_bwd", "stack_fwd_res", "stack_bwd",
+                 "stack_adj")
+
+
+def phase_chaos(torch, np, keep: str) -> dict:
+    """The chaos layer on the card: the registry gate, the kill→resume
+    selftest, a seeded soak with the corpus replayed, the canary, and the
+    ``gan_ckpt`` subject's own launches."""
+    tag = "[chaos]"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    mod = "hfrep_tpu_torch.resilience"
+    rc, text, err, _ = run_module(mod, ["drives", "--check", "--format", "json"], timeout=120)
+    doc = json.loads(text) if text.strip() else {}
+    problems = doc.get("problems", ["unreadable"])
+    if rc not in (0, 1) or any(not p.startswith("ae_mesh:") for p in problems):
+        fail(f"chaos: drives --check exited {rc}: {problems} {err[-800:]}")
+    say(f"{tag} drives --check: {len(doc['drives'])} specs, exit {rc}, problems {problems}")
+    out["drives"] = {"rc": rc, "problems": problems}
+    # the selftest, the corpus replay, the soak and the canary run at once,
+    # each in its own dirs
+    soak_dir = os.path.join(keep, "chaos_soak")
+    t_legs = time.perf_counter()
+    legs = {"selftest": start_module(mod, ["selftest", "--device", "cuda"]),
+            "corpus": start_module(mod, ["chaos", "--budget-secs", 0, "--min-schedules", 0,
+                                         "--replay-corpus", "--device", "cuda", "--out",
+                                         os.path.join(keep, "chaos_corpus")]),
+            "soak": start_module(mod, ["chaos", "--seed", CHAOS_SEED, "--budget-secs", 0,
+                                       "--min-schedules", CHAOS_SCHEDULES, "--device", "cuda",
+                                       "--out", soak_dir]),
+            "planted": start_module(mod, ["chaos", "--seed", 2, "--budget-secs", 0,
+                                          "--min-schedules", 1, "--subjects", "_planted",
+                                          "--device", "cuda", "--out",
+                                          os.path.join(keep, "chaos_planted")])}
+    try:
+        rc, text, err, wall = finish_module(legs["selftest"], SELFTEST_TIMEOUT_S)
+        st = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
+        want = ("checkpoint_cycle", "lanes21", "multi", "ensemble_kill", "ensemble_drain",
+                "serving_chaos", "serving_drain")
+        if (rc != 0 or st.get("selftest") != "ok" or any(st.get(k) != "ok" for k in want)
+                or st.get("lanes21_lanes") != 21 or st.get("ensemble_kill_restarts", 0) < 1
+                or st.get("serving_worker_kills", 0) < 1 or st.get("serving_deadline_misses", 0) < 1
+                or st.get("serving_breaker_trips", 0) < 1 or st.get("device") != "cuda"):
+            fail(f"chaos: selftest --device cuda exited {rc}: {text[-1500:]} {err[-2000:]}")
+        say(f"{tag} selftest --device cuda: exit 0 in {wall:.1f} s ({st['secs']} s inside): "
+            + ", ".join(f"{k} {v}" for k, v in st.items() if k not in ("selftest", "secs")))
+        out["selftest"] = dict(st, wall_s=wall)
+        rc, text, err, wall = finish_module(legs["corpus"], CHAOS_TIMEOUT_S)
+        corpus = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
+        if (rc != 0 or not corpus.get("ok") or corpus.get("violations") != 0
+                or corpus.get("corpus_replayed") != 8
+                or [c["subject"] for c in corpus.get("corpus_skipped", [])] != ["ae_mesh"]):
+            fail(f"chaos: the corpus replay exited {rc}: {text[-2000:]} {err[-2000:]}")
+        say(f"{tag} --replay-corpus on the card: exit 0 in {corpus['secs']} s, "
+            f"{corpus['corpus_replayed']} entries replayed (skipped "
+            f"{[c['corpus'][:3] for c in corpus['corpus_skipped']]}), "
+            f"{corpus['runs']} subject runs at {corpus['run_secs_mean']} s each, "
+            f"violations {corpus['violations']}")
+        out["corpus"] = {k: corpus[k] for k in ("corpus_replayed", "corpus_skipped", "runs",
+                                                "run_secs_mean", "violations", "secs")}
+        out["corpus"]["wall_s"] = wall
+        rc, text, err, wall = finish_module(legs["soak"], CHAOS_TIMEOUT_S)
+        soak = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
+        if rc != 0 or not soak.get("ok") or soak.get("violations") != 0 \
+                or soak.get("schedules") != CHAOS_SCHEDULES:
+            fail(f"chaos: the soak exited {rc}: {text[-2000:]} {err[-2000:]}")
+        say(f"{tag} soak --seed {CHAOS_SEED} --min-schedules {CHAOS_SCHEDULES} on the card: "
+            f"exit 0 in {soak['secs']} s, {soak['schedules']} schedules over "
+            f"{soak['distinct_subjects']} subjects, {soak['preempted_runs']} drained legs, "
+            f"{soak['runs']} subject runs at {soak['run_secs_mean']} s each, violations "
+            f"{soak['violations']}")
+        out["soak"] = {k: soak[k] for k in ("schedules", "distinct_subjects", "preempted_runs",
+                                            "runs", "run_secs_mean", "violations", "secs")}
+        out["soak"]["wall_s"] = wall
+        # the gan_ckpt subject's undisturbed reference: its own stream's launches
+        ref_obs = os.path.join(soak_dir, "ref_gan_ckpt_0", "obs")
+        counters = {}
+        for r in stream_records(ref_obs):
+            if r.get("type") == "metric" and str(r.get("name", "")).startswith("launches/"):
+                counters[r["name"][len("launches/"):]] = r["value"]
+        if not all(counters.get(k, 0) > 0 for k in FUSED_KERNELS) \
+                or not any(k.startswith("weight_sum") for k in counters):
+            fail(f"chaos: the gan_ckpt subject's stream launches {counters}")
+        say(f"{tag} gan_ckpt subject (mtss_wgan_gp, 4 epochs, n_critic 1) launches in its own "
+            f"stream: " + ", ".join(f"{k} {v}" for k, v in sorted(counters.items())))
+        out["gan_ckpt_launches"] = counters
+        # the canary: found and shrunk on the card's driver
+        rc, text, err, wall = finish_module(legs["planted"], CHAOS_TIMEOUT_S)
+        planted = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
+        found = [f.get("schedule") for f in planted.get("findings", [])]
+        if rc != 1 or found != ["_planted|0|io_fail@result_save=1"]:
+            fail(f"chaos: the planted canary: exit {rc}, findings {found} {err[-1500:]}")
+        say(f"{tag} the _planted canary found and shrunk to {found[0]} in "
+            f"{planted['findings'][0]['shrink_runs']} shrink runs (alongside the soak)")
+        out["planted"] = {"schedule": found[0],
+                          "shrink_runs": planted["findings"][0]["shrink_runs"]}
+        out["legs_wall_s"] = time.perf_counter() - t_legs
+        say(f"{tag} selftest, corpus, soak and canary together: {out['legs_wall_s']:.1f} s")
+    finally:
+        # a failed check exits: no leg outlives the script
+        for proc, _ in legs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
     return out
@@ -3726,10 +4079,12 @@ def main() -> None:
         evaluation = phase_eval(torch, np, cuda_lstm, train, keep, trainer["cli_checkpoint"])
         scenario = phase_scenario(torch, np, cuda_lstm, keep)
         pipeline = phase_pipeline(torch, np, keep, trainer["cli_checkpoint"])
-        health = phase_health(torch, np, cuda_lstm, train, train_chained)
+        health = phase_health(torch, np, cuda_lstm, train, train_chained, keep)
         serve_drain = phase_serve_drain(torch, np, keep, trainer["cli_checkpoint"])
         obs_tier = phase_obs_tier(torch, np, keep, trainer["cli_obs_dir"],
                                   trainer["cli_launches"])
+        forensics = phase_forensics(torch, np, cuda_lstm, keep, health)
+        chaos = phase_chaos(torch, np, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     timing = phase_timing(torch, cuda_lstm)
@@ -3903,6 +4258,7 @@ def main() -> None:
                        "train_chained": train_chained, "trainer": trainer, "sweep": sweep,
                        "eval": evaluation, "scenario": scenario, "pipeline": pipeline,
                        "health": health, "serve_drain": serve_drain, "obs_tier": obs_tier,
+                       "forensics": forensics, "chaos": chaos,
                        "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,

@@ -26,9 +26,10 @@ is host-side only; enabling it changes no kernel launch and no result.
 
 Past ``HFREP_OBS_ROTATE_BYTES`` the writer rotates its live stream into
 the rollup tier's next chunk (:mod:`hfrep_tpu_torch.obs.rollup`), as the
-JAX module does.  The JAX module's other analysis hooks — the
-crash-forensics bundle and the dispatch attribution window — are named
-no-op hooks below until their modules are ported (ROADMAP).
+JAX module does.  An exception escaping :func:`session` lands a crash
+bundle (:mod:`hfrep_tpu_torch.obs.crash`), and :func:`instrument_step`
+feeds the dispatch attribution window and fingerprints the kernel
+libraries at its first call (:mod:`hfrep_tpu_torch.obs.attrib`).
 """
 
 from __future__ import annotations
@@ -195,13 +196,17 @@ _NULL_INSTRUMENT = _NullInstrument()
 _NULL_CTX = contextlib.nullcontext()
 
 
-# ------------------------------------------------- hooks of later layers
+# ------------------------------------------------- hooks of the analysis tier
 def _crash_bundle(obs: "Obs", exc: BaseException) -> None:
-    """Stub of ``obs.crash.write_crash_bundle``: the flight recorder."""
+    """The flight recorder's black box (``obs.crash.write_crash_bundle``)."""
+    from hfrep_tpu_torch.obs import crash
+    crash.write_crash_bundle(obs, exc)
 
 
 def _note_dispatch(name: str, seconds: float) -> None:
-    """Stub of ``obs.attrib.note_dispatch``: the dispatch attribution window."""
+    """The dispatch attribution window (``obs.attrib.note_dispatch``)."""
+    from hfrep_tpu_torch.obs import attrib
+    attrib.note_dispatch(name, seconds)
 
 
 # --------------------------------------------------------------- the sink
@@ -579,16 +584,18 @@ def maybe_enable_from_env() -> Optional[Obs]:
     return None
 
 
-def instrument_step(fn, name: str, **attrs):
+def instrument_step(fn, name: str, flops: Optional[float] = None, **attrs):
     """Wrap a built step for telemetry, decided at BUILD time: with
     telemetry off this returns ``fn`` unchanged.
 
     When on: a ``parallel_build`` event (the JAX stream's name); the first call recorded as a
     synchronised ``compile:<name>`` span (it pays the kernels' first
-    build and launch), booked as ``dispatch`` in the ledger; later calls
-    counted (``dispatch:<name>``, no sync, so the trainer's pipelined
-    blocks stay pipelined) with their host-side time handed to the
-    dispatch attribution window."""
+    build and launch), booked as ``dispatch`` in the ledger, after which
+    the kernel libraries it loaded are fingerprinted at the
+    ``compile:<name>`` boundary (``flops``, one call's FLOPs, as the
+    boundary's cost); later calls counted (``dispatch:<name>``, no sync,
+    so the trainer's pipelined blocks stay pipelined) with their
+    host-side time handed to the dispatch attribution window."""
     obs = get_obs()
     if not obs.enabled:
         return fn
@@ -608,6 +615,10 @@ def instrument_step(fn, name: str, **attrs):
             dur = time.perf_counter() - t0
             obs.record_span(f"compile:{name}", dur, synced=True)
             timeline.account("dispatch", dur)
+            # fingerprinting is obs-only work: it books as the obs layer's own
+            from hfrep_tpu_torch.obs import attrib
+            with timeline.timed("obs_self"):
+                attrib.profile_boundary(f"compile:{name}", flops=flops)
             return out
         obs.counter(f"dispatch:{name}").inc()
         t0 = time.perf_counter()

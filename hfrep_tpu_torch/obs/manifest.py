@@ -152,6 +152,29 @@ def annotate(run_dir, fields: dict) -> None:
     _update_manifest(run_dir, lambda doc: doc.update(fields))
 
 
+def add_program(run_dir, profile: dict) -> None:
+    """Index one program fingerprint in the manifest's ``programs``
+    section, keyed by boundary name, each holding the list of distinct
+    profiles seen at that boundary (the JAX manifest's schema; in the
+    port a "program" is a loaded kernel library, see
+    :mod:`hfrep_tpu_torch.obs.attrib`).  A second entry under one name
+    is the signal ``obs explain`` diffs for; same-digest re-profiles
+    dedup; best-effort like every post-hoc manifest write."""
+    name = str(profile.get("name"))
+    entry = {k: v for k, v in profile.items() if k != "name"}
+
+    def mutate(doc):
+        programs = doc.setdefault("programs", {})
+        seen = programs.setdefault(name, [])
+        digest = entry.get("hlo_sha256")
+        if digest is not None and any(p.get("hlo_sha256") == digest for p in seen
+                                      if isinstance(p, dict)):
+            return
+        seen.append(entry)
+
+    _update_manifest(run_dir, mutate)
+
+
 def add_trace_link(run_dir, trace_dir, **extra) -> None:
     """Append one profiler capture link to the manifest's ``traces`` list
     (schema v2) — best-effort like :func:`annotate`: linkage must never

@@ -15,17 +15,19 @@ package's schema v1 record for record.  The headline numbers:
   port's runs: the H100's; see :func:`mfu_peak`), else the run's ``mfu``
   gauge;
 * ``memory high-water`` — max over ``memory`` events;
-* compile accounting — the ``backend_compiles`` counter (the port's
-  streams carry none, so its runs read ``None``) and compile seconds
-  (the port's ``compile:*`` spans: a step's first call, its kernels'
-  build and first launch).
+* compile accounting — the ``backend_compiles`` counter (in the port,
+  the ``nvcc`` runs of ``ops/_build.py`` while telemetry was on: a warm
+  build cache reads ``None``) and compile seconds (the port's
+  ``compile:*`` spans: a step's first call, its kernels' build and first
+  launch).
 
 Diff mode takes two run dirs and prints both columns plus the ratio.
 Stdlib-only at import (no torch), so the CLI is instant.
 
-Not ported yet (ROADMAP queue 1 item 6b, second part): ``explain``,
-``profile``, ``crash-drill``, ``report --crash`` and ``gate --explain``;
-the parser does not know them.
+The other verbs read the analysis tier: ``explain`` and ``gate
+--explain`` (:mod:`~hfrep_tpu_torch.obs.explain`), ``profile``
+(:mod:`~hfrep_tpu_torch.obs.attrib`), ``report --crash`` and
+``crash-drill`` (:mod:`~hfrep_tpu_torch.obs.crash`).
 """
 
 from __future__ import annotations
@@ -696,6 +698,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "ID across ALL events*.jsonl streams under the "
                         "given run dir(s), rotated streams included, "
                         "with per-hop durations")
+    r.add_argument("--crash", action="store_true",
+                   help="read the run dir's crash-forensics bundle "
+                        "(crash_<run_id>/): exception, traceback tail, "
+                        "last events")
     r.add_argument("--self-test", action="store_true",
                    help="validate the committed fixture run dir")
 
@@ -734,6 +740,46 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--slos", default=None, metavar="FILE",
                    help="with --slo: objectives JSON (default: "
                         "<root>/slo.json if present, else built-ins)")
+    g.add_argument("--explain", action="store_true",
+                   help="on a failing gate, diff the offending run "
+                        "against the comparable history runs still on "
+                        "disk (program fingerprints, compile counts, "
+                        "cost-analysis flops, span/attrib deltas) and "
+                        "append a ranked diagnosis to the verdict")
+
+    x = sub.add_parser(
+        "explain", help="ranked regression diagnosis: diff the LAST run "
+                        "dir against the earlier one(s) as baseline "
+                        "cohort — program fingerprints, compile counts, "
+                        "cost-analysis flops, dispatch-vs-compute and "
+                        "span deltas, worst first")
+    x.add_argument("run_dirs", nargs="*",
+                   help="BASELINE [BASELINE...] TARGET (>= 2; the last "
+                        "dir is the offending run; omit with "
+                        "--self-test/--history)")
+    x.add_argument("--format", choices=("human", "json"), default="human")
+    x.add_argument("--top", type=int, default=10, metavar="N",
+                   help="keep the N highest-scored findings (default 10)")
+    x.add_argument("--history", default=None, metavar="PATH",
+                   help="instead of diffing run dirs, report what the "
+                        "history STORE alone can attribute: per-metric "
+                        "series + an evidence inventory (compile "
+                        "counters / memory / resolvable run dirs per "
+                        "record)")
+    x.add_argument("--self-test", action="store_true",
+                   help="exercise the diagnosis loop on the committed "
+                        "planted-regression fixture (CI gate; pure-JSON "
+                        "stdout)")
+
+    pr = sub.add_parser(
+        "profile", help="digest a run dir's captured profiler traces "
+                        "(trace_capture artifacts under <run_dir>/traces) "
+                        "into per-op / per-region device time tables; "
+                        "typed skip when the run captured none")
+    pr.add_argument("run_dir")
+    pr.add_argument("--format", choices=("human", "json"), default="human")
+    pr.add_argument("--top", type=int, default=20, metavar="N",
+                    help="ops per capture in the table (default 20)")
 
     i = sub.add_parser(
         "ingest", help="append a run dir to a history.jsonl index")
@@ -804,6 +850,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "and burn-rate breach must be caught (CI gate; "
                         "pure-JSON stdout)")
 
+    cd = sub.add_parser(
+        "crash-drill",
+        help="the crash-forensics loop end to end: a real obs session "
+             "through injected io_fail and nonfinite faults; the crash "
+             "bundle must land complete and render")
+    cd.add_argument("--device", default="cuda",
+                    help="where the drill's AE training runs (default: the card)")
+
     tl = sub.add_parser(
         "timeline", help="wall-clock ledger: fold a run's "
                          "timeline_window records into the whole-run "
@@ -865,6 +919,27 @@ def _parse_threshold_overrides(pairs):
 def _cmd_report(args) -> int:
     if args.self_test:
         return self_test()
+    if args.crash:
+        from hfrep_tpu_torch.obs import crash
+        if len(args.run_dirs) != 1:
+            print("report --crash wants exactly one run dir (or bundle "
+                  "dir)", file=sys.stderr)
+            return 2
+        bundle = crash.find_bundle(args.run_dirs[0])
+        if bundle is None:
+            print(f"no crash bundle under {args.run_dirs[0]}",
+                  file=sys.stderr)
+            return 1
+        if args.format == "json":
+            try:
+                print(json.dumps(json.loads(
+                    (bundle / "crash.json").read_text()), indent=2))
+            except (OSError, json.JSONDecodeError) as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 1
+        else:
+            print(crash.render_bundle(bundle))
+        return 0
     if args.trace:
         if not args.run_dirs:
             print("report --trace wants at least one run dir",
@@ -955,7 +1030,22 @@ def _cmd_gate(args) -> int:
     except (OSError, SchemaError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    explain_doc = None
+    if args.explain and not verdict["ok"]:
+        # the gate's red exit becomes a diagnosis: diff against the
+        # comparable history runs still on disk.  Best-effort — a
+        # failed explanation must never change the gate's verdict.
+        from hfrep_tpu_torch.obs import explain as explain_mod
+        try:
+            explain_doc = explain_mod.explain_gate_failure(
+                args.run_dir, record, records, history_path=history_path,
+                window=args.window or regress.DEFAULT_WINDOW)
+        except Exception as e:
+            print(f"explain failed ({e}); verdict unaffected",
+                  file=sys.stderr)
     extra = {}
+    if explain_doc is not None:
+        extra["explain"] = explain_doc
     if slo_doc is not None:
         extra["slo"] = slo_doc
     if args.format == "json":
@@ -966,6 +1056,9 @@ def _cmd_gate(args) -> int:
             print(regress.verdict_json(verdict))
     else:
         print(regress.render_verdict(verdict))
+        if explain_doc is not None:
+            from hfrep_tpu_torch.obs import explain as explain_mod
+            print(explain_mod.render_diagnosis(explain_doc))
         if slo_doc is not None:
             from hfrep_tpu_torch.obs import slo as slo_mod
             print(slo_mod.render(slo_doc))
@@ -997,6 +1090,42 @@ def _cmd_ingest(args) -> int:
         return 2
     print(json.dumps(rec, indent=2, default=str))
     return 0
+
+
+def _cmd_explain(args) -> int:
+    from hfrep_tpu_torch.obs import explain as explain_mod
+    if args.self_test:
+        return explain_mod.self_test()
+    if args.history:
+        from hfrep_tpu_torch.obs import history as hist_mod
+        try:
+            records = hist_mod.load_history(args.history)
+        except (OSError, SchemaError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        doc = explain_mod.history_report(records)
+        if args.format == "json":
+            print(json.dumps(doc, indent=2, default=str))
+        else:
+            print(explain_mod.render_history_report(doc))
+        return 0
+    if len(args.run_dirs) < 2:
+        print("explain wants BASELINE [BASELINE...] TARGET run dirs "
+              "(or --history / --self-test)", file=sys.stderr)
+        return 2
+    doc = explain_mod.explain_runs(args.run_dirs[:-1], args.run_dirs[-1],
+                                   top=args.top)
+    if args.format == "json":
+        print(json.dumps(doc, indent=2, default=str))
+    else:
+        print(explain_mod.render_diagnosis(doc))
+    return 0
+
+
+def _cmd_profile(args) -> int:
+    from hfrep_tpu_torch.obs import attrib
+    return attrib.profile_main(args.run_dir, top=args.top,
+                               fmt=args.format)
 
 
 def _cmd_tail(args) -> int:
@@ -1096,13 +1225,19 @@ def _cmd_timeline(args) -> int:
                                   fmt=args.format)
 
 
+def _cmd_crash_drill(args) -> int:
+    from hfrep_tpu_torch.obs import crash
+    return crash.drill(device=args.device)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     return {"report": _cmd_report, "gate": _cmd_gate,
             "ingest": _cmd_ingest, "tail": _cmd_tail,
-            "export": _cmd_export, "slo": _cmd_slo,
-            "compact": _cmd_compact,
-            "timeline": _cmd_timeline}[args.command](args)
+            "export": _cmd_export, "explain": _cmd_explain,
+            "profile": _cmd_profile, "slo": _cmd_slo,
+            "compact": _cmd_compact, "timeline": _cmd_timeline,
+            "crash-drill": _cmd_crash_drill}[args.command](args)
 
 
 if __name__ == "__main__":

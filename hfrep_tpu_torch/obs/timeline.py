@@ -32,8 +32,9 @@ Call sites time through :func:`clock` / :func:`stopwatch` / :func:`timed`
 so measured wall time stays inside the plane; all three work with
 telemetry off (:func:`timed` still measures; it just books nothing).
 
-Not ported yet (ROADMAP): the dispatch attribution window (``attrib``,
-whose dispatch seconds :class:`BlockTimer` hands over as 0).
+:class:`BlockTimer` closes the dispatch attribution window
+(:mod:`hfrep_tpu_torch.obs.attrib`) at each block and hands its dispatch
+seconds to the ledger's ``dispatch`` category.
 """
 
 from __future__ import annotations
@@ -297,8 +298,21 @@ class BlockTimer:
                             synced=sync_s is not None)
             if n_steps > 0:
                 obs.histogram("step_time").observe(dt / n_steps, warmup=bool(warmup))
-            flush_window(dt, drive=self.drive, steps=int(n_steps),
-                         warmup=bool(warmup or sync_s is None), sync_wait_s=sync_s)
+            from hfrep_tpu_torch.obs import attrib
+            if warmup or sync_s is None:
+                # a first call's build, or a wall with no sync in it: either
+                # would lie in the dispatch-vs-compute split, so the
+                # attribution window is discarded; the ledger still owes
+                # its dispatch seconds to a category
+                disp = attrib.window_dispatch_s()
+                attrib.reset_window()
+                flush_window(dt, drive=self.drive, steps=int(n_steps), warmup=True,
+                             dispatch_s=disp, sync_wait_s=sync_s)
+            else:
+                out = attrib.flush_window(dt, steps=int(n_steps))
+                flush_window(dt, drive=self.drive, steps=int(n_steps),
+                             dispatch_s=(out or {}).get("dispatch_ms", 0.0) / 1e3,
+                             sync_wait_s=sync_s)
         return dt
 
     @property

@@ -16,7 +16,11 @@ beside it as ``<name>-<hash>.log``.
 Nothing builds at import time.  :func:`load` builds on first use under a
 lock, so two server workers asking at once build once; a server's
 ``warm()`` reaches it before the workers dispatch.  :func:`build_all`
-starts one ``nvcc`` per source, all at once, and waits for them.
+starts one ``nvcc`` per source, all at once, and waits for them.  Each
+``nvcc`` run is counted (:func:`compiles`) and, with telemetry on, lands
+as one step of the run's ``backend_compiles`` counter, the stream name
+the obs tier reads compile counts under: a cold build cache reads as
+compiles, a warm one as none.
 
 This route (a C interface bound with ``ctypes``) rather than
 ``torch.utils.cpp_extension.load``: a source that includes PyTorch's
@@ -43,6 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_compiles = 0
 
 
 def nvcc_path() -> str:
@@ -80,6 +85,13 @@ def _build_locked(names: Iterable[str]) -> None:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    global _compiles
+    _compiles += len(procs)
+    try:
+        from hfrep_tpu_torch.obs import get_obs
+        get_obs().counter("backend_compiles").inc(len(procs), sources=[n for n, _ in todo])
+    except Exception:
+        pass
     failed = []
     for name, so, tmp, proc in procs:
         out, _ = proc.communicate()
@@ -111,6 +123,17 @@ def loaded() -> Dict[str, ctypes.CDLL]:
     """The libraries loaded so far, by source name."""
     with _lock:
         return dict(_libs)
+
+
+def loaded_paths() -> Dict[str, str]:
+    """The files of the libraries loaded so far, by source name."""
+    with _lock:
+        return {n: lib._name for n, lib in _libs.items()}
+
+
+def compiles() -> int:
+    """How many ``nvcc`` runs this process started."""
+    return _compiles
 
 
 def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:

@@ -64,6 +64,7 @@ Not in this port yet (ROADMAP): the ``mesh`` path and the bf16 policy.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
@@ -430,45 +431,92 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
             obs.counter("resilience/resumes").inc()
             obs.event("chunk_resume", pos=pos, chunks=chunks, epochs=epochs,
                       path=str(snapshot.path))
+    # dispatch-vs-compute attribution (obs/attrib.py), decided once a
+    # drive: each chunk's launches are timed on the host and flushed
+    # against the wall ending at the boundary's flag read, the sync the
+    # drive already makes.  The first window is a warmup (its launches
+    # build the kernels) and is discarded; the wall-clock ledger's window
+    # runs boundary to boundary.
+    from hfrep_tpu_torch.obs import attrib, timeline
+    attrib_on = get_obs().enabled
+    calls_here = flushes = steps_window = 0
+    t_window0 = timeline.clock()
     pending: Optional[_Flag] = None
-    while pos < epochs and not stopped_all:
-        length = min(chunk, epochs - pos)
-        traces.append(chunk_fn(pos, length))
-        pos += length
-        chunks += 1
-        if double_buffer:
-            flag = _Flag(torch.all(stopped))
-            if pending is not None:
-                stopped_all = pending.get()
-                if stopped_all:
-                    overshoot = 1
-            pending = flag
-        elif pos < epochs:
-            if health:
-                flag, *vals = (float(v) for v in torch.stack(
-                    (torch.all(stopped).float(),) + _health_scalars(grid, traces[-1], -1)
-                ).cpu())
-                stopped_all = bool(flag)
-                _emit_ae_health(grid, *vals, pos, snapshot)
-            else:
-                stopped_all = bool(torch.all(stopped))
-        if snapshot is not None and not resilience.drain_requested():
-            # a drain already requested (a SIGTERM during the chunk) skips
-            # this boundary's write: the resume replays the chunk from the
-            # committed predecessor, bit-identically
+    try:
+        while pos < epochs and not stopped_all:
+            length = min(chunk, epochs - pos)
+            t_chunk0 = timeline.clock() if attrib_on else 0.0
+            with attrib.dispatch_timer("ae_chunk") if attrib_on else contextlib.nullcontext():
+                traces.append(chunk_fn(pos, length))
+            pos += length
+            chunks += 1
+            calls_here += 1
+            steps_window += length
+            if double_buffer:
+                flag = _Flag(torch.all(stopped))
+                if pending is not None:
+                    t_sync0 = timeline.clock()
+                    stopped_all = pending.get()
+                    if stopped_all:
+                        overshoot = 1
+                    if attrib_on:
+                        # the wait is on a flag already resolving with the
+                        # next chunk queued behind it: device time, booked
+                        # as overlapped (sync_wait_s=0)
+                        now = timeline.clock()
+                        wait_s = now - t_sync0
+                        timeline.note_sync(wait_s)
+                        disp_s = attrib.window_dispatch_s()
+                        attrib.flush_window(now - t_window0, steps=steps_window,
+                                            warmup=flushes == 0, epoch=pos)
+                        timeline.flush_window(now - t_window0, drive="ae_chunk",
+                                              steps=steps_window, warmup=flushes == 0,
+                                              dispatch_s=disp_s, sync_wait_s=0.0, epoch=pos,
+                                              pending_wait_ms=round(wait_s * 1e3, 3))
+                        t_window0, flushes, steps_window = now, flushes + 1, 0
+                pending = flag
+            elif pos < epochs:
+                t_sync0 = timeline.clock()
+                if health:
+                    flag, *vals = (float(v) for v in torch.stack(
+                        (torch.all(stopped).float(),) + _health_scalars(grid, traces[-1], -1)
+                    ).cpu())
+                    stopped_all = bool(flag)
+                    _emit_ae_health(grid, *vals, pos, snapshot)
+                else:
+                    stopped_all = bool(torch.all(stopped))
+                if attrib_on:
+                    now = timeline.clock()
+                    disp_s = attrib.window_dispatch_s()
+                    attrib.flush_window(now - t_chunk0, steps=length,
+                                        warmup=calls_here == 1, epoch=pos)
+                    timeline.flush_window(now - t_window0, drive="ae_chunk", steps=length,
+                                          warmup=calls_here == 1, dispatch_s=disp_s,
+                                          sync_wait_s=now - t_sync0, epoch=pos)
+                    t_window0, flushes, steps_window = now, flushes + 1, 0
+            if snapshot is not None and not resilience.drain_requested():
+                # a drain already requested (a SIGTERM during the chunk) skips
+                # this boundary's write: the resume replays the chunk from the
+                # committed predecessor, bit-identically
+                try:
+                    snapshot.save(grid.carry(), _concat_traces(traces), pos, chunks,
+                                  stopped_all)
+                except OSError as e:
+                    _snapshot_save_failed(snapshot, pos, e)
+            if not cross:
+                continue
             try:
-                snapshot.save(grid.carry(), _concat_traces(traces), pos, chunks,
-                              stopped_all)
-            except OSError as e:
-                _snapshot_save_failed(snapshot, pos, e)
-        if not cross:
-            continue
-        try:
-            resilience.boundary("chunk")
-        except resilience.Preempted as e:
-            raise resilience.Preempted(
-                site=e.site, reason=e.reason, epoch=pos,
-                snapshot=str(snapshot.path) if snapshot is not None else None) from None
+                resilience.boundary("chunk")
+            except resilience.Preempted as e:
+                raise resilience.Preempted(
+                    site=e.site, reason=e.reason, epoch=pos,
+                    snapshot=str(snapshot.path) if snapshot is not None else None) from None
+    finally:
+        if attrib_on:
+            # the last chunk has no boundary read inside the loop (and a
+            # drain exits mid-window): its launches must not bleed into the
+            # next drive's window
+            attrib.reset_window()
     out = _concat_traces(traces)
     if pos < epochs:
         lead = out[0].shape[:-1]

@@ -25,9 +25,11 @@ the JAX package's machinery, host-side only:
   :mod:`hfrep_tpu_torch.resilience.drive` (exit 75 on a drain, 74 on a
   persistent I/O error).
 
-With no plan installed every hook is one ``None`` check.  The chaos
-search, its oracles and subjects and the ``selftest`` are not ported
-yet (ROADMAP).
+With no plan installed every hook is one ``None`` check.  On top sit
+the chaos search (:mod:`~hfrep_tpu_torch.resilience.chaos`, its oracles
+and the registry-derived subjects with their fixture drives) and the
+scripted kill→resume ``selftest``, both behind ``python -m
+hfrep_tpu_torch.resilience``.
 """
 
 from __future__ import annotations

@@ -14,18 +14,22 @@ workload (``hfrep_tpu/resilience/drive.py``).
   wall-clock ledger window flush, a ``drive_boundary`` event, then the
   resilience boundary (fault injection and drain);
 * :data:`DRIVE_REGISTRY` — the port's registered specs, under the JAX
-  package's spec names.
+  package's spec names, each bound to its chaos fixture
+  (:mod:`hfrep_tpu_torch.resilience.drive_fixtures`);
+* :func:`check_registry` — the completeness gate behind ``resilience
+  drives --check``.
 
-Not ported yet (ROADMAP): ``check_registry``, the completeness gate that
-ties each spec to a chaos subject (``chaos_subjects``) and a fixture
-drive (``drive_fixtures``), which come with the chaos slice with the specs'
-``fixture`` bindings.  The crash-forensics bundle
-on a drain is the obs-analysis slice's.
+A drain (exit 75) and a persistent storage failure (exit 74) land a
+crash bundle first (:func:`hfrep_tpu_torch.obs.crash.bundle_if_enabled`).
+The JAX registry's ``ae_mesh`` spec (the multi-dataset fabric through a
+1×1 device mesh) waits for the port's parallelism (ROADMAP queue 1 item
+9): :func:`check_registry` names it as the one gap.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import os
 import sys
 from typing import Callable, Dict, Optional, Tuple
@@ -52,14 +56,29 @@ FAMILIES = ("trainer", "engine", "walkforward", "orchestrate", "serve",
             "scenario")
 
 
+#: every spec the JAX package registers: the chaos corpus and the oracle
+#: harness key on these names, and :func:`check_registry` holds the port's
+#: registry to them
+JAX_SPECS = ("ae_sweep", "ae_multi", "ae_mesh", "gan_ckpt", "serve_load", "walkforward",
+             "scenario_bank", "rollup", "pipeline", "_planted")
+
+#: specs of the JAX registry that wait for a later part of the port
+#: (ROADMAP queue 1 item 9: the 1x1 mesh launch)
+DEFERRED_SPECS = {"ae_mesh": "waits for the port's parallelism (ROADMAP queue 1 item 9)"}
+
+
 @dataclasses.dataclass(frozen=True)
 class DriveSpec:
-    """One declared long-running workload (the JAX spec's fields but its
-    ``fixture``, the chaos fixture binding, which comes with the chaos
-    slice)."""
+    """One declared long-running workload.
+
+    ``fixture`` is a lazy ``"module:function"`` binding to the drive's
+    chaos fixture (``run(out, fixture_seed, resume, device) -> dict`` of
+    invariant counters): a dotted string, so the registry imports nothing
+    heavy until a subject runs."""
 
     name: str
     family: str                          # FAMILIES + telemetry/canary
+    fixture: str                         # "pkg.mod:func" chaos binding
     timeout: float                       # chaos watchdog budget, seconds
     # sites the drive crosses; [0] is the CANONICAL drain boundary —
     # the one a pod-level SIGTERM reaches (tests/test_drive.py's drain
@@ -75,6 +94,10 @@ class DriveSpec:
     watchdog_secs: Optional[float] = None  # production budget (None=default)
     drain_hint: str = ""                 # appended to the exit-75 message
     description: str = ""
+
+    def load_fixture(self) -> Callable:
+        mod, _, fn = self.fixture.partition(":")
+        return getattr(importlib.import_module(mod), fn)
 
 
 DRIVE_REGISTRY: Dict[str, DriveSpec] = {}
@@ -116,12 +139,13 @@ def run_drive(spec: DriveSpec, work: Callable[[], Optional[int]], *,
     None).
 
     ``graceful_drain`` wraps the WHOLE run, the obs session open
-    included; the watchdog is armed around ``work``; Preempted →
-    ``drain_hint`` on stderr → 75; OSError in the body or at the session
-    boundary (the manifest write, the close-path flush) → 74.
-    ``on_preempt(exc)`` runs inside the session first — the hook for
-    drive-specific drain tails (the actors emit ``actor_drained`` and
-    cross the ``drain_barrier`` stall site)."""
+    included; the watchdog is armed around ``work``; Preempted → a crash
+    bundle (drain forensics) → ``drain_hint`` on stderr → 75; OSError in
+    the body → a bundle → 74, and at the session boundary (the manifest
+    write, the close-path flush) → 74.  ``on_preempt(exc)`` runs inside
+    the session after the bundle — the hook for drive-specific drain
+    tails (the actors emit ``actor_drained`` and cross the
+    ``drain_barrier`` stall site)."""
     import hfrep_tpu_torch.obs as obs_pkg
     from hfrep_tpu_torch import resilience
     from hfrep_tpu_torch.obs import get_obs, timeline
@@ -144,6 +168,8 @@ def run_drive(spec: DriveSpec, work: Callable[[], Optional[int]], *,
                     with resilience.watchdog(budget, wname):
                         code = int(work() or 0)
                 except resilience.Preempted as e:
+                    from hfrep_tpu_torch.obs.crash import bundle_if_enabled
+                    bundle_if_enabled(e)
                     if on_preempt is not None:
                         on_preempt(e)
                     tail = f"; {hint}" if hint else ""
@@ -152,6 +178,8 @@ def run_drive(spec: DriveSpec, work: Callable[[], Optional[int]], *,
                 except OSError as e:
                     # an I/O error that outlasted the bounded retry policy
                     # at a REQUIRED write: typed 74, never a traceback
+                    from hfrep_tpu_torch.obs.crash import bundle_if_enabled
+                    bundle_if_enabled(e)
                     print(f"{spec.name}: storage failed persistently: {e}",
                           file=sys.stderr)
                     code = EXIT_IO
@@ -194,7 +222,8 @@ def drive_boundary(spec: DriveSpec, site: str,
 def spec_capabilities(spec: DriveSpec) -> dict:
     """The machine-readable row behind ``resilience drives``."""
     return {
-        "name": spec.name, "family": spec.family, "timeout": spec.timeout,
+        "name": spec.name, "family": spec.family,
+        "fixture": spec.fixture, "timeout": spec.timeout,
         "boundary_sites": list(spec.boundary_sites),
         "snapshot": spec.snapshot,
         "deterministic": spec.deterministic,
@@ -209,12 +238,56 @@ def spec_capabilities(spec: DriveSpec) -> dict:
     }
 
 
+def check_registry() -> Tuple[bool, list]:
+    """The completeness gate (``resilience drives --check``): every
+    spec's fixture resolves, its sites are registered fault sites, the
+    six production families are covered, the chaos subjects mirror the
+    registry in both directions, and every spec of the JAX registry is
+    registered here (:data:`DEFERRED_SPECS` named as gaps, never
+    dropped).  Returns ``(ok, problems)``; imports no torch."""
+    from hfrep_tpu_torch.resilience import faults
+    from hfrep_tpu_torch.resilience.chaos_subjects import SUBJECTS
+
+    problems = []
+    known = (set(faults.BOUNDARY_SITES) | set(faults.IO_SITES)
+             | set(faults.POST_SAVE_SITES) | set(faults.ACTOR_SITES))
+    for name, spec in DRIVE_REGISTRY.items():
+        try:
+            fn = spec.load_fixture()
+            if not callable(fn):
+                problems.append(f"{name}: fixture {spec.fixture!r} is not callable")
+        except Exception as e:
+            problems.append(f"{name}: fixture {spec.fixture!r} does not resolve: "
+                            f"{type(e).__name__}: {e}")
+        for site in tuple(spec.boundary_sites) + tuple(spec.hint_sites):
+            if site not in known:
+                problems.append(f"{name}: unknown fault site {site!r}")
+        if spec.family not in FAMILIES + ("telemetry", "canary"):
+            problems.append(f"{name}: unknown family {spec.family!r}")
+    covered = {s.family for s in DRIVE_REGISTRY.values()}
+    for fam in FAMILIES:
+        if fam not in covered:
+            problems.append(f"drive family {fam!r} has no registered spec")
+    reg, subj = set(DRIVE_REGISTRY), set(SUBJECTS)
+    if reg - subj:
+        problems.append(f"specs without chaos subjects: {sorted(reg - subj)}")
+    if subj - reg:
+        problems.append(f"chaos subjects without specs: {sorted(subj - reg)}")
+    for name in JAX_SPECS:
+        if name not in DRIVE_REGISTRY:
+            why = DEFERRED_SPECS.get(name, "not ported")
+            problems.append(f"{name}: spec of the JAX registry not registered ({why})")
+    return (not problems), problems
+
+
 # ------------------------------------------------------------- registry
 # Spec names are the JAX package's: the chaos corpus and the oracle
 # harness key on them.
+_FX = "hfrep_tpu_torch.resilience.drive_fixtures"
 
 register_drive(DriveSpec(
-    name="ae_sweep", family="engine", timeout=75.0, boundary_sites=("chunk",),
+    name="ae_sweep", family="engine", fixture=f"{_FX}:run_ae_sweep",
+    timeout=75.0, boundary_sites=("chunk",),
     snapshot="chunk", double_buffer=True,
     hint_sites=("chunk", "snapshot_save", "snapshot", "obs_append",
                 "result_save", "manifest"),
@@ -222,7 +295,14 @@ register_drive(DriveSpec(
     description="chunked AE latent sweep (engine _drive_chunks; CLI `sweep`)"))
 
 register_drive(DriveSpec(
-    name="gan_ckpt", family="trainer", timeout=120.0, boundary_sites=("block",),
+    name="ae_multi", family="engine", fixture=f"{_FX}:run_ae_multi",
+    timeout=75.0, boundary_sites=("chunk",), snapshot="chunk", double_buffer=True,
+    hint_sites=("chunk", "snapshot_save", "snapshot", "result_save", "obs_append"),
+    description="padded multi-dataset AE fabric (ragged rows via the row counts)"))
+
+register_drive(DriveSpec(
+    name="gan_ckpt", family="trainer", fixture=f"{_FX}:run_gan_ckpt",
+    timeout=120.0, boundary_sites=("block",),
     snapshot="checkpoint",
     hint_sites=("block", "ckpt_save", "ckpt", "obs_append", "manifest",
                 "result_save"),
@@ -231,7 +311,8 @@ register_drive(DriveSpec(
                 "restore (CLI `train-gan`)"))
 
 register_drive(DriveSpec(
-    name="serve_load", family="serve", timeout=90.0,
+    name="serve_load", family="serve", fixture=f"{_FX}:run_serve_load",
+    timeout=90.0,
     boundary_sites=("serve_drive",), snapshot="none", deterministic=False,
     resumable=False,
     hint_sites=("serve_worker", "serve_result", "batcher", "serve_drive",
@@ -240,7 +321,8 @@ register_drive(DriveSpec(
                 "zero-silent-drop ledger (CLI `serve`)"))
 
 register_drive(DriveSpec(
-    name="walkforward", family="walkforward", timeout=120.0,
+    name="walkforward", family="walkforward", fixture=f"{_FX}:run_walkforward",
+    timeout=120.0,
     boundary_sites=("chunk", "window"), snapshot="progress",
     hint_sites=("chunk", "window", "snapshot_save", "snapshot", "result_save",
                 "obs_append"),
@@ -250,7 +332,8 @@ register_drive(DriveSpec(
                 "window-granular scoring (CLI `scenario`)"))
 
 register_drive(DriveSpec(
-    name="scenario_bank", family="scenario", timeout=120.0,
+    name="scenario_bank", family="scenario", fixture=f"{_FX}:run_scenario_bank",
+    timeout=120.0,
     boundary_sites=("gan_block", "bank_block"), snapshot="blocks",
     hint_sites=("gan_block", "bank_block", "bank_save", "bank", "obs_append",
                 "manifest"),
@@ -260,7 +343,15 @@ register_drive(DriveSpec(
                 "(block-granular resume; CLI `scenario bank`)"))
 
 register_drive(DriveSpec(
-    name="pipeline", family="orchestrate", timeout=240.0, tier="slow",
+    name="rollup", family="telemetry", fixture=f"{_FX}:run_rollup",
+    timeout=60.0, boundary_sites=("item",), snapshot="progress",
+    hint_sites=("item", "rollup_publish", "obs_append"),
+    description="fleet telemetry retention loop: append/rotate/compact against "
+                "the durable cursor (no torch)"))
+
+register_drive(DriveSpec(
+    name="pipeline", family="orchestrate", fixture=f"{_FX}:run_pipeline",
+    timeout=240.0, tier="slow",
     boundary_sites=("supervise", "item", "idle", "drain_barrier"),
     snapshot="queue",
     hint_sites=("item", "idle", "actor", "queue_put", "queue_get",
@@ -269,3 +360,10 @@ register_drive(DriveSpec(
     drain_hint="re-run with --resume to continue from the drained state",
     description="async actor fabric end to end: supervisor + spawned "
                 "members over the spool queue (CLI `pipeline`)"))
+
+register_drive(DriveSpec(
+    name="_planted", family="canary", fixture=f"{_FX}:run_planted",
+    timeout=15.0, tier="test", boundary_sites=("item",),
+    hint_sites=("item", "result_save"),
+    description="the chaos engine's canary: a deliberate swallowed-EIO silent "
+                "drop the search must find (never soaked)"))

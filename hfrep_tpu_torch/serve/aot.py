@@ -48,12 +48,22 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
                       f"{max(buckets)}; raise ServeConfig.row_buckets")
 
 
-def aot_compile(fn: Callable, example: torch.Tensor, *rest) -> Callable:
+def aot_compile(fn: Callable, example: torch.Tensor, *rest,
+                label: Optional[str] = None) -> Callable:
     """Build a bucket's program ahead of traffic: run ``fn`` once on the
-    example operands and wait for the device.  Returns ``fn``."""
+    example operands and wait for the device.  Returns ``fn``.
+
+    ``label`` opts the bucket into the perf microscope: with telemetry on,
+    the kernel libraries loaded by then are fingerprinted at the
+    ``<label>:compiled`` boundary (``program_profile`` events and
+    ``run.json`` ``programs`` entries, :mod:`hfrep_tpu_torch.obs.attrib`),
+    at build time only, never on the request path."""
     fn(example, *rest)
     if example.device.type == "cuda":
         torch.cuda.synchronize(example.device)
+    if label:
+        from hfrep_tpu_torch.obs import attrib
+        attrib.profile_boundary(f"{label}:compiled")
     return fn
 
 

@@ -526,7 +526,7 @@ class ReplicationServer:
                 aot.ae_batch_fn(model),
                 torch.zeros((bsz, rows, feats), dtype=torch.float32, device=dev),
                 torch.zeros((bsz,), dtype=torch.int32, device=dev),
-                self._ae_mask()))
+                self._ae_mask(), label=f"serve:replicate:b{bsz}r{rows}"))
 
     def _sample_program(self, bucket: int):
         model = self.gen_model
@@ -536,7 +536,7 @@ class ReplicationServer:
             lambda: aot.aot_compile(
                 aot.gen_batch_fn(model),
                 torch.zeros((bucket, w, f), dtype=torch.float32,
-                            device=model.device)))
+                            device=model.device), label=f"serve:sample:b{bucket}"))
 
     def _run_replicate(self, batch: List[ServeRequest]) -> List[dict]:
         model = self.ae_model

@@ -99,6 +99,23 @@ def _bce_logits(logits: torch.Tensor, label: float) -> torch.Tensor:
             - (1.0 - labels) * F.logsigmoid(-logits)).mean()
 
 
+def _grad(outputs, inputs, **kwargs):
+    """``torch.autograd.grad`` with the backward on the calling thread.
+
+    On a card the engine runs a backward on its device worker thread, so
+    the nodes a ``create_graph`` backward records (the penalty's input
+    gradient) take their sequence numbers from that thread's counter,
+    while the forward's take the caller's.  The outer backward orders its
+    ready nodes by those numbers, so where a gradient sums three or more
+    terms its order, and its last bits, depended on how far each counter
+    had run: a process's first training differed from its later ones in
+    the last bits, and a resumed run from the straight one.  On the
+    calling thread every node shares one counter, and the order is the
+    graph's own."""
+    with torch.autograd.set_multithreading_enabled(False):
+        return torch.autograd.grad(outputs, inputs, **kwargs)
+
+
 def gradient_penalty(critic: nn.Module, interp: torch.Tensor) -> torch.Tensor:
     """mean((1 − ‖∇ₓ̂ c(x̂)‖)²) over the batch of interpolates.
 
@@ -108,7 +125,7 @@ def gradient_penalty(critic: nn.Module, interp: torch.Tensor) -> torch.Tensor:
     the adjoint kernel).  The score sum, the gradient and the norm are
     float32 whatever the compute dtype; the +1e-12 sits inside the root."""
     x = interp.detach().requires_grad_(True)
-    grads, = torch.autograd.grad(critic(x).float().sum(), x, create_graph=True)
+    grads, = _grad(critic(x).float().sum(), x, create_graph=True)
     grads = grads.float()
     norms = torch.sqrt((grads ** 2).sum(dim=tuple(range(1, grads.dim()))) + 1e-12)
     return ((1.0 - norms) ** 2).mean()
@@ -177,7 +194,7 @@ def _updates(pair: GanPair, tcfg: TrainConfig, health: Optional[_Health] = None)
 
     def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor) -> dict:
         params = params_of(module)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = _grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
         tx.update(params, grads, slots)

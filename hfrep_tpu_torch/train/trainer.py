@@ -112,7 +112,8 @@ class GanTrainer:
         # span for the first block and a dispatch counter after it
         self._multi = instrument_step(
             make_multi_step(self.pair, cfg.train, self.windows), "multi_step",
-            batch=cfg.train.batch_size, steps_per_call=cfg.train.steps_per_call)
+            flops=self._block_flops(), batch=cfg.train.batch_size,
+            steps_per_call=cfg.train.steps_per_call)
         self._single_step = None
         style = {"bce": "gan", "wgan_clip": "wgan", "wgan_gp": "wgan_gp"}[self.pair.loss]
         self.logger = logger or MetricLogger(echo=False, echo_style=style)
@@ -164,6 +165,16 @@ class GanTrainer:
             obs.event("train_end", epoch=self.epoch, recoveries=self.recoveries)
             obs.flush()
             return state
+
+    def _block_flops(self) -> Optional[float]:
+        """One multi-step call's logical FLOPs where the analytic model
+        covers the family (the flagship's, ``obs/flops.py``), else None."""
+        if self.cfg.model.family != "mtss_wgan_gp":
+            return None
+        from hfrep_tpu_torch.obs import flops
+        m = self.cfg.model
+        return float(flops.epoch_flops(m.window, m.features, m.hidden, self.cfg.train.batch_size)
+                     * self.cfg.train.steps_per_call)
 
     def _train_loop(self, epochs: Optional[int] = None) -> GanState:
         tcfg = self.cfg.train
@@ -297,7 +308,11 @@ class GanTrainer:
     def _run_one(self, state: GanState):
         block = self._next_block()
         if self._single_step is None:
-            self._single_step = make_train_step(self.pair, self.cfg.train, self.windows)
+            # instrumented like the multi-step, so the remainder's first
+            # build and its dispatches land in the same ledger and window
+            self._single_step = instrument_step(
+                make_train_step(self.pair, self.cfg.train, self.windows), "single_step",
+                batch=self.cfg.train.batch_size)
         draws = (sample_draws(self.gen, self.pair, self.cfg.train, self.windows)
                  if self.draw_source is None else self.draw_source(block, 0))
         return self._single_step(state, draws)

@@ -885,3 +885,29 @@ def test_double_buffered_drive_on_card_is_bitwise_serial(card):
         assert torch.equal(a.params[k], b.params[k])
     assert torch.equal(a.stop_epoch, b.stop_epoch)
     assert torch.equal(a.val_loss.view(torch.int32), b.val_loss.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_penalty_training_is_the_same_first_and_later_in_a_process(card):
+    """The WGAN-GP step's backwards run on the calling thread
+    (``train/steps.py::_grad``): a process's first training equals its
+    later ones bit for bit, the property a resume in a fresh process
+    rests on (the chaos engine's ``gan_ckpt|0|sigterm@block=1``)."""
+    import numpy as np
+
+    from hfrep_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
+    from hfrep_tpu_torch.train.trainer import GanTrainer
+
+    cfg = ExperimentConfig(
+        model=ModelConfig(features=4, window=8, hidden=100, family="mtss_wgan_gp"),
+        train=TrainConfig(epochs=4, batch_size=4, n_critic=1, steps_per_call=2, seed=0))
+    ds = torch.from_numpy(np.random.default_rng(2000).standard_normal((12, 8, 4))
+                          .astype(np.float32))
+    runs = []
+    for _ in range(3):
+        tr = GanTrainer(cfg, ds, device="cuda")
+        tr.train()
+        runs.append([t.detach().cpu() for m in (tr.state.generator, tr.state.discriminator)
+                     for t in m.state_dict().values()])
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))

@@ -292,7 +292,8 @@ def test_run_drive_session_boundary_eio_exits_74(tmp_path):
 
 def test_registry_is_a_subset_of_jax_s_with_its_fields():
     assert set(drive.DRIVE_REGISTRY) <= set(JAX_DRIVES)
-    assert {s.family for s in drive.DRIVE_REGISTRY.values()} == set(drive.FAMILIES)
+    assert {s.family for s in drive.DRIVE_REGISTRY.values()} == \
+        {s.family for s in JAX_DRIVES.values()} == set(drive.FAMILIES) | {"telemetry", "canary"}
     for name, spec in drive.DRIVE_REGISTRY.items():
         theirs = JAX_DRIVES[name]
         for f in ("family", "timeout", "boundary_sites", "snapshot", "deterministic",

@@ -6,7 +6,7 @@ and what each mode costs the CPU path's matmuls.
     python tools/torch_cpu_drift.py [--rounds 20] [--concurrent 3] [--threads 2]
                                     [--mode default --mode AUTO_STRICT ...] [--out F]
     python tools/torch_cpu_drift.py --pipeline 20 [--checkpoint CK] [--mode ...]
-                                    [--parallel 1] [--out F]
+                                    [--parallel 1] [--package port|jax] [--out F]
     python tools/torch_cpu_drift.py --bench 5 [--threads 2] [--out F]
 
 Each fresh process builds the ``mtss_wgan_gp_prod`` trainer on the
@@ -31,7 +31,12 @@ inside the members: the block as the generator actor puts it on the
 spool (``block``), the arrays as a consumer claims them (``claimed``),
 the augmented training set (``augmented``), each sweep lane's training
 losses (``lanes``) and the published files (``result``); and which
-consumer swept each item as its how-manieth (``order_by_result``).  The JSON then
+consumer swept each item as its how-manieth (``order_by_result``).
+``--package jax`` runs the JAX package's own ``pipeline`` verb (and its
+``train-gan`` for the checkpoint) on the same payload instead, on its CPU
+backend with no compilation cache, the same stages digested in its
+members.  With ``--out`` the JSON is rewritten after every batch of
+runs, so a run stopped by a time limit keeps what it counted.  The JSON then
 counts the patterns of each stage, and for every run whose result is not
 the most common one names the first stage at which it left the most
 common run.  The stage hooks ride in the members through the spawn
@@ -63,6 +68,9 @@ MODES = {"default": "", "AUTO": "AUTO", "AUTO_STRICT": "AUTO,STRICT",
 SWEEP_GEMMS = ((1848, 22, 21), (22, 1848, 21), (64, 1848, 22), (100, 1848, 100))
 #: the file the members append their stage digests to (one JSON line a stage)
 DIGEST_ENV = "TORCH_CPU_DRIFT_DIGESTS"
+#: the package whose pipeline the members run (``--package``)
+PACKAGE_ENV = "TORCH_CPU_DRIFT_PACKAGE"
+PACKAGES = {"port": "hfrep_tpu_torch", "jax": "hfrep_tpu"}
 #: the pipeline's stages in the order an item passes them
 STAGES = ("block", "claimed", "augmented", "lanes", "result")
 
@@ -70,7 +78,7 @@ STAGES = ("block", "claimed", "augmented", "lanes", "result")
 def _digest(*arrays) -> str:
     h = hashlib.sha256()
     for a in arrays:
-        a = a.detach().cpu().numpy() if hasattr(a, "detach") else a
+        a = a.detach().cpu().numpy() if hasattr(a, "detach") else __import__("numpy").asarray(a)
         h.update(str(a.dtype).encode() + str(a.shape).encode())
         h.update(a.tobytes())
     return h.hexdigest()[:8]
@@ -85,12 +93,24 @@ def _record(stage: str, item: str, digest: str) -> None:
         os.close(fd)
 
 
+def _pin_jax_cpu() -> None:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+
+
 def _install_stage_hooks() -> None:
     """Wrap the spool's ``put``, the consumer and the sweep so that each
     stage of an item is digested where it happens (see the docstring)."""
+    import importlib
+
     sys.path.insert(0, ROOT)
-    from hfrep_tpu_torch.experiments import augment, sweep
-    from hfrep_tpu_torch.orchestrate import actors, queue
+    pkg = os.environ.get(PACKAGE_ENV) or PACKAGES["port"]
+    if pkg == PACKAGES["jax"]:
+        _pin_jax_cpu()
+    augment = importlib.import_module(f"{pkg}.experiments.augment")
+    sweep = importlib.import_module(f"{pkg}.experiments.sweep")
+    actors = importlib.import_module(f"{pkg}.orchestrate.actors")
+    queue = importlib.import_module(f"{pkg}.orchestrate.queue")
 
     put = queue.SpoolQueue.put
 
@@ -214,16 +234,19 @@ def count(args, modes) -> dict:
 
 
 def _verb(argv, env) -> subprocess.CompletedProcess:
-    return subprocess.run([sys.executable, "-m", "hfrep_tpu_torch"] + argv, cwd=ROOT, env=env,
+    pkg = env.get(PACKAGE_ENV) or PACKAGES["port"]
+    return subprocess.run([sys.executable, "-m", pkg] + argv, cwd=ROOT, env=env,
                           capture_output=True, text=True, check=True)
 
 
 def pipeline_child(argv) -> int:
     """The ``pipeline`` verb with the stage hooks in this process and, by
     the spawn start method, in every member it starts."""
+    import importlib
+
     _install_stage_hooks()
-    from hfrep_tpu_torch.experiments.cli import main as cli_main
-    return cli_main(argv)
+    pkg = os.environ.get(PACKAGE_ENV) or PACKAGES["port"]
+    return importlib.import_module(f"{pkg}.experiments.cli").main(argv)
 
 
 def _stages(digest_file: str, out_dir: str) -> dict:
@@ -283,14 +306,21 @@ def pipeline(args, modes) -> dict:
     import shutil
     import tempfile
 
-    env_base = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=str(args.threads))
+    env_base = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=str(args.threads),
+                    **{PACKAGE_ENV: PACKAGES[args.package]})
+    device = ["--device", "cpu"]
+    if args.package == "jax":
+        # the JAX CLI pins its backend from HFREP_PLATFORM; no persistent
+        # compilation cache, so every run compiles as a fresh process
+        env_base.update(HFREP_PLATFORM="cpu", JAX_PLATFORMS="cpu", HFREP_COMPILATION_CACHE="")
+        device = []
     cleaned = os.path.join(ROOT, "results/rederived_cleaned")
     counts = {m: collections.Counter() for m in modes}
     runs = {m: [] for m in modes}
     with tempfile.TemporaryDirectory() as tmp:
         ck = args.checkpoint
         if ck is None:
-            _verb(["train-gan", "--device", "cpu", "--preset", "mtss_wgan_gp_prod", "--epochs",
+            _verb(["train-gan", *device, "--preset", "mtss_wgan_gp_prod", "--epochs",
                    "2", "--cleaned-dir", cleaned, "--checkpoint-dir", os.path.join(tmp, "ck"),
                    "--quiet"], env_base)
             ck = os.path.join(tmp, "ck", "ckpt_2")
@@ -304,7 +334,7 @@ def pipeline(args, modes) -> dict:
                 shutil.rmtree(out, ignore_errors=True)
                 if os.path.exists(digests):
                     os.remove(digests)
-                argv = ["pipeline", "--device", "cpu", "--gan-checkpoint", ck, "--preset",
+                argv = ["pipeline", *device, "--gan-checkpoint", ck, "--preset",
                         "mtss_wgan_gp_prod", "--cleaned-dir", cleaned, "--blocks", "2",
                         "--consumers", "2", "--epochs", "4", "--out", out]
                 env = dict(env_base, MKL_CBWR=MODES[mode], **{DIGEST_ENV: digests})
@@ -320,17 +350,31 @@ def pipeline(args, modes) -> dict:
                 counts[mode][stages["result"]] += 1
             print(f"runs {start + len(procs)}/{len(order)}: " + "; ".join(
                 f"{m} {dict(c)}" for m, c in counts.items()), flush=True)
+            _write(args.out, _pipeline_doc(args, modes, counts, runs))
     for mode, c in counts.items():
         print(f"{mode}: {sum(c.values())} pipeline runs, {len(c)} pattern(s): {dict(c)}")
         print(f"{mode}: first stage that differs: {_first_departures(runs[mode])}")
+    return _pipeline_doc(args, modes, counts, runs)
+
+
+def _pipeline_doc(args, modes, counts, runs) -> dict:
+    done = {m: runs[m] for m in modes if runs[m]}
     return {"pipeline_runs": args.pipeline, "parallel": args.parallel,
-            "threads": args.threads, "host": _host(),
+            "threads": args.threads, "package": args.package, "host": _host(),
+            "runs_done": sum(len(r) for r in runs.values()),
             "counts": {m: dict(c) for m, c in counts.items()},
-            "stage_counts": {m: {st: dict(collections.Counter(r[st] for r in runs[m]))
-                                 for st in STAGES} for m in modes},
-            "first_departure": {m: _first_departures(runs[m]) for m in modes},
+            "stage_counts": {m: {st: dict(collections.Counter(r[st] for r in done[m]))
+                                 for st in STAGES} for m in done},
+            "first_departure": {m: _first_departures(done[m]) for m in done},
             "order_by_result": {m: dict(collections.Counter(f"{r['order']} -> {r['result']}"
-                                                            for r in runs[m])) for m in modes}}
+                                                            for r in done[m])) for m in done}}
+
+
+def _write(path, doc: dict) -> None:
+    if path:
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
 
 
 def bench(args, modes) -> dict:
@@ -358,6 +402,8 @@ def main() -> None:
     ap.add_argument("--pipeline", type=int, default=0, metavar="N")
     ap.add_argument("--checkpoint", default=None, help="the pipeline's W=168 checkpoint")
     ap.add_argument("--parallel", type=int, default=1, help="pipeline runs at once")
+    ap.add_argument("--package", choices=sorted(PACKAGES), default="port",
+                    help="whose pipeline verb --pipeline runs")
     ap.add_argument("--bench", type=int, default=0, metavar="N")
     ap.add_argument("--out", default=None, help="also write the result as JSON here")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
@@ -374,10 +420,7 @@ def main() -> None:
     modes = args.mode or list(MODES)
     doc = (pipeline(args, modes) if args.pipeline else bench(args, modes) if args.bench
            else count(args, modes))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(doc, f, indent=1, sort_keys=True)
-            f.write("\n")
+    _write(args.out, doc)
 
 
 if __name__ == "__main__":
