@@ -85,7 +85,13 @@ exits non-zero on failure:
              are set to 0 just before each and read just after; every
              request must end in a result, every answer be finite and
              shaped, the kernel must have launched, and answers must agree
-             with the same models run through the plain path on the CPU;
+             with the same models run through the plain path on the CPU.
+             Every bucket must come up as a loaded ``torch.export`` program
+             (``ServeConfig()``'s ``via_export``, its LSTM layers the
+             ``hfrep::lstm_fwd`` op); a second server over the same models
+             with ``via_export=False`` warms, and each bucket's exported
+             program equals its eager one bit for bit on the same
+             operands; warm seconds with export on and off are printed;
 4. timing  — CUDA events over many launches after warm-up, at the shapes
              the server gives the kernel, beside its bound (bytes over
              3.35 TB/s, operations over the card's peak for their type),
@@ -110,6 +116,30 @@ exits non-zero on failure:
              kernel-vs-scan epoch).  The same for ``mtss_wgan_gp`` with
              the critic on the chained route (slice 2's path, which runs
              the single-layer adjoint);
+5a. precision — the bf16 policy: (a) 3 counted bf16 epochs a route
+             (fused ``mtss_wgan_gp`` and ``mtss_wgan_gp_prod``, chained
+             ``mtss_wgan_gp``) launching exactly the float32 route's
+             kernels an epoch and 44 weight sums, one profiled epoch whose
+             recurrence kernels are all ``__nv_bfloat16`` instantiations,
+             and one epoch against the CPU plain path from the same state
+             and draws, its optimizer slots zeroed: losses rtol 5e-2 (the
+             JAX package's bf16 bar), every param |card - CPU| <= 1e-2
+             max(1, max|CPU|), the update p1 - p0 per param within 0.25
+             in relative L2 and every optimizer slot within 0.2 max|CPU|
+             (the gradients' size); (b)
+             ``train-gan --dtype bfloat16`` at ``mtss_wgan_gp_prod`` for 5
+             epochs with a checkpoint and samples: the float32 route's
+             launches, a checkpoint whose floating leaves are all float32
+             and finite, a run of 2 epochs resumed to 5 bit for bit the
+             straight run, and the verb's trainer in this process: a
+             finite history and the same state; (c) ``sweep --dtype
+             bfloat16`` real only at ``AEConfig()``'s 21 latents, the
+             epochs cut to 200: every file written and finite, no kernel
+             launched; the engine's bf16 lane sweep on the card against
+             the CPU from the same draws, over the epochs before any lane
+             stops, losses within rtol 5e-2 atol 1e-4 (the JAX package's
+             AE bf16 bar); its best OOS R² mean and stop epochs printed
+             beside the float32 sweep phase's, not gated;
 5b. trainer — the training loop (``GanTrainer``) on the committed panel
              (``results/rederived_cleaned`` through ``load_panel`` and
              ``build_gan_dataset``): ``mtss_wgan_gp`` at (48, 35) for 12
@@ -186,7 +216,8 @@ exits non-zero on failure:
              bars;
 5f. pipeline — the actor fabric through ``python -m hfrep_tpu_torch
              pipeline --device cuda``, every run's AE cut to 200 epochs
-             (``PIPE_EPOCHS``; ``AEConfig()``'s cap is 1000): (a) one
+             (``PIPE_EPOCHS``; ``AEConfig()``'s cap is 1000), (a), (b)'s
+             first run and (c) side by side: (a) one
              generator actor sampling the trainer phase's W=168
              ``train-gan`` checkpoint (2 blocks of 10 windows) into 2
              consumer actors running the augmented 21-latent sweep at
@@ -223,9 +254,10 @@ exits non-zero on failure:
              waves of 32: undisturbed (256 queries) it exits 0 with the
              same set of traces admitted and completed in its stream, one
              a request, the serve events, one ``serve_load`` ledger window and
-             ``lstm_fwd`` launched in its own stream; sent SIGTERM after its
-             "offering" line (4,000 queries) it exits 75 and its drained
-             document has ``terminal == submitted``;
+             ``lstm_fwd`` launched in its own stream, its stderr's
+             ``export=on`` and every program a loaded export; sent SIGTERM
+             after its "offering" line (4,000 queries) it exits 75 and its
+             drained document has ``terminal == submitted``;
 5i. obs_tier — the obs analysis tier (``python -m hfrep_tpu_torch.obs``,
              its verbs run in this process) over the run dirs the phases
              above wrote: ``report``, ``gate``, ``timeline`` and ``slo
@@ -267,7 +299,8 @@ exits non-zero on failure:
 5k. chaos  — ``python -m hfrep_tpu_torch.resilience`` on the card:
              ``drives --check`` names only the ``ae_mesh`` gap;
              then at once: ``selftest --device cuda`` exits 0 with the
-             JAX selftest's keys; ``--replay-corpus`` and a seeded soak
+             JAX selftest's keys; the corpus (each entry a ``chaos
+             --replay`` process, three at a time) and a seeded soak
              over the fast subjects (3 schedules) end with no violation;
              the ``_planted`` canary is found and shrunk to
              ``io_fail@result_save=1``; the
@@ -289,8 +322,10 @@ exits non-zero on failure:
              the chained single-layer pair it replaces, its library the
              two-layer cuDNN LSTM, with the profiler's device time of the
              kernel, the pair and cuDNN;
-7. profile — ``torch.profiler`` over 20 sample dispatches per preset:
-             device time by kernel name and the device's busy share.
+7. profile — ``torch.profiler`` over 20 sample dispatches per preset,
+             through the loaded export program a server runs and then
+             the export-off server's eager one: device time by kernel
+             name and the device's busy share.
 
 The last lines are the card's name and power limit, one JSON object
 listing each ported kernel (and each weight-sum launch shape), and
@@ -1206,7 +1241,8 @@ def check_answers(torch, np, srv, futures, panels, preset_cfg) -> None:
         p = panels[j % len(panels)]
         x, n = aot.pad_panel_batch([p], 1, aot.bucket_for(p.shape[0], srv.cfg.row_buckets),
                                    p.shape[1], device="cpu")
-        recon, _ = aot.ae_batch_fn(ae_cpu)(x, n, aot.full_mask(ae_cpu.cfg, device="cpu"))
+        recon, _ = aot.ae_batch_fn(ae_cpu)(ae_cpu.params, x, n,
+                                           aot.full_mask(ae_cpu.cfg, device="cpu"))
         got = futures[j].result().value["reconstruction"]
         err = float(np.max(np.abs(got - recon[0, : p.shape[0]].numpy())))
         if not err <= 1e-5:
@@ -1217,13 +1253,66 @@ def check_answers(torch, np, srv, futures, panels, preset_cfg) -> None:
     g = torch.Generator()
     g.manual_seed(11)
     noise = torch.randn((8, w, f), generator=g)
-    on_card = aot.gen_batch_fn(srv.gen_model)(noise.cuda()).cpu()
-    on_cpu = aot.gen_batch_fn(gen_cpu)(noise)
+    on_card = aot.gen_batch_fn(srv.gen_model)(srv.gen_model.params, noise.cuda()).cpu()
+    on_cpu = aot.gen_batch_fn(gen_cpu)(gen_cpu.params, noise)
     err = float((on_card - on_cpu).abs().max())
     say(f"[server] {preset_cfg.family} W={w}: {n_rep} replicate answers checked; "
         f"generator on card vs CPU plain path max|diff| = {err:.3e} (limit 1e-4)")
     if not err <= 1e-4:
         fail(f"generator on the card differs from the CPU plain path by {err}")
+
+
+def export_against_eager(torch, srv, panels) -> dict:
+    """A second server over ``srv``'s models with ``via_export=False``: its
+    warm seconds, the same load as ``srv``'s (its p50, p95 and qps, to set
+    beside the exported server's), and every bucket's program of ``srv``
+    (a loaded ``torch.export`` program) against the second server's (the
+    eager one) on the same operands, every output bit for bit.  A served
+    answer is its bucket program's output, sliced."""
+    from hfrep_tpu_torch.serve import aot
+    from hfrep_tpu_torch.serve.fixture import fixture_server, warm_server
+    from hfrep_tpu_torch.serve.loadgen import drive_load
+    from hfrep_tpu_torch.serve.server import ServeConfig
+
+    ae, gen = srv.ae_model, srv.gen_model
+    off = fixture_server(ServeConfig(via_export=False), preset=None, gen_model=gen,
+                         ae_model=ae, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        off.warm()
+        torch.cuda.synchronize()
+        warm_off = time.perf_counter() - t0
+        warm_server(off, panels)
+        load = drive_load(off, 64, panels, sample_every=2, timeout_ms=30000)
+        if load["results"] != 64:
+            fail(f"server: the export-off server answered {load['results']} of 64 ({load})")
+        on, eager = srv.cache.programs(), off.cache.programs()
+        if set(on) != set(eager) or off.stats()["cache"]["modes"] != {"compiled": len(eager)}:
+            fail(f"server: the export-off server's programs {sorted(eager, key=str)} "
+                 f"({off.stats()['cache']['modes']}) against {sorted(on, key=str)}")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(17)
+        mask = aot.full_mask(ae.cfg, device="cuda")
+        outputs = n_diff = 0
+        for key in sorted(on, key=str):
+            if key[0] == "replicate":
+                _, bsz, rows = key
+                fits = [p for p in panels if p.shape[0] <= rows]
+                x, n = aot.pad_panel_batch([fits[i % len(fits)] for i in range(bsz)], bsz,
+                                           rows, ae.cfg.n_factors, device="cuda")
+                args = (ae.params, x, n, mask)
+            else:
+                args = (gen.params, torch.randn((key[1], gen.cfg.window, gen.cfg.features),
+                                                generator=g, device="cuda"))
+            a, b = on[key](*args), eager[key](*args)
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            outputs += len(a)
+            n_diff += sum(not torch.equal(x, y) for x, y in zip(a, b))
+        torch.cuda.synchronize()
+    finally:
+        off.stop()
+    return {"warm_off_s": warm_off, "programs": len(on), "outputs": outputs, "n_diff": n_diff,
+            "p50_ms": load["p50_ms"], "p95_ms": load["p95_ms"], "qps": load["qps"]}
 
 
 def phase_server(torch, np, cuda_lstm) -> dict:
@@ -1241,7 +1330,11 @@ def phase_server(torch, np, cuda_lstm) -> dict:
         t0 = time.perf_counter()
         srv = fixture_server(ServeConfig(), preset=preset, device="cuda",
                              ae_model=init_ae_model(AEConfig(), device="cuda"))
-        programs = warm_server(srv, panels)     # program grid + one batch per path
+        t_warm = time.perf_counter()
+        srv.warm()                              # the program grid, each bucket exported
+        torch.cuda.synchronize()
+        warm_on = time.perf_counter() - t_warm
+        programs = warm_server(srv, panels)     # the grid resident + one batch per path
         report = drive_load(srv, 64, panels, sample_every=2, timeout_ms=30000,
                             keep_futures=True)
         doc = srv.drain(timeout=60)
@@ -1261,11 +1354,28 @@ def phase_server(torch, np, cuda_lstm) -> dict:
             fail(f"{preset}: not every request got a result ({report}, {doc})")
         if launches < 1:
             fail(f"{preset}: the server ran no lstm_fwd kernel")
+        modes = srv.stats()["cache"]["modes"]
+        if modes != {"export": programs}:
+            fail(f"{preset}: with via_export on, the {programs} programs came up as {modes}")
         check_answers(torch, np, srv, futures, panels, get_preset(preset).model)
+        exp = export_against_eager(torch, srv, panels)
+        say(f"[server] {preset}: every bucket a loaded torch.export program ({modes}); "
+            f"warm {warm_on:.2f} s with export on, {exp['warm_off_s']:.2f} s off "
+            f"({exp['programs']} programs); each bucket's program against the export-off "
+            f"server's on the same operands: {exp['outputs'] - exp['n_diff']} of "
+            f"{exp['outputs']} outputs bit-equal; the same load export on / off: p50 "
+            f"{report['p50_ms']:.3f} / {exp['p50_ms']:.3f} ms, p95 {report['p95_ms']:.3f} / "
+            f"{exp['p95_ms']:.3f} ms, {report['qps']} / {exp['qps']} req/s")
+        if exp["n_diff"]:
+            fail(f"{preset}: {exp['n_diff']} outputs of the exported programs differ from "
+                 f"the eager ones")
         out["launches"] += launches
-        out["runs"].append({"preset": preset, "launches": launches,
+        out["runs"].append({"preset": preset, "launches": launches, "modes": modes,
+                            "warm_export_s": warm_on, "warm_eager_s": exp["warm_off_s"],
                             "p50_ms": report["p50_ms"], "p95_ms": report["p95_ms"],
-                            "qps": report["qps"], "results": report["results"]})
+                            "qps": report["qps"], "results": report["results"],
+                            "eager_p50_ms": exp["p50_ms"], "eager_p95_ms": exp["p95_ms"],
+                            "eager_qps": exp["qps"]})
     return out
 
 
@@ -1298,17 +1408,61 @@ def profile_epoch(torch, step, state, draws) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "busy_share": busy_us / wall_us if busy_us else None,
-            "top": [{"name": k[:80], "us": v} for k, v in top]}
+            "top": [{"name": k[:80], "us": v} for k, v in top], "names": sorted(by_name)}
 
 
-def epoch_parity(torch, step_on, state, draws) -> dict:
+def zero_slots(torch, slots: dict) -> dict:
+    """Optimizer slots like ``slots``, zeroed: a fresh RMSprop ``nu`` or
+    Adam ``mu``/``nu`` with count 0."""
+    return {k: ({n: torch.zeros_like(t) for n, t in v.items()} if isinstance(v, dict) else 0)
+            for k, v in slots.items()}
+
+
+def update_errs(p0: dict, card, cpu) -> dict:
+    """How far one epoch's update on the card is from the CPU's, both from
+    the same params ``p0`` (``{"g": {name: tensor}, "d": ...}``) and from
+    zeroed slots: per parameter the update's direction, |Δcard - ΔCPU|_2
+    / |ΔCPU|_2 with Δ = p1 - p0, and the slots, |card - CPU| / max|CPU|
+    (RMSprop's ν holds (1 - decay) g² after the first update, so a slot
+    is the gradient's size; Adam's μ its sign as well).  The worst of each
+    and where."""
+    out = {"update_rel_l2": 0.0, "update_at": None, "slot_scaled_err": 0.0, "slot_at": None}
+    for net, a_state, b_state in (("g", card.generator, cpu.generator),
+                                  ("d", card.discriminator, cpu.discriminator)):
+        a_opt, b_opt = (card.g_opt, cpu.g_opt) if net == "g" else (card.d_opt, cpu.d_opt)
+        for (n, a), (_, b) in zip(a_state.named_parameters(), b_state.named_parameters()):
+            da = a.detach().cpu().double() - p0[net][n].double()
+            db = b.detach().double() - p0[net][n].double()
+            rel = float((da - db).norm() / db.norm().clamp_min(1e-30))
+            if rel >= out["update_rel_l2"]:
+                out["update_rel_l2"], out["update_at"] = rel, f"{net}.{n}"
+            for slot in ("mu", "nu"):
+                if slot in b_opt:
+                    x, y = a_opt[slot][n].detach().cpu().double(), b_opt[slot][n].double()
+                    err = float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                    if err >= out["slot_scaled_err"]:
+                        out["slot_scaled_err"], out["slot_at"] = err, f"{net}.{n}.{slot}"
+    return out
+
+
+def epoch_parity(torch, step_on, state, draws, bf16: bool = False) -> dict:
     """One epoch on the card and the same epoch — a copy of the state (its
     critic route included), the same draws — through the plain path on
     the CPU.  ``step_on(device)`` builds the epoch step on ``"cuda"`` or
-    ``"cpu"``."""
+    ``"cpu"``.  Bars: float32 losses rtol 1e-4 and every param atol 1e-5
+    + rtol 1e-4; with ``bf16`` the epoch starts from zeroed optimizer
+    slots, and the losses are held at rtol BF16_LOSS_RTOL, every param at
+    |card - CPU| <= BF16_PARAM_BAR max(1, max|CPU|), and the update the
+    gradients decide (:func:`update_errs`) at BF16_UPDATE_BAR and
+    BF16_SLOT_BAR."""
     from hfrep_tpu_torch.train import Draws
 
+    if bf16:
+        state = dataclasses.replace(state, g_opt=zero_slots(torch, state.g_opt),
+                                    d_opt=zero_slots(torch, state.d_opt))
     cpu_state = state.to("cpu")
+    p0 = {"g": {n: p.detach().clone() for n, p in cpu_state.generator.named_parameters()},
+          "d": {n: p.detach().clone() for n, p in cpu_state.discriminator.named_parameters()}}
     cpu_draws = Draws(*(None if t is None else t.cpu()
                         for t in (draws.idx, draws.noises, draws.alphas)))
     state, m = step_on("cuda")(state, draws)
@@ -1318,20 +1472,26 @@ def epoch_parity(torch, step_on, state, draws) -> dict:
     cpu_s = time.perf_counter() - t0
     rel = {k: abs(float(m[k]) - float(mc[k])) / max(abs(float(mc[k])), 1e-30)
            for k in ("d_loss", "g_loss")}
-    worst, worst_at, max_diff = 0.0, None, 0.0
+    worst, worst_at, max_diff, scaled = 0.0, None, 0.0, 0.0
     for net, card_mod, cpu_mod in (("g", state.generator, cpu_state.generator),
                                    ("d", state.discriminator, cpu_state.discriminator)):
         for (n, a), (_, r) in zip(card_mod.named_parameters(), cpu_mod.named_parameters()):
             diff = (a.detach().cpu() - r.detach()).abs()
             ratio = float((diff / (1e-5 + 1e-4 * r.detach().abs())).max())
+            err = float(diff.max()) / max(1.0, float(r.detach().abs().max()))
             max_diff = max(max_diff, float(diff.max()))
-            if ratio > worst:
-                worst, worst_at = ratio, f"{net}.{n}"
+            if (err > scaled) if bf16 else (ratio > worst):
+                worst_at = f"{net}.{n}"
+            worst, scaled = max(worst, ratio), max(scaled, err)
+    upd = update_errs(p0, state, cpu_state) if bf16 else {}
+    ok = (all(v <= BF16_LOSS_RTOL for v in rel.values()) and scaled <= BF16_PARAM_BAR
+          and upd["update_rel_l2"] <= BF16_UPDATE_BAR and upd["slot_scaled_err"] <= BF16_SLOT_BAR
+          if bf16 else all(v <= 1e-4 for v in rel.values()) and worst <= 1.0)
     return {"d_loss": float(m["d_loss"]), "d_loss_cpu": float(mc["d_loss"]),
             "g_loss": float(m["g_loss"]), "g_loss_cpu": float(mc["g_loss"]),
             "loss_rel_diff": rel, "param_max_abs_diff": max_diff,
-            "param_worst_ratio": worst, "param_worst_at": worst_at, "cpu_epoch_s": cpu_s,
-            "ok": all(v <= 1e-4 for v in rel.values()) and worst <= 1.0}
+            "param_worst_ratio": worst, "param_scaled_err": scaled,
+            "param_worst_at": worst_at, **upd, "cpu_epoch_s": cpu_s, "ok": ok}
 
 
 def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
@@ -1422,6 +1582,302 @@ def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
                     "launches_per_epoch": per_epoch, "d_loss": d_loss.tolist(),
                     "g_loss": g_loss.tolist(), "first_epochs_s": first_s,
                     "ms_per_epoch": ms_epoch, "profile": prof, "parity": parity})
+    return out
+
+
+#: the precision phase: one bf16 epoch a route against the CPU plain path
+#: (fused at both presets, chained at W=48), the bf16 ``train-gan`` verb at
+#: W=168 with a resume, and the bf16 ``sweep`` verb real only, its AE cut
+#: to PIPE_EPOCHS epochs as the pipeline phase cuts them
+PRECISION_ROUTES = (("mtss_wgan_gp", "auto"), ("mtss_wgan_gp_prod", "auto"),
+                    ("mtss_wgan_gp", "chained"))
+BF16_LOSS_RTOL, BF16_PARAM_BAR = 5e-2, 1e-2       # JAX's bf16 bar; chip_smoke's bf16 bar
+#: one bf16 epoch's update against the CPU's (:func:`update_errs`): the
+#: bars tests/test_torch_precision.py holds the port's bf16 epoch to
+#: against JAX's, where a gradient of the wrong sign gives 2.0 on the
+#: update and a penalty with no gradient about 1.0 on the critic's slots
+BF16_UPDATE_BAR, BF16_SLOT_BAR = 0.25, 0.2
+BF16_AE_RTOL, BF16_AE_ATOL = 5e-2, 1e-4            # JAX's AE bf16 bar
+PRECISION_CLI_EPOCHS, PRECISION_RESUME_AT = 5, 2
+
+
+def recurrence_kernels(names) -> dict:
+    """The recurrence kernels (``lstm_*`` / ``stack_*``) among profiler
+    kernel names, by readable name, split by operand type: ``{"bf16":
+    [...], "other": [...]}``."""
+    out = {"bf16": [], "other": []}
+    for n in names:
+        if ("lstm_" in n or "stack_" in n) and "kernel" in n:
+            out["bf16" if "__nv_bfloat16" in n else "other"].append(entry_name(n))
+    return out
+
+
+def float_leaves(tree) -> list:
+    """Every floating-point tensor of a checkpoint tree, in tree order."""
+    if isinstance(tree, dict):
+        return [t for k in tree for t in float_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in float_leaves(v)]
+    return [tree] if hasattr(tree, "is_floating_point") and tree.is_floating_point() else []
+
+
+#: the bf16 products of the policy at their shapes: the AE lanes' two
+#: (21 lanes, a batch of 48 rows, 22 factors, latent 21) and the LSTM
+#: input projections (B*W rows of F or H columns onto 4H)
+GEMM_PROBES = (("AE encode, 21 lanes", (21, 48, 22), (21, 22, 21)),
+               ("AE decode, 21 lanes", (21, 48, 21), (21, 21, 22)),
+               ("LSTM input projection, W=48", (1536, 35), (35, 400)),
+               ("LSTM input projection, W=168", (5376, 36), (36, 400)),
+               ("LSTM layer-2 projection, W=168", (5376, 100), (100, 400)))
+
+
+def bf16_gemm_probe(torch) -> list:
+    """What cuBLAS gives the policy's bf16 products: each product with
+    PyTorch's reduced-precision bf16 reduction allowed and refused
+    (``allow_bf16_reduced_precision_reduction``, which importing the
+    package turns off), and each against the float32 product of the same bf16
+    values rounded once to bf16; entries that differ."""
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    rows = []
+    try:
+        for name, sa, sb in GEMM_PROBES:
+            a = torch.randn(sa, generator=g, device="cuda").to(torch.bfloat16)
+            b = torch.randn(sb, generator=g, device="cuda").to(torch.bfloat16)
+            ref = (a.float() @ b.float()).to(torch.bfloat16)
+            got = {}
+            for allow in (True, False):
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = allow
+                got[allow] = a @ b
+            rows.append({"name": name, "a": list(sa), "b": list(sb), "entries": ref.numel(),
+                         "allowed_vs_refused": int((got[True] != got[False]).sum()),
+                         "refused_vs_f32_rounded": int((got[False] != ref).sum()),
+                         "allowed_vs_f32_rounded": int((got[True] != ref).sum())})
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    return rows
+
+
+def phase_precision(torch, np, cuda_lstm, train, train_chained, keep: str) -> dict:
+    """The bf16 policy on the card: (a) a bf16 epoch a route, its launches,
+    its kernels' instantiations and one epoch against the CPU plain path;
+    (b) ``train-gan --dtype bfloat16`` at W=168 with checkpoints and a
+    resume; (c) ``sweep --dtype bfloat16``, real only, and the engine's
+    bf16 lane sweep on the card against the CPU from the same draws."""
+    from hfrep_tpu_torch.config import AEConfig, get_preset
+    from hfrep_tpu_torch.core import scaler
+    from hfrep_tpu_torch.core.data import load_panel
+    from hfrep_tpu_torch.experiments.cli import _make_trainer
+    from hfrep_tpu_torch.models.registry import build_gan
+    from hfrep_tpu_torch.replication import engine
+    from hfrep_tpu_torch.train import (init_gan_state, make_multi_step, make_train_step,
+                                       sample_draws)
+    from hfrep_tpu_torch.utils import checkpoint as ckpt
+
+    tag = "[precision]"
+    t_phase = time.perf_counter()
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    f32 = {(r["preset"], r["route"]): r for r in train + train_chained}
+    out = {"epochs": [], "gemm_probe": bf16_gemm_probe(torch)}
+    for r in out["gemm_probe"]:
+        say(f"{tag} bf16 GEMM {r['name']} {r['a']} @ {r['b']}: of {r['entries']} entries, "
+            f"{r['allowed_vs_refused']} differ between reduced-precision reduction allowed "
+            f"and refused; against the float32 product rounded once, {r['refused_vs_f32_rounded']}"
+            f" refused, {r['allowed_vs_f32_rounded']} allowed")
+
+    # (a) one bf16 epoch a route, from the f32 train phase's shapes
+    for k, (preset, route) in enumerate(PRECISION_ROUTES):
+        cfg = get_preset(preset)
+        mcfg = dataclasses.replace(cfg.model, dtype="bfloat16")
+        tcfg = dataclasses.replace(cfg.train, batch_size=32, n_critic=5,
+                                   steps_per_call=TRAIN_EPOCHS)
+        w = mcfg.window
+        g = torch.Generator(device="cuda")
+        g.manual_seed(300 + k)
+        dataset = torch.rand((1000, w, mcfg.features), generator=g, device="cuda")
+        pair = build_gan(mcfg, device="cuda")
+        state = init_gan_state(k, mcfg, device="cuda")
+        state.discriminator.stack = route
+        multi = make_multi_step(pair, tcfg, dataset)
+        torch.cuda.synchronize()
+        cuda_lstm.reset_launches()
+        state, metrics = multi(state, generator=g)
+        torch.cuda.synchronize()
+        launches = cuda_lstm.launch_counts()
+        sums = sum_launches_by_shape(cuda_lstm)
+        per_epoch = {n: c / TRAIN_EPOCHS for n, c in launches.items() if c}
+        want = f32[(preset, route)]["launches_per_epoch"]
+        losses = torch.stack([metrics["d_loss"], metrics["g_loss"]]).cpu()
+        if not bool(torch.isfinite(losses).all()) or losses.dtype != torch.float32:
+            fail(f"precision: {preset} ({route}) bf16 losses {losses}")
+        if per_epoch != want or sum(sums.values()) != SUM_LAUNCHES_PER_EPOCH * TRAIN_EPOCHS:
+            fail(f"precision: {preset} ({route}) bf16 launches per epoch {per_epoch}, the "
+                 f"float32 route's {want}; weight sums {sums}")
+        t0 = time.perf_counter()
+        state, _ = multi(state, generator=g)
+        torch.cuda.synchronize()
+        ms_epoch = (time.perf_counter() - t0) / TRAIN_EPOCHS * 1e3
+        one = dataclasses.replace(tcfg, steps_per_call=1)
+        prof = profile_epoch(torch, make_train_step(pair, one, dataset), state,
+                             sample_draws(g, pair, one, dataset))
+        kernels = recurrence_kernels(prof["names"])
+        if not kernels["bf16"] or kernels["other"]:
+            fail(f"precision: {preset} ({route}) bf16 epoch ran recurrence kernels "
+                 f"{kernels}: only __nv_bfloat16 instantiations belong there")
+        cpu_pair = build_gan(mcfg, device="cpu")
+        parity = epoch_parity(
+            torch, lambda dev: make_train_step(pair if dev == "cuda" else cpu_pair, one,
+                                               dataset.to(dev)),
+            state, sample_draws(g, pair, one, dataset), bf16=True)
+        busy = ("not measured" if not prof["device_busy_us"] else
+                f"device busy {prof['device_busy_us']:.0f} of {prof['wall_us']:.0f} us "
+                f"({100 * prof['busy_share']:.1f}%)")
+        say(f"{tag} (a) {preset} W={w} {route} bf16: launches per epoch as the float32 "
+            f"route's ({', '.join(f'{n} {c:g}' for n, c in per_epoch.items())}; weight sums "
+            f"{sum(sums.values()) / TRAIN_EPOCHS:g}); {ms_epoch:.2f} ms/epoch (host clock, "
+            f"float32 {f32[(preset, route)]['ms_per_epoch']:.2f} in this run); profiled "
+            f"epoch {busy} (float32 {f32[(preset, route)]['profile']['device_busy_us']:.0f} "
+            f"us); recurrence kernels {sorted(set(kernels['bf16']))}")
+        say(f"{tag} (a) {preset} W={w} {route} bf16, card vs CPU plain path: d_loss "
+            f"{parity['d_loss']:.7g} vs {parity['d_loss_cpu']:.7g} (rel "
+            f"{parity['loss_rel_diff']['d_loss']:.2e}), g_loss {parity['g_loss']:.7g} vs "
+            f"{parity['g_loss_cpu']:.7g} (rel {parity['loss_rel_diff']['g_loss']:.2e}; limit "
+            f"{BF16_LOSS_RTOL:g}); params max scaled err {parity['param_scaled_err']:.3g} at "
+            f"{parity['param_worst_at']} (limit {BF16_PARAM_BAR:g}); from zeroed slots, the "
+            f"update's rel L2 err {parity['update_rel_l2']:.3g} at {parity['update_at']} "
+            f"(limit {BF16_UPDATE_BAR:g}), slots' scaled err {parity['slot_scaled_err']:.3g} "
+            f"at {parity['slot_at']} (limit {BF16_SLOT_BAR:g}); CPU epoch "
+            f"{parity['cpu_epoch_s']:.1f} s")
+        if not parity["ok"]:
+            fail(f"precision: {preset} ({route}) bf16 epoch differs from the CPU's: {parity}")
+        out["epochs"].append({"preset": preset, "route": route, "W": w, "launches": launches,
+                              "weight_sum_launches": sums, "launches_per_epoch": per_epoch,
+                              "ms_per_epoch": ms_epoch, "profile": prof,
+                              "recurrence_kernels": sorted(set(kernels["bf16"])),
+                              "parity": parity})
+
+    # (b) train-gan --dtype bfloat16 at W=168: straight, and resumed
+    preset = "mtss_wgan_gp_prod"
+    per_epoch = f32[(preset, "auto")]["launches_per_epoch"]
+    dirs = {n: os.path.join(keep, f"bf16_{n}") for n in ("straight", "resumed")}
+    base = ["train-gan", "--preset", preset, "--dtype", "bfloat16", "--cleaned-dir",
+            cleaned, "--quiet", "--n-samples", "10"]
+    cuda_lstm.reset_launches()
+    t0 = time.perf_counter()
+    rc, text = run_cli(base + ["--epochs", str(PRECISION_CLI_EPOCHS), "--checkpoint-dir",
+                               dirs["straight"], "--samples-out",
+                               os.path.join(dirs["straight"], "s.npy")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = cuda_lstm.launch_counts()
+    cli_sums = sum_launches_by_shape(cuda_lstm)
+    want = {n: round(c * PRECISION_CLI_EPOCHS) + (2 if n == "lstm_fwd" else 0)
+            for n, c in per_epoch.items()}
+    if rc != 0 or f"trained mtss_wgan_gp for {PRECISION_CLI_EPOCHS} epochs (" not in text:
+        fail(f"precision: train-gan --dtype bfloat16 exited {rc}: {text[-1000:]}")
+    if {n: c for n, c in cli_launches.items() if c} != want:
+        fail(f"precision: train-gan --dtype bfloat16 launched {cli_launches}, expected {want} "
+             f"(the float32 route's per-epoch counts, and 2 lstm_fwd for the samples)")
+    rc2, _ = run_cli(base + ["--epochs", str(PRECISION_RESUME_AT), "--checkpoint-dir",
+                             dirs["resumed"]])
+    rc3, text3 = run_cli(base + ["--resume", "--epochs", str(PRECISION_CLI_EPOCHS),
+                                 "--checkpoint-dir", dirs["resumed"], "--samples-out",
+                                 os.path.join(dirs["resumed"], "s.npy")])
+    if rc2 or rc3 or f"resumed from {dirs['resumed']}/ckpt_{PRECISION_RESUME_AT}" not in text3:
+        fail(f"precision: the bf16 resume exited {rc2}, {rc3}: {text3[-1000:]}")
+    trees = {n: ckpt.restore(os.path.join(d, f"ckpt_{PRECISION_CLI_EPOCHS}"))
+             for n, d in dirs.items()}
+    leaves = {n: float_leaves(t) for n, t in trees.items()}
+    dtypes = sorted({str(t.dtype) for t in leaves["straight"]})
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves["straight"])
+    n_diff = sum(not torch.equal(a, b) for a, b in zip(leaves["straight"], leaves["resumed"]))
+    cubes = [np.load(os.path.join(d, "s.npy")) for d in dirs.values()]
+    # the verb's trainer in this process: its history, and the same state
+    tr, _ = _make_trainer(preset, cleaned, quiet=True, device="cuda", dtype="bfloat16")
+    tr.train(PRECISION_CLI_EPOCHS)
+    hist_finite = all(np.isfinite(h["d_loss"]) and np.isfinite(h["g_loss"]) for h in tr.history)
+    same = all(torch.equal(a.cpu(), b.cpu()) for a, b in
+               zip(leaves["straight"], float_leaves(tr._ckpt_tree())))
+    say(f"{tag} (b) train-gan --dtype bfloat16 at {preset}, {PRECISION_CLI_EPOCHS} epochs: "
+        f"exit 0 in {cli_s:.1f} s, launches {', '.join(f'{n} {c}' for n, c in want.items())} "
+        f"(the float32 route's per epoch, + 2 lstm_fwd for 10 samples), weight sums "
+        f"{sum(cli_sums.values())}; checkpoint floating leaves {len(leaves['straight'])}, "
+        f"dtypes {dtypes}, finite {finite}; resumed from ckpt_{PRECISION_RESUME_AT}: "
+        f"{len(leaves['straight']) - n_diff} of {len(leaves['straight'])} leaves bit-equal, "
+        f"samples equal {bool(np.array_equal(*cubes))}; the verb's trainer in process: "
+        f"history of {len(tr.history)} epochs finite {hist_finite}, state equal {same}")
+    if (dtypes != ["torch.float32"] or not finite or n_diff or not np.array_equal(*cubes)
+            or not hist_finite or not same or len(tr.history) != PRECISION_CLI_EPOCHS):
+        fail("precision: train-gan --dtype bfloat16's checkpoint, resume or history failed")
+    out["train_gan"] = {"wall_s": cli_s, "launches": cli_launches,
+                        "weight_sum_launches": cli_sums, "dtypes": dtypes,
+                        "leaves": len(leaves["straight"]), "resume_bit_equal": True,
+                        "d_loss": [h["d_loss"] for h in tr.history]}
+
+    # (c) the bf16 sweep verb, real only, and the lane sweep card against CPU
+    dest = os.path.join(keep, "sweep_bf16")
+    cuda_lstm.reset_launches()
+    t0 = time.perf_counter()
+    rc, text = run_cli(["sweep", "--dtype", "bfloat16", "--cleaned-dir", cleaned, "--latents",
+                        "1:21", "--epochs", str(PIPE_EPOCHS), "--out", dest])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    if rc != 0 or any(cuda_lstm.launch_counts().values()):
+        fail(f"precision: sweep --dtype bfloat16 exited {rc}, launched "
+             f"{cuda_lstm.launch_counts()}")
+    checked = sweep_outputs(np, dest, False)
+    best = checked["summary"]["best_oos_r2"]
+    panel = load_panel(cleaned, device="cpu")
+    x_train = panel.train_test_split()[0]
+    xs = scaler.fit_transform(x_train)[1]
+    lanes = (len(SWEEP_LATENTS),)
+    cfg = AEConfig(epochs=PIPE_EPOCHS, chunk_epochs=SWEEP_CMP_CHUNK, dtype="bfloat16")
+    g = torch.Generator()
+    g.manual_seed(SWEEP_SEED)
+    init = engine.keras_init_params(g, lanes, xs.shape[1], max(SWEEP_LATENTS), "cpu")
+    perms = engine.PermStream(SWEEP_SEED, lanes, int(xs.shape[0] * 0.75),
+                              torch.device("cpu"))
+    runs, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        runs[dev], _ = engine.sweep_autoencoders_chunked(
+            0, xs, cfg, SWEEP_LATENTS, init_params=init, device=dev,
+            perm_source=lambda pos, n, dev=dev: perms(pos, n).to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    first = int(min(cpu.stop_epoch.min(), gpu.stop_epoch.cpu().min()))
+    err = 0.0
+    for k in ("train_loss", "val_loss"):
+        got, ref = getattr(gpu, k).cpu()[:, :first], getattr(cpu, k)[:, :first]
+        err = max(err, float(((got - ref).abs() / (BF16_AE_ATOL + BF16_AE_RTOL * ref.abs()))
+                             .max()) if first else 0.0)
+    say(f"{tag} (c) sweep --dtype bfloat16, real only, 21 latents x {PIPE_EPOCHS} epochs: "
+        f"exit 0 in {sweep_s:.1f} s, every file finite, no kernel launched; best OOS R2 "
+        f"latent {best['latent']} mean {best['mean']:.4f}; stop epochs "
+        f"{checked['stop_epochs']}")
+    say(f"{tag} (c) the bf16 lane sweep, card against CPU from the same draws, over the "
+        f"{first} epochs before any lane stops: losses max |card - CPU| / ({BF16_AE_ATOL:g} "
+        f"+ {BF16_AE_RTOL:g} |CPU|) {err:.3g} (<= 1 passes); stop epochs card "
+        f"{gpu.stop_epoch.tolist()}, CPU {cpu.stop_epoch.tolist()}; card {secs['cuda']:.2f} s, "
+        f"CPU {secs['cpu']:.2f} s")
+    if first < 1 or err > 1.0:
+        fail(f"precision: the bf16 lane sweep on the card differs from the CPU's ({err} over "
+             f"{first} epochs)")
+    out["sweep"] = {"wall_s": sweep_s, "epochs": PIPE_EPOCHS, "best_oos_r2": best,
+                    "stop_epochs": checked["stop_epochs"], "compared_epochs": first,
+                    "loss_allclose_ratio": err, "card_s": secs["cuda"], "cpu_s": secs["cpu"],
+                    "card_stop_epochs": gpu.stop_epoch.tolist(),
+                    "cpu_stop_epochs": cpu.stop_epoch.tolist()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["reduced_precision_reduction_after"] = (
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    say(f"{tag} phase wall {out['wall_s']:.1f} s; cuBLAS bf16 reduced-precision reduction "
+        f"allowed after the bf16 runs: {out['reduced_precision_reduction_after']}")
+    if out["reduced_precision_reduction_after"]:
+        fail("precision: cuBLAS's reduced-precision bf16 reduction is on after the bf16 runs")
     return out
 
 
@@ -2360,16 +2816,35 @@ def stream_launches(records: list) -> dict:
     return counts
 
 
-def run_pipeline_verb(args: list, env_extra: dict) -> tuple:
+def start_pipeline_verb(args: list, env_extra: dict) -> tuple:
     """``python -m hfrep_tpu_torch pipeline ARGS`` from the checkout's root
-    on the card: (exit code, wall seconds, stdout, stderr)."""
+    on the card, started: ``(process, start time)`` for
+    :func:`finish_pipeline_verb`."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, **env_extra)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "hfrep_tpu_torch", "pipeline", "--device",
-                           "cuda"] + args, cwd=root, env=env, capture_output=True, text=True,
-                          timeout=PIPE_TIMEOUT_S)
-    return proc.returncode, time.perf_counter() - t0, proc.stdout, proc.stderr
+    proc = subprocess.Popen([sys.executable, "-m", "hfrep_tpu_torch", "pipeline", "--device",
+                             "cuda"] + args, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_pipeline_verb(started: tuple) -> tuple:
+    """Wait for a :func:`start_pipeline_verb` run: (exit code, wall seconds,
+    stdout, stderr); past PIPE_TIMEOUT_S it is killed and the phase fails."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(
+            timeout=max(1.0, PIPE_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"pipeline {' '.join(proc.args[5:7])}: overran {PIPE_TIMEOUT_S} s")
+    return proc.returncode, time.perf_counter() - t0, stdout, stderr
+
+
+def run_pipeline_verb(args: list, env_extra: dict) -> tuple:
+    """:func:`start_pipeline_verb`, waited for."""
+    return finish_pipeline_verb(start_pipeline_verb(args, env_extra))
 
 
 def pipeline_report(name: str, rc: int, wall: float, stdout: str, stderr: str,
@@ -2389,9 +2864,10 @@ def pipeline_report(name: str, rc: int, wall: float, stdout: str, stderr: str,
 
 def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS) -> dict:
     """The actor fabric through ``python -m hfrep_tpu_torch pipeline`` on the
-    card: (a) the undisturbed run (one generator actor sampling the
-    trainer phase's W=168 checkpoint, 2 blocks of 10 windows, 2 consumers
-    running the augmented 21-latent sweep at ``AEConfig()``): exit 0, every
+    card, (a), (b)'s first run and (c) side by side: (a) the undisturbed run
+    (one generator actor sampling the trainer phase's W=168 checkpoint, 2
+    blocks of 10 windows, 2 consumers running the augmented 21-latent
+    sweep at ``AEConfig()``): exit 0, every
     result published, ``pipeline.json`` assembled, the generator's stream
     showing exactly 4 ``lstm_fwd`` launches and no other kernel, the
     consumers' none; (b) the same plan under ``HFREP_FAULTS=sigterm@item=1``
@@ -2401,6 +2877,8 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
     item's ``sweep.npz`` equal to ``sweep_item_arrays`` on the same panel
     and seed in this process, bit for bit.  ``epochs`` caps the AE epochs
     of every run (None: ``AEConfig()``'s 1000)."""
+    import concurrent.futures
+
     from hfrep_tpu_torch.config import AEConfig
     from hfrep_tpu_torch.orchestrate.actors import _fixture_panel, result_name
     from hfrep_tpu_torch.replication import engine
@@ -2415,9 +2893,35 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
     gan += depth
     out = {"epochs": epochs}
 
-    # (a) undisturbed
+    # (a), (b)'s drained run and (c) at once, each in its own dirs; then
+    # (b)'s resume
     a_out, a_obs = os.path.join(keep, "pipe_a"), os.path.join(keep, "pipe_a_obs")
-    rc, wall, stdout, stderr = run_pipeline_verb(gan + ["--out", a_out, "--obs-dir", a_obs], {})
+    b_out = os.path.join(keep, "pipe_b")
+    c_out, c_obs = os.path.join(keep, "pipe_c"), os.path.join(keep, "pipe_c_obs")
+    t_runs = time.perf_counter()
+    runs = {"a": start_pipeline_verb(gan + ["--out", a_out, "--obs-dir", a_obs], {}),
+            "b": start_pipeline_verb(
+                gan + ["--out", b_out, "--obs-dir", os.path.join(keep, "pipe_b_obs")],
+                {"HFREP_FAULTS": "sigterm@item=1"}),
+            "c": start_pipeline_verb(
+                PIPE_FIXTURE + depth + ["--blocks", str(PIPE_BLOCKS), "--consumers",
+                                        str(PIPE_CONSUMERS), "--latents", "1:21", "--gen-delay",
+                                        str(PIPE_GEN_DELAY), "--out", c_out, "--obs-dir", c_obs],
+                {"HFREP_FAULTS": "kill@actor=1"})}
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        try:                            # each waited for on its own thread: its own wall
+            futures = {k: pool.submit(finish_pipeline_verb, v) for k, v in runs.items()}
+            done = {k: f.result() for k, f in futures.items()}
+        finally:
+            # a failed run exits: no pipeline outlives the script
+            for proc, _ in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+    out["first_runs_wall_s"] = time.perf_counter() - t_runs
+    say(f"[pipeline] (a), (b)'s drained run and (c) side by side: {out['first_runs_wall_s']:.1f} s")
+
+    # (a) undisturbed
+    rc, wall, stdout, stderr = done["a"]
     out["a"] = pipeline_report("(a) undisturbed", rc, wall, stdout, stderr, a_obs)
     if rc != 0 or not os.path.isfile(os.path.join(a_out, "pipeline.json")):
         fail(f"pipeline (a): exit {rc}\n{stderr[-3000:]}")
@@ -2444,10 +2948,7 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
     out["a"].update(launches=launches, items=items)
 
     # (b) drained at the generator's first item boundary, then resumed
-    b_out = os.path.join(keep, "pipe_b")
-    rc, wall, stdout, stderr = run_pipeline_verb(
-        gan + ["--out", b_out, "--obs-dir", os.path.join(keep, "pipe_b_obs")],
-        {"HFREP_FAULTS": "sigterm@item=1"})
+    rc, wall, stdout, stderr = done["b"]
     out["b_drained"] = pipeline_report("(b) sigterm@item=1", rc, wall, stdout, stderr,
                                        os.path.join(keep, "pipe_b_obs"))
     if rc != 75:
@@ -2463,12 +2964,7 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
         fail(f"pipeline (b): resume exit {rc}, pipeline.json equal {same}\n{stderr[-3000:]}")
 
     # (c) a killed producer, and one item against this process
-    c_out, c_obs = os.path.join(keep, "pipe_c"), os.path.join(keep, "pipe_c_obs")
-    rc, wall, stdout, stderr = run_pipeline_verb(
-        PIPE_FIXTURE + depth + ["--blocks", str(PIPE_BLOCKS), "--consumers", str(PIPE_CONSUMERS),
-                        "--latents", "1:21", "--gen-delay", str(PIPE_GEN_DELAY),
-                        "--out", c_out, "--obs-dir", c_obs],
-        {"HFREP_FAULTS": "kill@actor=1"})
+    rc, wall, stdout, stderr = done["c"]
     out["c"] = pipeline_report("(c) kill@actor=1", rc, wall, stdout, stderr, c_obs)
     if rc != 0 or out["c"]["restarts"] < 1:
         fail(f"pipeline (c): exit {rc}, restarts {out['c']['restarts']}\n{stderr[-3000:]}")
@@ -2777,6 +3273,10 @@ def phase_serve_drain(torch, np, keep: str, gan_checkpoint: str) -> dict:
         fail(f"serve_drain: the undisturbed run exited {rc}: {stderr[-2000:]}")
     doc = json.loads(stdout)
     report, stats = doc["report"], doc["stats"]
+    modes = stats["cache"]["modes"]
+    if ("(export=on)" not in stderr or "torch.export round trip failed" in stderr
+            or set(modes) != {"export"}):
+        fail(f"serve_drain: the verb's programs {modes}, its stderr {stderr[-2000:]}")
     recs = stream_records(run_a)
     names = {r.get("name") for r in recs if r.get("type") == "event"}
     windows = [r for r in recs if r.get("name") == "timeline_window"
@@ -2794,7 +3294,8 @@ def phase_serve_drain(torch, np, keep: str, gan_checkpoint: str) -> dict:
         fail(f"serve_drain: undisturbed report {report}, {len(admitted)} traces admitted, "
              f"{len(completed)} completed, {len(admitted ^ completed)} not in both, events "
              f"{sorted(names)}, {len(windows)} serve_load windows, launches {launches}")
-    say(f"{tag} undisturbed: exit 0 in {wall:.1f} s; {report['submitted']} submitted, "
+    say(f"{tag} undisturbed: export=on, programs {modes}; exit 0 in {wall:.1f} s; "
+        f"{report['submitted']} submitted, "
         f"{report['results']} results; {len(admitted)} traces admitted, each completed "
         f"in the stream ({stats['submitted']} requests with the warm-up's); p50 "
         f"{report['p50_ms']} ms, p95 {report['p95_ms']} ms, qps "
@@ -2811,7 +3312,8 @@ def phase_serve_drain(torch, np, keep: str, gan_checkpoint: str) -> dict:
         doc = {}
     drained = doc.get("drained", {})
     if (rc != 75 or drained.get("reason") != "SIGTERM"
-            or drained.get("terminal") != drained.get("submitted")):
+            or drained.get("terminal") != drained.get("submitted")
+            or "(export=on)" not in stderr):
         fail(f"serve_drain: the SIGTERM run exited {rc}, drained {drained}: {stderr[-2000:]}")
     drain_events = [r for r in stream_records(run_b) if r.get("name") == "serve_drain"]
     say(f"{tag} SIGTERM after the offering line: exit 75 in {wall:.1f} s; drained "
@@ -3034,9 +3536,11 @@ def phase_obs_tier(torch, np, keep: str, cli_obs: str, cli_launches: dict) -> di
 #: each (cut from 5000, as ``obs_tier``'s), and the chaos subject drained
 FORENSICS_EPOCHS = 12
 #: the chaos phase: the soak's seed and its fixed number of schedules (cut
-#: from one a fast subject, 7, to 3: the script's time limit), and the
-#: spawned legs' time limits
-CHAOS_SEED, CHAOS_SCHEDULES = 11, 3
+#: from one a fast subject, 7, to 3: the script's time limit), the corpus
+#: entries' ``chaos --replay`` processes side by side (one process's
+#: ``--replay-corpus`` was the phase's longest leg), and the spawned legs'
+#: time limits
+CHAOS_SEED, CHAOS_SCHEDULES, CORPUS_LANES = 11, 3, 3
 CHAOS_TIMEOUT_S, SELFTEST_TIMEOUT_S = 600, 420
 
 
@@ -3072,6 +3576,60 @@ def run_module(module: str, args: list, timeout: float, env_extra=None) -> tuple
     """``python -m MODULE ARGS`` as a subprocess, waited for: (exit code,
     stdout, stderr, wall seconds)."""
     return finish_module(start_module(module, args, env_extra), timeout)
+
+
+class CorpusReplay:
+    """The committed chaos corpus replayed on the card, each entry its own
+    ``chaos --replay SCHEDULE`` process, :data:`CORPUS_LANES` at a time
+    (threads that only start and wait; the checks run in the caller).
+    Entries whose subject the port does not register are skipped, named,
+    as ``--replay-corpus`` skips them.  :meth:`results` waits for every
+    entry: ``(file, exit code, the report, stderr, wall seconds)`` in
+    corpus order, exit code None past the time limit; :meth:`stop`
+    kills what still runs."""
+
+    def __init__(self, keep: str):
+        import concurrent.futures
+
+        from hfrep_tpu_torch.resilience import chaos
+
+        entries = chaos.corpus_entries()
+        self.skipped = [{"corpus": e["_file"], "subject": e["_schedule"].subject}
+                        for e in entries if e["_schedule"].subject not in chaos.SUBJECTS]
+        self._procs: list = []
+        self._stopped = False
+        self._pool = concurrent.futures.ThreadPoolExecutor(CORPUS_LANES)
+        self._futures = [
+            self._pool.submit(self._replay, e["_file"], e["_schedule"].encode(),
+                              os.path.join(keep, f"chaos_corpus_{i}"))
+            for i, e in enumerate(entries) if e["_schedule"].subject in chaos.SUBJECTS]
+
+    def _replay(self, name: str, schedule: str, out: str) -> tuple:
+        proc, t0 = start_module("hfrep_tpu_torch.resilience",
+                                ["chaos", "--replay", schedule, "--device", "cuda", "--out", out])
+        self._procs.append(proc)
+        if self._stopped:
+            proc.kill()
+        try:
+            text, err = proc.communicate(timeout=CHAOS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, err = proc.communicate()
+            return name, None, {}, err, time.perf_counter() - t0
+        doc = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
+        return name, proc.returncode, doc, err, time.perf_counter() - t0
+
+    def results(self) -> list:
+        return [f.result() for f in self._futures]
+
+    def stop(self) -> None:
+        self._stopped = True
+        for f in self._futures:
+            f.cancel()
+        for proc in list(self._procs):
+            if proc.poll() is None:
+                proc.kill()
+        self._pool.shutdown(wait=True)
 
 
 def window_shares(records: list) -> dict:
@@ -3258,14 +3816,11 @@ def phase_chaos(torch, np, keep: str) -> dict:
         fail(f"chaos: drives --check exited {rc}: {problems} {err[-800:]}")
     say(f"{tag} drives --check: {len(doc['drives'])} specs, exit {rc}, problems {problems}")
     out["drives"] = {"rc": rc, "problems": problems}
-    # the selftest, the corpus replay, the soak and the canary run at once,
-    # each in its own dirs
+    # the selftest, the corpus (each entry its own process, CORPUS_LANES at
+    # a time), the soak and the canary run at once, each in its own dirs
     soak_dir = os.path.join(keep, "chaos_soak")
     t_legs = time.perf_counter()
     legs = {"selftest": start_module(mod, ["selftest", "--device", "cuda"]),
-            "corpus": start_module(mod, ["chaos", "--budget-secs", 0, "--min-schedules", 0,
-                                         "--replay-corpus", "--device", "cuda", "--out",
-                                         os.path.join(keep, "chaos_corpus")]),
             "soak": start_module(mod, ["chaos", "--seed", CHAOS_SEED, "--budget-secs", 0,
                                        "--min-schedules", CHAOS_SCHEDULES, "--device", "cuda",
                                        "--out", soak_dir]),
@@ -3273,6 +3828,7 @@ def phase_chaos(torch, np, keep: str) -> dict:
                                           "--min-schedules", 1, "--subjects", "_planted",
                                           "--device", "cuda", "--out",
                                           os.path.join(keep, "chaos_planted")])}
+    corpus = CorpusReplay(keep)
     try:
         rc, text, err, wall = finish_module(legs["selftest"], SELFTEST_TIMEOUT_S)
         st = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
@@ -3286,20 +3842,25 @@ def phase_chaos(torch, np, keep: str) -> dict:
         say(f"{tag} selftest --device cuda: exit 0 in {wall:.1f} s ({st['secs']} s inside): "
             + ", ".join(f"{k} {v}" for k, v in st.items() if k not in ("selftest", "secs")))
         out["selftest"] = dict(st, wall_s=wall)
-        rc, text, err, wall = finish_module(legs["corpus"], CHAOS_TIMEOUT_S)
-        corpus = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
-        if (rc != 0 or not corpus.get("ok") or corpus.get("violations") != 0
-                or corpus.get("corpus_replayed") != 8
-                or [c["subject"] for c in corpus.get("corpus_skipped", [])] != ["ae_mesh"]):
-            fail(f"chaos: the corpus replay exited {rc}: {text[-2000:]} {err[-2000:]}")
-        say(f"{tag} --replay-corpus on the card: exit 0 in {corpus['secs']} s, "
-            f"{corpus['corpus_replayed']} entries replayed (skipped "
-            f"{[c['corpus'][:3] for c in corpus['corpus_skipped']]}), "
-            f"{corpus['runs']} subject runs at {corpus['run_secs_mean']} s each, "
-            f"violations {corpus['violations']}")
-        out["corpus"] = {k: corpus[k] for k in ("corpus_replayed", "corpus_skipped", "runs",
-                                                "run_secs_mean", "violations", "secs")}
-        out["corpus"]["wall_s"] = wall
+        replays = corpus.results()
+        for name, rc, doc, err, wall in replays:
+            if rc != 0 or not doc.get("ok") or doc.get("violations"):
+                fail(f"chaos: corpus entry {name} (chaos --replay) exited {rc}: {doc} "
+                     f"{err[-2000:]}")
+        skipped = corpus.skipped
+        runs = sum(len(doc["attempts"]) for _, _, doc, _, _ in replays)
+        if len(replays) != 8 or [c["subject"] for c in skipped] != ["ae_mesh"]:
+            fail(f"chaos: the corpus replayed {len(replays)} entries and skipped {skipped}")
+        corpus_s = time.perf_counter() - t_legs
+        say(f"{tag} the corpus on the card, each entry a chaos --replay process, "
+            f"{CORPUS_LANES} at a time: every exit 0 within {corpus_s:.1f} s, "
+            f"{len(replays)} entries replayed (skipped {[c['corpus'][:3] for c in skipped]}), "
+            f"{runs} faulted subject legs, violations 0; entries "
+            f"{[(n[:3], round(w, 1)) for n, _, _, _, w in replays]}")
+        out["corpus"] = {"corpus_replayed": len(replays), "corpus_skipped": skipped,
+                         "legs": runs, "violations": 0, "wall_s": corpus_s,
+                         "entries": [{"corpus": n, "attempts": d["attempts"], "wall_s": w}
+                                     for n, _, d, _, w in replays]}
         rc, text, err, wall = finish_module(legs["soak"], CHAOS_TIMEOUT_S)
         soak = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
         if rc != 0 or not soak.get("ok") or soak.get("violations") != 0 \
@@ -3339,6 +3900,7 @@ def phase_chaos(torch, np, keep: str) -> dict:
         say(f"{tag} selftest, corpus, soak and canary together: {out['legs_wall_s']:.1f} s")
     finally:
         # a failed check exits: no leg outlives the script
+        corpus.stop()
         for proc, _ in legs.values():
             if proc.poll() is None:
                 proc.kill()
@@ -3365,6 +3927,10 @@ def phase_timing(torch, cuda_lstm) -> list:
                 layer, x, xz, rec = lstm_inputs(torch, w, f, b, "sigmoid", dtype, seed=1)
                 with torch.no_grad():
                     kernel = time_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(xz, rec, "sigmoid"), 200)
+                    # the same launch behind the dispatcher (hfrep::lstm_fwd),
+                    # as the no-grad forward and the exported programs call it
+                    op = time_ms(torch, lambda: cuda_lstm.lstm_fwd_op(xz, rec, "sigmoid", False),
+                                 200)
                     dev = device_ms(torch, lambda: cuda_lstm.lstm_fwd_cuda(xz, rec, "sigmoid"), 50)
                     plain = time_ms(torch, lambda: cuda_lstm.lstm_seq_plain(xz, rec, "sigmoid"), 5, 1)
                     kx = layer.kernel.to(dtype)
@@ -3387,7 +3953,7 @@ def phase_timing(torch, cuda_lstm) -> list:
                         library = time_ms(torch, lambda: lstm(xt), 200)
                         library_dev = device_ms(torch, lambda: lstm(xt), 50, match="")
                 bnd, by = bound_ms(w, b, HIDDEN, name)
-                row = {"W": w, "F": f, "B": b, "dtype": name, "ms": kernel,
+                row = {"W": w, "F": f, "B": b, "dtype": name, "ms": kernel, "op_ms": op,
                        "us_per_step": kernel / w * 1e3, "device_ms": dev,
                        "ms_with_projection": kernel_proj, "plain_ms": plain,
                        "library_ms": library, "library_device_ms": library_dev,
@@ -3396,7 +3962,8 @@ def phase_timing(torch, cuda_lstm) -> list:
                 lib_s = ("n/a" if library is None
                          else f"{library:.4f} (device {library_dev:.4f})")
                 say(f"[timing] lstm_fwd W={w:3d} B={b:2d} {name:8s}: kernel {kernel:.4f} ms "
-                    f"({kernel / w * 1e3:.3f} us a step; device {dev:.4f} ms, "
+                    f"(through the op {op:.4f} ms; "
+                    f"{kernel / w * 1e3:.3f} us a step; device {dev:.4f} ms, "
                     f"{dev / w * 1e3:.3f} us a step; +projection {kernel_proj:.4f}), "
                     f"plain {plain:.3f} ms, cuDNN LSTM {lib_s} ms, bound {bnd:.5f} ms ({by})")
     return rows
@@ -3988,50 +4555,63 @@ def phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack) -> list:
 
 
 def phase_profile(torch) -> list:
-    """``torch.profiler`` over 20 sample dispatches of the generator at
-    the served batch (bucket 8), per preset: device time by kernel name
-    and the device's busy share of the window (:func:`traced`, a dispatch
-    in its warm-up step)."""
+    """``torch.profiler`` over 20 sample dispatches at the served batch
+    (bucket 8), per preset, through the programs a server runs on the
+    model's resident weights: the bucket's loaded ``torch.export``
+    program (``aot_compile``, mode ``"export"``, what serving runs), then
+    the export-off server's eager one (mode ``"compiled"``) in the same
+    call.  Device time by kernel name and the device's busy share of the
+    window (:func:`traced`, a dispatch in its warm-up step)."""
     from hfrep_tpu_torch.serve import aot
     from hfrep_tpu_torch.serve.fixture import fixture_gen_model
 
     out = []
     for preset in ("mtss_wgan_gp", "mtss_wgan_gp_prod"):
         model = fixture_gen_model(preset, device="cuda")
-        fn = aot.gen_batch_fn(model)
         w, f = model.cfg.window, model.cfg.features
         g = torch.Generator(device="cuda")
         g.manual_seed(0)
         noises = [torch.randn((8, w, f), generator=g, device="cuda") for _ in range(20)]
-        for z in noises[:3]:
-            fn(z).cpu()
-        torch.cuda.synchronize()
-        wall = []
+        for via_export in (True, False):
+            program, mode = aot.aot_compile(aot.gen_batch_fn(model), model.params, noises[0],
+                                            via_export=via_export)
+            if mode != ("export" if via_export else "compiled"):
+                fail(f"profile: {preset}'s bucket program came up {mode!r}")
 
-        def run():
-            t0 = time.perf_counter()
-            for z in noises:
-                fn(z).cpu()                      # the server copies each answer out
+            def fn(z, program=program, params=model.params):
+                return program(params, z)
+
+            for z in noises[:3]:
+                fn(z).cpu()
             torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e6)
+            wall = []
 
-        prof = traced(torch, lambda: fn(noises[0]).cpu(), run)
-        wall_us = wall[0]
-        by_name = device_time_by_name(prof)
-        busy_us = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        row = {"preset": preset, "dispatches": len(noises), "wall_us": wall_us,
-               "device_busy_us": busy_us,
-               "busy_share": busy_us / wall_us if busy_us else None,
-               "top": [{"name": k[:80], "us": v} for k, v in top]}
-        out.append(row)
-        if not busy_us:
-            say(f"[profile] {preset}: the profiler reported no device time (not measured)")
-            continue
-        say(f"[profile] {preset}: 20 dispatches at B=8 in {wall_us:.0f} us, device busy "
-            f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}% of the window)")
-        for k, v in top:
-            say(f"[profile]   {v:9.1f} us  {100 * v / busy_us:5.1f}%  {k[:80]}")
+            def run(fn=fn, wall=wall):
+                t0 = time.perf_counter()
+                for z in noises:
+                    fn(z).cpu()                  # the server copies each answer out
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e6)
+
+            prof = traced(torch, lambda fn=fn: fn(noises[0]).cpu(), run)
+            wall_us = wall[0]
+            by_name = device_time_by_name(prof)
+            busy_us = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            out.append({"preset": preset, "program": mode, "dispatches": len(noises),
+                        "wall_us": wall_us, "device_busy_us": busy_us,
+                        "busy_share": busy_us / wall_us if busy_us else None,
+                        "top": [{"name": k[:80], "us": v} for k, v in top]})
+            if not busy_us:
+                say(f"[profile] {preset} ({mode}): the profiler reported no device time "
+                    f"(not measured)")
+                continue
+            say(f"[profile] {preset}: 20 dispatches of the {mode} bucket program at B=8 in "
+                f"{wall_us:.0f} us, device busy {busy_us:.0f} us "
+                f"({100 * busy_us / wall_us:.1f}% of the window)")
+            if via_export:
+                for k, v in top:
+                    say(f"[profile]   {v:9.1f} us  {100 * v / busy_us:5.1f}%  {k[:80]}")
     return out
 
 
@@ -4074,8 +4654,16 @@ def main() -> None:
     train_chained = phase_train(torch, cuda_lstm, "chained", TRAIN_PRESETS[:1])
     keep = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        precision = phase_precision(torch, np, cuda_lstm, train, train_chained, keep)
         trainer = phase_trainer(torch, np, cuda_lstm, train, keep)
         sweep = phase_sweep(torch, np, cuda_lstm, keep, trainer["cli_checkpoint"])
+        f32_best = sweep["runs"]["real"]["summaries"]["None"]
+        say(f"[precision] the bf16 sweep ({PIPE_EPOCHS} epochs) beside the float32 sweep "
+            f"phase's real-only run (1000-epoch cap): best OOS R2 mean "
+            f"{precision['sweep']['best_oos_r2']['mean']:.4f} at latent "
+            f"{precision['sweep']['best_oos_r2']['latent']} against {f32_best['mean']:.4f} at "
+            f"latent {f32_best['latent']}; stop epochs {precision['sweep']['stop_epochs']} "
+            f"against {sweep['runs']['real']['stop_epochs']['None']} (recorded, not gated)")
         evaluation = phase_eval(torch, np, cuda_lstm, train, keep, trainer["cli_checkpoint"])
         scenario = phase_scenario(torch, np, cuda_lstm, keep)
         pipeline = phase_pipeline(torch, np, keep, trainer["cli_checkpoint"])
@@ -4108,7 +4696,12 @@ def main() -> None:
                         ("scenario_epoch", [r["launches"] for r in scenario["epochs"]]),
                         ("scenario_bank", [scenario["bank"]["launches"]]),
                         ("health_fused", [health["routes"]["auto"]["launches"]]),
-                        ("health_chained", [health["routes"]["chained"]["launches"]])):
+                        ("health_chained", [health["routes"]["chained"]["launches"]]),
+                        ("bf16_fused", [r["launches"] for r in precision["epochs"]
+                                        if r["route"] == "auto"]),
+                        ("bf16_chained", [r["launches"] for r in precision["epochs"]
+                                          if r["route"] == "chained"]),
+                        ("bf16_train_gan_cli", [precision["train_gan"]["launches"]])):
         counts = {k: sum(r[k] for r in runs) for k in cuda_lstm.launch_counts()}
         counts["stack_fwd"] += counts.pop("stack_fwd_res")
         by_route[route] = counts
@@ -4131,7 +4724,8 @@ def main() -> None:
         "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
         "max_err_by_layout": layouts, "us_per_step": head["us_per_step"],
         "device_ms": head["device_ms"], "library_device_ms": head["library_device_ms"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "ms": head["ms"], "op_ms": head["op_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": "W=48 B=8 H=100 float32"}]
     for k in ("lstm_fwd_cs", "lstm_bwd", "lstm_adj"):
@@ -4231,7 +4825,11 @@ def main() -> None:
                 ("eval", [evaluation]), ("scenario_epoch", scenario["epochs"]),
                 ("scenario_bank", [scenario["bank"]]),
                 ("health_fused", [health["routes"]["auto"]]),
-                ("health_chained", [health["routes"]["chained"]]))
+                ("health_chained", [health["routes"]["chained"]]),
+                ("bf16_fused", [r for r in precision["epochs"] if r["route"] == "auto"]),
+                ("bf16_chained", [r for r in precision["epochs"] if r["route"] == "chained"]),
+                ("bf16_train_gan_cli",
+                 [{"weight_sum_launches": precision["train_gan"]["weight_sum_launches"]}]))
     by_path = {shape: {p: sum(run["weight_sum_launches"][shape] for run in runs)
                        for p, runs in sum_runs} for shape, _, _, _ in SUM_SHAPES}
     for shape, nsum, npair, m in SUM_SHAPES:
@@ -4255,7 +4853,8 @@ def main() -> None:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": rows, "server": server, "train": train,
-                       "train_chained": train_chained, "trainer": trainer, "sweep": sweep,
+                       "train_chained": train_chained, "precision": precision,
+                       "trainer": trainer, "sweep": sweep,
                        "eval": evaluation, "scenario": scenario, "pipeline": pipeline,
                        "health": health, "serve_drain": serve_drain, "obs_tier": obs_tier,
                        "forensics": forensics, "chaos": chaos,

@@ -31,3 +31,11 @@ import os
 # runs.  MKL reads the setting at its first call, so it is set here,
 # before the port makes one; an explicit MKL_CBWR wins.
 os.environ.setdefault("MKL_CBWR", "AUTO,STRICT")
+
+import torch  # noqa: E402
+
+# The bf16 policy's products accumulate in float32, as the JAX package's
+# ``--dtype`` flags promise; PyTorch otherwise lets cuBLAS reduce a bf16
+# GEMM in reduced precision.  The flag governs bf16 GEMMs alone, so no
+# float32 result moves.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -5,6 +5,10 @@ bf16 compute over float32 master weights: parameters live in
 use; everything that accumulates is lifted to ``output_dtype`` (float32)
 first via :meth:`Policy.accum`.  On the float32 policy every method is
 the identity and returns its argument unchanged.
+
+The bf16 products accumulate in float32, as the JAX package's flags
+promise: importing :mod:`hfrep_tpu_torch` turns off
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``.
 """
 
 from __future__ import annotations

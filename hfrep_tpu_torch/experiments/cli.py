@@ -28,8 +28,10 @@ a SIGTERM drains at the next safe boundary into exit 75, re-run with
 The Keras and plotting extras (``sample-h5``, ``train-gan --export-h5``,
 ``sweep --h5-generator`` and ``--plots``, ``eval-gan --eyeball``) import
 h5py, TensorFlow and matplotlib inside themselves: they run where those
-are installed, never on the card's path.  Not offered yet (ROADMAP): the
-mesh flags and ``--dtype``.
+are installed, never on the card's path.  ``train-gan --dtype bfloat16``
+and ``sweep --dtype bfloat16`` run the precision policy (bf16 compute over
+float32 master weights and slots, float32 accumulation).  Not offered yet
+(ROADMAP): the mesh flags.
 """
 
 from __future__ import annotations
@@ -73,6 +75,12 @@ def _build_parser() -> argparse.ArgumentParser:
     t.add_argument("--max-recoveries", type=int, default=3,
                    help="consecutive rollbacks before giving up (with --nan-guard)")
     t.add_argument("--quiet", action="store_true")
+    t.add_argument("--dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="precision policy for the hot loop: bfloat16 = "
+                        "bf16 compute over fp32 master weights (README "
+                        "'Mixed precision'); default is the preset's "
+                        "(float32, reproduction-exact)")
     t.add_argument("--eval", action="store_true", help="run the 12-metric suite after training")
     t.add_argument("--export-h5", default=None,
                    help="also write the trained generator as a reference-compatible "
@@ -113,6 +121,11 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="preset the checkpoints were trained with")
     s.add_argument("--n-gen-windows", type=int, default=10)
     s.add_argument("--epochs", type=int, default=None, help="AE epochs override")
+    s.add_argument("--dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="AE precision policy (AEConfig.dtype): bfloat16 "
+                        "runs the sweep's matmuls at tensor-core rate with "
+                        "fp32 master weights + fp32 loss accumulation")
     s.add_argument("--chunk-epochs", type=int, default=None,
                    help="epochs a chunk of the early-exit drive (0 = one "
                         "chunk; the results are the same either way)")
@@ -298,14 +311,18 @@ def cmd_clean(args) -> int:
 
 def _make_trainer(preset: str, cleaned_dir: str, checkpoint_dir: Optional[str] = None,
                   quiet: bool = False, nan_guard: bool = False,
-                  max_recoveries: int = 3, device: str = "cuda"):
-    """Preset, then panel, then dataset, then logger, then trainer."""
+                  max_recoveries: int = 3, device: str = "cuda",
+                  dtype: Optional[str] = None):
+    """Preset (its model's precision policy set to ``dtype`` if given),
+    then panel, then dataset, then logger, then trainer."""
     from hfrep_tpu_torch.config import get_preset
     from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
     from hfrep_tpu_torch.obs.metriclog import MetricLogger
     from hfrep_tpu_torch.train.trainer import GanTrainer
 
     cfg = get_preset(preset)
+    if dtype:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
     if checkpoint_dir:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, checkpoint_dir=checkpoint_dir))
@@ -339,7 +356,7 @@ def _cmd_train_gan_impl(args) -> int:
     trainer, cfg = _make_trainer(
         args.preset, args.cleaned_dir, args.checkpoint_dir, args.quiet,
         nan_guard=args.nan_guard, max_recoveries=args.max_recoveries,
-        device=args.device)
+        device=args.device, dtype=args.dtype)
     target = args.epochs if args.epochs is not None else cfg.train.epochs
     if args.resume:
         from hfrep_tpu_torch.utils.checkpoint import latest
@@ -510,6 +527,8 @@ def _cmd_sweep_impl(args) -> int:
     x_train, x_test, y_train, y_test = panel.train_test_split()
     rf_test = panel.rf[x_train.shape[0]:]
     cfg = AEConfig()
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     if args.epochs:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
     if args.chunk_epochs is not None:
@@ -687,8 +706,10 @@ def _cmd_serve_impl(args) -> int:
                                                           device=args.device))
         try:
             n_programs = warm_server(server, panels)
-            print(f"serving: {n_programs} programs resident; offering "
-                  f"{args.requests} queries (deadline {timeout_ms:.0f}ms)", file=sys.stderr)
+            print(f"serving: {n_programs} AOT programs resident "
+                  f"(export={'on' if server.cfg.via_export else 'off'}); "
+                  f"offering {args.requests} queries (deadline {timeout_ms:.0f}ms)",
+                  file=sys.stderr)
 
             def on_wave(done: int) -> None:
                 if resilience.drain_requested():

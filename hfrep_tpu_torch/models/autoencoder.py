@@ -35,16 +35,12 @@ class Autoencoder(nn.Module):
         self.decoder_kernel = new_param((latent_dim, n_features), torch.float32,
                                         glorot_uniform_, dev, generator)
 
-    def _cast(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.dtype is None else x.to(self.dtype)
-
     def encode(self, x: torch.Tensor,
                latent_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return ae_encode(self._cast(x), self._cast(self.encoder_kernel), latent_mask,
-                         self.slope)
+        return ae_encode(x, self.encoder_kernel, latent_mask, self.slope, self.dtype)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return leaky_relu(self._cast(z) @ self._cast(self.decoder_kernel),
+        return leaky_relu(_cast(z, self.dtype) @ _cast(self.decoder_kernel, self.dtype),
                           self.slope)
 
     def forward(self, x: torch.Tensor,
@@ -60,19 +56,28 @@ def latent_mask(latent_dim: int, max_latent: int,
 
 
 # ------------------------------------------------ the lane grid's batched form
+def _cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return t if dtype is None else t.to(dtype)
+
+
 def ae_encode(x: torch.Tensor, encoder_kernel: torch.Tensor,
-              latent_mask: Optional[torch.Tensor] = None, slope: float = 0.2) -> torch.Tensor:
+              latent_mask: Optional[torch.Tensor] = None, slope: float = 0.2,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """:meth:`Autoencoder.encode` with the kernel passed in: ``x`` (..., R, F)
     against ``encoder_kernel`` (..., F, M), leading (lane) dims broadcast;
-    ``latent_mask`` (..., M) masks each lane's latent columns."""
-    z = leaky_relu(x @ encoder_kernel, slope)
+    ``latent_mask`` (..., M) masks each lane's latent columns.  ``dtype``
+    is the product's compute dtype, both operands cast to it (``None``: no
+    cast, the float32 path's graph); the result is in it."""
+    z = leaky_relu(_cast(x, dtype) @ _cast(encoder_kernel, dtype), slope)
     if latent_mask is not None:
         z = z * latent_mask.to(z.dtype).unsqueeze(-2)
     return z
 
 
 def ae_apply(x: torch.Tensor, encoder_kernel: torch.Tensor, decoder_kernel: torch.Tensor,
-             latent_mask: Optional[torch.Tensor] = None, slope: float = 0.2) -> torch.Tensor:
-    """:meth:`Autoencoder.forward` over a lane grid: (..., R, F) → (..., R, F)."""
-    return leaky_relu(ae_encode(x, encoder_kernel, latent_mask, slope) @ decoder_kernel,
-                      slope)
+             latent_mask: Optional[torch.Tensor] = None, slope: float = 0.2,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:meth:`Autoencoder.forward` over a lane grid: (..., R, F) → (..., R, F),
+    each of the two products in ``dtype`` (:func:`ae_encode`)."""
+    z = ae_encode(x, encoder_kernel, latent_mask, slope, dtype)
+    return leaky_relu(_cast(z, dtype) @ _cast(decoder_kernel, dtype), slope)

@@ -23,7 +23,10 @@ module's helpers and launch counters.  Four layers:
 * the dispatch — :func:`lstm_fwd`, :func:`lstm_bwd`, :func:`lstm_adj`: a
   CUDA tensor goes to the kernel, a CPU tensor to the plain version.
   There is no fallback: on a CUDA tensor the kernel runs or the call
-  raises;
+  raises.  The carry-free forward is also the dispatcher op
+  ``hfrep::lstm_fwd`` (:func:`lstm_fwd_op`), with a fake implementation
+  for ``torch.export``: the no-grad forward goes through it, so an
+  exported serving program keeps the kernel as one node;
 * autograd — :class:`LSTMFwdRes` and :class:`LSTMBwdSeq`, nested as the
   JAX ``custom_vjp``s are, so the WGAN-GP penalty's second order runs
   the adjoint kernel; :func:`lstm_seq` and :func:`keras_lstm` are the
@@ -955,6 +958,39 @@ def lstm_adj(xz, rec, hs, cs, dhT, dcT, u, v, activation="tanh", carry=None,
     return fn(xz, rec, hs, cs, dhT, dcT, u, v, activation, carry, mu0)
 
 
+# ------------------------------------------------------ the dispatcher op
+@torch.library.custom_op("hfrep::lstm_fwd", mutates_args=(), device_types="cpu",
+                         schema="(Tensor xz, Tensor rec, str activation, bool with_cs)"
+                                " -> Tensor[]")
+def lstm_fwd_op(xz: torch.Tensor, rec: torch.Tensor, activation: str,
+                with_cs: bool) -> list:
+    """The carry-free forward behind PyTorch's dispatcher, ``hfrep::lstm_fwd``:
+    ``[hs]``, or with ``with_cs`` ``[hs, cs]``, float32 (W, B, H).  On a
+    CPU tensor the plain version; on a CUDA tensor :func:`lstm_fwd_cuda`,
+    whose checks, layout rule, stream, ctypes pointers and launch count
+    all run inside the op; under ``torch.export`` its fake implementation,
+    which gives the shapes and touches no data, so an exported program
+    holds one opaque ``hfrep.lstm_fwd`` node that launches the kernel (and
+    counts the launch) each time the program runs.  The no-grad forward
+    (:func:`lstm_seq` when nothing records) calls it; the autograd nodes
+    call the wrapper directly."""
+    out = lstm_seq_plain(xz, rec, activation, with_cs)
+    return list(out) if with_cs else [out]
+
+
+@lstm_fwd_op.register_kernel("cuda")
+def _lstm_fwd_op_cuda(xz, rec, activation, with_cs):
+    out = lstm_fwd_cuda(xz, rec, activation, with_cs)
+    return list(out) if with_cs else [out]
+
+
+@lstm_fwd_op.register_fake
+def _lstm_fwd_op_fake(xz, rec, activation, with_cs):
+    w, b, g = xz.shape
+    hs = xz.new_empty((w, b, g // 4), dtype=torch.float32)
+    return [hs, torch.empty_like(hs)] if with_cs else [hs]
+
+
 # ---------------------------------------------------------------- autograd
 def _cast_like(cot: torch.Tensor, primal: torch.Tensor) -> torch.Tensor:
     """A kernel cotangent (float32) in its primal's dtype: the whole bf16
@@ -1035,12 +1071,13 @@ def lstm_seq(xz: torch.Tensor, rec: torch.Tensor,
 
     Under autograd with an operand that needs a gradient it runs
     :class:`LSTMFwdRes` (the forward kernel with cs); otherwise — under
-    ``no_grad`` / ``inference_mode``, as serving calls it — the primal
-    forward kernel, with no cs at all.  Kernel on a CUDA tensor, plain
-    version on a CPU tensor."""
+    ``no_grad`` / ``inference_mode``, as serving and sampling call it —
+    the primal forward through the dispatcher op :func:`lstm_fwd_op`,
+    with no cs at all.  Kernel on a CUDA tensor, plain version on a CPU
+    tensor."""
     if torch.is_grad_enabled() and (xz.requires_grad or rec.requires_grad):
         return LSTMFwdRes.apply(xz, rec, activation)[0]
-    return lstm_fwd(xz, rec, activation)
+    return lstm_fwd_op(xz, rec, activation, False)[0]
 
 
 class LSTMFwdResCarry(torch.autograd.Function):

@@ -59,7 +59,17 @@ nonfinite count writes a forensic dump of the carry and raises
 is bit-identical either way, and a chunk snapshot records the health
 setting: a resume across a toggle is refused.
 
-Not in this port yet (ROADMAP): the ``mesh`` path and the bf16 policy.
+The precision policy is ``cfg.dtype`` (:func:`compute_dtype`, JAX
+``_ae_model``): ``"float32"`` applies the model with no cast at all;
+``"bfloat16"`` casts both operands of each of its two products to bf16
+wherever the model is applied (the training grid's MSE, the in-sample
+fit, the OOS prefixes, the ex-ante encode and
+:meth:`ReplicationEngine._apply`), over float32 master weights and
+Nadam slots; every loss and reduction is float32, since the error
+against the float32 panel promotes before it is reduced, and the
+ex-ante factors are cast back to float32 before the rolling OLS.
+
+Not in this port yet (ROADMAP): the ``mesh`` path.
 """
 
 from __future__ import annotations
@@ -119,10 +129,17 @@ def _epoch_batches(n_train: int, batch_size: int) -> Tuple[int, int]:
     return n_batches, n_batches * batch_size
 
 
-def _check_dtype(cfg: AEConfig) -> None:
-    if cfg.dtype not in (None, "float32"):
-        raise ValueError(f"AEConfig.dtype={cfg.dtype!r}: the port trains the AE in "
-                         "float32 only (the bf16 policy is not ported)")
+def compute_dtype(cfg: AEConfig) -> Optional[torch.dtype]:
+    """``cfg.dtype`` as the model's compute dtype (JAX ``_ae_model``):
+    ``"float32"`` and ``None`` give ``None``, no cast (the float32 path's
+    graph); ``"bfloat16"`` gives bf16, its GEMMs accumulating in float32
+    (set at the package's import); any other dtype is refused."""
+    if cfg.dtype in (None, "float32"):
+        return None
+    if cfg.dtype != "bfloat16":
+        raise ValueError(f"AEConfig.dtype={cfg.dtype!r}: the AE trains in float32 or "
+                         "bfloat16")
+    return torch.bfloat16
 
 
 # --------------------------------------------------------------- the draws
@@ -193,6 +210,7 @@ class _Grid:
                  init_params: dict, d: int, health: bool = False):
         self.cfg = cfg
         self.health = health
+        self.dtype = compute_dtype(cfg)
         dev = x.device
         self.dx, n, self.f = x.shape
         self.d, self.l, self.m = d, masks.shape[0], masks.shape[1]
@@ -231,7 +249,7 @@ class _Grid:
     def mse(self, flat: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor] = None,
             ) -> torch.Tensor:
         enc, dec = self.kernels(flat)
-        pred = ae_apply(x, enc, dec, self.masks, self.cfg.leaky_slope)
+        pred = ae_apply(x, enc, dec, self.masks, self.cfg.leaky_slope, self.dtype)
         err = torch.mean((pred - x) ** 2, dim=-1)
         if w is None:
             return torch.mean(err, dim=-1)
@@ -554,7 +572,6 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
     operands (data, masks, row counts, given init), so a snapshot of
     another drive is refused.  A ``perm_source`` seam is outside the
     fingerprint: a resume must pass the same one."""
-    _check_dtype(cfg)
     if resume_dir is not None and (monolithic or not cfg.chunk_epochs):
         raise ValueError("resume_dir requires the chunked drive (cfg.chunk_epochs > 0): "
                          "a monolithic drive has no chunk boundary to resume from")
@@ -781,11 +798,13 @@ def _kernels(params: dict) -> Tuple[torch.Tensor, torch.Tensor]:
 
 @torch.no_grad()
 def oos_prefix_metrics(x_test: torch.Tensor, params: dict,
-                       mask: Optional[torch.Tensor], slope: float = 0.2):
+                       mask: Optional[torch.Tensor], slope: float = 0.2,
+                       dtype: Optional[torch.dtype] = None):
     """Per-prefix OOS R² and RMSE (``Autoencoder_encapsulate.py:115-131``):
     for prefix length i in [2, T), ``x_test`` MinMax-scaled by the prefix's
-    own min and max (a zero range taken as 1), reconstructed, and scored on
-    its first i rows.  Params with lane dims give (..., T - 2) each."""
+    own min and max (a zero range taken as 1), reconstructed in ``dtype``
+    (:func:`compute_dtype`), and scored in float32 on its first i rows.
+    Params with lane dims give (..., T - 2) each."""
     t = x_test.shape[0]
     mins, maxs = expanding_minmax_scale(x_test)
     rng = maxs - mins
@@ -795,7 +814,7 @@ def oos_prefix_metrics(x_test: torch.Tensor, params: dict,
     mask_rows = (torch.arange(t, device=x_test.device)[None, :] < i[:, None])[..., None]
     enc, dec = _kernels(params)
     pred = ae_apply(scaled, enc.unsqueeze(-3), dec.unsqueeze(-3),
-                    None if mask is None else mask.unsqueeze(-2), slope)
+                    None if mask is None else mask.unsqueeze(-2), slope, dtype)
     r2 = _r2_columns_mean_masked(scaled, pred, mask_rows)
     sq = torch.sum((scaled - pred) ** 2 * mask_rows, dim=(-2, -1))
     rmse = torch.sqrt(sq / (torch.sum(mask_rows, dim=(-2, -1)) * x_test.shape[1]))
@@ -807,10 +826,13 @@ def ante_weights(cfg: AEConfig, params: dict, mask: Optional[torch.Tensor],
                  x_test: torch.Tensor, y_test: torch.Tensor, rf, window: int):
     """Ex-ante replication returns and strategy weights
     (``Autoencoder_encapsulate.py:133-201``): ``(ante (..., P, S), weights
-    (..., P, F, S))``.  The encoder sees the raw test returns (``:140``)."""
+    (..., P, F, S))``.  The encoder sees the raw test returns (``:140``), in
+    the policy's compute dtype; the factors leave it as float32, since the
+    rolling pseudo-inverse has no bf16 path (an identity at float32)."""
     rf = _tensor(rf, x_test.device).reshape(-1, 1)
     enc, dec = _kernels(params)
-    factors = ae_encode(x_test, enc, mask, cfg.leaky_slope)         # (..., T, M)
+    factors = ae_encode(x_test, enc, mask, cfg.leaky_slope,
+                        compute_dtype(cfg)).float()                 # (..., T, M)
     n_windows = x_test.shape[0] - window                            # :148 range
     betas = rolling_ols_beta(y_test, factors, window)[..., :n_windows, :, :]
     xw = _window_stack(factors, window)[..., :n_windows, :, :]
@@ -842,10 +864,11 @@ def evaluate_params(cfg: AEConfig, x_train_scaled, x_test, y_test, rf, factor_fu
     dev = enc.device
     x_train_scaled, x_test, y_test, rf, factor_full = (
         _tensor(a, dev) for a in (x_train_scaled, x_test, y_test, rf, factor_full))
-    pred_train = ae_apply(x_train_scaled, enc, dec, mask, cfg.leaky_slope)
+    dt = compute_dtype(cfg)
+    pred_train = ae_apply(x_train_scaled, enc, dec, mask, cfg.leaky_slope, dt)
     is_r2 = _r2_columns_mean(x_train_scaled, pred_train)
     is_rmse = torch.sqrt(torch.mean((x_train_scaled - pred_train) ** 2, dim=(-2, -1)))
-    oos_r2, oos_rmse = oos_prefix_metrics(x_test, params, mask, cfg.leaky_slope)
+    oos_r2, oos_rmse = oos_prefix_metrics(x_test, params, mask, cfg.leaky_slope, dt)
     window = cfg.ols_window
     ante, weights = ante_weights(cfg, params, mask, x_test, y_test, rf, window)
     p = ante.shape[-2]
@@ -880,7 +903,7 @@ class ReplicationEngine:
     def __init__(self, x_train, y_train, x_test, y_test, cfg: Optional[AEConfig] = None,
                  device: DeviceLike = None):
         self.cfg = cfg or AEConfig()
-        _check_dtype(self.cfg)
+        self.dtype = compute_dtype(self.cfg)
         if len(x_train) != len(y_train) or len(x_test) != len(y_test):
             raise ValueError("x/y length mismatch")
         self.device = resolve_device(device)
@@ -934,7 +957,7 @@ class ReplicationEngine:
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
         enc, dec = _kernels(self.params)
         with torch.no_grad():
-            return ae_apply(x, enc, dec, self.mask, self.cfg.leaky_slope)
+            return ae_apply(x, enc, dec, self.mask, self.cfg.leaky_slope, self.dtype)
 
     # ------------------------------------------------------------- metrics
     def model_IS_r2(self) -> float:
@@ -949,7 +972,7 @@ class ReplicationEngine:
     def _oos_eval(self):
         if self._oos_cache is None:
             self._oos_cache = oos_prefix_metrics(self.x_test, self.params, self.mask,
-                                                 self.cfg.leaky_slope)
+                                                 self.cfg.leaky_slope, self.dtype)
         return self._oos_cache
 
     def model_OOS_r2(self) -> np.ndarray:

@@ -19,7 +19,11 @@ from hfrep_tpu_torch.serve.admission import (  # noqa: F401  (public re-exports)
     ServerClosed,
     WorkerFault,
 )
-from hfrep_tpu_torch.serve.aot import AEServeModel, GenServeModel  # noqa: F401
+from hfrep_tpu_torch.serve.aot import (  # noqa: F401
+    AEServeModel,
+    GenServeModel,
+    torch_export_supported,
+)
 from hfrep_tpu_torch.serve.batcher import MicroBatcher, ServeRequest  # noqa: F401
 from hfrep_tpu_torch.serve.server import (  # noqa: F401
     ReplicationServer,

@@ -5,20 +5,31 @@
   (zero rows after the true tail plus an ``n_rows`` operand the program
   masks by), so one program serves every tenant whose shape falls in the
   bucket;
-* **programs built ahead of traffic** — PyTorch runs eagerly, so
-  "compiling" a bucket is building its callable and running it once on
-  the bucket's operands (:func:`aot_compile`): that first run builds the
-  CUDA kernels and warms the allocator outside the request path.
-  ``torch.export`` and CUDA graphs per bucket are later work;
+* **programs built ahead of traffic** (:func:`aot_compile`) — each
+  bucket's program is exported at its static shapes with
+  ``torch.export``, saved into a buffer and loaded back, the artifact a
+  model registry could ship, whose LSTM layers are the hand kernel's
+  dispatcher op ``hfrep::lstm_fwd``
+  (:func:`~hfrep_tpu_torch.ops.cuda_lstm.lstm_fwd_op`); where the export
+  fails, the eager program serves instead (mode ``"compiled"``).  Either
+  way the program runs once on the bucket's operands before traffic,
+  which builds the CUDA kernels and warms the allocator outside the
+  request path;
 * **LRU of programs + device-resident weights** — model weights move to
-  the device once, at registration, and every bucket's program shares
-  them; programs live in a bounded least-recently-used cache whose
-  builds are visible to the circuit breaker.
+  the device once, at registration, and reach every bucket's program as
+  its first operand (``model.params``), so one device copy serves every
+  bucket and no loaded program holds one of its own; programs live in a
+  bounded least-recently-used cache whose builds are visible to the
+  circuit breaker.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import io
+import sys
 import threading
 from collections import OrderedDict
 from typing import Callable, Optional, Sequence, Tuple
@@ -26,6 +37,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import _pytree
 
 from hfrep_tpu_torch.config import AEConfig, ModelConfig
 from hfrep_tpu_torch.core.device import DeviceLike, dtype_of, resolve_device
@@ -48,23 +60,89 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
                       f"{max(buckets)}; raise ServeConfig.row_buckets")
 
 
-def aot_compile(fn: Callable, example: torch.Tensor, *rest,
-                label: Optional[str] = None) -> Callable:
-    """Build a bucket's program ahead of traffic: run ``fn`` once on the
-    example operands and wait for the device.  Returns ``fn``.
+def torch_export_supported() -> bool:
+    """Does this torch carry ``torch.export``'s export / save / load?"""
+    try:
+        from torch import export
+    except ImportError:
+        return False
+    return all(hasattr(export, n) for n in ("export", "save", "load"))
+
+
+class Program:
+    """A bucket's built program: called with the bucket's operands, it runs
+    under ``inference_mode``; ``mode`` is ``"export"`` (a loaded
+    ``torch.export`` program) or ``"compiled"`` (the eager function)."""
+
+    def __init__(self, fn: Callable, mode: str):
+        self.fn, self.mode = fn, mode
+
+    def __call__(self, *args):
+        with torch.inference_mode():
+            return self.fn(*args)
+
+
+class _Exportable(nn.Module):
+    """A batch function as a module with no state of its own: the served
+    weights are an operand, so the exported program holds no copy."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _run_once(program: Program, example_args: tuple) -> None:
+    program(*example_args)
+    for t in _pytree.tree_leaves(example_args):
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+            break
+
+
+def aot_compile(fn: Callable, *example_args, via_export: bool = True,
+                label: Optional[str] = None) -> Tuple[Program, str]:
+    """Build a bucket's program ahead of traffic; returns ``(program,
+    mode)``.
+
+    With ``via_export`` (and :func:`torch_export_supported`): ``fn`` is
+    exported at the example operands' static shapes (``torch.export``),
+    saved into a buffer and loaded back, mode ``"export"``.  A failure
+    there is printed on stderr and the eager ``fn`` serves instead, mode
+    ``"compiled"``, as it does without ``via_export``: serving comes up on
+    every runtime, and callers that need the export check the mode.
+    Either way the program runs once on the example operands and the
+    device is synchronised before this returns, so the kernels' build
+    and the allocator's first blocks stay out of the request path.
 
     ``label`` opts the bucket into the perf microscope: with telemetry on,
     the kernel libraries loaded by then are fingerprinted at the
-    ``<label>:compiled`` boundary (``program_profile`` events and
+    ``<label>:<mode>`` boundary (``program_profile`` events and
     ``run.json`` ``programs`` entries, :mod:`hfrep_tpu_torch.obs.attrib`),
     at build time only, never on the request path."""
-    fn(example, *rest)
-    if example.device.type == "cuda":
-        torch.cuda.synchronize(example.device)
+    program = None
+    if via_export and torch_export_supported():
+        try:
+            exported = torch.export.export(_Exportable(fn), tuple(example_args),
+                                           strict=False)
+            buf = io.BytesIO()
+            torch.export.save(exported, buf)
+            buf.seek(0)
+            program = Program(torch.export.load(buf).module(), "export")
+            _run_once(program, example_args)
+        except Exception as e:          # any failure: serve the eager program
+            print(f"serve: {label or 'program'}: torch.export round trip failed "
+                  f"({type(e).__name__}: {e}); serving the eager program", file=sys.stderr)
+            program = None
+    if program is None:
+        program = Program(fn, "compiled")
+        _run_once(program, example_args)
     if label:
         from hfrep_tpu_torch.obs import attrib
-        attrib.profile_boundary(f"{label}:compiled")
-    return fn
+        attrib.profile_boundary(f"{label}:{program.mode}")
+    return program, program.mode
 
 
 # ------------------------------------------------------------ serve models
@@ -87,6 +165,13 @@ class AEServeModel:
     @property
     def device(self) -> torch.device:
         return self.module.encoder_kernel.device
+
+    @functools.cached_property
+    def params(self) -> dict:
+        """The head's weights by name, the device tensors themselves (built
+        once, shared by every dispatch): the first operand of
+        :func:`ae_batch_fn`."""
+        return _params(self.module)
 
     @classmethod
     def create(cls, cfg: AEConfig, params: Optional[dict] = None, mask=None,
@@ -122,6 +207,12 @@ class GenServeModel:
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
 
+    @functools.cached_property
+    def params(self) -> dict:
+        """The generator's weights by name, built once (:func:`gen_batch_fn`'s
+        first operand)."""
+        return _params(self.module)
+
     @classmethod
     def create(cls, cfg: ModelConfig, params: Optional[dict] = None,
                device: DeviceLike = None,
@@ -138,20 +229,23 @@ class GenServeModel:
         return cls(cfg=cfg, module=gen.eval().requires_grad_(False))
 
 
+def _params(module: nn.Module) -> dict:
+    return {k: p.detach() for k, p in module.named_parameters()}
+
+
 # ------------------------------------------------------- batch programs
 def ae_batch_fn(model: AEServeModel) -> Callable:
-    """The AE replication program one (batch, rows) bucket runs.
-
-    ``fn(x (B, T, F), n_rows (B,), mask)`` → ``(recon (B, T, F), err
-    (B,))``: each request's panel is MinMax-scaled with its own masked
-    column ranges (rows past ``n_rows`` excluded), encoded and decoded
-    through the head, and scored with a row-masked reconstruction MSE.
-    The JAX program's ``vmap`` over requests is the leading batch axis.
-    """
+    """The AE replication program one (batch, rows) bucket runs, the JAX
+    program's signature: ``fn(params, x (B, T, F), n_rows (B,), mask)`` →
+    ``(recon (B, T, F), err (B,))``, ``params`` the head's weights
+    (``model.params``).  Each request's panel is MinMax-scaled with its own
+    masked column ranges (rows past ``n_rows`` excluded), encoded and
+    decoded through the head, and scored with a row-masked reconstruction
+    MSE.  The JAX program's ``vmap`` over requests is the leading batch
+    axis."""
     ae = model.module
 
-    @torch.inference_mode()
-    def batch(x: torch.Tensor, n_rows: torch.Tensor, mask):
+    def batch(params: dict, x: torch.Tensor, n_rows: torch.Tensor, mask):
         t = x.shape[1]
         rows = (torch.arange(t, device=x.device)[None, :] < n_rows[:, None]
                 ).to(torch.float32)[..., None]                    # (B, T, 1)
@@ -163,7 +257,7 @@ def ae_batch_fn(model: AEServeModel) -> Callable:
         maxs = torch.where(rows > 0, x, -big).amax(dim=1, keepdim=True)
         scale = torch.where(maxs - mins == 0.0, torch.ones_like(maxs), maxs - mins)
         scaled = (x - mins) / scale * rows
-        recon = ae(scaled, mask)
+        recon = torch.func.functional_call(ae, params, (scaled, mask))
         err = torch.sum(torch.mean((recon - scaled) ** 2, dim=2) * rows[..., 0],
                         dim=1) / n
         return recon * rows, err
@@ -172,13 +266,13 @@ def ae_batch_fn(model: AEServeModel) -> Callable:
 
 
 def gen_batch_fn(model: GenServeModel) -> Callable:
-    """The generator sampling program: ``fn(noise (B, W, F))`` → (B, W, F)
-    windows in scaler space."""
+    """The generator sampling program: ``fn(params, noise (B, W, F))`` →
+    (B, W, F) windows in scaler space, ``params`` the generator's weights
+    (``model.params``)."""
     gen = model.module
 
-    @torch.inference_mode()
-    def batch(noise: torch.Tensor) -> torch.Tensor:
-        return gen(noise)
+    def batch(params: dict, noise: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(gen, params, (noise,))
 
     return batch
 
@@ -208,6 +302,16 @@ class ProgramCache:
     def __len__(self) -> int:
         with self._lock:
             return len(self._programs)
+
+    def programs(self) -> dict:
+        """The resident programs by key, least recently used first."""
+        with self._lock:
+            return dict(self._programs)
+
+    def modes(self) -> dict:
+        """The resident programs counted by build mode (``Program.mode``)."""
+        return dict(collections.Counter(getattr(fn, "mode", "compiled")
+                                        for fn in self.programs().values()))
 
     def get_or_compile(self, key: tuple, build: Callable[[], Callable]):
         with self._lock:

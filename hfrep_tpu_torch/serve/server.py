@@ -29,6 +29,12 @@ exact); the workers book ``queue_wait`` and ``dispatch`` into the
 wall-clock ledger (:mod:`~hfrep_tpu_torch.obs.timeline`), and a drain
 emits ``serve_drain``.
 
+Each bucket's program is built ahead of traffic by
+:func:`~hfrep_tpu_torch.serve.aot.aot_compile`: with ``ServeConfig.via_export``
+(the default) a loaded ``torch.export`` program that takes the model's
+weights as an operand, else the eager function; ``stats()["cache"]
+["modes"]`` counts the resident programs by mode.
+
 Sample noise comes from a ``torch.Generator`` on the model's device,
 seeded from ``(cfg.seed, dispatch sequence number)``; its draws differ
 from ``jax.random``'s by necessity.
@@ -79,6 +85,8 @@ class ServeConfig:
     breaker_cooldown_s: float = 1.0
     compile_storm: int = 16         # program builds per window that trip OPEN
     compile_window_s: float = 10.0
+    via_export: bool = True         # each bucket a loaded torch.export program
+    #                                 (aot.aot_compile), else the eager one
     seed: int = 0                   # noise stream for `sample` requests
     event_log_every: int = 1        # per-request events sampled 1 in N;
                                     # counters and the outcome ledger stay
@@ -523,10 +531,11 @@ class ReplicationServer:
         return self.cache.get_or_compile(
             ("replicate", bsz, rows),
             lambda: aot.aot_compile(
-                aot.ae_batch_fn(model),
+                aot.ae_batch_fn(model), model.params,
                 torch.zeros((bsz, rows, feats), dtype=torch.float32, device=dev),
                 torch.zeros((bsz,), dtype=torch.int32, device=dev),
-                self._ae_mask(), label=f"serve:replicate:b{bsz}r{rows}"))
+                self._ae_mask(), via_export=self.cfg.via_export,
+                label=f"serve:replicate:b{bsz}r{rows}")[0])
 
     def _sample_program(self, bucket: int):
         model = self.gen_model
@@ -534,9 +543,9 @@ class ReplicationServer:
         return self.cache.get_or_compile(
             ("sample", bucket),
             lambda: aot.aot_compile(
-                aot.gen_batch_fn(model),
-                torch.zeros((bucket, w, f), dtype=torch.float32,
-                            device=model.device), label=f"serve:sample:b{bucket}"))
+                aot.gen_batch_fn(model), model.params,
+                torch.zeros((bucket, w, f), dtype=torch.float32, device=model.device),
+                via_export=self.cfg.via_export, label=f"serve:sample:b{bucket}")[0])
 
     def _run_replicate(self, batch: List[ServeRequest]) -> List[dict]:
         model = self.ae_model
@@ -545,7 +554,7 @@ class ReplicationServer:
         x, n_rows = aot.pad_panel_batch([r.payload for r in batch], bsz, rows,
                                         model.cfg.n_factors, device=model.device)
         fn = self._replicate_program(bsz, rows)
-        recon, err = fn(x, n_rows, self._ae_mask())
+        recon, err = fn(model.params, x, n_rows, self._ae_mask())
         t_s = timeline.clock()
         recon = recon.float().cpu().numpy()
         err = err.float().cpu().numpy()
@@ -580,7 +589,7 @@ class ReplicationServer:
                                  next(self._dispatch_seq))
             noise = torch.randn((bucket, w, f), generator=g,
                                 device=model.device, dtype=torch.float32)
-            out_dev = fn(noise)
+            out_dev = fn(model.params, noise)
             t_s = timeline.clock()
             windows = out_dev.float().cpu().numpy()
             timeline.note_sync(timeline.clock() - t_s)
@@ -639,6 +648,7 @@ class ReplicationServer:
                           "reason": self.breaker.last_trip_reason}
         doc["cache"] = {"programs": len(self.cache),
                         "compiles": self.cache.compiles,
-                        "evictions": self.cache.evictions}
+                        "evictions": self.cache.evictions,
+                        "modes": self.cache.modes()}
         doc["queue_depth"] = self.batcher.depth
         return doc

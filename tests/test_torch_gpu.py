@@ -796,9 +796,9 @@ def test_generator_on_card_matches_cpu_plain_path(card, preset):
     g.manual_seed(5)
     noise = torch.randn((8, model.cfg.window, model.cfg.features), generator=g)
     before = cuda_lstm.launches
-    got = aot.gen_batch_fn(model)(noise.to(card)).cpu()
+    got = aot.gen_batch_fn(model)(model.params, noise.to(card)).cpu()
     assert cuda_lstm.launches == before + 2          # one launch per LSTM layer
-    ref = aot.gen_batch_fn(cpu)(noise)
+    ref = aot.gen_batch_fn(cpu)(cpu.params, noise)
     assert float((got - ref).abs().max()) <= 1e-4
 
 
@@ -911,3 +911,56 @@ def test_penalty_training_is_the_same_first_and_later_in_a_process(card):
                      for t in m.state_dict().values()])
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.gpu
+def test_exported_generator_on_card_runs_the_kernel_bitwise(card):
+    """A serve bucket's program through ``torch.export`` on the card: mode
+    ``"export"``, its answer bit for bit the eager program's, and each of
+    its two LSTM layers one counted ``lstm_fwd`` launch (the dispatcher
+    op ``hfrep::lstm_fwd`` launches inside the loaded program)."""
+    model = fixture_gen_model("mtss_wgan_gp_prod", device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(5)
+    noise = torch.randn((8, model.cfg.window, model.cfg.features), generator=g, device=card)
+    fn = aot.gen_batch_fn(model)
+    with torch.inference_mode():
+        eager = fn(model.params, noise)
+    rt, mode = aot.aot_compile(fn, model.params, noise, via_export=True)
+    assert mode == "export"
+    cuda_lstm.reset_launches()
+    got = rt(model.params, noise)
+    torch.cuda.synchronize()
+    assert cuda_lstm.launches == 2
+    assert torch.equal(got, eager)
+
+
+@pytest.mark.gpu
+def test_bf16_fused_epoch_launches_the_bf16_instantiations(card):
+    """One bf16 epoch of ``mtss_wgan_gp`` on the fused critic route: every
+    recurrence kernel the profiler sees is an ``__nv_bfloat16``
+    instantiation, and the kernels launched are the float32 route's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_preset("mtss_wgan_gp")
+    mcfg = dataclasses.replace(cfg.model, dtype="bfloat16")
+    tcfg = dataclasses.replace(cfg.train, batch_size=32, n_critic=5, steps_per_call=1)
+    g = torch.Generator(device=card)
+    g.manual_seed(3)
+    dataset = torch.rand((256, mcfg.window, mcfg.features), generator=g, device=card)
+    pair = build_gan(mcfg, device=card)
+    state = init_gan_state(0, mcfg, device=card)
+    step = make_train_step(pair, tcfg, dataset)
+    state, _ = step(state, sample_draws(g, pair, tcfg, dataset))     # builds the kernels
+    torch.cuda.synchronize()
+    cuda_lstm.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, sample_draws(g, pair, tcfg, dataset))
+        torch.cuda.synchronize()
+    launched = {k for k, v in cuda_lstm.launch_counts().items() if v}
+    assert launched == {"lstm_fwd", "lstm_fwd_cs", "lstm_bwd", "stack_fwd_res", "stack_bwd",
+                        "stack_adj"}
+    names = [e.key for e in prof.key_averages()
+             if ("lstm_" in e.key or "stack_" in e.key) and "_kernel" in e.key]
+    assert names and all("__nv_bfloat16" in n for n in names), names
+    assert torch.isfinite(m["d_loss"]) and m["d_loss"].dtype == torch.float32

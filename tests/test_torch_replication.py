@@ -629,6 +629,11 @@ def test_entry_points_without_device_raise_when_there_is_no_card(panel):
 
 
 def test_non_float32_policy_is_refused(panel):
-    with pytest.raises(ValueError, match="float32 only"):
-        engine.train_autoencoder(0, panel["x_scaled"], AEConfig(dtype="bfloat16"),
+    """The policies are float32 and bfloat16 (the bf16 policy's parity is
+    tests/test_torch_precision.py); another dtype is refused."""
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        engine.train_autoencoder(0, panel["x_scaled"], AEConfig(dtype="float16"),
                                  device="cpu")
+    res = engine.train_autoencoder(0, panel["x_scaled"], AEConfig(dtype="bfloat16", epochs=2),
+                                   device="cpu")
+    assert all(v.dtype == torch.float32 for v in res.params.values())

@@ -81,7 +81,7 @@ def test_ae_batch_fn_matches_jax_with_padding_and_empty_slots(latent):
     jrecon, jerr = jax_aot.ae_batch_fn(jmodel)(jmodel.params, x, n, jmodel.mask)
     model = aot.AEServeModel.create(AEConfig(), params, mask=mask, device="cpu")
     tx, tn = aot.pad_panel_batch(panels, 4, 32, FEATS, device="cpu")
-    recon, err = aot.ae_batch_fn(model)(tx, tn, model.mask)
+    recon, err = aot.ae_batch_fn(model)(model.params, tx, tn, model.mask)
     np.testing.assert_allclose(recon.numpy(), np.asarray(jrecon), atol=1e-5, rtol=1e-4)
     np.testing.assert_allclose(err.numpy(), np.asarray(jerr), atol=1e-5, rtol=1e-4)
     assert float(err[3]) == 0.0 and float(recon[3].abs().max()) == 0.0   # empty slot
@@ -100,7 +100,7 @@ def test_gen_batch_fn_matches_jax_on_the_same_noise(family):
     model = aot.GenServeModel.create(
         ModelConfig(family=family, hidden=16, features=5, window=8),
         jax.tree_util.tree_map(np.asarray, params), device="cpu")
-    got = aot.gen_batch_fn(model)(torch.from_numpy(noise)).numpy()
+    got = aot.gen_batch_fn(model)(model.params, torch.from_numpy(noise)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-4)
 
 
