@@ -297,15 +297,42 @@ exits non-zero on failure:
              with a crash bundle that ``verify_bundle`` and the checkpoint
              checksum accept and ``report --crash`` renders;
 5k. chaos  — ``python -m hfrep_tpu_torch.resilience`` on the card:
-             ``drives --check`` names only the ``ae_mesh`` gap;
+             ``drives --check`` exits 0 with every spec registered;
              then at once: ``selftest --device cuda`` exits 0 with the
              JAX selftest's keys; the corpus (each entry a ``chaos
-             --replay`` process, three at a time) and a seeded soak
+             --replay`` process, three at a time; all nine entries,
+             ``006`` the ``ae_mesh`` subject, none skipped) and a seeded soak
              over the fast subjects (3 schedules) end with no violation;
              the ``_planted`` canary is found and shrunk to
              ``io_fail@result_save=1``; the
              ``gan_ckpt`` subject's own stream carries the fused route's
              kernel launches;
+5l. mesh   — data parallelism on the one card (``hfrep_tpu_torch.parallel``):
+             the four training kernels (lstm_bwd, lstm_adj, stack_bwd,
+             stack_adj) at a rank's B=16 against their plain versions at
+             the grad bars; (a) the train phase's mtss_wgan_gp block (3
+             epochs, fused, B=32) on a one-device mesh bit-equal to the
+             meshless block from the same state and draws (params,
+             metrics), the fused route's launches an epoch, no collective;
+             (b) the same block as two processes (gloo, CUDA tensors,
+             cuda:0 each, 16 rows a rank): each rank within 1e-5 of the
+             single-device block, the ranks bit-equal, each rank's own
+             launches the fused route's; (c) ``train-gan --coordinator``
+             as two ranks on the committed panel (5 epochs): exit 0,
+             rank 0 alone writes checkpoints and prints, the generator
+             within 1e-5 of one process's, ``--resume`` from ``ckpt_2``
+             bit-equal to the straight run, SIGTERM to rank 1 drains
+             both into exit 75 with a checkpoint; (d) the padded (20
+             lanes) and multi (2 datasets) lane drives, 40 epochs, on a
+             lane mesh bit-equal to the meshless drives at dp=1 and as
+             two processes at dp=2; (e) ``MultiSeedTrainer`` (K=2) in turn
+             and on a two-rank seed mesh, each member bit-equal to its
+             standalone ``GanTrainer``; ms per epoch meshless, dp=1 and
+             dp=2 and the reduction's ms per epoch (CUDA events around
+             each all_reduce) printed (each block
+             timed with nothing else on the card); then the rank
+             processes' (d) and (e), the verb runs and this process's
+             checks side by side;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -338,6 +365,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import dataclasses
 import glob
@@ -376,7 +404,7 @@ SOURCES = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_cs": "lstm_fwd.cu",
            "stack_adj": "lstm_stack_adj.cu"}
 TRAIN_PRESETS = ("mtss_wgan_gp", "mtss_wgan_gp_prod")
 #: batches whose forward layout the build phase prints; 133 is two rows a block
-FWD_BATCHES = (8, 32, 64, 133)
+FWD_BATCHES = (8, 16, 32, 64, 133)
 #: (H, dtype) of the forward's wide layout: widths the register file cannot hold
 WIDE_CASES = ((120, "float32"), (160, "bfloat16"))
 #: (H, dtype) of the stack forward's wide layout: widths past the cluster
@@ -406,6 +434,7 @@ SUM_LAUNCHES = {"1 pair": ("lstm_bwd", "lstm_bwd_carry"), "2 pairs": ("lstm_adj"
                 "column": ("stack_bwd", "stack_adj")}
 TRAIN_EPOCHS = 3
 TRAIN_BATCHES = (32, 64)        # penalty and generator passes; critic scores (2B)
+MESH_BATCH = 16                 # a rank's rows at dp=2: its penalty and generator passes
 #: the kernels each critic route's epoch must launch, and no others: the
 #: generator's single-layer kernels, then the critic's fused stack
 #: ("auto", slice 3) or its two chained single-layer LSTMs (slice 2)
@@ -652,14 +681,14 @@ def phase_build(torch, _build, cuda_lstm, cuda_lstm_stack) -> None:
             say(f"[build] {kernel} layout at H={h} {name}, B=133: "
                 f"{rule(h, getattr(torch, name), 133, sms, limit)}")
     rows = [cuda_lstm_stack.stack_rows(b, HIDDEN, torch.float32, sms, limit)
-            for b in TRAIN_BATCHES]
+            for b in (MESH_BATCH,) + TRAIN_BATCHES]
     for kernel in ("stack_fwd", "stack_bwd", "stack_adj"):
         sm = {n: cuda_lstm_stack.stack_smem_bytes(HIDDEN, dt, 1, kernel)
               for n, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
         extra = cuda_lstm_stack.stack_smem_bytes(HIDDEN, torch.float32, 2, kernel) - sm["f32"]
         say(f"[build] {kernel} (wide layout): dynamic shared memory at H={HIDDEN}, one row a block: "
             f"{sm['f32']} B f32, {sm['bf16']} B bf16 (+{extra} B a further row); "
-            f"{limit} B allowed; rows a block at B={TRAIN_BATCHES}: {rows}")
+            f"{limit} B allowed; rows a block at B={(MESH_BATCH,) + TRAIN_BATCHES}: {rows}")
 
 
 def lstm_inputs(torch, w, f, b, act, dtype, seed):
@@ -765,16 +794,18 @@ def scaled_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
-def phase_grad_parity(torch, cuda_lstm) -> dict:
+def phase_grad_parity(torch, cuda_lstm, shapes=SHAPES, batches=TRAIN_BATCHES,
+                      tag: str = "grad") -> dict:
     """Kernel 1 with_cs, kernel 2 (plain, dcs, with_carries) and kernel 3
     against their plain versions on the same inputs: the forward's from
-    ``lstm_inputs``, hs and cs from the kernel, seeded cotangents."""
+    ``lstm_inputs``, hs and cs from the kernel, seeded cotangents; at
+    ``shapes`` x ``batches``."""
     names = ("lstm_fwd_cs", "lstm_bwd", "lstm_adj")
     worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
     worst_abs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
     h = HIDDEN
-    for w, f in SHAPES:
-        for b in TRAIN_BATCHES:
+    for w, f in shapes:
+        for b in batches:
             for act in ACTS:
                 for name, dtype in (("float32", torch.float32),
                                     ("bfloat16", torch.bfloat16)):
@@ -812,7 +843,7 @@ def phase_grad_parity(torch, cuda_lstm) -> dict:
                         if not err <= GRAD_BARS[name]:
                             fail(f"{k} disagrees with its plain version: {err} > "
                                  f"{GRAD_BARS[name]} at W={w} B={b} {act} {name}")
-                    say(f"[grad] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
+                    say(f"[{tag}] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
                         f"{', '.join(line)} (limit {GRAD_BARS[name]:.0e})")
     return {"scaled": worst, "abs": worst_abs}
 
@@ -836,17 +867,19 @@ def stack_inputs(torch, w, f, b, act, dtype, seed):
     return (l0, l1), x, weights
 
 
-def phase_stack_parity(torch, cuda_lstm_stack) -> dict:
+def phase_stack_parity(torch, cuda_lstm_stack, shapes=SHAPES, batches=TRAIN_BATCHES,
+                       tag: str = "stack") -> dict:
     """Kernels 4 (primal, with_res), 5 (plain, directs, with_carries) and
     6 against their plain versions on the same inputs: the forward's from
-    ``stack_inputs``, the residuals from the kernel, seeded cotangents."""
+    ``stack_inputs``, the residuals from the kernel, seeded cotangents; at
+    ``shapes`` x ``batches``."""
     cls = cuda_lstm_stack
     names = ("stack_fwd", "stack_bwd", "stack_adj")
     worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
     worst_abs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
     h = HIDDEN
-    for w, f in SHAPES:
-        for b in TRAIN_BATCHES:
+    for w, f in shapes:
+        for b in batches:
             for act in ACTS:
                 for name, dtype in (("float32", torch.float32),
                                     ("bfloat16", torch.bfloat16)):
@@ -886,7 +919,7 @@ def phase_stack_parity(torch, cuda_lstm_stack) -> dict:
                         if not err <= GRAD_BARS[name]:
                             fail(f"{k} disagrees with its plain version: {err} > "
                                  f"{GRAD_BARS[name]} at W={w} B={b} {act} {name}")
-                    say(f"[stack] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
+                    say(f"[{tag}] W={w:3d} B={b:2d} {act:7s} {name:8s} scaled max err: "
                         f"{', '.join(line)} (limit {GRAD_BARS[name]:.0e})")
     return {"scaled": worst, "abs": worst_abs}
 
@@ -3812,7 +3845,7 @@ def phase_chaos(torch, np, keep: str) -> dict:
     rc, text, err, _ = run_module(mod, ["drives", "--check", "--format", "json"], timeout=120)
     doc = json.loads(text) if text.strip() else {}
     problems = doc.get("problems", ["unreadable"])
-    if rc not in (0, 1) or any(not p.startswith("ae_mesh:") for p in problems):
+    if rc != 0 or problems:
         fail(f"chaos: drives --check exited {rc}: {problems} {err[-800:]}")
     say(f"{tag} drives --check: {len(doc['drives'])} specs, exit {rc}, problems {problems}")
     out["drives"] = {"rc": rc, "problems": problems}
@@ -3849,7 +3882,7 @@ def phase_chaos(torch, np, keep: str) -> dict:
                      f"{err[-2000:]}")
         skipped = corpus.skipped
         runs = sum(len(doc["attempts"]) for _, _, doc, _, _ in replays)
-        if len(replays) != 8 or [c["subject"] for c in skipped] != ["ae_mesh"]:
+        if len(replays) != 9 or skipped:
             fail(f"chaos: the corpus replayed {len(replays)} entries and skipped {skipped}")
         corpus_s = time.perf_counter() - t_legs
         say(f"{tag} the corpus on the card, each entry a chaos --replay process, "
@@ -3874,8 +3907,13 @@ def phase_chaos(torch, np, keep: str) -> dict:
         out["soak"] = {k: soak[k] for k in ("schedules", "distinct_subjects", "preempted_runs",
                                             "runs", "run_secs_mean", "violations", "secs")}
         out["soak"]["wall_s"] = wall
-        # the gan_ckpt subject's undisturbed reference: its own stream's launches
-        ref_obs = os.path.join(soak_dir, "ref_gan_ckpt_0", "obs")
+        # the gan_ckpt subject's undisturbed reference: its own stream's
+        # launches (the soak's, else a corpus replay's: the soak's first
+        # schedules cycle the fast subjects in registry order)
+        refs = sorted(glob.glob(os.path.join(keep, "chaos_*", "ref_gan_ckpt_*", "obs")))
+        if not refs:
+            fail("chaos: no gan_ckpt reference run in the soak or the corpus replays")
+        ref_obs = refs[0]
         counters = {}
         for r in stream_records(ref_obs):
             if r.get("type") == "metric" and str(r.get("name", "")).startswith("launches/"):
@@ -3907,6 +3945,497 @@ def phase_chaos(torch, np, keep: str) -> dict:
                 proc.communicate()
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
+    return out
+
+
+# ------------------------------------------------------------ the mesh phase
+#: the mesh phase (ROADMAP queue 1 item 9a): dp=1 and dp=2 on the one card.
+#: One block of MESH_EPOCHS epochs of the train phase's mtss_wgan_gp path
+#: (fused critic, B=32, n_critic 5, its seeded windows); the train-gan verb
+#: for MESH_CLI_EPOCHS on the committed panel, resumed from ckpt_2, and
+#: drained; the lane mesh over MESH_LATENTS lanes (20: dp=2 divides them)
+#: and two datasets, MESH_AE_EPOCHS epochs; MultiSeedTrainer over MESH_SEEDS
+MESH_EPOCHS = 3
+MESH_CLI_EPOCHS, MESH_RESUME_AT, MESH_DRAIN_EPOCHS = 5, 2, 2000
+MESH_AE_EPOCHS, MESH_AE_CHUNK, MESH_AE_SEED = 40, 10, 31
+MESH_LATENTS = tuple(range(1, 21))
+MESH_SEEDS, MESH_SEED_EPOCHS = (11, 12), 3
+MESH_DP_ATOL = 1e-5                     # JAX's dp-against-single bar
+MESH_TIMEOUT_S = 300.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_gan_inputs(torch):
+    """The train phase's mtss_wgan_gp block: pair, config (B=32, n_critic
+    5, MESH_EPOCHS a block), seeded windows, a fresh state and the block's
+    draws, all on cuda:0 and the same in every process."""
+    from hfrep_tpu_torch.config import get_preset
+    from hfrep_tpu_torch.models.registry import build_gan
+    from hfrep_tpu_torch.train import init_gan_state, sample_draws
+
+    cfg = get_preset(TRAIN_PRESETS[0])
+    mcfg = cfg.model
+    tcfg = dataclasses.replace(cfg.train, batch_size=32, n_critic=5, steps_per_call=MESH_EPOCHS)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(100)
+    dataset = torch.rand((1000, mcfg.window, mcfg.features), generator=g, device="cuda")
+    pair = build_gan(mcfg, device="cuda")
+    state = init_gan_state(0, mcfg, device="cuda")
+    draws = [sample_draws(g, pair, tcfg, dataset) for _ in range(2 * MESH_EPOCHS)]
+    return pair, tcfg, dataset, state, draws
+
+
+def mesh_ae_inputs(torch):
+    """The lane drives' inputs: the committed panel's scaled train block,
+    a ragged second dataset (24 rows shorter) for the multi drive, the
+    config."""
+    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch.core import scaler
+    from hfrep_tpu_torch.core.data import load_panel
+    from hfrep_tpu_torch.replication import engine
+
+    panel = load_panel(os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR),
+                       device="cpu")
+    xs = scaler.fit_transform(panel.train_test_split()[0])[1]
+    stack, rows = engine.stack_padded([xs, xs[:xs.shape[0] - 24]])
+    cfg = AEConfig(epochs=MESH_AE_EPOCHS, chunk_epochs=MESH_AE_CHUNK)
+    return xs, stack, rows, cfg
+
+
+def mesh_lane_drives(torch, meshes: dict) -> dict:
+    """The padded lane drive and the multi drive on cuda:0, each on its
+    mesh in ``meshes`` (None: meshless): each result's arrays on the host."""
+    from hfrep_tpu_torch.replication import engine
+
+    xs, stack, rows, cfg = mesh_ae_inputs(torch)
+    out = {}
+    for name, run in (("padded", lambda m: engine.sweep_autoencoders_padded(
+                          MESH_AE_SEED, xs, xs.shape[0], cfg, MESH_LATENTS, device="cuda",
+                          mesh=m)),
+                      ("multi", lambda m: engine.sweep_autoencoders_multi(
+                          MESH_AE_SEED, stack, rows, cfg, MESH_LATENTS, device="cuda",
+                          mesh=m))):
+        res, stats = run(meshes[name])
+        arrays = {f"param_{k}": v.cpu() for k, v in res.params.items()}
+        arrays.update(stop_epoch=res.stop_epoch.cpu(), train_loss=res.train_loss.cpu(),
+                      val_loss=res.val_loss.cpu())
+        out[name] = {"arrays": arrays, "chunks": stats.chunks_dispatched,
+                     "epochs": stats.epochs_dispatched}
+    return out
+
+
+def mesh_seed_members(torch, mesh) -> dict:
+    """MultiSeedTrainer over MESH_SEEDS on the committed panel (W=48,
+    spc 2, MESH_SEED_EPOCHS epochs: a block and a remainder epoch): the
+    members this process holds, each's parameters on the host."""
+    from hfrep_tpu_torch.train.multi_seed import MultiSeedTrainer
+
+    cfg, ds = mesh_seed_config(torch)
+    ms = MultiSeedTrainer(cfg, ds, MESH_SEEDS, mesh=mesh, device="cuda")
+    ms.train(MESH_SEED_EPOCHS)
+    return {i: {n: p.detach().cpu() for n, p in state_params(m.state).items()}
+            for i, m in ms.members.items()}
+
+
+def mesh_seed_config(torch):
+    """The multi-seed check's preset (spc 2) and committed-panel dataset."""
+    from hfrep_tpu_torch.config import get_preset
+    from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
+
+    cfg = get_preset(TRAIN_PRESETS[0])
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps_per_call=2))
+    panel = load_panel(os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR),
+                       device="cuda")
+    return cfg, build_gan_dataset(cfg.data, cfg.data.seed, panel)
+
+
+def state_params(state) -> dict:
+    """Every parameter of a GAN state by ``g.``/``d.`` name."""
+    return {**{f"g.{n}": p for n, p in state.generator.named_parameters()},
+            **{f"d.{n}": p for n, p in state.discriminator.named_parameters()}}
+
+
+@contextlib.contextmanager
+def timed_all_reduce(torch):
+    """Wrap ``torch.distributed.all_reduce`` in this process so each call
+    is bracketed by CUDA events on the current stream; yields the list of
+    (start, end) event pairs, read after the caller synchronises."""
+    import torch.distributed as dist
+
+    spans, real = [], dist.all_reduce
+
+    def all_reduce(tensor, *args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        work = real(tensor, *args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return work
+
+    dist.all_reduce = all_reduce
+    try:
+        yield spans
+    finally:
+        dist.all_reduce = real
+
+
+def mesh_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of the mesh phase's dp=2 run, two processes on the one
+    card (gloo): (b) the GAN block on its 16 rows, its own launch counts
+    and collectives, then a second block timed; (d) the lane drives on
+    ``lane_mesh``; (e) MultiSeedTrainer on the two-rank seed mesh.  Every
+    result goes to ``out_dir/rank<rank>.pt``, read by the parent."""
+    import torch
+
+    from hfrep_tpu_torch.ops import cuda_lstm
+    from hfrep_tpu_torch.parallel import (MeshSpec, build_mesh, initialize_distributed,
+                                          lane_mesh, make_gan_multi_step,
+                                          shutdown_distributed)
+    from hfrep_tpu_torch.parallel import rules
+    from hfrep_tpu_torch.train.multi_seed import seed_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = initialize_distributed(f"127.0.0.1:{port}", 2, rank)
+    try:
+        mesh = build_mesh(MeshSpec(dp=2))
+        pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch)
+        block = make_gan_multi_step(pair, tcfg, dataset, mesh)
+        torch.cuda.synchronize()
+        cuda_lstm.reset_launches()
+        rules.reset_collective_counts()
+        state, metrics = block(state, draws=draws[:MESH_EPOCHS])
+        torch.cuda.synchronize()
+        out = {"backend": backend, "device": str(mesh.device),
+               "launches": cuda_lstm.launch_counts(),
+               "sums": sum_launches_by_shape(cuda_lstm),
+               "collectives": rules.collective_counts(),
+               "params": {n: p.detach().cpu() for n, p in state_params(state).items()},
+               "metrics": {k: v.cpu() for k, v in metrics.items()}}
+        rules.reset_collective_counts()
+        with timed_all_reduce(torch) as spans:
+            t0 = time.perf_counter()
+            block(state, draws=draws[MESH_EPOCHS:])
+            torch.cuda.synchronize()
+            out["ms_per_epoch"] = (time.perf_counter() - t0) / MESH_EPOCHS * 1e3
+        out["reduce_ms_per_epoch"] = sum(a.elapsed_time(b) for a, b in spans) / MESH_EPOCHS
+        out["reduces_per_epoch"] = rules.collective_counts()["all_reduce"] / MESH_EPOCHS
+        # timed alone on the card: the parent starts the verb runs after this
+        open(os.path.join(out_dir, f"rank{rank}.timed"), "w").close()
+        lanes = {"padded": lane_mesh(len(MESH_LATENTS)), "multi": lane_mesh(2)}
+        out["lane_dp"] = {k: m.shape["dp"] for k, m in lanes.items()}
+        out["lanes"] = mesh_lane_drives(torch, lanes)
+        seeds = seed_mesh(len(MESH_SEEDS))
+        out["seed_mesh"] = None if seeds is None else seeds.shape
+        out["members"] = mesh_seed_members(torch, seeds)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def start_ranks(out_dir: str) -> list:
+    """The mesh phase's two rank processes, started together."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("HFREP_FAULTS", "HFREP_OBS_DIR", "HFREP_HISTORY", "HFREP_HEALTH")}
+    env["PYTHONPATH"] = root
+    code = "import sys, chip_smoke; chip_smoke.mesh_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])"
+    return [(subprocess.Popen([sys.executable, "-c", code, str(r), str(port), out_dir],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True), time.perf_counter())
+            for r in (0, 1)]
+
+
+def start_cli_pair(args: list, obs_dir=None) -> list:
+    """``train-gan ARGS`` as two ranks over a fresh coordinator port."""
+    port = free_port()
+    extra = ["--obs-dir", obs_dir] if obs_dir else []
+    return [start_module("hfrep_tpu_torch", ["train-gan", *args, *extra, "--coordinator",
+                                             f"127.0.0.1:{port}", "--num-processes", 2,
+                                             "--process-id", r]) for r in (0, 1)]
+
+
+def ckpt_generator(torch, path: str) -> dict:
+    from hfrep_tpu_torch.utils import checkpoint as ckpt
+
+    return {k: v.cpu() for k, v in ckpt.restore(path)["state"]["generator"].items()}
+
+
+def tree_max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def tree_equal(torch, a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(
+        torch.equal(torch.nan_to_num(a[k], nan=7.0), torch.nan_to_num(b[k], nan=7.0))
+        if a[k].is_floating_point() else torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
+    """Data parallelism on the one card (ROADMAP queue 1 item 9a): the
+    training kernels at a rank's B=16; (a) a one-device mesh block bit-equal
+    to the meshless one, the fused route's launches, no collective; (b) dp=2
+    as two processes (gloo) within MESH_DP_ATOL of the single-device block,
+    the ranks bit-equal; (c) ``train-gan --coordinator`` as two ranks: exit
+    0, rank 0 alone writing checkpoints and printing, within MESH_DP_ATOL of
+    one process, a resume from ckpt_2 bit-equal, a SIGTERM to one rank
+    draining both into exit 75 with a checkpoint; (d) the lane drives with a
+    lane mesh bit-equal to the meshless ones at dp=1 and dp=2; (e)
+    MultiSeedTrainer's members bit-equal to standalone GanTrainer runs, in
+    turn and as a two-rank seed mesh."""
+    import signal
+
+    from hfrep_tpu_torch.parallel import MeshSpec, build_mesh, lane_mesh, make_gan_multi_step
+    from hfrep_tpu_torch.parallel import rules
+    from hfrep_tpu_torch.train import make_multi_step
+    from hfrep_tpu_torch.train.trainer import GanTrainer
+
+    tag = "[mesh]"
+    card = card_line(torch)
+    t_phase = time.perf_counter()
+    out: dict = {}
+    ranks_dir = os.path.join(keep, "mesh_ranks")
+    os.makedirs(ranks_dir)
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    cli = ["--preset", TRAIN_PRESETS[0], "--cleaned-dir", cleaned, "--quiet"]
+    dirs = {k: os.path.join(keep, f"mesh_cli_{k}") for k in ("single", "dp2", "half", "drain")}
+    procs: dict = {}
+    try:
+        # the four training kernels at a rank's rows, before any trajectory
+        grad = phase_grad_parity(torch, cuda_lstm, shapes=SHAPES[:1], batches=(MESH_BATCH,),
+                                 tag="mesh")
+        from hfrep_tpu_torch.ops import cuda_lstm_stack
+        stack = phase_stack_parity(torch, cuda_lstm_stack, shapes=SHAPES[:1],
+                                   batches=(MESH_BATCH,), tag="mesh")
+        out["kernels_b16"] = {"lstm_bwd": grad["scaled"]["lstm_bwd"],
+                              "lstm_adj": grad["scaled"]["lstm_adj"],
+                              "stack_bwd": stack["scaled"]["stack_bwd"],
+                              "stack_adj": stack["scaled"]["stack_adj"]}
+        say(f"{tag} B={MESH_BATCH} (a rank's rows at dp=2): lstm_bwd, lstm_adj, stack_bwd, "
+            f"stack_adj within their bars against their plain versions (scaled max err "
+            + ", ".join(f"{k} {v['float32']:.2e} / {v['bfloat16']:.2e}"
+                        for k, v in out["kernels_b16"].items()) + " f32 / bf16)")
+
+        # (a) the one-device mesh against the meshless block, same state and draws
+        per_epoch = next(r for r in train if r["preset"] == TRAIN_PRESETS[0])["launches_per_epoch"]
+        pair, tcfg, dataset, state0, draws = mesh_gan_inputs(torch)
+        blocks = {"meshless": make_multi_step(pair, tcfg, dataset),
+                  "dp1": make_gan_multi_step(pair, tcfg, dataset, build_mesh(MeshSpec(dp=1)))}
+        results, ms = {}, {}
+        for name, block in blocks.items():
+            state = state0.to("cuda")
+            torch.cuda.synchronize()
+            cuda_lstm.reset_launches()
+            rules.reset_collective_counts()
+            state, metrics = block(state, draws=draws[:MESH_EPOCHS])
+            torch.cuda.synchronize()
+            launches, sums = cuda_lstm.launch_counts(), sum_launches_by_shape(cuda_lstm)
+            collectives = rules.collective_counts()
+            check_route_launches(f"mesh ({name})", launches, sums, per_epoch, MESH_EPOCHS)
+            if sum(sums.values()) != SUM_LAUNCHES_PER_EPOCH * MESH_EPOCHS:
+                fail(f"mesh ({name}): {sum(sums.values())} weight sums in {MESH_EPOCHS} epochs")
+            if any(v for v in collectives.values()):
+                fail(f"mesh ({name}): a one-device block ran collectives {collectives}")
+            t0 = time.perf_counter()
+            block(state.to("cuda"), draws=draws[MESH_EPOCHS:])
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) / MESH_EPOCHS * 1e3
+            results[name] = ({n: p.detach().cpu() for n, p in state_params(state).items()},
+                             {k: v.cpu() for k, v in metrics.items()}, launches, sums)
+        single_p, single_m, _, _ = results["meshless"]
+        if not (tree_equal(torch, results["dp1"][0], single_p)
+                and tree_equal(torch, results["dp1"][1], single_m)):
+            fail(f"mesh (a): the dp=1 block differs from the meshless one: params "
+                 f"{tree_max_diff(results['dp1'][0], single_p)}, metrics "
+                 f"{tree_max_diff(results['dp1'][1], single_m)}")
+        say(f"{tag} (a) dp=1 mesh block ({MESH_EPOCHS} epochs) bit-equal to the meshless one "
+            f"(params, metrics); launches per epoch the fused route's "
+            + ", ".join(f"{n} {c / MESH_EPOCHS:g}" for n, c in results["dp1"][2].items() if c)
+            + f", {SUM_LAUNCHES_PER_EPOCH} weight sums; collectives 0; ms/epoch meshless "
+            f"{ms['meshless']:.2f}, dp=1 {ms['dp1']:.2f} (host clock) on {card}")
+        out["a"] = {"bit_equal": True, "launches": results["dp1"][2],
+                    "weight_sum_launches": results["dp1"][3], "ms_per_epoch": ms}
+
+        # the rank processes; their dp=2 block is timed before the verb
+        # runs start, with nothing else on the card
+        procs["ranks"] = start_ranks(ranks_dir)
+        deadline = time.perf_counter() + MESH_TIMEOUT_S
+        while not all(os.path.exists(os.path.join(ranks_dir, f"rank{r}.timed")) for r in (0, 1)):
+            if time.perf_counter() > deadline or any(p.poll() is not None
+                                                     for p, _ in procs["ranks"]):
+                break                   # the rank's exit is reported below
+            time.sleep(0.25)
+        procs["single"] = [start_module("hfrep_tpu_torch", [
+            "train-gan", *cli, "--epochs", MESH_CLI_EPOCHS, "--checkpoint-dir", dirs["single"]])]
+        procs["dp2"] = start_cli_pair([*cli, "--epochs", MESH_CLI_EPOCHS, "--checkpoint-dir",
+                                       dirs["dp2"]], obs_dir=dirs["dp2"] + "_obs")
+        procs["half"] = start_cli_pair([*cli, "--epochs", MESH_RESUME_AT, "--checkpoint-dir",
+                                        dirs["half"]])
+        procs["drain"] = start_cli_pair([*cli, "--epochs", MESH_DRAIN_EPOCHS,
+                                         "--checkpoint-dir", dirs["drain"]],
+                                        obs_dir=dirs["drain"] + "_obs")
+
+        # (d) the lane drives at dp=1, in this process
+        meshless = mesh_lane_drives(torch, {"padded": None, "multi": None})
+        dp1 = mesh_lane_drives(torch, {"padded": lane_mesh(len(MESH_LATENTS)),
+                                       "multi": lane_mesh(2)})
+        for k in meshless:
+            if not tree_equal(torch, dp1[k]["arrays"], meshless[k]["arrays"]):
+                fail(f"mesh (d): the {k} drive on a dp=1 lane mesh differs from the meshless one")
+        say(f"{tag} (d) dp=1 lane mesh: padded ({len(MESH_LATENTS)} lanes) and multi (2 x "
+            f"{len(MESH_LATENTS)} lanes), {MESH_AE_EPOCHS} epochs, bit-equal to the meshless "
+            f"drives; chunks {meshless['padded']['chunks']} and {meshless['multi']['chunks']}")
+
+        # (e) the members in turn against standalone trainers
+        cfg, ds = mesh_seed_config(torch)
+        alone = {}
+        for i, seed in enumerate(MESH_SEEDS):
+            tr = GanTrainer(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                               seed=seed)),
+                            ds, device="cuda")
+            tr.train(MESH_SEED_EPOCHS)
+            alone[i] = {n: p.detach().cpu() for n, p in state_params(tr.state).items()}
+        in_turn = mesh_seed_members(torch, None)
+        if not all(tree_equal(torch, in_turn[i], alone[i]) for i in alone):
+            fail("mesh (e): a MultiSeedTrainer member differs from its standalone GanTrainer")
+        say(f"{tag} (e) MultiSeedTrainer K={len(MESH_SEEDS)} on one card ({MESH_SEED_EPOCHS} "
+            f"epochs): each member bit-equal to GanTrainer(seed={list(MESH_SEEDS)}[k])")
+
+        # (b), (d) and (e) at dp=2: the two rank processes
+        for k, (proc, t0) in enumerate(procs["ranks"]):
+            rc, text, err, wall = finish_module((proc, t0), MESH_TIMEOUT_S)
+            if rc != 0:
+                fail(f"mesh: rank {k} exited {rc}: {text[-1000:]} {err[-3000:]}")
+        ranks = [torch.load(os.path.join(ranks_dir, f"rank{r}.pt")) for r in (0, 1)]
+        for r, doc in enumerate(ranks):
+            if doc["backend"] != "gloo" or doc["device"] != "cuda:0":
+                fail(f"mesh (b): rank {r} ran {doc['backend']} on {doc['device']}")
+            check_route_launches(f"mesh (b) rank {r}", doc["launches"], doc["sums"], per_epoch,
+                                 MESH_EPOCHS)
+            if sum(doc["sums"].values()) != SUM_LAUNCHES_PER_EPOCH * MESH_EPOCHS:
+                fail(f"mesh (b) rank {r}: weight sums {doc['sums']}")
+            dp = max(tree_max_diff(doc["params"], single_p), tree_max_diff(doc["metrics"], single_m))
+            if not dp <= MESH_DP_ATOL:
+                fail(f"mesh (b): rank {r}'s dp=2 block is {dp} from the single-device block "
+                     f"(bar {MESH_DP_ATOL})")
+            doc["max_abs_diff"] = dp
+        if not (tree_equal(torch, ranks[0]["params"], ranks[1]["params"])
+                and tree_equal(torch, ranks[0]["metrics"], ranks[1]["metrics"])):
+            fail("mesh (b): the two ranks' params or metrics differ")
+        say(f"{tag} (b) dp=2 as two processes on the one card ({ranks[0]['backend']}, CUDA "
+            f"tensors, {MESH_BATCH} rows a rank): after {MESH_EPOCHS} epochs every param and "
+            f"metric within {max(d['max_abs_diff'] for d in ranks):.3g} of the single-device "
+            f"block (bar {MESH_DP_ATOL}); the ranks bit-equal; launches per epoch, each rank: "
+            + "; ".join(", ".join(f"{n} {c / MESH_EPOCHS:g}" for n, c in d["launches"].items() if c)
+                        for d in ranks)
+            + f"; {ranks[0]['reduces_per_epoch']:g} all_reduces an epoch; ms/epoch dp=2 "
+            f"{[round(d['ms_per_epoch'], 2) for d in ranks]}, the reduction "
+            f"{[round(d['reduce_ms_per_epoch'], 2) for d in ranks]} ms/epoch (ms/epoch host "
+            f"clock, the reduction CUDA events around each all_reduce) on {card}")
+        out["b"] = [{k: d[k] for k in ("backend", "launches", "sums", "collectives",
+                                       "ms_per_epoch", "reduce_ms_per_epoch",
+                                       "reduces_per_epoch", "max_abs_diff")} for d in ranks]
+        lane_diffs = {}
+        for r, doc in enumerate(ranks):
+            if doc["lane_dp"] != {"padded": 2, "multi": 2}:
+                fail(f"mesh (d): rank {r}'s lane meshes {doc['lane_dp']}")
+            for k in meshless:
+                a, b = doc["lanes"][k]["arrays"], meshless[k]["arrays"]
+                if not tree_equal(torch, a, b):
+                    lane_diffs[f"rank{r}.{k}"] = {n: float((a[n].double() - b[n].double())
+                                                           .nan_to_num().abs().max()) for n in a}
+        if lane_diffs:
+            fail(f"mesh (d): the dp=2 lane drives differ from the meshless ones: {lane_diffs}")
+        say(f"{tag} (d) dp=2 lane mesh, two processes: padded ({len(MESH_LATENTS) // 2} lanes a "
+            f"rank) and multi (one dataset a rank) bit-equal to the meshless drives")
+        for r, doc in enumerate(ranks):
+            if doc["seed_mesh"] != {"seed": 2} or set(doc["members"]) != {r}:
+                fail(f"mesh (e): rank {r} held members {sorted(doc['members'])} on "
+                     f"{doc['seed_mesh']}")
+            if not tree_equal(torch, doc["members"][r], alone[r]):
+                fail(f"mesh (e): rank {r}'s member differs from GanTrainer(seed={MESH_SEEDS[r]})")
+        say(f"{tag} (e) the two-rank seed mesh: each rank's member bit-equal to its standalone "
+            "GanTrainer")
+        out["d"] = {"bit_equal": True}
+        out["e"] = {"bit_equal": True}
+
+        # (c) the verb: straight, single process, drained, then the resume
+        runs = {}
+        for name in ("single", "dp2", "half"):
+            runs[name] = [finish_module(p, MESH_TIMEOUT_S) for p in procs[name]]
+            if any(rc != 0 for rc, *_ in runs[name]):
+                fail(f"mesh (c): train-gan ({name}) exited "
+                     f"{[rc for rc, *_ in runs[name]]}: {[e[-1500:] for _, _, e, _ in runs[name]]}")
+        for name in ("dp2", "half"):
+            if runs[name][1][1].strip():
+                fail(f"mesh (c): rank 1 of train-gan ({name}) printed {runs[name][1][1]!r}")
+        procs["resume"] = start_cli_pair([*cli, "--epochs", MESH_CLI_EPOCHS, "--checkpoint-dir",
+                                          dirs["half"], "--resume"])
+        # the drain: SIGTERM to rank 1 once its trainer has annotated its run
+        # (the drain handler is up from the drive envelope on)
+        manifest = os.path.join(dirs["drain"] + "_obs", "proc1", "run.json")
+        deadline = time.perf_counter() + MESH_TIMEOUT_S
+        while not (os.path.exists(manifest) and "mesh" in open(manifest).read()):
+            if time.perf_counter() > deadline or procs["drain"][1][0].poll() is not None:
+                fail("mesh (c): the drained run's rank 1 never started training")
+            time.sleep(0.25)
+        procs["drain"][1][0].send_signal(signal.SIGTERM)
+        drained = [finish_module(p, MESH_TIMEOUT_S) for p in procs["drain"]]
+        ckpts = sorted(os.listdir(dirs["drain"])) if os.path.isdir(dirs["drain"]) else []
+        if [rc for rc, *_ in drained] != [75, 75] or not ckpts:
+            fail(f"mesh (c): SIGTERM to rank 1: exits {[rc for rc, *_ in drained]}, "
+                 f"checkpoints {ckpts}: {[e[-1500:] for _, _, e, _ in drained]}")
+        resumed = [finish_module(p, MESH_TIMEOUT_S) for p in procs["resume"]]
+        if any(rc != 0 for rc, *_ in resumed):
+            fail(f"mesh (c): train-gan --resume exited {[rc for rc, *_ in resumed]}: "
+                 f"{[e[-1500:] for _, _, e, _ in resumed]}")
+        last = f"ckpt_{MESH_CLI_EPOCHS}"
+        g_single = ckpt_generator(torch, os.path.join(dirs["single"], last))
+        g_dp2 = ckpt_generator(torch, os.path.join(dirs["dp2"], last))
+        g_res = ckpt_generator(torch, os.path.join(dirs["half"], last))
+        cli_diff = tree_max_diff(g_dp2, g_single)
+        if not cli_diff <= MESH_DP_ATOL:
+            fail(f"mesh (c): the dp=2 verb's generator is {cli_diff} from one process's")
+        if not tree_equal(torch, g_res, g_dp2):
+            fail(f"mesh (c): the resumed dp=2 run differs from the straight one: "
+                 f"{tree_max_diff(g_res, g_dp2)}")
+        writes = {}
+        for r in (0, 1):
+            recs = stream_records(os.path.join(dirs["dp2"] + "_obs", f"proc{r}"))
+            writes[r] = sum(1 for x in recs if x.get("name") == "checkpoint"
+                            and x.get("type") == "span")
+            build = [x for x in recs if x.get("name") == "parallel_build"]
+            if not build or build[0].get("backend") != "gloo" or build[0].get("mesh") != {"dp": 2}:
+                fail(f"mesh (c): rank {r}'s parallel_build events {build}")
+        if writes[0] < 1 or writes[1] != 0:
+            fail(f"mesh (c): checkpoint spans by rank {writes}: rank 0 alone must write")
+        say(f"{tag} (c) train-gan --coordinator, 2 ranks, {MESH_CLI_EPOCHS} epochs on the "
+            f"committed panel: exit 0 and 0, gloo, rank 0 alone wrote ({writes[0]} checkpoint "
+            f"spans, rank 1 none) and printed; generator within {cli_diff:.3g} of one process's "
+            f"(bar {MESH_DP_ATOL}); --resume from ckpt_{MESH_RESUME_AT} bit-equal to the straight "
+            f"run; SIGTERM to rank 1: exits 75 and 75, checkpoint {ckpts[-1]}; walls "
+            f"{[round(w, 1) for *_, w in runs['dp2']]} s")
+        out["c"] = {"generator_max_diff": cli_diff, "resume_bit_equal": True,
+                    "drain_exits": [75, 75], "drain_checkpoint": ckpts[-1],
+                    "checkpoint_spans": writes,
+                    "walls_s": {k: [w for *_, w in v] for k, v in runs.items()}}
+    finally:
+        # a failed check exits: no process outlives the script
+        for group in procs.values():
+            for proc, _ in group:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card}")
     return out
 
 
@@ -4673,6 +5202,7 @@ def main() -> None:
                                   trainer["cli_launches"])
         forensics = phase_forensics(torch, np, cuda_lstm, keep, health)
         chaos = phase_chaos(torch, np, keep)
+        mesh = phase_mesh(torch, np, cuda_lstm, train, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     timing = phase_timing(torch, cuda_lstm)
@@ -4701,7 +5231,10 @@ def main() -> None:
                                         if r["route"] == "auto"]),
                         ("bf16_chained", [r["launches"] for r in precision["epochs"]
                                           if r["route"] == "chained"]),
-                        ("bf16_train_gan_cli", [precision["train_gan"]["launches"]])):
+                        ("bf16_train_gan_cli", [precision["train_gan"]["launches"]]),
+                        ("mesh_dp1", [mesh["a"]["launches"]]),
+                        ("mesh_dp2_rank0", [mesh["b"][0]["launches"]]),
+                        ("mesh_dp2_rank1", [mesh["b"][1]["launches"]])):
         counts = {k: sum(r[k] for r in runs) for k in cuda_lstm.launch_counts()}
         counts["stack_fwd"] += counts.pop("stack_fwd_res")
         by_route[route] = counts
@@ -4829,7 +5362,10 @@ def main() -> None:
                 ("bf16_fused", [r for r in precision["epochs"] if r["route"] == "auto"]),
                 ("bf16_chained", [r for r in precision["epochs"] if r["route"] == "chained"]),
                 ("bf16_train_gan_cli",
-                 [{"weight_sum_launches": precision["train_gan"]["weight_sum_launches"]}]))
+                 [{"weight_sum_launches": precision["train_gan"]["weight_sum_launches"]}]),
+                ("mesh_dp1", [mesh["a"]]),
+                ("mesh_dp2_rank0", [{"weight_sum_launches": mesh["b"][0]["sums"]}]),
+                ("mesh_dp2_rank1", [{"weight_sum_launches": mesh["b"][1]["sums"]}]))
     by_path = {shape: {p: sum(run["weight_sum_launches"][shape] for run in runs)
                        for p, runs in sum_runs} for shape, _, _, _ in SUM_SHAPES}
     for shape, nsum, npair, m in SUM_SHAPES:
@@ -4857,7 +5393,7 @@ def main() -> None:
                        "trainer": trainer, "sweep": sweep,
                        "eval": evaluation, "scenario": scenario, "pipeline": pipeline,
                        "health": health, "serve_drain": serve_drain, "obs_tier": obs_tier,
-                       "forensics": forensics, "chaos": chaos,
+                       "forensics": forensics, "chaos": chaos, "mesh": mesh,
                        "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,

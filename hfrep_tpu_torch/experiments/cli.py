@@ -30,8 +30,18 @@ The Keras and plotting extras (``sample-h5``, ``train-gan --export-h5``,
 h5py, TensorFlow and matplotlib inside themselves: they run where those
 are installed, never on the card's path.  ``train-gan --dtype bfloat16``
 and ``sweep --dtype bfloat16`` run the precision policy (bf16 compute over
-float32 master weights and slots, float32 accumulation).  Not offered yet
-(ROADMAP): the mesh flags.
+float32 master weights and slots, float32 accumulation).
+
+``train-gan --mesh`` trains data-parallel over every rank of the process
+group (one process a rank; with no group, the one-device mesh);
+``--coordinator host:port --num-processes N --process-id I`` joins the
+group first (``--coordinator`` implies ``--mesh``): every process runs
+the same command with its own id, gloo when ranks share a card or run on
+the CPU, NCCL when each has its own.  Only rank 0 prints, checkpoints
+and writes samples; each rank's telemetry goes to ``<obs-dir>/proc<I>``.
+The sp, tp and pp flags (``--sp-mesh``, ``--dp-sp``, ``--tp-mesh``,
+``--dp-tp``, ``--dp-sp-tp``, ``--sp-microbatches``, ``--sp-remat``) are
+ROADMAP queue 1 item 9b and not in the parser.
 """
 
 from __future__ import annotations
@@ -92,6 +102,14 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="telemetry run dir: the train span, block ledger windows, "
                         "checkpoint spans, metric gauges")
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    t.add_argument("--mesh", action="store_true",
+                   help="data-parallel over every rank of the process group (the batch "
+                        "split over dp, the gradients reduced to the global mean)")
+    t.add_argument("--coordinator", default=None,
+                   help="multi-process: coordinator address host:port; every process runs "
+                        "this same command with its own --process-id; implies --mesh")
+    t.add_argument("--num-processes", type=int, default=None)
+    t.add_argument("--process-id", type=int, default=None)
 
     e = sub.add_parser("eval-gan", help="score a saved sample cube")
     e.add_argument("--samples", required=True, help=".npy cube, inverse-scaled returns")
@@ -312,8 +330,9 @@ def cmd_clean(args) -> int:
 def _make_trainer(preset: str, cleaned_dir: str, checkpoint_dir: Optional[str] = None,
                   quiet: bool = False, nan_guard: bool = False,
                   max_recoveries: int = 3, device: str = "cuda",
-                  dtype: Optional[str] = None):
+                  dtype: Optional[str] = None, mesh: bool = False):
     """Preset (its model's precision policy set to ``dtype`` if given),
+    then the mesh (``mesh``: dp over every rank of the process group),
     then panel, then dataset, then logger, then trainer."""
     from hfrep_tpu_torch.config import get_preset
     from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
@@ -326,13 +345,20 @@ def _make_trainer(preset: str, cleaned_dir: str, checkpoint_dir: Optional[str] =
     if checkpoint_dir:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, checkpoint_dir=checkpoint_dir))
+    device_mesh = None
+    if mesh:
+        # before the panel load: a too-small process group or a batch dp
+        # does not divide must not pay for it first
+        from hfrep_tpu_torch.parallel import make_mesh
+        device_mesh = make_mesh(device=None if device == "cuda" else device)
+        device = device_mesh.device
     panel = load_panel(cleaned_dir, device=device)
     ds = build_gan_dataset(cfg.data, cfg.data.seed, panel)
     style = {"gan": "gan", "mtss_gan": "gan", "wgan": "wgan", "mtss_wgan": "wgan"}.get(
         cfg.model.family, "wgan_gp")
     logger = MetricLogger(echo=not quiet, echo_style=style)
     trainer = GanTrainer(cfg, ds, logger=logger, nan_guard=nan_guard,
-                         max_recoveries=max_recoveries, device=device)
+                         max_recoveries=max_recoveries, device=device, mesh=device_mesh)
     return trainer, cfg
 
 
@@ -349,32 +375,51 @@ def _drive(name: str, impl, args, **kw) -> int:
 
 
 def cmd_train_gan(args) -> int:
-    return _drive("gan_ckpt", _cmd_train_gan_impl, args)
+    if (args.num_processes is not None or args.process_id is not None) \
+            and not args.coordinator:
+        raise SystemExit("--num-processes and --process-id go with --coordinator")
+    if not args.coordinator:
+        return _drive("gan_ckpt", _cmd_train_gan_impl, args)
+    # multi-process: join the group before any device or telemetry use
+    from hfrep_tpu_torch.parallel import initialize_distributed, shutdown_distributed
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                           device=None if args.device == "cuda" else args.device)
+    args.mesh = True
+    obs_dir = _obs_dir(args)
+    if obs_dir and args.num_processes > 1:
+        # one run dir a process: two processes must not append to one stream
+        args.obs_dir = os.path.join(obs_dir, f"proc{args.process_id}")
+    try:
+        return _drive("gan_ckpt", _cmd_train_gan_impl, args)
+    finally:
+        shutdown_distributed()
 
 
 def _cmd_train_gan_impl(args) -> int:
+    leader = not args.coordinator or args.process_id == 0
     trainer, cfg = _make_trainer(
-        args.preset, args.cleaned_dir, args.checkpoint_dir, args.quiet,
+        args.preset, args.cleaned_dir, args.checkpoint_dir, args.quiet or not leader,
         nan_guard=args.nan_guard, max_recoveries=args.max_recoveries,
-        device=args.device, dtype=args.dtype)
+        device=args.device, dtype=args.dtype, mesh=args.mesh)
+    say = print if leader else (lambda *a, **k: None)
     target = args.epochs if args.epochs is not None else cfg.train.epochs
     if args.resume:
         from hfrep_tpu_torch.utils.checkpoint import latest
         path = latest(args.checkpoint_dir) if args.checkpoint_dir else None
         if path is None:
-            print("no checkpoint to resume from; training from scratch")
+            say("no checkpoint to resume from; training from scratch")
         else:
             # a corrupt newest checkpoint falls back to the previous good
             # one (report the path actually restored); when every
             # candidate is corrupt, a clean fresh start
             path = trainer.restore_checkpoint()
             if path:
-                print(f"resumed from {path} (epoch {trainer.epoch})")
+                say(f"resumed from {path} (epoch {trainer.epoch})")
                 # recovery completes the original schedule, not epochs on top
                 target = max(0, target - trainer.epoch)
             else:
-                print("no restorable checkpoint (all candidates corrupt); "
-                      "training from scratch")
+                say("no restorable checkpoint (all candidates corrupt); "
+                    "training from scratch")
     if args.profile_dir and target:
         from hfrep_tpu_torch.obs import trace_capture
 
@@ -383,31 +428,32 @@ def _cmd_train_gan_impl(args) -> int:
         traced = min(target, 2 * cfg.train.steps_per_call)
         with trace_capture(args.profile_dir, epochs=traced):
             trainer.train(epochs=traced)
-        print(f"profile: {args.profile_dir} (first {traced} epochs)")
+        say(f"profile: {args.profile_dir} (first {traced} epochs)")
         trainer.train(epochs=target - traced)
     else:
         if args.profile_dir:
-            print("no epochs to run; nothing to profile")
+            say("no epochs to run; nothing to profile")
         trainer.train(epochs=target)
     rate = (f" ({trainer.steps_per_sec:.2f} steps/s)"
             if trainer.timer.samples else " (schedule already complete)")
-    print(f"trained {cfg.model.family} for {trainer.epoch} epochs{rate}")
+    say(f"trained {cfg.model.family} for {trainer.epoch} epochs{rate}")
     if args.checkpoint_dir:
-        print(f"checkpoint: {trainer.save_checkpoint()}")
+        say(f"checkpoint: {trainer.save_checkpoint()}")   # rank 0 writes
     if args.samples_out:
         import torch
 
         g = torch.Generator(device=trainer.device)
         g.manual_seed(9)
         cube = trainer.generate(args.n_samples, generator=g).cpu().numpy()
-        np.save(args.samples_out, cube)
-        print(f"samples: {args.samples_out} {tuple(cube.shape)}")
+        if leader:
+            np.save(args.samples_out, cube)
+        say(f"samples: {args.samples_out} {tuple(cube.shape)}")
     if args.eval:
-        _eval_trainer_samples(trainer)
-    if args.export_h5:
+        _eval_trainer_samples(trainer, say)
+    if args.export_h5 and leader:
         from hfrep_tpu_torch.utils.keras_export import export_keras_generator
         path = export_keras_generator(cfg.model, trainer.state.generator, args.export_h5)
-        print(f"keras artifact: {path}")
+        say(f"keras artifact: {path}")
     # the hand kernels' launches, as launches/<kernel> counters in the
     # run's stream (nothing without a telemetry dir)
     from hfrep_tpu_torch.obs import emit_launch_counts
@@ -415,7 +461,7 @@ def _cmd_train_gan_impl(args) -> int:
     return 0
 
 
-def _eval_trainer_samples(trainer) -> dict:
+def _eval_trainer_samples(trainer, say=print) -> dict:
     """The 12 metrics of 500 samples (scaler space) from the trained
     generator against the dataset's windows."""
     import torch
@@ -428,7 +474,7 @@ def _eval_trainer_samples(trainer) -> dict:
     g.manual_seed(11)
     fake = trainer.generate(n, generator=g, unscale=False)
     res = GanEval(windows[:n], fake, windows).run_all()
-    print(json.dumps(res, indent=2))
+    say(json.dumps(res, indent=2))
     return res
 
 

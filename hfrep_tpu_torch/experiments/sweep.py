@@ -125,7 +125,8 @@ def run_sweep(x_train, y_train, x_test, y_test, rf_test, factor_full,
               strategy_names: Optional[Sequence[str]] = None,
               init_params: Optional[dict] = None,
               perm_source: Optional[PermSource] = None,
-              device: DeviceLike = None, resume_dir: Optional[str] = None) -> SweepResult:
+              device: DeviceLike = None, resume_dir: Optional[str] = None,
+              mesh=None) -> SweepResult:
     """Train every latent width as one lane grid, then evaluate it.
 
     ``x_train``/``y_train`` may be GAN-augmented (synthetic rows above the
@@ -133,7 +134,10 @@ def run_sweep(x_train, y_train, x_test, y_test, rf_test, factor_full,
     and ``factor_full`` the full factor panel the costs draw their
     covariance windows from.  ``init_params``/``perm_source`` are the
     engine's draw seams (lane-leading).  ``resume_dir`` keeps the chunked
-    drive's snapshots there and resumes from them (chunked drive only)."""
+    drive's snapshots there and resumes from them (chunked drive only).
+    ``mesh`` (a ``('dp',)`` mesh, e.g.
+    :func:`~hfrep_tpu_torch.parallel.rules.lane_mesh`) splits the lanes
+    over its ranks, bit for bit the meshless drive (chunked drive only)."""
     cfg = cfg or AEConfig()
     seed = cfg.seed if seed is None else seed
     latent_dims = list(latent_dims)
@@ -146,9 +150,11 @@ def run_sweep(x_train, y_train, x_test, y_test, rf_test, factor_full,
     if cfg.chunk_epochs and cfg.chunk_epochs > 0:
         swept, stats = sweep_autoencoders_chunked(seed, engine.x_train, cfg, latent_dims,
                                                   init_params, perm_source, engine.device,
-                                                  resume_dir=resume_dir)
+                                                  resume_dir=resume_dir, mesh=mesh)
         emit_chunk_stats(stats)
     else:
+        if mesh is not None:
+            raise ValueError("mesh requires the chunked drive (cfg.chunk_epochs > 0)")
         swept = sweep_autoencoders(seed, engine.x_train, cfg, latent_dims, init_params,
                                    perm_source, engine.device)
     res = _evaluate_sweep(engine, cfg, rf_test, factor_full, swept.params, latent_dims,
@@ -211,7 +217,7 @@ def run_sweep_multi(datasets, x_test, y_test, rf_test, factor_full,
                     init_params: Optional[dict] = None,
                     perm_source: Optional[PermSource] = None,
                     device: DeviceLike = None,
-                    resume_dir: Optional[str] = None) -> MultiSweepResult:
+                    resume_dir: Optional[str] = None, mesh=None) -> MultiSweepResult:
     """K+1 training sets × L latent widths as one (K+1, L) lane grid.
 
     ``datasets`` holds ``(x_train, y_train)`` pairs (the real set and K
@@ -220,7 +226,8 @@ def run_sweep_multi(datasets, x_test, y_test, rf_test, factor_full,
     (:func:`~hfrep_tpu_torch.replication.engine.stack_padded`) and trained
     with the padded semantics, whose sample weights hide the padding;
     each is then evaluated on its unpadded panel.  ``resume_dir`` as in
-    :func:`run_sweep`."""
+    :func:`run_sweep`; ``mesh`` splits the (K+1) datasets over its ranks,
+    bit for bit the meshless drive."""
     cfg = cfg or AEConfig()
     seed = cfg.seed if seed is None else seed
     latent_dims = list(latent_dims)
@@ -234,7 +241,7 @@ def run_sweep_multi(datasets, x_test, y_test, rf_test, factor_full,
     x_stack, n_rows = stack_padded([e.x_train for e in engines])
     swept, stats = sweep_autoencoders_multi(seed, x_stack, n_rows, cfg, latent_dims,
                                             init_params, perm_source, engines[0].device,
-                                            resume_dir=resume_dir)
+                                            resume_dir=resume_dir, mesh=mesh)
     emit_chunk_stats(stats)
     results = [
         _evaluate_sweep(engine, cfg, rf_test, factor_full,

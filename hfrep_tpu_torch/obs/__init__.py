@@ -584,7 +584,15 @@ def maybe_enable_from_env() -> Optional[Obs]:
     return None
 
 
-def instrument_step(fn, name: str, flops: Optional[float] = None, **attrs):
+def mesh_attrs(mesh) -> Optional[Dict[str, int]]:
+    """``Mesh -> {"dp": 2}`` (JSON-safe mesh description), ``None`` for
+    no mesh."""
+    if mesh is None:
+        return None
+    return {str(n): int(s) for n, s in mesh.shape.items()}
+
+
+def instrument_step(fn, name: str, flops: Optional[float] = None, mesh=None, **attrs):
     """Wrap a built step for telemetry, decided at BUILD time: with
     telemetry off this returns ``fn`` unchanged.
 
@@ -595,11 +603,15 @@ def instrument_step(fn, name: str, flops: Optional[float] = None, **attrs):
     ``compile:<name>`` boundary (``flops``, one call's FLOPs, as the
     boundary's cost); later calls counted (``dispatch:<name>``, no sync,
     so the trainer's pipelined blocks stay pipelined) with their
-    host-side time handed to the dispatch attribution window."""
+    host-side time handed to the dispatch attribution window.  The event
+    carries the mesh (``None`` without one) and, on a mesh that spans
+    processes, its process group's backend."""
     obs = get_obs()
     if not obs.enabled:
         return fn
-    obs.event("parallel_build", step=name, **_json_safe(attrs))
+    if mesh is not None and mesh.backend is not None:
+        attrs = dict(attrs, backend=mesh.backend)
+    obs.event("parallel_build", step=name, mesh=mesh_attrs(mesh), **_json_safe(attrs))
     state = {"first": True}
 
     def wrapped(*args, **kwargs):
@@ -631,9 +643,9 @@ def instrument_step(fn, name: str, flops: Optional[float] = None, **attrs):
     return wrapped
 
 
-def instrument_launch(fn, name: str, tcfg=None, **attrs):
+def instrument_launch(fn, name: str, tcfg=None, mesh=None, **attrs):
     """The launch-factory form of :func:`instrument_step`: ``tcfg`` (a
     ``TrainConfig``) contributes the batch size to the build event."""
     if tcfg is not None:
         attrs.setdefault("batch", tcfg.batch_size)
-    return instrument_step(fn, name, **attrs)
+    return instrument_step(fn, name, mesh=mesh, **attrs)

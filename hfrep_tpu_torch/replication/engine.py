@@ -69,7 +69,21 @@ Nadam slots; every loss and reduction is float32, since the error
 against the float32 panel promotes before it is reduced, and the
 ex-ante factors are cast back to float32 before the rolling OLS.
 
-Not in this port yet (ROADMAP): the ``mesh`` path.
+``mesh`` (a ``('dp',)`` :class:`~hfrep_tpu_torch.parallel.rules.Mesh`,
+e.g. :func:`~hfrep_tpu_torch.parallel.rules.lane_mesh`) splits the lane
+grid's rows over the ranks in the chunked drives (JAX ``_run_chunked``):
+the latent lanes of ``lanes`` drives, the datasets of ``multi`` drives.
+Each rank makes the whole grid's draws (init, permutations), exactly the
+meshless drive's, and trains its contiguous rows of them; the ranks
+agree at every chunk boundary on the stop flag and on a drain (one flag
+reduction), and the result is assembled on every rank by an all-gather
+(through host copies under gloo, so the bytes are unchanged).  Lanes
+share nothing, so a mesh drive is bit for bit the meshless one as far as
+the rows' kernels are (JAX pins the same).  A lane count the dp extent
+does not divide is refused naming the lane axis.  Chunk snapshots hold
+the whole grid (rank 0 writes them), so a drive resumes on another
+device count.  A one-device mesh runs the meshless drive itself; the
+health gauges of a grid split over ranks are not ported (refused).
 """
 
 from __future__ import annotations
@@ -409,7 +423,7 @@ def _snapshot_save_failed(snapshot, pos: int, e: OSError) -> None:
 
 def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: int,
                   double_buffer: bool = True, snapshot=None, grid: Optional["_Grid"] = None,
-                  cross: bool = True):
+                  cross: bool = True, agree: Optional[Callable[[bool], bool]] = None):
     """The host side of chunked early-exit training: ``chunk_fn(pos,
     length)`` runs ``length`` epochs and returns their traces; between
     chunks the host reads ``all(stopped)`` and stops once it holds.  With
@@ -430,14 +444,17 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
     monolithic drive, one scan in the JAX package, has no boundary),
     where injected faults fire and a requested drain raises
     :class:`~hfrep_tpu_torch.resilience.Preempted` with the state
-    already on disk.  Returns ``(traces,
-    epochs_dispatched, chunks_dispatched, overshoot_chunks)``."""
+    already on disk.  ``agree`` (a lane mesh's) turns this rank's stop
+    flag into the grid's at every boundary, read there, and spreads a
+    drain requested on any rank, before the snapshot and the boundary.
+    Returns ``(traces, epochs_dispatched, chunks_dispatched,
+    overshoot_chunks)``."""
     chunk = int(chunk_epochs) if chunk_epochs and chunk_epochs > 0 else epochs
     traces: list = []
     pos = chunks = overshoot = 0
     stopped_all = False
     health = grid is not None and grid.health
-    if snapshot is not None or health:
+    if snapshot is not None or health or agree is not None:
         double_buffer = False
     if snapshot is not None:
         loaded = snapshot.load(grid.carry())
@@ -512,6 +529,8 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
                                           warmup=calls_here == 1, dispatch_s=disp_s,
                                           sync_wait_s=now - t_sync0, epoch=pos)
                     t_window0, flushes, steps_window = now, flushes + 1, 0
+            if agree is not None:
+                stopped_all = agree(stopped_all or pos >= epochs)
             if snapshot is not None and not resilience.drain_requested():
                 # a drain already requested (a SIGTERM during the chunk) skips
                 # this boundary's write: the resume replays the chunk from the
@@ -559,11 +578,100 @@ def _stop_epoch(stop_trace: torch.Tensor, epochs: int) -> torch.Tensor:
     return torch.where(any_stop, first, torch.full_like(first, epochs))
 
 
+class _LaneSplit:
+    """This rank's contiguous rows of a lane grid split over a mesh's
+    ``dp`` ranks: rows of the grid's leading axis as the caller sees it
+    (the lane axis of a ``lanes`` grid, the dataset axis of a ``multi``
+    one), which is axis ``gax`` of the engine's (D, L) grid tensors."""
+
+    def __init__(self, mesh, kind: str, lead: Tuple[int, ...]):
+        mesh._need_group("a lane grid split over dp ranks")
+        self.mesh, self.kind = mesh, kind
+        self.n = int(mesh.shape["dp"])
+        self.rank = mesh.coords()["dp"]
+        self.rows = lead[0] // self.n
+        self.gax = 0 if kind == "multi" else 1
+
+    @staticmethod
+    def of(mesh, kind: str, lead: Tuple[int, ...]) -> Optional["_LaneSplit"]:
+        """The split a mesh asks for, or ``None`` (no mesh, a one-device
+        mesh, or a ``single`` drive: every rank trains the one lane)."""
+        if mesh is None:
+            return None
+        if "dp" not in mesh.axis_names:
+            raise ValueError(f"chunked drive wants a mesh with a 'dp' axis, got "
+                             f"{tuple(mesh.axis_names)}")
+        n_dp = int(mesh.shape["dp"])
+        if kind != "single" and lead[0] % n_dp:
+            raise ValueError(
+                f"lane axis of size {lead[0]} not divisible by the dp={n_dp} mesh")
+        if n_dp == 1 or kind == "single":
+            return None
+        return _LaneSplit(mesh, kind, lead)
+
+    def lead_rows(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        return t.narrow(axis, self.rank * self.rows, self.rows)
+
+    def grid_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return self.lead_rows(t, self.gax)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole grid's ``t`` from every rank's rows (axis ``gax``)."""
+        return self.mesh.all_gather_cat(t, self.gax)
+
+    def agree(self, stopped_all: bool) -> bool:
+        """Every rank's stop flag and drain request in one reduction: the
+        grid stops when every rank's lanes have; a drain requested on any
+        rank is requested here too."""
+        running, drain = self.mesh.any(not stopped_all, resilience.drain_requested())
+        if drain and not resilience.drain_requested():
+            resilience.request_drain("peer")
+        return not running
+
+
+class _SplitSnapshot:
+    """A :class:`~hfrep_tpu_torch.resilience.snapshot.ChunkSnapshot` of the
+    whole grid over a split one: every rank reads the snapshot and keeps
+    its rows; at a boundary the rows are gathered and rank 0 writes, then
+    the ranks meet at a barrier."""
+
+    def __init__(self, snap, split: _LaneSplit):
+        self.snap, self.split = snap, split
+        self.path, self.dir = snap.path, snap.dir
+
+    def load(self, template: dict):
+        loaded = self.snap.load(template)
+        if loaded is None:
+            return None
+        carry, tr, pos, chunks, stopped_all = loaded
+        return ({k: self.split.grid_rows(v) for k, v in carry.items()},
+                tuple(self.split.grid_rows(t) for t in tr), pos, chunks, stopped_all)
+
+    def save(self, carry: dict, traces: Tuple, pos: int, chunks: int,
+             stopped_all: bool) -> None:
+        full = {k: self.split.gather(v) for k, v in carry.items()}
+        trs = tuple(self.split.gather(t) for t in traces)
+        err = None
+        if self.split.rank == 0:
+            try:
+                self.snap.save(full, trs, pos, chunks, stopped_all)
+            except OSError as e:
+                err = e
+        self.split.mesh.barrier()
+        if err is not None:
+            raise err
+
+    def clear(self) -> None:
+        self.split.mesh.barrier()
+        if self.split.rank == 0:
+            self.snap.clear()
+
+
 def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
                 lead: Tuple[int, ...], init_params: Optional[dict],
                 perm_source: Optional[PermSource], device: DeviceLike,
-                monolithic: bool = False, resume_dir: Optional[str] = None
-                ) -> Tuple[AEResult, ChunkStats]:
+                monolithic: bool = False, resume_dir: Optional[str] = None,
+                mesh=None) -> Tuple[AEResult, ChunkStats]:
     """The shared drive of every training entry point: ``lead`` is the
     grid's shape as the caller sees it, () / (L,) / (D, L).
 
@@ -571,10 +679,16 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
     the config, the grid's kind and lanes, the seed and a digest of the
     operands (data, masks, row counts, given init), so a snapshot of
     another drive is refused.  A ``perm_source`` seam is outside the
-    fingerprint: a resume must pass the same one."""
+    fingerprint: a resume must pass the same one.  ``mesh`` splits the
+    grid's rows over its ranks (module docstring); its device is the
+    drive's."""
     if resume_dir is not None and (monolithic or not cfg.chunk_epochs):
         raise ValueError("resume_dir requires the chunked drive (cfg.chunk_epochs > 0): "
                          "a monolithic drive has no chunk boundary to resume from")
+    kind = ("single", "lanes", "multi")[len(lead)]
+    split = _LaneSplit.of(mesh, kind, lead)
+    if mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
     health = health_mod.active() is not None
     x = _tensor(x, dev)
@@ -599,18 +713,39 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
             # adopt a snapshot of the other setting
             "health": health,
             "operands": digest_arrays(x, masks, rows_info, init_params if given_init else None)})
+    full_shape, local_shape = grid_shape, grid_shape
+    if split is not None:
+        if health:
+            raise ValueError("the health gauges of a lane grid split over dp ranks are not "
+                             "ported: run with health off or on a one-device mesh")
+        if kind == "multi":
+            x = split.lead_rows(x)
+            rows_info = tuple(split.lead_rows(t) for t in rows_info)
+        else:
+            masks = split.lead_rows(masks)
+        init_params = {k: split.lead_rows(v) for k, v in init_params.items()}
+        local_shape = tuple(s // split.n if i == split.gax else s
+                            for i, s in enumerate(grid_shape))
+        snap = _SplitSnapshot(snap, split) if snap is not None else None
     with torch.no_grad(), resilience.graceful_drain():
-        grid = _Grid(cfg, x, masks, rows_info, init_params, d, health=health)
+        grid = _Grid(cfg, x, masks, rows_info, init_params, local_shape[0], health=health)
         if perm_source is None:
             perm_source = PermStream(seed_mix(seed, 2), lead, grid.n_train, dev)
 
         def chunk_fn(pos: int, length: int):
             perms = perm_source(pos, length).to(dev, torch.int64)
-            return grid.run(perms.reshape(grid_shape + (length, grid.n_train)))
+            if split is not None:
+                perms = split.lead_rows(perms)
+            return grid.run(perms.reshape(local_shape + (length, grid.n_train)))
 
         traces, dispatched, chunks, overshoot = _drive_chunks(
             chunk_fn, grid.stopped, cfg.epochs, 0 if monolithic else cfg.chunk_epochs,
-            double_buffer=cfg.double_buffer, snapshot=snap, grid=grid, cross=not monolithic)
+            double_buffer=cfg.double_buffer, snapshot=snap, grid=grid, cross=not monolithic,
+            agree=split.agree if split is not None else None)
+        params = grid.params()
+        if split is not None:
+            traces = tuple(split.gather(t) for t in traces)
+            params = {k: split.gather(v) for k, v in params.items()}
         tl, vl, st = traces[:3]
         if health and not monolithic:
             # the drive's end: the last dispatched epoch's health scalars
@@ -618,7 +753,7 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
             gn, nf, pn = (float(v) for v in torch.stack(
                 _health_scalars(grid, traces, max(0, dispatched - 1))).cpu())
             _emit_ae_health(grid, gn, nf, pn, dispatched, snap)
-        params = {k: v.reshape(lead + v.shape[2:]) for k, v in grid.params().items()}
+        params = {k: v.reshape(lead + v.shape[2:]) for k, v in params.items()}
         tl, vl, st = (t.reshape(lead + (cfg.epochs,)) for t in (tl, vl, st))
         stop_epoch = _stop_epoch(st, cfg.epochs)
     res = AEResult(params=params, stop_epoch=stop_epoch, train_loss=tl, val_loss=vl)
@@ -626,7 +761,7 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
                        epochs_total=cfg.epochs,
                        chunk_epochs=cfg.epochs if monolithic else (cfg.chunk_epochs
                                                                    or cfg.epochs),
-                       lanes=int(np.prod(grid_shape)),
+                       lanes=int(np.prod(full_shape)),
                        lanes_stopped=int(torch.sum(stop_epoch < cfg.epochs)),
                        overshoot_chunks=overshoot)
     if snap is not None:
@@ -685,12 +820,13 @@ def sweep_autoencoders_chunked(seed: int, x_train_scaled, cfg: AEConfig,
                                latent_dims: Sequence[int], init_params: Optional[dict] = None,
                                perm_source: Optional[PermSource] = None,
                                device: DeviceLike = None, resume_dir: Optional[str] = None,
-                               ) -> Tuple[AEResult, ChunkStats]:
+                               mesh=None) -> Tuple[AEResult, ChunkStats]:
     """:func:`sweep_autoencoders` as a chunked early-exit drive: chunks run
-    until every lane has stopped; bit-identical to the monolithic sweep."""
+    until every lane has stopped; bit-identical to the monolithic sweep.
+    ``mesh`` splits the lanes over its ranks (module docstring)."""
     cfg, masks = _sweep_masks(cfg, latent_dims)
     return _train_grid(cfg, seed, x_train_scaled, masks, None, (len(latent_dims),),
-                       init_params, perm_source, device, resume_dir=resume_dir)
+                       init_params, perm_source, device, resume_dir=resume_dir, mesh=mesh)
 
 
 def stack_padded(x_list: Sequence) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -708,30 +844,32 @@ def sweep_autoencoders_padded(seed: int, x_pad, n_rows, cfg: AEConfig,
                               latent_dims: Sequence[int], init_params: Optional[dict] = None,
                               perm_source: Optional[PermSource] = None,
                               device: DeviceLike = None, resume_dir: Optional[str] = None,
-                              ) -> Tuple[AEResult, ChunkStats]:
+                              mesh=None) -> Tuple[AEResult, ChunkStats]:
     """One padded dataset's latent sweep: ``x_pad`` (T_max, F) holds
     ``n_rows`` real rows, then zeros; the unit that
-    :func:`sweep_autoencoders_multi` batches across datasets."""
+    :func:`sweep_autoencoders_multi` batches across datasets; ``mesh``
+    splits the lanes over its ranks."""
     cfg, masks = _sweep_masks(cfg, latent_dims)
     return _train_grid(cfg, seed, x_pad, masks, _rows_info(cfg, n_rows),
                        (len(latent_dims),), init_params, perm_source, device,
-                       resume_dir=resume_dir)
+                       resume_dir=resume_dir, mesh=mesh)
 
 
 def sweep_autoencoders_multi(seed: int, x_stack, n_rows, cfg: AEConfig,
                              latent_dims: Sequence[int], init_params: Optional[dict] = None,
                              perm_source: Optional[PermSource] = None,
                              device: DeviceLike = None, resume_dir: Optional[str] = None,
-                             ) -> Tuple[AEResult, ChunkStats]:
+                             mesh=None) -> Tuple[AEResult, ChunkStats]:
     """Every (dataset, latent) pair as one lane of a (D, L) grid:
     ``x_stack`` the :func:`stack_padded` cube of the real and the
     augmented training sets, ``n_rows`` their row counts.  Chunks run
-    while any lane of the grid trains."""
+    while any lane of the grid trains.  ``mesh`` splits the datasets over
+    its ranks (module docstring)."""
     cfg, masks = _sweep_masks(cfg, latent_dims)
     d = int(torch.as_tensor(x_stack).shape[0])
     return _train_grid(cfg, seed, x_stack, masks, _rows_info(cfg, n_rows),
                        (d, len(latent_dims)), init_params, perm_source, device,
-                       resume_dir=resume_dir)
+                       resume_dir=resume_dir, mesh=mesh)
 
 
 def sweep_item_arrays(seed: int, panel, cfg: AEConfig, latent_dims: Sequence[int],

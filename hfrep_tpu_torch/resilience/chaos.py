@@ -25,8 +25,8 @@ explored the FoundationDB/Jepsen way:
   under ``<out>/found/``; the committed corpus
   (``hfrep_tpu_torch/resilience/_chaos_corpus/``, a copy of the JAX
   package's) replays with ``--replay-corpus``.  An entry whose subject
-  the port does not register (``ae_mesh``, ROADMAP queue 1 item 9) is
-  reported as skipped, never silently dropped.
+  the port does not register would be reported as skipped, never
+  silently dropped; every subject of the corpus is registered.
 
 The schedule sequence is a pure function of ``--seed`` (the generator is
 the JAX package's draw for draw); the time budget only bounds how much of

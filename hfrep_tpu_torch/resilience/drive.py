@@ -21,9 +21,8 @@ workload (``hfrep_tpu/resilience/drive.py``).
 
 A drain (exit 75) and a persistent storage failure (exit 74) land a
 crash bundle first (:func:`hfrep_tpu_torch.obs.crash.bundle_if_enabled`).
-The JAX registry's ``ae_mesh`` spec (the multi-dataset fabric through a
-1×1 device mesh) waits for the port's parallelism (ROADMAP queue 1 item
-9): :func:`check_registry` names it as the one gap.
+Every spec of the JAX registry is registered here, ``ae_mesh`` (the
+multi-dataset fabric through a 1×1 device mesh) included.
 """
 
 from __future__ import annotations
@@ -62,9 +61,9 @@ FAMILIES = ("trainer", "engine", "walkforward", "orchestrate", "serve",
 JAX_SPECS = ("ae_sweep", "ae_multi", "ae_mesh", "gan_ckpt", "serve_load", "walkforward",
              "scenario_bank", "rollup", "pipeline", "_planted")
 
-#: specs of the JAX registry that wait for a later part of the port
-#: (ROADMAP queue 1 item 9: the 1x1 mesh launch)
-DEFERRED_SPECS = {"ae_mesh": "waits for the port's parallelism (ROADMAP queue 1 item 9)"}
+#: specs of the JAX registry that wait for a later part of the port, each
+#: with its reason; named by :func:`check_registry` as gaps, never dropped
+DEFERRED_SPECS: Dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,6 +298,13 @@ register_drive(DriveSpec(
     timeout=75.0, boundary_sites=("chunk",), snapshot="chunk", double_buffer=True,
     hint_sites=("chunk", "snapshot_save", "snapshot", "result_save", "obs_append"),
     description="padded multi-dataset AE fabric (ragged rows via the row counts)"))
+
+register_drive(DriveSpec(
+    name="ae_mesh", family="engine", fixture=f"{_FX}:run_ae_mesh",
+    timeout=75.0, boundary_sites=("chunk",), snapshot="chunk", double_buffer=True,
+    hint_sites=("chunk", "snapshot_save", "snapshot", "result_save", "obs_append"),
+    description="multi-dataset fabric through the lane mesh (1x1 dp mesh, the meshless "
+                "drive itself)"))
 
 register_drive(DriveSpec(
     name="gan_ckpt", family="trainer", fixture=f"{_FX}:run_gan_ckpt",

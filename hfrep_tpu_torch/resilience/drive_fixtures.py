@@ -107,6 +107,27 @@ def run_ae_multi(out: Path, fixture_seed: int, resume: bool, device: str = "cuda
     return {"chunks": int(stats.chunks_dispatched)}
 
 
+def run_ae_mesh(out: Path, fixture_seed: int, resume: bool, device: str = "cuda") -> dict:
+    """The padded multi-dataset fabric dispatched through the lane mesh on
+    a 1×1 ``('dp',)`` mesh of the subject's device, under the same
+    kill→resume / exit-contract / atomic-artifact oracles as the plain
+    drive.  A one-device mesh runs the meshless drive itself, so the
+    oracle reference stays the undisturbed run."""
+    from hfrep_tpu_torch.config import AEConfig
+    from hfrep_tpu_torch.parallel.rules import MeshSpec, build_mesh
+    from hfrep_tpu_torch.replication.engine import stack_padded, sweep_autoencoders_multi
+
+    a = _panel(36, 4, fixture_seed, salt=2)
+    stack, rows = stack_padded([a, a[:28]])
+    cfg = AEConfig(n_factors=4, latent_dim=2, epochs=4, batch_size=16, patience=2,
+                   seed=fixture_seed, chunk_epochs=2)
+    res, stats = sweep_autoencoders_multi(fixture_seed + 1, stack, rows, cfg, [1, 2],
+                                          resume_dir=str(out / "scratch" / "resume"),
+                                          mesh=build_mesh(MeshSpec(dp=1), device=device))
+    _write_npz_artifact(out, "multi", _result_arrays(res))
+    return {"chunks": int(stats.chunks_dispatched)}
+
+
 def run_gan_ckpt(out: Path, fixture_seed: int, resume: bool, device: str = "cuda") -> dict:
     """GAN train→checkpoint→resume: periodic checkpoints, a drain at a
     block boundary, restore walking past torn and corrupt checkpoints,

@@ -110,14 +110,15 @@ def _fingerprint(spec: WalkForwardSpec, cfg: AEConfig, latent_dims: Sequence[int
 def _train_grid(seed: int, x, spec: WalkForwardSpec, cfg: AEConfig,
                 latent_dims: Sequence[int], init_params: Optional[dict] = None,
                 perm_source: Optional[PermSource] = None, device: DeviceLike = None,
-                resume_dir: Optional[str] = None):
+                resume_dir: Optional[str] = None, mesh=None):
     """Train every (window, latent) lane as one padded grid.
 
     Expanding prefixes are MinMax-scaled each with its own train-set
     params (ReplicationEngine semantics), stacked ragged and driven
     through the multi-dataset grid.  ``init_params`` / ``perm_source``
     are the engine's draw seams, with the grid's (n_windows, L) leading
-    dims; ``resume_dir`` the engine's chunk snapshots.  Returns
+    dims; ``resume_dir`` the engine's chunk snapshots; ``mesh`` splits the
+    windows over its ranks (the engine's lane mesh).  Returns
     ``(AEResult, ChunkStats, n_rows)``, the result's arrays leading
     ``(n_windows, L)``."""
     from hfrep_tpu_torch.core import scaler as mm
@@ -128,7 +129,7 @@ def _train_grid(seed: int, x, spec: WalkForwardSpec, cfg: AEConfig,
     x_stack, n_rows = stack_padded(prefixes)
     res, stats = sweep_autoencoders_multi(seed, x_stack, n_rows, cfg, list(latent_dims),
                                           init_params=init_params, perm_source=perm_source,
-                                          device=device, resume_dir=resume_dir)
+                                          device=device, resume_dir=resume_dir, mesh=mesh)
     return res, stats, n_rows
 
 
@@ -189,20 +190,47 @@ def _make_window_eval(cfg: AEConfig):
     return fn
 
 
+def _on_leader(mesh, fn, what: str):
+    """``fn()`` where there is no multi-process mesh; on one, ``fn()`` on
+    rank 0 alone (the others get ``None``), then one flag reduction: the
+    barrier before the other ranks read what rank 0 wrote, which raises
+    on every rank when ``fn`` failed, so none is left in a collective."""
+    if mesh is None or not mesh.spans_processes:
+        return fn()
+    out, err = None, None
+    if mesh.rank == 0:
+        try:
+            out = fn()
+        except Exception as e:      # noqa: BLE001 — re-raised below on every rank
+            err = e
+    if mesh.any(err is not None)[0]:
+        if err is not None:
+            raise err
+        raise RuntimeError(f"{what} failed on rank 0")
+    return out
+
+
 def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
                     latent_dims: Sequence[int], out_dir, resume: bool = False,
-                    device: DeviceLike = None) -> dict:
+                    device: DeviceLike = None, mesh=None) -> dict:
     """The whole drive on ``device`` (``None``: the card): the padded
     training grid, then each window's scores, then the surfaces.  Returns
     ``{"surface_post", "surface_ante", "manifest", "stats"}``.  A re-run
     reuses the trained grid and the window scores of the same fingerprint
     and refuses foreign ones; ``resume`` is accepted for the CLI's
     symmetry.  The grid's draws come from ``cfg.seed`` (the seams for
-    other draws are :func:`_train_grid`'s)."""
+    other draws are :func:`_train_grid`'s).  ``mesh`` splits the
+    training grid's windows over its ranks (its device is the drive's);
+    on a multi-process mesh rank 0 alone writes the trained grid, the
+    window scores and the outputs, every rank reads the scores it
+    published, and a drain seen by any rank drains every rank at the same
+    window boundary."""
     from hfrep_tpu_torch.models.autoencoder import latent_mask
     from hfrep_tpu_torch.utils import checkpoint as ckpt
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    multi = mesh is not None and mesh.spans_processes
+    leader = not multi or mesh.rank == 0
     latent_dims = [int(d) for d in latent_dims]
     x = np.asarray(x, np.float32)
     y = np.asarray(y, np.float32)
@@ -220,18 +248,21 @@ def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
 
     t0 = timeline.clock()
     grid = _load_grid(resume_root / TRAINED_GRID, fingerprint, dev)
+    if multi and mesh.any(grid is None)[0]:
+        grid = None                 # every rank trains, or none does
     stats = None
     if grid is None:
         resume_root.mkdir(parents=True, exist_ok=True)
         grid, stats, _ = _train_grid(cfg.seed, x, spec, cfg, latent_dims, device=dev,
-                                     resume_dir=str(resume_root / "chunks"))
-        try:
-            _save_grid(resume_root / TRAINED_GRID, grid, fingerprint)
-        except OSError as e:
-            # the persisted grid only saves a retrain after a kill while
-            # scoring; a failed write must not fail a trained drive
-            print(f"warning: trained grid not persisted ({e}); a kill while "
-                  "scoring will retrain", file=sys.stderr)
+                                     resume_dir=str(resume_root / "chunks"), mesh=mesh)
+        if leader:
+            try:
+                _save_grid(resume_root / TRAINED_GRID, grid, fingerprint)
+            except OSError as e:
+                # the persisted grid only saves a retrain after a kill while
+                # scoring; a failed write must not fail a trained drive
+                print(f"warning: trained grid not persisted ({e}); a kill while "
+                      "scoring will retrain", file=sys.stderr)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     train_secs = timeline.clock() - t0
@@ -245,38 +276,46 @@ def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
     surface_ante = np.empty_like(surface_post)
     t1 = timeline.clock()
     x_d, y_d, rf_d = (torch.from_numpy(a).to(dev) for a in (x, y, rf))
+
+    def publish(w: int, dst: Path) -> dict:
+        """Window ``w``'s published scores' metadata, scoring it first
+        unless a valid publication of this drive is already there."""
+        if (dst / ckpt.META_NAME).exists():
+            try:
+                meta = ckpt.verify(dst)
+            except ckpt.CheckpointCorrupt:
+                meta = None
+            if meta is not None and meta.get("fingerprint") != fingerprint:
+                raise ValueError(
+                    f"{dst} holds scores from a DIFFERENT walk-forward (spec/cfg/data "
+                    "differ) — remove the out dir or use a fresh one")
+            if meta is not None:
+                return meta
+        e = spec.train_rows(w)
+        params_w = {k: v[w] for k, v in grid.params.items()}
+        sa, sp = eval_fn(params_w, masks, x_d[e:e + horizon], y_d[e:e + horizon],
+                         rf_d[e:e + horizon],
+                         x_d[e + horizon - (p_months + ols):e + horizon])
+        sa = sa.cpu().numpy().astype(np.float32)
+        sp = sp.cpu().numpy().astype(np.float32)
+        stop = grid.stop_epoch[w].cpu().numpy()
+
+        def writer(tmp: Path) -> None:
+            np.savez(tmp / "scores.npz", sharpe_ante=sa, sharpe_post=sp, stop_epoch=stop)
+
+        ckpt.write_atomic(dst, writer,
+                          metadata={"fingerprint": fingerprint, "window": w,
+                                    "train_rows": int(e)},
+                          io_site="snapshot_save", fault_site="snapshot")
+        return ckpt.read_meta(dst)
+
     with resilience.graceful_drain():
         for w in range(spec.n_windows):
             t_w0 = timeline.clock()
             name = f"w_{w:04d}"
             dst = windows_dir / name
-            meta = None
-            if (dst / ckpt.META_NAME).exists():
-                try:
-                    meta = ckpt.verify(dst)
-                except ckpt.CheckpointCorrupt:
-                    meta = None
-                if meta is not None and meta.get("fingerprint") != fingerprint:
-                    raise ValueError(
-                        f"{dst} holds scores from a DIFFERENT walk-forward (spec/cfg/data "
-                        "differ) — remove the out dir or use a fresh one")
+            meta = _on_leader(mesh, lambda: publish(w, dst), f"walk-forward window {w}")
             if meta is None:
-                e = spec.train_rows(w)
-                params_w = {k: v[w] for k, v in grid.params.items()}
-                sa, sp = eval_fn(params_w, masks, x_d[e:e + horizon], y_d[e:e + horizon],
-                                 rf_d[e:e + horizon],
-                                 x_d[e + horizon - (p_months + ols):e + horizon])
-                sa = sa.cpu().numpy().astype(np.float32)
-                sp = sp.cpu().numpy().astype(np.float32)
-                stop = grid.stop_epoch[w].cpu().numpy()
-
-                def writer(tmp: Path, a=sa, p=sp, s=stop) -> None:
-                    np.savez(tmp / "scores.npz", sharpe_ante=a, sharpe_post=p, stop_epoch=s)
-
-                ckpt.write_atomic(dst, writer,
-                                  metadata={"fingerprint": fingerprint, "window": w,
-                                            "train_rows": int(e)},
-                                  io_site="snapshot_save", fault_site="snapshot")
                 meta = ckpt.read_meta(dst)
             with np.load(dst / "scores.npz") as z:
                 surface_ante[w] = z["sharpe_ante"]
@@ -285,12 +324,28 @@ def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
             timeline.flush_window(timeline.clock() - t_w0, drive="walkforward",
                                   steps=1, window=w)
             # the window boundary: a requested drain exits here with every
-            # published score intact (a re-run scores the gap)
-            resilience.boundary("window")
+            # published score intact (a re-run scores the gap); on a
+            # multi-process mesh a drain seen by any rank drains every rank
+            if not multi:
+                resilience.boundary("window")
+            else:
+                resilience.tick("window")
+                if mesh.any(resilience.drain_requested())[0]:
+                    if not resilience.drain_requested():
+                        resilience.request_drain("peer")
+                    raise resilience.Preempted(site="window")
     eval_secs = timeline.clock() - t1
 
-    manifest = _assemble(out, spec, cfg, latent_dims, digests, surface_post, surface_ante)
-    shutil.rmtree(resume_root, ignore_errors=True)
+    def finish() -> dict:
+        manifest = _assemble(out, spec, cfg, latent_dims, digests, surface_post,
+                             surface_ante)
+        shutil.rmtree(resume_root, ignore_errors=True)
+        return manifest
+
+    manifest = _on_leader(mesh, finish, "the walk-forward's outputs")
+    if manifest is None:
+        manifest = _assemble(out, spec, cfg, latent_dims, digests, surface_post,
+                             surface_ante, write=False)
     lanes = spec.n_windows * len(latent_dims)
     rows = [spec.train_rows(w) for w in range(spec.n_windows)]
     run_stats = {
@@ -309,20 +364,23 @@ def run_walkforward(x, y, rf, spec: WalkForwardSpec, cfg: AEConfig,
 
 def _assemble(out: Path, spec: WalkForwardSpec, cfg: AEConfig, latent_dims: List[int],
               digests: Dict[str, str], surface_post: np.ndarray,
-              surface_ante: np.ndarray) -> dict:
+              surface_ante: np.ndarray, write: bool = True) -> dict:
     """The deterministic outputs: mean-over-strategy Sharpe surfaces as CSV
     (window-start rows × latent columns, pandas' ``to_csv`` layout) and
-    the digest-indexed ``walkforward.json``, byte-stable across resumes."""
+    the digest-indexed ``walkforward.json``, byte-stable across resumes.
+    Returns the manifest; ``write=False`` (a rank other than 0) writes
+    nothing."""
     from hfrep_tpu_torch.experiments.sweep import write_table
     from hfrep_tpu_torch.utils import checkpoint as ckpt
 
     idx = [spec.train_rows(w) for w in range(spec.n_windows)]
     cols = [f"latent_{d}" for d in latent_dims]
-    for fname, surf in (("walkforward.csv", surface_post),
-                        ("walkforward_ante.csv", surface_ante)):
-        mean = surf.mean(axis=2)
-        write_table(str(out / fname), "train_rows", idx,
-                    {c: mean[:, j] for j, c in enumerate(cols)})
+    if write:
+        for fname, surf in (("walkforward.csv", surface_post),
+                            ("walkforward_ante.csv", surface_ante)):
+            mean = surf.mean(axis=2)
+            write_table(str(out / fname), "train_rows", idx,
+                        {c: mean[:, j] for j, c in enumerate(cols)})
     mean_post = surface_post.mean(axis=2)
     best = [{"train_rows": int(idx[w]),
              "latent": int(latent_dims[int(np.argmax(mean_post[w]))]),
@@ -337,7 +395,8 @@ def _assemble(out: Path, spec: WalkForwardSpec, cfg: AEConfig, latent_dims: List
         "summary": {"best_latent_by_window": best,
                     "mean_sharpe_post": round(float(mean_post.mean()), 9)},
     }
-    tmp = out / f".{MANIFEST}.tmp-{os.getpid()}"
-    tmp.write_text(json.dumps(manifest, indent=2, sort_keys=True))
-    os.replace(tmp, out / MANIFEST)
+    if write:
+        tmp = out / f".{MANIFEST}.tmp-{os.getpid()}"
+        tmp.write_text(json.dumps(manifest, indent=2, sort_keys=True))
+        os.replace(tmp, out / MANIFEST)
     return manifest

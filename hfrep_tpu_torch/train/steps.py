@@ -39,8 +39,13 @@ the epoch's start (the optimizers update in place), the parameter norm
 and the count of nonfinite parameters and losses — all from values the
 step already holds, so the trajectory is bit-identical either way.
 
-Left out of this port, named in ROADMAP: the mesh hooks (``shard_data``,
-``apply_fns``).
+``shard_data`` is the dp hook (:func:`hfrep_tpu_torch.parallel.rules.
+data_constraint`, JAX's ``shard_data``): every rank gets the global
+batch's draws, keeps its rows of them, and the hook's ``reduce`` turns
+every gradient, loss and accuracy into the global mean before the
+optimizer touches it.  ``None`` (the default) is the literal single-
+device step.  The ``apply_fns`` hook (the layer pipeline's) is ROADMAP
+queue 1 item 9b.
 """
 
 from __future__ import annotations
@@ -185,33 +190,43 @@ class _Health:
         return out
 
 
-def _updates(pair: GanPair, tcfg: TrainConfig, health: Optional[_Health] = None):
+def _updates(pair: GanPair, tcfg: TrainConfig, health: Optional[_Health] = None,
+             reduce: Optional[Callable] = None):
     """``(d_update, g_update)``: each takes ``(state, loss)``, applies one
     optimizer update of its network's parameters in place and returns the
     detached loss; ``g_update`` also counts the step.  With ``health``
-    the updates hand it their gradients."""
+    the updates hand it their gradients.  With ``reduce`` (the dp hook's)
+    each update first reduces, in one call, its gradients in parameter
+    order (an unused one as zeros, so every rank reduces the same list),
+    its loss and ``extras`` (tensors the caller wants as global means,
+    returned after the loss)."""
     g_tx, d_tx = make_optimizers(pair, tcfg)
 
-    def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor) -> dict:
+    def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor, extras=()):
         params = params_of(module)
         grads = _grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
+        loss = loss.detach()
+        if reduce is not None:
+            out = reduce(list(grads.values()) + [loss] + list(extras))
+            n = len(grads)
+            grads, loss, extras = dict(zip(grads, out[:n])), out[n], tuple(out[n + 1:])
         tx.update(params, grads, slots)
-        return grads
+        return grads, loss, extras
 
-    def d_update(state: GanState, loss: torch.Tensor) -> torch.Tensor:
-        grads = _update(state.discriminator, d_tx, state.d_opt, loss)
+    def d_update(state: GanState, loss: torch.Tensor, extras=()):
+        grads, loss, extras = _update(state.discriminator, d_tx, state.d_opt, loss, extras)
         if health is not None:
             health.critic_grads(grads)
-        return loss.detach()
+        return (loss,) + extras if extras else loss
 
     def g_update(state: GanState, loss: torch.Tensor) -> torch.Tensor:
-        grads = _update(state.generator, g_tx, state.g_opt, loss)
+        grads, loss, _ = _update(state.generator, g_tx, state.g_opt, loss)
         if health is not None:
             health.generator_grads(grads)
         state.step += 1
-        return loss.detach()
+        return loss
 
     return d_update, g_update
 
@@ -221,7 +236,8 @@ def _health(pair: GanPair) -> Optional[_Health]:
     return _Health(pair) if health_mod.active() is not None else None
 
 
-def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
+def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
+                    shard_data: Optional[Callable] = None
                     ) -> Callable[[GanState, Draws], Tuple[GanState, Metrics]]:
     """Build ``step(state, draws) -> (state, metrics)`` for one epoch.
 
@@ -231,13 +247,25 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
     an n_critic == 1 epoch as straight-line code instead of a size-1
     traced loop, and the port runs eagerly with no traced loop at all.
     With health on (decided here, at build time) the metrics also carry
-    the five ``health_*`` values.
+    the five ``health_*`` values.  ``shard_data`` is the dp hook (module
+    docstring): the step takes the global batch's draws and runs on this
+    rank's rows of them.
     """
     health = _health(pair)
-    d_update, g_update = _updates(pair, tcfg, health)
+    d_update, g_update = _updates(pair, tcfg, health,
+                                  None if shard_data is None else shard_data.reduce)
     acc = pair.policy.accum
     clip, gp_w = tcfg.clip_value, tcfg.gp_weight
     window, features = dataset.shape[1], dataset.shape[2]
+
+    def _rows(draws: Draws) -> Draws:
+        """This rank's rows of the global batch's draws (every draw but
+        bce's ``idx`` has a leading epoch or update axis)."""
+        if shard_data is None:
+            return draws
+        axis = 0 if draws.idx.dim() == 1 else 1
+        return Draws(idx=shard_data(draws.idx, axis), noises=shard_data(draws.noises, 1),
+                     alphas=None if draws.alphas is None else shard_data(draws.alphas, 1))
 
     def _fakes(state: GanState, noises: torch.Tensor) -> torch.Tensor:
         """n_critic fake batches as ONE generator pass, no gradient."""
@@ -256,16 +284,17 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
     def bce_step(state: GanState, draws: Draws):
         if health is not None:
             health.begin(state)
+        draws = _rows(draws)
         real = dataset[draws.idx]
         with torch.no_grad():
             fake = state.generator(draws.noises[0])
         d = state.discriminator
         logits = acc(d(real))
         acc_r = (logits > 0).float().mean()
-        l_real = d_update(state, _bce_logits(logits, 1.0))
+        l_real, acc_r = d_update(state, _bce_logits(logits, 1.0), (acc_r,))
         logits = acc(d(fake))
         acc_f = (logits <= 0).float().mean()
-        l_fake = d_update(state, _bce_logits(logits, 0.0))
+        l_fake, acc_f = d_update(state, _bce_logits(logits, 0.0), (acc_f,))
         g_loss = g_update(state, _bce_logits(
             acc(d(state.generator(draws.noises[1]))), 1.0))
         metrics = {"d_loss": 0.5 * (l_real + l_fake),
@@ -278,6 +307,7 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
     def wgan_step(state: GanState, draws: Draws):
         if health is not None:
             health.begin(state)
+        draws = _rows(draws)
         fakes = _fakes(state, draws.noises)
         d = state.discriminator
         d_loss = None
@@ -307,6 +337,7 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor
     def wgan_gp_step(state: GanState, draws: Draws):
         if health is not None:
             health.begin(state)
+        draws = _rows(draws)
         fakes = _fakes(state, draws.noises)
         d = state.discriminator
         d_loss = None

@@ -44,7 +44,19 @@ emits ``numeric_fault``, and under ``HFREP_HEALTH=abort`` writes a
 forensic dump of the whole checkpoint tree and raises
 :class:`~hfrep_tpu_torch.obs.health.NumericFault`.
 
-Left out until its layer is ported (ROADMAP): the mesh paths.
+Mesh (``mesh=``, a ``('dp',)`` :class:`~hfrep_tpu_torch.parallel.rules.
+Mesh`): the blocks and the remainder launch through
+:func:`~hfrep_tpu_torch.parallel.rules.make_gan_multi_step` /
+``make_gan_train_step`` (``dp_multi_step``, ``dp_train_step``): every
+rank draws the global batch from the same stream and steps on its rows,
+the gradients reduced to the global mean.  On a mesh that spans
+processes the state and the draw stream are broadcast from rank 0 at
+construction, ``generate``'s noise too; rank 0 alone writes a
+checkpoint, synchronously, then every rank meets it at a barrier (every
+rank restores); a drain seen by any rank drains every rank at the same
+block boundary, and the NaN guard's verdict is reduced across ranks, so
+no rank is left waiting in a collective.  The sp, tp and pp axes are
+ROADMAP queue 1 item 9b.
 """
 
 from __future__ import annotations
@@ -90,11 +102,72 @@ def seed_mix(*words: int) -> int:
     return h
 
 
+def state_tree(state: GanState) -> dict:
+    """A state's checkpoint tree, referencing the live tensors: both
+    networks' ``state_dict``, the optimizer slots, ``step``."""
+    return {"generator": state.generator.state_dict(),
+            "discriminator": state.discriminator.state_dict(),
+            "g_opt": state.g_opt, "d_opt": state.d_opt, "step": state.step}
+
+
+@torch.no_grad()
+def load_state_tree(state: GanState, saved: dict) -> None:
+    """Copy a :func:`state_tree` into the live networks and slots, in
+    place; a tree of other tensors is refused as corrupt."""
+    for name, module in (("generator", state.generator),
+                         ("discriminator", state.discriminator)):
+        own, theirs = module.state_dict(), saved[name]
+        if set(own) != set(theirs):
+            raise ckpt.CheckpointCorrupt(
+                f"the checkpoint's {name} has tensors {sorted(theirs)}, "
+                f"the model {sorted(own)}")
+        for k, t in own.items():
+            t.copy_(theirs[k])
+    for slots, theirs in ((state.g_opt, saved["g_opt"]), (state.d_opt, saved["d_opt"])):
+        for k, v in theirs.items():
+            if isinstance(v, dict):
+                for n, t in v.items():
+                    slots[k][n].copy_(t)
+            else:
+                slots[k] = v
+    state.step = int(saved["step"])
+
+
+def restore_walk(path: Optional[str], ckpt_dir: Optional[str]):
+    """``(tree, path restored)``: ``path``, falling back to the newest
+    good checkpoint in ``ckpt_dir`` when it is corrupt; with no path, the
+    newest good one there, ``(None, ...)`` when every candidate is
+    corrupt."""
+    if path is not None:
+        try:
+            return ckpt.restore(path), path
+        except ckpt.CheckpointCorrupt:
+            if not ckpt_dir:
+                raise
+            return ckpt.restore_latest_good(ckpt_dir)
+    if not ckpt_dir:
+        raise FileNotFoundError("no checkpoint found")
+    return ckpt.restore_latest_good(ckpt_dir, on_exhausted="fresh")
+
+
 class GanTrainer:
     def __init__(self, cfg: ExperimentConfig, dataset: Union[GanDataset, torch.Tensor],
                  logger: Optional[MetricLogger] = None, nan_guard: bool = False,
                  max_recoveries: int = 3, device: DeviceLike = None,
-                 draw_source: Optional[DrawSource] = None):
+                 draw_source: Optional[DrawSource] = None, mesh=None):
+        if mesh is not None:
+            # the axis names declare the partitioning; checked before any
+            # parallel import, so the refusal never depends on import order
+            names = tuple(mesh.axis_names)
+            if names not in (("dp",), ("sp",), ("tp",), ("dp", "sp"), ("dp", "tp"),
+                             ("dp", "sp", "tp")):
+                raise ValueError(
+                    f"mesh axis names {names} not recognized; use ('dp',), ('sp',), "
+                    "('tp',), ('dp', 'sp'), ('dp', 'tp'), or ('dp', 'sp', 'tp')")
+            if device is not None and resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         if isinstance(dataset, GanDataset):
@@ -110,10 +183,24 @@ class GanTrainer:
         self.draw_source = draw_source
         # the build-time telemetry hook: with obs on, a compile:multi_step
         # span for the first block and a dispatch counter after it
-        self._multi = instrument_step(
-            make_multi_step(self.pair, cfg.train, self.windows), "multi_step",
-            flops=self._block_flops(), batch=cfg.train.batch_size,
-            steps_per_call=cfg.train.steps_per_call)
+        if mesh is not None:
+            from hfrep_tpu_torch.parallel.rules import make_gan_multi_step
+            self._multi = make_gan_multi_step(
+                self.pair, cfg.train, self.windows, mesh, flops=self._block_flops(),
+                steps_per_call=cfg.train.steps_per_call)
+            if self._multiprocess():
+                # ranks built the same state from the same seed; rank 0's
+                # bytes make that a fact, the draw stream's state included
+                from hfrep_tpu_torch.parallel.mesh import replicate_to_global
+                replicate_to_global(self.state, mesh)
+                draws_state = self.gen.get_state()
+                mesh.broadcast_(draws_state)
+                self.gen.set_state(draws_state)
+        else:
+            self._multi = instrument_step(
+                make_multi_step(self.pair, cfg.train, self.windows), "multi_step",
+                flops=self._block_flops(), batch=cfg.train.batch_size,
+                steps_per_call=cfg.train.steps_per_call)
         self._single_step = None
         style = {"bce": "gan", "wgan_clip": "wgan", "wgan_gp": "wgan_gp"}[self.pair.loss]
         self.logger = logger or MetricLogger(echo=False, echo_style=style)
@@ -144,12 +231,12 @@ class GanTrainer:
         with resilience.graceful_drain():
             if not obs.enabled:
                 return self._train_loop(epochs)
-            from hfrep_tpu_torch.obs import manifest
-            obs.annotate(config=manifest.config_dict(self.cfg))
+            from hfrep_tpu_torch.obs import manifest, mesh_attrs
+            obs.annotate(config=manifest.config_dict(self.cfg), mesh=mesh_attrs(self.mesh))
             n = epochs if epochs is not None else self.cfg.train.epochs
             obs.event("train_start", family=self.cfg.model.family, epochs=n,
-                      start_epoch=self.epoch, steps_per_call=self.cfg.train.steps_per_call,
-                      device=str(self.device))
+                      start_epoch=self.epoch, mesh=mesh_attrs(self.mesh),
+                      steps_per_call=self.cfg.train.steps_per_call, device=str(self.device))
             obs.memory_snapshot(phase="train_start")
             with obs.span("train", epochs=n):
                 state = self._train_loop(epochs)
@@ -231,15 +318,16 @@ class GanTrainer:
                         and self.epoch % tcfg.checkpoint_every < spc):
                     close_steady()
                     flush_pending()
-                    if self.nan_guard:
+                    if self.nan_guard or self._multiprocess():
                         # the guard wants the last written checkpoint to
-                        # be the last verified block, not a staged one
+                        # be the last verified block, not a staged one; a
+                        # multi-process write is rank 0's, then a barrier
                         self.save_checkpoint()
                     else:
                         self._commit_pending_ckpt()   # one slot: land the prior
                         self._stage_checkpoint()
                 resilience.tick("block")        # injected faults fire here
-                if resilience.drain_requested():
+                if self._drain_seen():
                     close_steady()
                     flush_pending()
                     self._drain_now()
@@ -274,7 +362,7 @@ class GanTrainer:
                     and self.epoch % tcfg.checkpoint_every == 0):
                 self.save_checkpoint()
             resilience.tick("block")
-            if resilience.drain_requested():
+            if self._drain_seen():
                 self._drain_now()
         self.logger.flush()
         return self.state
@@ -294,6 +382,16 @@ class GanTrainer:
         get_obs().event("preempt_drain", epoch=self.epoch, checkpoint=path)
         raise resilience.Preempted(site="block", epoch=self.epoch, snapshot=path)
 
+    def _multiprocess(self) -> bool:
+        return self.mesh is not None and self.mesh.spans_processes
+
+    def _drain_seen(self) -> bool:
+        """A drain requested on any rank drains every rank at this
+        boundary (one flag reduction a block on a multi-process mesh)."""
+        if not self._multiprocess():
+            return resilience.drain_requested()
+        return self.mesh.any(resilience.drain_requested())[0]
+
     def _next_block(self) -> int:
         block, self.block = self.block, self.block + 1
         return block
@@ -309,10 +407,16 @@ class GanTrainer:
         block = self._next_block()
         if self._single_step is None:
             # instrumented like the multi-step, so the remainder's first
-            # build and its dispatches land in the same ledger and window
-            self._single_step = instrument_step(
-                make_train_step(self.pair, self.cfg.train, self.windows), "single_step",
-                batch=self.cfg.train.batch_size)
+            # build and its dispatches land in the same ledger and window;
+            # a mesh's remainder runs through the same mesh
+            if self.mesh is not None:
+                from hfrep_tpu_torch.parallel.rules import make_gan_train_step
+                self._single_step = make_gan_train_step(self.pair, self.cfg.train,
+                                                        self.windows, self.mesh)
+            else:
+                self._single_step = instrument_step(
+                    make_train_step(self.pair, self.cfg.train, self.windows), "single_step",
+                    batch=self.cfg.train.batch_size)
         draws = (sample_draws(self.gen, self.pair, self.cfg.train, self.windows)
                  if self.draw_source is None else self.draw_source(block, 0))
         return self._single_step(state, draws)
@@ -330,7 +434,10 @@ class GanTrainer:
         state, metrics = fn(self.state)
         if self.nan_guard:
             host = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
-            if not all(np.isfinite(v).all() for v in host.values()):
+            bad = not all(np.isfinite(v).all() for v in host.values())
+            if self._multiprocess():
+                bad = self.mesh.any(bad)[0]     # no rank rolls back alone
+            if bad:
                 self.recoveries += 1
                 if self.recoveries > self.max_recoveries:
                     raise FloatingPointError(
@@ -376,12 +483,8 @@ class GanTrainer:
         """Everything a resume needs, referencing the live tensors:
         params, optimizer slots (Adam's ``count`` too), ``step``, the
         draw stream's state, the block and epoch counts, the scaler."""
-        st = self.state
-        tree = {"state": {"generator": st.generator.state_dict(),
-                          "discriminator": st.discriminator.state_dict(),
-                          "g_opt": st.g_opt, "d_opt": st.d_opt, "step": st.step},
-                "draws": self.gen.get_state(), "block": self.block,
-                "epoch": self.epoch}
+        tree = {"state": state_tree(self.state), "draws": self.gen.get_state(),
+                "block": self.block, "epoch": self.epoch}
         if self.scaler is not None:
             tree["scaler"] = {"data_min": self.scaler.data_min,
                               "data_max": self.scaler.data_max}
@@ -415,12 +518,18 @@ class GanTrainer:
         obs.counter("checkpoints").inc()
 
     def save_checkpoint(self, path: Optional[str] = None) -> str:
+        """Write the checkpoint; on a multi-process mesh the state is
+        replicated, so rank 0 writes it and every rank then meets at a
+        barrier (no rank reads a checkpoint still being written)."""
         path = path or f"{self.cfg.train.checkpoint_dir}/ckpt_{self.epoch}"
-        obs = get_obs()
-        with obs.span("checkpoint", epoch=self.epoch, path=str(path)):
-            ckpt.save(path, self._ckpt_tree(), metadata=self._meta(self.epoch),
-                      keep=self.cfg.train.checkpoint_keep)
-        obs.counter("checkpoints").inc()
+        if not self._multiprocess() or self.mesh.rank == 0:
+            obs = get_obs()
+            with obs.span("checkpoint", epoch=self.epoch, path=str(path)):
+                ckpt.save(path, self._ckpt_tree(), metadata=self._meta(self.epoch),
+                          keep=self.cfg.train.checkpoint_keep)
+            obs.counter("checkpoints").inc()
+        if self._multiprocess():
+            self.mesh.barrier()
         return path
 
     def restore_checkpoint(self, path: Optional[str] = None) -> str:
@@ -434,44 +543,14 @@ class GanTrainer:
         The values are copied into the live networks and slots, and the
         draw stream's state is restored, so a resumed run continues bit
         for bit on the same device."""
-        ckpt_dir = self.cfg.train.checkpoint_dir
-        if path is not None:
-            try:
-                restored = ckpt.restore(path)
-            except ckpt.CheckpointCorrupt:
-                if not ckpt_dir:
-                    raise
-                restored, path = ckpt.restore_latest_good(ckpt_dir)
-        else:
-            if not ckpt_dir:
-                raise FileNotFoundError("no checkpoint found")
-            restored, path = ckpt.restore_latest_good(ckpt_dir, on_exhausted="fresh")
+        restored, path = restore_walk(path, self.cfg.train.checkpoint_dir)
         if restored is None:
             return ""
         self._load_tree(restored)
         return str(path)
 
-    @torch.no_grad()
     def _load_tree(self, tree: dict) -> None:
-        saved = tree["state"]
-        for name, module in (("generator", self.state.generator),
-                             ("discriminator", self.state.discriminator)):
-            own, theirs = module.state_dict(), saved[name]
-            if set(own) != set(theirs):
-                raise ckpt.CheckpointCorrupt(
-                    f"the checkpoint's {name} has tensors {sorted(theirs)}, "
-                    f"the model {sorted(own)}")
-            for k, t in own.items():
-                t.copy_(theirs[k])
-        for slots, theirs in ((self.state.g_opt, saved["g_opt"]),
-                              (self.state.d_opt, saved["d_opt"])):
-            for k, v in theirs.items():
-                if isinstance(v, dict):
-                    for n, t in v.items():
-                        slots[k][n].copy_(t)
-                else:
-                    slots[k] = v
-        self.state.step = int(saved["step"])
+        load_state_tree(self.state, tree["state"])
         self.gen.set_state(tree["draws"])
         self.block = int(tree["block"])
         self.epoch = int(tree["epoch"])
@@ -491,6 +570,8 @@ class GanTrainer:
             noise = torch.randn((n_samples, w, f), generator=generator, device=self.device)
         else:
             noise = torch.as_tensor(noise).to(self.device, torch.float32)
+        if self._multiprocess():
+            self.mesh.broadcast_(noise)     # every rank samples rank 0's noise
         obs = get_obs()
         # with telemetry on the span synchronises: it times the samples'
         # device work, not their launches

@@ -8,11 +8,12 @@ check_registry``) against the JAX package's, on the CPU.
   JAX's.
 * The seeded search finds the ``_planted`` canary and shrinks it to JAX's
   minimal spec (both packages' searches run, as subprocess chains).
-* The corpus is the JAX package's, entry for entry; its ``_planted`` and
-  ``rollup`` entries replay clean through spawned subjects; the
-  ``ae_mesh`` entry is reported as skipped.
-* ``drives --check`` names exactly one gap, the ``ae_mesh`` spec, and
-  nothing else; ``explain-faults`` prints JAX's table.
+* The corpus is the JAX package's, entry for entry, every subject
+  registered; its ``_planted``, ``rollup`` and ``ae_mesh`` entries replay
+  clean through spawned subjects, none skipped.
+* ``drives --check`` passes with every spec of the JAX registry
+  registered (``ae_mesh`` included) and no gap; ``explain-faults``
+  prints JAX's table.
 
 Every comparison is exact.
 """
@@ -57,8 +58,7 @@ def test_schedule_codec_and_subject_tiers_are_jax_s():
     for bad in ("nope", "s|x|sigterm@chunk=1", "s|1", "s|1|zap@chunk=1"):
         with pytest.raises(Exception):
             chaos.Schedule.decode(bad)
-    assert chaos_subjects.fast_subjects() == tuple(
-        n for n in jsubjects.fast_subjects() if n != "ae_mesh")
+    assert chaos_subjects.fast_subjects() == jsubjects.fast_subjects()
     assert chaos.repro_line(chaos.Schedule.decode("a|0|sigterm@chunk=1")).startswith(
         "python -m hfrep_tpu_torch.resilience chaos --replay ")
 
@@ -198,7 +198,7 @@ def test_corpus_is_jax_s_entry_for_entry():
     entries = chaos.corpus_entries()
     missing = {e["_file"] for e in entries if e["_schedule"].subject not in
                chaos_subjects.SUBJECTS}
-    assert missing == {"006_ae_mesh_pjit_dispatch_coverage.json"}
+    assert missing == set()
     assert (chaos.CORPUS_DIR / "README.md").exists()
 
 
@@ -214,22 +214,21 @@ def test_cheap_corpus_entries_replay_clean(tmp_path, monkeypatch):
                          fixture_seeds=1, workdir=tmp_path / "soak", replay_corpus=True,
                          device="cpu")
     assert doc["ok"], doc["findings"]
-    assert doc["corpus_replayed"] == 2
-    assert doc["corpus_skipped"] == [{"corpus": "006_ae_mesh_pjit_dispatch_coverage.json",
-                                      "subject": "ae_mesh"}]
+    assert doc["corpus_replayed"] == 3
+    assert doc["corpus_skipped"] == []
     assert doc["preempted_runs"] == 0 and doc["schedules"] == 0
 
 
 # ------------------------------------------------------------------ CLIs
 def test_drives_check_names_only_the_ae_mesh_gap(capsys):
     ok, problems = drive.check_registry()
-    assert not ok and len(problems) == 1 and problems[0].startswith("ae_mesh:")
-    assert "queue 1 item 9" in problems[0]
-    assert cli.main(["drives", "--check", "--format", "json"]) == 1
+    assert ok and problems == [] and drive.DEFERRED_SPECS == {}
+    assert cli.main(["drives", "--check", "--format", "json"]) == 0
     doc = json.loads(capsys.readouterr().out)
     assert doc["problems"] == problems
     assert {r["name"] for r in doc["drives"]} == set(drive.DRIVE_REGISTRY) == \
-        set(drive.JAX_SPECS) - {"ae_mesh"}
+        set(drive.JAX_SPECS)
+    assert tuple(drive.DRIVE_REGISTRY) == drive.JAX_SPECS
     assert all(r["fixture"].startswith("hfrep_tpu_torch.resilience.drive_fixtures:")
                for r in doc["drives"])
     assert cli.main(["drives"]) == 0
