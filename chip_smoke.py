@@ -171,8 +171,10 @@ exits non-zero on failure:
              pseudo-inverse's outputs (ante, post, turnover, Sharpe) 1e-3
              scaled by max(1, max|CPU|); the device's busy share of a
              profiled 10-epoch drive at the real (168) and the augmented
-             (1,848) rows.  (b) ``python -m hfrep_tpu_torch sweep`` in this
-             process at ``AEConfig()`` (1000-epoch cap, early stopping),
+             (1,848) rows.  (b) ``python -m hfrep_tpu_torch sweep`` as
+             three subprocesses side by side, each counting its kernel
+             launches into its own stream, at ``AEConfig()`` (1000-epoch
+             cap, early stopping),
              latents 1:21, ``--stats``: real only; from the trainer phase's
              ``mtss_wgan_gp_prod`` checkpoint (the dense augmented path);
              from it and a second ``train-gan`` checkpoint (the padded
@@ -300,9 +302,10 @@ exits non-zero on failure:
              ``drives --check`` exits 0 with every spec registered;
              then at once: ``selftest --device cuda`` exits 0 with the
              JAX selftest's keys; the corpus (each entry a ``chaos
-             --replay`` process, three at a time; all nine entries,
+             --replay`` process, four at a time, the slowest subject's
+             first; all nine entries,
              ``006`` the ``ae_mesh`` subject, none skipped) and a seeded soak
-             over the fast subjects (3 schedules) end with no violation;
+             over the fast subjects (2 schedules) end with no violation;
              the ``_planted`` canary is found and shrunk to
              ``io_fail@result_save=1``; the
              ``gan_ckpt`` subject's own stream carries the fused route's
@@ -330,9 +333,22 @@ exits non-zero on failure:
              standalone ``GanTrainer``; ms per epoch meshless, dp=1 and
              dp=2 and the reduction's ms per epoch (CUDA events around
              each all_reduce) printed (each block
-             timed with nothing else on the card); then the rank
-             processes' (d) and (e), the verb runs and this process's
-             checks side by side;
+             timed with nothing else on the card); the window and layer
+             axes in the same two rank processes (ROADMAP queue 1 item
+             9b), each one epoch at full width from the block's state and
+             first draws against the single-device epoch: (f) pp=2 (two
+             stages, 2 microbatches; rtol 1e-4, atol 1e-5; forwards 2e-5),
+             each rank launching exactly the chained single-layer kernels
+             its stage runs and no stack kernel; (g) sp=2 (the window in
+             two chunks, carries handed on; atol 1e-4; forwards 2e-5),
+             each rank launching exactly the carry-mode kernels; the
+             ranks within rtol 1e-6; ``train-gan --dp-sp 1x2
+             --coordinator`` (3 epochs) exits 0 with rank 0 alone writing
+             and printing, and ``--resume`` from ``ckpt_1`` is bit-equal
+             to the straight run; then the rank processes' (d) and (e),
+             the verb runs and this process's checks side by side; a rank
+             that fails or overruns is reported with the part it was in
+             and both ranks' stderr;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -354,6 +370,7 @@ exits non-zero on failure:
              the export-off server's eager one: device time by kernel
              name and the device's busy share.
 
+Before ``[done]`` a ``[walls]`` line gives every phase's wall seconds.
 The last lines are the card's name and power limit, one JSON object
 listing each ported kernel (and each weight-sum launch shape), and
 ``{"ok": true, "device": {...}}``.
@@ -434,6 +451,9 @@ SUM_LAUNCHES = {"1 pair": ("lstm_bwd", "lstm_bwd_carry"), "2 pairs": ("lstm_adj"
                 "column": ("stack_bwd", "stack_adj")}
 TRAIN_EPOCHS = 3
 TRAIN_BATCHES = (32, 64)        # penalty and generator passes; critic scores (2B)
+#: the grad and stack timing phases time B=32 only (cut from TRAIN_BATCHES:
+#: the kernels line reads W=48 B=32; B=64's times are PERF.md's, PRs 1-11)
+TIMING_BATCHES = (32,)
 MESH_BATCH = 16                 # a rank's rows at dp=2: its penalty and generator passes
 #: the kernels each critic route's epoch must launch, and no others: the
 #: generator's single-layer kernels, then the critic's fused stack
@@ -2131,6 +2151,7 @@ SWEEP_LATENTS = list(range(1, 22))
 SWEEP_CMP_EPOCHS, SWEEP_CMP_CHUNK, SWEEP_SEED = 40, 10, 11
 SWEEP_PROFILE_EPOCHS = 10
 SWEEP_SECOND_CKPT_EPOCHS = 2
+SWEEP_TIMEOUT_S = 600
 ENVELOPE = "results/seed_envelope_rederived/envelope.json"
 #: the same 24 seeds of the JAX package run on the CPU
 #: (``tools/seed_envelope.py --seeds 24 --cleaned-dir results/rederived_cleaned``):
@@ -2321,13 +2342,37 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
             + (f"{100 * share:.1f}%" if share else "not measured") + "); top: "
             + ", ".join(f"{t['name'][:40]} {t['us']:.0f} us" for t in prof["top"][:3]))
 
-    # (b) the verb at full width and depth
-    rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp_prod", "--epochs",
-                        str(SWEEP_SECOND_CKPT_EPOCHS), "--cleaned-dir", cleaned,
-                        "--checkpoint-dir", os.path.join(keep, "prod_b"), "--quiet"])
+    # (b) the verb at full width and depth, the three runs side by side as
+    # subprocesses, each counting its launches into its own stream; the
+    # multi run starts once this process has trained its second checkpoint
     second = os.path.join(keep, "prod_b", f"ckpt_{SWEEP_SECOND_CKPT_EPOCHS}")
-    if rc != 0 or not os.path.isdir(second):
-        fail(f"sweep: the second train-gan run failed (rc {rc})")
+    plan = (("real", []), ("augmented", [gan_checkpoint]), ("multi", [gan_checkpoint, second]))
+    procs = {}
+
+    def start(name, ckpts):
+        argv = ["sweep", "--cleaned-dir", cleaned, "--latents", "1:21", "--out",
+                os.path.join(keep, f"sweep_{name}"), "--stats", "--preset", "mtss_wgan_gp_prod",
+                "--obs-dir", os.path.join(keep, f"sweep_{name}_obs")]
+        for c in ckpts:
+            argv += ["--gan-checkpoint", c]
+        procs[name] = start_module("hfrep_tpu_torch", argv)
+
+    try:
+        for name, ckpts in plan[:2]:
+            start(name, ckpts)
+        rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp_prod", "--epochs",
+                            str(SWEEP_SECOND_CKPT_EPOCHS), "--cleaned-dir", cleaned,
+                            "--checkpoint-dir", os.path.join(keep, "prod_b"), "--quiet"])
+        if rc != 0 or not os.path.isdir(second):
+            fail(f"sweep: the second train-gan run failed (rc {rc})")
+        start(*plan[2])
+        done = {name: finish_module(procs[name], SWEEP_TIMEOUT_S) for name, _ in plan}
+    finally:
+        # a failed check exits: no run outlives the script
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     with open(os.path.join(root, ENVELOPE)) as fh:
         envelope = json.load(fh)["envelope"]
     with open(os.path.join(root, COMMITTED_SWEEP)) as fh:
@@ -2339,21 +2384,13 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
     cpu_lo = cpu_envelope["best_oos_mean"]["min"] - ENVELOPE_MARGIN
     cpu_hi = cpu_envelope["best_oos_mean"]["max"] + ENVELOPE_MARGIN
     runs_b = {}
-    for name, ckpts in (("real", []), ("augmented", [gan_checkpoint]),
-                        ("multi", [gan_checkpoint, second])):
+    for name, ckpts in plan:
         dest = os.path.join(keep, f"sweep_{name}")
-        argv = ["sweep", "--cleaned-dir", cleaned, "--latents", "1:21", "--out", dest,
-                "--stats", "--preset", "mtss_wgan_gp_prod"]
-        for c in ckpts:
-            argv += ["--gan-checkpoint", c]
-        cuda_lstm.reset_launches()
-        t0 = time.perf_counter()
-        rc, text = run_cli(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = cuda_lstm.launch_counts()
+        rc, text, err, wall = done[name]
         if rc != 0:
-            fail(f"sweep: the {name} run exited {rc}")
+            fail(f"sweep: the {name} run exited {rc}: {err[-2000:]}")
+        launches = stream_launches(stream_records(dest + "_obs"))
+        launches["lstm_fwd"] = launches.get("lstm_fwd", 0)
         with open(os.path.join(dest, "chunk_stats.json")) as fh:
             cs = json.load(fh)
         sets = (["real"] + [d for d in sorted(os.listdir(dest)) if d.startswith("gen_")]
@@ -2361,7 +2398,8 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
         checked = {s: sweep_outputs(np, dest if s is None else os.path.join(dest, s), True)
                    for s in sets}
         max_stop = max(e for c in checked.values() for e in c["stop_epochs"])
-        others = {k: v for k, v in launches.items() if k != "lstm_fwd" and v}
+        others = {k: v for k, v in launches.items()
+                  if k != "lstm_fwd" and not k.startswith("weight_sum") and v}
         row = {"checkpoints": len(ckpts), "wall_s": wall, "chunk_stats": cs,
                "max_stop_epoch": max_stop, "lstm_fwd_launches": launches["lstm_fwd"],
                "ms_per_dispatched_epoch": 1e3 * wall / cs["epochs_dispatched"],
@@ -3291,14 +3329,34 @@ def phase_serve_drain(torch, np, keep: str, gan_checkpoint: str) -> dict:
     checkpoint, every other query a sample: undisturbed it exits 0 with
     the same traces admitted and completed in its stream, one a request,
     the serve events and one ``serve_load`` window and ``lstm_fwd`` launched; sent SIGTERM after its "offering"
-    line it drains into exit 75 with ``terminal == submitted``."""
+    line it drains into exit 75 with ``terminal == submitted``.  The two
+    runs go side by side (the undisturbed run's latencies, recorded and
+    not gated, are then taken beside the other server)."""
+    import concurrent.futures
+
     tag = "[serve_drain]"
     t_phase = time.perf_counter()
     cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
     common = ["--gan-checkpoint", gan_checkpoint, "--preset", "mtss_wgan_gp_prod",
               "--cleaned-dir", cleaned, "--sample-every", "2", "--wave", str(SERVE_WAVE)]
     out = {}
-    run_a = os.path.join(keep, "serve_obs_a")
+    run_a, run_b = (os.path.join(keep, f"serve_obs_{k}") for k in ("a", "b"))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    drain = pool.submit(run_serve_verb, common + [
+        "--requests", str(SERVE_DRAIN_REQUESTS), "--max-queue", "100000", "--timeout-ms",
+        "600000", "--obs-dir", run_b], True)
+    try:
+        out = serve_drain_checks(tag, common, run_a, run_b, drain)
+    finally:
+        pool.shutdown(wait=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
+    return out
+
+
+def serve_drain_checks(tag: str, common: list, run_a: str, run_b: str, drain) -> dict:
+    """The undisturbed run in this thread, then the checks of both."""
+    out = {}
     rc, wall, stdout, stderr = run_serve_verb(
         common + ["--requests", str(SERVE_REQUESTS), "--timeout-ms", "30000",
                   "--obs-dir", run_a], sigterm=False)
@@ -3335,10 +3393,7 @@ def phase_serve_drain(torch, np, keep: str, gan_checkpoint: str) -> dict:
         f"{report['qps']}; one serve_load window ({windows[0]['wall_ms']} ms, categories "
         f"{windows[0]['cat_ms']}); the member's launches {launches}")
     out["a"] = {"rc": rc, "wall_s": wall, "launches": launches, "report": report}
-    run_b = os.path.join(keep, "serve_obs_b")
-    rc, wall, stdout, stderr = run_serve_verb(
-        common + ["--requests", str(SERVE_DRAIN_REQUESTS), "--max-queue", "100000",
-                  "--timeout-ms", "600000", "--obs-dir", run_b], sigterm=True)
+    rc, wall, stdout, stderr = drain.result()
     try:
         doc = json.loads(stdout[stdout.index("{"):stdout.rindex("}") + 1])
     except ValueError:
@@ -3354,8 +3409,6 @@ def phase_serve_drain(torch, np, keep: str, gan_checkpoint: str) -> dict:
         f"({drained['results']} results, flushed {drained['flushed']}); serve_drain events "
         f"{len(drain_events)}; launches {stream_launches(stream_records(run_b))}")
     out["b"] = {"rc": rc, "wall_s": wall, "drained": drained}
-    out["wall_s"] = time.perf_counter() - t_phase
-    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
     return out
 
 
@@ -3569,11 +3622,12 @@ def phase_obs_tier(torch, np, keep: str, cli_obs: str, cli_launches: dict) -> di
 #: each (cut from 5000, as ``obs_tier``'s), and the chaos subject drained
 FORENSICS_EPOCHS = 12
 #: the chaos phase: the soak's seed and its fixed number of schedules (cut
-#: from one a fast subject, 7, to 3: the script's time limit), the corpus
-#: entries' ``chaos --replay`` processes side by side (one process's
-#: ``--replay-corpus`` was the phase's longest leg), and the spawned legs'
-#: time limits
-CHAOS_SEED, CHAOS_SCHEDULES, CORPUS_LANES = 11, 3, 3
+#: from one a fast subject, 7, to 3, then to 2: the script's time limit),
+#: the corpus entries' ``chaos --replay`` processes side by side, four at a
+#: time, the ``gan_ckpt`` subject's entries (the slowest, 90-100 s each)
+#: first (one process's ``--replay-corpus`` was the phase's longest leg),
+#: and the spawned legs' time limits
+CHAOS_SEED, CHAOS_SCHEDULES, CORPUS_LANES = 11, 2, 4
 CHAOS_TIMEOUT_S, SELFTEST_TIMEOUT_S = 600, 420
 
 
@@ -3614,7 +3668,9 @@ def run_module(module: str, args: list, timeout: float, env_extra=None) -> tuple
 class CorpusReplay:
     """The committed chaos corpus replayed on the card, each entry its own
     ``chaos --replay SCHEDULE`` process, :data:`CORPUS_LANES` at a time
-    (threads that only start and wait; the checks run in the caller).
+    (threads that only start and wait; the checks run in the caller), the
+    ``gan_ckpt`` subject's entries first: they take the longest, so the
+    lanes finish closer together.
     Entries whose subject the port does not register are skipped, named,
     as ``--replay-corpus`` skips them.  :meth:`results` waits for every
     entry: ``(file, exit code, the report, stderr, wall seconds)`` in
@@ -3632,10 +3688,13 @@ class CorpusReplay:
         self._procs: list = []
         self._stopped = False
         self._pool = concurrent.futures.ThreadPoolExecutor(CORPUS_LANES)
+        runnable = [(i, e) for i, e in enumerate(entries)
+                    if e["_schedule"].subject in chaos.SUBJECTS]
+        runnable.sort(key=lambda ie: ie[1]["_schedule"].subject != "gan_ckpt")
         self._futures = [
             self._pool.submit(self._replay, e["_file"], e["_schedule"].encode(),
                               os.path.join(keep, f"chaos_corpus_{i}"))
-            for i, e in enumerate(entries) if e["_schedule"].subject in chaos.SUBJECTS]
+            for i, e in runnable]
 
     def _replay(self, name: str, schedule: str, out: str) -> tuple:
         proc, t0 = start_module("hfrep_tpu_torch.resilience",
@@ -3653,7 +3712,7 @@ class CorpusReplay:
         return name, proc.returncode, doc, err, time.perf_counter() - t0
 
     def results(self) -> list:
-        return [f.result() for f in self._futures]
+        return sorted((f.result() for f in self._futures), key=lambda r: r[0])
 
     def stop(self) -> None:
         self._stopped = True
@@ -3962,14 +4021,50 @@ MESH_LATENTS = tuple(range(1, 21))
 MESH_SEEDS, MESH_SEED_EPOCHS = (11, 12), 3
 MESH_DP_ATOL = 1e-5                     # JAX's dp-against-single bar
 MESH_TIMEOUT_S = 300.0
+#: the window and layer axes (ROADMAP queue 1 item 9b) in the same two
+#: rank processes, after (b): one epoch of the block's first draws at full
+#: width, then one more timed; pp runs M microbatches a pass.  The bars
+#: are JAX's: the pp step against the plain step rtol 1e-4 atol 1e-5
+#: (``tests/test_layer_pipeline.py:93-118``), sp against one device atol
+#: 1e-4 and the ranks within rtol 1e-6 (``tests/test_distributed.py``),
+#: the forwards 2e-5
+MESH_PP_MICROBATCHES = 2
+AXES_BARS = {"pp": (1e-5, 1e-4), "sp": (1e-4, 0.0)}
+AXES_FWD_ATOL, RANKS_RTOL = 2e-5, 1e-6
+#: ``train-gan --dp-sp 1x2 --coordinator``: a straight run, and one that
+#: stops at MESH_SP_RESUME_AT and is resumed to the same end
+MESH_SP_CLI_EPOCHS, MESH_SP_RESUME_AT = 3, 1
+#: the parts of a rank process, in order (each rank writes the one it is in)
+RANK_PARTS = ("start", "b", "f", "g", "d", "e", "saved")
+_PORTS_GIVEN: set = set()
 
 
 def free_port() -> int:
+    """A port for a coordinator's store, below the kernel's ephemeral
+    range (no outgoing connection is given one there, so the rank that
+    binds it later cannot lose it to a gloo connection), free when
+    checked, never the same twice in this script."""
+    import random
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as fh:
+            low = int(fh.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random(os.getpid())
+    for _ in range(500):
+        port = rng.randrange(max(1024, low - 8000), low)
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
+    fail(f"no free port below the ephemeral range ({low})")
 
 
 def mesh_gan_inputs(torch):
@@ -3990,6 +4085,108 @@ def mesh_gan_inputs(torch):
     state = init_gan_state(0, mcfg, device="cuda")
     draws = [sample_draws(g, pair, tcfg, dataset) for _ in range(2 * MESH_EPOCHS)]
     return pair, tcfg, dataset, state, draws
+
+
+def axes_inputs(draws, dataset) -> tuple:
+    """The forwards' inputs of parts (f) and (g): the first critic
+    iteration's noise and the first B windows."""
+    z = draws[0].noises[0]
+    return z, dataset[:z.shape[0]]
+
+
+def axes_launches(kind: str, rank: int, n_critic: int, per_pass: int) -> dict:
+    """One rank's launches in a pp or sp epoch.  Every pass makes
+    ``per_pass`` launches of a kind on a rank (pp: its one layer on each
+    of M microbatches; sp: its window chunk of both layers): the fakes'
+    pass the primal forward; the 2·n_critic + 2 recorded passes (each
+    critic iteration's scores and penalty, the generator update's
+    generator and critic) the with_cs forward; backwards for the scores,
+    the penalty's first order, its second order through the forward graph
+    and the generator update's two passes, plus on the first rank of the
+    chain the second order's boundary pass; the adjoint once a penalty.
+    pp takes the single-layer kernels, sp their carry modes (the first
+    rank from a zero carry)."""
+    k, m = n_critic, per_pass
+    bwd = (4 * k + 2 if rank == 0 else 3 * k + 2) * m
+    names = (("lstm_fwd", "lstm_fwd_cs", "lstm_bwd", "lstm_adj") if kind == "pp" else
+             ("lstm_fwd_carry", "lstm_fwd_cs_carry", "lstm_bwd_carry", "lstm_adj_carry"))
+    return dict(zip(names, (m, (2 * k + 2) * m, bwd, k * m)))
+
+
+@contextlib.contextmanager
+def timed_host_collectives(torch):
+    """Wrap ``send``, ``recv`` and ``all_reduce`` of ``torch.distributed``
+    in this process with the host clock (under gloo each blocks the host
+    until it ends); yields ``{name: [calls, seconds]}``."""
+    import torch.distributed as dist
+
+    spent = {n: [0, 0.0] for n in ("send", "recv", "all_reduce")}
+    real = {n: getattr(dist, n) for n in spent}
+
+    def wrap(name):
+        def fn(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                spent[name][0] += 1
+                spent[name][1] += time.perf_counter() - t0
+        return fn
+
+    for n in spent:
+        setattr(dist, n, wrap(n))
+    try:
+        yield spent
+    finally:
+        for n, f in real.items():
+            setattr(dist, n, f)
+
+
+def mesh_axes_part(torch, kind: str) -> dict:
+    """(f) pp=2 or (g) sp=2 in a rank process: the forwards on the phase's
+    inputs, then one epoch from the phase's state and first draws with its
+    launches, weight sums and transfers counted, then a second epoch
+    timed alone."""
+    from hfrep_tpu_torch.ops import cuda_lstm
+    from hfrep_tpu_torch.parallel import (MeshSpec, build_mesh, make_pp_train_step,
+                                          make_sp_train_step, pp_critic, pp_generate,
+                                          sp_critic, sp_generate)
+    from hfrep_tpu_torch.parallel import rules
+
+    pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch)
+    mesh = build_mesh(MeshSpec(**{kind: 2}))
+    z, x = axes_inputs(draws, dataset)
+    with torch.no_grad():
+        if kind == "pp":
+            fwd = {"g": pp_generate(state.generator, z, mesh,
+                                    microbatches=MESH_PP_MICROBATCHES),
+                   "d": pp_critic(state.discriminator, x, mesh,
+                                  microbatches=MESH_PP_MICROBATCHES)}
+            step = make_pp_train_step(pair, tcfg, dataset, mesh,
+                                      microbatches=MESH_PP_MICROBATCHES)
+        else:
+            fwd = {"g": sp_generate(state.generator, z, mesh),
+                   "d": sp_critic(state.discriminator, x, mesh)}
+            step = make_sp_train_step(pair, tcfg, dataset, mesh)
+    out = {"coords": mesh.coords(), "fwd": {k: v.cpu() for k, v in fwd.items()}}
+    torch.cuda.synchronize()
+    cuda_lstm.reset_launches()
+    rules.reset_collective_counts()
+    with timed_host_collectives(torch) as spent:
+        t0 = time.perf_counter()
+        state, metrics = step(state, draws[0])
+        torch.cuda.synchronize()
+        out["first_ms"] = (time.perf_counter() - t0) * 1e3
+    out.update(launches=cuda_lstm.launch_counts(), sums=sum_launches_by_shape(cuda_lstm),
+               collectives=rules.collective_counts(),
+               transfer_s={k: v[1] for k, v in spent.items()},
+               params={n: p.detach().cpu().clone() for n, p in state_params(state).items()},
+               metrics={k: v.cpu() for k, v in metrics.items()})
+    t0 = time.perf_counter()
+    step(state, draws[1])
+    torch.cuda.synchronize()
+    out["ms_per_epoch"] = (time.perf_counter() - t0) * 1e3
+    return out
 
 
 def mesh_ae_inputs(torch):
@@ -4086,12 +4283,14 @@ def timed_all_reduce(torch):
         dist.all_reduce = real
 
 
-def mesh_rank(rank: int, port: int, out_dir: str) -> None:
-    """One rank of the mesh phase's dp=2 run, two processes on the one
-    card (gloo): (b) the GAN block on its 16 rows, its own launch counts
-    and collectives, then a second block timed; (d) the lane drives on
-    ``lane_mesh``; (e) MultiSeedTrainer on the two-rank seed mesh.  Every
-    result goes to ``out_dir/rank<rank>.pt``, read by the parent."""
+def mesh_rank(rank: int, out_dir: str) -> None:
+    """One rank of the mesh phase's two rank processes on the one card
+    (gloo, a file store under ``out_dir``): (b) the dp=2 GAN block on its
+    16 rows, its own launch counts and collectives, then a second block
+    timed; (f) pp=2 and (g) sp=2 (:func:`mesh_axes_part`); (d) the lane
+    drives on ``lane_mesh``; (e) MultiSeedTrainer on the two-rank seed
+    mesh.  The part it is in goes to ``out_dir/rank<rank>.part``, every
+    result to ``out_dir/rank<rank>.pt``, read by the parent."""
     import torch
 
     from hfrep_tpu_torch.ops import cuda_lstm
@@ -4101,10 +4300,16 @@ def mesh_rank(rank: int, port: int, out_dir: str) -> None:
     from hfrep_tpu_torch.parallel import rules
     from hfrep_tpu_torch.train.multi_seed import seed_mesh
 
+    def part(name: str) -> None:
+        with open(os.path.join(out_dir, f"rank{rank}.part"), "w") as fh:
+            fh.write(name)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    backend = initialize_distributed(f"127.0.0.1:{port}", 2, rank)
+    part("start")
+    backend = initialize_distributed("file://" + os.path.join(out_dir, "store"), 2, rank)
     try:
+        part("b")
         mesh = build_mesh(MeshSpec(dp=2))
         pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch)
         block = make_gan_multi_step(pair, tcfg, dataset, mesh)
@@ -4127,15 +4332,21 @@ def mesh_rank(rank: int, port: int, out_dir: str) -> None:
             out["ms_per_epoch"] = (time.perf_counter() - t0) / MESH_EPOCHS * 1e3
         out["reduce_ms_per_epoch"] = sum(a.elapsed_time(b) for a, b in spans) / MESH_EPOCHS
         out["reduces_per_epoch"] = rules.collective_counts()["all_reduce"] / MESH_EPOCHS
+        for kind, name in (("pp", "f"), ("sp", "g")):
+            part(name)
+            out[kind] = mesh_axes_part(torch, kind)
         # timed alone on the card: the parent starts the verb runs after this
         open(os.path.join(out_dir, f"rank{rank}.timed"), "w").close()
+        part("d")
         lanes = {"padded": lane_mesh(len(MESH_LATENTS)), "multi": lane_mesh(2)}
         out["lane_dp"] = {k: m.shape["dp"] for k, m in lanes.items()}
         out["lanes"] = mesh_lane_drives(torch, lanes)
+        part("e")
         seeds = seed_mesh(len(MESH_SEEDS))
         out["seed_mesh"] = None if seeds is None else seeds.shape
         out["members"] = mesh_seed_members(torch, seeds)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        part("saved")
     finally:
         shutdown_distributed()
 
@@ -4143,15 +4354,53 @@ def mesh_rank(rank: int, port: int, out_dir: str) -> None:
 def start_ranks(out_dir: str) -> list:
     """The mesh phase's two rank processes, started together."""
     root = os.path.dirname(os.path.abspath(__file__))
-    port = free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("HFREP_FAULTS", "HFREP_OBS_DIR", "HFREP_HISTORY", "HFREP_HEALTH")}
     env["PYTHONPATH"] = root
-    code = "import sys, chip_smoke; chip_smoke.mesh_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])"
-    return [(subprocess.Popen([sys.executable, "-c", code, str(r), str(port), out_dir],
+    code = "import sys, chip_smoke; chip_smoke.mesh_rank(int(sys.argv[1]), sys.argv[2])"
+    return [(subprocess.Popen([sys.executable, "-c", code, str(r), out_dir],
                               cwd=root, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True), time.perf_counter())
             for r in (0, 1)]
+
+
+def rank_part(out_dir: str, rank: int) -> str:
+    try:
+        with open(os.path.join(out_dir, f"rank{rank}.part")) as fh:
+            return fh.read().strip() or "start"
+    except OSError:
+        return "before start"
+
+
+def finish_ranks(ranks: list, out_dir: str, deadline: float) -> list:
+    """Wait for both rank processes until ``deadline`` (perf_counter):
+    ``[(exit code, stdout, stderr)]``.  On a failure or an overrun kill
+    both, then fail naming the part each rank was in and the tail of each
+    one's stderr."""
+    done = {}
+    for r, (proc, _) in enumerate(ranks):
+        try:
+            text, err = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            break
+        done[r] = (proc.returncode, text, err)
+        if proc.returncode != 0:
+            break
+    if len(done) == len(ranks) and all(rc == 0 for rc, _, _ in done.values()):
+        return [done[r] for r in range(len(ranks))]
+    report = []
+    for r, (proc, _) in enumerate(ranks):
+        if r in done:
+            rc, _, err = done[r]
+            what = f"exit {rc}"
+        else:
+            overran = proc.poll() is None
+            proc.kill()
+            _, err = proc.communicate()
+            what = "killed at the deadline" if overran else f"exit {proc.returncode}"
+        report.append(f"rank {r} ({what}, in part {rank_part(out_dir, r)}): stderr tail "
+                      f"{err[-2500:]!r}")
+    fail("mesh: the rank processes failed: " + "; ".join(report))
 
 
 def start_cli_pair(args: list, obs_dir=None) -> list:
@@ -4179,6 +4428,106 @@ def tree_equal(torch, a: dict, b: dict) -> bool:
         if a[k].is_floating_point() else torch.equal(a[k], b[k]) for k in a)
 
 
+def check_axes_part(torch, kind: str, docs: list, ref_fwd: dict, ref_p: dict, ref_m: dict,
+                    n_critic: int, card: str) -> dict:
+    """(f) or (g) read in the parent: each rank's forwards within
+    AXES_FWD_ATOL of the single-device forwards (under sp its window chunk
+    of the generator's), its epoch within the axis's bars of the
+    single-device epoch, its launches exactly :func:`axes_launches` with
+    the weight sums they make and no other kernel; the ranks within
+    RANKS_RTOL of each other."""
+    part = {"pp": "(f) pp=2", "sp": "(g) sp=2"}[kind]
+    atol, rtol = AXES_BARS[kind]
+    per_pass = MESH_PP_MICROBATCHES if kind == "pp" else 2      # sp: both layers' chunks
+    diffs, fwd_errs = [], []
+    for r, doc in enumerate(docs):
+        g_ref = ref_fwd["g"]
+        if kind == "sp":
+            w = g_ref.shape[1] // 2
+            g_ref = g_ref[:, doc["coords"]["sp"] * w:(doc["coords"]["sp"] + 1) * w]
+        fwd_err = max(float((doc["fwd"]["g"] - g_ref).abs().max()),
+                      float((doc["fwd"]["d"] - ref_fwd["d"]).abs().max()))
+        if not fwd_err <= AXES_FWD_ATOL:
+            fail(f"mesh {part}: rank {r}'s forwards are {fwd_err} from the single-device "
+                 f"forwards (bar {AXES_FWD_ATOL})")
+        err = max([allclose_err(doc["params"][n], ref_p[n], atol, rtol) for n in ref_p]
+                  + [allclose_err(doc["metrics"][k], ref_m[k], atol, rtol) for k in ref_m])
+        diff = max(tree_max_diff(doc["params"], ref_p), tree_max_diff(doc["metrics"], ref_m))
+        if not err <= 1.0:
+            fail(f"mesh {part}: rank {r}'s epoch is {diff} from the single-device epoch "
+                 f"(bars atol {atol}, rtol {rtol}: {err} of the bar)")
+        check_route_launches(f"mesh {part} rank {r}", doc["launches"], doc["sums"],
+                             axes_launches(kind, r, n_critic, per_pass), 1)
+        diffs.append(diff)
+        fwd_errs.append(fwd_err)
+    a, b = docs
+    if not all(torch.allclose(b[t][k], a[t][k], rtol=RANKS_RTOL, atol=0)
+               for t in ("params", "metrics") for k in a[t]):
+        fail(f"mesh {part}: the ranks differ beyond rtol {RANKS_RTOL}")
+    same = tree_equal(torch, a["params"], b["params"]) and tree_equal(torch, a["metrics"],
+                                                                      b["metrics"])
+    say(f"[mesh] {part}, two ranks on the one card, one epoch at full width (B=32, "
+        f"n_critic {n_critic}, f32) from the phase's state and first draws: within "
+        f"{max(diffs):.3g} of the single-device epoch (bars atol {atol}, rtol {rtol}), the "
+        f"forwards within {max(fwd_errs):.3g} (bar {AXES_FWD_ATOL}), the ranks "
+        + ("bit-equal" if same else f"within rtol {RANKS_RTOL}") + "; launches, each rank: "
+        + "; ".join(", ".join(f"{n} {c}" for n, c in d["launches"].items() if c) for d in docs)
+        + f"; weight sums {[sum(d['sums'].values()) for d in docs]}; transfers, each rank: "
+        + "; ".join(", ".join(f"{n} {d['collectives'][n]} ({1e3 * d['transfer_s'][n]:.1f} ms)"
+                              for n in ("send", "recv", "all_reduce")) for d in docs)
+        + f" (host clock); epoch ms {[round(d['first_ms'], 1) for d in docs]} first, "
+        f"{[round(d['ms_per_epoch'], 1) for d in docs]} the next (host clock) on {card}")
+    return {"max_abs_diff": max(diffs), "fwd_max_abs_err": max(fwd_errs), "ranks_bit_equal": same,
+            "launches": [d["launches"] for d in docs], "sums": [d["sums"] for d in docs],
+            "collectives": [d["collectives"] for d in docs],
+            "transfer_s": [d["transfer_s"] for d in docs],
+            "first_ms": [d["first_ms"] for d in docs],
+            "ms_per_epoch": [d["ms_per_epoch"] for d in docs]}
+
+
+def check_dp_sp_verb(torch, dirs: dict, runs: dict, resume: list, card: str) -> dict:
+    """``train-gan --dp-sp 1x2 --coordinator``: the straight run and the
+    one stopped at MESH_SP_RESUME_AT exited 0 (checked with (c)'s), the
+    resume exits 0, rank 0 alone prints and writes, the ranks' group is
+    gloo over a ``{'dp': 1, 'sp': 2}`` mesh, and the resumed run's last
+    checkpoint is bit-equal to the straight run's."""
+    from hfrep_tpu_torch.utils import checkpoint as ckpt
+
+    resumed = [finish_module(p, MESH_TIMEOUT_S) for p in resume]
+    if any(rc != 0 for rc, *_ in resumed):
+        fail(f"mesh (c) dp-sp: train-gan --dp-sp 1x2 --resume exited "
+             f"{[rc for rc, *_ in resumed]}: {[e[-1500:] for _, _, e, _ in resumed]}")
+    if "resumed from" not in resumed[0][1] or resumed[1][1].strip():
+        fail(f"mesh (c) dp-sp: the resume printed {resumed[0][1][-300:]!r} on rank 0 and "
+             f"{resumed[1][1][-300:]!r} on rank 1")
+    last = f"ckpt_{MESH_SP_CLI_EPOCHS}"
+    a = ckpt.restore(os.path.join(dirs["sp_straight"], last))["state"]
+    b = ckpt.restore(os.path.join(dirs["sp_half"], last))["state"]
+    for net in ("generator", "discriminator"):
+        if not tree_equal(torch, {k: v.cpu() for k, v in a[net].items()},
+                          {k: v.cpu() for k, v in b[net].items()}):
+            fail(f"mesh (c) dp-sp: the resumed run's {net} differs from the straight run's")
+    writes = {}
+    for r in (0, 1):
+        recs = stream_records(os.path.join(dirs["sp_straight"] + "_obs", f"proc{r}"))
+        writes[r] = sum(1 for x in recs if x.get("name") == "checkpoint"
+                        and x.get("type") == "span")
+        build = [x for x in recs if x.get("name") == "parallel_build"]
+        if not build or build[0].get("backend") != "gloo" \
+                or build[0].get("mesh") != {"dp": 1, "sp": 2}:
+            fail(f"mesh (c) dp-sp: rank {r}'s parallel_build events {build}")
+    if writes[0] < 1 or writes[1] != 0:
+        fail(f"mesh (c) dp-sp: checkpoint spans by rank {writes}: rank 0 alone must write")
+    walls = {k: [w for *_, w in runs[k]] for k in ("sp_straight", "sp_half")}
+    walls["sp_resume"] = [w for *_, w in resumed]
+    say(f"[mesh] (c) train-gan --dp-sp 1x2 --coordinator, 2 ranks, {MESH_SP_CLI_EPOCHS} "
+        f"epochs on the committed panel: exit 0 and 0, gloo over {{'dp': 1, 'sp': 2}}, rank 0 "
+        f"alone wrote ({writes[0]} checkpoint spans, rank 1 none) and printed; --resume from "
+        f"ckpt_{MESH_SP_RESUME_AT} bit-equal to the straight run (generator and critic); "
+        f"walls {walls} s on {card}")
+    return {"resume_bit_equal": True, "checkpoint_spans": writes, "walls_s": walls}
+
+
 def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
     """Data parallelism on the one card (ROADMAP queue 1 item 9a): the
     training kernels at a rank's B=16; (a) a one-device mesh block bit-equal
@@ -4190,12 +4539,15 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
     draining both into exit 75 with a checkpoint; (d) the lane drives with a
     lane mesh bit-equal to the meshless ones at dp=1 and dp=2; (e)
     MultiSeedTrainer's members bit-equal to standalone GanTrainer runs, in
-    turn and as a two-rank seed mesh."""
+    turn and as a two-rank seed mesh.  The window and layer axes (item 9b)
+    in the same rank processes: (f) pp=2 and (g) sp=2, one epoch each
+    against the single-device epoch (:func:`check_axes_part`), and
+    ``train-gan --dp-sp 1x2`` with its resume (:func:`check_dp_sp_verb`)."""
     import signal
 
     from hfrep_tpu_torch.parallel import MeshSpec, build_mesh, lane_mesh, make_gan_multi_step
     from hfrep_tpu_torch.parallel import rules
-    from hfrep_tpu_torch.train import make_multi_step
+    from hfrep_tpu_torch.train import make_multi_step, make_train_step
     from hfrep_tpu_torch.train.trainer import GanTrainer
 
     tag = "[mesh]"
@@ -4206,7 +4558,8 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
     os.makedirs(ranks_dir)
     cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
     cli = ["--preset", TRAIN_PRESETS[0], "--cleaned-dir", cleaned, "--quiet"]
-    dirs = {k: os.path.join(keep, f"mesh_cli_{k}") for k in ("single", "dp2", "half", "drain")}
+    dirs = {k: os.path.join(keep, f"mesh_cli_{k}")
+            for k in ("single", "dp2", "half", "drain", "sp_straight", "sp_half")}
     procs: dict = {}
     try:
         # the four training kernels at a rank's rows, before any trajectory
@@ -4264,13 +4617,23 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
         out["a"] = {"bit_equal": True, "launches": results["dp1"][2],
                     "weight_sum_launches": results["dp1"][3], "ms_per_epoch": ms}
 
-        # the rank processes; their dp=2 block is timed before the verb
-        # runs start, with nothing else on the card
+        # (f), (g)'s reference: the single-device epoch (fused route) and
+        # the forwards from the phase's state and first draws
+        pair_r, tcfg_r, dataset_r, state_r, draws_r = mesh_gan_inputs(torch)
+        z, x = axes_inputs(draws_r, dataset_r)
+        with torch.no_grad():
+            ref_fwd = {"g": state_r.generator(z).cpu(), "d": state_r.discriminator(x).cpu()}
+        state_r, m_r = make_train_step(pair_r, tcfg_r, dataset_r)(state_r, draws_r[0])
+        ref_p = {n: p.detach().cpu() for n, p in state_params(state_r).items()}
+        ref_m = {k: v.cpu() for k, v in m_r.items()}
+
+        # the rank processes; their dp=2 block, pp and sp epochs are timed
+        # before the verb runs start, with nothing else on the card
         procs["ranks"] = start_ranks(ranks_dir)
-        deadline = time.perf_counter() + MESH_TIMEOUT_S
+        rank_deadline = time.perf_counter() + MESH_TIMEOUT_S
         while not all(os.path.exists(os.path.join(ranks_dir, f"rank{r}.timed")) for r in (0, 1)):
-            if time.perf_counter() > deadline or any(p.poll() is not None
-                                                     for p, _ in procs["ranks"]):
+            if time.perf_counter() > rank_deadline or any(p.poll() is not None
+                                                          for p, _ in procs["ranks"]):
                 break                   # the rank's exit is reported below
             time.sleep(0.25)
         procs["single"] = [start_module("hfrep_tpu_torch", [
@@ -4282,6 +4645,12 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
         procs["drain"] = start_cli_pair([*cli, "--epochs", MESH_DRAIN_EPOCHS,
                                          "--checkpoint-dir", dirs["drain"]],
                                         obs_dir=dirs["drain"] + "_obs")
+        sp_cli = [*cli, "--dp-sp", "1x2"]
+        procs["sp_straight"] = start_cli_pair(
+            [*sp_cli, "--epochs", MESH_SP_CLI_EPOCHS, "--checkpoint-dir", dirs["sp_straight"]],
+            obs_dir=dirs["sp_straight"] + "_obs")
+        procs["sp_half"] = start_cli_pair([*sp_cli, "--epochs", MESH_SP_RESUME_AT,
+                                           "--checkpoint-dir", dirs["sp_half"]])
 
         # (d) the lane drives at dp=1, in this process
         meshless = mesh_lane_drives(torch, {"padded": None, "multi": None})
@@ -4309,11 +4678,8 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
         say(f"{tag} (e) MultiSeedTrainer K={len(MESH_SEEDS)} on one card ({MESH_SEED_EPOCHS} "
             f"epochs): each member bit-equal to GanTrainer(seed={list(MESH_SEEDS)}[k])")
 
-        # (b), (d) and (e) at dp=2: the two rank processes
-        for k, (proc, t0) in enumerate(procs["ranks"]):
-            rc, text, err, wall = finish_module((proc, t0), MESH_TIMEOUT_S)
-            if rc != 0:
-                fail(f"mesh: rank {k} exited {rc}: {text[-1000:]} {err[-3000:]}")
+        # (b), (f), (g), (d) and (e): the two rank processes
+        finish_ranks(procs["ranks"], ranks_dir, rank_deadline)
         ranks = [torch.load(os.path.join(ranks_dir, f"rank{r}.pt")) for r in (0, 1)]
         for r, doc in enumerate(ranks):
             if doc["backend"] != "gloo" or doc["device"] != "cuda:0":
@@ -4366,19 +4732,24 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
             "GanTrainer")
         out["d"] = {"bit_equal": True}
         out["e"] = {"bit_equal": True}
+        for kind, name in (("pp", "f"), ("sp", "g")):
+            out[name] = check_axes_part(torch, kind, [d[kind] for d in ranks], ref_fwd,
+                                        ref_p, ref_m, tcfg_r.n_critic, card)
 
         # (c) the verb: straight, single process, drained, then the resume
         runs = {}
-        for name in ("single", "dp2", "half"):
+        for name in ("single", "dp2", "half", "sp_straight", "sp_half"):
             runs[name] = [finish_module(p, MESH_TIMEOUT_S) for p in procs[name]]
             if any(rc != 0 for rc, *_ in runs[name]):
                 fail(f"mesh (c): train-gan ({name}) exited "
                      f"{[rc for rc, *_ in runs[name]]}: {[e[-1500:] for _, _, e, _ in runs[name]]}")
-        for name in ("dp2", "half"):
+        for name in ("dp2", "half", "sp_straight", "sp_half"):
             if runs[name][1][1].strip():
                 fail(f"mesh (c): rank 1 of train-gan ({name}) printed {runs[name][1][1]!r}")
         procs["resume"] = start_cli_pair([*cli, "--epochs", MESH_CLI_EPOCHS, "--checkpoint-dir",
                                           dirs["half"], "--resume"])
+        procs["sp_resume"] = start_cli_pair([*sp_cli, "--epochs", MESH_SP_CLI_EPOCHS,
+                                             "--checkpoint-dir", dirs["sp_half"], "--resume"])
         # the drain: SIGTERM to rank 1 once its trainer has annotated its run
         # (the drain handler is up from the drive envelope on)
         manifest = os.path.join(dirs["drain"] + "_obs", "proc1", "run.json")
@@ -4426,7 +4797,9 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
         out["c"] = {"generator_max_diff": cli_diff, "resume_bit_equal": True,
                     "drain_exits": [75, 75], "drain_checkpoint": ckpts[-1],
                     "checkpoint_spans": writes,
-                    "walls_s": {k: [w for *_, w in v] for k, v in runs.items()}}
+                    "walls_s": {k: [w for *_, w in v] for k, v in runs.items()
+                                if not k.startswith("sp_")}}
+        out["c_dp_sp"] = check_dp_sp_verb(torch, dirs, runs, procs["sp_resume"], card)
     finally:
         # a failed check exits: no process outlives the script
         for group in procs.values():
@@ -4554,7 +4927,7 @@ def phase_grad_timing(torch, cuda_lstm) -> list:
     rows = []
     h = HIDDEN
     for w, f in SHAPES:
-        for b in TRAIN_BATCHES:
+        for b in TIMING_BATCHES:
             for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
                 layer, x, xz, rec = lstm_inputs(torch, w, f, b, "tanh", dtype, seed=3)
                 g = torch.Generator(device="cuda")
@@ -4970,7 +5343,7 @@ def phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack) -> list:
     rows = []
     h = HIDDEN
     for w, f in SHAPES:
-        for b in TRAIN_BATCHES:
+        for b in TIMING_BATCHES:
             for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
                 (l0, l1), x, wts = stack_inputs(torch, w, f, b, "tanh", dtype, seed=5)
                 xz1, rec1, k2, b2, rec2 = wts
@@ -5167,25 +5540,37 @@ def main() -> None:
     say("TF32 off for matmuls and cuDNN: every float32 product is full float32")
 
     t0 = time.perf_counter()
-    phase_build(torch, _build, cuda_lstm, cuda_lstm_stack)
-    worst = phase_parity(torch, cuda_lstm)
-    layouts = phase_fwd_layouts(torch, cuda_lstm)
-    bwd_layouts = phase_bwd_layouts(torch, cuda_lstm)
-    adj_layouts = phase_adj_layouts(torch, cuda_lstm)
-    grad = phase_grad_parity(torch, cuda_lstm)
-    carry = phase_carry_parity(torch, cuda_lstm)
-    carry_path = phase_carry_path(torch, cuda_lstm)
-    stack = phase_stack_parity(torch, cuda_lstm_stack)
-    stack_layouts = phase_stack_layouts(torch, cuda_lstm_stack)
-    sums = phase_sums(torch, cuda_lstm)
-    server = phase_server(torch, np, cuda_lstm)
-    train = phase_train(torch, cuda_lstm, "auto")
-    train_chained = phase_train(torch, cuda_lstm, "chained", TRAIN_PRESETS[:1])
+    walls: dict = {}
+
+    def phase(name: str, fn, *a):
+        t = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            walls[name] = time.perf_counter() - t
+
+    phase("build", phase_build, torch, _build, cuda_lstm, cuda_lstm_stack)
+    worst = phase("parity", phase_parity, torch, cuda_lstm)
+    layouts = phase("fwd_layouts", phase_fwd_layouts, torch, cuda_lstm)
+    bwd_layouts = phase("bwd_layouts", phase_bwd_layouts, torch, cuda_lstm)
+    adj_layouts = phase("adj_layouts", phase_adj_layouts, torch, cuda_lstm)
+    grad = phase("grad_parity", phase_grad_parity, torch, cuda_lstm)
+    carry = phase("carry_parity", phase_carry_parity, torch, cuda_lstm)
+    carry_path = phase("carry_path", phase_carry_path, torch, cuda_lstm)
+    stack = phase("stack_parity", phase_stack_parity, torch, cuda_lstm_stack)
+    stack_layouts = phase("stack_layouts", phase_stack_layouts, torch, cuda_lstm_stack)
+    sums = phase("sums", phase_sums, torch, cuda_lstm)
+    server = phase("server", phase_server, torch, np, cuda_lstm)
+    train = phase("train", phase_train, torch, cuda_lstm, "auto")
+    train_chained = phase("train_chained", phase_train, torch, cuda_lstm, "chained",
+                          TRAIN_PRESETS[:1])
     keep = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        precision = phase_precision(torch, np, cuda_lstm, train, train_chained, keep)
-        trainer = phase_trainer(torch, np, cuda_lstm, train, keep)
-        sweep = phase_sweep(torch, np, cuda_lstm, keep, trainer["cli_checkpoint"])
+        precision = phase("precision", phase_precision, torch, np, cuda_lstm, train,
+                          train_chained, keep)
+        trainer = phase("trainer", phase_trainer, torch, np, cuda_lstm, train, keep)
+        sweep = phase("sweep", phase_sweep, torch, np, cuda_lstm, keep,
+                      trainer["cli_checkpoint"])
         f32_best = sweep["runs"]["real"]["summaries"]["None"]
         say(f"[precision] the bf16 sweep ({PIPE_EPOCHS} epochs) beside the float32 sweep "
             f"phase's real-only run (1000-epoch cap): best OOS R2 mean "
@@ -5193,23 +5578,27 @@ def main() -> None:
             f"{precision['sweep']['best_oos_r2']['latent']} against {f32_best['mean']:.4f} at "
             f"latent {f32_best['latent']}; stop epochs {precision['sweep']['stop_epochs']} "
             f"against {sweep['runs']['real']['stop_epochs']['None']} (recorded, not gated)")
-        evaluation = phase_eval(torch, np, cuda_lstm, train, keep, trainer["cli_checkpoint"])
-        scenario = phase_scenario(torch, np, cuda_lstm, keep)
-        pipeline = phase_pipeline(torch, np, keep, trainer["cli_checkpoint"])
-        health = phase_health(torch, np, cuda_lstm, train, train_chained, keep)
-        serve_drain = phase_serve_drain(torch, np, keep, trainer["cli_checkpoint"])
-        obs_tier = phase_obs_tier(torch, np, keep, trainer["cli_obs_dir"],
-                                  trainer["cli_launches"])
-        forensics = phase_forensics(torch, np, cuda_lstm, keep, health)
-        chaos = phase_chaos(torch, np, keep)
-        mesh = phase_mesh(torch, np, cuda_lstm, train, keep)
+        evaluation = phase("eval", phase_eval, torch, np, cuda_lstm, train, keep,
+                           trainer["cli_checkpoint"])
+        scenario = phase("scenario", phase_scenario, torch, np, cuda_lstm, keep)
+        pipeline = phase("pipeline", phase_pipeline, torch, np, keep, trainer["cli_checkpoint"])
+        health = phase("health", phase_health, torch, np, cuda_lstm, train, train_chained, keep)
+        serve_drain = phase("serve_drain", phase_serve_drain, torch, np, keep,
+                            trainer["cli_checkpoint"])
+        obs_tier = phase("obs_tier", phase_obs_tier, torch, np, keep, trainer["cli_obs_dir"],
+                         trainer["cli_launches"])
+        forensics = phase("forensics", phase_forensics, torch, np, cuda_lstm, keep, health)
+        chaos = phase("chaos", phase_chaos, torch, np, keep)
+        mesh = phase("mesh", phase_mesh, torch, np, cuda_lstm, train, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
-    timing = phase_timing(torch, cuda_lstm)
-    grad_timing = phase_grad_timing(torch, cuda_lstm)
-    carry_timing = phase_carry_timing(torch, cuda_lstm)
-    stack_timing = phase_stack_timing(torch, cuda_lstm, cuda_lstm_stack)
-    profiled = phase_profile(torch)
+    timing = phase("timing", phase_timing, torch, cuda_lstm)
+    grad_timing = phase("grad_timing", phase_grad_timing, torch, cuda_lstm)
+    carry_timing = phase("carry_timing", phase_carry_timing, torch, cuda_lstm)
+    stack_timing = phase("stack_timing", phase_stack_timing, torch, cuda_lstm, cuda_lstm_stack)
+    profiled = phase("profile", phase_profile, torch)
+    say("[walls] phase walls (s, host clock): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s on {card}")
 
     # launches on the main paths: the fused epochs (slice 3), the chained
@@ -5234,7 +5623,11 @@ def main() -> None:
                         ("bf16_train_gan_cli", [precision["train_gan"]["launches"]]),
                         ("mesh_dp1", [mesh["a"]["launches"]]),
                         ("mesh_dp2_rank0", [mesh["b"][0]["launches"]]),
-                        ("mesh_dp2_rank1", [mesh["b"][1]["launches"]])):
+                        ("mesh_dp2_rank1", [mesh["b"][1]["launches"]]),
+                        ("mesh_pp_rank0", [mesh["f"]["launches"][0]]),
+                        ("mesh_pp_rank1", [mesh["f"]["launches"][1]]),
+                        ("mesh_sp_rank0", [mesh["g"]["launches"][0]]),
+                        ("mesh_sp_rank1", [mesh["g"]["launches"][1]])):
         counts = {k: sum(r[k] for r in runs) for k in cuda_lstm.launch_counts()}
         counts["stack_fwd"] += counts.pop("stack_fwd_res")
         by_route[route] = counts
@@ -5292,16 +5685,21 @@ def main() -> None:
         x for x in grad_timing if x["kernel"] == "lstm_adj" and x["W"] == 48 and x["B"] == 32
         and x["dtype"] == "float32")["device_ms_by_pass"]
     # the carry modes: launches from the carry path's run (phase_carry_path)
+    # and from the main paths (the sp ranks' chunks)
     timed = {r["kernel"]: r for r in carry_timing}
     path_launches = carry_path["launches"]
     for k, modes in (("lstm_fwd_carry", ("lstm_fwd_carry", "lstm_fwd_cs_carry")),
                      ("lstm_bwd_carry", ("lstm_bwd_carry",)),
                      ("lstm_adj_carry", ("lstm_adj_carry",))):
         r = timed["lstm_fwd_cs_carry" if k == "lstm_fwd_carry" else k]
+        carry_by_path = {"carry_path": sum(path_launches[m] for m in modes),
+                         **{p: sum(c[m] for m in modes) for p, c in by_route.items()}}
         rows.append({
             "name": k, "route": "cuda", "source": f"hfrep_tpu_torch/csrc/{SOURCES[k]}",
-            "replaces": TPU_KERNELS[k], "launches": sum(path_launches[m] for m in modes),
-            "launches_by_mode": {m: path_launches[m] for m in modes},
+            "replaces": TPU_KERNELS[k], "launches": sum(carry_by_path.values()),
+            "launches_by_path": carry_by_path,
+            "launches_by_mode": {m: path_launches[m] + sum(c[m] for c in by_route.values())
+                                 for m in modes},
             "max_abs_err": carry["abs"][k]["float32"],
             "max_abs_err_bf16": carry["abs"][k]["bfloat16"],
             "max_scaled_err": carry["scaled"][k]["float32"],
@@ -5365,7 +5763,9 @@ def main() -> None:
                  [{"weight_sum_launches": precision["train_gan"]["weight_sum_launches"]}]),
                 ("mesh_dp1", [mesh["a"]]),
                 ("mesh_dp2_rank0", [{"weight_sum_launches": mesh["b"][0]["sums"]}]),
-                ("mesh_dp2_rank1", [{"weight_sum_launches": mesh["b"][1]["sums"]}]))
+                ("mesh_dp2_rank1", [{"weight_sum_launches": mesh["b"][1]["sums"]}]),
+                *((f"mesh_{kind}_rank{r}", [{"weight_sum_launches": mesh[part]["sums"][r]}])
+                  for kind, part in (("pp", "f"), ("sp", "g")) for r in (0, 1)))
     by_path = {shape: {p: sum(run["weight_sum_launches"][shape] for run in runs)
                        for p, runs in sum_runs} for shape, _, _, _ in SUM_SHAPES}
     for shape, nsum, npair, m in SUM_SHAPES:

@@ -39,9 +39,14 @@ group first (``--coordinator`` implies ``--mesh``): every process runs
 the same command with its own id, gloo when ranks share a card or run on
 the CPU, NCCL when each has its own.  Only rank 0 prints, checkpoints
 and writes samples; each rank's telemetry goes to ``<obs-dir>/proc<I>``.
-The sp, tp and pp flags (``--sp-mesh``, ``--dp-sp``, ``--tp-mesh``,
-``--dp-tp``, ``--dp-sp-tp``, ``--sp-microbatches``, ``--sp-remat``) are
-ROADMAP queue 1 item 9b and not in the parser.
+``--sp-mesh`` shards the window over every rank instead, ``--dp-sp DPxSP``
+the batch over dp and the window over sp at once (the flagship
+``mtss_wgan_gp`` only; :mod:`hfrep_tpu_torch.parallel.sequence`); with
+``--coordinator`` the named mesh spans the group.  The mesh flags are
+mutually exclusive.  ``--sp-microbatches`` and ``--sp-remat`` are JAX's
+retired knobs: accepted, validated and threaded to ``TrainConfig``, then
+ignored.  ``--tp-mesh``, ``--dp-tp`` and ``--dp-sp-tp`` parse as JAX's
+and are refused: the hidden-unit axis is ROADMAP queue 1 item 9c.
 """
 
 from __future__ import annotations
@@ -105,9 +110,29 @@ def _build_parser() -> argparse.ArgumentParser:
     t.add_argument("--mesh", action="store_true",
                    help="data-parallel over every rank of the process group (the batch "
                         "split over dp, the gradients reduced to the global mean)")
+    t.add_argument("--sp-mesh", action="store_true",
+                   help="sequence-parallel: the window cut into one chunk a rank of the "
+                        "process group, carries handed on between ranks "
+                        "(parallel/sequence.py; flagship mtss_wgan_gp only)")
+    t.add_argument("--dp-sp", default=None, metavar="DPxSP",
+                   help="composed 2-D mesh, e.g. 1x2: batch sharded over dp AND window "
+                        "over sp in one step (parallel/dp_sp.py)")
+    t.add_argument("--tp-mesh", type=int, default=None, metavar="N",
+                   help="tensor-parallel over N ranks: ROADMAP queue 1 item 9c, refused")
+    t.add_argument("--dp-tp", default=None, metavar="DPxTP",
+                   help="dp x tp mesh: ROADMAP queue 1 item 9c, refused")
+    t.add_argument("--dp-sp-tp", default=None, metavar="DPxSPxTP",
+                   help="dp x sp x tp mesh: ROADMAP queue 1 item 9c, refused")
+    t.add_argument("--sp-remat", action="store_true",
+                   help="RETIRED knob, accepted for compatibility: validated (--sp-mesh or "
+                        "--dp-sp only), threaded to TrainConfig, ignored by the steps")
+    t.add_argument("--sp-microbatches", type=int, default=None, metavar="M",
+                   help="RETIRED knob, accepted for compatibility: validated (M >= 1, a "
+                        "window-sharded mesh), threaded to TrainConfig, ignored by the steps")
     t.add_argument("--coordinator", default=None,
                    help="multi-process: coordinator address host:port; every process runs "
-                        "this same command with its own --process-id; implies --mesh")
+                        "this same command with its own --process-id; implies --mesh "
+                        "unless another mesh flag is given")
     t.add_argument("--num-processes", type=int, default=None)
     t.add_argument("--process-id", type=int, default=None)
 
@@ -327,31 +352,91 @@ def cmd_clean(args) -> int:
     return 0
 
 
+def _dims(flag: str, value: str, n: int) -> tuple:
+    """``AxB[xC]`` → ints, or the flag's own error."""
+    form = "x".join(("DP", "SP", "TP")[:n]) if flag != "--dp-tp" else "DPxTP"
+    example = "2x4" if n == 2 else "2x2x2"
+    try:
+        dims = tuple(int(v) for v in value.lower().split("x"))
+    except ValueError:
+        dims = ()
+    if len(dims) != n:
+        raise SystemExit(f"{flag} wants {form} (e.g. {example}), got {value!r}")
+    return dims
+
+
+def _build_device_mesh(mesh: bool, sp_mesh: bool, dp_sp: Optional[str],
+                       tp_mesh: Optional[int], dp_tp: Optional[str],
+                       dp_sp_tp: Optional[str], sp_microbatches: Optional[int],
+                       sp_remat: bool, device: str):
+    """The mesh the flags name (``None``: no mesh), after the flags'
+    checks: they exclude each other, the retired knobs need a
+    window-sharded mesh, and the tp meshes are refused (item 9c)."""
+    if sum(map(bool, (mesh, sp_mesh, dp_sp, tp_mesh is not None, dp_tp, dp_sp_tp))) > 1:
+        raise SystemExit("--mesh, --sp-mesh, --dp-sp, --tp-mesh, --dp-tp and --dp-sp-tp "
+                         "are mutually exclusive")
+    if sp_remat and not (sp_mesh or dp_sp):
+        raise SystemExit("--sp-remat requires --sp-mesh or --dp-sp (the tp-composed chunk "
+                         "scan is not time-blocked; dp×sp×tp refuses)")
+    if sp_microbatches is not None:
+        if sp_microbatches < 1:
+            raise SystemExit(f"--sp-microbatches wants M >= 1, got {sp_microbatches}")
+        if not (sp_mesh or dp_sp or dp_sp_tp):
+            raise SystemExit("--sp-microbatches requires a window-sharded mesh (--sp-mesh, "
+                             "--dp-sp or --dp-sp-tp)")
+    if tp_mesh is not None and tp_mesh < 1:
+        raise SystemExit(f"--tp-mesh wants N >= 1 devices, got {tp_mesh}")
+    if dp_tp:
+        _dims("--dp-tp", dp_tp, 2)
+    if dp_sp_tp:
+        _dims("--dp-sp-tp", dp_sp_tp, 3)
+    if tp_mesh is not None or dp_tp or dp_sp_tp:
+        from hfrep_tpu_torch.parallel.rules import ITEM_9C
+        raise SystemExit(f"--tp-mesh/--dp-tp/--dp-sp-tp: {ITEM_9C}")
+    dev = None if device == "cuda" else device
+    from hfrep_tpu_torch.config import MeshConfig
+    from hfrep_tpu_torch.parallel import make_mesh, make_mesh_2d
+    if mesh:
+        return make_mesh(device=dev)
+    if sp_mesh:
+        return make_mesh(MeshConfig(axis_name="sp"), device=dev)
+    if dp_sp:
+        return make_mesh_2d(*_dims("--dp-sp", dp_sp, 2), device=dev)
+    return None
+
+
 def _make_trainer(preset: str, cleaned_dir: str, checkpoint_dir: Optional[str] = None,
                   quiet: bool = False, nan_guard: bool = False,
                   max_recoveries: int = 3, device: str = "cuda",
-                  dtype: Optional[str] = None, mesh: bool = False):
-    """Preset (its model's precision policy set to ``dtype`` if given),
-    then the mesh (``mesh``: dp over every rank of the process group),
-    then panel, then dataset, then logger, then trainer."""
+                  dtype: Optional[str] = None, mesh: bool = False, sp_mesh: bool = False,
+                  dp_sp: Optional[str] = None, tp_mesh: Optional[int] = None,
+                  dp_tp: Optional[str] = None, dp_sp_tp: Optional[str] = None,
+                  sp_microbatches: Optional[int] = None, sp_remat: bool = False):
+    """The mesh the flags name (``mesh``: dp over every rank of the
+    process group; ``sp_mesh``, ``dp_sp``: the window sharded), then the
+    preset (its model's precision policy set to ``dtype`` if given, the
+    retired sp knobs threaded), then panel, then dataset, then logger,
+    then trainer."""
     from hfrep_tpu_torch.config import get_preset
     from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
     from hfrep_tpu_torch.obs.metriclog import MetricLogger
     from hfrep_tpu_torch.train.trainer import GanTrainer
 
+    # before the panel load: a bad flag, a too-small process group or a
+    # batch dp does not divide must not pay for it first
+    device_mesh = _build_device_mesh(mesh, sp_mesh, dp_sp, tp_mesh, dp_tp, dp_sp_tp,
+                                     sp_microbatches, sp_remat, device)
+    if device_mesh is not None:
+        device = device_mesh.device
     cfg = get_preset(preset)
     if dtype:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
     if checkpoint_dir:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, checkpoint_dir=checkpoint_dir))
-    device_mesh = None
-    if mesh:
-        # before the panel load: a too-small process group or a batch dp
-        # does not divide must not pay for it first
-        from hfrep_tpu_torch.parallel import make_mesh
-        device_mesh = make_mesh(device=None if device == "cuda" else device)
-        device = device_mesh.device
+    if sp_microbatches is not None or sp_remat:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, sp_microbatches=sp_microbatches, sp_remat=sp_remat))
     panel = load_panel(cleaned_dir, device=device)
     ds = build_gan_dataset(cfg.data, cfg.data.seed, panel)
     style = {"gan": "gan", "mtss_gan": "gan", "wgan": "wgan", "mtss_wgan": "wgan"}.get(
@@ -384,7 +469,9 @@ def cmd_train_gan(args) -> int:
     from hfrep_tpu_torch.parallel import initialize_distributed, shutdown_distributed
     initialize_distributed(args.coordinator, args.num_processes, args.process_id,
                            device=None if args.device == "cuda" else args.device)
-    args.mesh = True
+    if not (args.sp_mesh or args.dp_sp or args.tp_mesh is not None or args.dp_tp
+            or args.dp_sp_tp):
+        args.mesh = True
     obs_dir = _obs_dir(args)
     if obs_dir and args.num_processes > 1:
         # one run dir a process: two processes must not append to one stream
@@ -400,7 +487,9 @@ def _cmd_train_gan_impl(args) -> int:
     trainer, cfg = _make_trainer(
         args.preset, args.cleaned_dir, args.checkpoint_dir, args.quiet or not leader,
         nan_guard=args.nan_guard, max_recoveries=args.max_recoveries,
-        device=args.device, dtype=args.dtype, mesh=args.mesh)
+        device=args.device, dtype=args.dtype, mesh=args.mesh, sp_mesh=args.sp_mesh,
+        dp_sp=args.dp_sp, tp_mesh=args.tp_mesh, dp_tp=args.dp_tp, dp_sp_tp=args.dp_sp_tp,
+        sp_microbatches=args.sp_microbatches, sp_remat=args.sp_remat)
     say = print if leader else (lambda *a, **k: None)
     target = args.epochs if args.epochs is not None else cfg.train.epochs
     if args.resume:
@@ -563,6 +652,15 @@ def cmd_sweep(args) -> int:
 
 
 def _cmd_sweep_impl(args) -> int:
+    rc = _sweep_body(args)
+    # the hand kernels' launches (a checkpoint's samples), as
+    # launches/<kernel> counters in the run's stream (nothing without one)
+    from hfrep_tpu_torch.obs import emit_launch_counts
+    emit_launch_counts()
+    return rc
+
+
+def _sweep_body(args) -> int:
     from hfrep_tpu_torch.config import AEConfig
     from hfrep_tpu_torch.core.data import load_panel
     from hfrep_tpu_torch.experiments.augment import (augment_training_set,

@@ -141,10 +141,17 @@ class KerasLayerNorm(nn.Module):
         self.bias = new_param((features,), param_dtype, zeros_, dev, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(-1, keepdim=True)
-        mean2 = (xf * xf).mean(-1, keepdim=True)
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.epsilon) * self.scale
-        y = (xf - mean) * mul + self.bias
-        return y.to(compute_dtype(self.dtype, x, self.scale))
+        return layer_norm(x, self.scale, self.bias, self.epsilon, self.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               epsilon: float = 1e-3, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:class:`KerasLayerNorm`'s arithmetic on explicit parameters (the
+    parallel forwards' param-level form)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(-1, keepdim=True)
+    mean2 = (xf * xf).mean(-1, keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + epsilon) * scale
+    y = (xf - mean) * mul + bias
+    return y.to(compute_dtype(dtype, x, scale))

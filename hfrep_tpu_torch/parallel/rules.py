@@ -1,5 +1,5 @@
-"""One mesh for the launch paths: partition rules over named leaves and
-the data-parallel step (``hfrep_tpu/parallel/rules.py``).
+"""One mesh for the launch paths and the GAN step's mesh hook
+(``hfrep_tpu/parallel/rules.py``).
 
 * **one mesh** — :class:`MeshSpec` declares ``dp``/``sp``/``tp``/``pp``
   as axis sizes; :func:`build_mesh` turns it into the :class:`Mesh` one
@@ -8,46 +8,43 @@ the data-parallel step (``hfrep_tpu/parallel/rules.py``).
   mesh needs no process group and holds none; a larger one needs the
   default group that :func:`~hfrep_tpu_torch.parallel.mesh.
   initialize_distributed` made, of exactly its size, and runs its
-  collectives there.  It is not wrapped in a ``DeviceMesh``: with a card
-  present and a gloo default group (ranks sharing the card), a
-  ``DeviceMesh`` makes a second gloo group of the same ranks without the
-  group's finite timeout, and a 1-D dp mesh needs no sub-groups.
-* **regex partition rules** — :func:`match_partition_rules` maps
-  ``(pattern, PartitionSpec)`` rules over the '/'-joined names of a
-  tree's leaves (the port's own names: ``generator/lstm0.kernel``,
-  ``g_opt/nu/lstm0.recurrent_kernel``, ...); scalar leaves replicate,
-  an unmatched leaf is a hard error naming it, and axis names the mesh
-  lacks are stripped, so one rule set serves every mesh shape.
-* **shard/gather fns** — :func:`make_shard_and_gather_fns` /
-  :func:`shard_put`: this rank's block of each leaf under its spec, on
-  its device (the divisibility error names the leaf), and the inverse,
-  every rank's blocks gathered into full host arrays.
-* **the dp launch** — :func:`make_gan_train_step` /
-  :func:`make_gan_multi_step` build the single-device step with the dp
-  hook :func:`data_constraint` returns.  Every rank draws the whole
-  global batch from the same seeded generator (JAX's global-stream
-  semantics, its only mode), keeps its contiguous ``B/dp`` rows, runs
-  the unchanged step (hand kernels included) on them, and reduces every
-  gradient and loss to the global mean before the optimizer touches it;
-  the state stays replicated and bit-equal across ranks.  dp=N follows
-  the single-device trajectory to float32 round-off; on a mesh with no
-  axis longer than 1 the hook is ``None`` and the step is literally the
-  single-device one: no collective, no extra launch.
+  collectives there (an axis of a mesh with two axes longer than 1 in a
+  sub-group of its own, :meth:`Mesh.axis_group`).  It is not wrapped in
+  a ``DeviceMesh``: with a card present and a gloo default group (ranks
+  sharing the card), a ``DeviceMesh`` makes a second gloo group of the
+  same ranks without the group's finite timeout.
+* **the step hook** — :func:`make_gan_train_step` /
+  :func:`make_gan_multi_step` build the single-device step with the hook
+  :func:`data_constraint` returns (:class:`DataShard`).  Every rank draws
+  the whole global batch from the same seeded generator (JAX's
+  global-stream semantics, its only mode) and keeps its block of it: its
+  contiguous ``B/dp`` rows, and on an ``sp`` mesh its contiguous
+  ``W/sp`` window chunk, which the window-sharded forwards
+  (:mod:`~hfrep_tpu_torch.parallel.sequence`, through the step's
+  ``apply_fns``) run with carry handoffs between the ranks
+  (:mod:`~hfrep_tpu_torch.parallel.chain`).  Every gradient is reduced
+  over the mesh before the optimizer touches it (a mean over ``dp``, a
+  sum of the ranks' partials over ``sp``), every loss to its mean over
+  ``dp``; the state stays replicated and bit-equal across ranks.  On a
+  mesh with no axis longer than 1 the hook is ``None`` and the step is
+  literally the single-device one: no collective, no extra launch.
 
 JAX's ``_resolve_mesh_backend`` has no counterpart: it keeps GSPMD from
 partitioning an opaque Pallas call, while here no partitioner looks
-inside a kernel: each rank launches the hand kernels on its own rows.
-The window, hidden-unit and layer axes (``sp``, ``tp``, ``pp``) need
-their own designs (carry handoffs between ranks, a per-step all-gather
-of h); the builders refuse them naming ROADMAP queue 1 item 9b, and run
-no other program instead.
+inside a kernel: each rank launches the hand kernels on its own block.
+The layer axis ``pp`` is :mod:`~hfrep_tpu_torch.parallel.layer_pipeline`'s
+own schedule, refused here as JAX refuses it.  The hidden-unit axis
+``tp`` is ROADMAP queue 1 item 9c and refused (:data:`ITEM_9C`); with it
+went JAX's partition-rule machinery (``match_partition_rules``,
+``make_shard_and_gather_fns``, ``shard_put``, ``gan_state_specs``,
+``gan_launch_specs``, ``GAN_PARTITION_RULES``, ``AE_LANE_RULES``), whose
+only use is the tp layout: dp, sp and pp replicate the whole state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import re
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,9 +55,9 @@ from hfrep_tpu_torch.core.device import DeviceLike
 #: window, ``tp`` hidden units, ``pp`` the stack depth
 AXES = ("dp", "sp", "tp", "pp")
 
-#: the refusal every builder gives a mesh with an sp, tp or pp axis
-ITEM_9B = ("the sp, tp and pp axes are ROADMAP queue 1 item 9b, not ported yet: "
-           "this port launches dp meshes only")
+#: the refusal every builder gives a mesh with a tp axis
+ITEM_9C = ("the tp (hidden-unit) axis is ROADMAP queue 1 item 9c, not ported yet: "
+           "this port shards the batch (dp), the window (sp) and the layers (pp)")
 
 
 class PartitionSpec(tuple):
@@ -117,7 +114,11 @@ class MeshSpec:
 
 #: collectives the dp hooks ran since the last reset: launches made to
 #: compare a kernel with its plain version never touch them
-_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "send": 0, "recv": 0}
+
+
+def count_collective(kind: str) -> None:
+    _COLLECTIVES[kind] += 1
 
 
 def collective_counts() -> dict:
@@ -137,7 +138,8 @@ class Mesh:
     is ``('seed',)``); ``rank`` is this process's position in row-major
     order, ``device`` its device, ``group`` the process group of the
     mesh's collectives (``None`` on a one-device mesh), ``backend`` that
-    group's backend."""
+    group's backend; ``axis_groups`` the sub-group of each axis on a mesh
+    with more than one axis longer than 1 (:func:`make_named_mesh`)."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
@@ -145,6 +147,7 @@ class Mesh:
     rank: int = 0
     group: Any = None
     backend: Optional[str] = None
+    axis_groups: Optional[dict] = None
 
     @property
     def shape(self) -> dict:
@@ -169,6 +172,21 @@ class Mesh:
                 f"{what} on a {self.size}-device mesh {self.shape} needs a process "
                 "group, and this mesh has none: build it with build_mesh after "
                 "parallel.initialize_distributed")
+
+    def axis_group(self, axis: str):
+        """The process group of the ranks that share this rank's
+        coordinates on every other axis: the mesh's own group when no
+        other axis is longer than 1."""
+        self._need_group(f"a collective over {axis!r}")
+        if self.axis_groups is None:
+            return self.group
+        return self.axis_groups[self.axis_names.index(axis)]
+
+    @property
+    def wire_device(self) -> torch.device:
+        """Where the backend takes tensors for point-to-point transfers:
+        the host under gloo, the card under NCCL."""
+        return torch.device("cpu") if self.backend == "gloo" else self.device
 
     # ---------------------------------------------------------- collectives
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
@@ -291,8 +309,36 @@ def make_named_mesh(axis_names: Sequence[str], axis_sizes: Sequence[int],
     if world != n:
         raise ValueError(f"mesh {dict(zip(names, sizes))} wants {n} ranks but the "
                          f"process group has {world}")
-    return Mesh(names, sizes, dev, rank=dist.get_rank(), group=dist.group.WORLD,
-                backend=dist.get_backend())
+    rank = dist.get_rank()
+    return Mesh(names, sizes, dev, rank=rank, group=dist.group.WORLD,
+                backend=dist.get_backend(), axis_groups=_axis_groups(sizes, rank))
+
+
+def _axis_groups(sizes: Tuple[int, ...], rank: int) -> Optional[dict]:
+    """Every axis's sub-group holding ``rank`` when more than one axis is
+    longer than 1 (else ``None``: each axis spans the whole group).
+    Every rank creates every sub-group, in the same order, as
+    ``new_group`` requires; each keeps its own."""
+    if sum(s > 1 for s in sizes) < 2:
+        return None
+    import datetime
+
+    import torch.distributed as dist
+
+    from hfrep_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
+
+    grid = np.arange(int(np.prod(sizes))).reshape(sizes)
+    mine = {}
+    for i in range(len(sizes)):
+        if sizes[i] == 1:
+            continue
+        lines = np.moveaxis(grid, i, -1).reshape(-1, sizes[i])
+        for line in lines:
+            ranks = [int(r) for r in line]
+            g = dist.new_group(ranks, timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+            if rank in ranks:
+                mine[i] = g
+    return mine
 
 
 def build_mesh(spec: MeshSpec = MeshSpec(), device: DeviceLike = None) -> Mesh:
@@ -366,177 +412,73 @@ def _rebuild(tree, leaves):
     return walk(tree)
 
 
-def normalize_spec(spec: P, mesh) -> P:
-    """Strip axis names the mesh does not carry (size-1 axes are not in
-    ``mesh.axis_names``), so one rule set serves every mesh shape;
-    ``mesh`` may be a :class:`Mesh` or a :class:`MeshSpec`."""
-    names = set(mesh.axis_names)
-
-    def keep(entry):
-        if entry is None:
-            return None
-        if isinstance(entry, (tuple, list)):
-            kept = tuple(a for a in entry if a in names)
-            return kept if kept else None
-        return entry if entry in names else None
-
-    kept = [keep(e) for e in spec]
-    while kept and kept[-1] is None:    # P(None, None) is not P(): trim
-        kept.pop()
-    return P(*kept)
-
-
-def _is_scalar(leaf) -> bool:
-    shape = getattr(leaf, "shape", None)
-    if shape is None:
-        return isinstance(leaf, (int, float, bool, np.number))
-    return len(shape) == 0 or int(np.prod(shape)) <= 1
-
-
-def match_partition_rules(rules, tree, mesh=None):
-    """Tree of :class:`PartitionSpec` per ``rules`` over ``tree`` (same
-    containers; a module or dataclass becomes a dict of its leaves).
-
-    ``rules`` is a sequence of ``(regex, PartitionSpec)`` pairs matched
-    (``re.search``) against each leaf's name, first match wins.  Scalar
-    leaves always replicate.  A leaf no rule matches is a hard error
-    naming it.  With ``mesh``, axis names it lacks are stripped."""
-    specs = []
-    for name, leaf in named_leaves(tree):
-        if _is_scalar(leaf):
-            specs.append(P())
-            continue
-        for pattern, ps in rules:
-            if re.search(pattern, name) is not None:
-                specs.append(normalize_spec(ps, mesh) if mesh is not None else ps)
-                break
-        else:
-            raise ValueError(
-                f"partition rule not found for param: {name!r} "
-                f"(shape {tuple(getattr(leaf, 'shape', ()))}); every leaf must match "
-                f"a rule — add one or extend the catch-all")
-    return _rebuild(tree, specs)
-
-
-def _is_spec(s) -> bool:
-    return s is None or isinstance(s, PartitionSpec)
-
-
-def broadcast_specs(tree, specs):
-    """Align ``specs`` — one :class:`PartitionSpec` or a tree prefix of
-    them — to ``tree``'s leaves: a flat list in :func:`named_leaves`'
-    order (``None`` → replicated)."""
-    if _is_spec(specs):
-        return [specs if specs is not None else P()] * len(named_leaves(tree))
-    kids = _children(tree)
-    if kids is None:
-        raise ValueError(f"spec tree {specs!r} is deeper than the tree it lays out")
-    out = []
-    for k, child in kids:
-        sub = specs[k] if isinstance(specs, dict) else specs[int(k)]
-        out += broadcast_specs(child, sub)
-    return out
-
-
-def _dim_blocks(spec: P, shape, mesh) -> list:
-    """``[(dim, n blocks, this rank's block)]`` of a spec'd leaf."""
-    coords, sizes = mesh.coords(), mesh.shape
-    out = []
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
-        n = int(np.prod([sizes[a] for a in axes]))
-        idx = int(np.ravel_multi_index([coords[a] for a in axes],
-                                       [sizes[a] for a in axes])) if axes else 0
-        out.append((dim, n, idx))
-    return out
-
-
-def _check_divisible(name: str, leaf, spec: P, mesh) -> None:
-    shape = tuple(getattr(leaf, "shape", ()))
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
-        n = int(np.prod([mesh.shape[a] for a in axes]))
-        if n > 1 and shape[dim] % n:
-            raise ValueError(
-                f"cannot shard {name!r}: dimension {dim} (size {shape[dim]}) "
-                f"is not divisible by the {'×'.join(axes)}={n} mesh extent")
-
-
-def make_shard_and_gather_fns(mesh: Mesh, specs) -> Tuple[Callable, Callable]:
-    """``(shard_fn, gather_fn)`` for host↔mesh movement.
-
-    ``shard_fn(tree)`` gives every leaf's block for this rank under its
-    spec, as a tensor on the mesh's device (divisibility checked leaf by
-    leaf, the leaf named); ``gather_fn(tree)`` is the inverse: every
-    rank's blocks joined into full host numpy arrays."""
-
-    def shard_fn(tree):
-        flat, flat_specs = named_leaves(tree), broadcast_specs(tree, specs)
-        out = []
-        for (name, leaf), spec in zip(flat, flat_specs):
-            _check_divisible(name, leaf, spec, mesh)
-            t = torch.as_tensor(leaf)
-            for dim, n, idx in _dim_blocks(spec, t.shape, mesh):
-                b = t.shape[dim] // n
-                t = t.narrow(dim, idx * b, b)
-            out.append(t.to(mesh.device))
-        return _rebuild(tree, out)
-
-    def gather_fn(tree):
-        flat, flat_specs = named_leaves(tree), broadcast_specs(tree, specs)
-        out = []
-        for (_, leaf), spec in zip(flat, flat_specs):
-            t = torch.as_tensor(leaf)
-            for dim, n, _ in _dim_blocks(spec, t.shape, mesh):
-                if n > 1:
-                    if len(_dim_blocks(spec, t.shape, mesh)) > 1 or n != mesh.size:
-                        raise NotImplementedError(
-                            "gather of a leaf sharded over more than the whole 1-D mesh "
-                            f"({spec}) waits for ROADMAP queue 1 item 9b")
-                    t = mesh.all_gather_cat(t, dim)
-            out.append(t.detach().cpu().numpy())
-        return _rebuild(tree, out)
-
-    return shard_fn, gather_fn
-
-
-def shard_put(tree, mesh: Mesh, specs):
-    """One-shot :func:`make_shard_and_gather_fns` shard."""
-    shard_fn, _ = make_shard_and_gather_fns(mesh, specs)
-    return shard_fn(tree)
-
-
-# ------------------------------------------------------------- the dp hook
+# ---------------------------------------------------------- the step hook
 class DataShard:
-    """The dp hook of a step (JAX's ``shard_data``): ``shard(x,
-    batch_axis)`` is this rank's contiguous ``B/dp`` rows of a global-
-    batch tensor, and :meth:`reduce` the global mean of a list of
-    tensors, one all_reduce a call over one flat float32 buffer, in the
-    list's order (every rank reduces the same list in the same order)."""
+    """The step's mesh hook (JAX's ``shard_data``).
 
-    def __init__(self, mesh: Mesh):
-        mesh._need_group("the dp hook")
+    ``shard(x, batch_axis)`` is this rank's block of a global-batch
+    tensor, by JAX's layout rule (``data_constraint``'s hint): its
+    contiguous ``B/dp`` rows, and where ``x`` has a window axis after the
+    batch axis and a feature axis after that, its contiguous ``W/sp``
+    window chunk; :meth:`window` the chunk alone.  :meth:`reduce` is one
+    all_reduce a call over one flat float32 buffer of a list of tensors,
+    in the list's order (every rank reduces the same list in the same
+    order): the first ``partials`` tensors are this rank's partial sums
+    over the axes ``inner`` (a window chunk's gradient under sp, a
+    stage's under pp), summed over them and averaged over dp; the rest
+    (losses, accuracies) are equal across ``inner`` and averaged over dp.
+    :meth:`sum_window` sums a rank-local tensor over sp (the penalty's
+    squared norms of a window-sharded input gradient)."""
+
+    def __init__(self, mesh: Mesh, inner: Sequence[str] = ()):
+        mesh._need_group("the step's mesh hook")
+        from hfrep_tpu_torch.parallel.chain import Chain
+
+        shape, coords = mesh.shape, mesh.coords()
         self.mesh = mesh
-        self.n = int(mesh.shape["dp"])
-        self.rank = mesh.coords()["dp"]
+        self.n, self.rank = int(shape.get("dp", 1)), coords.get("dp", 0)
+        self.n_sp, self.sp_rank = int(shape.get("sp", 1)), coords.get("sp", 0)
+        self.inner = int(np.prod([shape.get(a, 1) for a in inner]))
+        self.chain = Chain(mesh, "sp") if self.n_sp > 1 else None
 
     def __call__(self, x: torch.Tensor, batch_axis: int = 0) -> torch.Tensor:
-        b = x.shape[batch_axis]
-        if b % self.n:
-            raise ValueError(f"global batch {b} not divisible by dp={self.n}")
-        b //= self.n
-        return x.narrow(batch_axis, self.rank * b, b)
+        if self.n > 1:
+            b = x.shape[batch_axis]
+            if b % self.n:
+                raise ValueError(f"global batch {b} not divisible by dp={self.n}")
+            b //= self.n
+            x = x.narrow(batch_axis, self.rank * b, b)
+        if x.dim() > batch_axis + 2 and x.shape[batch_axis + 1] > 1:
+            x = self.window(x, batch_axis + 1)
+        return x
 
-    def reduce(self, tensors: Sequence[torch.Tensor]) -> list:
+    def window(self, x: torch.Tensor, w_axis: int) -> torch.Tensor:
+        if self.n_sp == 1:
+            return x
+        w = x.shape[w_axis]
+        if w % self.n_sp:
+            raise ValueError(f"window {w} not divisible by sp={self.n_sp}")
+        w //= self.n_sp
+        return x.narrow(w_axis, self.sp_rank * w, w)
+
+    def sum_window(self, t: torch.Tensor) -> torch.Tensor:
+        if self.chain is None:
+            return t
+        from hfrep_tpu_torch.parallel.chain import axis_sum
+
+        return axis_sum(self.chain, t)
+
+    def reduce(self, tensors: Sequence[torch.Tensor], partials: int = 0) -> list:
         import torch.distributed as dist
 
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
         dist.all_reduce(flat, group=self.mesh.group)
-        flat.div_(self.n)
+        if self.inner == 1:
+            flat.div_(self.n)
+        else:
+            k = sum(t.numel() for t in tensors[:partials])
+            flat[:k].div_(self.n)
+            flat[k:].div_(self.n * self.inner)
         _COLLECTIVES["all_reduce"] += 1
         out, i = [], 0
         for t in tensors:
@@ -547,62 +489,52 @@ class DataShard:
 
 
 def data_constraint(mesh: Optional[Mesh]) -> Optional[DataShard]:
-    """The step's dp hook, or ``None`` — the literal single-device step,
-    no collective — when the mesh has no dp extent to shard over."""
+    """The step's mesh hook, or ``None`` — the literal single-device
+    step, no collective — when the mesh has no dp or sp extent to shard
+    over."""
     if mesh is None:
         return None
-    if int(mesh.shape.get("dp", 1)) <= 1:
+    shape = mesh.shape
+    n_sp = int(shape.get("sp", 1))
+    if int(shape.get("dp", 1)) <= 1 and n_sp <= 1:
         return None
-    return DataShard(mesh)
+    return DataShard(mesh, inner=("sp",) if n_sp > 1 else ())
 
 
-# ------------------------------------------------------------- GAN rules
-#: partition rules for the GAN train state over the port's names
-#: (``generator/lstm0.kernel``, ``g_opt/nu/lstm1.bias``): ``tp`` would
-#: shard every LSTM layer's gate columns; everything else replicates.  On
-#: a mesh without ``tp`` the whole state replicates — the dp story.
-GAN_PARTITION_RULES: Tuple[Tuple[str, P], ...] = (
-    (r"lstm\d+\.(kernel|recurrent_kernel)$", P(None, "tp")),
-    (r"lstm\d+\.bias$", P("tp")),
-    (r".*", P()),
-)
-
-#: the lane-grid layout: every carry leaf leads with the grid's dataset
-#: axis (``multi``) or lane axis (``lanes``), sharded over ``dp``
-AE_LANE_SPEC = P("dp")
-AE_LANE_RULES: Tuple[Tuple[str, P], ...] = ((r".*", AE_LANE_SPEC),)
-
-
-def gan_state_specs(state, mesh):
-    """Rule-resolved specs for a :class:`~hfrep_tpu_torch.train.states.GanState`."""
-    return match_partition_rules(GAN_PARTITION_RULES, state, mesh)
-
-
+# ---------------------------------------------------------- the GAN launch
 def _validate_gan_mesh(pair, tcfg, dataset, mesh) -> MeshSpec:
     spec = mesh_spec(mesh)      # refuses unknown axis names
-    if spec.sp > 1 or spec.tp > 1 or spec.pp > 1:
-        raise ValueError(f"mesh {mesh.shape}: {ITEM_9B}")
+    if spec.pp > 1:
+        raise ValueError("pp is the layer_pipeline.py axis (make_pp_train_step, its own "
+                         "schedule); the mesh launch shards dp and sp")
+    if spec.tp > 1:
+        raise ValueError(f"mesh {mesh.shape}: {ITEM_9C}")
     if spec.dp > 1 and tcfg.batch_size % spec.dp:
         raise ValueError(f"global batch {tcfg.batch_size} not divisible by dp={spec.dp}")
+    if spec.sp > 1:
+        if dataset.shape[1] % spec.sp:
+            raise ValueError(f"window {dataset.shape[1]} not divisible by sp={spec.sp}")
+        from hfrep_tpu_torch.parallel.sequence import validate_sp_pair
+        validate_sp_pair(pair)
     return spec
 
 
 def _launch_name(mesh, kind: str) -> str:
-    """The JAX launch names: ``dp_multi_step``, ``dp_train_step``."""
+    """The JAX launch names: ``dp_multi_step``, ``sp_train_step``,
+    ``dp_sp_multi_step``, ..."""
     return f"{'_'.join(mesh.axis_names)}_{kind}"
-
-
-def gan_launch_specs(pair, tcfg, dataset, mesh) -> P:
-    """The state layout of a dp launch: replicated (one ``P()``)."""
-    _validate_gan_mesh(pair, tcfg, dataset, mesh)
-    return P()
 
 
 def _gan_step(pair, tcfg, dataset, mesh, multi: bool):
     from hfrep_tpu_torch.train.steps import make_multi_step, make_train_step
 
-    _validate_gan_mesh(pair, tcfg, dataset, mesh)
-    step = make_train_step(pair, tcfg, dataset, shard_data=data_constraint(mesh))
+    spec = _validate_gan_mesh(pair, tcfg, dataset, mesh)
+    shard = data_constraint(mesh)
+    apply_fns = None
+    if spec.sp > 1:
+        from hfrep_tpu_torch.parallel.sequence import sp_apply_fns
+        apply_fns = sp_apply_fns(pair, shard.chain)
+    step = make_train_step(pair, tcfg, dataset, shard_data=shard, apply_fns=apply_fns)
     if multi:
         return make_multi_step(pair, tcfg, dataset, step=step)
     return step

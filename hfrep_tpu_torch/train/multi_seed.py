@@ -126,22 +126,6 @@ def _check_seed_mesh(mesh) -> None:
                          f"{tuple(mesh.axis_names)}")
 
 
-def _seed_shard(step, mesh):
-    """``step`` over this rank's members of a ``('seed',)`` mesh.  The
-    member axis is purely spatial: each rank already holds only its own
-    members, so the step is the same for a block and for one epoch, and
-    it runs no collective."""
-    _check_seed_mesh(mesh)
-    return step
-
-
-def make_seed_sharded_step(pair, tcfg, dataset: torch.Tensor, mesh):
-    """:func:`make_multi_seed_step` on a ``('seed',)`` mesh: each rank
-    runs the block of the members it holds (K/n of them)."""
-    _check_seed_mesh(mesh)
-    return _seed_shard(make_multi_seed_step(pair, tcfg, dataset), mesh)
-
-
 def seed_mesh(n_members: int, device: DeviceLike = None):
     """The ``"auto"`` mesh: a ``('seed',)`` mesh over the process group
     when it has more than one rank, else ``None`` (the members in turn on
@@ -177,6 +161,7 @@ class MultiSeedTrainer:
         if mesh == "auto":
             mesh = seed_mesh(k, device)
         if mesh is not None:
+            _check_seed_mesh(mesh)
             if k % mesh.size:
                 raise ValueError(f"{k} members not divisible by the {mesh.size}-device "
                                  "seed mesh")
@@ -199,8 +184,9 @@ class MultiSeedTrainer:
             i: Member(self.seeds[i], cfg.model, self.device,
                       draw_sources[i] if draw_sources is not None else None)
             for i in range(first, first + per)}
-        step = make_multi_seed_step(self.pair, cfg.train, self.windows)
-        self._multi = _seed_shard(step, mesh) if mesh is not None else step
+        # the member axis is purely spatial: each rank holds only its own
+        # members, so a seed mesh's step is the plain one, no collective
+        self._multi = make_multi_seed_step(self.pair, cfg.train, self.windows)
         self._one = None
         self.epoch = 0
 
@@ -253,8 +239,7 @@ class MultiSeedTrainer:
                 boundary(spc)
             if remainder:
                 if self._one is None:
-                    step = _one_epoch(self.pair, tcfg, self.windows)
-                    self._one = _seed_shard(step, self.mesh) if self.mesh is not None else step
+                    self._one = _one_epoch(self.pair, tcfg, self.windows)
                 for _ in range(remainder):
                     self._one(members)
                     self.epoch += 1

@@ -39,18 +39,25 @@ the epoch's start (the optimizers update in place), the parameter norm
 and the count of nonfinite parameters and losses — all from values the
 step already holds, so the trajectory is bit-identical either way.
 
-``shard_data`` is the dp hook (:func:`hfrep_tpu_torch.parallel.rules.
+``shard_data`` is the mesh hook (:func:`hfrep_tpu_torch.parallel.rules.
 data_constraint`, JAX's ``shard_data``): every rank gets the global
-batch's draws, keeps its rows of them, and the hook's ``reduce`` turns
-every gradient, loss and accuracy into the global mean before the
-optimizer touches it.  ``None`` (the default) is the literal single-
-device step.  The ``apply_fns`` hook (the layer pipeline's) is ROADMAP
-queue 1 item 9b.
+batch's draws, keeps its block of them (its rows over dp, its window
+chunk over sp), and the hook's ``reduce`` turns every gradient, loss and
+accuracy into the global one before the optimizer touches it; the
+penalty's squared norms of a window-sharded input gradient are summed
+over the window's ranks.  ``None`` (the default) is the literal single-
+device step.  ``apply_fns = (g_apply, d_apply)`` overrides how the
+generator and the critic are applied, ``g_apply(module, z)``, while
+keeping every other step semantic (the draws, the critic loop, the
+penalty, the updates): the window-sharded and layer-pipelined forwards
+(:mod:`hfrep_tpu_torch.parallel.sequence`,
+:mod:`hfrep_tpu_torch.parallel.layer_pipeline`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -121,18 +128,24 @@ def _grad(outputs, inputs, **kwargs):
         return torch.autograd.grad(outputs, inputs, **kwargs)
 
 
-def gradient_penalty(critic: nn.Module, interp: torch.Tensor) -> torch.Tensor:
+def gradient_penalty(critic: Callable, interp: torch.Tensor,
+                     sq_sum: Optional[Callable] = None) -> torch.Tensor:
     """mean((1 − ‖∇ₓ̂ c(x̂)‖)²) over the batch of interpolates.
 
     The input gradient is taken with ``create_graph=True`` so the outer
     gradient reaches the critic's parameters through it (the LSTM's
     second order: :class:`~hfrep_tpu_torch.ops.cuda_lstm.LSTMBwdSeq` and
     the adjoint kernel).  The score sum, the gradient and the norm are
-    float32 whatever the compute dtype; the +1e-12 sits inside the root."""
+    float32 whatever the compute dtype; the +1e-12 sits inside the root.
+    ``sq_sum`` completes each sample's squared norm where ``interp`` is
+    this rank's window chunk (the mesh hook's ``sum_window``)."""
     x = interp.detach().requires_grad_(True)
     grads, = _grad(critic(x).float().sum(), x, create_graph=True)
     grads = grads.float()
-    norms = torch.sqrt((grads ** 2).sum(dim=tuple(range(1, grads.dim()))) + 1e-12)
+    sq = (grads ** 2).sum(dim=tuple(range(1, grads.dim())))
+    if sq_sum is not None:
+        sq = sq_sum(sq)
+    norms = torch.sqrt(sq + 1e-12)
     return ((1.0 - norms) ** 2).mean()
 
 
@@ -199,7 +212,7 @@ def _updates(pair: GanPair, tcfg: TrainConfig, health: Optional[_Health] = None,
     each update first reduces, in one call, its gradients in parameter
     order (an unused one as zeros, so every rank reduces the same list),
     its loss and ``extras`` (tensors the caller wants as global means,
-    returned after the loss)."""
+    returned after the loss); the gradients are the rank's partials."""
     g_tx, d_tx = make_optimizers(pair, tcfg)
 
     def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor, extras=()):
@@ -209,7 +222,7 @@ def _updates(pair: GanPair, tcfg: TrainConfig, health: Optional[_Health] = None,
                  for (k, p), g in zip(params.items(), grads)}
         loss = loss.detach()
         if reduce is not None:
-            out = reduce(list(grads.values()) + [loss] + list(extras))
+            out = reduce(list(grads.values()) + [loss] + list(extras), partials=len(grads))
             n = len(grads)
             grads, loss, extras = dict(zip(grads, out[:n])), out[n], tuple(out[n + 1:])
         tx.update(params, grads, slots)
@@ -237,7 +250,8 @@ def _health(pair: GanPair) -> Optional[_Health]:
 
 
 def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
-                    shard_data: Optional[Callable] = None
+                    shard_data: Optional[Callable] = None,
+                    apply_fns: Optional[Tuple[Callable, Callable]] = None
                     ) -> Callable[[GanState, Draws], Tuple[GanState, Metrics]]:
     """Build ``step(state, draws) -> (state, metrics)`` for one epoch.
 
@@ -247,19 +261,25 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
     an n_critic == 1 epoch as straight-line code instead of a size-1
     traced loop, and the port runs eagerly with no traced loop at all.
     With health on (decided here, at build time) the metrics also carry
-    the five ``health_*`` values.  ``shard_data`` is the dp hook (module
-    docstring): the step takes the global batch's draws and runs on this
-    rank's rows of them.
+    the five ``health_*`` values.  ``shard_data`` is the mesh hook and
+    ``apply_fns`` the forwards' override (module docstring): the step
+    takes the global batch's draws and runs on this rank's block of them.
     """
     health = _health(pair)
     d_update, g_update = _updates(pair, tcfg, health,
                                   None if shard_data is None else shard_data.reduce)
     acc = pair.policy.accum
     clip, gp_w = tcfg.clip_value, tcfg.gp_weight
-    window, features = dataset.shape[1], dataset.shape[2]
+    g_apply, d_apply = apply_fns or (lambda g, z: g(z), lambda d, x: d(x))
+    sq_sum = None if shard_data is None or shard_data.n_sp == 1 else shard_data.sum_window
+
+    def _real(idx: torch.Tensor) -> torch.Tensor:
+        """The real windows of this rank's rows (its window chunk)."""
+        real = dataset[idx]
+        return real if shard_data is None else shard_data.window(real, 1)
 
     def _rows(draws: Draws) -> Draws:
-        """This rank's rows of the global batch's draws (every draw but
+        """This rank's block of the global batch's draws (every draw but
         bce's ``idx`` has a leading epoch or update axis)."""
         if shard_data is None:
             return draws
@@ -271,7 +291,7 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
         """n_critic fake batches as ONE generator pass, no gradient."""
         n, b = noises.shape[0], noises.shape[1]
         with torch.no_grad():
-            out = state.generator(noises.reshape(n * b, window, features))
+            out = g_apply(state.generator, noises.reshape((n * b,) + noises.shape[2:]))
         return out.reshape(noises.shape[:2] + out.shape[1:])
 
     def _wasserstein_metrics(state: GanState, d_loss, g_loss) -> Metrics:
@@ -285,18 +305,18 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
         if health is not None:
             health.begin(state)
         draws = _rows(draws)
-        real = dataset[draws.idx]
+        real = _real(draws.idx)
+        g = state.generator
         with torch.no_grad():
-            fake = state.generator(draws.noises[0])
-        d = state.discriminator
+            fake = g_apply(g, draws.noises[0])
+        d = partial(d_apply, state.discriminator)
         logits = acc(d(real))
         acc_r = (logits > 0).float().mean()
         l_real, acc_r = d_update(state, _bce_logits(logits, 1.0), (acc_r,))
         logits = acc(d(fake))
         acc_f = (logits <= 0).float().mean()
         l_fake, acc_f = d_update(state, _bce_logits(logits, 0.0), (acc_f,))
-        g_loss = g_update(state, _bce_logits(
-            acc(d(state.generator(draws.noises[1]))), 1.0))
+        g_loss = g_update(state, _bce_logits(acc(d(g_apply(g, draws.noises[1]))), 1.0))
         metrics = {"d_loss": 0.5 * (l_real + l_fake),
                    "d_acc": 0.5 * (acc_r + acc_f), "g_loss": g_loss}
         if health is not None:
@@ -309,28 +329,29 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
             health.begin(state)
         draws = _rows(draws)
         fakes = _fakes(state, draws.noises)
-        d = state.discriminator
+        d = partial(d_apply, state.discriminator)
         d_loss = None
         for i in range(tcfg.n_critic):
             if health is not None:
                 health.critic_iteration()
-            real = dataset[draws.idx[i]]
+            real = _real(draws.idx[i])
             l_real = d_update(state, (-acc(d(real))).mean())
             l_fake = d_update(state, acc(d(fakes[i])).mean())
             with torch.no_grad():
-                for p in d.parameters():
+                for p in state.discriminator.parameters():
                     p.clamp_(-clip, clip)
             d_loss = 0.5 * (l_real + l_fake)
         # the reference reuses the final critic-loop noise
-        g_loss = g_update(state, (-acc(d(state.generator(draws.noises[-1])))).mean())
+        g_loss = g_update(state, (-acc(d(g_apply(state.generator, draws.noises[-1])))).mean())
         return state, _wasserstein_metrics(state, d_loss, g_loss)
 
     # -------------------------------------------------------------- wgan_gp
-    def gp_critic_loss(d: nn.Module, real, fake, alpha) -> torch.Tensor:
+    def gp_critic_loss(d: Callable, real, fake, alpha) -> torch.Tensor:
         interp = alpha * real + (1.0 - alpha) * fake
         b = real.shape[0]
         scores = acc(d(_cat(real, fake)))       # one 2B pass for real ⊕ fake
-        gp = gradient_penalty(d, interp)        # a separate B-wide pass
+        gp = (gradient_penalty(d, interp) if sq_sum is None      # a separate B-wide pass
+              else gradient_penalty(d, interp, sq_sum))
         w_loss = (-scores[:b]).mean() + scores[b:].mean()
         return w_loss + gp_w * gp
 
@@ -339,15 +360,15 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
             health.begin(state)
         draws = _rows(draws)
         fakes = _fakes(state, draws.noises)
-        d = state.discriminator
+        d = partial(d_apply, state.discriminator)
         d_loss = None
         for i in range(tcfg.n_critic):
             if health is not None:
                 health.critic_iteration()
-            real = dataset[draws.idx[i]]
+            real = _real(draws.idx[i])
             d_loss = d_update(state, gp_critic_loss(d, real, fakes[i], draws.alphas[i]))
         # the reference reuses the final critic-loop noise
-        g_loss = g_update(state, (-acc(d(state.generator(draws.noises[-1])))).mean())
+        g_loss = g_update(state, (-acc(d(g_apply(state.generator, draws.noises[-1])))).mean())
         return state, _wasserstein_metrics(state, d_loss, g_loss)
 
     return {"bce": bce_step, "wgan_clip": wgan_step, "wgan_gp": wgan_gp_step}[pair.loss]

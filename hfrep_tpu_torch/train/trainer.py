@@ -44,19 +44,20 @@ emits ``numeric_fault``, and under ``HFREP_HEALTH=abort`` writes a
 forensic dump of the whole checkpoint tree and raises
 :class:`~hfrep_tpu_torch.obs.health.NumericFault`.
 
-Mesh (``mesh=``, a ``('dp',)`` :class:`~hfrep_tpu_torch.parallel.rules.
-Mesh`): the blocks and the remainder launch through
-:func:`~hfrep_tpu_torch.parallel.rules.make_gan_multi_step` /
-``make_gan_train_step`` (``dp_multi_step``, ``dp_train_step``): every
-rank draws the global batch from the same stream and steps on its rows,
-the gradients reduced to the global mean.  On a mesh that spans
+Mesh (``mesh=``, a :class:`~hfrep_tpu_torch.parallel.rules.Mesh` over
+the axis names JAX's trainer accepts): the blocks and the remainder
+launch through :func:`~hfrep_tpu_torch.parallel.rules.make_gan_multi_step`
+/ ``make_gan_train_step`` (``dp_multi_step``, ``sp_train_step``,
+``dp_sp_multi_step``, ...): every rank draws the global batch from the
+same stream and steps on its block of it (its rows over dp, its window
+chunk over sp), the gradients reduced over the mesh.  On a mesh that spans
 processes the state and the draw stream are broadcast from rank 0 at
 construction, ``generate``'s noise too; rank 0 alone writes a
 checkpoint, synchronously, then every rank meets it at a barrier (every
 rank restores); a drain seen by any rank drains every rank at the same
 block boundary, and the NaN guard's verdict is reduced across ranks, so
-no rank is left waiting in a collective.  The sp, tp and pp axes are
-ROADMAP queue 1 item 9b.
+no rank is left waiting in a collective.  A tp axis is refused at
+construction (ROADMAP queue 1 item 9c).
 """
 
 from __future__ import annotations

@@ -38,8 +38,7 @@ from hfrep_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
 from hfrep_tpu_torch.parallel.rules import Mesh
 from hfrep_tpu_torch.resilience.faults import FaultPlan
 from hfrep_tpu_torch.train import Draws
-from hfrep_tpu_torch.train.multi_seed import (MultiSeedTrainer, init_multi_seed_states,
-                                              make_seed_sharded_step)
+from hfrep_tpu_torch.train.multi_seed import MultiSeedTrainer, init_multi_seed_states
 from hfrep_tpu_torch.train.trainer import GanTrainer
 from hfrep_tpu_torch.utils.bridge import gan_state_from_flax, to_flax
 
@@ -210,7 +209,7 @@ def test_seed_mesh_refusals():
     with pytest.raises(ValueError, match="3 members not divisible by the 2-device"):
         MultiSeedTrainer(_cfg(), _ds(), (1, 2, 3), mesh=Mesh(("seed",), (2,), cpu))
     with pytest.raises(ValueError, match="'seed'"):
-        make_seed_sharded_step(None, None, None, Mesh(("dp",), (2,), cpu))
+        MultiSeedTrainer(_cfg(), _ds(), SEEDS, mesh=Mesh(("dp",), (2,), cpu))
     assert MultiSeedTrainer(_cfg(), _ds(), SEEDS, mesh="auto", device="cpu").mesh is None
 
 

@@ -1,16 +1,14 @@
 """The port's mesh core (``hfrep_tpu_torch/parallel/{rules,mesh,
-data_parallel,__init__}``) against the JAX package's, on the CPU.
+__init__}``) against the JAX package's, on the CPU.
 
-* The rules (``tests/test_mesh_rules.py:91-206``): ``MeshSpec``,
-  ``normalize_spec`` and ``match_partition_rules`` over the GAN state give
-  JAX's specs leaf by leaf, the port's names mapped to JAX's through
-  ``FLAX_NAMES``; an unmatched leaf and an indivisible shard are refused
-  naming the leaf, as JAX refuses them; shard and gather round-trip.
+* ``MeshSpec`` as JAX's (``tests/test_mesh_rules.py:91-206``).  JAX's
+  partition-rule machinery has no port: its one use is the tp layout,
+  ROADMAP queue 1 item 9c.
 * The identity (``:208-232``): a one-device mesh step is bit for bit the
   plain step, for each loss kind, with no collective.
-* The refusals: a batch dp does not divide, unknown axis names, sp, tp
-  and pp naming ROADMAP item 9b, a multi-device hook with no process
-  group.
+* The refusals: a batch dp does not divide, unknown axis names, tp
+  naming ROADMAP item 9c, pp left to the layer pipeline, a multi-device
+  hook with no process group.
 * The backend and device rules, and that no new module imports JAX.
 """
 
@@ -22,24 +20,16 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import PartitionSpec as JP
 
-from hfrep_tpu.config import ModelConfig as JaxModelConfig
-from hfrep_tpu.config import TrainConfig as JaxTrainConfig
-from hfrep_tpu.models.registry import build_gan as jax_build_gan
 from hfrep_tpu.parallel import rules as jrules
-from hfrep_tpu.train.states import init_gan_state as jax_init_gan_state
 from hfrep_tpu_torch.config import ExperimentConfig, MeshConfig, ModelConfig, TrainConfig
 from hfrep_tpu_torch.models.registry import build_gan
-from hfrep_tpu_torch.obs import health as health_mod
 from hfrep_tpu_torch.parallel import mesh as pmesh
 from hfrep_tpu_torch.parallel import rules
-from hfrep_tpu_torch.parallel.rules import Mesh, MeshSpec, P
+from hfrep_tpu_torch.parallel.rules import Mesh, MeshSpec
 from hfrep_tpu_torch.train import init_gan_state, make_multi_step, sample_draws
 from hfrep_tpu_torch.train.trainer import GanTrainer
 
@@ -58,19 +48,6 @@ def _dataset():
                             .astype(np.float32))
 
 
-def _jax_flax_name(net: str, port_name: str, module) -> str:
-    """The JAX path of a port parameter: ``g_params/KerasLSTM_0/kernel``."""
-    for path, name in health_mod._flax_paths(module):
-        if name == port_name:
-            return "/".join(({"generator": "g_params", "discriminator": "d_params"}[net],)
-                            + path)
-    raise KeyError(port_name)
-
-
-def _spec_tuple(s):
-    return tuple(tuple(e) if isinstance(e, (list, tuple)) else e for e in s)
-
-
 # ---------------------------------------------------------------- the rules
 @pytest.mark.parametrize("spec", [MeshSpec(), MeshSpec(dp=2), MeshSpec(tp=2),
                                   MeshSpec(dp=2, sp=4), MeshSpec(dp=2, tp=2, pp=2)])
@@ -80,95 +57,6 @@ def test_mesh_spec_is_jax_s(spec):
         (j.size, j.axis_names, j.axis_sizes, j.describe())
     with pytest.raises(ValueError, match=">= 1"):
         MeshSpec(dp=0)
-
-
-@pytest.mark.parametrize("spec", [JP(), JP("dp"), JP(None, "tp"), JP(("dp", "tp"), None),
-                                  JP(None, ("sp", "tp")), JP("sp", None, None)])
-@pytest.mark.parametrize("mesh", [MeshSpec(), MeshSpec(dp=2), MeshSpec(tp=2),
-                                  MeshSpec(dp=2, sp=2, tp=2)])
-def test_normalize_spec_is_jax_s(spec, mesh):
-    jmesh = jrules.build_mesh(jrules.MeshSpec(**dataclasses.asdict(mesh)),
-                              devices=jax.devices()[:mesh.size])
-    want = jrules.normalize_spec(spec, jmesh)
-    got = rules.normalize_spec(P(*spec), mesh)
-    assert _spec_tuple(got) == _spec_tuple(want)
-
-
-@pytest.mark.parametrize("mesh", [MeshSpec(), MeshSpec(dp=2), MeshSpec(tp=2),
-                                  MeshSpec(dp=2, tp=4)])
-@pytest.mark.parametrize("family", ["mtss_wgan_gp", "gan"])
-def test_gan_state_specs_are_jax_s_leaf_by_leaf(mesh, family):
-    """The port's rules over the port's names give, for every parameter,
-    the spec JAX's rules give its JAX leaf; optimizer slots follow their
-    parameter; scalars replicate."""
-    jm = JaxModelConfig(**dict(MCFG, family=family))
-    jpair = jax_build_gan(jm)
-    jstate = jax_init_gan_state(jax.random.PRNGKey(0), jm, JaxTrainConfig(**TCFG), jpair)
-    jmesh = jrules.build_mesh(jrules.MeshSpec(**dataclasses.asdict(mesh)),
-                              devices=jax.devices()[:mesh.size])
-    jspecs = dict(jrules.named_leaves(jrules.gan_state_specs(jstate, jmesh)))
-    state = init_gan_state(0, ModelConfig(**dict(MCFG, family=family)), "cpu")
-    specs = rules.gan_state_specs(state, mesh)
-    by_name = dict(rules.named_leaves(specs))
-    for net, module in (("generator", state.generator), ("discriminator", state.discriminator)):
-        for name, _ in module.named_parameters():
-            want = jspecs[_jax_flax_name(net, name, module)]
-            assert _spec_tuple(by_name[f"{net}/{name}"]) == _spec_tuple(want), name
-            opt = "g_opt" if net == "generator" else "d_opt"
-            slots = [k for k in by_name if k.startswith(f"{opt}/") and k.endswith(f"/{name}")]
-            assert slots and all(_spec_tuple(by_name[k]) == _spec_tuple(want) for k in slots)
-    assert by_name["step"] == P()
-    if "tp" not in mesh.axis_names:
-        assert all(s == P() for s in by_name.values())
-
-
-def test_scalars_replicate_and_unmatched_leaf_is_named_as_jax_does():
-    state = init_gan_state(0, ModelConfig(**MCFG), "cpu")
-    specs = rules.match_partition_rules(((r".*", P("tp")),), state, MeshSpec(tp=2))
-    assert dict(rules.named_leaves(specs))["step"] == P()
-    tree = {"generator": {"lstm0.kernel": torch.zeros(3, 4)}}
-    with pytest.raises(ValueError, match=r"generator/lstm0\.kernel") as mine:
-        rules.match_partition_rules(((r"only/this", P()),), tree)
-    with pytest.raises(ValueError) as theirs:
-        jrules.match_partition_rules(((r"only/this", JP()),),
-                                     {"generator": {"lstm0.kernel": jnp.zeros((3, 4))}})
-    assert str(mine.value).split(":")[0] == str(theirs.value).split(":")[0]
-
-
-def test_ae_lane_rules_over_the_engine_carry():
-    """AE_LANE_RULES over a real (D, L) grid carry: every vector leaf leads
-    with the dataset axis and shards over dp (JAX ``:139-155``)."""
-    from hfrep_tpu_torch.config import AEConfig
-    from hfrep_tpu_torch.replication import engine
-
-    cfg = AEConfig(n_factors=4, latent_dim=2, epochs=4, batch_size=16, patience=2,
-                   chunk_epochs=2)
-    x = torch.rand(2, 24, 4)
-    init = engine.keras_init_params(torch.Generator().manual_seed(0), (2, 2), 4, 2, "cpu")
-    grid = engine._Grid(cfg, x, torch.ones(2, 2), None, init, 2)
-    specs = dict(rules.named_leaves(rules.match_partition_rules(
-        rules.AE_LANE_RULES, grid.carry(), MeshSpec(dp=2))))
-    for name, leaf in rules.named_leaves(grid.carry()):
-        assert leaf.shape[0] == 2 and specs[name] == P("dp"), name
-
-
-def test_shard_and_gather_one_device_and_the_divisibility_error():
-    one = rules.build_mesh(MeshSpec(), device="cpu")
-    tree = {"a": np.arange(8.0, dtype=np.float32), "b": np.ones((4, 3), np.float32)}
-    shard, gather = rules.make_shard_and_gather_fns(one, P("dp"))
-    placed = shard(tree)
-    assert isinstance(placed["a"], torch.Tensor) and placed["a"].shape == (8,)
-    np.testing.assert_array_equal(gather(placed)["a"], np.arange(8.0))
-    # rank 1 of a declared dp=4 mesh: its block of each leaf (no collective)
-    mesh4 = Mesh(("dp",), (4,), torch.device("cpu"), rank=1)
-    assert rules.shard_put(tree, mesh4, P("dp"))["a"].tolist() == [2.0, 3.0]
-    bad = {"ok": np.zeros(8, np.float32), "bad": np.zeros(6, np.float32)}
-    with pytest.raises(ValueError, match=r"bad.*not divisible") as mine:
-        rules.shard_put(bad, mesh4, P("dp"))
-    jmesh = jrules.build_mesh(jrules.MeshSpec(dp=4), devices=jax.devices()[:4])
-    with pytest.raises(ValueError) as theirs:
-        jrules.shard_put({"ok": jnp.zeros(8), "bad": jnp.zeros(6)}, jmesh, JP("dp"))
-    assert str(mine.value) == str(theirs.value)
 
 
 def test_mesh_building_and_its_refusals():
@@ -213,10 +101,9 @@ def test_one_device_mesh_block_is_the_plain_block_bit_for_bit(family):
     g = torch.Generator().manual_seed(1)
     draws = [sample_draws(g, pair, tcfg, ds) for _ in range(tcfg.steps_per_call)]
     out = []
-    from hfrep_tpu_torch.parallel import make_dp_multi_step
     for fn in (make_multi_step(pair, tcfg, ds),
                rules.make_gan_multi_step(pair, tcfg, ds, mesh1),
-               make_dp_multi_step(pair, tcfg, ds, mesh1)):
+               rules.make_gan_multi_step(pair, tcfg, ds, pmesh.make_mesh_2d(1, 1, "cpu"))):
         rules.reset_collective_counts()
         state, m = fn(init_gan_state(0, mcfg, "cpu"), draws=draws)
         assert rules.collective_counts()["all_reduce"] == 0
@@ -250,12 +137,16 @@ def test_refusals_name_what_was_asked():
     cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="global batch 9 not divisible by dp=2"):
         rules.make_gan_multi_step(pair, tcfg, ds, Mesh(("dp",), (2,), cpu))
-    for names in (("sp",), ("tp",), ("pp",), ("dp", "sp")):
-        with pytest.raises(ValueError, match="item 9b"):
+    for names in (("tp",), ("dp", "tp"), ("dp", "sp", "tp")):
+        with pytest.raises(ValueError, match="item 9c"):
             rules.make_gan_multi_step(pair, TrainConfig(**TCFG), ds,
                                       Mesh(names, (2,) * len(names), cpu))
-    with pytest.raises(RuntimeError, match="needs a process group"):
-        rules.make_gan_train_step(pair, TrainConfig(**TCFG), ds, Mesh(("dp",), (2,), cpu))
+    with pytest.raises(ValueError, match="layer_pipeline.py axis"):
+        rules.make_gan_multi_step(pair, TrainConfig(**TCFG), ds, Mesh(("pp",), (2,), cpu))
+    for names in (("dp",), ("sp",), ("dp", "sp")):
+        with pytest.raises(RuntimeError, match="needs a process group"):
+            rules.make_gan_train_step(pair, TrainConfig(**TCFG), ds,
+                                      Mesh(names, (2,) * len(names), cpu))
     cfg = ExperimentConfig(model=mcfg, train=TrainConfig(**TCFG))
     with pytest.raises(ValueError, match=r"mesh axis names \('model',\) not recognized"):
         GanTrainer(cfg, ds, device="cpu", mesh=Mesh(("model",), (1,), cpu))
@@ -264,7 +155,9 @@ def test_refusals_name_what_was_asked():
 def test_the_new_modules_import_no_jax():
     code = ("import sys\n"
             "import hfrep_tpu_torch.parallel, hfrep_tpu_torch.parallel.rules\n"
-            "import hfrep_tpu_torch.parallel.mesh, hfrep_tpu_torch.parallel.data_parallel\n"
+            "import hfrep_tpu_torch.parallel.mesh, hfrep_tpu_torch.parallel.chain\n"
+            "import hfrep_tpu_torch.parallel.sequence, hfrep_tpu_torch.parallel.dp_sp\n"
+            "import hfrep_tpu_torch.parallel.layer_pipeline\n"
             "import hfrep_tpu_torch.train.multi_seed, hfrep_tpu_torch.train.trainer\n"
             "import hfrep_tpu_torch.replication.engine, hfrep_tpu_torch.experiments.cli\n"
             "import hfrep_tpu_torch.resilience.drive_fixtures\n"
