@@ -45,8 +45,8 @@ the batch over dp and the window over sp at once (the flagship
 ``--coordinator`` the named mesh spans the group.  The mesh flags are
 mutually exclusive.  ``--sp-microbatches`` and ``--sp-remat`` are JAX's
 retired knobs: accepted, validated and threaded to ``TrainConfig``, then
-ignored.  ``--tp-mesh``, ``--dp-tp`` and ``--dp-sp-tp`` parse as JAX's
-and are refused: the hidden-unit axis is ROADMAP queue 1 item 9c.
+ignored.  ``--tp-mesh``, ``--dp-tp`` and ``--dp-sp-tp`` are refused: the
+hidden-unit axis is ROADMAP queue 1 item 9c.
 """
 
 from __future__ import annotations
@@ -352,16 +352,14 @@ def cmd_clean(args) -> int:
     return 0
 
 
-def _dims(flag: str, value: str, n: int) -> tuple:
-    """``AxB[xC]`` → ints, or the flag's own error."""
-    form = "x".join(("DP", "SP", "TP")[:n]) if flag != "--dp-tp" else "DPxTP"
-    example = "2x4" if n == 2 else "2x2x2"
+def _dp_sp_dims(value: str) -> tuple:
+    """``--dp-sp``'s ``DPxSP`` → two ints, or the flag's own error."""
     try:
         dims = tuple(int(v) for v in value.lower().split("x"))
     except ValueError:
         dims = ()
-    if len(dims) != n:
-        raise SystemExit(f"{flag} wants {form} (e.g. {example}), got {value!r}")
+    if len(dims) != 2:
+        raise SystemExit(f"--dp-sp wants DPxSP (e.g. 2x4), got {value!r}")
     return dims
 
 
@@ -375,24 +373,18 @@ def _build_device_mesh(mesh: bool, sp_mesh: bool, dp_sp: Optional[str],
     if sum(map(bool, (mesh, sp_mesh, dp_sp, tp_mesh is not None, dp_tp, dp_sp_tp))) > 1:
         raise SystemExit("--mesh, --sp-mesh, --dp-sp, --tp-mesh, --dp-tp and --dp-sp-tp "
                          "are mutually exclusive")
+    if tp_mesh is not None or dp_tp or dp_sp_tp:
+        from hfrep_tpu_torch.parallel.rules import ITEM_9C
+        raise SystemExit(f"--tp-mesh/--dp-tp/--dp-sp-tp: {ITEM_9C}")
     if sp_remat and not (sp_mesh or dp_sp):
         raise SystemExit("--sp-remat requires --sp-mesh or --dp-sp (the tp-composed chunk "
                          "scan is not time-blocked; dp×sp×tp refuses)")
     if sp_microbatches is not None:
         if sp_microbatches < 1:
             raise SystemExit(f"--sp-microbatches wants M >= 1, got {sp_microbatches}")
-        if not (sp_mesh or dp_sp or dp_sp_tp):
-            raise SystemExit("--sp-microbatches requires a window-sharded mesh (--sp-mesh, "
-                             "--dp-sp or --dp-sp-tp)")
-    if tp_mesh is not None and tp_mesh < 1:
-        raise SystemExit(f"--tp-mesh wants N >= 1 devices, got {tp_mesh}")
-    if dp_tp:
-        _dims("--dp-tp", dp_tp, 2)
-    if dp_sp_tp:
-        _dims("--dp-sp-tp", dp_sp_tp, 3)
-    if tp_mesh is not None or dp_tp or dp_sp_tp:
-        from hfrep_tpu_torch.parallel.rules import ITEM_9C
-        raise SystemExit(f"--tp-mesh/--dp-tp/--dp-sp-tp: {ITEM_9C}")
+        if not (sp_mesh or dp_sp):
+            raise SystemExit("--sp-microbatches requires a window-sharded mesh (--sp-mesh "
+                             "or --dp-sp)")
     dev = None if device == "cuda" else device
     from hfrep_tpu_torch.config import MeshConfig
     from hfrep_tpu_torch.parallel import make_mesh, make_mesh_2d
@@ -401,7 +393,7 @@ def _build_device_mesh(mesh: bool, sp_mesh: bool, dp_sp: Optional[str],
     if sp_mesh:
         return make_mesh(MeshConfig(axis_name="sp"), device=dev)
     if dp_sp:
-        return make_mesh_2d(*_dims("--dp-sp", dp_sp, 2), device=dev)
+        return make_mesh_2d(*_dp_sp_dims(dp_sp), device=dev)
     return None
 
 

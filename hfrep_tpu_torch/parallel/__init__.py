@@ -21,16 +21,13 @@ from hfrep_tpu_torch.parallel.mesh import (  # noqa: F401
     initialize_distributed,
     make_mesh,
     make_mesh_2d,
-    make_mesh_3d,
     replicate_to_global,
-    shard_to_global,
     shutdown_distributed,
     spans_processes,
 )
 from hfrep_tpu_torch.parallel.rules import (  # noqa: F401
     Mesh,
     MeshSpec,
-    PartitionSpec,
     build_mesh,
     data_constraint,
     lane_mesh,

@@ -1,26 +1,13 @@
 """Composed data × sequence parallelism (``hfrep_tpu/parallel/dp_sp.py``):
-the mesh launch on one ``('dp', 'sp')`` mesh, the batch over ``dp`` and
-the window over ``sp`` (:mod:`hfrep_tpu_torch.parallel.rules`,
-:mod:`hfrep_tpu_torch.parallel.sequence`).  ``controlled_sampling`` is
-accepted and ignored, as in JAX: every rank follows the single-device
-draws, the launch's one mode."""
+JAX's names for the launch on one ``('dp', 'sp')`` mesh, the batch over
+``dp`` and the window over ``sp``.  They are
+:mod:`~hfrep_tpu_torch.parallel.sequence`'s builders, which shard both
+axes; JAX's ``controlled_sampling`` has no counterpart (every rank
+follows the single-device draws, the launch's one mode)."""
 
 from __future__ import annotations
 
-import torch
+from hfrep_tpu_torch.parallel.sequence import make_sp_multi_step, make_sp_train_step
 
-from hfrep_tpu_torch.config import TrainConfig
-from hfrep_tpu_torch.models.registry import GanPair
-from hfrep_tpu_torch.parallel.rules import Mesh, make_gan_multi_step, make_gan_train_step
-
-
-def make_dp_sp_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
-                          mesh: Mesh, *, controlled_sampling: bool = False):
-    del controlled_sampling
-    return make_gan_train_step(pair, tcfg, dataset, mesh)
-
-
-def make_dp_sp_multi_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
-                          mesh: Mesh, *, controlled_sampling: bool = False):
-    del controlled_sampling
-    return make_gan_multi_step(pair, tcfg, dataset, mesh)
+make_dp_sp_train_step = make_sp_train_step
+make_dp_sp_multi_step = make_sp_multi_step

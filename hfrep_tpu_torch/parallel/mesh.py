@@ -16,23 +16,21 @@ on the CPU.  Nothing falls back from one to the other.  Every group has
 a finite timeout (:data:`DEFAULT_TIMEOUT_S`), so a dead peer fails the
 run instead of hanging it.
 
-:func:`make_mesh_2d` and :func:`make_mesh_3d` lay the group out as a
-dp × sp (or dp × tp) and a dp × sp × tp grid, dp outermost; each axis
-longer than 1 of such a mesh runs its collectives in a sub-group of its
-own.  :func:`shard_to_global` is JAX's promotion of identical host data
-to a mesh layout: every layout the port launches replicates the state
-(dp, sp, pp); the tp layout, ROADMAP queue 1 item 9c, is refused.
+:func:`make_mesh_2d` lays the group out as a dp × sp grid, dp
+outermost; each axis longer than 1 of such a mesh runs its collectives
+in a sub-group of its own.  Every layout the port launches (dp, sp, pp)
+replicates the state, so :func:`replicate_to_global` is the one
+promotion of host state to the mesh.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Optional, Sequence
+from typing import Optional
 
 from hfrep_tpu_torch.config import MeshConfig
 from hfrep_tpu_torch.core.device import DeviceLike
-from hfrep_tpu_torch.parallel.rules import (ITEM_9C, Mesh, PartitionSpec, choose_backend,
-                                            make_named_mesh, rank_device)
+from hfrep_tpu_torch.parallel.rules import Mesh, choose_backend, make_named_mesh, rank_device
 
 #: seconds a collective may wait for a peer before the run fails
 DEFAULT_TIMEOUT_S = 300
@@ -57,31 +55,16 @@ def make_mesh(cfg: Optional[MeshConfig] = None, device: DeviceLike = None) -> Me
     return make_named_mesh((cfg.axis_name,), (n,), device)
 
 
-def make_mesh_2d(dp: int, sp: int, device: DeviceLike = None,
-                 axis_names: Sequence[str] = ("dp", "sp")) -> Mesh:
-    """A composed 2-D mesh of ``dp·sp`` ranks as a dp × <inner> grid:
-    ``('dp', 'sp')`` for dp×sp training (the default) or ``('dp', 'tp')``
-    for dp×tp.  The process group must have exactly ``dp·sp`` ranks."""
-    names = tuple(axis_names)
+def make_mesh_2d(dp: int, sp: int, device: DeviceLike = None) -> Mesh:
+    """A composed ``('dp', 'sp')`` mesh of ``dp·sp`` ranks, dp
+    outermost.  The process group must have exactly ``dp·sp`` ranks."""
     if dp < 1 or sp < 1:
-        raise ValueError(f"{names[0]}×{names[1]} mesh dims must be >= 1, got {dp}×{sp}")
-    _check_world(f"{names[0]}×{names[1]}={dp}×{sp}", dp * sp)
-    return make_named_mesh(names, (dp, sp), device)
-
-
-def make_mesh_3d(dp: int, sp: int, tp: int, device: DeviceLike = None) -> Mesh:
-    """The full 3-D ``('dp', 'sp', 'tp')`` mesh, dp outermost."""
-    for name, n in (("dp", dp), ("sp", sp), ("tp", tp)):
-        if n < 1:
-            raise ValueError(f"dp×sp×tp mesh dims must be >= 1, got {name}={n}")
-    _check_world(f"dp×sp×tp={dp}×{sp}×{tp} ({dp * sp * tp} devices)", dp * sp * tp)
-    return make_named_mesh(("dp", "sp", "tp"), (dp, sp, tp), device)
-
-
-def _check_world(what: str, n: int) -> None:
+        raise ValueError(f"dp×sp mesh dims must be >= 1, got {dp}×{sp}")
     world = world_size()
-    if n > world:
-        raise ValueError(f"requested {what} but the process group spans {world} rank(s)")
+    if dp * sp > world:
+        raise ValueError(f"requested dp×sp={dp}×{sp} but the process group spans "
+                         f"{world} rank(s)")
+    return make_named_mesh(("dp", "sp"), (dp, sp), device)
 
 
 def initialize_distributed(coordinator: Optional[str] = None,
@@ -147,22 +130,3 @@ def replicate_to_global(tree, mesh: Mesh, src: int = 0):
             mesh.broadcast_(leaf.data if isinstance(leaf, torch.nn.Parameter) else leaf, src)
     return tree
 
-
-def shard_to_global(tree, mesh: Mesh, specs=None):
-    """Identical-per-process host data → this rank's tensors under
-    ``specs`` (one :class:`~hfrep_tpu_torch.parallel.rules.PartitionSpec`
-    for every leaf, ``None`` or ``P()``: replicated).  Every process holds
-    the full copy (an identically seeded init, or a restored checkpoint),
-    so each only moves it to its device: no transfer between ranks.  A
-    sharded spec is the tp layout and is refused (item 9c)."""
-    import torch
-
-    spec = PartitionSpec() if specs is None else specs
-    if not isinstance(spec, PartitionSpec):
-        raise TypeError(f"shard_to_global takes one PartitionSpec for every leaf, got {spec!r}")
-    if any(e is not None for e in spec):
-        raise ValueError(f"layout {spec}: {ITEM_9C}")
-    from hfrep_tpu_torch.parallel.rules import _rebuild, named_leaves
-
-    return _rebuild(tree, [leaf.to(mesh.device) if isinstance(leaf, torch.Tensor) else leaf
-                           for _, leaf in named_leaves(tree)])

@@ -13,29 +13,31 @@
   a ``DeviceMesh``: with a card present and a gloo default group (ranks
   sharing the card), a ``DeviceMesh`` makes a second gloo group of the
   same ranks without the group's finite timeout.
-* **the step hook** — :func:`make_gan_train_step` /
-  :func:`make_gan_multi_step` build the single-device step with the hook
-  :func:`data_constraint` returns (:class:`DataShard`).  Every rank draws
-  the whole global batch from the same seeded generator (JAX's
-  global-stream semantics, its only mode) and keeps its block of it: its
-  contiguous ``B/dp`` rows, and on an ``sp`` mesh its contiguous
-  ``W/sp`` window chunk, which the window-sharded forwards
-  (:mod:`~hfrep_tpu_torch.parallel.sequence`, through the step's
-  ``apply_fns``) run with carry handoffs between the ranks
-  (:mod:`~hfrep_tpu_torch.parallel.chain`).  Every gradient is reduced
-  over the mesh before the optimizer touches it (a mean over ``dp``, a
-  sum of the ranks' partials over ``sp``), every loss to its mean over
-  ``dp``; the state stays replicated and bit-equal across ranks.  On a
-  mesh with no axis longer than 1 the hook is ``None`` and the step is
-  literally the single-device one: no collective, no extra launch.
+* **the step hook** — :func:`data_constraint` returns it
+  (:class:`DataShard`).  Every rank draws the whole global batch from
+  the same seeded generator (JAX's global-stream semantics, its only
+  mode) and keeps its block of it: its contiguous ``B/dp`` rows, and on
+  an ``sp`` mesh its contiguous ``W/sp`` window chunk.  Every gradient
+  is reduced over the mesh before the optimizer touches it (a mean over
+  ``dp``, a sum of the ranks' partials over an inner axis), every loss
+  to its mean over ``dp``; the state stays replicated and bit-equal
+  across ranks.  On a mesh with no axis longer than 1 the hook is
+  ``None`` and the step is literally the single-device one: no
+  collective, no extra launch.
+* **the data-parallel launch** — :func:`make_gan_train_step` /
+  :func:`make_gan_multi_step` build the single-device step with that
+  hook on a ``dp`` mesh.  The window axis ``sp`` is
+  :mod:`~hfrep_tpu_torch.parallel.sequence`'s launch (its forwards run
+  the window chunks with carry handoffs between the ranks) and the layer
+  axis ``pp`` :mod:`~hfrep_tpu_torch.parallel.layer_pipeline`'s; both
+  build the same step with the same hook and their own ``apply_fns``.
 
 JAX's ``_resolve_mesh_backend`` has no counterpart: it keeps GSPMD from
 partitioning an opaque Pallas call, while here no partitioner looks
 inside a kernel: each rank launches the hand kernels on its own block.
-The layer axis ``pp`` is :mod:`~hfrep_tpu_torch.parallel.layer_pipeline`'s
-own schedule, refused here as JAX refuses it.  The hidden-unit axis
-``tp`` is ROADMAP queue 1 item 9c and refused (:data:`ITEM_9C`); with it
-went JAX's partition-rule machinery (``match_partition_rules``,
+The hidden-unit axis ``tp`` is ROADMAP queue 1 item 9c and refused
+(:data:`ITEM_9C`); with it went JAX's partition-rule machinery
+(``PartitionSpec``, ``match_partition_rules``,
 ``make_shard_and_gather_fns``, ``shard_put``, ``gan_state_specs``,
 ``gan_launch_specs``, ``GAN_PARTITION_RULES``, ``AE_LANE_RULES``), whose
 only use is the tp layout: dp, sp and pp replicate the whole state.
@@ -44,7 +46,7 @@ only use is the tp layout: dp, sp and pp replicate the whole state.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,22 +60,6 @@ AXES = ("dp", "sp", "tp", "pp")
 #: the refusal every builder gives a mesh with a tp axis
 ITEM_9C = ("the tp (hidden-unit) axis is ROADMAP queue 1 item 9c, not ported yet: "
            "this port shards the batch (dp), the window (sp) and the layers (pp)")
-
-
-class PartitionSpec(tuple):
-    """``jax.sharding.PartitionSpec``: one entry a dimension, an axis
-    name, a tuple of names, or ``None`` (not sharded); ``P()``
-    replicates.  A one-name tuple is that name, as in JAX."""
-
-    def __new__(cls, *entries):
-        return super().__new__(cls, tuple(
-            e[0] if isinstance(e, (tuple, list)) and len(e) == 1 else e for e in entries))
-
-    def __repr__(self) -> str:
-        return f"PartitionSpec{tuple.__repr__(self)}"
-
-
-P = PartitionSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,7 +356,7 @@ def _children(tree) -> Optional[list]:
         return [(str(k), v) for k, v in tree.items()]
     if isinstance(tree, nn.Module):
         return list(tree.named_parameters())
-    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
+    if isinstance(tree, (list, tuple)):
         return [(str(i), v) for i, v in enumerate(tree)]
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
@@ -427,19 +413,20 @@ class DataShard:
     over the axes ``inner`` (a window chunk's gradient under sp, a
     stage's under pp), summed over them and averaged over dp; the rest
     (losses, accuracies) are equal across ``inner`` and averaged over dp.
-    :meth:`sum_window` sums a rank-local tensor over sp (the penalty's
-    squared norms of a window-sharded input gradient)."""
+    ``sum_window`` completes a rank-local per-sample sum over the window
+    (the penalty's squared norms of a window-sharded input gradient):
+    ``None`` where every rank holds whole windows, else the window
+    launch's differentiable sum over sp."""
 
-    def __init__(self, mesh: Mesh, inner: Sequence[str] = ()):
+    def __init__(self, mesh: Mesh, inner: Sequence[str] = (),
+                 sum_window: Optional[Callable] = None):
         mesh._need_group("the step's mesh hook")
-        from hfrep_tpu_torch.parallel.chain import Chain
-
         shape, coords = mesh.shape, mesh.coords()
         self.mesh = mesh
         self.n, self.rank = int(shape.get("dp", 1)), coords.get("dp", 0)
         self.n_sp, self.sp_rank = int(shape.get("sp", 1)), coords.get("sp", 0)
         self.inner = int(np.prod([shape.get(a, 1) for a in inner]))
-        self.chain = Chain(mesh, "sp") if self.n_sp > 1 else None
+        self.sum_window = sum_window
 
     def __call__(self, x: torch.Tensor, batch_axis: int = 0) -> torch.Tensor:
         if self.n > 1:
@@ -461,13 +448,6 @@ class DataShard:
         w //= self.n_sp
         return x.narrow(w_axis, self.sp_rank * w, w)
 
-    def sum_window(self, t: torch.Tensor) -> torch.Tensor:
-        if self.chain is None:
-            return t
-        from hfrep_tpu_torch.parallel.chain import axis_sum
-
-        return axis_sum(self.chain, t)
-
     def reduce(self, tensors: Sequence[torch.Tensor], partials: int = 0) -> list:
         import torch.distributed as dist
 
@@ -488,35 +468,43 @@ class DataShard:
         return out
 
 
-def data_constraint(mesh: Optional[Mesh]) -> Optional[DataShard]:
+def data_constraint(mesh: Optional[Mesh],
+                    sum_window: Optional[Callable] = None) -> Optional[DataShard]:
     """The step's mesh hook, or ``None`` — the literal single-device
     step, no collective — when the mesh has no dp or sp extent to shard
-    over."""
+    over.  ``sum_window`` is the hook's (:class:`DataShard`)."""
     if mesh is None:
         return None
     shape = mesh.shape
     n_sp = int(shape.get("sp", 1))
     if int(shape.get("dp", 1)) <= 1 and n_sp <= 1:
         return None
-    return DataShard(mesh, inner=("sp",) if n_sp > 1 else ())
+    return DataShard(mesh, inner=("sp",) if n_sp > 1 else (), sum_window=sum_window)
 
 
 # ---------------------------------------------------------- the GAN launch
-def _validate_gan_mesh(pair, tcfg, dataset, mesh) -> MeshSpec:
+def validate_mesh(tcfg, mesh) -> MeshSpec:
+    """The checks the dp and the sp launch share: known axis names, no tp
+    axis (:data:`ITEM_9C`), no pp axis (the layer pipeline's own
+    schedule), the batch divisible by dp."""
     spec = mesh_spec(mesh)      # refuses unknown axis names
+    if spec.tp > 1:
+        raise ValueError(f"mesh {mesh.shape}: {ITEM_9C}")
     if spec.pp > 1:
         raise ValueError("pp is the layer_pipeline.py axis (make_pp_train_step, its own "
                          "schedule); the mesh launch shards dp and sp")
-    if spec.tp > 1:
-        raise ValueError(f"mesh {mesh.shape}: {ITEM_9C}")
     if spec.dp > 1 and tcfg.batch_size % spec.dp:
         raise ValueError(f"global batch {tcfg.batch_size} not divisible by dp={spec.dp}")
-    if spec.sp > 1:
-        if dataset.shape[1] % spec.sp:
-            raise ValueError(f"window {dataset.shape[1]} not divisible by sp={spec.sp}")
-        from hfrep_tpu_torch.parallel.sequence import validate_sp_pair
-        validate_sp_pair(pair)
     return spec
+
+
+def _gan_step(pair, tcfg, dataset, mesh):
+    from hfrep_tpu_torch.train.steps import make_train_step
+
+    if validate_mesh(tcfg, mesh).sp > 1:
+        raise ValueError("sp is the sequence.py axis (make_sp_train_step, the window-chunk "
+                         "forwards); make_gan_train_step shards dp")
+    return make_train_step(pair, tcfg, dataset, shard_data=data_constraint(mesh))
 
 
 def _launch_name(mesh, kind: str) -> str:
@@ -525,39 +513,28 @@ def _launch_name(mesh, kind: str) -> str:
     return f"{'_'.join(mesh.axis_names)}_{kind}"
 
 
-def _gan_step(pair, tcfg, dataset, mesh, multi: bool):
-    from hfrep_tpu_torch.train.steps import make_multi_step, make_train_step
-
-    spec = _validate_gan_mesh(pair, tcfg, dataset, mesh)
-    shard = data_constraint(mesh)
-    apply_fns = None
-    if spec.sp > 1:
-        from hfrep_tpu_torch.parallel.sequence import sp_apply_fns
-        apply_fns = sp_apply_fns(pair, shard.chain)
-    step = make_train_step(pair, tcfg, dataset, shard_data=shard, apply_fns=apply_fns)
-    if multi:
-        return make_multi_step(pair, tcfg, dataset, step=step)
-    return step
-
-
-def _gan_launch(tcfg, mesh, kind: str, fn, **attrs):
+def instrument_mesh_launch(fn, tcfg, mesh, kind: str, **attrs):
+    """``fn`` as a mesh launch under JAX's name for it."""
     from hfrep_tpu_torch.obs import instrument_launch
 
     return instrument_launch(fn, _launch_name(mesh, kind), tcfg=tcfg, mesh=mesh, **attrs)
 
 
-def make_gan_train_step(pair, tcfg, dataset, mesh, *, instrument: bool = True, **attrs):
+def make_gan_train_step(pair, tcfg, dataset, mesh, **attrs):
     """ONE epoch (n_critic critic updates + the generator update) across
-    ``mesh``: ``step(state, draws)`` with the global batch's draws."""
-    step = _gan_step(pair, tcfg, dataset, mesh, multi=False)
-    return _gan_launch(tcfg, mesh, "train_step", step, **attrs) if instrument else step
+    ``mesh``: ``step(state, draws)`` with the global batch's draws;
+    ``attrs`` go to the launch's telemetry."""
+    return instrument_mesh_launch(_gan_step(pair, tcfg, dataset, mesh), tcfg, mesh,
+                                  "train_step", **attrs)
 
 
-def make_gan_multi_step(pair, tcfg, dataset, mesh, *, instrument: bool = True, **attrs):
+def make_gan_multi_step(pair, tcfg, dataset, mesh, **attrs):
     """``tcfg.steps_per_call`` epochs a call across ``mesh``, the
     trainer's block (``fn(state, draws=None, generator=None)``)."""
-    fn = _gan_step(pair, tcfg, dataset, mesh, multi=True)
-    return _gan_launch(tcfg, mesh, "multi_step", fn, **attrs) if instrument else fn
+    from hfrep_tpu_torch.train.steps import make_multi_step
+
+    fn = make_multi_step(pair, tcfg, dataset, step=_gan_step(pair, tcfg, dataset, mesh))
+    return instrument_mesh_launch(fn, tcfg, mesh, "multi_step", **attrs)
 
 
 # ---------------------------------------------------------------- helpers

@@ -17,6 +17,15 @@ in a recorded backward).  The critic's flattened score head is split by
 rows, each rank scoring its chunk, the partial scores summed over the
 axis.
 
+:func:`make_sp_train_step` / :func:`make_sp_multi_step` are the launch
+on an ``('sp',)`` or ``('dp', 'sp')`` mesh: the plain step
+(``train/steps.py``) with the mesh hook
+(:func:`~hfrep_tpu_torch.parallel.rules.data_constraint`: this rank's
+rows and window chunk, the gradients summed over sp and averaged over
+dp, the penalty's squared norms summed over sp) and this module's
+forwards as its ``apply_fns``, every other step semantic shared.  The
+trainer picks them for a mesh with an sp axis longer than 1.
+
 What else is here:
 
 * the plain param-level forwards (:func:`generator_forward`,
@@ -29,10 +38,12 @@ What else is here:
   microbatch schedule, ported as it is (advisory; no step has an M knob).
 
 sp runs the flagship (``mtss_wgan_gp``) at float32, the family whose
-forwards this module writes (:func:`validate_sp_pair`).  The retired
-knobs of JAX's manual pipeline (``microbatches``, ``manual``,
-``tp_axis``, ``remat``, ``check_vma``, ``chunk``) are accepted by name
-and ignored, as in JAX.
+forwards this module writes (:func:`validate_sp_pair`).  JAX's forwards
+and builders also take the knobs of its retired manual ``shard_map``
+pipeline (``microbatches``, ``manual``, ``tp_axis``, ``remat``,
+``check_vma``, ``chunk``) and ignore them; these take none of them.
+The retired CLI knobs ``--sp-microbatches`` and ``--sp-remat`` are
+accepted and ignored in ``experiments/cli.py``.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ from torch import nn
 
 from hfrep_tpu_torch.ops import cuda_lstm
 from hfrep_tpu_torch.ops.layers import layer_norm, leaky_relu
-from hfrep_tpu_torch.parallel.chain import Chain, Stage, chain_apply
+from hfrep_tpu_torch.parallel.chain import Chain, Stage, axis_sum, chain_apply
 
 Params = Union[Mapping[str, torch.Tensor], nn.Module]
 
@@ -201,25 +212,21 @@ def _my_chunk(chain: Chain, x: torch.Tensor) -> torch.Tensor:
 
 
 def sp_generate(g_params: Params, z: torch.Tensor, mesh, *, axis_name: Optional[str] = None,
-                slope: float = 0.2, activation: str = "sigmoid", ln_eps: float = 1e-3,
-                microbatches=None, manual=None, tp_axis=None, remat=None,
-                check_vma=None) -> torch.Tensor:
+                slope: float = 0.2, activation: str = "sigmoid",
+                ln_eps: float = 1e-3) -> torch.Tensor:
     """Window-sharded generator synthesis: ``z`` (B, W, F), the same on
     every rank; returns this rank's chunk (B, W/sp, F) of the output
     (JAX returns the global array sharded (B, W@sp, F))."""
-    del microbatches, manual, tp_axis, remat, check_vma
     chain = _window_chain(mesh, axis_name)
     p = _named(g_params)
     stage = generator_stage(p["lstm0.recurrent_kernel"].shape[0], slope, activation, ln_eps)
     return chain_apply(chain, stage, _my_chunk(chain, z), p)
 
 
-def sp_critic(d_params: Params, x: torch.Tensor, mesh, *, axis_name: Optional[str] = None,
-              microbatches=None, manual=None, tp_axis=None, remat=None,
-              check_vma=None) -> torch.Tensor:
+def sp_critic(d_params: Params, x: torch.Tensor, mesh, *,
+              axis_name: Optional[str] = None) -> torch.Tensor:
     """Window-sharded critic scores: ``x`` (B, W, F), the same on every
     rank → (B, 1), replicated."""
-    del microbatches, manual, tp_axis, remat, check_vma
     chain = _window_chain(mesh, axis_name)
     p = _named(d_params)
     return chain_apply(chain, critic_stage(p["lstm0.recurrent_kernel"].shape[0]),
@@ -228,12 +235,9 @@ def sp_critic(d_params: Params, x: torch.Tensor, mesh, *, axis_name: Optional[st
 
 def sp_lstm(kernel: torch.Tensor, recurrent: torch.Tensor, bias: torch.Tensor,
             x: torch.Tensor, mesh, *, axis_name: Optional[str] = None,
-            activation: str = "tanh", recurrent_activation: str = "sigmoid",
-            microbatches=None, manual=None, tp_axis=None, remat=None, check_vma=None,
-            chunk=None) -> torch.Tensor:
+            activation: str = "tanh", recurrent_activation: str = "sigmoid") -> torch.Tensor:
     """One LSTM layer over ``x`` (B, W, F), the same on every rank: this
     rank's chunk (B, W/sp, H) of the output."""
-    del microbatches, manual, tp_axis, remat, check_vma, chunk
     if recurrent_activation != "sigmoid":
         raise NotImplementedError(
             f"LSTM supports sigmoid gates only, got {recurrent_activation!r}")
@@ -276,22 +280,40 @@ def sp_apply_fns(pair, chain: Chain) -> tuple:
     return g_apply, d_apply
 
 
-def make_sp_train_step(pair, tcfg, dataset: torch.Tensor, mesh, *,
-                       axis_name: Optional[str] = None, microbatches: Optional[int] = None):
-    """Window-sharded MTSS-WGAN-GP training: the mesh launch on an
-    ``('sp',)`` mesh.  ``microbatches`` is accepted and ignored, as in
-    JAX."""
-    del axis_name, microbatches
-    from hfrep_tpu_torch.parallel.rules import make_gan_train_step
-    return make_gan_train_step(pair, tcfg, dataset, mesh)
+def _sp_step(pair, tcfg, dataset: torch.Tensor, mesh):
+    """The plain step on a window-sharded mesh: the hook and the
+    forwards over the mesh's sp axis."""
+    from hfrep_tpu_torch.parallel.rules import data_constraint, validate_mesh
+    from hfrep_tpu_torch.train.steps import make_train_step
+
+    spec = validate_mesh(tcfg, mesh)
+    if dataset.shape[1] % spec.sp:
+        raise ValueError(f"window {dataset.shape[1]} not divisible by sp={spec.sp}")
+    validate_sp_pair(pair)
+    chain = _window_chain(mesh, "sp")
+    return make_train_step(pair, tcfg, dataset,
+                           shard_data=data_constraint(mesh, lambda t: axis_sum(chain, t)),
+                           apply_fns=sp_apply_fns(pair, chain))
 
 
-def make_sp_multi_step(pair, tcfg, dataset: torch.Tensor, mesh, *,
-                       axis_name: Optional[str] = None, microbatches: Optional[int] = None):
-    """``tcfg.steps_per_call`` window-sharded epochs a call."""
-    del axis_name, microbatches
-    from hfrep_tpu_torch.parallel.rules import make_gan_multi_step
-    return make_gan_multi_step(pair, tcfg, dataset, mesh)
+def make_sp_train_step(pair, tcfg, dataset: torch.Tensor, mesh, **attrs):
+    """Window-sharded MTSS-WGAN-GP training: ONE epoch on an ``('sp',)``
+    or ``('dp', 'sp')`` mesh, ``step(state, draws)`` with the global
+    batch's draws (launched as ``sp_train_step`` / ``dp_sp_train_step``)."""
+    from hfrep_tpu_torch.parallel.rules import instrument_mesh_launch
+
+    return instrument_mesh_launch(_sp_step(pair, tcfg, dataset, mesh), tcfg, mesh,
+                                  "train_step", **attrs)
+
+
+def make_sp_multi_step(pair, tcfg, dataset: torch.Tensor, mesh, **attrs):
+    """``tcfg.steps_per_call`` window-sharded epochs a call, the
+    trainer's block."""
+    from hfrep_tpu_torch.parallel.rules import instrument_mesh_launch
+    from hfrep_tpu_torch.train.steps import make_multi_step
+
+    fn = make_multi_step(pair, tcfg, dataset, step=_sp_step(pair, tcfg, dataset, mesh))
+    return instrument_mesh_launch(fn, tcfg, mesh, "multi_step", **attrs)
 
 
 #: the 128-lane padding of the TPU kernels the retired schedule was

@@ -271,7 +271,7 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
     acc = pair.policy.accum
     clip, gp_w = tcfg.clip_value, tcfg.gp_weight
     g_apply, d_apply = apply_fns or (lambda g, z: g(z), lambda d, x: d(x))
-    sq_sum = None if shard_data is None or shard_data.n_sp == 1 else shard_data.sum_window
+    sq_sum = None if shard_data is None else shard_data.sum_window
 
     def _real(idx: torch.Tensor) -> torch.Tensor:
         """The real windows of this rank's rows (its window chunk)."""
@@ -350,8 +350,7 @@ def make_train_step(pair: GanPair, tcfg: TrainConfig, dataset: torch.Tensor,
         interp = alpha * real + (1.0 - alpha) * fake
         b = real.shape[0]
         scores = acc(d(_cat(real, fake)))       # one 2B pass for real ⊕ fake
-        gp = (gradient_penalty(d, interp) if sq_sum is None      # a separate B-wide pass
-              else gradient_penalty(d, interp, sq_sum))
+        gp = gradient_penalty(d, interp, sq_sum)      # a separate B-wide pass
         w_loss = (-scores[:b]).mean() + scores[b:].mean()
         return w_loss + gp_w * gp
 

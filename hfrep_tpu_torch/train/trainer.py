@@ -46,8 +46,10 @@ forensic dump of the whole checkpoint tree and raises
 
 Mesh (``mesh=``, a :class:`~hfrep_tpu_torch.parallel.rules.Mesh` over
 the axis names JAX's trainer accepts): the blocks and the remainder
-launch through :func:`~hfrep_tpu_torch.parallel.rules.make_gan_multi_step`
-/ ``make_gan_train_step`` (``dp_multi_step``, ``sp_train_step``,
+launch through the mesh's builders (:func:`_mesh_builders`:
+:mod:`~hfrep_tpu_torch.parallel.sequence`'s on an sp axis longer than
+1, else :func:`~hfrep_tpu_torch.parallel.rules.make_gan_multi_step` /
+``make_gan_train_step``; ``dp_multi_step``, ``sp_train_step``,
 ``dp_sp_multi_step``, ...): every rank draws the global batch from the
 same stream and steps on its block of it (its rows over dp, its window
 chunk over sp), the gradients reduced over the mesh.  On a mesh that spans
@@ -151,6 +153,17 @@ def restore_walk(path: Optional[str], ckpt_dir: Optional[str]):
     return ckpt.restore_latest_good(ckpt_dir, on_exhausted="fresh")
 
 
+def _mesh_builders(mesh) -> tuple:
+    """``(train_step, multi_step)`` builders of a mesh launch: the window
+    launch where the mesh shards the window, else the data-parallel one
+    (which refuses the axes it does not shard)."""
+    if int(mesh.shape.get("sp", 1)) > 1:
+        from hfrep_tpu_torch.parallel import sequence
+        return sequence.make_sp_train_step, sequence.make_sp_multi_step
+    from hfrep_tpu_torch.parallel import rules
+    return rules.make_gan_train_step, rules.make_gan_multi_step
+
+
 class GanTrainer:
     def __init__(self, cfg: ExperimentConfig, dataset: Union[GanDataset, torch.Tensor],
                  logger: Optional[MetricLogger] = None, nan_guard: bool = False,
@@ -185,8 +198,7 @@ class GanTrainer:
         # the build-time telemetry hook: with obs on, a compile:multi_step
         # span for the first block and a dispatch counter after it
         if mesh is not None:
-            from hfrep_tpu_torch.parallel.rules import make_gan_multi_step
-            self._multi = make_gan_multi_step(
+            self._multi = _mesh_builders(mesh)[1](
                 self.pair, cfg.train, self.windows, mesh, flops=self._block_flops(),
                 steps_per_call=cfg.train.steps_per_call)
             if self._multiprocess():
@@ -411,9 +423,8 @@ class GanTrainer:
             # build and its dispatches land in the same ledger and window;
             # a mesh's remainder runs through the same mesh
             if self.mesh is not None:
-                from hfrep_tpu_torch.parallel.rules import make_gan_train_step
-                self._single_step = make_gan_train_step(self.pair, self.cfg.train,
-                                                        self.windows, self.mesh)
+                self._single_step = _mesh_builders(self.mesh)[0](
+                    self.pair, self.cfg.train, self.windows, self.mesh)
             else:
                 self._single_step = instrument_step(
                     make_train_step(self.pair, self.cfg.train, self.windows), "single_step",

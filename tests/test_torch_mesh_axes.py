@@ -7,12 +7,10 @@ package, on the CPU.
   parse as JAX's; they and ``--mesh`` exclude each other, with JAX's
   messages; the retired knobs ``--sp-microbatches`` and ``--sp-remat``
   are validated as JAX validates them, threaded to ``TrainConfig`` and
-  ignored; the tp meshes are refused naming ROADMAP item 9c.
-* ``make_mesh_2d``/``make_mesh_3d`` (``hfrep_tpu/parallel/mesh.py:35,
-  :57``) and their refusals; ``shard_to_global`` of a replicated layout
-  and its refusal of a sharded one; the hook's layout rule
-  (``data_constraint``, JAX's ``rules.py:288-325``) on a 2×2 dp×sp
-  mesh.
+  ignored; the tp flags are refused naming ROADMAP item 9c.
+* ``make_mesh_2d`` (``hfrep_tpu/parallel/mesh.py:35``) and its
+  refusals; the hook's layout rule (``data_constraint``, JAX's
+  ``rules.py:288-325``) and the window chain on a 2×2 dp×sp mesh.
 * dp×sp on four gloo ranks (a 2×2 mesh: the window chains in sub-groups
   of their own): one WGAN-GP epoch from JAX's init on JAX's draws
   against JAX's plain epoch at atol 1e-4, the four ranks within rtol
@@ -47,7 +45,8 @@ from hfrep_tpu_torch.experiments import cli
 from hfrep_tpu_torch.models.registry import build_gan
 from hfrep_tpu_torch.parallel import mesh as pmesh
 from hfrep_tpu_torch.parallel import rules
-from hfrep_tpu_torch.parallel.rules import Mesh, P
+from hfrep_tpu_torch.parallel.chain import Chain
+from hfrep_tpu_torch.parallel.rules import Mesh
 from hfrep_tpu_torch.utils import checkpoint as ckpt
 from hfrep_tpu_torch.utils.bridge import gan_state_from_flax, to_flax
 
@@ -88,7 +87,6 @@ REFUSED = [
     dict(mesh=True, sp_remat=True),
     dict(sp_remat=True),
     dict(dp_sp="2by4"),
-    dict(tp_mesh=0),
 ]
 
 
@@ -107,13 +105,14 @@ def test_flag_refusals_are_jax_s(flags):
     (dict(tp_mesh=2), "item 9c"),
     (dict(dp_tp="1x2"), "item 9c"),
     (dict(dp_sp_tp="1x1x2"), "item 9c"),
-    (dict(dp_sp_tp="2x2"), r"--dp-sp-tp wants DPxSPxTP \(e.g. 2x2x2\), got '2x2'"),
+    (dict(tp_mesh=0), "item 9c"),
     (dict(dp_sp="1x2"), r"requested dp×sp=1×2 but the process group spans 1 rank"),
 ])
 def test_flag_refusals_the_port_adds_or_moves(flags, match):
     """The retired knobs checked before any mesh is built (JAX checks them
     after its mesh, which needs devices this process lacks); the tp
-    meshes refused as item 9c; a mesh larger than the group refused."""
+    flags refused as item 9c whatever their values; a mesh larger than
+    the group refused."""
     with pytest.raises((SystemExit, ValueError), match=match):
         cli._make_trainer("mtss_wgan_gp", CLEANED, device="cpu", **flags)
 
@@ -130,47 +129,31 @@ def test_retired_knobs_thread_to_the_config_and_change_nothing():
 
 
 # ----------------------------------------------------------- the mesh core
-def test_mesh_2d_and_3d_and_their_refusals():
+def test_mesh_2d_and_its_refusals():
     one = pmesh.make_mesh_2d(1, 1, device="cpu")
     assert (one.axis_names, one.axis_sizes, one.group) == (("dp", "sp"), (1, 1), None)
-    assert pmesh.make_mesh_2d(1, 1, device="cpu", axis_names=("dp", "tp")).axis_names == \
-        ("dp", "tp")
-    assert pmesh.make_mesh_3d(1, 1, 1, device="cpu").axis_names == ("dp", "sp", "tp")
     with pytest.raises(ValueError, match=r"dp×sp mesh dims must be >= 1, got 0×2"):
         pmesh.make_mesh_2d(0, 2, device="cpu")
-    with pytest.raises(ValueError, match="requested dp×tp=2×2 but the process group spans 1"):
-        pmesh.make_mesh_2d(2, 2, device="cpu", axis_names=("dp", "tp"))
-    with pytest.raises(ValueError, match="got tp=0"):
-        pmesh.make_mesh_3d(1, 1, 0, device="cpu")
-    with pytest.raises(ValueError, match=r"dp×sp×tp=1×2×2 \(4 devices\)"):
-        pmesh.make_mesh_3d(1, 2, 2, device="cpu")
+    with pytest.raises(ValueError, match="requested dp×sp=2×2 but the process group spans 1"):
+        pmesh.make_mesh_2d(2, 2, device="cpu")
     assert rules.mesh_spec(Mesh(("dp", "sp"), (2, 4), CPU)) == rules.MeshSpec(dp=2, sp=4)
-
-
-def test_shard_to_global_replicates_and_refuses_a_sharded_layout():
-    m = rules.build_mesh(rules.MeshSpec(), device="cpu")
-    tree = {"a": torch.arange(4.0), "b": [torch.ones(2), 3]}
-    out = pmesh.shard_to_global(tree, m, P())
-    assert torch.equal(out["a"], tree["a"]) and out["b"][1] == 3
-    assert torch.equal(pmesh.shard_to_global(tree, m)["b"][0], torch.ones(2))
-    with pytest.raises(ValueError, match="item 9c"):
-        pmesh.shard_to_global(tree, m, P(None, "tp"))
-    with pytest.raises(TypeError, match="one PartitionSpec"):
-        pmesh.shard_to_global(tree, m, {"a": P()})
 
 
 @pytest.mark.parametrize("rank", range(4))
 def test_the_hook_s_layout_on_a_2x2_mesh(rank):
     """Rows over dp and the window chunk over sp, by JAX's rule: a draw
     with a window axis and a feature axis after it is cut along both, an
-    index or α along the rows only."""
+    index or α along the rows only; the window's chain runs in the sp
+    sub-group between the ranks of one dp row."""
     mesh = Mesh(("dp", "sp"), (2, 2), CPU, rank=rank, group=object(),
                 axis_groups={0: "dp group", 1: "sp group"})
     hook = rules.data_constraint(mesh)
     dp, sp = divmod(rank, 2)
     assert (hook.n, hook.rank, hook.n_sp, hook.sp_rank, hook.inner) == (2, dp, 2, sp, 2)
-    assert hook.chain.group == "sp group" and hook.chain.k == sp
-    assert (hook.chain.prev, hook.chain.next) == ((None, rank + 1) if sp == 0 else (rank - 1, None))
+    assert hook.sum_window is None and rules.data_constraint(mesh, len).sum_window is len
+    chain = Chain(mesh, "sp")
+    assert chain.group == "sp group" and chain.k == sp
+    assert (chain.prev, chain.next) == ((None, rank + 1) if sp == 0 else (rank - 1, None))
     noises = torch.arange(2 * 8 * 12 * 3.0).reshape(2, 8, 12, 3)
     got = hook(noises, 1)
     assert torch.equal(got, noises[:, 4 * dp:4 * dp + 4, 6 * sp:6 * sp + 6])

@@ -7,8 +7,8 @@ __init__}``) against the JAX package's, on the CPU.
 * The identity (``:208-232``): a one-device mesh step is bit for bit the
   plain step, for each loss kind, with no collective.
 * The refusals: a batch dp does not divide, unknown axis names, tp
-  naming ROADMAP item 9c, pp left to the layer pipeline, a multi-device
-  hook with no process group.
+  naming ROADMAP item 9c, pp left to the layer pipeline and sp to the
+  window launch, a multi-device hook with no process group.
 * The backend and device rules, and that no new module imports JAX.
 """
 
@@ -28,6 +28,7 @@ from hfrep_tpu.parallel import rules as jrules
 from hfrep_tpu_torch.config import ExperimentConfig, MeshConfig, ModelConfig, TrainConfig
 from hfrep_tpu_torch.models.registry import build_gan
 from hfrep_tpu_torch.parallel import mesh as pmesh
+from hfrep_tpu_torch.parallel import sequence
 from hfrep_tpu_torch.parallel import rules
 from hfrep_tpu_torch.parallel.rules import Mesh, MeshSpec
 from hfrep_tpu_torch.train import init_gan_state, make_multi_step, sample_draws
@@ -143,10 +144,16 @@ def test_refusals_name_what_was_asked():
                                       Mesh(names, (2,) * len(names), cpu))
     with pytest.raises(ValueError, match="layer_pipeline.py axis"):
         rules.make_gan_multi_step(pair, TrainConfig(**TCFG), ds, Mesh(("pp",), (2,), cpu))
-    for names in (("dp",), ("sp",), ("dp", "sp")):
-        with pytest.raises(RuntimeError, match="needs a process group"):
-            rules.make_gan_train_step(pair, TrainConfig(**TCFG), ds,
+    for names in (("sp",), ("dp", "sp")):
+        with pytest.raises(ValueError, match="sequence.py axis"):
+            rules.make_gan_multi_step(pair, TrainConfig(**TCFG), ds,
                                       Mesh(names, (2,) * len(names), cpu))
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        rules.make_gan_train_step(pair, TrainConfig(**TCFG), ds, Mesh(("dp",), (2,), cpu))
+    for names in (("sp",), ("dp", "sp")):
+        with pytest.raises(RuntimeError, match="needs a process group"):
+            sequence.make_sp_train_step(pair, TrainConfig(**TCFG), ds,
+                                        Mesh(names, (2,) * len(names), cpu))
     cfg = ExperimentConfig(model=mcfg, train=TrainConfig(**TCFG))
     with pytest.raises(ValueError, match=r"mesh axis names \('model',\) not recognized"):
         GanTrainer(cfg, ds, device="cpu", mesh=Mesh(("model",), (1,), cpu))

@@ -280,7 +280,8 @@ def _plant(monkeypatch, plant: str) -> None:
             monkeypatch.setattr(cls, "update", _negated(cls.update))
     else:
         penalty = steps.gradient_penalty
-        monkeypatch.setattr(steps, "gradient_penalty", lambda d, x: penalty(d, x).detach())
+        monkeypatch.setattr(steps, "gradient_penalty",
+                            lambda d, x, sq_sum=None: penalty(d, x, sq_sum).detach())
 
 
 @pytest.mark.parametrize("family,stack,plant", [("mtss_wgan_gp", "auto", "sign"),

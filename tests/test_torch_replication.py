@@ -332,6 +332,31 @@ def test_data_analysis_matches_jax(panel, tmp_path):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
 
 
+def test_a_month_below_total_loss_gives_jax_s_nan_ceq(panel, tmp_path):
+    """A replication that loses more than all its capital in a month
+    (r < -1, as an autoencoder 150 epochs into the sweep can give):
+    (1 + r) ** (1 - gamma) is negative for odd 1 - gamma, CEQ(10)'s mean
+    goes negative and its log NaN, in JAX's battery and the port's alike;
+    the CSV writer leaves that cell empty, as pandas does."""
+    from hfrep_tpu_torch.experiments.report import StatsTable
+
+    y = np.array(panel["y_test"][-143:], dtype=np.float32)
+    rf = panel["rf"].reshape(-1)[-143:]
+    y[[40, 90], 3] = (-1.27, -1.01)
+    want = jax_perf_stats.data_analysis(y, rf=rf)
+    got = perf_stats.data_analysis(y, rf=rf)
+    assert np.isnan(want["CEQ(10)"][3]) and np.isnan(got["CEQ(10)"][3])
+    for k in want:
+        assert np.array_equal(np.isnan(got[k]), np.isnan(want[k])), k
+        ok = ~np.isnan(want[k])
+        atol = _ceq_atol(float(k[4:-1])) if k.startswith("CEQ") else 0.0
+        np.testing.assert_allclose(got[k][ok], want[k][ok], rtol=1e-4, atol=atol, err_msg=k)
+    path = tmp_path / "stats.csv"
+    StatsTable(index=[f"s{j}" for j in range(y.shape[1])], columns=got).to_csv(str(path))
+    rows = [line.split(",") for line in path.read_text().splitlines()]
+    assert rows[4][rows[0].index("CEQ(10)")] == ""
+
+
 # ------------------------------------------------------------- spanning
 def _sf_at(test: str, f_stat, t: int, n: int, k: int) -> float:
     """The float64 F survival function at JAX's statistic, with the test's

@@ -47,7 +47,7 @@ from hfrep_tpu_torch.models.discriminators import LSTMFlatCritic
 from hfrep_tpu_torch.models.generators import LSTMGenerator
 from hfrep_tpu_torch.models.registry import build_gan
 from hfrep_tpu_torch.parallel import sequence as seq
-from hfrep_tpu_torch.parallel.rules import Mesh, make_gan_multi_step
+from hfrep_tpu_torch.parallel.rules import Mesh
 from hfrep_tpu_torch.train import Draws, init_gan_state, make_multi_step, sample_draws
 from hfrep_tpu_torch.train.trainer import GanTrainer
 from hfrep_tpu_torch.utils.bridge import from_flax, gan_state_from_flax, to_flax
@@ -408,11 +408,15 @@ def test_sp_refusals_name_what_was_asked():
     pair = build_gan(ModelConfig(family="mtss_wgan_gp", features=5, window=7, hidden=8),
                      device="cpu")
     with pytest.raises(ValueError, match="window 7 not divisible by sp=2"):
-        make_gan_multi_step(pair, tcfg, torch.zeros((16, 7, 5)), sp_mesh)
+        seq.make_sp_multi_step(pair, tcfg, torch.zeros((16, 7, 5)), sp_mesh)
     wgan = build_gan(ModelConfig(family="wgan_gp", features=5, window=8, hidden=8),
                      device="cpu")
     with pytest.raises(ValueError, match="supports the mtss_wgan_gp family"):
-        make_gan_multi_step(wgan, tcfg, torch.zeros((16, 8, 5)), sp_mesh)
+        seq.make_sp_multi_step(wgan, tcfg, torch.zeros((16, 8, 5)), sp_mesh)
+    for names in (("sp", "tp"), ("sp", "pp")):
+        with pytest.raises(ValueError, match="item 9c|layer_pipeline.py axis"):
+            seq.make_sp_train_step(pair, tcfg, torch.zeros((16, 8, 5)),
+                                   Mesh(names, (2, 2), cpu, group=object()))
     bf16 = build_gan(ModelConfig(family="mtss_wgan_gp", features=5, window=8, hidden=8,
                                  dtype="bfloat16"), device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
