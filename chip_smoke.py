@@ -2371,7 +2371,7 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
         # a failed check exits: no run outlives the script
         for proc, _ in procs.values():
             if proc.poll() is None:
-                proc.kill()
+                kill_tree(proc)
                 proc.communicate()
     with open(os.path.join(root, ENVELOPE)) as fh:
         envelope = json.load(fh)["envelope"]
@@ -2895,7 +2895,7 @@ def start_pipeline_verb(args: list, env_extra: dict) -> tuple:
     env = dict(os.environ, **env_extra)
     proc = subprocess.Popen([sys.executable, "-m", "hfrep_tpu_torch", "pipeline", "--device",
                              "cuda"] + args, cwd=root, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
     return proc, time.perf_counter()
 
 
@@ -2907,7 +2907,7 @@ def finish_pipeline_verb(started: tuple) -> tuple:
         stdout, stderr = proc.communicate(
             timeout=max(1.0, PIPE_TIMEOUT_S - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
-        proc.kill()
+        kill_tree(proc)
         proc.communicate()
         fail(f"pipeline {' '.join(proc.args[5:7])}: overran {PIPE_TIMEOUT_S} s")
     return proc.returncode, time.perf_counter() - t0, stdout, stderr
@@ -2987,7 +2987,7 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
             # a failed run exits: no pipeline outlives the script
             for proc, _ in runs.values():
                 if proc.poll() is None:
-                    proc.kill()
+                    kill_tree(proc)
     out["first_runs_wall_s"] = time.perf_counter() - t_runs
     say(f"[pipeline] (a), (b)'s drained run and (c) side by side: {out['first_runs_wall_s']:.1f} s")
 
@@ -3307,7 +3307,7 @@ def run_serve_verb(args: list, sigterm: bool) -> tuple:
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "hfrep_tpu_torch", "serve", "--device",
                              "cuda"] + args, cwd=root, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
     err = []
     try:
         if sigterm:
@@ -3319,7 +3319,7 @@ def run_serve_verb(args: list, sigterm: bool) -> tuple:
         stdout, rest = proc.communicate(timeout=SERVE_TIMEOUT_S)
     finally:
         if proc.poll() is None:
-            proc.kill()
+            kill_tree(proc)
             proc.wait()
     return proc.returncode, time.perf_counter() - t0, stdout, "".join(err) + rest
 
@@ -3641,8 +3641,22 @@ def start_module(module: str, args: list, env_extra=None) -> tuple:
     env.update(env_extra or {})
     proc = subprocess.Popen([sys.executable, "-m", module, *map(str, args)], cwd=root,
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+                            text=True, start_new_session=True)
     return proc, time.perf_counter()
+
+
+def kill_tree(proc) -> None:
+    """SIGKILL a running process the script started and every process it
+    started in turn (a soak's subjects, a pipeline's actors): each leads
+    a session of its own (``start_new_session``), whose group holds its
+    descendants."""
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
 
 
 def finish_module(started: tuple, timeout: float) -> tuple:
@@ -3653,7 +3667,7 @@ def finish_module(started: tuple, timeout: float) -> tuple:
     try:
         out, err = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
-        proc.kill()
+        kill_tree(proc)
         proc.communicate()
         fail(f"{' '.join(proc.args[2:5])} overran {timeout} s")
     return proc.returncode, out, err, time.perf_counter() - t0
@@ -3701,11 +3715,11 @@ class CorpusReplay:
                                 ["chaos", "--replay", schedule, "--device", "cuda", "--out", out])
         self._procs.append(proc)
         if self._stopped:
-            proc.kill()
+            kill_tree(proc)
         try:
             text, err = proc.communicate(timeout=CHAOS_TIMEOUT_S)
         except subprocess.TimeoutExpired:
-            proc.kill()
+            kill_tree(proc)
             text, err = proc.communicate()
             return name, None, {}, err, time.perf_counter() - t0
         doc = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
@@ -3720,7 +3734,7 @@ class CorpusReplay:
             f.cancel()
         for proc in list(self._procs):
             if proc.poll() is None:
-                proc.kill()
+                kill_tree(proc)
         self._pool.shutdown(wait=True)
 
 
@@ -4000,7 +4014,7 @@ def phase_chaos(torch, np, keep: str) -> dict:
         corpus.stop()
         for proc, _ in legs.values():
             if proc.poll() is None:
-                proc.kill()
+                kill_tree(proc)
                 proc.communicate()
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
@@ -4360,7 +4374,8 @@ def start_ranks(out_dir: str) -> list:
     code = "import sys, chip_smoke; chip_smoke.mesh_rank(int(sys.argv[1]), sys.argv[2])"
     return [(subprocess.Popen([sys.executable, "-c", code, str(r), out_dir],
                               cwd=root, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True), time.perf_counter())
+                              stderr=subprocess.PIPE, text=True, start_new_session=True),
+             time.perf_counter())
             for r in (0, 1)]
 
 
@@ -4395,7 +4410,7 @@ def finish_ranks(ranks: list, out_dir: str, deadline: float) -> list:
             what = f"exit {rc}"
         else:
             overran = proc.poll() is None
-            proc.kill()
+            kill_tree(proc)
             _, err = proc.communicate()
             what = "killed at the deadline" if overran else f"exit {proc.returncode}"
         report.append(f"rank {r} ({what}, in part {rank_part(out_dir, r)}): stderr tail "
@@ -4805,7 +4820,7 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
         for group in procs.values():
             for proc, _ in group:
                 if proc.poll() is None:
-                    proc.kill()
+                    kill_tree(proc)
                     proc.communicate()
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase wall {out['wall_s']:.1f} s on {card}")

@@ -199,10 +199,15 @@ class SpoolQueue:
         meta = {"source": source, "seq": int(seq)}
         if extra_meta:
             meta.update(extra_meta)
+        # the hop is on disk before the item is visible: a producer
+        # SIGKILLed as soon as its item shows in ready/ (the supervisor's
+        # ``kill@actor``) has already recorded it, so the trace spans the
+        # restart.  A put that then fails leaves a hop with no item; the
+        # retry or the restarted producer puts it again.
+        _obs_event("queue_put", source=source, seq=seq,
+                   wait_s=round(waited, 4), depth=self.depth() + 1, trace=trace)
         ckpt.write_atomic(self.ready / name, writer, metadata=meta,
                           io_site="queue_put", fault_site="queue_item")
-        _obs_event("queue_put", source=source, seq=seq,
-                   wait_s=round(waited, 4), depth=self.depth(), trace=trace)
         return True
 
     # --------------------------------------------------------------- claim

@@ -145,6 +145,28 @@ class TestSpoolQueue:
         res.install_plan(FaultPlan.parse("io_fail@queue_put=1"))
         assert q.put("s0", 0, _arrays())           # one EIO is retried
 
+    def test_the_put_hop_is_on_disk_before_the_item_is_visible(self, tmp_path, monkeypatch):
+        """A producer SIGKILLed the moment its item shows in ready/ (the
+        supervisor's ``kill@actor``) has already recorded its queue_put
+        hop. The reference records it after publication, a window such a
+        kill can land in, and its trace then misses the pre-kill hop."""
+        import hfrep_tpu_torch.obs as obs_pkg
+        from hfrep_tpu_torch.obs.report import trace_index
+
+        q = SpoolQueue(tmp_path / "q", capacity=4)
+        run = tmp_path / "obs"
+        on_disk = []
+        publish = q_mod.ckpt.write_atomic
+
+        def write_atomic(path, *args, **kwargs):
+            on_disk.append([r.get("name") for r in trace_index([run], ["t0"])["t0"]])
+            return publish(path, *args, **kwargs)
+
+        monkeypatch.setattr(q_mod.ckpt, "write_atomic", write_atomic)
+        with obs_pkg.session(run, command="test"):
+            assert q.put("s0", 0, _arrays(), extra_meta={"trace": "t0"})
+        assert on_disk == [["queue_put"]] and q.depth() == 1
+
     def test_item_names_and_trace_ids_are_jax_s(self, tmp_path):
         for source, seq in (("a_b", 7), ("g0", 0), ("f12", 99999)):
             assert q_mod.item_name(source, seq) == jqueue.item_name(source, seq)
