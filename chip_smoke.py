@@ -172,7 +172,8 @@ exits non-zero on failure:
              scaled by max(1, max|CPU|); the device's busy share of a
              profiled 10-epoch drive at the real (168) and the augmented
              (1,848) rows.  (b) ``python -m hfrep_tpu_torch sweep`` as
-             three subprocesses side by side, each counting its kernel
+             three subprocesses started together once the second
+             checkpoint is trained, each counting its kernel
              launches into its own stream, at ``AEConfig()`` (1000-epoch
              cap, early stopping),
              latents 1:21, ``--stats``: real only; from the trainer phase's
@@ -217,9 +218,11 @@ exits non-zero on failure:
              card against the CPU from the same draws at the sweep phase's
              bars;
 5f. pipeline — the actor fabric through ``python -m hfrep_tpu_torch
-             pipeline --device cuda``, every run's AE cut to 200 epochs
+             pipeline --device cuda``, every run's AE cut to 100 epochs
              (``PIPE_EPOCHS``; ``AEConfig()``'s cap is 1000), (a), (b)'s
-             first run and (c) side by side: (a) one
+             first run and (c) side by side, (b)'s resume as soon as its
+             first run has exited and (c)'s item computed here meanwhile:
+             (a) one
              generator actor sampling the trainer phase's W=168
              ``train-gan`` checkpoint (2 blocks of 10 windows) into 2
              consumer actors running the augmented 21-latent sweep at
@@ -297,10 +300,11 @@ exits non-zero on failure:
              ``crash-drill --device cuda`` exits 0; the ``ae_sweep`` chaos
              subject drained on the card (``preempt@chunk=1``) exits 75
              with a crash bundle that ``verify_bundle`` and the checkpoint
-             checksum accept and ``report --crash`` renders;
-5k. chaos  — ``python -m hfrep_tpu_torch.resilience`` on the card:
-             ``drives --check`` exits 0 with every spec registered;
-             then at once: ``selftest --device cuda`` exits 0 with the
+             checksum accept and ``report --crash`` renders (those two
+             subprocesses run beside the rest of the phase);
+5k. chaos  — ``python -m hfrep_tpu_torch.resilience`` on the card,
+             at once: ``drives --check`` exits 0 with every spec
+             registered; ``selftest --device cuda`` exits 0 with the
              JAX selftest's keys; the corpus (each entry a ``chaos
              --replay`` process, four at a time, the slowest subject's
              first; all nine entries,
@@ -346,9 +350,27 @@ exits non-zero on failure:
              --coordinator`` (3 epochs) exits 0 with rank 0 alone writing
              and printing, and ``--resume`` from ``ckpt_1`` is bit-equal
              to the straight run; then the rank processes' (d) and (e),
-             the verb runs and this process's checks side by side; a rank
-             that fails or overruns is reported with the part it was in
-             and both ranks' stderr;
+             the verb runs and this process's checks side by side (the
+             drained run signalled once (d) is done, each resume started
+             as soon as the run it resumes has ended); a rank that fails
+             or overruns is reported with the part it was in and both
+             ranks' stderr;
+5m. analysis — the port's static analyzer and its shape contracts
+             (``hfrep_tpu_torch.analysis``, ROADMAP queue 1 item 10a): the
+             gate ``python -m hfrep_tpu_torch.analysis check
+             hfrep_tpu_torch tools/torch_*.py tests/test_torch_*.py
+             --no-cache`` in a subprocess exits 0 with no finding and its
+             ``rules`` list exactly the carried ids (its wall recorded);
+             then each function that carries a contract, on card tensors
+             at full width: ``sample_windows`` on the committed panel at
+             both presets, ``rolling_ols_beta``, ``_window_stack``,
+             ``expanding_minmax_scale`` and ``ols_beta`` at the sweep's
+             shapes with 21 lanes, ``sqrtm_product_trace`` on the eval
+             phase's GanEval covariances (both presets), ``mfu_series``:
+             the output with contracts on bit-equal to the output with
+             ``HFREP_CONTRACTS=0``, a wrong rank (and, with two inputs, a
+             mismatched T or F) raising ``ContractError``, and the
+             check's median cost a call (on minus off, µs) recorded;
 6. timing  — CUDA events for each kernel at the served shapes, beside its
              bound, its plain version and ``library_ms`` (the backward and
              the adjoint also by the profiler's device time of every kernel
@@ -1641,7 +1663,8 @@ def phase_train(torch, cuda_lstm, route: str, presets=TRAIN_PRESETS) -> list:
 #: the precision phase: one bf16 epoch a route against the CPU plain path
 #: (fused at both presets, chained at W=48), the bf16 ``train-gan`` verb at
 #: W=168 with a resume, and the bf16 ``sweep`` verb real only, its AE cut
-#: to PIPE_EPOCHS epochs as the pipeline phase cuts them
+#: to PRECISION_SWEEP_EPOCHS epochs
+PRECISION_SWEEP_EPOCHS = 200
 PRECISION_ROUTES = (("mtss_wgan_gp", "auto"), ("mtss_wgan_gp_prod", "auto"),
                     ("mtss_wgan_gp", "chained"))
 BF16_LOSS_RTOL, BF16_PARAM_BAR = 5e-2, 1e-2       # JAX's bf16 bar; chip_smoke's bf16 bar
@@ -1873,7 +1896,7 @@ def phase_precision(torch, np, cuda_lstm, train, train_chained, keep: str) -> di
     cuda_lstm.reset_launches()
     t0 = time.perf_counter()
     rc, text = run_cli(["sweep", "--dtype", "bfloat16", "--cleaned-dir", cleaned, "--latents",
-                        "1:21", "--epochs", str(PIPE_EPOCHS), "--out", dest])
+                        "1:21", "--epochs", str(PRECISION_SWEEP_EPOCHS), "--out", dest])
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     if rc != 0 or any(cuda_lstm.launch_counts().values()):
@@ -1885,7 +1908,8 @@ def phase_precision(torch, np, cuda_lstm, train, train_chained, keep: str) -> di
     x_train = panel.train_test_split()[0]
     xs = scaler.fit_transform(x_train)[1]
     lanes = (len(SWEEP_LATENTS),)
-    cfg = AEConfig(epochs=PIPE_EPOCHS, chunk_epochs=SWEEP_CMP_CHUNK, dtype="bfloat16")
+    cfg = AEConfig(epochs=PRECISION_SWEEP_EPOCHS, chunk_epochs=SWEEP_CMP_CHUNK,
+                   dtype="bfloat16")
     g = torch.Generator()
     g.manual_seed(SWEEP_SEED)
     init = engine.keras_init_params(g, lanes, xs.shape[1], max(SWEEP_LATENTS), "cpu")
@@ -1907,9 +1931,10 @@ def phase_precision(torch, np, cuda_lstm, train, train_chained, keep: str) -> di
         got, ref = getattr(gpu, k).cpu()[:, :first], getattr(cpu, k)[:, :first]
         err = max(err, float(((got - ref).abs() / (BF16_AE_ATOL + BF16_AE_RTOL * ref.abs()))
                              .max()) if first else 0.0)
-    say(f"{tag} (c) sweep --dtype bfloat16, real only, 21 latents x {PIPE_EPOCHS} epochs: "
-        f"exit 0 in {sweep_s:.1f} s, every file finite, no kernel launched; best OOS R2 "
-        f"latent {best['latent']} mean {best['mean']:.4f}; stop epochs "
+    say(f"{tag} (c) sweep --dtype bfloat16, real only, 21 latents x "
+        f"{PRECISION_SWEEP_EPOCHS} epochs: exit 0 in {sweep_s:.1f} s, every file finite, no "
+        f"kernel launched; best OOS R2 latent {best['latent']} mean {best['mean']:.4f}; stop "
+        f"epochs "
         f"{checked['stop_epochs']}")
     say(f"{tag} (c) the bf16 lane sweep, card against CPU from the same draws, over the "
         f"{first} epochs before any lane stops: losses max |card - CPU| / ({BF16_AE_ATOL:g} "
@@ -1919,7 +1944,7 @@ def phase_precision(torch, np, cuda_lstm, train, train_chained, keep: str) -> di
     if first < 1 or err > 1.0:
         fail(f"precision: the bf16 lane sweep on the card differs from the CPU's ({err} over "
              f"{first} epochs)")
-    out["sweep"] = {"wall_s": sweep_s, "epochs": PIPE_EPOCHS, "best_oos_r2": best,
+    out["sweep"] = {"wall_s": sweep_s, "epochs": PRECISION_SWEEP_EPOCHS, "best_oos_r2": best,
                     "stop_epochs": checked["stop_epochs"], "compared_epochs": first,
                     "loss_allclose_ratio": err, "card_s": secs["cuda"], "cpu_s": secs["cpu"],
                     "card_stop_epochs": gpu.stop_epoch.tolist(),
@@ -2343,29 +2368,24 @@ def phase_sweep(torch, np, cuda_lstm, keep: str, gan_checkpoint: str) -> dict:
             + ", ".join(f"{t['name'][:40]} {t['us']:.0f} us" for t in prof["top"][:3]))
 
     # (b) the verb at full width and depth, the three runs side by side as
-    # subprocesses, each counting its launches into its own stream; the
-    # multi run starts once this process has trained its second checkpoint
+    # subprocesses, each counting its launches into its own stream, once
+    # this process has trained the multi run's second checkpoint
     second = os.path.join(keep, "prod_b", f"ckpt_{SWEEP_SECOND_CKPT_EPOCHS}")
+    rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp_prod", "--epochs",
+                        str(SWEEP_SECOND_CKPT_EPOCHS), "--cleaned-dir", cleaned,
+                        "--checkpoint-dir", os.path.join(keep, "prod_b"), "--quiet"])
+    if rc != 0 or not os.path.isdir(second):
+        fail(f"sweep: the second train-gan run failed (rc {rc})")
     plan = (("real", []), ("augmented", [gan_checkpoint]), ("multi", [gan_checkpoint, second]))
     procs = {}
-
-    def start(name, ckpts):
-        argv = ["sweep", "--cleaned-dir", cleaned, "--latents", "1:21", "--out",
-                os.path.join(keep, f"sweep_{name}"), "--stats", "--preset", "mtss_wgan_gp_prod",
-                "--obs-dir", os.path.join(keep, f"sweep_{name}_obs")]
-        for c in ckpts:
-            argv += ["--gan-checkpoint", c]
-        procs[name] = start_module("hfrep_tpu_torch", argv)
-
     try:
-        for name, ckpts in plan[:2]:
-            start(name, ckpts)
-        rc, text = run_cli(["train-gan", "--preset", "mtss_wgan_gp_prod", "--epochs",
-                            str(SWEEP_SECOND_CKPT_EPOCHS), "--cleaned-dir", cleaned,
-                            "--checkpoint-dir", os.path.join(keep, "prod_b"), "--quiet"])
-        if rc != 0 or not os.path.isdir(second):
-            fail(f"sweep: the second train-gan run failed (rc {rc})")
-        start(*plan[2])
+        for name, ckpts in plan:
+            argv = ["sweep", "--cleaned-dir", cleaned, "--latents", "1:21", "--out",
+                    os.path.join(keep, f"sweep_{name}"), "--stats", "--preset",
+                    "mtss_wgan_gp_prod", "--obs-dir", os.path.join(keep, f"sweep_{name}_obs")]
+            for c in ckpts:
+                argv += ["--gan-checkpoint", c]
+            procs[name] = start_module("hfrep_tpu_torch", argv)
         done = {name: finish_module(procs[name], SWEEP_TIMEOUT_S) for name, _ in plan}
     finally:
         # a failed check exits: no run outlives the script
@@ -2518,6 +2538,7 @@ def phase_eval(torch, np, cuda_lstm, train, keep: str, gan_checkpoint: str) -> d
     bars (:func:`metric_check`)."""
     from hfrep_tpu_torch.config import get_preset
     from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
+    from hfrep_tpu_torch.metrics import gan_eval
     from hfrep_tpu_torch.metrics.gan_eval import GanEval
     from hfrep_tpu_torch.train.trainer import GanTrainer
 
@@ -2563,6 +2584,7 @@ def phase_eval(torch, np, cuda_lstm, train, keep: str, gan_checkpoint: str) -> d
 
     # (b) GanEval on the card against the CPU over the same cubes
     out["card_vs_cpu"] = []
+    covs = {}
     panel = load_panel(cleaned, device="cuda")
     for preset, ckpt_path in (("mtss_wgan_gp", os.path.join(ck, f"ckpt_{EVAL_CLI_EPOCHS}")),
                               ("mtss_wgan_gp_prod", gan_checkpoint)):
@@ -2603,12 +2625,15 @@ def phase_eval(torch, np, cuda_lstm, train, keep: str, gan_checkpoint: str) -> d
         if ratios[worst] > 1.0 or list(card) != list(cpu):
             fail(f"eval: {preset}: GanEval on the card differs from the CPU's at {worst} "
                  f"({card[worst]} against {cpu[worst]}, {ratios[worst]:.3g} of its bar)")
+        # the covariances GanEval's FID builds (``gan_eval.fid``), for the
+        # analysis phase's sqrtm_product_trace
+        covs[preset] = tuple(gan_eval._cov(gan_eval._flatten_rows(c)) for c in (real, fake))
         out["card_vs_cpu"].append({"preset": preset, "W": cfg.model.window,
                                    "checkpoint": os.path.basename(ckpt_path), "card": card,
                                    "cpu": cpu, "ratio_to_bar": ratios, "card_s": card_s,
                                    "cpu_s": cpu_s})
     out["launches"] = launches
-    return out
+    return out, covs
 
 
 #: the scenario phase: the conditional mtss_wgan_gp epoch (W=24, the
@@ -2853,8 +2878,9 @@ PIPE_FIXTURE = ["--fixture-sources", "2", "--fixture-feats", "22", "--fixture-ro
 PIPE_GEN_DELAY = 1.0
 #: AE epochs of the phase's runs, cut from AEConfig()'s 1000-epoch cap to
 #: hold the phase near 2 minutes (at full depth it took 172.9 s on the
-#: H100, tools/torch_pipeline_phase.py)
-PIPE_EPOCHS = 200
+#: H100, tools/torch_pipeline_phase.py), then from 200 to 100: (b)'s
+#: drained run and its resume, in turn, are the phase's longest leg
+PIPE_EPOCHS = 100
 PIPE_TIMEOUT_S = 420
 
 
@@ -2913,11 +2939,6 @@ def finish_pipeline_verb(started: tuple) -> tuple:
     return proc.returncode, time.perf_counter() - t0, stdout, stderr
 
 
-def run_pipeline_verb(args: list, env_extra: dict) -> tuple:
-    """:func:`start_pipeline_verb`, waited for."""
-    return finish_pipeline_verb(start_pipeline_verb(args, env_extra))
-
-
 def pipeline_report(name: str, rc: int, wall: float, stdout: str, stderr: str,
                     obs_dir: str) -> dict:
     """The parent stream's restarts and queue depth over time, printed."""
@@ -2964,8 +2985,9 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
     gan += depth
     out = {"epochs": epochs}
 
-    # (a), (b)'s drained run and (c) at once, each in its own dirs; then
-    # (b)'s resume
+    # (a), (b)'s drained run and (c) at once, each in its own dirs; (b)'s
+    # resume as soon as its drained run has exited, beside (a) and (c); the
+    # item (c) is held to computed here meanwhile
     a_out, a_obs = os.path.join(keep, "pipe_a"), os.path.join(keep, "pipe_a_obs")
     b_out = os.path.join(keep, "pipe_b")
     c_out, c_obs = os.path.join(keep, "pipe_c"), os.path.join(keep, "pipe_c_obs")
@@ -2979,17 +3001,32 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
                                         str(PIPE_CONSUMERS), "--latents", "1:21", "--gen-delay",
                                         str(PIPE_GEN_DELAY), "--out", c_out, "--obs-dir", c_obs],
                 {"HFREP_FAULTS": "kill@actor=1"})}
-    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+    cfg = dataclasses.replace(AEConfig(), n_factors=22, latent_dim=21)
+    if epochs is not None:
+        cfg = dataclasses.replace(cfg, epochs=epochs)
+    source_idx, seq = 1, PIPE_BLOCKS - 1
+    with concurrent.futures.ThreadPoolExecutor(len(runs) + 1) as pool:
         try:                            # each waited for on its own thread: its own wall
             futures = {k: pool.submit(finish_pipeline_verb, v) for k, v in runs.items()}
+            t0 = time.perf_counter()
+            direct = engine.sweep_item_arrays(seed_mix(cfg.seed, source_idx, seq),
+                                              _fixture_panel(0, source_idx, seq, 168, 22), cfg,
+                                              list(range(1, 22)), device="cuda")
+            direct_s = time.perf_counter() - t0
+            if futures["b"].result()[0] == 75:
+                runs["b2"] = start_pipeline_verb(
+                    gan + ["--out", b_out, "--resume", "--obs-dir",
+                           os.path.join(keep, "pipe_b2_obs")], {})
+                futures["b2"] = pool.submit(finish_pipeline_verb, runs["b2"])
             done = {k: f.result() for k, f in futures.items()}
         finally:
             # a failed run exits: no pipeline outlives the script
             for proc, _ in runs.values():
                 if proc.poll() is None:
                     kill_tree(proc)
-    out["first_runs_wall_s"] = time.perf_counter() - t_runs
-    say(f"[pipeline] (a), (b)'s drained run and (c) side by side: {out['first_runs_wall_s']:.1f} s")
+    out["runs_wall_s"] = time.perf_counter() - t_runs
+    say(f"[pipeline] (a), (b)'s drained run and (c) side by side, (b)'s resume once its "
+        f"drained run exited: {out['runs_wall_s']:.1f} s")
 
     # (a) undisturbed
     rc, wall, stdout, stderr = done["a"]
@@ -3024,8 +3061,7 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
                                        os.path.join(keep, "pipe_b_obs"))
     if rc != 75:
         fail(f"pipeline (b): the drained run exited {rc}, not 75\n{stderr[-3000:]}")
-    rc, wall, stdout, stderr = run_pipeline_verb(
-        gan + ["--out", b_out, "--resume", "--obs-dir", os.path.join(keep, "pipe_b2_obs")], {})
+    rc, wall, stdout, stderr = done["b2"]
     out["b_resumed"] = pipeline_report("(b) --resume", rc, wall, stdout, stderr,
                                        os.path.join(keep, "pipe_b2_obs"))
     with open(os.path.join(b_out, "pipeline.json"), "rb") as fh:
@@ -3039,15 +3075,6 @@ def phase_pipeline(torch, np, keep: str, gan_checkpoint: str, epochs=PIPE_EPOCHS
     out["c"] = pipeline_report("(c) kill@actor=1", rc, wall, stdout, stderr, c_obs)
     if rc != 0 or out["c"]["restarts"] < 1:
         fail(f"pipeline (c): exit {rc}, restarts {out['c']['restarts']}\n{stderr[-3000:]}")
-    cfg = dataclasses.replace(AEConfig(), n_factors=22, latent_dim=21)
-    if epochs is not None:
-        cfg = dataclasses.replace(cfg, epochs=epochs)
-    source_idx, seq = 1, PIPE_BLOCKS - 1
-    t0 = time.perf_counter()
-    direct = engine.sweep_item_arrays(seed_mix(cfg.seed, source_idx, seq),
-                                      _fixture_panel(0, source_idx, seq, 168, 22), cfg,
-                                      list(range(1, 22)), device="cuda")
-    direct_s = time.perf_counter() - t0
     with np.load(os.path.join(c_out, "results", result_name(f"f{source_idx}", seq),
                               "sweep.npz")) as z:
         published = {k: z[k] for k in z.files}
@@ -3624,9 +3651,10 @@ FORENSICS_EPOCHS = 12
 #: the chaos phase: the soak's seed and its fixed number of schedules (cut
 #: from one a fast subject, 7, to 3, then to 2: the script's time limit),
 #: the corpus entries' ``chaos --replay`` processes side by side, four at a
-#: time, the ``gan_ckpt`` subject's entries (the slowest, 90-100 s each)
-#: first (one process's ``--replay-corpus`` was the phase's longest leg),
-#: and the spawned legs' time limits
+#: time (six gave the same phase wall: every leg slowed by a quarter), the
+#: ``gan_ckpt`` subject's entries (the slowest, 90-130 s each) first (one
+#: process's ``--replay-corpus`` was the phase's longest leg), and the
+#: spawned legs' time limits
 CHAOS_SEED, CHAOS_SCHEDULES, CORPUS_LANES = 11, 2, 4
 CHAOS_TIMEOUT_S, SELFTEST_TIMEOUT_S = 600, 420
 
@@ -3671,12 +3699,6 @@ def finish_module(started: tuple, timeout: float) -> tuple:
         proc.communicate()
         fail(f"{' '.join(proc.args[2:5])} overran {timeout} s")
     return proc.returncode, out, err, time.perf_counter() - t0
-
-
-def run_module(module: str, args: list, timeout: float, env_extra=None) -> tuple:
-    """``python -m MODULE ARGS`` as a subprocess, waited for: (exit code,
-    stdout, stderr, wall seconds)."""
-    return finish_module(start_module(module, args, env_extra), timeout)
 
 
 class CorpusReplay:
@@ -3760,13 +3782,36 @@ def phase_forensics(torch, np, cuda_lstm, keep: str, health: dict) -> dict:
     of two steady ``train-gan`` runs, ``explain`` of them (unchanged, then
     with one library digest changed), ``crash-drill`` and a drained chaos
     subject's crash bundle."""
+    tag = "[forensics]"
+    t_phase = time.perf_counter()
+    # (e)'s two subprocesses run beside (a)-(d)
+    subj = os.path.join(keep, "forensics_drained")
+    legs = {"drill": start_module("hfrep_tpu_torch.obs", ["crash-drill", "--device", "cuda"]),
+            "drained": start_module("hfrep_tpu_torch.resilience",
+                                    ["chaos-subject", "ae_sweep", "--out", subj, "--device",
+                                     "cuda"], {"HFREP_FAULTS": "preempt@chunk=1"})}
+    try:
+        out = forensics_parts(torch, cuda_lstm, keep, health, legs, subj)
+    finally:
+        # a failed check exits: no leg outlives the script
+        for proc, _ in legs.values():
+            if proc.poll() is None:
+                kill_tree(proc)
+                proc.communicate()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
+    return out
+
+
+def forensics_parts(torch, cuda_lstm, keep: str, health: dict, legs: dict, subj: str) -> dict:
+    """:func:`phase_forensics`' checks, with (e)'s crash-drill and drained
+    subject started in ``legs``."""
     import hashlib
 
     from hfrep_tpu_torch.obs import crash
     from hfrep_tpu_torch.utils import checkpoint as ckpt
 
     tag = "[forensics]"
-    t_phase = time.perf_counter()
     out: dict = {}
     prof = health["profile"]
     # (a) the profile digest of the capture
@@ -3873,18 +3918,13 @@ def phase_forensics(torch, np, cuda_lstm, keep: str, health: dict) -> dict:
     out["explain"] = {"unchanged_findings": [f["kind"] for f in same["findings"]],
                       "changed": hits[0]["summary"]}
     # (e) crash-drill on the card, and a drained subject's bundle
-    rc, text, err, wall = run_module("hfrep_tpu_torch.obs", ["crash-drill", "--device", "cuda"],
-                                     timeout=300)
+    rc, text, err, wall = finish_module(legs["drill"], 300)
     drill = json.loads(text.strip().splitlines()[-1]) if rc == 0 and text.strip() else {}
     if rc != 0 or drill.get("self_check") != "ok":
         fail(f"forensics: crash-drill --device cuda exited {rc}: {text[-800:]} {err[-1500:]}")
     say(f"{tag} crash-drill --device cuda: exit 0 in {wall:.1f} s, bundled "
         f"{drill['bundled_exception']}, {drill['rendered_lines']} rendered lines")
-    subj = os.path.join(keep, "forensics_drained")
-    rc, text, err, wall = run_module(
-        "hfrep_tpu_torch.resilience", ["chaos-subject", "ae_sweep", "--out", subj, "--device",
-                                       "cuda"], timeout=300,
-        env_extra={"HFREP_FAULTS": "preempt@chunk=1"})
+    rc, text, err, wall = finish_module(legs["drained"], 300)
     bundle = crash.find_bundle(os.path.join(subj, "obs"))
     if rc != 75 or bundle is None or crash.verify_bundle(bundle):
         fail(f"forensics: the drained ae_sweep subject exited {rc} with bundle {bundle}: "
@@ -3897,8 +3937,6 @@ def phase_forensics(torch, np, cuda_lstm, keep: str, health: dict) -> dict:
         f"bundle {os.path.basename(bundle)} complete and checksummed; report --crash renders "
         f"{text.count(chr(10)) + 1} lines")
     out["drained_subject_wall_s"] = wall
-    out["wall_s"] = time.perf_counter() - t_phase
-    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
     return out
 
 
@@ -3915,18 +3953,13 @@ def phase_chaos(torch, np, keep: str) -> dict:
     t_phase = time.perf_counter()
     out: dict = {}
     mod = "hfrep_tpu_torch.resilience"
-    rc, text, err, _ = run_module(mod, ["drives", "--check", "--format", "json"], timeout=120)
-    doc = json.loads(text) if text.strip() else {}
-    problems = doc.get("problems", ["unreadable"])
-    if rc != 0 or problems:
-        fail(f"chaos: drives --check exited {rc}: {problems} {err[-800:]}")
-    say(f"{tag} drives --check: {len(doc['drives'])} specs, exit {rc}, problems {problems}")
-    out["drives"] = {"rc": rc, "problems": problems}
-    # the selftest, the corpus (each entry its own process, CORPUS_LANES at
-    # a time), the soak and the canary run at once, each in its own dirs
+    # the registry gate, the selftest, the corpus (each entry its own
+    # process, CORPUS_LANES at a time), the soak and the canary run at
+    # once, each in its own dirs
     soak_dir = os.path.join(keep, "chaos_soak")
     t_legs = time.perf_counter()
-    legs = {"selftest": start_module(mod, ["selftest", "--device", "cuda"]),
+    legs = {"drives": start_module(mod, ["drives", "--check", "--format", "json"]),
+            "selftest": start_module(mod, ["selftest", "--device", "cuda"]),
             "soak": start_module(mod, ["chaos", "--seed", CHAOS_SEED, "--budget-secs", 0,
                                        "--min-schedules", CHAOS_SCHEDULES, "--device", "cuda",
                                        "--out", soak_dir]),
@@ -3936,6 +3969,13 @@ def phase_chaos(torch, np, keep: str) -> dict:
                                           os.path.join(keep, "chaos_planted")])}
     corpus = CorpusReplay(keep)
     try:
+        rc, text, err, _ = finish_module(legs["drives"], 120)
+        doc = json.loads(text) if text.strip() else {}
+        problems = doc.get("problems", ["unreadable"])
+        if rc != 0 or problems:
+            fail(f"chaos: drives --check exited {rc}: {problems} {err[-800:]}")
+        say(f"{tag} drives --check: {len(doc['drives'])} specs, exit {rc}, problems {problems}")
+        out["drives"] = {"rc": rc, "problems": problems}
         rc, text, err, wall = finish_module(legs["selftest"], SELFTEST_TIMEOUT_S)
         st = json.loads(text.strip().splitlines()[-1]) if text.strip() else {}
         want = ("checkpoint_cycle", "lanes21", "multi", "ensemble_kill", "ensemble_drain",
@@ -4678,6 +4718,17 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
             f"{len(MESH_LATENTS)} lanes), {MESH_AE_EPOCHS} epochs, bit-equal to the meshless "
             f"drives; chunks {meshless['padded']['chunks']} and {meshless['multi']['chunks']}")
 
+        # the drain: SIGTERM to rank 1 once its trainer has annotated its run
+        # (the drain handler is up from the drive envelope on), before the
+        # 2000-epoch run competes with the rest of the phase
+        manifest = os.path.join(dirs["drain"] + "_obs", "proc1", "run.json")
+        deadline = time.perf_counter() + MESH_TIMEOUT_S
+        while not (os.path.exists(manifest) and "mesh" in open(manifest).read()):
+            if time.perf_counter() > deadline or procs["drain"][1][0].poll() is not None:
+                fail("mesh (c): the drained run's rank 1 never started training")
+            time.sleep(0.25)
+        procs["drain"][1][0].send_signal(signal.SIGTERM)
+
         # (e) the members in turn against standalone trainers
         cfg, ds = mesh_seed_config(torch)
         alone = {}
@@ -4692,6 +4743,18 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
             fail("mesh (e): a MultiSeedTrainer member differs from its standalone GanTrainer")
         say(f"{tag} (e) MultiSeedTrainer K={len(MESH_SEEDS)} on one card ({MESH_SEED_EPOCHS} "
             f"epochs): each member bit-equal to GanTrainer(seed={list(MESH_SEEDS)}[k])")
+
+        # (c)'s resumes, each as soon as the run it resumes has ended
+        runs = {}
+        for name, resume, argv, epochs in (
+                ("half", "resume", cli, MESH_CLI_EPOCHS),
+                ("sp_half", "sp_resume", sp_cli, MESH_SP_CLI_EPOCHS)):
+            runs[name] = [finish_module(p, MESH_TIMEOUT_S) for p in procs[name]]
+            if any(rc != 0 for rc, *_ in runs[name]):
+                fail(f"mesh (c): train-gan ({name}) exited "
+                     f"{[rc for rc, *_ in runs[name]]}: {[e[-1500:] for _, _, e, _ in runs[name]]}")
+            procs[resume] = start_cli_pair([*argv, "--epochs", epochs, "--checkpoint-dir",
+                                            dirs[name], "--resume"])
 
         # (b), (f), (g), (d) and (e): the two rank processes
         finish_ranks(procs["ranks"], ranks_dir, rank_deadline)
@@ -4752,8 +4815,7 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
                                         ref_p, ref_m, tcfg_r.n_critic, card)
 
         # (c) the verb: straight, single process, drained, then the resume
-        runs = {}
-        for name in ("single", "dp2", "half", "sp_straight", "sp_half"):
+        for name in ("single", "dp2", "sp_straight"):
             runs[name] = [finish_module(p, MESH_TIMEOUT_S) for p in procs[name]]
             if any(rc != 0 for rc, *_ in runs[name]):
                 fail(f"mesh (c): train-gan ({name}) exited "
@@ -4761,19 +4823,6 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
         for name in ("dp2", "half", "sp_straight", "sp_half"):
             if runs[name][1][1].strip():
                 fail(f"mesh (c): rank 1 of train-gan ({name}) printed {runs[name][1][1]!r}")
-        procs["resume"] = start_cli_pair([*cli, "--epochs", MESH_CLI_EPOCHS, "--checkpoint-dir",
-                                          dirs["half"], "--resume"])
-        procs["sp_resume"] = start_cli_pair([*sp_cli, "--epochs", MESH_SP_CLI_EPOCHS,
-                                             "--checkpoint-dir", dirs["sp_half"], "--resume"])
-        # the drain: SIGTERM to rank 1 once its trainer has annotated its run
-        # (the drain handler is up from the drive envelope on)
-        manifest = os.path.join(dirs["drain"] + "_obs", "proc1", "run.json")
-        deadline = time.perf_counter() + MESH_TIMEOUT_S
-        while not (os.path.exists(manifest) and "mesh" in open(manifest).read()):
-            if time.perf_counter() > deadline or procs["drain"][1][0].poll() is not None:
-                fail("mesh (c): the drained run's rank 1 never started training")
-            time.sleep(0.25)
-        procs["drain"][1][0].send_signal(signal.SIGTERM)
         drained = [finish_module(p, MESH_TIMEOUT_S) for p in procs["drain"]]
         ckpts = sorted(os.listdir(dirs["drain"])) if os.path.isdir(dirs["drain"]) else []
         if [rc for rc, *_ in drained] != [75, 75] or not ckpts:
@@ -4824,6 +4873,170 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
                     proc.communicate()
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase wall {out['wall_s']:.1f} s on {card}")
+    return out
+
+
+# -------------------------------------------------------- the analysis phase
+#: the port's gate (ROADMAP queue 1 item 10a), its paths as the shell would
+#: give them, and the rule ids it carries
+ANALYSIS_GATE = ("hfrep_tpu_torch", "tools/torch_*.py", "tests/test_torch_*.py")
+ANALYSIS_RULES = ("JAX005", "JAX006", "HF001", "HF002", "HF003", "HF007", "HF009", "HF010",
+                  "HF011")
+ANALYSIS_TIMEOUT_S = 300
+#: pairs of calls of each decorated function, contracts on and off (the
+#: order flipped every pair), for the check's median cost a call
+CONTRACT_PAIRS = 25
+#: calls timed of the check alone (around a function returning at once)
+CHECK_ALONE_CALLS = 2000
+SWEEP_LANES, OLS_WINDOW = 21, 24
+
+
+def contract_cases(torch, np, covs: dict, train: list) -> dict:
+    """Each function that carries a shape contract, on card tensors at the
+    main path's shapes: ``{name: (function, good args, [(what, bad args)])}``."""
+    from hfrep_tpu_torch.config import get_preset
+    from hfrep_tpu_torch.core import sampling
+    from hfrep_tpu_torch.core.data import build_gan_dataset, load_panel
+    from hfrep_tpu_torch.obs import flops
+    from hfrep_tpu_torch.ops import rolling, sqrtm
+
+    cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+    panel = load_panel(cleaned, device="cuda")
+    cases = {}
+    for preset in TRAIN_PRESETS:
+        cfg = get_preset(preset)
+        data = build_gan_dataset(cfg.data, cfg.data.seed, panel).panel_scaled
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        n, w = cfg.data.n_sample, cfg.data.window
+        starts = torch.randint(0, data.shape[0] - w + 1, (n,), generator=g, device="cuda")
+        cases[f"sample_windows ({preset}, W={w})"] = (
+            sampling.sample_windows, (data, n, w, None, starts),
+            [("rank", (data[None], n, w, None, starts))])
+    # the sweep's ex-ante shapes: the test block's returns, 21 lanes of factors
+    _, x_test, _, y_test = panel.train_test_split()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    factors = torch.randn((SWEEP_LANES, x_test.shape[0], SWEEP_LANES), generator=g,
+                          device="cuda")
+    cases["rolling_ols_beta"] = (
+        rolling.rolling_ols_beta, (y_test, factors, OLS_WINDOW),
+        [("T", (y_test[1:], factors, OLS_WINDOW)), ("rank", (y_test[None], factors, OLS_WINDOW))])
+    cases["_window_stack"] = (rolling._window_stack, (factors, OLS_WINDOW),
+                              [("rank", (factors[0, :, 0], OLS_WINDOW))])
+    cases["expanding_minmax_scale"] = (rolling.expanding_minmax_scale, (x_test,),
+                                       [("rank", (x_test[None],))])
+    cases["ols_beta"] = (rolling.ols_beta, (y_test, factors[0], True),
+                         [("T", (y_test, factors[0, 1:], True)),
+                          ("rank", (y_test[:, 0], factors[0], True))])
+    for preset, (s1, s2) in covs.items():
+        cases[f"sqrtm_product_trace ({preset})"] = (
+            sqrtm.sqrtm_product_trace, (s1, s2),
+            [("F", (s1, s2[1:, 1:])), ("rank", (s1[0], s2))])
+    step_s = np.array([r["ms_per_epoch"] / 1e3 for r in train], dtype=np.float64)
+    cases["mfu_series"] = (flops.mfu_series, (step_s, 48, 35), [("rank", (step_s[None], 48, 35))])
+    return cases
+
+
+def same_bits(torch, np, a, b) -> bool:
+    """Outputs equal bit for bit (NaNs included): tensors, arrays or tuples
+    of them."""
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(same_bits(torch, np, x, y) for x, y in zip(a, b)))
+    a, b = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def phase_analysis(torch, np, covs: dict, train: list) -> dict:
+    """The static analyzer's gate on the card machine's host, and every
+    shape contract on card tensors: on = off bit for bit, a bad shape
+    refused, the check's cost a call."""
+    from hfrep_tpu_torch.analysis.contracts import ContractError, contract
+
+    tag = "[analysis]"
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    paths = [p for pat in ANALYSIS_GATE for p in (sorted(glob.glob(pat, root_dir=root))
+                                                  if "*" in pat else [pat])]
+    rc, text, err, _ = finish_module(start_module("hfrep_tpu_torch.analysis", ["rules"]),
+                                     ANALYSIS_TIMEOUT_S)
+    ids = [line.split()[0] for line in text.splitlines() if line.strip()]
+    if rc != 0 or tuple(ids) != ANALYSIS_RULES:
+        fail(f"analysis: rules exited {rc} listing {ids}: {err[-1500:]}")
+    rc, text, err, wall = finish_module(start_module(
+        "hfrep_tpu_torch.analysis", ["check", *paths, "--no-cache", "--format", "json"]),
+        ANALYSIS_TIMEOUT_S)
+    doc = json.loads(text) if rc in (0, 1) and text.strip() else {}
+    if rc != 0 or doc.get("findings") != [] or doc.get("baselined") != 0:
+        fail(f"analysis: the gate exited {rc}: {text[-3000:]} {err[-1500:]}")
+    say(f"{tag} gate over {len(paths)} paths ({' '.join(ANALYSIS_GATE)}), cold (--no-cache): "
+        f"exit 0, 0 findings, 0 baselined, {wall:.2f} s wall on the host; rules {' '.join(ids)}")
+    out["gate"] = {"rc": rc, "findings": 0, "paths": len(paths), "wall_s": wall,
+                   "rules": ids}
+
+    cases = contract_cases(torch, np, covs, train)
+    out["contracts"] = {}
+    prior = os.environ.get("HFREP_CONTRACTS")
+    try:
+        for name, (fn, args, bad) in cases.items():
+            os.environ.pop("HFREP_CONTRACTS", None)
+            on = fn(*args)
+            os.environ["HFREP_CONTRACTS"] = "0"
+            off = fn(*args)
+            torch.cuda.synchronize()
+            if not same_bits(torch, np, on, off):
+                fail(f"analysis: {name} with contracts on differs from contracts off")
+            os.environ.pop("HFREP_CONTRACTS", None)
+            refused = {}
+            for what, bad_args in bad:
+                try:
+                    fn(*bad_args)
+                except ContractError as e:
+                    refused[what] = str(e)
+                else:
+                    fail(f"analysis: {name} took a bad shape ({what}) without a ContractError")
+            times = {"on": [], "off": []}
+            for i in range(CONTRACT_PAIRS):
+                for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                    if mode == "on":
+                        os.environ.pop("HFREP_CONTRACTS", None)
+                    else:
+                        os.environ["HFREP_CONTRACTS"] = "0"
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(*args)
+                    torch.cuda.synchronize()
+                    times[mode].append(time.perf_counter() - t0)
+            med = {k: 1e6 * float(np.median(v)) for k, v in times.items()}
+            # the check alone, contracts on: the same contract around a
+            # function that returns the output at once, against it bare
+            os.environ.pop("HFREP_CONTRACTS", None)
+            bare = (lambda *a, _o=on: _o)
+            alone = {}
+            for mode, f in (("checked", contract(fn.__contract__)(bare)), ("bare", bare)):
+                t0 = time.perf_counter()
+                for _ in range(CHECK_ALONE_CALLS):
+                    f(*args)
+                alone[mode] = 1e6 * (time.perf_counter() - t0) / CHECK_ALONE_CALLS
+            row = {"bit_equal": True, "refused": refused, "on_us": med["on"],
+                   "off_us": med["off"], "check_us": med["on"] - med["off"],
+                   "check_alone_us": alone["checked"] - alone["bare"]}
+            out["contracts"][name] = row
+            say(f"{tag} {name}: on = off bit for bit; refused "
+                + "; ".join(f"{k}: {v[:90]}" for k, v in refused.items())
+                + f"; median call {med['on']:.1f} us on, {med['off']:.1f} us off: the check "
+                f"{row['check_us']:+.1f} us a call ({CONTRACT_PAIRS} pairs), "
+                f"{row['check_alone_us']:.2f} us alone ({CHECK_ALONE_CALLS} calls)")
+    finally:
+        if prior is None:
+            os.environ.pop("HFREP_CONTRACTS", None)
+        else:
+            os.environ["HFREP_CONTRACTS"] = prior
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
     return out
 
 
@@ -5587,14 +5800,14 @@ def main() -> None:
         sweep = phase("sweep", phase_sweep, torch, np, cuda_lstm, keep,
                       trainer["cli_checkpoint"])
         f32_best = sweep["runs"]["real"]["summaries"]["None"]
-        say(f"[precision] the bf16 sweep ({PIPE_EPOCHS} epochs) beside the float32 sweep "
-            f"phase's real-only run (1000-epoch cap): best OOS R2 mean "
+        say(f"[precision] the bf16 sweep ({PRECISION_SWEEP_EPOCHS} epochs) beside the float32 "
+            f"sweep phase's real-only run (1000-epoch cap): best OOS R2 mean "
             f"{precision['sweep']['best_oos_r2']['mean']:.4f} at latent "
             f"{precision['sweep']['best_oos_r2']['latent']} against {f32_best['mean']:.4f} at "
             f"latent {f32_best['latent']}; stop epochs {precision['sweep']['stop_epochs']} "
             f"against {sweep['runs']['real']['stop_epochs']['None']} (recorded, not gated)")
-        evaluation = phase("eval", phase_eval, torch, np, cuda_lstm, train, keep,
-                           trainer["cli_checkpoint"])
+        evaluation, fid_covs = phase("eval", phase_eval, torch, np, cuda_lstm, train, keep,
+                                     trainer["cli_checkpoint"])
         scenario = phase("scenario", phase_scenario, torch, np, cuda_lstm, keep)
         pipeline = phase("pipeline", phase_pipeline, torch, np, keep, trainer["cli_checkpoint"])
         health = phase("health", phase_health, torch, np, cuda_lstm, train, train_chained, keep)
@@ -5605,6 +5818,7 @@ def main() -> None:
         forensics = phase("forensics", phase_forensics, torch, np, cuda_lstm, keep, health)
         chaos = phase("chaos", phase_chaos, torch, np, keep)
         mesh = phase("mesh", phase_mesh, torch, np, cuda_lstm, train, keep)
+        analysis = phase("analysis", phase_analysis, torch, np, fid_covs, train)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     timing = phase("timing", phase_timing, torch, cuda_lstm)
@@ -5809,6 +6023,7 @@ def main() -> None:
                        "eval": evaluation, "scenario": scenario, "pipeline": pipeline,
                        "health": health, "serve_drain": serve_drain, "obs_tier": obs_tier,
                        "forensics": forensics, "chaos": chaos, "mesh": mesh,
+                       "analysis": analysis,
                        "timing": timing,
                        "grad_timing": grad_timing, "stack_timing": stack_timing,
                        "carry_parity": carry, "carry_path": carry_path,

@@ -5,7 +5,9 @@ contiguous windows of length ``window`` from a (T, F) panel.  Starts run
 over ``[0, T - window]`` inclusive, as the reference's Python
 ``randint(0, T - window)`` does, so the last start yields
 ``data[T-window : T]``.  The gather is one indexing op over a (N, W)
-index grid, on the panel's device.
+index grid, on the panel's device.  The JAX package's contract is
+``*,(T,F)->(N,W,F)``: its leading ``*`` is the PRNG key, which the port's
+signature does not take (the draws come from ``generator`` or ``starts``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,10 @@ from typing import Optional
 
 import torch
 
+from hfrep_tpu_torch.analysis.contracts import contract
 
+
+@contract("(T,F)->(N,W,F)")
 def sample_windows(data: torch.Tensor, n_sample: int, window: int,
                    generator: Optional[torch.Generator] = None,
                    starts: Optional[torch.Tensor] = None) -> torch.Tensor:

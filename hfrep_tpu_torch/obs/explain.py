@@ -32,8 +32,8 @@ findings and explicit notes, never a crash; a diagnosis with no
 attributable surface says so (``attributed: false``).  The document is
 the JAX module's, so both packages diagnose each other's run dirs.  The
 JAX module's static-audit annotation (a JPX audit of jaxprs) has no
-PyTorch meaning and is not here.  Stdlib-only, like the whole obs read
-path.
+counterpart yet: it waits for the port's program audit (ROADMAP queue 1
+item 10b).  Stdlib-only, like the whole obs read path.
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import sys
 
-from hfrep_tpu_torch.utils.contracts import ContractError, contract
+from hfrep_tpu_torch.analysis.contracts import contract
 
 #: NVIDIA H100 SXM5 dense BF16 tensor peak (datasheet), FLOP/s
 PEAK_BF16 = 989.4e12
@@ -77,8 +77,6 @@ def mfu_series(step_times, w: int, f: int, h: int = H, batch: int = B,
     """Per-step MFU from an (N,) array of per-epoch seconds."""
     import numpy as np
     dt = np.asarray(step_times, dtype=np.float64)
-    if dt.ndim != 1:
-        raise ContractError(f"mfu_series: step_times must be (N,), got shape {dt.shape}")
     flops = float(epoch_flops(w, f, h, batch))
     with np.errstate(divide="ignore", invalid="ignore"):
         return np.where(dt > 0.0, flops / (dt * peak), np.nan)

@@ -9,6 +9,11 @@ Every pseudo-inverse takes JAX's cutoff, ``rtol = 10 * max(m, n) * eps``
 (:func:`pinv`), not torch's default ``max(m, n) * eps``: a masked latent
 lane's normal matrix is singular, and the two cutoffs keep different
 singular values of it.
+
+The functions carry the JAX package's shape contracts, checked at every
+call.  Where JAX maps a per-lane function over lanes with ``jax.vmap``,
+the port takes the lanes as leading dims, and the spec says so with a
+leading ``...`` (:mod:`hfrep_tpu_torch.analysis.contracts`).
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from hfrep_tpu_torch.analysis.contracts import contract
 
 
 def pinv(a: torch.Tensor) -> torch.Tensor:
@@ -25,6 +32,7 @@ def pinv(a: torch.Tensor) -> torch.Tensor:
     return torch.linalg.pinv(a, rtol=10.0 * max(m, n) * torch.finfo(a.dtype).eps)
 
 
+@contract("(...,T,F)->(...,N,W,F)")
 def _window_stack(x: torch.Tensor, window: int) -> torch.Tensor:
     """(..., T, F) → (..., T - window + 1, window, F) sliding windows."""
     if x.shape[-2] < window:
@@ -32,6 +40,7 @@ def _window_stack(x: torch.Tensor, window: int) -> torch.Tensor:
     return x.unfold(-2, window, 1).transpose(-1, -2)
 
 
+@contract("(T,S),(...,T,K)->(...,N,K,S)")
 def rolling_ols_beta(y: torch.Tensor, x: torch.Tensor, window: int) -> torch.Tensor:
     """Rolling no-intercept OLS betas for every window start: ``y`` (T, S),
     ``x`` (..., T, K) → (..., T - window + 1, K, S), slice ``i`` regressing
@@ -44,16 +53,16 @@ def rolling_ols_beta(y: torch.Tensor, x: torch.Tensor, window: int) -> torch.Ten
     return pinv(xtx) @ xty
 
 
+@contract("(T,S),(T,K)->(_,S)")
 def ols_beta(y: torch.Tensor, x: torch.Tensor, add_constant: bool = False) -> torch.Tensor:
     """One OLS fit via :func:`pinv`; with ``add_constant`` the intercept is
     row 0, as ``sm.add_constant`` puts it (``autoencoder_v4.ipynb`` cell 23)."""
-    if x.dim() != 2 or y.dim() != 2 or x.shape[0] != y.shape[0]:
-        raise ValueError(f"want (T, K) and (T, S), got {tuple(x.shape)} and {tuple(y.shape)}")
     if add_constant:
         x = torch.cat([torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device), x], dim=1)
     return pinv(x.T @ x) @ (x.T @ y)
 
 
+@contract("(T,F)->(T,F),(T,F)")
 def expanding_minmax_scale(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row i holds the column min and max of ``x[:i+1]`` (every prefix's
     MinMax params at once), each (T, F); exact, so equal to JAX's bit for

@@ -13,7 +13,10 @@ from __future__ import annotations
 
 import torch
 
+from hfrep_tpu_torch.analysis.contracts import contract
 
+
+@contract("(F,F),(F,F)->()")
 def sqrtm_product_trace(sigma1: torch.Tensor, sigma2: torch.Tensor) -> torch.Tensor:
     """trace(sqrtm(sigma1 @ sigma2)) for symmetric PSD (F, F) inputs."""
     f = sigma1.shape[0]

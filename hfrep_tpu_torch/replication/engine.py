@@ -408,6 +408,19 @@ def _health_scalars(grid: "_Grid", tr: Tuple[torch.Tensor, ...], last: int):
     return gn, torch.nansum(tr[4][..., last]), grid.param_norm()
 
 
+def _boundary_sync(stopped: torch.Tensor, grid: Optional["_Grid"], tr: Tuple[torch.Tensor, ...],
+                   pos: int, snapshot) -> bool:
+    """The serial drive's one read at a boundary: ``all(stopped)``, and
+    with a health-armed ``grid`` the boundary's health scalars of the
+    chunk's traces ``tr`` in the same copy (:func:`_emit_ae_health`)."""
+    if grid is None:
+        return bool(torch.all(stopped))
+    flag, *vals = (float(v) for v in torch.stack(
+        (torch.all(stopped).float(),) + _health_scalars(grid, tr, -1)).cpu())
+    _emit_ae_health(grid, *vals, pos, snapshot)
+    return bool(flag)
+
+
 def _snapshot_save_failed(snapshot, pos: int, e: OSError) -> None:
     """A chunk snapshot is a resume optimisation: a write that outlasts
     the retry policy costs resume granularity (the last snapshot that
@@ -512,14 +525,8 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
                 pending = flag
             elif pos < epochs:
                 t_sync0 = timeline.clock()
-                if health:
-                    flag, *vals = (float(v) for v in torch.stack(
-                        (torch.all(stopped).float(),) + _health_scalars(grid, traces[-1], -1)
-                    ).cpu())
-                    stopped_all = bool(flag)
-                    _emit_ae_health(grid, *vals, pos, snapshot)
-                else:
-                    stopped_all = bool(torch.all(stopped))
+                stopped_all = _boundary_sync(stopped, grid if health else None, traces[-1],
+                                             pos, snapshot)
                 if attrib_on:
                     now = timeline.clock()
                     disp_s = attrib.window_dispatch_s()

@@ -17,7 +17,7 @@ import pytest
 
 from hfrep_tpu.obs import flops as jax_flops
 from hfrep_tpu_torch.obs import flops
-from hfrep_tpu_torch.utils.contracts import ContractError
+from hfrep_tpu_torch.analysis.contracts import ContractError
 
 GRID = list(itertools.product((1, 24, 48, 168), (4, 35, 36), (8, 100, 128), (1, 32)))
 
