@@ -356,14 +356,26 @@ exits non-zero on failure:
              or overruns is reported with the part it was in and both
              ranks' stderr;
 5m. analysis — the port's static analyzer and its shape contracts
-             (``hfrep_tpu_torch.analysis``, ROADMAP queue 1 item 10a): the
-             gate ``python -m hfrep_tpu_torch.analysis check
-             hfrep_tpu_torch tools/torch_*.py tests/test_torch_*.py
-             --no-cache`` in a subprocess exits 0 with no finding and its
-             ``rules`` list exactly the carried ids (its wall recorded);
-             then each function that carries a contract, on card tensors
-             at full width: ``sample_windows`` on the committed panel at
-             both presets, ``rolling_ols_beta``, ``_window_stack``,
+             (``hfrep_tpu_torch.analysis``, ROADMAP queue 1 items 10a and
+             10b): ``rules`` lists exactly the carried ids; the gate
+             ``python -m hfrep_tpu_torch.analysis check hfrep_tpu_torch
+             tools/torch_*.py tests/test_torch_*.py --no-cache`` and the
+             program audit ``audit --device cuda --no-cache --format
+             sarif`` run side by side in two subprocesses, each to exit 0
+             with no finding and none baselined, the audit tracing every
+             registry row with no skip note (its serve rows exported on
+             the card, its other rows traced on the host; walls
+             recorded); meanwhile ``serve:sample`` at full width, each
+             preset at the server's first bucket, built on the card by
+             the audit's factory: mode export, exactly two
+             ``hfrep.lstm_fwd`` nodes and two forward-kernel launches a
+             call, bit-equal to the eager server path and within
+             ``torch.allclose`` at atol 1e-5 of the plain version; the
+             seeded defects built on the card, exactly one JPX002 and
+             one JPX004; then each function that carries a contract, on
+             card tensors at full width: ``sample_windows`` on the
+             committed panel at both presets, ``rolling_ols_beta``,
+             ``_window_stack``,
              ``expanding_minmax_scale`` and ``ols_beta`` at the sweep's
              shapes with 21 lanes, ``sqrtm_product_trace`` on the eval
              phase's GanEval covariances (both presets), ``mfu_series``:
@@ -4880,9 +4892,20 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
 #: the port's gate (ROADMAP queue 1 item 10a), its paths as the shell would
 #: give them, and the rule ids it carries
 ANALYSIS_GATE = ("hfrep_tpu_torch", "tools/torch_*.py", "tests/test_torch_*.py")
-ANALYSIS_RULES = ("JAX005", "JAX006", "HF001", "HF002", "HF003", "HF007", "HF009", "HF010",
-                  "HF011")
+ANALYSIS_RULES = ("JAX005", "JAX006", "HF001", "HF002", "HF003", "HF004", "HF006", "HF007",
+                  "HF008", "HF009", "HF010", "HF011", "JPX002", "JPX003", "JPX004")
 ANALYSIS_TIMEOUT_S = 300
+#: the program audit (queue 1 item 10b) with the serve rows' programs built
+#: on the card, beside the gate; one torch thread, so the contract checks'
+#: host timings share the host with one busy core
+ANALYSIS_AUDIT = ("audit", "--device", "cuda", "--no-cache", "--format", "sarif")
+#: the full-width serve:sample program's hfrep.lstm_fwd nodes: one a
+#: generator LSTM layer (models/generators.py, LSTMGenerator's lstm0 and
+#: lstm1), each launching the forward kernel once a call
+SAMPLE_LSTM_NODES = 2
+#: the export against the plain version: torch.allclose at atol 1e-5 (its
+#: rtol, 1e-5, as it comes)
+SAMPLE_PLAIN_ATOL = 1e-5
 #: pairs of calls of each decorated function, contracts on and off (the
 #: order flipped every pair), for the check's median cost a call
 CONTRACT_PAIRS = 25
@@ -4950,11 +4973,11 @@ def same_bits(torch, np, a, b) -> bool:
 
 
 def phase_analysis(torch, np, covs: dict, train: list) -> dict:
-    """The static analyzer's gate on the card machine's host, and every
-    shape contract on card tensors: on = off bit for bit, a bad shape
-    refused, the check's cost a call."""
-    from hfrep_tpu_torch.analysis.contracts import ContractError, contract
-
+    """The static analyzer on the card machine: its gate and its program
+    audit (the serve rows built on the card) in two subprocesses side by
+    side, while this process builds ``serve:sample`` at full width and the
+    seeded defects on the card and checks every shape contract on card
+    tensors."""
     tag = "[analysis]"
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4966,19 +4989,160 @@ def phase_analysis(torch, np, covs: dict, train: list) -> dict:
     ids = [line.split()[0] for line in text.splitlines() if line.strip()]
     if rc != 0 or tuple(ids) != ANALYSIS_RULES:
         fail(f"analysis: rules exited {rc} listing {ids}: {err[-1500:]}")
-    rc, text, err, wall = finish_module(start_module(
-        "hfrep_tpu_torch.analysis", ["check", *paths, "--no-cache", "--format", "json"]),
-        ANALYSIS_TIMEOUT_S)
-    doc = json.loads(text) if rc in (0, 1) and text.strip() else {}
-    if rc != 0 or doc.get("findings") != [] or doc.get("baselined") != 0:
-        fail(f"analysis: the gate exited {rc}: {text[-3000:]} {err[-1500:]}")
-    say(f"{tag} gate over {len(paths)} paths ({' '.join(ANALYSIS_GATE)}), cold (--no-cache): "
-        f"exit 0, 0 findings, 0 baselined, {wall:.2f} s wall on the host; rules {' '.join(ids)}")
-    out["gate"] = {"rc": rc, "findings": 0, "paths": len(paths), "wall_s": wall,
-                   "rules": ids}
+    gate = start_module("hfrep_tpu_torch.analysis",
+                        ["check", *paths, "--no-cache", "--format", "json"])
+    audit = start_module("hfrep_tpu_torch.analysis", list(ANALYSIS_AUDIT),
+                         env_extra={"OMP_NUM_THREADS": "1"})
+    try:
+        out["serve_sample"] = audit_serve_sample(torch, tag)
+        out["seeded"] = audit_seeded(tag)
+        rc, text, err, wall = finish_module(gate, ANALYSIS_TIMEOUT_S)
+        doc = json.loads(text) if rc in (0, 1) and text.strip() else {}
+        if rc != 0 or doc.get("findings") != [] or doc.get("baselined") != 0:
+            fail(f"analysis: the gate exited {rc}: {text[-3000:]} {err[-1500:]}")
+        say(f"{tag} gate over {len(paths)} paths ({' '.join(ANALYSIS_GATE)}), cold "
+            f"(--no-cache): exit 0, 0 findings, 0 baselined, {wall:.2f} s wall on the host; "
+            f"rules {' '.join(ids)}")
+        out["gate"] = {"rc": rc, "findings": 0, "paths": len(paths), "wall_s": wall,
+                       "rules": ids}
+        out["contracts"] = check_contracts(torch, np, covs, train, tag)
+        out["audit"] = finish_audit(audit, tag)
+    finally:
+        for proc, _ in (gate, audit):
+            if proc.poll() is None:
+                kill_tree(proc)
+                proc.communicate()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
+    return out
+
+
+def finish_audit(audit: tuple, tag: str) -> dict:
+    """The audit subprocess's verdict: exit 0, no finding and nothing
+    baselined, every registry row traced with no skip note, each serve
+    row's program built on the card (a skip note is what an eager
+    fallback gives)."""
+    from hfrep_tpu_torch.analysis import programs
+
+    rc, text, err, wall = finish_module(audit, ANALYSIS_TIMEOUT_S)
+    try:
+        run = json.loads(text)["runs"][0]
+    except (ValueError, KeyError, IndexError):
+        run = {}
+    props = run.get("properties", {})
+    labels = [b.label for b in programs.PROGRAM_BOUNDARIES]
+    want_dev = {b.label: programs.boundary_device(b, "cuda") for b in programs.PROGRAM_BOUNDARIES}
+    if (rc != 0 or run.get("results") != [] or props.get("baselined") != 0
+            or props.get("traced") != labels or props.get("skipped") != {}
+            or props.get("devices") != want_dev):
+        fail(f"analysis: audit {' '.join(ANALYSIS_AUDIT)} exited {rc}: {text[-3000:]} "
+             f"{err[-2000:]}")
+    n_serve = sum(1 for d in want_dev.values() if d == "cuda")
+    say(f"{tag} audit ({' '.join(ANALYSIS_AUDIT)}): exit 0, 0 findings, 0 baselined; "
+        f"{len(labels)} of {len(labels)} registry rows traced, no skip note; the {n_serve} "
+        f"serve rows' programs exported on the card (mode export), the "
+        f"{len(labels) - n_serve} step, chunk and init rows traced on the host; "
+        f"{wall:.2f} s wall on the host")
+    return {"rc": rc, "findings": 0, "traced": len(labels), "skipped": 0,
+            "serve_rows_on_card": n_serve, "wall_s": wall}
+
+
+def audit_serve_sample(torch, tag: str) -> dict:
+    """``serve:sample`` at the flagship's full width, each preset, at the
+    server's first bucket, built on the card by the audit's own factory
+    (``serve/aot.py``'s export round trip): mode export, exactly
+    :data:`SAMPLE_LSTM_NODES` ``hfrep.lstm_fwd`` nodes, each launching
+    the forward kernel once a call; its output bit for bit the eager
+    server path's (``via_export=False``), and within
+    :data:`SAMPLE_PLAIN_ATOL` of the plain version (a CPU copy of the same
+    parameters on the same noise)."""
+    from hfrep_tpu_torch.analysis import programs
+    from hfrep_tpu_torch.analysis.rules.jpx_base import call_nodes, op_name
+    from hfrep_tpu_torch.config import get_preset
+    from hfrep_tpu_torch.ops import cuda_lstm
+    from hfrep_tpu_torch.serve import aot
+    from hfrep_tpu_torch.serve.server import ServeConfig
+
+    bucket = ServeConfig().sample_buckets[0]
+    out = {"bucket": bucket, "runs": [], "launches": 0}
+    for preset in TRAIN_PRESETS:
+        mcfg = get_preset(preset).model
+        t0 = time.perf_counter()
+        built = programs.BOUNDARIES_BY_LABEL["serve:sample"].factory("cuda", mcfg, bucket)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if built.mode != "export":
+            fail(f"analysis: serve:sample ({preset}) came back in mode {built.mode!r}")
+        nodes = [n for n in call_nodes(built.program.exported.graph) if op_name(n) == "lstm_fwd"]
+        if len(nodes) != SAMPLE_LSTM_NODES or mcfg.hidden != 100:
+            fail(f"analysis: serve:sample ({preset}, H={mcfg.hidden}) holds {len(nodes)} "
+                 f"hfrep.lstm_fwd nodes, predicted {SAMPLE_LSTM_NODES}")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(21)
+        noise = torch.randn((bucket, mcfg.window, mcfg.features), generator=g, device="cuda")
+        params = built.model.params
+        cuda_lstm.reset_launches()
+        got = built.program(params, noise)
+        torch.cuda.synchronize()
+        launches = cuda_lstm.launch_counts()
+        if launches["lstm_fwd"] != SAMPLE_LSTM_NODES or sum(launches.values()) != SAMPLE_LSTM_NODES:
+            fail(f"analysis: one call of serve:sample ({preset}) launched {launches}")
+        eager = aot.Program(aot.gen_batch_fn(built.model), "compiled")(params, noise)
+        if not torch.equal(got, eager):
+            fail(f"analysis: serve:sample ({preset}): the exported program differs from the "
+                 f"eager server path by {float((got - eager).abs().max())}")
+        cpu = aot.GenServeModel(cfg=mcfg, module=copy.deepcopy(built.model.module).cpu())
+        plain = aot.gen_batch_fn(cpu)(cpu.params, noise.cpu())
+        got = got.cpu()
+        err = float((got - plain).abs().max())
+        if (got.shape != (bucket, mcfg.window, mcfg.features)
+                or not torch.isfinite(got).all()
+                or not torch.allclose(got, plain, atol=SAMPLE_PLAIN_ATOL)):
+            fail(f"analysis: serve:sample ({preset}) against the plain version: max|diff| "
+                 f"{err} (allclose at atol {SAMPLE_PLAIN_ATOL})")
+        out["launches"] += launches["lstm_fwd"]
+        out["runs"].append({"preset": preset, "W": mcfg.window, "F": mcfg.features,
+                            "H": mcfg.hidden, "export_s": build_s, "lstm_fwd_nodes": len(nodes),
+                            "launches": launches["lstm_fwd"], "max_abs_err_plain": err})
+        say(f"{tag} serve:sample {preset} (H={mcfg.hidden}, W={mcfg.window}, "
+            f"F={mcfg.features}, bucket {bucket}): exported on the card in {build_s:.2f} s "
+            f"(export, save, load, one run), mode export; {len(nodes)} hfrep.lstm_fwd nodes "
+            f"(predicted {SAMPLE_LSTM_NODES}, one a generator layer), {launches['lstm_fwd']} "
+            f"lstm_fwd launches a call; bit-equal to the eager server path; max|diff| "
+            f"{err:.3e} to the plain version (allclose, atol {SAMPLE_PLAIN_ATOL})")
+    return out
+
+
+def audit_seeded(tag: str) -> dict:
+    """The seeded defects (``programs.SEEDED_DEFECTS``), their programs
+    built on the card: each gives exactly its one finding."""
+    from hfrep_tpu_torch.analysis import programs
+
+    t0 = time.perf_counter()
+    rows = [b for b, _ in programs.SEEDED_DEFECTS]
+    res = programs.audit_boundaries(boundaries=rows, device="cuda", use_cache=False)
+    got = {}
+    for b, rule in programs.SEEDED_DEFECTS:
+        found = [f for f in res.findings if f.message.startswith(f"[{b.label}] ")]
+        got[b.label] = [f"{f.rule}: {f.message}" for f in found]
+        if (b.label in res.skipped or [f.rule for f in found] != [rule]
+                or not found[0].message.startswith(f"[{b.label}] 1 ")):
+            fail(f"analysis: seeded defect {b.label}: want exactly one {rule}, got "
+                 f"{got[b.label]} (skipped: {res.skipped.get(b.label)})")
+    wall = time.perf_counter() - t0
+    say(f"{tag} seeded defects, programs built on the card: "
+        + "; ".join(f"{label}: {msgs[0][:110]}" for label, msgs in got.items())
+        + f" ({wall:.2f} s)")
+    return {"findings": got, "wall_s": wall}
+
+
+def check_contracts(torch, np, covs: dict, train: list, tag: str) -> dict:
+    """Each function that carries a shape contract, on card tensors: on =
+    off bit for bit, a bad shape refused, the check's cost a call."""
+    from hfrep_tpu_torch.analysis.contracts import ContractError, contract
 
     cases = contract_cases(torch, np, covs, train)
-    out["contracts"] = {}
+    out = {}
     prior = os.environ.get("HFREP_CONTRACTS")
     try:
         for name, (fn, args, bad) in cases.items():
@@ -5024,7 +5188,7 @@ def phase_analysis(torch, np, covs: dict, train: list) -> dict:
             row = {"bit_equal": True, "refused": refused, "on_us": med["on"],
                    "off_us": med["off"], "check_us": med["on"] - med["off"],
                    "check_alone_us": alone["checked"] - alone["bare"]}
-            out["contracts"][name] = row
+            out[name] = row
             say(f"{tag} {name}: on = off bit for bit; refused "
                 + "; ".join(f"{k}: {v[:90]}" for k, v in refused.items())
                 + f"; median call {med['on']:.1f} us on, {med['off']:.1f} us off: the check "
@@ -5035,8 +5199,6 @@ def phase_analysis(torch, np, covs: dict, train: list) -> dict:
             os.environ.pop("HFREP_CONTRACTS", None)
         else:
             os.environ["HFREP_CONTRACTS"] = prior
-    out["wall_s"] = time.perf_counter() - t_phase
-    say(f"{tag} phase wall {out['wall_s']:.1f} s on {card_line(torch)}")
     return out
 
 
@@ -5866,11 +6028,13 @@ def main() -> None:
         "name": "lstm_fwd", "route": "cuda",
         "source": "hfrep_tpu_torch/csrc/lstm_fwd.cu", "replaces": TPU_KERNEL,
         "launches": (server["launches"] + trained["lstm_fwd"]
+                     + analysis["serve_sample"]["launches"]
                      + trainer["serve_launches"]["lstm_fwd"]
                      + sweep["sweep_gan_checkpoint_launches"]
                      + pipeline["a"]["launches"]["gen_g0"]["lstm_fwd"]
                      + serve_drain["a"]["launches"]["lstm_fwd"]),
         "launches_by_path": {"serve": server["launches"],
+                             "analysis_serve_sample": analysis["serve_sample"]["launches"],
                              "serve_drain": serve_drain["a"]["launches"]["lstm_fwd"],
                              "serve_gan_checkpoint": trainer["serve_launches"]["lstm_fwd"],
                              "sweep_gan_checkpoint": sweep["sweep_gan_checkpoint_launches"],

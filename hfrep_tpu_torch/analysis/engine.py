@@ -233,6 +233,19 @@ def _self_hash() -> str:
     return h.hexdigest()
 
 
+def torch_version() -> str:
+    """The installed torch version WITHOUT importing torch (the analysis
+    package stays torch-import-free; warm cache paths must not pay the
+    import).  The program audit's cache is keyed on it: every traced
+    graph is a fact about a specific torch, and an upgrade must
+    cold-start it rather than replay the old runtime's answers."""
+    try:
+        from importlib.metadata import version
+        return version("torch")
+    except Exception:
+        return "unknown"
+
+
 def load_cache(path) -> dict:
     try:
         data = json.loads(Path(path).read_text(encoding="utf-8"))

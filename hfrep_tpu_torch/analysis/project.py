@@ -15,9 +15,10 @@ file *contributes* (instruments/events emitted, fault sites referenced).
 Phase two hands the assembled :class:`ProjectModel` to every rule via
 ``FileContext.project``.
 
-The JAX package's model also reads the ``obs/README.md`` schema tables
-(HF004) and a table of jax APIs absent on its pinned runtime (HF005);
-neither rule is carried, so neither is read here.  Extraction is pinned
+It also reads the schema tables of the port's own ``obs/README.md``
+(HF004): the events and namespaced instruments the port emits.  The JAX
+package's model also reads a table of jax APIs absent on its pinned
+runtime (HF005), which has no PyTorch meaning.  Extraction is pinned
 against the live modules by ``tests/test_torch_analysis_project.py``.
 """
 
@@ -27,8 +28,9 @@ import ast
 import dataclasses
 import hashlib
 import json
+import re
 from pathlib import Path
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from hfrep_tpu_torch.analysis.engine import REPO_ROOT
 
@@ -41,6 +43,7 @@ REGRESS_PATH = "hfrep_tpu_torch/obs/regress.py"
 HISTORY_PATH = "hfrep_tpu_torch/obs/history.py"
 CHECKPOINT_PATH = "hfrep_tpu_torch/utils/checkpoint.py"
 MANIFEST_PATH = "hfrep_tpu_torch/obs/manifest.py"
+OBS_README_PATH = "hfrep_tpu_torch/obs/README.md"
 
 #: the sanctioned crash-consistent writer entry points (HF003).  Each is
 #: ``(repo-relative defining file, function name)``; extraction verifies
@@ -53,6 +56,33 @@ ATOMIC_WRITER_DEFS = (
     (MANIFEST_PATH, "_write_with_retry"),
 )
 
+#: the emission surface the obs/README.md schema documents: every
+#: non-test .py file under these roots (a directory, a file, or a glob)
+#: can emit documented rows, so the HF004 doc-side (stale-row) check runs
+#: only when the analyzed file set covers ALL of them — a single-file or
+#: package-scoped run cannot judge "nothing emits this row" (it would
+#: flag every row stale).
+DOC_SYNC_ROOTS = ("hfrep_tpu_torch", "tools/torch_*.py")
+
+
+def doc_surface_files(root: Optional[Path] = None) -> Set[str]:
+    """Repo-relative posix paths of every file the HF004 doc-side check
+    needs in scope (the full emission surface under
+    :data:`DOC_SYNC_ROOTS`)."""
+    root = Path(root) if root is not None else REPO_ROOT
+    out: Set[str] = set()
+    for entry in DOC_SYNC_ROOTS:
+        p = root / entry
+        if "*" in entry:
+            out.update(f.relative_to(root).as_posix() for f in root.glob(entry))
+        elif p.is_dir():
+            out.update(f.relative_to(root).as_posix()
+                       for f in p.rglob("*.py"))
+        elif p.exists():
+            out.add(entry)
+    return out
+
+
 #: hook-callable name -> the fault-site group its literal site argument
 #: must belong to (HF002).  ``write_atomic`` sites arrive as keywords.
 FAULT_HOOKS = {
@@ -64,6 +94,117 @@ FAULT_HOOKS = {
     "actor_kill_point": "actor",
 }
 FAULT_KEYWORDS = {"io_site": "io", "fault_site": "post_save"}
+
+
+# ------------------------------------------------------------ doc schema
+@dataclasses.dataclass(frozen=True)
+class DocRow:
+    """One schema-table row of ``obs/README.md``: a name the docs claim
+    the code emits."""
+
+    name: str           # as written, e.g. "timeline/<category>_frac"
+    line: int           # 1-based line in the README
+
+    @property
+    def patterns(self) -> Tuple[str, ...]:
+        return expand_doc_name(self.name)
+
+
+def expand_doc_name(name: str) -> Tuple[str, ...]:
+    """A documented name -> regex pattern(s).
+
+    ``{a,b,c}`` brace sets expand to alternatives; single-token holes —
+    ``{H}``, ``<key>``, ``<n>`` — become wildcards.  Plain names yield
+    one exact-match pattern.
+    """
+    variants = [""]
+    i = 0
+    while i < len(name):
+        c = name[i]
+        # an unbalanced brace/angle is prose, not a hole — fall through
+        # to the literal branch rather than raising (one stray `x < y`
+        # in README backticks must not kill the whole analyzer run)
+        j = name.find("}", i) if c == "{" else \
+            name.find(">", i) if c == "<" else -1
+        if c == "{" and j != -1:
+            body = name[i + 1:j]
+            if "," in body:
+                opts = [re.escape(o) for o in body.split(",")]
+                variants = [v + f"(?:{'|'.join(opts)})" for v in variants]
+            else:
+                variants = [v + r"[^\s]+" for v in variants]
+            i = j + 1
+        elif c == "<" and j != -1:
+            variants = [v + r"[^\s]+" for v in variants]
+            i = j + 1
+        else:
+            variants = [v + re.escape(c) for v in variants]
+            i += 1
+    return tuple(v + "$" for v in variants)
+
+
+@dataclasses.dataclass
+class DocSchema:
+    """What ``obs/README.md`` documents: the structured table rows (names
+    the docs *claim* are emitted — checked both directions) and every
+    backticked token anywhere (the weaker "documented somewhere" set)."""
+
+    rows: List[DocRow] = dataclasses.field(default_factory=list)
+    mentioned: Set[str] = dataclasses.field(default_factory=set)
+
+    def documents(self, emitted_name: str) -> bool:
+        """Is ``emitted_name`` covered — an exact backtick mention or a
+        structured-row pattern match?"""
+        if emitted_name in self.mentioned:
+            return True
+        for row in self.rows:
+            for pat in row.patterns:
+                if re.match(pat, emitted_name):
+                    return True
+        for token in self.mentioned:
+            if ("{" in token or "<" in token) and any(
+                    re.match(p, emitted_name)
+                    for p in expand_doc_name(token)):
+                return True
+        return False
+
+
+_BACKTICK_RE = re.compile(r"`([^`\n]+)`")
+_ROW_RE = re.compile(r"^\|\s*`([^`|]+)`")
+
+
+def parse_obs_readme(text: str) -> DocSchema:
+    """Extract the schema vocabulary from ``obs/README.md``.
+
+    Structured rows: inside a markdown table whose header's first column
+    is one of the schema-table headers (``event name``, ``instrument``,
+    ``counter``, ``name``, ``metric``), each data row's first backticked
+    cell is a documented emission.  Cells carrying multiple backticked
+    names (``serve/p50_ms`, `serve/p95_ms``) contribute each.
+    """
+    schema = DocSchema()
+    in_schema_table = False
+    for lineno, line in enumerate(text.splitlines(), start=1):
+        stripped = line.strip()
+        for token in _BACKTICK_RE.findall(line):
+            schema.mentioned.add(token.strip())
+        if stripped.startswith("|"):
+            cells = [c.strip() for c in stripped.strip("|").split("|")]
+            first = cells[0] if cells else ""
+            if set(first) <= {"-", " ", ":"} and first:
+                continue                     # the |---|---| separator row
+            header = first.lower().strip("*")
+            if header in ("event name", "instrument", "counter", "name",
+                          "metric"):
+                in_schema_table = True
+                continue
+            if in_schema_table and _ROW_RE.match(stripped):
+                for name in _BACKTICK_RE.findall(first):
+                    schema.rows.append(DocRow(name=name.strip(),
+                                              line=lineno))
+        else:
+            in_schema_table = False
+    return schema
 
 
 # ------------------------------------------------------- per-file summary
@@ -386,10 +527,20 @@ class ProjectModel:
     thresholds: Dict[str, int] = dataclasses.field(default_factory=dict)
     #: history.GAUGE_PREFIXES (HF001 scope)
     gauge_prefixes: Tuple[str, ...] = ()
+    #: obs/README.md schema (HF004)
+    doc: DocSchema = dataclasses.field(default_factory=DocSchema)
     #: sanctioned atomic-writer function names (HF003)
     atomic_writers: Set[str] = dataclasses.field(default_factory=set)
     #: per-file summaries, keyed by repo-relative posix path
     files: Dict[str, FileSummary] = dataclasses.field(default_factory=dict)
+    #: HF004 doc-side gating: None = decide by comparing ``files``
+    #: against :func:`doc_surface_files` on disk; tests inject True/False
+    doc_surface_complete: Optional[bool] = None
+
+    def covers_doc_surface(self) -> bool:
+        if self.doc_surface_complete is not None:
+            return self.doc_surface_complete
+        return doc_surface_files() <= set(self.files)
 
     # ------------------------------------------------------------ assembly
     @classmethod
@@ -433,6 +584,10 @@ class ProjectModel:
             vals, _ = extract_string_tuple(history, "GAUGE_PREFIXES")
             model.gauge_prefixes = tuple(vals)
 
+        readme = root / OBS_README_PATH
+        if readme.exists():
+            model.doc = parse_obs_readme(readme.read_text(encoding="utf-8"))
+
         for relpath, name in ATOMIC_WRITER_DEFS:
             tree = parse_once(relpath)
             if tree is None:
@@ -444,16 +599,48 @@ class ProjectModel:
                     break
         return model
 
+    # ------------------------------------------------------- aggregations
+    def emitted_names(self, kinds: Sequence[str] = ("gauge", "counter",
+                                                    "histogram", "event"),
+                      exclude_tests: bool = True) -> Set[str]:
+        """Every statically resolved emitted name across the project."""
+        out: Set[str] = set()
+        for path, s in self.files.items():
+            if exclude_tests and _is_test_path(path):
+                continue
+            for e in s.emissions:
+                if e.kind in kinds:
+                    out.update(e.names)
+        return out
+
+    def emitted_prefixes(self, kinds: Sequence[str] = ("gauge", "counter",
+                                                       "histogram", "event"),
+                         exclude_tests: bool = True) -> Set[str]:
+        """Static prefixes of dynamic (unresolvable) emission sites."""
+        out: Set[str] = set()
+        for path, s in self.files.items():
+            if exclude_tests and _is_test_path(path):
+                continue
+            for e in s.emissions:
+                if e.kind in kinds and not e.names and e.prefix:
+                    out.add(e.prefix)
+        return out
+
     def digest(self) -> str:
         """Stable hash over everything a cached PER-FILE verdict depends
-        on besides the file itself: the registries.  Any registry edit
-        invalidates every cached finding — correctness over cleverness."""
+        on besides the file itself: the registries and the doc schema.
+        Any registry edit invalidates every cached finding — correctness
+        over cleverness.  Cross-file emission aggregates are deliberately
+        NOT part of it: only the (never cached) project-level pass reads
+        them."""
         payload = {
             "fault_sites": {g: sorted(d) for g, d in
                             sorted(self.fault_sites.items())},
             "fault_kinds": dict(sorted(self.fault_kinds.items())),
             "thresholds": sorted(self.thresholds),
             "gauge_prefixes": list(self.gauge_prefixes),
+            "doc_rows": sorted((r.name for r in self.doc.rows)),
+            "doc_mentioned": sorted(self.doc.mentioned),
             "atomic_writers": sorted(self.atomic_writers),
         }
         return hashlib.sha256(

@@ -30,10 +30,12 @@ the render is one ranked list, human or JSON.  Degraded inputs (empty or
 torn streams, runs with no manifest or no fingerprints) yield fewer
 findings and explicit notes, never a crash; a diagnosis with no
 attributable surface says so (``attributed: false``).  The document is
-the JAX module's, so both packages diagnose each other's run dirs.  The
-JAX module's static-audit annotation (a JPX audit of jaxprs) has no
-counterpart yet: it waits for the port's program audit (ROADMAP queue 1
-item 10b).  Stdlib-only, like the whole obs read path.
+the JAX module's, so both packages diagnose each other's run dirs.  A
+regressed program boundary that also carries an open finding in the
+committed program audit (``hfrep_tpu_torch/analysis/audit_snapshot.sarif``,
+the JPX rules over the traced graphs) gets a pointer to it
+(:func:`annotate_static_audit`).  Stdlib-only, like the whole obs read
+path.
 """
 
 from __future__ import annotations
@@ -420,12 +422,60 @@ def diagnose(target: dict, cohort: List[dict], top: int = 10) -> dict:
     }
 
 
+#: the committed 0-findings snapshot `python -m hfrep_tpu_torch.analysis
+#: audit --format sarif` maintains; results carry ``properties.boundary``
+_AUDIT_SNAPSHOT = (Path(__file__).resolve().parents[1]
+                   / "analysis" / "audit_snapshot.sarif")
+
+
+def annotate_static_audit(doc: dict, snapshot_path=None) -> dict:
+    """When a regressed program boundary also carries an OPEN finding in
+    the committed static program audit (JPX rules over the traced
+    graphs), add a one-line pointer: a known precision/host-sync/retrace
+    defect at the same boundary is usually the cheaper explanation than
+    anything runtime telemetry alone can offer.  Joins the diagnosis's
+    program-kind findings (``detail.program``, the runtime boundary
+    vocabulary) against the snapshot results' ``properties.boundary``
+    (the registry label minus its ``@variant``).  Stdlib json only; a
+    missing or malformed snapshot annotates nothing."""
+    path = Path(snapshot_path) if snapshot_path else _AUDIT_SNAPSHOT
+    try:
+        data = json.loads(path.read_text(encoding="utf-8"))
+    except (OSError, ValueError):
+        return doc
+    open_rules: Dict[str, set] = {}
+    for run in data.get("runs", []) if isinstance(data, dict) else []:
+        for res in run.get("results", []):
+            b = (res.get("properties") or {}).get("boundary")
+            if b:
+                open_rules.setdefault(str(b), set()).add(
+                    str(res.get("ruleId") or "?"))
+    if not open_rules:
+        return doc
+    hit: Dict[str, set] = {}
+    for f in doc.get("findings", []):
+        if f.get("kind") != "program":
+            continue
+        prog = str((f.get("detail") or {}).get("program") or "")
+        for b, rules in open_rules.items():
+            # serve boundaries profile per batch bucket (serve:replicate:b32)
+            if prog == b or prog.startswith(b + ":"):
+                hit.setdefault(b, set()).update(rules)
+    for b in sorted(hit):
+        doc.setdefault("notes", []).append(
+            f"static audit: {b} has open {', '.join(sorted(hit[b]))} "
+            f"finding(s) in {path.name} — `python -m hfrep_tpu_torch.analysis "
+            "audit` before chasing the runtime delta")
+    return doc
+
+
 def explain_runs(cohort_dirs, target_dir, top: int = 10) -> dict:
     """``obs explain RUN_A RUN_B``'s engine: diagnosis of ``target_dir``
-    against the baseline cohort (one or more run dirs)."""
+    against the baseline cohort (one or more run dirs), annotated with the
+    static audit's open findings at its regressed boundaries."""
     target = run_evidence(target_dir)
     cohort = [run_evidence(d) for d in cohort_dirs]
-    return diagnose(target, cohort, top=top)
+    return annotate_static_audit(diagnose(target, cohort, top=top))
 
 
 # ------------------------------------------------------------- rendering

@@ -72,10 +72,13 @@ def torch_export_supported() -> bool:
 class Program:
     """A bucket's built program: called with the bucket's operands, it runs
     under ``inference_mode``; ``mode`` is ``"export"`` (a loaded
-    ``torch.export`` program) or ``"compiled"`` (the eager function)."""
+    ``torch.export`` program) or ``"compiled"`` (the eager function).
+    ``exported`` is the loaded ``ExportedProgram`` itself (``None`` in mode
+    ``"compiled"``): its graph and signature are what the program audit
+    reads (:mod:`hfrep_tpu_torch.analysis.programs`)."""
 
-    def __init__(self, fn: Callable, mode: str):
-        self.fn, self.mode = fn, mode
+    def __init__(self, fn: Callable, mode: str, exported=None):
+        self.fn, self.mode, self.exported = fn, mode, exported
 
     def __call__(self, *args):
         with torch.inference_mode():
@@ -130,7 +133,8 @@ def aot_compile(fn: Callable, *example_args, via_export: bool = True,
             buf = io.BytesIO()
             torch.export.save(exported, buf)
             buf.seek(0)
-            program = Program(torch.export.load(buf).module(), "export")
+            loaded = torch.export.load(buf)
+            program = Program(loaded.module(), "export", loaded)
             _run_once(program, example_args)
         except Exception as e:          # any failure: serve the eager program
             print(f"serve: {label or 'program'}: torch.export round trip failed "

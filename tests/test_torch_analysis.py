@@ -4,7 +4,8 @@ package's (``hfrep_tpu/analysis``).
 - Every fixture snippet of the JAX package's own tests for the carried
   rules (``tests/test_analysis.py``: ``TestMutation``,
   ``TestShapeContracts``, ``TestGaugeThresholds``, ``TestFaultSites``,
-  ``TestAtomicPublish``, ``TestExitCodeContract``,
+  ``TestAtomicPublish``, ``TestObsDocSync``, ``TestSignalThreadSafety``,
+  ``TestExitCodeContract``, ``TestMeshLaunchDiscipline``,
   ``TestWallClockMonopoly``, ``TestBoundarySync``,
   ``TestDriveEnvelopeDiscipline``), read from that file, goes through
   both ``analyze_source``s with the same synthetic project model; paths
@@ -13,10 +14,13 @@ package's (``hfrep_tpu/analysis``).
   design: JAX005 keeps its mutable-defaults half (the argument-mutation
   half keys on jit-compiled functions, which the port has none of), and
   HF010 flags the torch forms of an eager sync in place of
-  ``jax.device_get`` / ``jax.block_until_ready``, so its fixtures reach
-  the port with each jax form rewritten to its torch form at the same
-  line and column.
-- The HF010 torch forms are the port's own positive fixtures.
+  ``jax.device_get`` / ``jax.block_until_ready``, and HF008 the torch
+  forms of a launch (a process group or collective) in place of
+  ``shard_map`` / ``pmap``, so their fixtures reach the port with each
+  jax form rewritten to its torch form at the same line and column.
+  HF004's project-level (stale-row) fixtures go through both rules'
+  ``check_project`` alike.
+- The HF010 and HF008 torch forms are the port's own positive fixtures.
 - The engine: ``# noqa``, baseline fingerprints, cold run = warm run,
   the JSON and SARIF shape against the JAX package's on one fixture
   tree, and the CLI's exit codes.
@@ -34,22 +38,35 @@ import pytest
 
 from hfrep_tpu.analysis import analyze_source as jax_analyze_source
 from hfrep_tpu.analysis.cli import main as jax_cli_main
+from hfrep_tpu.analysis.project import DocRow as JaxDocRow
+from hfrep_tpu.analysis.project import DocSchema as JaxDocSchema
+from hfrep_tpu.analysis.project import Emission as JaxEmission
+from hfrep_tpu.analysis.project import FileSummary as JaxFileSummary
 from hfrep_tpu.analysis.project import ProjectModel as JaxProjectModel
 from hfrep_tpu.analysis.rules import RULES_BY_ID as JAX_RULES
 from hfrep_tpu_torch.analysis import (analyze_paths, analyze_source, apply_baseline,
                                       load_baseline, write_baseline)
 from hfrep_tpu_torch.analysis import cli
 from hfrep_tpu_torch.analysis.engine import load_cache
-from hfrep_tpu_torch.analysis.project import FAULTS_PATH, FileSummary, ProjectModel
+from hfrep_tpu_torch.analysis.project import (FAULTS_PATH, DocRow, DocSchema, Emission,
+                                              FileSummary, ProjectModel)
 from hfrep_tpu_torch.analysis.rules import ALL_RULES, RULES_BY_ID
 from hfrep_tpu_torch.analysis.rules.hf_fault_sites import FaultSiteRule
 
 ROOT = Path(__file__).resolve().parents[1]
-CARRIED = ("JAX005", "JAX006", "HF001", "HF002", "HF003", "HF007", "HF009", "HF010",
-           "HF011")
+CARRIED = ("JAX005", "JAX006", "HF001", "HF002", "HF003", "HF004", "HF006", "HF007",
+           "HF008", "HF009", "HF010", "HF011")
+CARRIED_JPX = ("JPX002", "JPX003", "JPX004")
 FIXTURE_CLASSES = ("TestMutation", "TestShapeContracts", "TestGaugeThresholds",
-                   "TestFaultSites", "TestAtomicPublish", "TestExitCodeContract",
+                   "TestFaultSites", "TestAtomicPublish", "TestObsDocSync",
+                   "TestSignalThreadSafety", "TestExitCodeContract", "TestMeshLaunchDiscipline",
                    "TestWallClockMonopoly", "TestBoundarySync", "TestDriveEnvelopeDiscipline")
+#: JAX fixtures with no port counterpart, and why
+NOT_CARRIED = {
+    "TestMeshLaunchDiscipline.test_negative_parallel_package_sanctioned.1":
+        "the path is the JAX package's version gate, utils/jax_compat.py, which the "
+        "port has no counterpart of",
+}
 
 #: the JAX tests' synthetic project model (``tests/test_analysis.py::hf_model``)
 MODEL = dict(
@@ -61,12 +78,37 @@ MODEL = dict(
                  "torn": "post_save", "kill": "actor"},
     atomic_writers={"write_atomic", "atomic_text", "_write_with_retry"},
 )
+#: ... and its doc schema (``hf_model``'s ``doc``), per package
+DOC = dict(rows=[("serve_drain", 5)], mentioned={"serve_drain", "serve/qps", "bench/known_rate"})
+
+
+def _model(jax: bool, doc=DOC, **over) -> object:
+    """The JAX tests' model in either package, ``doc`` as ``(rows as
+    (name, line), mentioned)``."""
+    model_cls, schema, row = ((JaxProjectModel, JaxDocSchema, JaxDocRow) if jax
+                              else (ProjectModel, DocSchema, DocRow))
+    return model_cls(**dict(MODEL, doc=schema(rows=[row(*r) for r in doc["rows"]],
+                                              mentioned=set(doc["mentioned"])), **over))
+
+
+def _doc_override(fn: ast.FunctionDef, call: ast.Call):
+    """A fixture's ``doc=`` override — a local ``DocSchema(rows=[...],
+    mentioned={...})`` — as :data:`DOC`'s shape, or None."""
+    name = next((k.value.id for k in call.keywords if k.arg == "doc"
+                 and isinstance(k.value, ast.Name)), None)
+    if name is None:
+        return None
+    schema = next(n.value for n in ast.walk(fn) if isinstance(n, ast.Assign)
+                  and any(isinstance(t, ast.Name) and t.id == name for t in n.targets))
+    kw = {k.arg: ast.literal_eval(k.value) for k in schema.keywords}
+    return dict(rows=kw.get("rows", []), mentioned=kw.get("mentioned", set()))
 
 
 def _jax_fixtures() -> list:
     """Every ``run(src, rule=...)`` / ``run_hf(src, rule, relpath=...)`` call
     of the fixture classes: ``(id, rule, through run_hf, relpath or None,
-    source)``, a source held in a local variable resolved in its test."""
+    source, doc override or None)``, a source held in a local variable
+    resolved in its test."""
     tree = ast.parse((ROOT / "tests" / "test_analysis.py").read_text())
     out = []
     for cls in tree.body:
@@ -81,13 +123,16 @@ def _jax_fixtures() -> list:
             calls = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
                      and isinstance(c.func, ast.Name) and c.func.id in ("run", "run_hf")]
             for i, call in enumerate(sorted(calls, key=lambda c: (c.lineno, c.col_offset))):
-                kw = {k.arg: k.value.value for k in call.keywords}
+                kw = {k.arg: k.value.value for k in call.keywords
+                      if isinstance(k.value, ast.Constant)}
                 src = call.args[0]
                 src = src.value if isinstance(src, ast.Constant) else local[src.id]
                 rule = kw["rule"] if call.func.id == "run" else call.args[1].value
                 relpath = kw.get("relpath") if call.func.id == "run_hf" else None
                 hf = call.func.id == "run_hf"
-                out.append((f"{cls.name}.{fn.name}.{i}", rule, hf, relpath, src))
+                fid = f"{cls.name}.{fn.name}.{i}"
+                if fid not in NOT_CARRIED:
+                    out.append((fid, rule, hf, relpath, src, _doc_override(fn, call)))
     return out
 
 
@@ -100,11 +145,37 @@ TORCH_FORMS = ((r"^(\s*)import jax$", r"\1import torch"),
                (r"\bdg\((\w+\(\w+\))\)", r"\1.cpu()"),
                (r"jax\.block_until_ready\(\w+\)", "torch.cuda.synchronize()"))
 
+#: the torch form of each jax form of a launch, at the same column: the
+#: constructor imported bare, the module imported under a name, the
+#: dotted call
+LAUNCH_FORMS = (
+    (r"^(\s*)from jax\.experimental\.shard_map import shard_map$",
+     r"\1from torch.distributed import all_reduce as shard_map"),
+    (r"^(\s*)from jax\.experimental import shard_map$",
+     r"\1from torch import distributed as shard_map"),
+    (r"\bshard_map\.shard_map\(", "shard_map.all_reduce("),
+    (r"^(\s*)import jax\.experimental\.shard_map as sm$", r"\1import torch.distributed as sm"),
+    (r"\bsm\.shard_map\(", "sm.all_gather("),
+    (r"^(\s*)from hfrep_tpu\.parallel import _compat$",
+     r"\1from torch import distributed as _compat"),
+    (r"\b_compat\.shard_map\(", "_compat.broadcast("),
+    (r"^(\s*)from hfrep_tpu\.utils\.jax_compat import shard_map as sm$",
+     r"\1from torch.distributed import send as sm"),
+    (r"^(\s*)from hfrep_tpu\.utils\.jax_compat import shard_map$",
+     r"\1from torch.distributed import all_reduce as shard_map"),
+    (r"^(\s*)from hfrep_tpu\.utils\.jax_compat import HAS_SHARD_MAP$",
+     r"\1from torch.distributed import is_available as HAS_SHARD_MAP"),
+    (r'"jax\.shard_map"', '"torch.distributed.all_reduce"'),
+    (r"^(\s*)import jax$", r"\1import torch"),
+    (r"\bjax\.pmap\(", "torch.distributed.barrier("),
+)
+
 
 def _port_source(rule: str, src: str) -> str:
-    if rule != "HF010":
+    forms = {"HF010": TORCH_FORMS, "HF008": LAUNCH_FORMS}.get(rule)
+    if forms is None:
         return src
-    for pat, rep in TORCH_FORMS:
+    for pat, rep in forms:
         src = re.sub(pat, rep, src, flags=re.M)
     assert "jax" not in src.replace("hfrep_tpu", ""), src
     return src
@@ -117,18 +188,19 @@ def _findings(analyze, rules, rule, hf, relpath, src, model):
 
 
 def test_the_fixtures_cover_every_carried_rule():
-    assert len(FIXTURES) >= 60
+    assert len(FIXTURES) >= 80
     assert {r for _, r, *_ in FIXTURES} == set(CARRIED)
     assert tuple(r.id for r in ALL_RULES) == CARRIED
 
 
-@pytest.mark.parametrize("fid,rule,hf,relpath,src", FIXTURES, ids=[f[0] for f in FIXTURES])
-def test_jax_s_fixture_gives_the_same_findings_in_the_port(fid, rule, hf, relpath, src):
+@pytest.mark.parametrize("fid,rule,hf,relpath,src,doc", FIXTURES, ids=[f[0] for f in FIXTURES])
+def test_jax_s_fixture_gives_the_same_findings_in_the_port(fid, rule, hf, relpath, src, doc):
+    doc = doc or DOC
     want = _findings(jax_analyze_source, JAX_RULES, rule, hf, relpath, src,
-                     JaxProjectModel(**MODEL))
+                     _model(True, doc))
     port_rel = relpath.replace("hfrep_tpu/", "hfrep_tpu_torch/", 1) if relpath else None
     got = _findings(analyze_source, RULES_BY_ID, rule, hf, port_rel, _port_source(rule, src),
-                    ProjectModel(**MODEL))
+                    _model(False, doc))
     if rule == "JAX005":
         # the port's JAX005 is the mutable-defaults half alone
         want = [f for f in want if "mutable default" in f.message]
@@ -236,6 +308,75 @@ def test_hf010_leaves_legal_forms_alone():
     assert _hf010(src.replace("  # noqa: HF010 - the one timed read", ""),
                   relpath="hfrep_tpu_torch/obs/custom.py") == []
 
+
+
+# ------------------------------------------------ HF008's torch forms
+def _hf008(src, relpath="hfrep_tpu_torch/serve/custom.py"):
+    return analyze_source(textwrap.dedent(src), path=relpath, relpath=relpath,
+                          rules=[RULES_BY_ID["HF008"]])
+
+
+@pytest.mark.parametrize("imports,call", [
+    ("import torch", "torch.distributed.init_process_group('gloo')"),
+    ("import torch.distributed as dist", "dist.all_reduce(t)"),
+    ("from torch import distributed", "distributed.new_group([0, 1])"),
+    ("from torch import distributed as d", "d.all_gather([t, t], t)"),
+    ("from torch.distributed import broadcast as bc", "bc(t, 0)"),
+    ("from torch.distributed import send", "send(t, 1)"),
+    ("import torch.distributed", "torch.distributed.recv(t, 0)"),
+    ("import torch.distributed as dist", "dist.barrier()"),
+])
+def test_hf008_flags_a_group_or_collective_in_every_spelling(imports, call):
+    src = f"{imports}\ndef f(t):\n    return {call}\n"
+    assert [(f.rule, f.line, f.col) for f in _hf008(src)] == [("HF008", 3, 11)]
+    assert "outside hfrep_tpu_torch/parallel/" in _hf008(src)[0].message
+
+
+def test_hf008_leaves_the_mesh_api_probes_and_tests_alone():
+    src = """
+        import torch.distributed as dist
+        def f(t):
+            if dist.is_available() and dist.is_initialized():
+                return dist.get_world_size()
+            return dist.all_reduce(t)
+        """
+    assert [f.line for f in _hf008(src)] == [6]
+    assert _hf008(src, "hfrep_tpu_torch/parallel/rules.py") == []
+    assert _hf008(src, "tests/test_torch_custom.py") == []
+    assert _hf008(src.replace("dist.all_reduce(t)", "dist.all_reduce(t)  # noqa: HF008")) == []
+
+
+# ------------------------------------------------ HF004's project side
+@pytest.mark.parametrize("rows,emitted,complete,want", [
+    ([("serve_drain", 5), ("renamed_away", 9)], [("event", ("serve_drain",), None)], True,
+     [("HF004", 9)]),
+    ([("renamed_away", 9)], [], False, []),
+    ([("bench/serve_qps_c{1k,10k,100k}", 3)], [("gauge", (), "bench/serve_")], True, []),
+], ids=["stale_row", "scoped_run_judges_nothing", "wildcard_row_meets_a_prefix"])
+def test_doc_side_as_jax_s(rows, emitted, complete, want):
+    """``TestObsDocSync.test_project_*``: a documented row nothing emits is
+    flagged at its line, only when the run covers the whole emission
+    surface, and a wildcard row is met by a dynamic emission's prefix."""
+    out = []
+    for jax, rule, emission, summary, readme in (
+            (True, JAX_RULES["HF004"], JaxEmission, JaxFileSummary, "hfrep_tpu/obs/README.md"),
+            (False, RULES_BY_ID["HF004"], Emission, FileSummary,
+             "hfrep_tpu_torch/obs/README.md")):
+        model = _model(jax, dict(rows=rows, mentioned={r for r, _ in rows}),
+                       doc_surface_complete=complete)
+        model.files = {"s.py": summary(emissions=[emission(kind=k, line=1, names=n, prefix=p)
+                                                  for k, n, p in emitted])}
+        fs = rule.check_project(model)
+        assert all(f.path == readme for f in fs)
+        out.append([(f.rule, f.line) for f in fs])
+    assert out[0] == out[1] == want
+
+
+def test_a_scoped_run_does_not_cover_the_doc_surface():
+    model = _model(False, dict(rows=[("renamed_away", 9)], mentioned=set()))
+    model.files = {"only_one.py": FileSummary()}
+    assert not model.covers_doc_surface()
+    assert RULES_BY_ID["HF004"].check_project(model) == []
 
 # --------------------------------------------------------------- engine
 BAD = """
@@ -376,4 +517,4 @@ def test_changed_without_a_git_checkout_is_an_error(tree, tmp_path, monkeypatch,
 def test_rules_lists_the_carried_ids(capsys):
     assert cli.main(["rules"]) == 0
     listed = [line.split()[0] for line in capsys.readouterr().out.splitlines()]
-    assert listed == list(CARRIED)
+    assert listed == list(CARRIED + CARRIED_JPX)

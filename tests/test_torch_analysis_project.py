@@ -125,3 +125,23 @@ def test_the_whole_port_s_registries_round_trip(port_model):
     for group, registry in port_model.fault_sites.items():
         for site in registry:
             assert (group, site) in used, (group, site)
+
+
+def test_the_port_s_obs_readme_is_read_and_the_gate_covers_its_surface(port_model):
+    """HF004's schema: the port's own ``obs/README.md`` tables, every row
+    met by an emission of the port, every namespaced emission documented,
+    and the gate's paths are the whole emission surface (so its doc side
+    runs)."""
+    from hfrep_tpu_torch.analysis.project import OBS_README_PATH, doc_surface_files
+    from hfrep_tpu_torch.analysis.rules.hf_obs_doc import ObsDocRule
+
+    assert OBS_README_PATH == "hfrep_tpu_torch/obs/README.md"
+    rows = port_model.doc.rows
+    assert len(rows) >= 80 and all(r.line > 0 for r in rows)
+    assert doc_surface_files() <= set(port_model.files)
+    assert port_model.covers_doc_surface()
+    assert ObsDocRule().check_project(port_model) == []
+    emitted = port_model.emitted_names(kinds=("event",))
+    assert len(emitted) >= 40 and all(port_model.doc.documents(n) for n in emitted)
+    # no row of the JAX package's schema that the port does not emit
+    assert "program_profile" not in {r.name for r in rows}

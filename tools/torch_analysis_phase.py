@@ -3,16 +3,22 @@
 
     python3 tools/torch_analysis_phase.py [--out results.json]
 
-Runs ``chip_smoke.phase_analysis``: the port's static-analysis gate in a
-subprocess, then each function that carries a shape contract on card
-tensors (on = off bit for bit, bad shapes refused, the check's cost a
-call).  The whole script hands the phase the eval phase's GanEval
-covariances and the train phase's epoch times; alone, the covariances
-are those of two disjoint sets of 500 real windows of the committed
-panel at each preset, and the epoch times are stand-ins.  Builds no
-kernel: none of these functions launches one.  Prints the phase's
-lines, its seconds and the card's name and power limit.  Imports no
-JAX.
+Runs ``chip_smoke.phase_analysis``: the port's static-analysis gate
+and its program audit (``audit --device cuda``, the serve rows'
+programs exported on the card) in two subprocesses side by side, while
+this process builds ``serve:sample`` at full width on the card (both
+presets, the server's first bucket: its ``hfrep.lstm_fwd`` nodes and
+launches, bit-equal to the eager path, close to the plain version), the
+seeded defects (one JPX002, one JPX004), and checks each function that
+carries a shape contract on card tensors (on = off bit for bit, bad
+shapes refused, the check's cost a call).  The whole script hands the
+phase the eval phase's GanEval covariances and the train phase's epoch
+times; alone, the covariances are those of two disjoint sets of 500
+real windows of the committed panel at each preset, and the epoch times
+are stand-ins.  Builds the forward kernel (``csrc/lstm_fwd.cu``) from
+the checkout, the one kernel the serve programs launch.  Prints the
+phase's lines, its seconds and the card's name and power limit.
+Imports no JAX.
 """
 
 from __future__ import annotations
