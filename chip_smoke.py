@@ -349,12 +349,23 @@ exits non-zero on failure:
              ranks within rtol 1e-6; ``train-gan --dp-sp 1x2
              --coordinator`` (3 epochs) exits 0 with rank 0 alone writing
              and printing, and ``--resume`` from ``ckpt_1`` is bit-equal
-             to the straight run; then the rank processes' (d) and (e),
-             the verb runs and this process's checks side by side (the
-             drained run signalled once (d) is done, each resume started
-             as soon as the run it resumes has ended); a rank that fails
-             or overruns is reported with the part it was in and both
-             ranks' stderr;
+             to the straight run; the hidden-unit axis (item 9c): (h)
+             tp=2 in the same rank processes (each rank its units' gate
+             columns, h gathered each step; atol 1e-4; forwards 2e-5),
+             no hand kernel and no weight sum launched, each rank's
+             all_reduces exactly ``tp_reduces``, the ranks bit-equal;
+             (i) ``train-gan --dp-tp 1x2 --coordinator`` (2 epochs) as
+             ``--dp-sp``'s, resumed from ``ckpt_1``, run beside the
+             analysis phase (``DpTpVerb``; its wall is ``mesh_dp_tp``);
+             (j), dp×sp×tp 1×2×2 as four rank processes, is
+             ``phase_tile``, which ``tools/torch_mesh_phase.py`` runs,
+             not this script; then
+             the rank processes' (d) and (e), the verb runs and this
+             process's checks side by side (the drained run signalled
+             once (d) is done, each resume started as soon as the run it
+             resumes has ended); a rank that fails or overruns is
+             reported with the part it was in, by name, and every rank's
+             stderr;
 5m. analysis — the port's static analyzer and its shape contracts
              (``hfrep_tpu_torch.analysis``, ROADMAP queue 1 items 10a and
              10b): ``rules`` lists exactly the carried ids; the gate
@@ -428,6 +439,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
@@ -4100,8 +4112,22 @@ AXES_FWD_ATOL, RANKS_RTOL = 2e-5, 1e-6
 #: ``train-gan --dp-sp 1x2 --coordinator``: a straight run, and one that
 #: stops at MESH_SP_RESUME_AT and is resumed to the same end
 MESH_SP_CLI_EPOCHS, MESH_SP_RESUME_AT = 3, 1
-#: the parts of a rank process, in order (each rank writes the one it is in)
-RANK_PARTS = ("start", "b", "f", "g", "d", "e", "saved")
+#: the hidden-unit axis (ROADMAP queue 1 item 9c) on the same card: (h)
+#: tp=2 in the same two rank processes after (g), one epoch of the block's
+#: first draws, timed; (i) ``train-gan --dp-tp 1x2 --coordinator``, a
+#: straight run and one stopped at MESH_TP_RESUME_AT and resumed; (j)
+#: dp×sp×tp 1×2×2 as four rank processes, one epoch (``phase_tile``).  The
+#: epoch's bar is JAX's cross-process tp bar, atol 1e-4
+#: (``tests/test_distributed.py:663-686``)
+MESH_TP_ATOL = 1e-4
+MESH_TP_CLI_EPOCHS, MESH_TP_RESUME_AT = 2, 1
+MESH_TILE = {"dp": 1, "sp": 2, "tp": 2}
+#: the parts of a rank process by the marker each rank writes when it
+#: enters one, and the name a failure reports
+RANK_PARTS = {"start": "start-up and the process group", "b": "(b) the dp=2 block",
+              "f": "(f) pp=2", "g": "(g) sp=2", "h": "(h) tp=2", "d": "(d) the lane drives",
+              "e": "(e) the seed mesh", "j": "(j) dp×sp×tp 1×2×2",
+              "saved": "done, results saved"}
 _PORTS_GIVEN: set = set()
 
 
@@ -4179,6 +4205,35 @@ def axes_launches(kind: str, rank: int, n_critic: int, per_pass: int) -> dict:
     return dict(zip(names, (m, (2 * k + 2) * m, bwd, k * m)))
 
 
+def tp_reduces(n_critic: int, wc: int, sp: int = 1, sp_rank: int = 0) -> int:
+    """A rank's all_reduces in one WGAN-GP epoch of the tp step, two LSTM
+    layers on a window (chunk) of ``wc`` steps: a pass gathers h once a
+    step and layer; a backward all_reduces the cotangent of each F, one
+    a recorded h product (none at a zero carry's first step) and one a
+    layer input that needs a gradient; the penalty's second order gathers
+    once a slice of its first order.  In a window chain (``sp`` > 1) the
+    scores and the norms are summed over sp, the second order also
+    reaches the penalty's input, and a rank with a next rank runs the
+    boundary pass; the hook reduces once an update
+    (``tests/test_torch_tensor.py::tp_reduces``)."""
+    lay = 2
+    chain = int(sp > 1)
+    nxt = int(chain and sp_rank < sp - 1)
+    gathers, hprod = lay * wc, lay * (wc - 1 + int(sp_rank > 0))
+    critic = (2 * (gathers + chain)                  # the scores' and the penalty's passes
+              + hprod + lay + chain                  # the penalty's first order (+ norms)
+              + hprod + lay - 1                      # the scores' backward
+              + gathers + hprod + lay - 1 + chain    # the second order
+              + nxt * (hprod + lay)                  # its boundary pass
+              + 1)                                   # the hook
+    gen = (2 * gathers                               # the fakes; the update's generator
+           + gathers + chain                         # the update's critic
+           + hprod + lay                             # its backward (the fake input's F)
+           + hprod + lay - 1                         # the generator's (the noise needs none)
+           + 1)                                      # the hook
+    return n_critic * critic + gen
+
+
 @contextlib.contextmanager
 def timed_host_collectives(torch):
     """Wrap ``send``, ``recv`` and ``all_reduce`` of ``torch.distributed``
@@ -4253,6 +4308,81 @@ def mesh_axes_part(torch, kind: str) -> dict:
     torch.cuda.synchronize()
     out["ms_per_epoch"] = (time.perf_counter() - t0) * 1e3
     return out
+
+
+def mesh_tp_part(torch, mesh) -> dict:
+    """(h) tp=2 or (j) dp×sp×tp in a rank process: the forwards on the
+    phase's inputs (under sp the generator's window chunk), then one epoch
+    from the phase's state and first draws, timed, with its launches,
+    weight sums and collectives counted and the collectives' host time
+    (every torch op it runs was already run in the process: no first-call
+    cost)."""
+    from hfrep_tpu_torch.ops import cuda_lstm
+    from hfrep_tpu_torch.parallel import dp_sp_tp, rules, sequence, tensor
+    from hfrep_tpu_torch.parallel.chain import Chain
+
+    pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch)
+    z, x = axes_inputs(draws, dataset)
+    with torch.no_grad():
+        if "sp" in mesh.axis_names:
+            chain = Chain(mesh, "sp")
+            g_apply, d_apply = dp_sp_tp.dp_sp_tp_apply_fns(pair, chain, Chain(mesh, "tp"))
+            fwd = {"g": g_apply(state.generator, sequence._my_chunk(chain, z)),
+                   "d": d_apply(state.discriminator, sequence._my_chunk(chain, x))}
+            step = dp_sp_tp.make_dp_sp_tp_train_step(pair, tcfg, dataset, mesh)
+        else:
+            fwd = {"g": tensor.tp_generate(state.generator, z, mesh),
+                   "d": tensor.tp_critic(state.discriminator, x, mesh)}
+            step = tensor.make_tp_train_step(pair, tcfg, dataset, mesh)
+    out = {"coords": mesh.coords(), "fwd": {k: v.cpu() for k, v in fwd.items()}}
+    torch.cuda.synchronize()
+    cuda_lstm.reset_launches()
+    rules.reset_collective_counts()
+    with timed_host_collectives(torch) as spent:
+        t0 = time.perf_counter()
+        state, metrics = step(state, draws[0])
+        torch.cuda.synchronize()
+        out["first_ms"] = (time.perf_counter() - t0) * 1e3
+    out.update(launches=cuda_lstm.launch_counts(), sums=sum_launches_by_shape(cuda_lstm),
+               collectives=rules.collective_counts(),
+               transfer_s={k: v[1] for k, v in spent.items()},
+               params={n: p.detach().cpu().clone() for n, p in state_params(state).items()},
+               metrics={k: v.cpu() for k, v in metrics.items()})
+    return out
+
+
+def mesh_tile_rank(rank: int, out_dir: str) -> None:
+    """One rank of (j)'s four rank processes on the one card (gloo, a
+    file store under ``out_dir``): the dp×sp×tp 1×2×2 part
+    (:func:`mesh_tp_part`), written to ``out_dir/rank<rank>.pt``."""
+    import torch
+
+    from hfrep_tpu_torch.parallel import (initialize_distributed, make_mesh_3d,
+                                          shutdown_distributed)
+
+    part = rank_marker(out_dir, rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    part("start")
+    n = math.prod(MESH_TILE.values())
+    backend = initialize_distributed("file://" + os.path.join(out_dir, "store"), n, rank)
+    try:
+        part("j")
+        out = mesh_tp_part(torch, make_mesh_3d(*MESH_TILE.values()))
+        out["backend"] = backend
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        part("saved")
+    finally:
+        shutdown_distributed()
+
+
+def rank_marker(out_dir: str, rank: int):
+    """``part(name)``: write the part a rank process enters to
+    ``out_dir/rank<rank>.part`` (a key of :data:`RANK_PARTS`)."""
+    def part(name: str) -> None:
+        with open(os.path.join(out_dir, f"rank{rank}.part"), "w") as fh:
+            fh.write(name)
+    return part
 
 
 def mesh_ae_inputs(torch):
@@ -4353,9 +4483,9 @@ def mesh_rank(rank: int, out_dir: str) -> None:
     """One rank of the mesh phase's two rank processes on the one card
     (gloo, a file store under ``out_dir``): (b) the dp=2 GAN block on its
     16 rows, its own launch counts and collectives, then a second block
-    timed; (f) pp=2 and (g) sp=2 (:func:`mesh_axes_part`); (d) the lane
-    drives on ``lane_mesh``; (e) MultiSeedTrainer on the two-rank seed
-    mesh.  The part it is in goes to ``out_dir/rank<rank>.part``, every
+    timed; (f) pp=2 and (g) sp=2 (:func:`mesh_axes_part`); (h) tp=2
+    (:func:`mesh_tp_part`); (d) the lane drives on ``lane_mesh``; (e)
+    MultiSeedTrainer on the two-rank seed mesh.  The part it is in goes to ``out_dir/rank<rank>.part``, every
     result to ``out_dir/rank<rank>.pt``, read by the parent."""
     import torch
 
@@ -4366,10 +4496,7 @@ def mesh_rank(rank: int, out_dir: str) -> None:
     from hfrep_tpu_torch.parallel import rules
     from hfrep_tpu_torch.train.multi_seed import seed_mesh
 
-    def part(name: str) -> None:
-        with open(os.path.join(out_dir, f"rank{rank}.part"), "w") as fh:
-            fh.write(name)
-
+    part = rank_marker(out_dir, rank)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     part("start")
@@ -4401,6 +4528,8 @@ def mesh_rank(rank: int, out_dir: str) -> None:
         for kind, name in (("pp", "f"), ("sp", "g")):
             part(name)
             out[kind] = mesh_axes_part(torch, kind)
+        part("h")
+        out["tp"] = mesh_tp_part(torch, build_mesh(MeshSpec(tp=2)))
         # timed alone on the card: the parent starts the verb runs after this
         open(os.path.join(out_dir, f"rank{rank}.timed"), "w").close()
         part("d")
@@ -4417,33 +4546,36 @@ def mesh_rank(rank: int, out_dir: str) -> None:
         shutdown_distributed()
 
 
-def start_ranks(out_dir: str) -> list:
-    """The mesh phase's two rank processes, started together."""
+def start_ranks(out_dir: str, n: int = 2, entry: str = "mesh_rank") -> list:
+    """``n`` rank processes running ``chip_smoke.<entry>``, started
+    together (the mesh phase's two, or (j)'s four)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
            if k not in ("HFREP_FAULTS", "HFREP_OBS_DIR", "HFREP_HISTORY", "HFREP_HEALTH")}
     env["PYTHONPATH"] = root
-    code = "import sys, chip_smoke; chip_smoke.mesh_rank(int(sys.argv[1]), sys.argv[2])"
+    code = f"import sys, chip_smoke; chip_smoke.{entry}(int(sys.argv[1]), sys.argv[2])"
     return [(subprocess.Popen([sys.executable, "-c", code, str(r), out_dir],
                               cwd=root, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, start_new_session=True),
              time.perf_counter())
-            for r in (0, 1)]
+            for r in range(n)]
 
 
 def rank_part(out_dir: str, rank: int) -> str:
+    """The name of the part a rank process last entered."""
     try:
         with open(os.path.join(out_dir, f"rank{rank}.part")) as fh:
-            return fh.read().strip() or "start"
+            key = fh.read().strip() or "start"
     except OSError:
         return "before start"
+    return RANK_PARTS.get(key, key)
 
 
 def finish_ranks(ranks: list, out_dir: str, deadline: float) -> list:
-    """Wait for both rank processes until ``deadline`` (perf_counter):
+    """Wait for the rank processes until ``deadline`` (perf_counter):
     ``[(exit code, stdout, stderr)]``.  On a failure or an overrun kill
-    both, then fail naming the part each rank was in and the tail of each
-    one's stderr."""
+    them all, then fail naming the part each rank was in and the tail of
+    each one's stderr."""
     done = {}
     for r, (proc, _) in enumerate(ranks):
         try:
@@ -4552,46 +4684,115 @@ def check_axes_part(torch, kind: str, docs: list, ref_fwd: dict, ref_p: dict, re
             "ms_per_epoch": [d["ms_per_epoch"] for d in docs]}
 
 
-def check_dp_sp_verb(torch, dirs: dict, runs: dict, resume: list, card: str) -> dict:
-    """``train-gan --dp-sp 1x2 --coordinator``: the straight run and the
-    one stopped at MESH_SP_RESUME_AT exited 0 (checked with (c)'s), the
-    resume exits 0, rank 0 alone prints and writes, the ranks' group is
-    gloo over a ``{'dp': 1, 'sp': 2}`` mesh, and the resumed run's last
-    checkpoint is bit-equal to the straight run's."""
+def check_tp_part(torch, part: str, docs: list, ref_fwd: dict, ref_p: dict, ref_m: dict,
+                  n_critic: int, card: str) -> dict:
+    """(h) or (j) read in the parent: each rank's forwards within
+    AXES_FWD_ATOL of the single-device forwards (under sp its window chunk
+    of the generator's), its epoch within MESH_TP_ATOL of the
+    single-device epoch, no hand kernel and no weight sum launched, its
+    all_reduces exactly :func:`tp_reduces` (and under sp the chain's
+    transfers as sp's); the ranks of each tp group bit-equal, and every
+    rank within RANKS_RTOL of the first."""
+    diffs, fwd_errs = [], []
+    for r, doc in enumerate(docs):
+        coords = doc["coords"]
+        sp, k = int(MESH_TILE["sp"] if "sp" in coords else 1), coords.get("sp", 0)
+        g_ref = ref_fwd["g"]
+        if sp > 1:
+            w = g_ref.shape[1] // sp
+            g_ref = g_ref[:, k * w:(k + 1) * w]
+        fwd_err = max(float((doc["fwd"]["g"] - g_ref).abs().max()),
+                      float((doc["fwd"]["d"] - ref_fwd["d"]).abs().max()))
+        if not fwd_err <= AXES_FWD_ATOL:
+            fail(f"mesh {part}: rank {r}'s forwards are {fwd_err} from the single-device "
+                 f"forwards (bar {AXES_FWD_ATOL})")
+        diff = max(tree_max_diff(doc["params"], ref_p), tree_max_diff(doc["metrics"], ref_m))
+        if not diff <= MESH_TP_ATOL:
+            fail(f"mesh {part}: rank {r}'s epoch is {diff} from the single-device epoch "
+                 f"(bar atol {MESH_TP_ATOL})")
+        if any(doc["launches"].values()) or any(doc["sums"].values()):
+            fail(f"mesh {part}: rank {r} launched {doc['launches']}, weight sums "
+                 f"{doc['sums']}: a tp rank runs no hand kernel")
+        c = doc["collectives"]
+        want = tp_reduces(n_critic, ref_fwd["g"].shape[1] // sp, sp, k)
+        passes = 1 + 2 * n_critic + 2
+        moves = passes + (2 * n_critic + 2) + 2 * n_critic if sp > 1 else 0
+        if c["all_reduce"] != want or c["send"] + c["recv"] != moves:
+            fail(f"mesh {part}: rank {r}'s collectives {c}, expected {want} all_reduces and "
+                 f"{moves} sends and receives")
+        diffs.append(diff)
+        fwd_errs.append(fwd_err)
+    a = docs[0]
+    if not all(torch.allclose(d[t][k], a[t][k], rtol=RANKS_RTOL, atol=0)
+               for d in docs[1:] for t in ("params", "metrics") for k in a[t]):
+        fail(f"mesh {part}: the ranks differ beyond rtol {RANKS_RTOL}")
+    groups: dict = {}
+    for d in docs:
+        groups.setdefault(tuple(v for n, v in d["coords"].items() if n != "tp"), []).append(d)
+    for group in groups.values():
+        for d in group[1:]:
+            if not (tree_equal(torch, d["params"], group[0]["params"])
+                    and tree_equal(torch, d["metrics"], group[0]["metrics"])):
+                fail(f"mesh {part}: the ranks of one tp group differ")
+    same = all(tree_equal(torch, d["params"], a["params"]) for d in docs[1:])
+    say(f"[mesh] {part}, {len(docs)} ranks on the one card, one epoch at full width (B=32, "
+        f"n_critic {n_critic}, H=100, f32) from the phase's state and first draws: within "
+        f"{max(diffs):.3g} of the single-device epoch (bar atol {MESH_TP_ATOL}), the forwards "
+        f"within {max(fwd_errs):.3g} (bar {AXES_FWD_ATOL}), the ranks "
+        + ("bit-equal" if same else f"within rtol {RANKS_RTOL}, each tp group bit-equal")
+        + "; no hand kernel, no weight sum; collectives, each rank: "
+        + "; ".join(", ".join(f"{n} {d['collectives'][n]} ({1e3 * d['transfer_s'][n]:.1f} ms)"
+                              for n in ("send", "recv", "all_reduce") if d["collectives"][n])
+                    for d in docs)
+        + f" (host clock); epoch ms {[round(d['first_ms'], 1) for d in docs]} (host clock) "
+        f"on {card}")
+    return {"max_abs_diff": max(diffs), "fwd_max_abs_err": max(fwd_errs), "ranks_bit_equal": same,
+            "collectives": [d["collectives"] for d in docs],
+            "transfer_s": [d["transfer_s"] for d in docs],
+            "ms_per_epoch": [d["first_ms"] for d in docs]}
+
+
+def check_axes_verb(torch, part: str, name: str, mesh: dict, dirs: dict, runs: dict,
+                    resume: list, epochs: int, resume_at: int, card: str) -> dict:
+    """``train-gan --dp-sp 1x2`` or ``--dp-tp 1x2`` with ``--coordinator``
+    (runs ``<name>_straight``, ``<name>_half``): the straight run and the
+    one stopped at ``resume_at`` exited 0 (checked with (c)'s), the resume
+    exits 0, rank 0 alone prints and writes, the ranks' group is gloo over
+    ``mesh``, and the resumed run's last checkpoint is bit-equal to the
+    straight run's."""
     from hfrep_tpu_torch.utils import checkpoint as ckpt
 
+    straight, half = f"{name}_straight", f"{name}_half"
     resumed = [finish_module(p, MESH_TIMEOUT_S) for p in resume]
     if any(rc != 0 for rc, *_ in resumed):
-        fail(f"mesh (c) dp-sp: train-gan --dp-sp 1x2 --resume exited "
+        fail(f"mesh {part}: the --resume run exited "
              f"{[rc for rc, *_ in resumed]}: {[e[-1500:] for _, _, e, _ in resumed]}")
     if "resumed from" not in resumed[0][1] or resumed[1][1].strip():
-        fail(f"mesh (c) dp-sp: the resume printed {resumed[0][1][-300:]!r} on rank 0 and "
+        fail(f"mesh {part}: the resume printed {resumed[0][1][-300:]!r} on rank 0 and "
              f"{resumed[1][1][-300:]!r} on rank 1")
-    last = f"ckpt_{MESH_SP_CLI_EPOCHS}"
-    a = ckpt.restore(os.path.join(dirs["sp_straight"], last))["state"]
-    b = ckpt.restore(os.path.join(dirs["sp_half"], last))["state"]
+    last = f"ckpt_{epochs}"
+    a = ckpt.restore(os.path.join(dirs[straight], last))["state"]
+    b = ckpt.restore(os.path.join(dirs[half], last))["state"]
     for net in ("generator", "discriminator"):
         if not tree_equal(torch, {k: v.cpu() for k, v in a[net].items()},
                           {k: v.cpu() for k, v in b[net].items()}):
-            fail(f"mesh (c) dp-sp: the resumed run's {net} differs from the straight run's")
+            fail(f"mesh {part}: the resumed run's {net} differs from the straight run's")
     writes = {}
     for r in (0, 1):
-        recs = stream_records(os.path.join(dirs["sp_straight"] + "_obs", f"proc{r}"))
+        recs = stream_records(os.path.join(dirs[straight] + "_obs", f"proc{r}"))
         writes[r] = sum(1 for x in recs if x.get("name") == "checkpoint"
                         and x.get("type") == "span")
         build = [x for x in recs if x.get("name") == "parallel_build"]
-        if not build or build[0].get("backend") != "gloo" \
-                or build[0].get("mesh") != {"dp": 1, "sp": 2}:
-            fail(f"mesh (c) dp-sp: rank {r}'s parallel_build events {build}")
+        if not build or build[0].get("backend") != "gloo" or build[0].get("mesh") != mesh:
+            fail(f"mesh {part}: rank {r}'s parallel_build events {build}")
     if writes[0] < 1 or writes[1] != 0:
-        fail(f"mesh (c) dp-sp: checkpoint spans by rank {writes}: rank 0 alone must write")
-    walls = {k: [w for *_, w in runs[k]] for k in ("sp_straight", "sp_half")}
-    walls["sp_resume"] = [w for *_, w in resumed]
-    say(f"[mesh] (c) train-gan --dp-sp 1x2 --coordinator, 2 ranks, {MESH_SP_CLI_EPOCHS} "
-        f"epochs on the committed panel: exit 0 and 0, gloo over {{'dp': 1, 'sp': 2}}, rank 0 "
-        f"alone wrote ({writes[0]} checkpoint spans, rank 1 none) and printed; --resume from "
-        f"ckpt_{MESH_SP_RESUME_AT} bit-equal to the straight run (generator and critic); "
-        f"walls {walls} s on {card}")
+        fail(f"mesh {part}: checkpoint spans by rank {writes}: rank 0 alone must write")
+    walls = {k: [round(w, 1) for *_, w in runs[k]] for k in (straight, half)}
+    walls["resume"] = [round(w, 1) for *_, w in resumed]
+    say(f"[mesh] {part} --coordinator, 2 ranks, {epochs} epochs on the committed panel: exit 0 "
+        f"and 0, gloo over {mesh}, rank 0 alone wrote ({writes[0]} checkpoint spans, rank 1 "
+        f"none) and printed; --resume from ckpt_{resume_at} bit-equal to the straight run "
+        f"(generator and critic); walls {walls} s on {card}")
     return {"resume_bit_equal": True, "checkpoint_spans": writes, "walls_s": walls}
 
 
@@ -4609,12 +4810,15 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
     turn and as a two-rank seed mesh.  The window and layer axes (item 9b)
     in the same rank processes: (f) pp=2 and (g) sp=2, one epoch each
     against the single-device epoch (:func:`check_axes_part`), and
-    ``train-gan --dp-sp 1x2`` with its resume (:func:`check_dp_sp_verb`)."""
+    ``train-gan --dp-sp 1x2`` with its resume (:func:`check_axes_verb`).
+    The hidden-unit axis (item 9c): (h) tp=2 in the same rank processes,
+    one epoch against the single-device epoch (:func:`check_tp_part`);
+    (i) is :class:`DpTpVerb` and (j) :func:`phase_tile`."""
     import signal
 
     from hfrep_tpu_torch.parallel import MeshSpec, build_mesh, lane_mesh, make_gan_multi_step
     from hfrep_tpu_torch.parallel import rules
-    from hfrep_tpu_torch.train import make_multi_step, make_train_step
+    from hfrep_tpu_torch.train import make_multi_step
     from hfrep_tpu_torch.train.trainer import GanTrainer
 
     tag = "[mesh]"
@@ -4686,16 +4890,10 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
 
         # (f), (g)'s reference: the single-device epoch (fused route) and
         # the forwards from the phase's state and first draws
-        pair_r, tcfg_r, dataset_r, state_r, draws_r = mesh_gan_inputs(torch)
-        z, x = axes_inputs(draws_r, dataset_r)
-        with torch.no_grad():
-            ref_fwd = {"g": state_r.generator(z).cpu(), "d": state_r.discriminator(x).cpu()}
-        state_r, m_r = make_train_step(pair_r, tcfg_r, dataset_r)(state_r, draws_r[0])
-        ref_p = {n: p.detach().cpu() for n, p in state_params(state_r).items()}
-        ref_m = {k: v.cpu() for k, v in m_r.items()}
+        ref_fwd, ref_p, ref_m, n_critic = mesh_reference(torch)
 
-        # the rank processes; their dp=2 block, pp and sp epochs are timed
-        # before the verb runs start, with nothing else on the card
+        # the rank processes; their dp=2 block, pp, sp and tp epochs are
+        # timed before the verb runs start, with nothing else on the card
         procs["ranks"] = start_ranks(ranks_dir)
         rank_deadline = time.perf_counter() + MESH_TIMEOUT_S
         while not all(os.path.exists(os.path.join(ranks_dir, f"rank{r}.timed")) for r in (0, 1)):
@@ -4824,7 +5022,10 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
         out["e"] = {"bit_equal": True}
         for kind, name in (("pp", "f"), ("sp", "g")):
             out[name] = check_axes_part(torch, kind, [d[kind] for d in ranks], ref_fwd,
-                                        ref_p, ref_m, tcfg_r.n_critic, card)
+                                        ref_p, ref_m, n_critic, card)
+        out["h"] = check_tp_part(torch, "(h) tp=2", [d["tp"] for d in ranks], ref_fwd, ref_p,
+                                 ref_m, n_critic, card)
+
 
         # (c) the verb: straight, single process, drained, then the resume
         for name in ("single", "dp2", "sp_straight"):
@@ -4875,7 +5076,9 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
                     "checkpoint_spans": writes,
                     "walls_s": {k: [w for *_, w in v] for k, v in runs.items()
                                 if not k.startswith("sp_")}}
-        out["c_dp_sp"] = check_dp_sp_verb(torch, dirs, runs, procs["sp_resume"], card)
+        out["c_dp_sp"] = check_axes_verb(torch, "(c) dp-sp", "sp", {"dp": 1, "sp": 2}, dirs,
+                                         runs, procs["sp_resume"], MESH_SP_CLI_EPOCHS,
+                                         MESH_SP_RESUME_AT, card)
     finally:
         # a failed check exits: no process outlives the script
         for group in procs.values():
@@ -4885,6 +5088,110 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
                     proc.communicate()
     out["wall_s"] = time.perf_counter() - t_phase
     say(f"{tag} phase wall {out['wall_s']:.1f} s on {card}")
+    return out
+
+
+class DpTpVerb:
+    """(i) ``train-gan --dp-tp 1x2 --coordinator`` on the committed panel,
+    started beside another phase: a straight run of MESH_TP_CLI_EPOCHS
+    and one of MESH_TP_RESUME_AT, resumed (from a thread that only waits)
+    as soon as it exits.  A tp rank's recurrence is a per-step exchange
+    with its peer, so its epochs stretch when the host is oversubscribed:
+    beside the mesh phase's dozen verb processes the 1-epoch run took
+    83–120 s, beside the analysis phase's two host-bound subprocesses it
+    has the cores it needs.  :meth:`finish` checks it
+    (:func:`check_axes_verb`); :meth:`stop` kills what is left."""
+
+    def __init__(self, keep: str):
+        cleaned = os.path.join(os.path.dirname(os.path.abspath(__file__)), CLEANED_DIR)
+        self.cli = ["--preset", TRAIN_PRESETS[0], "--cleaned-dir", cleaned, "--quiet",
+                    "--dp-tp", "1x2"]
+        self.dirs = {k: os.path.join(keep, f"mesh_cli_{k}") for k in ("tp_straight", "tp_half")}
+        self.procs = {
+            "tp_straight": start_cli_pair([*self.cli, "--epochs", MESH_TP_CLI_EPOCHS,
+                                           "--checkpoint-dir", self.dirs["tp_straight"]],
+                                          obs_dir=self.dirs["tp_straight"] + "_obs"),
+            "tp_half": start_cli_pair([*self.cli, "--epochs", MESH_TP_RESUME_AT,
+                                       "--checkpoint-dir", self.dirs["tp_half"]])}
+        self.half: list = []
+        self.thread = threading.Thread(target=self._resume_after_half, daemon=True)
+        self.thread.start()
+
+    def _resume_after_half(self) -> None:
+        for proc, t0 in self.procs["tp_half"]:
+            try:
+                out, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                return                  # finish() reports the overrun
+            self.half.append((proc.returncode, out, err, time.perf_counter() - t0))
+        if all(rc == 0 for rc, *_ in self.half):
+            self.procs["tp_resume"] = start_cli_pair([*self.cli, "--epochs", MESH_TP_CLI_EPOCHS,
+                                                      "--checkpoint-dir", self.dirs["tp_half"],
+                                                      "--resume"])
+
+    def finish(self, torch) -> dict:
+        card = card_line(torch)
+        self.thread.join(timeout=MESH_TIMEOUT_S)
+        runs = {"tp_straight": [finish_module(p, MESH_TIMEOUT_S)
+                                for p in self.procs["tp_straight"]], "tp_half": self.half}
+        for name, pair in runs.items():
+            if len(pair) != 2 or any(rc != 0 for rc, *_ in pair):
+                fail(f"mesh (i): train-gan ({name}) exited {[rc for rc, *_ in pair]} (of 2 "
+                     f"ranks): {[e[-1500:] for _, _, e, _ in pair]}")
+            if pair[1][1].strip():
+                fail(f"mesh (i): rank 1 of train-gan ({name}) printed {pair[1][1]!r}")
+        return check_axes_verb(torch, "(i) dp-tp", "tp", {"dp": 1, "tp": 2}, self.dirs, runs,
+                               self.procs["tp_resume"], MESH_TP_CLI_EPOCHS, MESH_TP_RESUME_AT,
+                               card)
+
+    def stop(self) -> None:
+        for group in self.procs.values():
+            for proc, _ in group:
+                if proc.poll() is None:
+                    kill_tree(proc)
+                    proc.communicate()
+
+
+def mesh_reference(torch) -> tuple:
+    """(f), (g), (h) and (j)'s reference: the single-device epoch (fused
+    route) and the forwards from the phase's state and first draws, on
+    the host; and n_critic."""
+    from hfrep_tpu_torch.train import make_train_step
+
+    pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch)
+    z, x = axes_inputs(draws, dataset)
+    with torch.no_grad():
+        ref_fwd = {"g": state.generator(z).cpu(), "d": state.discriminator(x).cpu()}
+    state, metrics = make_train_step(pair, tcfg, dataset)(state, draws[0])
+    return (ref_fwd, {n: p.detach().cpu() for n, p in state_params(state).items()},
+            {k: v.cpu() for k, v in metrics.items()}, tcfg.n_critic)
+
+
+def phase_tile(torch, keep: str) -> dict:
+    """(j) dp×sp×tp 1×2×2 as four rank processes on the one card, one
+    epoch against the single-device epoch (:func:`check_tp_part`).  Not in
+    :func:`main`'s run (four processes of the per-step recurrence doubled
+    every verb run of the mesh phase beside them);
+    ``tools/torch_mesh_phase.py`` runs it after the mesh phase."""
+    card = card_line(torch)
+    t_phase = time.perf_counter()
+    tile_dir = os.path.join(keep, "mesh_tile")
+    os.makedirs(tile_dir)
+    procs = start_ranks(tile_dir, math.prod(MESH_TILE.values()), "mesh_tile_rank")
+    try:
+        ref_fwd, ref_p, ref_m, n_critic = mesh_reference(torch)
+        finish_ranks(procs, tile_dir, time.perf_counter() + MESH_TIMEOUT_S)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                kill_tree(proc)
+                proc.communicate()
+    tile = [torch.load(os.path.join(tile_dir, f"rank{r}.pt")) for r in range(len(procs))]
+    if any(d["backend"] != "gloo" for d in tile):
+        fail(f"mesh (j): the tile ran {[d['backend'] for d in tile]}")
+    out = check_tp_part(torch, "(j) dp×sp×tp 1×2×2", tile, ref_fwd, ref_p, ref_m, n_critic, card)
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"[mesh] (j) phase wall {out['wall_s']:.1f} s on {card}")
     return out
 
 
@@ -5980,7 +6287,13 @@ def main() -> None:
         forensics = phase("forensics", phase_forensics, torch, np, cuda_lstm, keep, health)
         chaos = phase("chaos", phase_chaos, torch, np, keep)
         mesh = phase("mesh", phase_mesh, torch, np, cuda_lstm, train, keep)
-        analysis = phase("analysis", phase_analysis, torch, np, fid_covs, train)
+        # (i) of the mesh phase beside the analysis phase (DpTpVerb)
+        dp_tp = DpTpVerb(keep)
+        try:
+            analysis = phase("analysis", phase_analysis, torch, np, fid_covs, train)
+            mesh["i"] = phase("mesh_dp_tp", dp_tp.finish, torch)
+        finally:
+            dp_tp.stop()
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     timing = phase("timing", phase_timing, torch, cuda_lstm)

@@ -40,13 +40,16 @@ the same command with its own id, gloo when ranks share a card or run on
 the CPU, NCCL when each has its own.  Only rank 0 prints, checkpoints
 and writes samples; each rank's telemetry goes to ``<obs-dir>/proc<I>``.
 ``--sp-mesh`` shards the window over every rank instead, ``--dp-sp DPxSP``
-the batch over dp and the window over sp at once (the flagship
-``mtss_wgan_gp`` only; :mod:`hfrep_tpu_torch.parallel.sequence`); with
+the batch over dp and the window over sp at once
+(:mod:`hfrep_tpu_torch.parallel.sequence`); ``--tp-mesh N`` the hidden
+units over N ranks, ``--dp-tp DPxTP`` the batch and the hidden units
+(:mod:`hfrep_tpu_torch.parallel.tensor`), ``--dp-sp-tp DPxSPxTP`` all
+three (:mod:`hfrep_tpu_torch.parallel.dp_sp_tp`); the window and
+hidden-unit meshes run the flagship ``mtss_wgan_gp`` only.  With
 ``--coordinator`` the named mesh spans the group.  The mesh flags are
 mutually exclusive.  ``--sp-microbatches`` and ``--sp-remat`` are JAX's
 retired knobs: accepted, validated and threaded to ``TrainConfig``, then
-ignored.  ``--tp-mesh``, ``--dp-tp`` and ``--dp-sp-tp`` are refused: the
-hidden-unit axis is ROADMAP queue 1 item 9c.
+ignored.
 """
 
 from __future__ import annotations
@@ -118,11 +121,15 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="composed 2-D mesh, e.g. 1x2: batch sharded over dp AND window "
                         "over sp in one step (parallel/dp_sp.py)")
     t.add_argument("--tp-mesh", type=int, default=None, metavar="N",
-                   help="tensor-parallel over N ranks: ROADMAP queue 1 item 9c, refused")
+                   help="tensor-parallel: every LSTM layer's hidden units (its gate "
+                        "columns) over N ranks, h gathered each step (parallel/tensor.py; "
+                        "hidden width must divide; flagship mtss_wgan_gp only)")
     t.add_argument("--dp-tp", default=None, metavar="DPxTP",
-                   help="dp x tp mesh: ROADMAP queue 1 item 9c, refused")
+                   help="composed 2-D mesh, e.g. 1x2: batch sharded over dp AND hidden "
+                        "units over tp in one step (parallel/tensor.py)")
     t.add_argument("--dp-sp-tp", default=None, metavar="DPxSPxTP",
-                   help="dp x sp x tp mesh: ROADMAP queue 1 item 9c, refused")
+                   help="full 3-D mesh, e.g. 1x2x2: batch over dp, window over sp, hidden "
+                        "units over tp in one step (parallel/dp_sp_tp.py)")
     t.add_argument("--sp-remat", action="store_true",
                    help="RETIRED knob, accepted for compatibility: validated (--sp-mesh or "
                         "--dp-sp only), threaded to TrainConfig, ignored by the steps")
@@ -352,14 +359,15 @@ def cmd_clean(args) -> int:
     return 0
 
 
-def _dp_sp_dims(value: str) -> tuple:
-    """``--dp-sp``'s ``DPxSP`` → two ints, or the flag's own error."""
+def _dims(flag: str, value: str, form: str, example: str) -> tuple:
+    """``value`` of ``flag`` as ``form`` (``DPxSP``, ...) → ints, or JAX's
+    error for the flag."""
     try:
         dims = tuple(int(v) for v in value.lower().split("x"))
     except ValueError:
         dims = ()
-    if len(dims) != 2:
-        raise SystemExit(f"--dp-sp wants DPxSP (e.g. 2x4), got {value!r}")
+    if len(dims) != form.count("x") + 1:
+        raise SystemExit(f"{flag} wants {form} (e.g. {example}), got {value!r}")
     return dims
 
 
@@ -369,31 +377,38 @@ def _build_device_mesh(mesh: bool, sp_mesh: bool, dp_sp: Optional[str],
                        sp_remat: bool, device: str):
     """The mesh the flags name (``None``: no mesh), after the flags'
     checks: they exclude each other, the retired knobs need a
-    window-sharded mesh, and the tp meshes are refused (item 9c)."""
+    window-sharded mesh (``--sp-remat`` one without tp), and each value
+    parses, with JAX's messages."""
     if sum(map(bool, (mesh, sp_mesh, dp_sp, tp_mesh is not None, dp_tp, dp_sp_tp))) > 1:
         raise SystemExit("--mesh, --sp-mesh, --dp-sp, --tp-mesh, --dp-tp and --dp-sp-tp "
                          "are mutually exclusive")
-    if tp_mesh is not None or dp_tp or dp_sp_tp:
-        from hfrep_tpu_torch.parallel.rules import ITEM_9C
-        raise SystemExit(f"--tp-mesh/--dp-tp/--dp-sp-tp: {ITEM_9C}")
     if sp_remat and not (sp_mesh or dp_sp):
         raise SystemExit("--sp-remat requires --sp-mesh or --dp-sp (the tp-composed chunk "
                          "scan is not time-blocked; dp×sp×tp refuses)")
     if sp_microbatches is not None:
         if sp_microbatches < 1:
             raise SystemExit(f"--sp-microbatches wants M >= 1, got {sp_microbatches}")
-        if not (sp_mesh or dp_sp):
-            raise SystemExit("--sp-microbatches requires a window-sharded mesh (--sp-mesh "
-                             "or --dp-sp)")
+        if not (sp_mesh or dp_sp or dp_sp_tp):
+            raise SystemExit("--sp-microbatches requires a window-sharded mesh (--sp-mesh, "
+                             "--dp-sp or --dp-sp-tp)")
+    if tp_mesh is not None and tp_mesh < 1:
+        raise SystemExit(f"--tp-mesh wants N >= 1 devices, got {tp_mesh}")
     dev = None if device == "cuda" else device
     from hfrep_tpu_torch.config import MeshConfig
-    from hfrep_tpu_torch.parallel import make_mesh, make_mesh_2d
+    from hfrep_tpu_torch.parallel import make_mesh, make_mesh_2d, make_mesh_3d
     if mesh:
         return make_mesh(device=dev)
     if sp_mesh:
         return make_mesh(MeshConfig(axis_name="sp"), device=dev)
     if dp_sp:
-        return make_mesh_2d(*_dp_sp_dims(dp_sp), device=dev)
+        return make_mesh_2d(*_dims("--dp-sp", dp_sp, "DPxSP", "2x4"), device=dev)
+    if tp_mesh is not None:
+        return make_mesh(MeshConfig(dp=tp_mesh, axis_name="tp"), device=dev)
+    if dp_tp:
+        return make_mesh_2d(*_dims("--dp-tp", dp_tp, "DPxTP", "2x4"), device=dev,
+                            axis_names=("dp", "tp"))
+    if dp_sp_tp:
+        return make_mesh_3d(*_dims("--dp-sp-tp", dp_sp_tp, "DPxSPxTP", "2x2x2"), device=dev)
     return None
 
 
@@ -405,7 +420,8 @@ def _make_trainer(preset: str, cleaned_dir: str, checkpoint_dir: Optional[str] =
                   dp_tp: Optional[str] = None, dp_sp_tp: Optional[str] = None,
                   sp_microbatches: Optional[int] = None, sp_remat: bool = False):
     """The mesh the flags name (``mesh``: dp over every rank of the
-    process group; ``sp_mesh``, ``dp_sp``: the window sharded), then the
+    process group; ``sp_mesh``, ``dp_sp``: the window sharded; ``tp_mesh``,
+    ``dp_tp``: the hidden units; ``dp_sp_tp``: both), then the
     preset (its model's precision policy set to ``dtype`` if given, the
     retired sp knobs threaded), then panel, then dataset, then logger,
     then trainer."""

@@ -16,17 +16,19 @@ on the CPU.  Nothing falls back from one to the other.  Every group has
 a finite timeout (:data:`DEFAULT_TIMEOUT_S`), so a dead peer fails the
 run instead of hanging it.
 
-:func:`make_mesh_2d` lays the group out as a dp × sp grid, dp
-outermost; each axis longer than 1 of such a mesh runs its collectives
-in a sub-group of its own.  Every layout the port launches (dp, sp, pp)
-replicates the state, so :func:`replicate_to_global` is the one
-promotion of host state to the mesh.
+:func:`make_mesh_2d` lays the group out as a dp × sp or dp × tp grid,
+:func:`make_mesh_3d` as dp × sp × tp, dp outermost; each axis longer
+than 1 of such a mesh runs its collectives in a sub-group of its own.
+Every layout the port launches (dp, sp, tp, pp) replicates the state (a
+tp rank slices its gate columns at each call), so
+:func:`replicate_to_global` is the one promotion of host state to the
+mesh, and JAX's ``shard_to_global`` has no counterpart.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Optional
+from typing import Optional, Sequence
 
 from hfrep_tpu_torch.config import MeshConfig
 from hfrep_tpu_torch.core.device import DeviceLike
@@ -55,16 +57,33 @@ def make_mesh(cfg: Optional[MeshConfig] = None, device: DeviceLike = None) -> Me
     return make_named_mesh((cfg.axis_name,), (n,), device)
 
 
-def make_mesh_2d(dp: int, sp: int, device: DeviceLike = None) -> Mesh:
-    """A composed ``('dp', 'sp')`` mesh of ``dp·sp`` ranks, dp
-    outermost.  The process group must have exactly ``dp·sp`` ranks."""
-    if dp < 1 or sp < 1:
-        raise ValueError(f"dp×sp mesh dims must be >= 1, got {dp}×{sp}")
+def make_mesh_2d(dp: int, inner: int, device: DeviceLike = None,
+                 axis_names: Sequence[str] = ("dp", "sp")) -> Mesh:
+    """A composed 2-D mesh of ``dp·inner`` ranks, dp outermost:
+    ``('dp', 'sp')`` (the default) or ``('dp', 'tp')``.  The process group
+    must have exactly ``dp·inner`` ranks."""
+    names = tuple(axis_names)
+    if dp < 1 or inner < 1:
+        raise ValueError(f"{names[0]}×{names[1]} mesh dims must be >= 1, got {dp}×{inner}")
     world = world_size()
-    if dp * sp > world:
-        raise ValueError(f"requested dp×sp={dp}×{sp} but the process group spans "
-                         f"{world} rank(s)")
-    return make_named_mesh(("dp", "sp"), (dp, sp), device)
+    if dp * inner > world:
+        raise ValueError(f"requested {names[0]}×{names[1]}={dp}×{inner} but the process "
+                         f"group spans {world} rank(s)")
+    return make_named_mesh(names, (dp, inner), device)
+
+
+def make_mesh_3d(dp: int, sp: int, tp: int, device: DeviceLike = None) -> Mesh:
+    """The full ``('dp', 'sp', 'tp')`` mesh of ``dp·sp·tp`` ranks, dp
+    outermost (each sp × tp tile's carries and gathers among neighbouring
+    ranks).  The process group must have exactly that many ranks."""
+    for name, n in (("dp", dp), ("sp", sp), ("tp", tp)):
+        if n < 1:
+            raise ValueError(f"dp×sp×tp mesh dims must be >= 1, got {name}={n}")
+    world, need = world_size(), dp * sp * tp
+    if need > world:
+        raise ValueError(f"requested dp×sp×tp={dp}×{sp}×{tp} ({need} devices) but the "
+                         f"process group spans {world} rank(s)")
+    return make_named_mesh(("dp", "sp", "tp"), (dp, sp, tp), device)
 
 
 def initialize_distributed(coordinator: Optional[str] = None,

@@ -17,7 +17,8 @@
   (:class:`DataShard`).  Every rank draws the whole global batch from
   the same seeded generator (JAX's global-stream semantics, its only
   mode) and keeps its block of it: its contiguous ``B/dp`` rows, and on
-  an ``sp`` mesh its contiguous ``W/sp`` window chunk.  Every gradient
+  an ``sp`` mesh its contiguous ``W/sp`` window chunk (a tp rank the
+  same block as its tp peers).  Every gradient
   is reduced over the mesh before the optimizer touches it (a mean over
   ``dp``, a sum of the ranks' partials over an inner axis), every loss
   to its mean over ``dp``; the state stays replicated and bit-equal
@@ -28,24 +29,34 @@
   :func:`make_gan_multi_step` build the single-device step with that
   hook on a ``dp`` mesh.  The window axis ``sp`` is
   :mod:`~hfrep_tpu_torch.parallel.sequence`'s launch (its forwards run
-  the window chunks with carry handoffs between the ranks) and the layer
-  axis ``pp`` :mod:`~hfrep_tpu_torch.parallel.layer_pipeline`'s; both
-  build the same step with the same hook and their own ``apply_fns``.
+  the window chunks with carry handoffs between the ranks), the layer
+  axis ``pp`` :mod:`~hfrep_tpu_torch.parallel.layer_pipeline`'s, the
+  hidden-unit axis ``tp`` :mod:`~hfrep_tpu_torch.parallel.tensor`'s and
+  sp with tp :mod:`~hfrep_tpu_torch.parallel.dp_sp_tp`'s; each builds the
+  same step with the same hook and its own ``apply_fns``.
+* **the compute layout** — :data:`GAN_PARTITION_RULES`, JAX's rule
+  table (leaf name pattern → which axis of the leaf ``tp`` slices),
+  resolved over the port's named leaves by :func:`match_partition_rules`
+  (:func:`gan_state_specs` for a whole state, the optimizer slots
+  included).  It says what a tp rank computes, not what it holds: every
+  rank holds the whole state, replicated and bit-equal, and takes its
+  gate columns of a sliced leaf at each call
+  (:mod:`~hfrep_tpu_torch.parallel.tensor`); the hook keeps a replicated
+  leaf's gradient on tp rank 0 alone, so the one all_reduce of an update
+  sums every leaf exactly.
 
-JAX's ``_resolve_mesh_backend`` has no counterpart: it keeps GSPMD from
-partitioning an opaque Pallas call, while here no partitioner looks
-inside a kernel: each rank launches the hand kernels on its own block.
-The hidden-unit axis ``tp`` is ROADMAP queue 1 item 9c and refused
-(:data:`ITEM_9C`); with it went JAX's partition-rule machinery
-(``PartitionSpec``, ``match_partition_rules``,
-``make_shard_and_gather_fns``, ``shard_put``, ``gan_state_specs``,
-``gan_launch_specs``, ``GAN_PARTITION_RULES``, ``AE_LANE_RULES``), whose
-only use is the tp layout: dp, sp and pp replicate the whole state.
+JAX's ``_resolve_mesh_backend`` keeps GSPMD from partitioning an opaque
+Pallas call; here no partitioner looks inside a kernel.  Each dp, sp or
+pp rank launches the hand kernels on its own block; a tp rank's rec is
+(H, 4H/tp), which no kernel takes, so its recurrence runs step by step
+in torch ops, as JAX's tp runs the XLA scan, and ``lstm_backend='pallas'``
+is refused there with JAX's message (:func:`validate_tp`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,9 +68,9 @@ from hfrep_tpu_torch.core.device import DeviceLike
 #: window, ``tp`` hidden units, ``pp`` the stack depth
 AXES = ("dp", "sp", "tp", "pp")
 
-#: the refusal every builder gives a mesh with a tp axis
-ITEM_9C = ("the tp (hidden-unit) axis is ROADMAP queue 1 item 9c, not ported yet: "
-           "this port shards the batch (dp), the window (sp) and the layers (pp)")
+#: the refusal of the health gauges on a tp mesh
+TP_HEALTH = ("health gauges on a tp mesh are ROADMAP queue 1 item 9d, not ported: run the "
+             "tp step with health off (HFREP_HEALTH unset)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -398,6 +409,70 @@ def _rebuild(tree, leaves):
     return walk(tree)
 
 
+# ------------------------------------------------------ the compute layout
+#: JAX's ``GAN_PARTITION_RULES`` over the port's leaf names: ``tp`` slices
+#: every LSTM layer's gate columns (``kernel`` (F, 4H) and
+#: ``recurrent_kernel`` (H, 4H) on their 4H axis, ``bias`` (4H,) on its
+#: only one), everything else (Dense heads, LayerNorms) is replicated.  A
+#: spec is JAX's ``PartitionSpec`` as a tuple: one entry a leading axis of
+#: the leaf, the mesh axis that slices it or ``None``; ``()`` replicates.
+#: The optimizer slots carry their parameter's name, so they match too.
+GAN_PARTITION_RULES: Tuple[Tuple[str, tuple], ...] = (
+    (r"lstm\d+\.(kernel|recurrent_kernel)$", (None, "tp")),
+    (r"lstm\d+\.bias$", ("tp",)),
+    (r".*", ()),
+)
+
+
+def normalize_spec(spec: tuple, mesh) -> tuple:
+    """``spec`` without the axis names ``mesh`` lacks (an axis of size 1
+    counts as absent), trailing ``None`` entries trimmed: one rule set
+    serves every mesh."""
+    names = {n for n, s in zip(mesh.axis_names, mesh.axis_sizes) if s > 1}
+    kept = [e if e in names else None for e in spec]
+    while kept and kept[-1] is None:
+        kept.pop()
+    return tuple(kept)
+
+
+def match_partition_rules(rules, tree, mesh=None) -> dict:
+    """``{name: spec}`` over :func:`named_leaves` of ``tree``, in their
+    order: the first rule whose pattern ``re.search``-es the name wins; a
+    scalar (no shape, or one element) is always replicated; a leaf no rule
+    matches raises, naming its path.  With ``mesh``, each spec is
+    :func:`normalize_spec`-ed to it."""
+    specs = {}
+    for name, leaf in named_leaves(tree):
+        shape = getattr(leaf, "shape", None)
+        if shape is None or len(shape) == 0 or int(np.prod(shape)) <= 1:
+            specs[name] = ()
+            continue
+        for pattern, spec in rules:
+            if re.search(pattern, name) is not None:
+                specs[name] = spec if mesh is None else normalize_spec(spec, mesh)
+                break
+        else:
+            raise ValueError(f"partition rule not found for param: {name!r} (shape "
+                             f"{tuple(shape)}); every leaf must match a rule — add one or "
+                             "extend the catch-all")
+    return specs
+
+
+def gan_state_specs(state, mesh) -> dict:
+    """The rule table resolved over a whole
+    :class:`~hfrep_tpu_torch.train.states.GanState` on ``mesh``."""
+    return match_partition_rules(GAN_PARTITION_RULES, state, mesh)
+
+
+def sliced_axis(name: str) -> Optional[int]:
+    """The axis of leaf ``name`` that ``tp`` slices by the rule table, or
+    ``None`` for a replicated leaf."""
+    for pattern, spec in GAN_PARTITION_RULES:
+        if re.search(pattern, name) is not None:
+            return spec.index("tp") if "tp" in spec else None
+    return None
+
+
 # ---------------------------------------------------------- the step hook
 class DataShard:
     """The step's mesh hook (JAX's ``shard_data``).
@@ -413,7 +488,10 @@ class DataShard:
     over the axes ``inner`` (a window chunk's gradient under sp, a
     stage's under pp), summed over them and averaged over dp; the rest
     (losses, accuracies) are equal across ``inner`` and averaged over dp.
-    ``sum_window`` completes a rank-local per-sample sum over the window
+    On a mesh with a ``tp`` axis ``names`` gives the partials' leaf names:
+    a sliced leaf's partial is its own gate columns' (zeros elsewhere), a
+    replicated leaf's is whole on every tp rank, so tp rank 0 alone keeps
+    it (:func:`sliced_axis`).  ``sum_window`` completes a rank-local per-sample sum over the window
     (the penalty's squared norms of a window-sharded input gradient):
     ``None`` where every rank holds whole windows, else the window
     launch's differentiable sum over sp."""
@@ -425,6 +503,7 @@ class DataShard:
         self.mesh = mesh
         self.n, self.rank = int(shape.get("dp", 1)), coords.get("dp", 0)
         self.n_sp, self.sp_rank = int(shape.get("sp", 1)), coords.get("sp", 0)
+        self.n_tp, self.tp_rank = int(shape.get("tp", 1)), coords.get("tp", 0)
         self.inner = int(np.prod([shape.get(a, 1) for a in inner]))
         self.sum_window = sum_window
 
@@ -448,10 +527,17 @@ class DataShard:
         w //= self.n_sp
         return x.narrow(w_axis, self.sp_rank * w, w)
 
-    def reduce(self, tensors: Sequence[torch.Tensor], partials: int = 0) -> list:
+    def reduce(self, tensors: Sequence[torch.Tensor], partials: int = 0,
+               names: Optional[Sequence[str]] = None) -> list:
         import torch.distributed as dist
 
-        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        parts = [t.detach().reshape(-1).float() for t in tensors]
+        if self.n_tp > 1 and self.tp_rank:
+            if names is None or len(names) != partials:
+                raise ValueError("a tp mesh's reduction needs the partials' leaf names")
+            parts = [torch.zeros_like(t) if i < partials and sliced_axis(names[i]) is None
+                     else t for i, t in enumerate(parts)]
+        flat = torch.cat(parts)
         dist.all_reduce(flat, group=self.mesh.group)
         if self.inner == 1:
             flat.div_(self.n)
@@ -471,38 +557,68 @@ class DataShard:
 def data_constraint(mesh: Optional[Mesh],
                     sum_window: Optional[Callable] = None) -> Optional[DataShard]:
     """The step's mesh hook, or ``None`` — the literal single-device
-    step, no collective — when the mesh has no dp or sp extent to shard
-    over.  ``sum_window`` is the hook's (:class:`DataShard`)."""
+    step, no collective — when the mesh has no dp, sp or tp extent to
+    shard over.  ``sum_window`` is the hook's (:class:`DataShard`)."""
     if mesh is None:
         return None
     shape = mesh.shape
-    n_sp = int(shape.get("sp", 1))
-    if int(shape.get("dp", 1)) <= 1 and n_sp <= 1:
+    if all(int(shape.get(a, 1)) <= 1 for a in ("dp", "sp", "tp")):
         return None
-    return DataShard(mesh, inner=("sp",) if n_sp > 1 else (), sum_window=sum_window)
+    inner = tuple(a for a in ("sp", "tp") if int(shape.get(a, 1)) > 1)
+    return DataShard(mesh, inner=inner, sum_window=sum_window)
 
 
 # ---------------------------------------------------------- the GAN launch
 def validate_mesh(tcfg, mesh) -> MeshSpec:
-    """The checks the dp and the sp launch share: known axis names, no tp
-    axis (:data:`ITEM_9C`), no pp axis (the layer pipeline's own
-    schedule), the batch divisible by dp."""
+    """The checks the dp, sp and tp launches share: known axis names, no
+    pp axis (the layer pipeline's own schedule), the batch divisible by
+    dp."""
     spec = mesh_spec(mesh)      # refuses unknown axis names
-    if spec.tp > 1:
-        raise ValueError(f"mesh {mesh.shape}: {ITEM_9C}")
     if spec.pp > 1:
         raise ValueError("pp is the layer_pipeline.py axis (make_pp_train_step, its own "
-                         "schedule); the mesh launch shards dp and sp")
+                         "schedule); the mesh launch shards dp and sp, the tensor.py "
+                         "launch tp")
     if spec.dp > 1 and tcfg.batch_size % spec.dp:
         raise ValueError(f"global batch {tcfg.batch_size} not divisible by dp={spec.dp}")
+    return spec
+
+
+def validate_tp(pair, tcfg, mesh) -> MeshSpec:
+    """JAX's tp checks (``_validate_gan_mesh``, ``_resolve_mesh_backend``)
+    with its messages: the ``mtss_wgan_gp`` family, hidden widths tp
+    divides, no ``lstm_backend='pallas'``; and the port's: float32, health
+    off (:data:`TP_HEALTH`).  A mesh whose tp extent is 1 passes."""
+    from hfrep_tpu_torch.obs import health
+
+    spec = validate_mesh(tcfg, mesh)
+    if spec.tp > 1:
+        if pair.family != "mtss_wgan_gp":
+            raise ValueError(f"tp (hidden-unit) sharding supports the mtss_wgan_gp family's "
+                             f"LSTM stacks, got {pair.family!r}")
+        for h in sorted({int(pair.generator.lstm0.features),
+                         int(pair.discriminator.lstm0.features)}):
+            if h % spec.tp:
+                raise ValueError(f"hidden width {h} not divisible by tp={spec.tp} devices")
+        if pair.policy.compute_dtype != torch.float32:
+            raise NotImplementedError("the tp step runs float32; configure dtype=float32")
+        if tcfg.lstm_backend == "pallas":
+            raise ValueError("lstm_backend='pallas' cannot be GSPMD-partitioned over a "
+                             f"{spec.size}-device mesh; use 'auto' (resolves to the xla scan "
+                             "on multi-device meshes) or 'xla'")
+        if health.active() is not None:
+            raise ValueError(TP_HEALTH)
     return spec
 
 
 def _gan_step(pair, tcfg, dataset, mesh):
     from hfrep_tpu_torch.train.steps import make_train_step
 
-    if validate_mesh(tcfg, mesh).sp > 1:
+    spec = validate_mesh(tcfg, mesh)
+    if spec.sp > 1:
         raise ValueError("sp is the sequence.py axis (make_sp_train_step, the window-chunk "
+                         "forwards); make_gan_train_step shards dp")
+    if spec.tp > 1:
+        raise ValueError("tp is the tensor.py axis (make_tp_train_step, the gate-column "
                          "forwards); make_gan_train_step shards dp")
     return make_train_step(pair, tcfg, dataset, shard_data=data_constraint(mesh))
 

@@ -287,6 +287,9 @@ def _sp_step(pair, tcfg, dataset: torch.Tensor, mesh):
     from hfrep_tpu_torch.train.steps import make_train_step
 
     spec = validate_mesh(tcfg, mesh)
+    if spec.tp > 1:
+        raise ValueError("tp with sp is the dp_sp_tp.py launch (make_dp_sp_tp_train_step); "
+                         "make_sp_train_step shards dp and sp")
     if dataset.shape[1] % spec.sp:
         raise ValueError(f"window {dataset.shape[1]} not divisible by sp={spec.sp}")
     validate_sp_pair(pair)

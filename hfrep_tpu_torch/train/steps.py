@@ -212,7 +212,8 @@ def _updates(pair: GanPair, tcfg: TrainConfig, health: Optional[_Health] = None,
     each update first reduces, in one call, its gradients in parameter
     order (an unused one as zeros, so every rank reduces the same list),
     its loss and ``extras`` (tensors the caller wants as global means,
-    returned after the loss); the gradients are the rank's partials."""
+    returned after the loss); the gradients are the rank's partials, named
+    for the hook by their parameters."""
     g_tx, d_tx = make_optimizers(pair, tcfg)
 
     def _update(module: nn.Module, tx, slots: dict, loss: torch.Tensor, extras=()):
@@ -222,7 +223,8 @@ def _updates(pair: GanPair, tcfg: TrainConfig, health: Optional[_Health] = None,
                  for (k, p), g in zip(params.items(), grads)}
         loss = loss.detach()
         if reduce is not None:
-            out = reduce(list(grads.values()) + [loss] + list(extras), partials=len(grads))
+            out = reduce(list(grads.values()) + [loss] + list(extras), partials=len(grads),
+                         names=list(grads))
             n = len(grads)
             grads, loss, extras = dict(zip(grads, out[:n])), out[n], tuple(out[n + 1:])
         tx.update(params, grads, slots)

@@ -47,19 +47,22 @@ forensic dump of the whole checkpoint tree and raises
 Mesh (``mesh=``, a :class:`~hfrep_tpu_torch.parallel.rules.Mesh` over
 the axis names JAX's trainer accepts): the blocks and the remainder
 launch through the mesh's builders (:func:`_mesh_builders`:
-:mod:`~hfrep_tpu_torch.parallel.sequence`'s on an sp axis longer than
-1, else :func:`~hfrep_tpu_torch.parallel.rules.make_gan_multi_step` /
+:mod:`~hfrep_tpu_torch.parallel.dp_sp_tp`'s on sp and tp axes both
+longer than 1, :mod:`~hfrep_tpu_torch.parallel.tensor`'s on a tp axis,
+:mod:`~hfrep_tpu_torch.parallel.sequence`'s on an sp axis, else
+:func:`~hfrep_tpu_torch.parallel.rules.make_gan_multi_step` /
 ``make_gan_train_step``; ``dp_multi_step``, ``sp_train_step``,
-``dp_sp_multi_step``, ...): every rank draws the global batch from the
+``dp_tp_multi_step``, ...): every rank draws the global batch from the
 same stream and steps on its block of it (its rows over dp, its window
-chunk over sp), the gradients reduced over the mesh.  On a mesh that spans
+chunk over sp, its gate columns over tp), the gradients reduced over
+the mesh.  On a mesh that spans
 processes the state and the draw stream are broadcast from rank 0 at
 construction, ``generate``'s noise too; rank 0 alone writes a
 checkpoint, synchronously, then every rank meets it at a barrier (every
 rank restores); a drain seen by any rank drains every rank at the same
 block boundary, and the NaN guard's verdict is reduced across ranks, so
-no rank is left waiting in a collective.  A tp axis is refused at
-construction (ROADMAP queue 1 item 9c).
+no rank is left waiting in a collective.  On a tp mesh the health
+gauges are refused when the step is built (ROADMAP queue 1 item 9d).
 """
 
 from __future__ import annotations
@@ -154,10 +157,19 @@ def restore_walk(path: Optional[str], ckpt_dir: Optional[str]):
 
 
 def _mesh_builders(mesh) -> tuple:
-    """``(train_step, multi_step)`` builders of a mesh launch: the window
-    launch where the mesh shards the window, else the data-parallel one
-    (which refuses the axes it does not shard)."""
-    if int(mesh.shape.get("sp", 1)) > 1:
+    """``(train_step, multi_step)`` builders of a mesh launch: the 3-D
+    launch where the mesh shards the window and the hidden units, the
+    hidden-unit launch where it shards those, the window launch where it
+    shards the window, else the data-parallel one (each refuses the axes
+    it does not shard)."""
+    sp, tp = (int(mesh.shape.get(a, 1)) for a in ("sp", "tp"))
+    if sp > 1 and tp > 1:
+        from hfrep_tpu_torch.parallel import dp_sp_tp
+        return dp_sp_tp.make_dp_sp_tp_train_step, dp_sp_tp.make_dp_sp_tp_multi_step
+    if tp > 1:
+        from hfrep_tpu_torch.parallel import tensor
+        return tensor.make_tp_train_step, tensor.make_tp_multi_step
+    if sp > 1:
         from hfrep_tpu_torch.parallel import sequence
         return sequence.make_sp_train_step, sequence.make_sp_multi_step
     from hfrep_tpu_torch.parallel import rules

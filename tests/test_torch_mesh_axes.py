@@ -7,7 +7,8 @@ package, on the CPU.
   parse as JAX's; they and ``--mesh`` exclude each other, with JAX's
   messages; the retired knobs ``--sp-microbatches`` and ``--sp-remat``
   are validated as JAX validates them, threaded to ``TrainConfig`` and
-  ignored; the tp flags are refused naming ROADMAP item 9c.
+  ignored; the tp flags' values parse as JAX's, with its messages, and
+  build their meshes.
 * ``make_mesh_2d`` (``hfrep_tpu/parallel/mesh.py:35``) and its
   refusals; the hook's layout rule (``data_constraint``, JAX's
   ``rules.py:288-325``) and the window chain on a 2×2 dp×sp mesh.
@@ -74,7 +75,8 @@ def test_the_mesh_flags_parse_as_jax_s():
     for flag in ("--sp-mesh", "--dp-sp", "--tp-mesh", "--dp-tp", "--dp-sp-tp",
                  "--sp-microbatches", "--sp-remat"):
         assert flag in help_text
-    assert help_text.count("RETIRED") == 2 and help_text.count("9c") == 3
+    assert help_text.count("RETIRED") == 2 and "9c" not in help_text
+    assert "parallel/tensor.py" in help_text and "parallel/dp_sp_tp.py" in help_text
 
 
 #: flag sets JAX's ``_make_trainer`` refuses before any device work, and
@@ -87,6 +89,9 @@ REFUSED = [
     dict(mesh=True, sp_remat=True),
     dict(sp_remat=True),
     dict(dp_sp="2by4"),
+    dict(tp_mesh=0),
+    dict(dp_tp="2by4"),
+    dict(dp_sp_tp="2x2"),
 ]
 
 
@@ -102,17 +107,17 @@ def test_flag_refusals_are_jax_s(flags):
 @pytest.mark.parametrize("flags,match", [
     (dict(sp_microbatches=0, sp_mesh=True), "--sp-microbatches wants M >= 1, got 0"),
     (dict(sp_microbatches=2, mesh=True), "requires a window-sharded mesh"),
-    (dict(tp_mesh=2), "item 9c"),
-    (dict(dp_tp="1x2"), "item 9c"),
-    (dict(dp_sp_tp="1x1x2"), "item 9c"),
-    (dict(tp_mesh=0), "item 9c"),
+    (dict(tp_mesh=2), r"requested tp=2 but the process group spans 1 rank"),
+    (dict(dp_tp="1by2"), r"--dp-tp wants DPxTP \(e\.g\. 2x4\), got '1by2'"),
+    (dict(dp_sp_tp="1x2"), r"--dp-sp-tp wants DPxSPxTP \(e\.g\. 2x2x2\), got '1x2'"),
+    (dict(tp_mesh=0), "--tp-mesh wants N >= 1 devices, got 0"),
     (dict(dp_sp="1x2"), r"requested dp×sp=1×2 but the process group spans 1 rank"),
 ])
 def test_flag_refusals_the_port_adds_or_moves(flags, match):
     """The retired knobs checked before any mesh is built (JAX checks them
     after its mesh, which needs devices this process lacks); the tp
-    flags refused as item 9c whatever their values; a mesh larger than
-    the group refused."""
+    flags' bad values with JAX's messages; a mesh larger than the group
+    refused."""
     with pytest.raises((SystemExit, ValueError), match=match):
         cli._make_trainer("mtss_wgan_gp", CLEANED, device="cpu", **flags)
 
@@ -128,6 +133,22 @@ def test_retired_knobs_thread_to_the_config_and_change_nothing():
     assert tr.history == plain.history
 
 
+@pytest.mark.parametrize("flags,shape", [
+    (dict(tp_mesh=1), {"tp": 1}),
+    (dict(dp_tp="1x1"), {"dp": 1, "tp": 1}),
+    (dict(dp_sp_tp="1x1x1"), {"dp": 1, "sp": 1, "tp": 1}),
+])
+def test_the_tp_flags_build_their_meshes(flags, shape):
+    """Each tp flag builds the mesh it names (one rank here: no hook, the
+    plain step) and the trainer on it trains the plain trajectory."""
+    tr, _ = cli._make_trainer("mtss_wgan_gp", CLEANED, device="cpu", **flags)
+    assert tr.mesh.shape == shape and rules.data_constraint(tr.mesh) is None
+    plain, _ = cli._make_trainer("mtss_wgan_gp", CLEANED, device="cpu")
+    tr.train(1)
+    plain.train(1)
+    assert tr.history == plain.history
+
+
 # ----------------------------------------------------------- the mesh core
 def test_mesh_2d_and_its_refusals():
     one = pmesh.make_mesh_2d(1, 1, device="cpu")
@@ -137,6 +158,19 @@ def test_mesh_2d_and_its_refusals():
     with pytest.raises(ValueError, match="requested dp×sp=2×2 but the process group spans 1"):
         pmesh.make_mesh_2d(2, 2, device="cpu")
     assert rules.mesh_spec(Mesh(("dp", "sp"), (2, 4), CPU)) == rules.MeshSpec(dp=2, sp=4)
+    tp = pmesh.make_mesh_2d(1, 1, device="cpu", axis_names=("dp", "tp"))
+    assert (tp.axis_names, tp.axis_sizes) == (("dp", "tp"), (1, 1))
+    with pytest.raises(ValueError, match=r"dp×tp mesh dims must be >= 1, got 1×0"):
+        pmesh.make_mesh_2d(1, 0, device="cpu", axis_names=("dp", "tp"))
+    with pytest.raises(ValueError, match="requested dp×tp=1×2 but the process group spans 1"):
+        pmesh.make_mesh_2d(1, 2, device="cpu", axis_names=("dp", "tp"))
+    three = pmesh.make_mesh_3d(1, 1, 1, device="cpu")
+    assert (three.axis_names, three.axis_sizes) == (("dp", "sp", "tp"), (1, 1, 1))
+    with pytest.raises(ValueError, match="dp×sp×tp mesh dims must be >= 1, got sp=0"):
+        pmesh.make_mesh_3d(1, 0, 2, device="cpu")
+    with pytest.raises(ValueError, match=r"requested dp×sp×tp=1×2×2 \(4 devices\) but the "
+                                         "process group spans 1"):
+        pmesh.make_mesh_3d(1, 2, 2, device="cpu")
 
 
 @pytest.mark.parametrize("rank", range(4))

@@ -1,13 +1,12 @@
 """The port's mesh core (``hfrep_tpu_torch/parallel/{rules,mesh,
 __init__}``) against the JAX package's, on the CPU.
 
-* ``MeshSpec`` as JAX's (``tests/test_mesh_rules.py:91-206``).  JAX's
-  partition-rule machinery has no port: its one use is the tp layout,
-  ROADMAP queue 1 item 9c.
+* ``MeshSpec`` as JAX's (``tests/test_mesh_rules.py:91-206``); the
+  partition rules, the tp layout, are ``tests/test_torch_tensor.py``'s.
 * The identity (``:208-232``): a one-device mesh step is bit for bit the
   plain step, for each loss kind, with no collective.
-* The refusals: a batch dp does not divide, unknown axis names, tp
-  naming ROADMAP item 9c, pp left to the layer pipeline and sp to the
+* The refusals: a batch dp does not divide, unknown axis names, tp left
+  to the hidden-unit launch, pp to the layer pipeline and sp to the
   window launch, a multi-device hook with no process group.
 * The backend and device rules, and that no new module imports JAX.
 """
@@ -139,7 +138,7 @@ def test_refusals_name_what_was_asked():
     with pytest.raises(ValueError, match="global batch 9 not divisible by dp=2"):
         rules.make_gan_multi_step(pair, tcfg, ds, Mesh(("dp",), (2,), cpu))
     for names in (("tp",), ("dp", "tp"), ("dp", "sp", "tp")):
-        with pytest.raises(ValueError, match="item 9c"):
+        with pytest.raises(ValueError, match="tensor.py axis|sequence.py axis"):
             rules.make_gan_multi_step(pair, TrainConfig(**TCFG), ds,
                                       Mesh(names, (2,) * len(names), cpu))
     with pytest.raises(ValueError, match="layer_pipeline.py axis"):

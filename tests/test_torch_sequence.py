@@ -414,7 +414,7 @@ def test_sp_refusals_name_what_was_asked():
     with pytest.raises(ValueError, match="supports the mtss_wgan_gp family"):
         seq.make_sp_multi_step(wgan, tcfg, torch.zeros((16, 8, 5)), sp_mesh)
     for names in (("sp", "tp"), ("sp", "pp")):
-        with pytest.raises(ValueError, match="item 9c|layer_pipeline.py axis"):
+        with pytest.raises(ValueError, match="dp_sp_tp.py launch|layer_pipeline.py axis"):
             seq.make_sp_train_step(pair, tcfg, torch.zeros((16, 8, 5)),
                                    Mesh(names, (2, 2), cpu, group=object()))
     bf16 = build_gan(ModelConfig(family="mtss_wgan_gp", features=5, window=8, hidden=8,

@@ -5,9 +5,13 @@
 
 Builds the hand kernels, runs chip_smoke's fused train phase (whose
 per-epoch launch counts the mesh phase holds its blocks to), then
-``chip_smoke.phase_mesh``: dp=1 and dp=2, the window and layer axes
-(pp=2, sp=2) in the rank processes, ``train-gan --coordinator`` and
-``--dp-sp 1x2`` with their resumes, the lane drives and the seed mesh.
+``chip_smoke.phase_mesh``: dp=1 and dp=2, the window, layer and
+hidden-unit axes (pp=2, sp=2, tp=2) in the rank processes,
+``train-gan --coordinator`` and ``--dp-sp 1x2`` with their resumes, the
+lane drives and the seed mesh; then ``chip_smoke.DpTpVerb``, ``--dp-tp
+1x2`` with its resume (``chip_smoke.py`` runs it beside its analysis
+phase), and ``chip_smoke.phase_tile``, dp×sp×tp 1×2×2 as four rank
+processes (not in ``chip_smoke.py``'s own run, for its time).
 Prints the phase's lines, its seconds and the card's name and power
 limit.  Imports no JAX.
 """
@@ -46,6 +50,12 @@ def main() -> None:
     keep = tempfile.mkdtemp(prefix="mesh_phase_")
     try:
         out = {"mesh": chip_smoke.phase_mesh(torch, np, cuda_lstm, train, keep)}
+        dp_tp = chip_smoke.DpTpVerb(keep)
+        try:
+            out["dp_tp"] = dp_tp.finish(torch)
+        finally:
+            dp_tp.stop()
+        out["tile"] = chip_smoke.phase_tile(torch, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     out["total_s"] = time.perf_counter() - t0  # noqa: HF009
