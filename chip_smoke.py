@@ -359,7 +359,16 @@ exits non-zero on failure:
              analysis phase (``DpTpVerb``; its wall is ``mesh_dp_tp``);
              (j), dp×sp×tp 1×2×2 as four rank processes, is
              ``phase_tile``, which ``tools/torch_mesh_phase.py`` runs,
-             not this script; then
+             not this script; the configurations PR 26 lifted (items
+             9d–9f), in the same rank processes: (h)'s tp=2 epoch with
+             health on (its five values against the single-device
+             health-on epoch's, still ``tp_reduces`` all_reduces) and
+             then a bf16 tp=2 epoch at the bf16 bars; (g) one sp=2 epoch
+             of each other family at sp's bars with its derived launches
+             and one bf16 sp=2 epoch (``__nv_bfloat16`` kernels only);
+             (d) the dp=2 padded drive with health on, its gauges the
+             meshless health-on drive's; (i)'s straight run under
+             ``HFREP_HEALTH=abort``, rank 0 alone setting the gauges; then
              the rank processes' (d) and (e), the verb runs and this
              process's checks side by side (the drained run signalled
              once (d) is done, each resume started as soon as the run it
@@ -1697,6 +1706,9 @@ BF16_LOSS_RTOL, BF16_PARAM_BAR = 5e-2, 1e-2       # JAX's bf16 bar; chip_smoke's
 #: against JAX's, where a gradient of the wrong sign gives 2.0 on the
 #: update and a penalty with no gradient about 1.0 on the critic's slots
 BF16_UPDATE_BAR, BF16_SLOT_BAR = 0.25, 0.2
+#: JAX's bf16 loss bar's atol (``tests/test_precision.py:111-112``, rtol
+#: and atol 5e-2): the losses' bar across critic routes (:func:`bf16_doc_errs`)
+BF16_JAX_LOSS_ATOL = 5e-2
 BF16_AE_RTOL, BF16_AE_ATOL = 5e-2, 1e-4            # JAX's AE bf16 bar
 PRECISION_CLI_EPOCHS, PRECISION_RESUME_AT = 5, 2
 
@@ -4122,11 +4134,35 @@ MESH_SP_CLI_EPOCHS, MESH_SP_RESUME_AT = 3, 1
 MESH_TP_ATOL = 1e-4
 MESH_TP_CLI_EPOCHS, MESH_TP_RESUME_AT = 2, 1
 MESH_TILE = {"dp": 1, "sp": 2, "tp": 2}
+#: the refused configurations lifted (ROADMAP queue 1 items 9d, 9e, 9f), in
+#: the same rank processes: (h)'s tp=2 epoch with health on, its five
+#: values against the single-device health-on epoch's at the health
+#: tests' bars (``tests/test_torch_health.py::test_health_values_match_jax``),
+#: then one bf16 tp=2 epoch at the bf16 bars; (g)'s sp=2 epoch of every
+#: other family at sp's bars and one bf16 epoch, within sp's bar of the
+#: single-device chained bf16 epoch (the chunks run the layers singly, as
+#: the chained route does) and at the bf16 bars of the fused one; (d)'s
+#: dp=2 padded drive with health on, its gauges against one meshless
+#: health-on drive's (the param norm within MESH_AE_PN_RTOL: a sum of the
+#: ranks' squares in another order)
+MESH_SP_FAMILIES = ("gan", "wgan", "wgan_gp", "mtss_gan", "mtss_wgan")
+#: (g)'s bf16 epoch against the single-device chained bf16 epoch: a tenth
+#: of the bf16 param bar (BF16_PARAM_BAR, the params being O(1)).  The
+#: same layers in the same order, so only the kernels' bf16 rounding
+#: differs: the carry and carry-free modes order a step's sums apart, and
+#: an h or dz that rounds the other way is carried (the CPU's plain
+#: versions, one order: 2.4e-5; sp's float32 bar, 1e-4, is float32's)
+AXES_BF16_ATOL = 1e-3
+STEP_HEALTH_GAUGES = ("health/g_grad_norm", "health/d_grad_norm", "health/update_norm",
+                      "health/param_norm", "health/nonfinite")
+HEALTH_ATOL, HEALTH_RTOL = 1e-5, 1e-4
+MESH_AE_PN_RTOL = 1e-6
 #: the parts of a rank process by the marker each rank writes when it
 #: enters one, and the name a failure reports
 RANK_PARTS = {"start": "start-up and the process group", "b": "(b) the dp=2 block",
               "f": "(f) pp=2", "g": "(g) sp=2", "h": "(h) tp=2", "d": "(d) the lane drives",
               "e": "(e) the seed mesh", "j": "(j) dp×sp×tp 1×2×2",
+              "g2": "(g) sp=2's other families and bf16 epoch", "h16": "(h) tp=2's bf16 epoch",
               "saved": "done, results saved"}
 _PORTS_GIVEN: set = set()
 
@@ -4159,16 +4195,18 @@ def free_port() -> int:
     fail(f"no free port below the ephemeral range ({low})")
 
 
-def mesh_gan_inputs(torch):
+def mesh_gan_inputs(torch, family: str = "mtss_wgan_gp", dtype: str = "float32"):
     """The train phase's mtss_wgan_gp block: pair, config (B=32, n_critic
     5, MESH_EPOCHS a block), seeded windows, a fresh state and the block's
-    draws, all on cuda:0 and the same in every process."""
+    draws, all on cuda:0 and the same in every process; ``family`` and
+    ``dtype`` replace the model's at the same widths (the same windows,
+    and for a WGAN-GP family the same draws)."""
     from hfrep_tpu_torch.config import get_preset
     from hfrep_tpu_torch.models.registry import build_gan
     from hfrep_tpu_torch.train import init_gan_state, sample_draws
 
     cfg = get_preset(TRAIN_PRESETS[0])
-    mcfg = cfg.model
+    mcfg = dataclasses.replace(cfg.model, family=family, dtype=dtype)
     tcfg = dataclasses.replace(cfg.train, batch_size=32, n_critic=5, steps_per_call=MESH_EPOCHS)
     g = torch.Generator(device="cuda")
     g.manual_seed(100)
@@ -4203,6 +4241,24 @@ def axes_launches(kind: str, rank: int, n_critic: int, per_pass: int) -> dict:
     names = (("lstm_fwd", "lstm_fwd_cs", "lstm_bwd", "lstm_adj") if kind == "pp" else
              ("lstm_fwd_carry", "lstm_fwd_cs_carry", "lstm_bwd_carry", "lstm_adj_carry"))
     return dict(zip(names, (m, (2 * k + 2) * m, bwd, k * m)))
+
+
+def sp_family_launches(family: str, rank: int, n_critic: int) -> dict:
+    """One sp rank's launches in an epoch of ``family`` (its window chunk
+    of both layers a pass, :func:`axes_launches`'s accounting): the
+    flagship's :func:`axes_launches`; an MTSS family without a penalty
+    has no second order, so every recorded pass has one backward and no
+    adjoint runs: the fakes' primal pass, then WGAN's 2·n_critic + 2
+    recorded passes (each critic iteration's real and fake scores, the
+    generator update's generator and critic) or BCE's four (real, fake,
+    the update's generator and critic); a Dense family launches no hand
+    kernel."""
+    if family == "mtss_wgan_gp":
+        return axes_launches("sp", rank, n_critic, 2)
+    if not family.startswith("mtss_"):
+        return {}
+    passes = 4 if family == "mtss_gan" else 2 * n_critic + 2
+    return {"lstm_fwd_carry": 2, "lstm_fwd_cs_carry": 2 * passes, "lstm_bwd_carry": 2 * passes}
 
 
 def tp_reduces(n_critic: int, wc: int, sp: int = 1, sp_rank: int = 0) -> int:
@@ -4310,13 +4366,86 @@ def mesh_axes_part(torch, kind: str) -> dict:
     return out
 
 
-def mesh_tp_part(torch, mesh) -> dict:
+def epoch_doc(torch, state, metrics) -> dict:
+    """An epoch's outcome on the host: every parameter by ``g.``/``d.``
+    name, the optimizer slots, the metrics."""
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) else tree
+
+    return {"params": {n: p.detach().cpu().clone() for n, p in state_params(state).items()},
+            "slots": host({"g": state.g_opt, "d": state.d_opt}),
+            "metrics": {k: v.cpu() for k, v in metrics.items()}}
+
+
+def counted_epoch(torch, step, state, draws, profiled: bool = False) -> dict:
+    """One epoch with every launch, weight sum and collective counted from
+    0, on the host clock; with ``profiled`` under ``torch.profiler``
+    (:func:`traced`), its recurrence kernels by operand type."""
+    from hfrep_tpu_torch.ops import cuda_lstm
+    from hfrep_tpu_torch.parallel import rules
+
+    got = {}
+
+    def run():
+        t0 = time.perf_counter()
+        got["out"] = step(state, draws)
+        torch.cuda.synchronize()
+        got["ms"] = (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    cuda_lstm.reset_launches()
+    rules.reset_collective_counts()
+    if profiled:
+        prof = traced(torch, lambda: torch.zeros(1, device="cuda").add_(1), run)
+        kernels = recurrence_kernels(device_time_by_name(prof))
+    else:
+        run()
+        kernels = None
+    doc = epoch_doc(torch, *got["out"])
+    doc.update(launches=cuda_lstm.launch_counts(), sums=sum_launches_by_shape(cuda_lstm),
+               collectives=rules.collective_counts(), ms=got["ms"], kernels=kernels)
+    return doc
+
+
+def mesh_sp_more(torch, mesh) -> dict:
+    """(g)'s other families and its bf16 epoch in a rank process: one sp=2
+    epoch of each of MESH_SP_FAMILIES and one bf16 flagship epoch, each
+    from the phase's seed state and first draws with its launches counted
+    (the MTSS and bf16 epochs profiled for their kernels' operand type)."""
+    from hfrep_tpu_torch.parallel import make_sp_train_step
+
+    out = {}
+    for family, dtype in [(f, "float32") for f in MESH_SP_FAMILIES] + [("mtss_wgan_gp",
+                                                                       "bfloat16")]:
+        pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch, family, dtype)
+        step = make_sp_train_step(pair, tcfg, dataset, mesh)
+        key = family if dtype == "float32" else "bf16"
+        out[key] = counted_epoch(torch, step, state, draws[0],
+                                 profiled=family.startswith("mtss_"))
+    return out
+
+
+def mesh_tp_bf16(torch, mesh) -> dict:
+    """(h)'s bf16 epoch in a rank process: one tp=2 epoch of the bf16
+    flagship from the phase's seed state and first draws."""
+    from hfrep_tpu_torch.parallel import tensor
+
+    pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch, "mtss_wgan_gp", "bfloat16")
+    return counted_epoch(torch, tensor.make_tp_train_step(pair, tcfg, dataset, mesh), state,
+                         draws[0])
+
+
+def mesh_tp_part(torch, mesh, health_on: bool = False) -> dict:
     """(h) tp=2 or (j) dp×sp×tp in a rank process: the forwards on the
     phase's inputs (under sp the generator's window chunk), then one epoch
-    from the phase's state and first draws, timed, with its launches,
-    weight sums and collectives counted and the collectives' host time
-    (every torch op it runs was already run in the process: no first-call
-    cost)."""
+    from the phase's state and first draws (with ``health_on`` the step
+    built with health on: the five ``health_*`` values in its metrics),
+    timed, with its launches, weight sums and collectives counted and the
+    collectives' host time (every torch op it runs was already run in the
+    process: no first-call cost)."""
+    from hfrep_tpu_torch.obs import health
     from hfrep_tpu_torch.ops import cuda_lstm
     from hfrep_tpu_torch.parallel import dp_sp_tp, rules, sequence, tensor
     from hfrep_tpu_torch.parallel.chain import Chain
@@ -4333,7 +4462,11 @@ def mesh_tp_part(torch, mesh) -> dict:
         else:
             fwd = {"g": tensor.tp_generate(state.generator, z, mesh),
                    "d": tensor.tp_critic(state.discriminator, x, mesh)}
-            step = tensor.make_tp_train_step(pair, tcfg, dataset, mesh)
+            health.configure(health.HealthConfig() if health_on else None)
+            try:
+                step = tensor.make_tp_train_step(pair, tcfg, dataset, mesh)
+            finally:
+                health.configure(None)
     out = {"coords": mesh.coords(), "fwd": {k: v.cpu() for k, v in fwd.items()}}
     torch.cuda.synchronize()
     cuda_lstm.reset_launches()
@@ -4422,6 +4555,30 @@ def mesh_lane_drives(torch, meshes: dict) -> dict:
         out[name] = {"arrays": arrays, "chunks": stats.chunks_dispatched,
                      "epochs": stats.epochs_dispatched}
     return out
+
+
+def mesh_health_drive(torch, mesh, obs_dir: str) -> dict:
+    """(d)'s padded drive with health on, under a telemetry session at
+    ``obs_dir``: its arrays on the host and the ``health/ae_*`` gauges its
+    stream holds, ``(name, value, epoch)`` in order."""
+    from hfrep_tpu_torch import obs as obs_pkg
+    from hfrep_tpu_torch.obs import health
+    from hfrep_tpu_torch.replication import engine
+
+    xs, _, _, cfg = mesh_ae_inputs(torch)
+    health.configure(health.HealthConfig())
+    try:
+        with obs_pkg.session(obs_dir, command="chip_smoke"):
+            res, _ = engine.sweep_autoencoders_padded(MESH_AE_SEED, xs, xs.shape[0], cfg,
+                                                      MESH_LATENTS, device="cuda", mesh=mesh)
+    finally:
+        health.configure(None)
+    arrays = {f"param_{k}": v.cpu() for k, v in res.params.items()}
+    arrays.update(stop_epoch=res.stop_epoch.cpu(), train_loss=res.train_loss.cpu(),
+                  val_loss=res.val_loss.cpu())
+    gauges = [(r["name"], r["value"], r["epoch"]) for r in stream_records(obs_dir)
+              if r.get("kind") == "gauge" and r.get("name", "").startswith("health/ae_")]
+    return {"arrays": arrays, "gauges": gauges}
 
 
 def mesh_seed_members(torch, mesh) -> dict:
@@ -4529,17 +4686,24 @@ def mesh_rank(rank: int, out_dir: str) -> None:
             part(name)
             out[kind] = mesh_axes_part(torch, kind)
         part("h")
-        out["tp"] = mesh_tp_part(torch, build_mesh(MeshSpec(tp=2)))
+        tp_mesh = build_mesh(MeshSpec(tp=2))
+        out["tp"] = mesh_tp_part(torch, tp_mesh, health_on=True)
         # timed alone on the card: the parent starts the verb runs after this
         open(os.path.join(out_dir, f"rank{rank}.timed"), "w").close()
         part("d")
         lanes = {"padded": lane_mesh(len(MESH_LATENTS)), "multi": lane_mesh(2)}
         out["lane_dp"] = {k: m.shape["dp"] for k, m in lanes.items()}
         out["lanes"] = mesh_lane_drives(torch, lanes)
+        out["lanes_health"] = mesh_health_drive(torch, lanes["padded"],
+                                                os.path.join(out_dir, f"obs_rank{rank}"))
         part("e")
         seeds = seed_mesh(len(MESH_SEEDS))
         out["seed_mesh"] = None if seeds is None else seeds.shape
         out["members"] = mesh_seed_members(torch, seeds)
+        part("g2")
+        out["sp_more"] = mesh_sp_more(torch, build_mesh(MeshSpec(sp=2)))
+        part("h16")
+        out["tp_bf16"] = mesh_tp_bf16(torch, tp_mesh)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         part("saved")
     finally:
@@ -4602,13 +4766,13 @@ def finish_ranks(ranks: list, out_dir: str, deadline: float) -> list:
     fail("mesh: the rank processes failed: " + "; ".join(report))
 
 
-def start_cli_pair(args: list, obs_dir=None) -> list:
+def start_cli_pair(args: list, obs_dir=None, env_extra=None) -> list:
     """``train-gan ARGS`` as two ranks over a fresh coordinator port."""
     port = free_port()
     extra = ["--obs-dir", obs_dir] if obs_dir else []
     return [start_module("hfrep_tpu_torch", ["train-gan", *args, *extra, "--coordinator",
                                              f"127.0.0.1:{port}", "--num-processes", 2,
-                                             "--process-id", r]) for r in (0, 1)]
+                                             "--process-id", r], env_extra) for r in (0, 1)]
 
 
 def ckpt_generator(torch, path: str) -> dict:
@@ -4706,7 +4870,8 @@ def check_tp_part(torch, part: str, docs: list, ref_fwd: dict, ref_p: dict, ref_
         if not fwd_err <= AXES_FWD_ATOL:
             fail(f"mesh {part}: rank {r}'s forwards are {fwd_err} from the single-device "
                  f"forwards (bar {AXES_FWD_ATOL})")
-        diff = max(tree_max_diff(doc["params"], ref_p), tree_max_diff(doc["metrics"], ref_m))
+        diff = max(tree_max_diff(doc["params"], ref_p),
+                   tree_max_diff({k: doc["metrics"][k] for k in ref_m}, ref_m))
         if not diff <= MESH_TP_ATOL:
             fail(f"mesh {part}: rank {r}'s epoch is {diff} from the single-device epoch "
                  f"(bar atol {MESH_TP_ATOL})")
@@ -4890,7 +5055,7 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
 
         # (f), (g)'s reference: the single-device epoch (fused route) and
         # the forwards from the phase's state and first draws
-        ref_fwd, ref_p, ref_m, n_critic = mesh_reference(torch)
+        ref_fwd, ref_p, ref_m, n_critic, more = mesh_reference(torch, more=True)
 
         # the rank processes; their dp=2 block, pp, sp and tp epochs are
         # timed before the verb runs start, with nothing else on the card
@@ -4924,6 +5089,7 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
         for k in meshless:
             if not tree_equal(torch, dp1[k]["arrays"], meshless[k]["arrays"]):
                 fail(f"mesh (d): the {k} drive on a dp=1 lane mesh differs from the meshless one")
+        health_ref = mesh_health_drive(torch, None, os.path.join(keep, "mesh_health_obs"))
         say(f"{tag} (d) dp=1 lane mesh: padded ({len(MESH_LATENTS)} lanes) and multi (2 x "
             f"{len(MESH_LATENTS)} lanes), {MESH_AE_EPOCHS} epochs, bit-equal to the meshless "
             f"drives; chunks {meshless['padded']['chunks']} and {meshless['multi']['chunks']}")
@@ -5025,6 +5191,12 @@ def phase_mesh(torch, np, cuda_lstm, train, keep: str) -> dict:
                                         ref_p, ref_m, n_critic, card)
         out["h"] = check_tp_part(torch, "(h) tp=2", [d["tp"] for d in ranks], ref_fwd, ref_p,
                                  ref_m, n_critic, card)
+        out["h"]["health"] = check_tp_health(torch, [d["tp"] for d in ranks], more["health"],
+                                             card)
+        out["h_bf16"] = check_tp_bf16(torch, [d["tp_bf16"] for d in ranks], more, n_critic,
+                                      ref_fwd["g"].shape[1], card)
+        out["g_more"] = check_sp_more(torch, [d["sp_more"] for d in ranks], more, n_critic, card)
+        out["d_health"] = check_lane_health(torch, ranks, meshless, health_ref, card)
 
 
         # (c) the verb: straight, single process, drained, then the resume
@@ -5107,10 +5279,13 @@ class DpTpVerb:
         self.cli = ["--preset", TRAIN_PRESETS[0], "--cleaned-dir", cleaned, "--quiet",
                     "--dp-tp", "1x2"]
         self.dirs = {k: os.path.join(keep, f"mesh_cli_{k}") for k in ("tp_straight", "tp_half")}
+        # the straight run with health on: its checkpoint must still be the
+        # health-off resume's, bit for bit, and its gauges rank 0's alone
         self.procs = {
             "tp_straight": start_cli_pair([*self.cli, "--epochs", MESH_TP_CLI_EPOCHS,
                                            "--checkpoint-dir", self.dirs["tp_straight"]],
-                                          obs_dir=self.dirs["tp_straight"] + "_obs"),
+                                          obs_dir=self.dirs["tp_straight"] + "_obs",
+                                          env_extra={"HFREP_HEALTH": "abort"}),
             "tp_half": start_cli_pair([*self.cli, "--epochs", MESH_TP_RESUME_AT,
                                        "--checkpoint-dir", self.dirs["tp_half"]])}
         self.half: list = []
@@ -5140,9 +5315,19 @@ class DpTpVerb:
                      f"ranks): {[e[-1500:] for _, _, e, _ in pair]}")
             if pair[1][1].strip():
                 fail(f"mesh (i): rank 1 of train-gan ({name}) printed {pair[1][1]!r}")
-        return check_axes_verb(torch, "(i) dp-tp", "tp", {"dp": 1, "tp": 2}, self.dirs, runs,
-                               self.procs["tp_resume"], MESH_TP_CLI_EPOCHS, MESH_TP_RESUME_AT,
-                               card)
+        gauges = [{x["name"] for x in stream_records(os.path.join(
+            self.dirs["tp_straight"] + "_obs", f"proc{r}")) if x.get("kind") == "gauge"
+            and x.get("name", "").startswith("health/")} for r in (0, 1)]
+        if len(gauges[0]) != len(STEP_HEALTH_GAUGES) or gauges[1]:
+            fail(f"mesh (i): health gauges by rank {gauges}: rank 0 alone sets the five")
+        out = check_axes_verb(torch, "(i) dp-tp", "tp", {"dp": 1, "tp": 2}, self.dirs, runs,
+                              self.procs["tp_resume"], MESH_TP_CLI_EPOCHS, MESH_TP_RESUME_AT,
+                              card)
+        say(f"[mesh] (i) the straight run under HFREP_HEALTH=abort: rank 0 set "
+            f"{sorted(gauges[0])}, rank 1 none; its last checkpoint bit-equal to the health-off "
+            "resume's")
+        out["health_gauges"] = sorted(gauges[0])
+        return out
 
     def stop(self) -> None:
         for group in self.procs.values():
@@ -5152,10 +5337,11 @@ class DpTpVerb:
                     proc.communicate()
 
 
-def mesh_reference(torch) -> tuple:
+def mesh_reference(torch, more: bool = False) -> tuple:
     """(f), (g), (h) and (j)'s reference: the single-device epoch (fused
     route) and the forwards from the phase's state and first draws, on
-    the host; and n_critic."""
+    the host; and n_critic.  With ``more``, also the lifted
+    configurations' references (:func:`mesh_more_reference`)."""
     from hfrep_tpu_torch.train import make_train_step
 
     pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch)
@@ -5163,8 +5349,247 @@ def mesh_reference(torch) -> tuple:
     with torch.no_grad():
         ref_fwd = {"g": state.generator(z).cpu(), "d": state.discriminator(x).cpu()}
     state, metrics = make_train_step(pair, tcfg, dataset)(state, draws[0])
-    return (ref_fwd, {n: p.detach().cpu() for n, p in state_params(state).items()},
-            {k: v.cpu() for k, v in metrics.items()}, tcfg.n_critic)
+    ref = (ref_fwd, {n: p.detach().cpu() for n, p in state_params(state).items()},
+           {k: v.cpu() for k, v in metrics.items()}, tcfg.n_critic)
+    return ref + (mesh_more_reference(torch, ref[1]),) if more else ref
+
+
+def mesh_more_reference(torch, ref_p: dict) -> dict:
+    """The single-device epochs the lifted configurations are held to, from
+    the phase's seed state and first draws: the flagship's with health on
+    (its params bit-equal to the health-off epoch's ``ref_p``), every other
+    family's, and the bf16 flagship's on the fused and the chained critic
+    route with its starting params."""
+    from hfrep_tpu_torch.obs import health
+    from hfrep_tpu_torch.train import make_train_step
+
+    pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch)
+    health.configure(health.HealthConfig())
+    try:
+        step = make_train_step(pair, tcfg, dataset)
+    finally:
+        health.configure(None)
+    state, metrics = step(state, draws[0])
+    on = epoch_doc(torch, state, metrics)
+    if not tree_equal(torch, on["params"], ref_p):
+        fail(f"mesh: the single-device health-on epoch differs from the health-off one by "
+             f"{tree_max_diff(on['params'], ref_p)}")
+    out = {"health": {k: v for k, v in on["metrics"].items() if k.startswith("health_")},
+           "families": {}, "bf16": {}}
+    for family in MESH_SP_FAMILIES:
+        pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch, family)
+        out["families"][family] = epoch_doc(torch, *make_train_step(pair, tcfg, dataset)(
+            state, draws[0]))
+    for route in ("auto", "chained"):
+        pair, tcfg, dataset, state, draws = mesh_gan_inputs(torch, "mtss_wgan_gp", "bfloat16")
+        state.discriminator.stack = route
+        out["bf16_p0"] = {n: p.detach().cpu().clone() for n, p in state_params(state).items()}
+        out["bf16"][route] = epoch_doc(torch, *make_train_step(pair, tcfg, dataset)(
+            state, draws[0]))
+    return out
+
+
+def bf16_doc_errs(got: dict, ref: dict, p0: dict, cross_route: bool = False) -> dict:
+    """A bf16 epoch (:func:`epoch_doc`) against a reference one from the
+    same params ``p0``, the bf16 bars' measures (:func:`epoch_parity`):
+    each loss's relative error, the worst param |got - ref| / max(1,
+    max|ref|), each update's |Δgot - Δref|_2 / |Δref|_2 (Δ = p1 - p0) and
+    each optimizer slot's |got - ref| / max|ref|; ``ok`` when all four
+    are inside BF16_LOSS_RTOL, BF16_PARAM_BAR, BF16_UPDATE_BAR and
+    BF16_SLOT_BAR.  ``cross_route``: the reference runs the critic's two
+    layers as the fused stack, which adds b2 in float32 where a single
+    layer rounds ``h1.k2 + b2`` to bf16; a loss near zero (the generator's
+    mean score) then differs by more than 5e-2 of itself, so the losses
+    are held at JAX's whole bf16 bar, rtol 5e-2 and atol
+    BF16_JAX_LOSS_ATOL (``tests/test_precision.py:111-112``)."""
+    def loss_err(k):
+        a, r = float(got["metrics"][k]), float(ref["metrics"][k])
+        if cross_route:
+            return abs(a - r) / (BF16_JAX_LOSS_ATOL + BF16_LOSS_RTOL * abs(r)) * BF16_LOSS_RTOL
+        return abs(a - r) / max(abs(r), 1e-30)
+
+    errs = {"loss": max(loss_err(k) for k in ("d_loss", "g_loss")),
+            "param": 0.0, "update": 0.0, "slot": 0.0}
+    for n, r in ref["params"].items():
+        a, r, z = got["params"][n].double(), r.double(), p0[n].double()
+        errs["param"] = max(errs["param"],
+                            float((a - r).abs().max()) / max(1.0, float(r.abs().max())))
+        errs["update"] = max(errs["update"],
+                             float(((a - z) - (r - z)).norm() / (r - z).norm().clamp_min(1e-30)))
+        net, name = n.split(".", 1)
+        for slot in ("mu", "nu"):
+            if slot in ref["slots"][net]:
+                x = got["slots"][net][slot][name].double()
+                y = ref["slots"][net][slot][name].double()
+                errs["slot"] = max(errs["slot"],
+                                   float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)))
+    errs["ok"] = (errs["loss"] <= BF16_LOSS_RTOL and errs["param"] <= BF16_PARAM_BAR
+                  and errs["update"] <= BF16_UPDATE_BAR and errs["slot"] <= BF16_SLOT_BAR)
+    return errs
+
+
+def plain_metrics(metrics: dict) -> dict:
+    return {k: v for k, v in metrics.items() if not k.startswith("health_")}
+
+
+def check_tp_health(torch, docs: list, health_ref: dict, card: str) -> dict:
+    """(h)'s health values: each rank's five within HEALTH_ATOL +
+    HEALTH_RTOL of the single-device health-on epoch's, the ranks' bit
+    for bit (the all_reduce count and the params are :func:`check_tp_part`'s)."""
+    errs = []
+    for r, doc in enumerate(docs):
+        got = {k: v for k, v in doc["metrics"].items() if k.startswith("health_")}
+        if set(got) != set(health_ref):
+            fail(f"mesh (h): rank {r}'s health values {sorted(got)}, expected {sorted(health_ref)}")
+        err = max(allclose_err(got[k], health_ref[k], HEALTH_ATOL, HEALTH_RTOL) for k in got)
+        if not err <= 1.0:
+            fail(f"mesh (h): rank {r}'s health values {got} against the single-device "
+                 f"health-on epoch's {health_ref} ({err} of the bar atol {HEALTH_ATOL}, rtol "
+                 f"{HEALTH_RTOL})")
+        errs.append(err)
+    if not tree_equal(torch, docs[0]["metrics"], docs[1]["metrics"]):
+        fail("mesh (h): the two tp ranks' health values differ")
+    say(f"[mesh] (h) tp=2 with health on: the five health values within {max(errs):.3g} of "
+        f"the bar (atol {HEALTH_ATOL}, rtol {HEALTH_RTOL}) of the single-device health-on "
+        f"epoch's, the ranks bit-equal: "
+        + ", ".join(f"{k[7:]} {float(v):.6g}" for k, v in docs[0]["metrics"].items()
+                    if k.startswith("health_")) + f" on {card}")
+    return {"health": {k: float(v) for k, v in docs[0]["metrics"].items()
+                       if k.startswith("health_")}, "bar_share": max(errs)}
+
+
+def check_sp_more(torch, docs: list, more: dict, n_critic: int, card: str) -> dict:
+    """(g)'s other families and bf16 epoch read in the parent: each
+    family's rank epochs within sp's bars of the single-device epoch, the
+    ranks within RANKS_RTOL, each rank's launches exactly
+    :func:`sp_family_launches` (none for a Dense family) and float32
+    recurrence kernels only; the bf16 epoch within sp's bars of the
+    single-device chained bf16 epoch and at the bf16 bars of the fused
+    one, its launches the flagship's and ``__nv_bfloat16`` recurrence
+    kernels only."""
+    out = {}
+    for key in MESH_SP_FAMILIES + ("bf16",):
+        atol, rtol = (AXES_BF16_ATOL, 0.0) if key == "bf16" else AXES_BARS["sp"]
+        ref = more["bf16"]["chained"] if key == "bf16" else more["families"][key]
+        family = "mtss_wgan_gp" if key == "bf16" else key
+        diffs = []
+        for r, doc in enumerate(d[key] for d in docs):
+            err = max([allclose_err(doc["params"][n], ref["params"][n], atol, rtol)
+                       for n in ref["params"]]
+                      + [allclose_err(doc["metrics"][k], ref["metrics"][k], atol, rtol)
+                         for k in ref["metrics"]])
+            diff = max(tree_max_diff(doc["params"], ref["params"]),
+                       tree_max_diff(doc["metrics"], ref["metrics"]))
+            if not err <= 1.0:
+                fail(f"mesh (g) sp=2 {key}: rank {r}'s epoch is {diff} from the single-device "
+                     f"epoch{' (chained route)' if key == 'bf16' else ''} (bars atol {atol}, "
+                     f"rtol {rtol})")
+            check_route_launches(f"mesh (g) sp=2 {key} rank {r}", doc["launches"], doc["sums"],
+                                 sp_family_launches(family, r, n_critic), 1)
+            kernels = doc["kernels"]
+            if kernels is not None and (kernels["other"] if key == "bf16" else kernels["bf16"]):
+                fail(f"mesh (g) sp=2 {key}: rank {r} ran recurrence kernels {kernels}: "
+                     + ("only __nv_bfloat16 instantiations belong in a bf16 epoch" if key == "bf16"
+                        else "a float32 epoch runs no __nv_bfloat16 instantiation"))
+            if kernels is not None and not (kernels["bf16"] if key == "bf16" else kernels["other"]):
+                fail(f"mesh (g) sp=2 {key}: rank {r}'s profile shows no recurrence kernel")
+            diffs.append(diff)
+        a, b = (d[key] for d in docs)
+        if not all(torch.allclose(b[t][k], a[t][k], rtol=RANKS_RTOL, atol=0)
+                   for t in ("params", "metrics") for k in a[t]):
+            fail(f"mesh (g) sp=2 {key}: the ranks differ beyond rtol {RANKS_RTOL}")
+        out[key] = {"max_abs_diff": max(diffs), "ms": [d[key]["ms"] for d in docs],
+                    "launches": [d[key]["launches"] for d in docs],
+                    "kernels": [d[key]["kernels"] for d in docs]}
+    fused = [bf16_doc_errs(d["bf16"], more["bf16"]["auto"], more["bf16_p0"], cross_route=True)
+             for d in docs]
+    if not all(e["ok"] for e in fused):
+        fail(f"mesh (g) sp=2 bf16: against the single-device fused bf16 epoch {fused} (bars: "
+             f"losses {BF16_LOSS_RTOL}, params {BF16_PARAM_BAR}, updates {BF16_UPDATE_BAR}, "
+             f"slots {BF16_SLOT_BAR})")
+    out["bf16"]["fused_errs"] = fused
+    out["bf16"]["routes_apart"] = max(
+        tree_max_diff(more["bf16"]["auto"]["params"], more["bf16"]["chained"]["params"]),
+        tree_max_diff(more["bf16"]["auto"]["metrics"], more["bf16"]["chained"]["metrics"]))
+    say(f"[mesh] (g) sp=2, every other family one epoch at full width from the phase's seed "
+        f"state and first draws, within the single-device epoch by "
+        + ", ".join(f"{k} {out[k]['max_abs_diff']:.3g}" for k in MESH_SP_FAMILIES)
+        + f" (bars atol {AXES_BARS['sp'][0]}, rtol {AXES_BARS['sp'][1]}), the ranks within rtol "
+        f"{RANKS_RTOL}, the launches derived (the Dense families none); bf16: within "
+        f"{out['bf16']['max_abs_diff']:.3g} of the single-device chained bf16 epoch (bar atol "
+        f"{AXES_BF16_ATOL}; the fused and chained single-device epochs "
+        f"{out['bf16']['routes_apart']:.3g} apart), against the fused one losses "
+        f"{max(e['loss'] for e in fused):.3g}, params {max(e['param'] for e in fused):.3g}, "
+        f"updates {max(e['update'] for e in fused):.3g}, slots {max(e['slot'] for e in fused):.3g} "
+        f"(bf16 bars), __nv_bfloat16 recurrence kernels only; epoch ms "
+        + ", ".join(f"{k} {[round(x, 1) for x in out[k]['ms']]}" for k in out)
+        + f" (host clock, beside the verb runs) on {card}")
+    return out
+
+
+def check_tp_bf16(torch, docs: list, more: dict, n_critic: int, window: int, card: str) -> dict:
+    """(h)'s bf16 epoch read in the parent: each rank at the bf16 bars of
+    the single-device chained bf16 epoch (a tp rank runs the layers
+    singly, as that route does) and of the fused one (across routes,
+    :func:`bf16_doc_errs`), no hand kernel launched, the all_reduces
+    exactly :func:`tp_reduces`, the ranks bit-equal."""
+    errs = []
+    for r, doc in enumerate(docs):
+        for route in ("chained", "auto"):
+            e = bf16_doc_errs(doc, more["bf16"][route], more["bf16_p0"],
+                              cross_route=route == "auto")
+            if not e["ok"]:
+                fail(f"mesh (h) tp=2 bf16: rank {r} against the single-device {route} bf16 "
+                     f"epoch {e}")
+            errs.append(dict(e, route=route))
+        if any(doc["launches"].values()) or any(doc["sums"].values()):
+            fail(f"mesh (h) tp=2 bf16: rank {r} launched {doc['launches']}")
+        want = tp_reduces(n_critic, window)
+        if doc["collectives"]["all_reduce"] != want:
+            fail(f"mesh (h) tp=2 bf16: rank {r}'s collectives {doc['collectives']}, expected "
+                 f"{want} all_reduces")
+    if not (tree_equal(torch, docs[0]["params"], docs[1]["params"])
+            and tree_equal(torch, docs[0]["metrics"], docs[1]["metrics"])):
+        fail("mesh (h) tp=2 bf16: the ranks differ")
+    say(f"[mesh] (h) tp=2 bf16, one epoch at full width (H=100, W=48) from the phase's seed "
+        f"state and first draws against the single-device bf16 epochs (chained; fused across "
+        f"routes): losses "
+        f"{max(e['loss'] for e in errs):.3g}, params {max(e['param'] for e in errs):.3g}, "
+        f"updates {max(e['update'] for e in errs):.3g}, slots {max(e['slot'] for e in errs):.3g} "
+        f"(bf16 bars {BF16_LOSS_RTOL}, {BF16_PARAM_BAR}, {BF16_UPDATE_BAR}, {BF16_SLOT_BAR}); "
+        f"no hand kernel, {docs[0]['collectives']['all_reduce']} all_reduces a rank, the ranks "
+        f"bit-equal; epoch ms {[round(d['ms'], 1) for d in docs]} (host clock, beside the verb "
+        f"runs) on {card}")
+    return {"errs": errs, "ms": [d["ms"] for d in docs]}
+
+
+def check_lane_health(torch, docs: list, meshless: dict, ref: dict, card: str) -> dict:
+    """(d)'s dp=2 padded drive with health on: its arrays bit-equal to the
+    meshless health-off drive's, rank 0's ``health/ae_*`` gauges those of
+    one meshless health-on drive (grad norm and nonfinite count equal, the
+    param norm within MESH_AE_PN_RTOL), rank 1's none."""
+    for r, doc in enumerate(docs):
+        if not tree_equal(torch, doc["lanes_health"]["arrays"], meshless["padded"]["arrays"]):
+            fail(f"mesh (d): rank {r}'s health-on dp=2 padded drive differs from the meshless "
+                 "health-off drive")
+    got, want = docs[0]["lanes_health"]["gauges"], ref["gauges"]
+    if [(n, e) for n, _, e in got] != [(n, e) for n, _, e in want] or not want:
+        fail(f"mesh (d): rank 0's health gauges {got}, the meshless drive's {want}")
+    pn = 0.0
+    for (name, g, _), (_, w, _) in zip(got, want):
+        if name == "health/ae_param_norm":
+            pn = max(pn, abs(g - w) / abs(w))
+        elif not (g == w or (math.isnan(g) and math.isnan(w))):
+            fail(f"mesh (d): rank 0's {name} {g}, the meshless drive's {w}")
+    if not pn <= MESH_AE_PN_RTOL:
+        fail(f"mesh (d): rank 0's param norms {pn} (relative) from the meshless drive's")
+    if docs[1]["lanes_health"]["gauges"]:
+        fail(f"mesh (d): rank 1 set health gauges {docs[1]['lanes_health']['gauges']}")
+    say(f"[mesh] (d) dp=2 padded drive with health on: bit-equal to the meshless health-off "
+        f"drive; rank 0's {len(got)} health/ae_* gauges (every boundary and the drive's end) "
+        f"the meshless health-on drive's, the grad norm and nonfinite count equal, the param "
+        f"norm within {pn:.3g} (rtol bar {MESH_AE_PN_RTOL}); rank 1 none; on {card}")
+    return {"gauges": len(got), "param_norm_rel": pn}
 
 
 def phase_tile(torch, keep: str) -> dict:
@@ -6331,7 +6756,9 @@ def main() -> None:
                         ("mesh_pp_rank0", [mesh["f"]["launches"][0]]),
                         ("mesh_pp_rank1", [mesh["f"]["launches"][1]]),
                         ("mesh_sp_rank0", [mesh["g"]["launches"][0]]),
-                        ("mesh_sp_rank1", [mesh["g"]["launches"][1]])):
+                        ("mesh_sp_rank1", [mesh["g"]["launches"][1]]),
+                        *((f"mesh_sp_{k}_rank{r}", [mesh["g_more"][k]["launches"][r]])
+                          for k in MESH_SP_FAMILIES + ("bf16",) for r in (0, 1))):
         counts = {k: sum(r[k] for r in runs) for k in cuda_lstm.launch_counts()}
         counts["stack_fwd"] += counts.pop("stack_fwd_res")
         by_route[route] = counts

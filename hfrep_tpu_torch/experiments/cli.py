@@ -44,8 +44,9 @@ the batch over dp and the window over sp at once
 (:mod:`hfrep_tpu_torch.parallel.sequence`); ``--tp-mesh N`` the hidden
 units over N ranks, ``--dp-tp DPxTP`` the batch and the hidden units
 (:mod:`hfrep_tpu_torch.parallel.tensor`), ``--dp-sp-tp DPxSPxTP`` all
-three (:mod:`hfrep_tpu_torch.parallel.dp_sp_tp`); the window and
-hidden-unit meshes run the flagship ``mtss_wgan_gp`` only.  With
+three (:mod:`hfrep_tpu_torch.parallel.dp_sp_tp`); the window meshes run
+every family, the hidden-unit meshes the flagship ``mtss_wgan_gp`` (JAX's
+rule), each at float32 or bf16 and with health on or off.  With
 ``--coordinator`` the named mesh spans the group.  The mesh flags are
 mutually exclusive.  ``--sp-microbatches`` and ``--sp-remat`` are JAX's
 retired knobs: accepted, validated and threaded to ``TrainConfig``, then
@@ -116,14 +117,14 @@ def _build_parser() -> argparse.ArgumentParser:
     t.add_argument("--sp-mesh", action="store_true",
                    help="sequence-parallel: the window cut into one chunk a rank of the "
                         "process group, carries handed on between ranks "
-                        "(parallel/sequence.py; flagship mtss_wgan_gp only)")
+                        "(parallel/sequence.py; every family, float32 or bfloat16)")
     t.add_argument("--dp-sp", default=None, metavar="DPxSP",
                    help="composed 2-D mesh, e.g. 1x2: batch sharded over dp AND window "
                         "over sp in one step (parallel/dp_sp.py)")
     t.add_argument("--tp-mesh", type=int, default=None, metavar="N",
                    help="tensor-parallel: every LSTM layer's hidden units (its gate "
                         "columns) over N ranks, h gathered each step (parallel/tensor.py; "
-                        "hidden width must divide; flagship mtss_wgan_gp only)")
+                        "hidden width must divide; flagship mtss_wgan_gp only, as JAX's)")
     t.add_argument("--dp-tp", default=None, metavar="DPxTP",
                    help="composed 2-D mesh, e.g. 1x2: batch sharded over dp AND hidden "
                         "units over tp in one step (parallel/tensor.py)")

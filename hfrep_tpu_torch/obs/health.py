@@ -237,11 +237,14 @@ def resolve_dump_dir(cfg: HealthConfig, fallback: Optional[str] = None) -> Optio
 
 
 def tripwire(site: str, epoch: int, nonfinite: float, carry, detail: dict,
-             fallback: Optional[str] = None) -> None:
+             fallback: Optional[str] = None, leader: bool = True) -> None:
     """A boundary's nonfinite count: nothing when it is 0; else a
     ``numeric_fault`` event, and under ``abort_on_nonfinite`` a forensic
     dump of ``carry`` (under the configured dir, the obs run dir or
-    ``fallback``) and :class:`NumericFault`."""
+    ``fallback``) and :class:`NumericFault`.  A rank that is not the
+    ``leader`` of a multi-process drive, which sees the same count, only
+    raises: the leader emits the event and writes the dump (``carry`` may
+    then be ``None``)."""
     if not nonfinite > 0:
         return
     from hfrep_tpu_torch.obs import get_obs
@@ -249,22 +252,27 @@ def tripwire(site: str, epoch: int, nonfinite: float, carry, detail: dict,
     obs = get_obs()
     cfg = active()
     abort = bool(cfg and cfg.abort_on_nonfinite)
-    obs.event("numeric_fault", site=site, epoch=epoch, nonfinite=nonfinite, abort=abort)
+    if leader:
+        obs.event("numeric_fault", site=site, epoch=epoch, nonfinite=nonfinite, abort=abort)
     if not abort:
         return
-    dump = dump_forensics(resolve_dump_dir(cfg, fallback), carry,
-                          detail={"site": site, "epoch": epoch, "nonfinite": nonfinite,
-                                  **detail},
-                          name=f"numeric_fault_{epoch}")
-    obs.flush()
+    dump = None
+    if leader:
+        dump = dump_forensics(resolve_dump_dir(cfg, fallback), carry,
+                              detail={"site": site, "epoch": epoch, "nonfinite": nonfinite,
+                                      **detail},
+                              name=f"numeric_fault_{epoch}")
+        obs.flush()
     raise NumericFault(site, epoch=epoch, nonfinite=nonfinite, dump=dump)
 
 
 def gan_boundary(host: Dict[str, "object"], epoch: int, site: str, carry,
-                 fallback: Optional[str] = None, **gauge_attrs) -> None:
+                 fallback: Optional[str] = None, leader: bool = True,
+                 **gauge_attrs) -> None:
     """The GAN drives' boundary: a block's ``health_*`` metrics, already
-    on the host, as the ``health/*`` gauges of its last epoch, then the
-    :func:`tripwire` on the block's summed nonfinite count."""
+    on the host, as the ``health/*`` gauges of its last epoch (the
+    ``leader``'s alone), then the :func:`tripwire` on the block's summed
+    nonfinite count."""
     import numpy as np
 
     from hfrep_tpu_torch.obs import get_obs
@@ -272,8 +280,8 @@ def gan_boundary(host: Dict[str, "object"], epoch: int, site: str, carry,
     obs = get_obs()
     last = {k: float(np.asarray(v).reshape(-1)[-1])
             for k, v in host.items() if k.startswith("health_")}
-    if obs.enabled:
+    if obs.enabled and leader:
         for k, v in last.items():
             obs.gauge(f"health/{k[len('health_'):]}").set(v, epoch=epoch, **gauge_attrs)
     nf = float(np.nansum(np.asarray(host["health_nonfinite"])))
-    tripwire(site, epoch, nf, carry, {"last_metrics": last}, fallback)
+    tripwire(site, epoch, nf, carry, {"last_metrics": last}, fallback, leader)

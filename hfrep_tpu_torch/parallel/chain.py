@@ -92,11 +92,15 @@ class Chain:
     # --------------------------------------------------------- transfers
     def send(self, tensors: Sequence[Optional[torch.Tensor]], shapes, dst: int) -> None:
         """``tensors`` (``None``: zeros of its shape) to global rank
-        ``dst``, as one float32 message (gloo: through a host copy)."""
+        ``dst``, as one float32 message (gloo: through a host copy); no
+        message at all when there is nothing to send (a stage with no
+        boundary)."""
         from hfrep_tpu_torch.parallel.rules import count_collective
 
         import torch.distributed as dist
 
+        if not shapes:
+            return
         dev = self.mesh.device
         flat = torch.cat([(torch.zeros(s, dtype=torch.float32, device=dev) if t is None
                            else t.detach().float()).reshape(-1)
@@ -106,11 +110,14 @@ class Chain:
 
     def recv(self, shapes, src: int) -> List[torch.Tensor]:
         """The message :meth:`send` sent from global rank ``src``, split
-        into tensors of ``shapes`` on this rank's device."""
+        into tensors of ``shapes`` on this rank's device (none for no
+        shapes)."""
         from hfrep_tpu_torch.parallel.rules import count_collective
 
         import torch.distributed as dist
 
+        if not shapes:
+            return []
         sizes = [int(np.prod(s)) for s in shapes]
         wire = torch.empty(sum(sizes), dtype=torch.float32, device=self.mesh.wire_device)
         dist.recv(wire, src)

@@ -23,68 +23,45 @@ from __future__ import annotations
 import torch
 
 from hfrep_tpu_torch.parallel.chain import Chain, Stage, axis_sum, chain_apply
-from hfrep_tpu_torch.parallel.sequence import _named, _sp_head_impl, _sp_ln, _sub
-from hfrep_tpu_torch.parallel.tensor import local_params, tp_lstm
+from hfrep_tpu_torch.parallel.sequence import _named, net_ops, run_ops
+from hfrep_tpu_torch.parallel.tensor import local_params, tp_lstm_op
 
 
-def _carries(b_in) -> tuple:
-    """The two layers' initial (h, c): the previous sp rank's, or none
-    (a zero carry)."""
-    if b_in is None:
-        return None, None
-    return (b_in[0], b_in[1]), (b_in[2], b_in[3])
+def _carry_shapes(ops: tuple, n_tp: int):
+    """The boundary an sp rank hands on: each LSTM's whole h and this tp
+    rank's units of its c."""
+    hidden = [op.hidden for op in ops if op.kind == "lstm"]
+    return lambda rows: [s for h in hidden for s in ((rows, h), (rows, h // n_tp))]
 
 
-def _carry_shapes(hidden: int, n_tp: int):
-    return lambda rows: [(rows, hidden), (rows, hidden // n_tp)] * 2
-
-
-def generator_stage(ax: Chain, hidden: int, slope: float = 0.2, activation: str = "sigmoid",
-                    ln_eps: float = 1e-3) -> Stage:
-    """The generator on a window chunk, each layer on this rank's gate
-    columns from the previous sp rank's carries."""
-
-    def fn(k, z, b_in, p):
-        q = local_params(ax, p)
-        c0, c1 = _carries(b_in)
-        h, f0 = tp_lstm(ax, _sub(q, "lstm0"), z, activation, c0)
-        h, f1 = tp_lstm(ax, _sub(q, "lstm1"), _sp_ln(_sub(q, "norm0"), h, ln_eps),
-                        activation, c1)
-        return [*f0, *f1], _sp_head_impl(q, h, slope, ln_eps)
-
-    return Stage(fn, _carry_shapes(hidden, ax.n))
-
-
-def critic_stage(ax: Chain, hidden: int) -> Stage:
-    """The flagship critic on a window chunk: both layers on this rank's
-    gate columns, the chunk's rows of the score head, the partial scores
-    summed over sp (the bias added by the first sp rank)."""
+def tp_stage(ax: Chain, ops: tuple) -> Stage:
+    """A network's layers ``ops`` on a window chunk, each LSTM on this
+    rank's gate columns from the previous sp rank's carry (the first from
+    a zero carry); a flattened head's partial scores summed over sp (the
+    bias added by the first sp rank)."""
+    lstm = tp_lstm_op(ax)
 
     def fn(k, x, b_in, p):
-        q = local_params(ax, p)
-        c0, c1 = _carries(b_in)
-        h, f0 = tp_lstm(ax, _sub(q, "lstm0"), x, "tanh", c0)
-        h, f1 = tp_lstm(ax, _sub(q, "lstm1"), h, "tanh", c1)
-        rows = h.shape[1] * hidden
-        s = h.reshape(h.shape[0], -1) @ p["out.kernel"].narrow(0, k * rows, rows)
-        return [*f0, *f1], (s + p["out.bias"] if k == 0 else s)
+        return run_ops(ops, local_params(ax, p), x, k, b_in, lstm)
 
-    return Stage(fn, _carry_shapes(hidden, ax.n), combine="sum")
+    return Stage(fn, _carry_shapes(ops, ax.n),
+                 combine="sum" if ops[-1].kind == "flat" else "local")
 
 
 def dp_sp_tp_apply_fns(pair, chain: Chain, ax: Chain) -> tuple:
     """The step's ``apply_fns`` on an sp × tp mesh: each rank's generator
-    and critic on its window chunk and gate columns."""
-    g = pair.generator
-    stage_g = generator_stage(ax, g.lstm0.features, g.slope, g.lstm0.activation,
-                              g.norm0.epsilon)
-    stage_d = critic_stage(ax, pair.discriminator.lstm0.features)
+    and critic on its window chunk and gate columns, at the networks'
+    precision policy."""
+    ops_g, ops_d = net_ops(pair.generator), net_ops(pair.discriminator)
+    stage_g, stage_d = tp_stage(ax, ops_g), tp_stage(ax, ops_d)
+    head = ops_d[-1]
 
     def g_apply(module, z):
         return chain_apply(chain, stage_g, z, _named(module))
 
     def d_apply(module, x):
-        return chain_apply(chain, stage_d, x, _named(module))
+        y = chain_apply(chain, stage_d, x, _named(module))
+        return y.to(head.dtype or y.dtype)
 
     return g_apply, d_apply
 
@@ -107,8 +84,8 @@ def _dp_sp_tp_step(pair, tcfg, dataset: torch.Tensor, mesh):
 
 
 def make_dp_sp_tp_train_step(pair, tcfg, dataset: torch.Tensor, mesh, **attrs):
-    """ONE MTSS-WGAN-GP epoch on a ``('dp', 'sp', 'tp')`` mesh (or
-    ``('sp', 'tp')``), ``step(state, draws)`` with the global batch's
+    """ONE MTSS-WGAN-GP epoch, float32 or bf16, on a ``('dp', 'sp', 'tp')``
+    mesh (or ``('sp', 'tp')``), ``step(state, draws)`` with the global batch's
     draws (launched as ``dp_sp_tp_train_step``)."""
     from hfrep_tpu_torch.parallel.rules import instrument_mesh_launch
 

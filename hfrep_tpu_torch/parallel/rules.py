@@ -68,11 +68,6 @@ from hfrep_tpu_torch.core.device import DeviceLike
 #: window, ``tp`` hidden units, ``pp`` the stack depth
 AXES = ("dp", "sp", "tp", "pp")
 
-#: the refusal of the health gauges on a tp mesh
-TP_HEALTH = ("health gauges on a tp mesh are ROADMAP queue 1 item 9d, not ported: run the "
-             "tp step with health off (HFREP_HEALTH unset)")
-
-
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Declarative mesh: axis sizes.  ``MeshSpec(dp=2)`` is the 1-D
@@ -535,6 +530,8 @@ class DataShard:
         if self.n_tp > 1 and self.tp_rank:
             if names is None or len(names) != partials:
                 raise ValueError("a tp mesh's reduction needs the partials' leaf names")
+            # a replicated leaf's partial is swapped for zeros in this list, never
+            # zeroed in place (``parts`` may be views of the caller's gradients)
             parts = [torch.zeros_like(t) if i < partials and sliced_axis(names[i]) is None
                      else t for i, t in enumerate(parts)]
         flat = torch.cat(parts)
@@ -586,10 +583,11 @@ def validate_mesh(tcfg, mesh) -> MeshSpec:
 def validate_tp(pair, tcfg, mesh) -> MeshSpec:
     """JAX's tp checks (``_validate_gan_mesh``, ``_resolve_mesh_backend``)
     with its messages: the ``mtss_wgan_gp`` family, hidden widths tp
-    divides, no ``lstm_backend='pallas'``; and the port's: float32, health
-    off (:data:`TP_HEALTH`).  A mesh whose tp extent is 1 passes."""
-    from hfrep_tpu_torch.obs import health
-
+    divides, no ``lstm_backend='pallas'``.  Like JAX's, they put no rule
+    on the dtype or on health: a tp rank runs the single-device step's
+    precision policy on its gate columns, and health reads the reduced
+    gradients and the replicated state, the same on every rank.  A mesh
+    whose tp extent is 1 passes."""
     spec = validate_mesh(tcfg, mesh)
     if spec.tp > 1:
         if pair.family != "mtss_wgan_gp":
@@ -599,14 +597,10 @@ def validate_tp(pair, tcfg, mesh) -> MeshSpec:
                          int(pair.discriminator.lstm0.features)}):
             if h % spec.tp:
                 raise ValueError(f"hidden width {h} not divisible by tp={spec.tp} devices")
-        if pair.policy.compute_dtype != torch.float32:
-            raise NotImplementedError("the tp step runs float32; configure dtype=float32")
         if tcfg.lstm_backend == "pallas":
             raise ValueError("lstm_backend='pallas' cannot be GSPMD-partitioned over a "
                              f"{spec.size}-device mesh; use 'auto' (resolves to the xla scan "
                              "on multi-device meshes) or 'xla'")
-        if health.active() is not None:
-            raise ValueError(TP_HEALTH)
     return spec
 
 

@@ -13,9 +13,13 @@ the carry adjoint (``PERF.md`` §6 rows 1c, 2b, 3b).  The first rank
 starts from a zero carry through the same carry kernels: the carry-free
 adjoint has no output for a final cell state's cotangent, and the next
 rank hands one back at second order (``cuda_lstm.LSTMFwdRes`` refuses it
-in a recorded backward).  The critic's flattened score head is split by
-rows, each rank scoring its chunk, the partial scores summed over the
-axis.
+in a recorded backward).  The carries stay float32 across the handoff;
+the streams follow the networks' precision policy.  A flattened score
+head is split by rows, each rank scoring its chunk, the partial scores
+summed over the axis in float32; a per-step critic's chunks of scores are
+gathered into the whole window's on every rank, so its loss is the
+window's mean.  Dense layers act on each step alone: a Dense network's
+chunk needs no carry and hands nothing on.
 
 :func:`make_sp_train_step` / :func:`make_sp_multi_step` are the launch
 on an ``('sp',)`` or ``('dp', 'sp')`` mesh: the plain step
@@ -34,11 +38,16 @@ What else is here:
   arithmetic from a name → tensor dict of the port's parameter names
   (``lstm0.kernel``, ``norm0.scale``, ``out.kernel``, ...), shared with
   :mod:`~hfrep_tpu_torch.parallel.layer_pipeline`;
+* every network's forward as its layers (:data:`NET_LAYERS`,
+  :func:`net_ops`, :func:`run_ops`), which the window-chunk stages
+  (:func:`net_stage`) and the tp forwards
+  (:mod:`~hfrep_tpu_torch.parallel.tensor`) run with their own LSTM;
 * :func:`sp_microbatch_plan` — JAX's analytic model of the retired
   microbatch schedule, ported as it is (advisory; no step has an M knob).
 
-sp runs the flagship (``mtss_wgan_gp``) at float32, the family whose
-forwards this module writes (:func:`validate_sp_pair`).  JAX's forwards
+sp runs every GAN family at its precision policy, float32 or bf16 (JAX's
+sp is GSPMD over the plain step and puts no family or dtype rule on it;
+:func:`validate_sp_pair`).  JAX's forwards
 and builders also take the knobs of its retired manual ``shard_map``
 pipeline (``microbatches``, ``manual``, ``tp_axis``, ``remat``,
 ``check_vma``, ``chunk``) and ignore them; these take none of them.
@@ -48,13 +57,14 @@ accepted and ignored in ``experiments/cli.py``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional, Union
 
 import torch
 from torch import nn
 
 from hfrep_tpu_torch.ops import cuda_lstm
-from hfrep_tpu_torch.ops.layers import layer_norm, leaky_relu
+from hfrep_tpu_torch.ops.layers import ACTIVATIONS, compute_dtype, layer_norm, leaky_relu
 from hfrep_tpu_torch.parallel.chain import Chain, Stage, axis_sum, chain_apply
 
 Params = Union[Mapping[str, torch.Tensor], nn.Module]
@@ -72,11 +82,15 @@ def _sub(params: dict, prefix: str) -> dict:
 
 
 # --------------------------------------------------- plain stack forwards
-def _project(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """The input projection for every timestep as one matmul, time-major
-    (W, B, 4H): ``keras_lstm``'s."""
+def _project(params: dict, x: torch.Tensor, dtype: Optional[torch.dtype] = None
+             ) -> torch.Tensor:
+    """The input projection for every timestep as one matmul in the
+    compute dtype (``dtype``, else ``x``'s), time-major (W, B, 4H):
+    ``keras_lstm``'s."""
+    dt = dtype or x.dtype
     b, w, f = x.shape
-    xz = (x.reshape(b * w, f) @ params["kernel"] + params["bias"]).reshape(b, w, -1)
+    xz = (x.to(dt).reshape(b * w, f) @ params["kernel"].to(dt)
+          + params["bias"].to(dt)).reshape(b, w, -1)
     return xz.transpose(0, 1).contiguous()
 
 
@@ -89,12 +103,17 @@ def _local_chunk_scan(xz_chunk: torch.Tensor, carry: tuple, recurrent: torch.Ten
     return hs, (hs[-1] if hs.shape[0] else carry[0], c_fin)
 
 
-def _lstm_chunk(params: dict, x: torch.Tensor, carry: tuple, activation: str) -> tuple:
+def _lstm_chunk(params: dict, x: torch.Tensor, carry: tuple, activation: str,
+                dtype: Optional[torch.dtype] = None) -> tuple:
     """One Keras LSTM layer over a window chunk (B, Wc, Fin) from
-    ``carry``: ((B, Wc, H), (h_fin, c_fin))."""
-    hs, fin = _local_chunk_scan(_project(params, x), carry, params["recurrent_kernel"],
-                                activation)
-    return hs.transpose(0, 1), fin
+    ``carry``: ((B, Wc, H) in the compute dtype, (h_fin, c_fin) float32).
+    The streams (the projection, rec) are in the compute dtype (``dtype``,
+    else ``x``'s), the carries float32, as ``keras_lstm``'s whole window
+    keeps its state."""
+    dt = dtype or x.dtype
+    hs, fin = _local_chunk_scan(_project(params, x, dt), carry,
+                                params["recurrent_kernel"].to(dt), activation)
+    return hs.transpose(0, 1).to(dt), fin
 
 
 def _lstm_layer(params: dict, x: torch.Tensor, activation: str,
@@ -137,49 +156,156 @@ def critic_forward(d_params: Params, x: torch.Tensor) -> torch.Tensor:
     return h.reshape(h.shape[0], -1) @ p["out.kernel"] + p["out.bias"]
 
 
+# ------------------------------------------------------- a network's layers
+@dataclasses.dataclass(frozen=True)
+class Op:
+    """One layer of a network's forward, as the window-chunk stages run
+    it: ``lstm`` (a Keras LSTM of ``hidden`` units and ``activation``,
+    from a carry), ``dense`` (a Keras Dense and its ``activation``),
+    ``ln`` (a Keras LayerNorm of epsilon ``eps``), ``leaky`` (LeakyReLU of
+    ``slope``) or ``flat`` (the flattened (W·H → 1) score head, a chunk's
+    rows of it); ``name`` is the layer's parameter prefix and ``dtype``
+    its compute dtype (``None``: the promoted type of its operands)."""
+
+    kind: str
+    name: str = ""
+    activation: Optional[str] = None
+    hidden: int = 0
+    eps: float = 1e-3
+    slope: float = 0.2
+    dtype: Optional[torch.dtype] = None
+
+
+#: each network's forward as its layers, by class (``models/generators.py``,
+#: ``models/discriminators.py``); a leaky op takes the module's ``slope``
+NET_LAYERS = {
+    "DenseGenerator": ("dense0", "leaky", "norm0", "dense1", "leaky", "norm1", "out"),
+    "LSTMGenerator": ("lstm0", "norm0", "lstm1", "leaky", "norm1", "out"),
+    "DenseDiscriminator": ("dense0", "dense1", "out"),
+    "DenseCritic": ("dense0", "leaky", "norm0", "dense1", "leaky", "norm1", "out"),
+    "DenseFlatCritic": ("dense0", "dense1", "flat:out"),
+    "LSTMDiscriminator": ("lstm0", "lstm1", "out"),
+    "LSTMCritic": ("lstm0", "leaky", "norm0", "lstm1", "leaky", "norm1", "out"),
+    "LSTMFlatCritic": ("lstm0", "lstm1", "flat:out"),
+}
+
+
+def net_ops(module: nn.Module) -> tuple:
+    """``module``'s forward as :class:`Op` values, each layer's hyper-parameters
+    and compute dtype read from the module (its parameters are the
+    caller's).  A network with no entry in :data:`NET_LAYERS` raises."""
+    from hfrep_tpu_torch.ops.layers import KerasDense, KerasLayerNorm
+    from hfrep_tpu_torch.ops.lstm import KerasLSTM
+
+    cls = type(module).__name__
+    if cls not in NET_LAYERS:
+        raise ValueError(f"no window-chunk form of {cls}: the window-sharded forwards run "
+                         f"{sorted(NET_LAYERS)}")
+    ops = []
+    for entry in NET_LAYERS[cls]:
+        if entry == "leaky":
+            ops.append(Op("leaky", slope=module.slope))
+            continue
+        kind, _, name = entry.rpartition(":")
+        layer = getattr(module, name)
+        if isinstance(layer, KerasLSTM):
+            ops.append(Op("lstm", name, layer.activation or "linear", layer.features,
+                          dtype=layer.dtype))
+        elif isinstance(layer, KerasLayerNorm):
+            ops.append(Op("ln", name, eps=layer.epsilon, dtype=layer.dtype))
+        elif isinstance(layer, KerasDense):
+            ops.append(Op(kind or "dense", name, layer.activation, dtype=layer.dtype))
+        else:
+            raise ValueError(f"{cls}.{name}: no window-chunk form of {type(layer).__name__}")
+    return tuple(ops)
+
+
+def generator_ops(hidden: int, slope: float = 0.2, activation: str = "sigmoid",
+                  ln_eps: float = 1e-3) -> tuple:
+    """The MTSS generator's layers (LSTM → LN → LSTM → LeakyReLU → LN →
+    Dense) from its hyper-parameters, each in its operands' dtype."""
+    return (Op("lstm", "lstm0", activation, hidden), Op("ln", "norm0", eps=ln_eps),
+            Op("lstm", "lstm1", activation, hidden), Op("leaky", slope=slope),
+            Op("ln", "norm1", eps=ln_eps), Op("dense", "out"))
+
+
+def critic_ops(hidden: int) -> tuple:
+    """The flagship critic's layers (LSTM → LSTM → the flattened head)."""
+    return Op("lstm", "lstm0", "tanh", hidden), Op("lstm", "lstm1", "tanh", hidden), \
+        Op("flat", "out")
+
+
+def _dense(op: Op, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``KerasDense``'s arithmetic on explicit parameters."""
+    dt = compute_dtype(op.dtype, x, p["kernel"])
+    return ACTIVATIONS[op.activation](x.to(dt) @ p["kernel"].to(dt) + p["bias"].to(dt))
+
+
+def _flat_head(op: Op, p: dict, h: torch.Tensor, k: int) -> torch.Tensor:
+    """Chunk ``k``'s partial scores of the flattened head: its rows of
+    the kernel, the bias added by the first chunk.  The products of the
+    compute dtype's values are summed in float32, so the chunks' partials
+    add up over the axis in float32 (a float32 score is the plain
+    product's)."""
+    dt = compute_dtype(op.dtype, h, p["kernel"])
+    rows = h.shape[1] * h.shape[2]
+    s = (h.reshape(h.shape[0], -1).to(dt).float()
+         @ p["kernel"].narrow(0, k * rows, rows).to(dt).float())
+    return s + p["bias"].to(dt).float() if k == 0 else s
+
+
+def run_ops(ops: tuple, p: dict, x: torch.Tensor, k: int, b_in, lstm) -> tuple:
+    """``ops`` on chunk ``k`` of the window, ``x`` (B, Wc, F): ``(finals,
+    y)``, each LSTM's final (h, c) in layer order and the output.  An LSTM
+    layer starts from its carry in ``b_in`` (two tensors a layer in
+    order; ``None`` or empty: a zero carry) through ``lstm(op, params, x,
+    carry) -> (hs, [h_fin, c_fin])``."""
+    finals, i = [], 0
+    for op in ops:
+        sub = _sub(p, op.name)
+        if op.kind == "lstm":
+            carry = (b_in[i], b_in[i + 1]) if b_in else None
+            i += 2
+            x, fin = lstm(op, sub, x, carry)
+            finals += fin
+        elif op.kind == "dense":
+            x = _dense(op, sub, x)
+        elif op.kind == "ln":
+            x = layer_norm(x, sub["scale"], sub["bias"], op.eps, op.dtype)
+        elif op.kind == "leaky":
+            x = leaky_relu(x, op.slope)
+        else:
+            x = _flat_head(op, sub, x, k)
+    return finals, x
+
+
 # ------------------------------------------------------ window-chunk stages
-def _carries(b_in, rows: int, hidden: int, device) -> tuple:
-    """The two layers' initial (h, c): the previous rank's, or zeros."""
-    if b_in is None:
-        z = torch.zeros((rows, hidden), dtype=torch.float32, device=device)
-        return (z, z), (z, z)
-    return (b_in[0], b_in[1]), (b_in[2], b_in[3])
+def _chunk_lstm(op: Op, p: dict, x: torch.Tensor, carry) -> tuple:
+    """:func:`_lstm_chunk` from ``carry`` or, on the first rank, a zero
+    carry (through the same carry kernels)."""
+    if carry is None:
+        z = torch.zeros((x.shape[0], op.hidden), dtype=torch.float32, device=x.device)
+        carry = (z, z)
+    hs, fin = _lstm_chunk(p, x, carry, op.activation, op.dtype)
+    return hs, list(fin)
 
 
-def _carry_shapes(hidden: int):
-    return lambda rows: [(rows, hidden)] * 4
+def _carry_shapes(ops: tuple):
+    """The boundary a rank hands on: each LSTM's final (h, c), float32."""
+    hidden = [op.hidden for op in ops if op.kind == "lstm"]
+    return lambda rows: [(rows, h) for h in hidden for _ in range(2)]
 
 
-def generator_stage(hidden: int, slope: float = 0.2, activation: str = "sigmoid",
-                    ln_eps: float = 1e-3) -> Stage:
-    """The generator on a window chunk: both layers from the previous
-    rank's carries, this rank's chunk of the output."""
-
-    def fn(k, z, b_in, p):
-        c0, c1 = _carries(b_in, z.shape[0], hidden, z.device)
-        h, f0 = _lstm_chunk(_sub(p, "lstm0"), z, c0, activation)
-        h, f1 = _lstm_chunk(_sub(p, "lstm1"), _sp_ln(_sub(p, "norm0"), h, ln_eps), c1,
-                            activation)
-        return [*f0, *f1], _sp_head_impl(p, h, slope, ln_eps)
-
-    return Stage(fn, _carry_shapes(hidden))
-
-
-def critic_stage(hidden: int) -> Stage:
-    """The flagship critic on a window chunk: both layers from the
-    previous rank's carries, the chunk's rows of the score head; the
-    partial scores summed over the axis (the bias added once, by the
-    first rank)."""
+def net_stage(ops: tuple, lstm=_chunk_lstm) -> Stage:
+    """A network's layers ``ops`` on a window chunk: each LSTM from the
+    previous rank's carry (a network with none hands nothing on); a
+    flattened head's partial scores summed over the axis, any other
+    output this rank's chunk."""
 
     def fn(k, x, b_in, p):
-        c0, c1 = _carries(b_in, x.shape[0], hidden, x.device)
-        h, f0 = _lstm_chunk(_sub(p, "lstm0"), x, c0, "tanh")
-        h, f1 = _lstm_chunk(_sub(p, "lstm1"), h, c1, "tanh")
-        rows = h.shape[1] * hidden
-        s = h.reshape(h.shape[0], -1) @ p["out.kernel"].narrow(0, k * rows, rows)
-        return [*f0, *f1], (s + p["out.bias"] if k == 0 else s)
+        return run_ops(ops, p, x, k, b_in, lstm)
 
-    return Stage(fn, _carry_shapes(hidden), combine="sum")
+    return Stage(fn, _carry_shapes(ops), combine="sum" if ops[-1].kind == "flat" else "local")
 
 
 def lstm_stage(activation: str, hidden: int) -> Stage:
@@ -192,6 +318,31 @@ def lstm_stage(activation: str, hidden: int) -> Stage:
         return list(fin), h
 
     return Stage(fn, lambda rows: [(rows, hidden)] * 2)
+
+
+class _WindowGather(torch.autograd.Function):
+    """Each rank's (B, Wc, ...) window chunk into the whole (B, W, ...) on
+    every rank of the chain: zero-padded and all_reduced in float32, exact
+    (a + 0 = a, and a bf16 value round-trips through float32); the
+    backward keeps this rank's chunk of the cotangent, which every rank
+    holds whole (the loss over the gathered tensor is replicated)."""
+
+    @staticmethod
+    def forward(ctx, chain: Chain, y):
+        ctx.chain, ctx.wc = chain, y.shape[1]
+        out = torch.zeros((y.shape[0], y.shape[1] * chain.n) + tuple(y.shape[2:]),
+                          dtype=torch.float32, device=y.device)
+        out.narrow(1, chain.k * ctx.wc, ctx.wc).copy_(y)
+        return chain.all_reduce_(out).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g.narrow(1, ctx.chain.k * ctx.wc, ctx.wc)
+
+
+def window_gather(chain: Chain, y: torch.Tensor) -> torch.Tensor:
+    """:class:`_WindowGather` (``y`` itself on a one-rank chain)."""
+    return _WindowGather.apply(chain, y) if chain.n > 1 else y
 
 
 # ----------------------------------------------------- sp public surface
@@ -219,7 +370,8 @@ def sp_generate(g_params: Params, z: torch.Tensor, mesh, *, axis_name: Optional[
     (JAX returns the global array sharded (B, W@sp, F))."""
     chain = _window_chain(mesh, axis_name)
     p = _named(g_params)
-    stage = generator_stage(p["lstm0.recurrent_kernel"].shape[0], slope, activation, ln_eps)
+    stage = net_stage(generator_ops(p["lstm0.recurrent_kernel"].shape[0], slope, activation,
+                                    ln_eps))
     return chain_apply(chain, stage, _my_chunk(chain, z), p)
 
 
@@ -229,7 +381,7 @@ def sp_critic(d_params: Params, x: torch.Tensor, mesh, *,
     rank → (B, 1), replicated."""
     chain = _window_chain(mesh, axis_name)
     p = _named(d_params)
-    return chain_apply(chain, critic_stage(p["lstm0.recurrent_kernel"].shape[0]),
+    return chain_apply(chain, net_stage(critic_ops(p["lstm0.recurrent_kernel"].shape[0])),
                        _my_chunk(chain, x), p)
 
 
@@ -254,28 +406,32 @@ def sp_lstm_sharded_input(params: Mapping[str, torch.Tensor], x: torch.Tensor, m
 
 
 def validate_sp_pair(pair) -> None:
-    """The window-sharded step runs the flagship's forwards at float32."""
-    if pair.family != "mtss_wgan_gp":
-        raise ValueError(f"sequence-parallel step supports the mtss_wgan_gp family (the "
-                         f"forwards this module writes), got {pair.family!r}")
-    if pair.policy.compute_dtype != torch.float32:
-        raise NotImplementedError("sequence-parallel step runs float32; configure "
-                                  "dtype=float32")
+    """The window-sharded step runs any family at its precision policy, as
+    JAX's GSPMD sp does: both networks need a window-chunk form
+    (:func:`net_ops`)."""
+    net_ops(pair.generator)
+    net_ops(pair.discriminator)
 
 
 def sp_apply_fns(pair, chain: Chain) -> tuple:
     """The step's ``apply_fns`` on a window-sharded mesh: each rank's
-    generator and critic on its window chunk of the draws."""
-    g = pair.generator
-    stage_g = generator_stage(g.lstm0.features, g.slope, g.lstm0.activation,
-                              g.norm0.epsilon)
-    stage_d = critic_stage(pair.discriminator.lstm0.features)
+    generator and critic on its window chunk of the draws.  A flattened
+    critic's scores are the axis sum of the chunks' partials (cast to the
+    head's compute dtype); a per-step critic's (B, Wc, 1) chunks are
+    gathered into the whole window's (B, W, 1) on every rank, so its loss
+    is the mean over the whole window, as on one device."""
+    ops_g, ops_d = net_ops(pair.generator), net_ops(pair.discriminator)
+    stage_g, stage_d = net_stage(ops_g), net_stage(ops_d)
+    head = ops_d[-1]
 
     def g_apply(module, z):
         return chain_apply(chain, stage_g, z, _named(module))
 
     def d_apply(module, x):
-        return chain_apply(chain, stage_d, x, _named(module))
+        y = chain_apply(chain, stage_d, x, _named(module))
+        if head.kind == "flat":
+            return y.to(head.dtype or y.dtype)
+        return window_gather(chain, y)
 
     return g_apply, d_apply
 

@@ -58,10 +58,11 @@ from typing import Optional
 
 import torch
 
-from hfrep_tpu_torch.ops.cuda_lstm import _PLAIN_ACT, act_code
+from hfrep_tpu_torch.ops.cuda_lstm import _PLAIN_ACT, _rounder, act_code
 from hfrep_tpu_torch.ops.layers import sigmoid
 from hfrep_tpu_torch.parallel.chain import Chain
-from hfrep_tpu_torch.parallel.sequence import Params, _named, _sp_head_impl, _sp_ln, _sub
+from hfrep_tpu_torch.parallel.sequence import (Params, _named, critic_ops, generator_ops, net_ops,
+                                               run_ops)
 
 
 def _check_width(h: int, n_dev: int) -> int:
@@ -189,43 +190,56 @@ def local_params(ax: Chain, params: dict) -> dict:
 
 
 def tp_lstm(ax: Chain, p: dict, x: torch.Tensor, activation: str,
-            carry: Optional[tuple] = None) -> tuple:
+            carry: Optional[tuple] = None, dtype: Optional[torch.dtype] = None) -> tuple:
     """One Keras LSTM layer on a rank's gate columns ``p`` (``kernel``
     (Fin, 4Hl), ``recurrent_kernel`` (H, 4Hl), ``bias`` (4Hl)) over the
-    replicated ``x`` (B, W, Fin): ((B, W, H) replicated, (h (B, H), this
-    rank's c (B, Hl))), from ``carry`` = (h, c) or a zero carry.  The
-    arithmetic of ``cuda_lstm.lstm_seq_plain`` on a column slice: a zero
-    h's product is skipped (it adds exact zeros)."""
+    replicated ``x`` (B, W, Fin): ((B, W, H) replicated, in the compute
+    dtype, (h (B, H), this rank's c (B, Hl)), float32), from ``carry`` =
+    (h, c) or a zero carry.  The arithmetic of ``cuda_lstm.lstm_seq_plain``
+    on a column slice, its precision policy included: the projection in
+    the compute dtype (``dtype``, else ``x``'s), h rounded to it before the
+    product with rec's values, the state and the gate math float32; a zero
+    h's product is skipped (it adds exact zeros).  Every exchange is
+    float32: the layer input's cotangent (its F) and h (its G)."""
     act = _PLAIN_ACT[act_code(activation)]
+    dt = dtype or x.dtype
     b, w, f = x.shape
     hl = p["bias"].shape[0] // 4
-    xz = (_copy(ax, x).reshape(b * w, f) @ p["kernel"] + p["bias"]).reshape(b, w, 4 * hl)
-    h, c = carry if carry is not None else (None, xz.new_zeros((b, hl)))
+    xz = (_copy(ax, x.float()).to(dt).reshape(b * w, f) @ p["kernel"].to(dt)
+          + p["bias"].to(dt)).reshape(b, w, 4 * hl)
+    rec = p["recurrent_kernel"].to(dt)
+    rnd, rec = _rounder(rec), rec.float()
+    h, c = carry if carry is not None else (None, xz.new_zeros((b, hl), dtype=torch.float32))
     hs = []
     for t in range(w):
-        z = xz[:, t] if h is None else xz[:, t] + _copy(ax, h) @ p["recurrent_kernel"]
+        z = xz[:, t].float()
+        if h is not None:
+            z = z + rnd(_copy(ax, h)) @ rec
         gates = sigmoid(z)                       # one sigmoid over i, f, _, o
         c = gates[:, hl:2 * hl] * c + gates[:, :hl] * act(z[:, 2 * hl:3 * hl])
         h = _gather(ax, gates[:, 3 * hl:] * act(c))
         hs.append(h)
-    return torch.stack(hs, dim=1), (h, c)
+    return torch.stack(hs, dim=1).to(dt), (h, c)
 
 
-def tp_generator_forward(ax: Chain, p: dict, z: torch.Tensor, slope: float = 0.2,
-                         activation: str = "sigmoid", ln_eps: float = 1e-3) -> torch.Tensor:
-    """The MTSS generator on a rank's view ``p`` (:func:`local_params`):
-    ``sequence.generator_forward``'s arithmetic with each LSTM on its gate
-    columns; the output replicated."""
-    h, _ = tp_lstm(ax, _sub(p, "lstm0"), z, activation)
-    h, _ = tp_lstm(ax, _sub(p, "lstm1"), _sp_ln(_sub(p, "norm0"), h, ln_eps), activation)
-    return _sp_head_impl(p, h, slope, ln_eps)
+def tp_lstm_op(ax: Chain):
+    """:func:`tp_lstm` as ``sequence.run_ops``'s LSTM (its layer op, this
+    rank's view of the layer's parameters, the input, the carry)."""
+
+    def lstm(op, p: dict, x: torch.Tensor, carry) -> tuple:
+        hs, fin = tp_lstm(ax, p, x, op.activation, carry, op.dtype)
+        return hs, list(fin)
+
+    return lstm
 
 
-def tp_critic_forward(ax: Chain, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The flagship critic on a rank's view ``p``: (B, W, F) → (B, 1)."""
-    h, _ = tp_lstm(ax, _sub(p, "lstm0"), x, "tanh")
-    h, _ = tp_lstm(ax, _sub(p, "lstm1"), h, "tanh")
-    return h.reshape(h.shape[0], -1) @ p["out.kernel"] + p["out.bias"]
+def tp_forward(ax: Chain, ops: tuple, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """A network's layers ``ops`` on a rank's view ``p``
+    (:func:`local_params`) over the whole window, each LSTM on its gate
+    columns: the output, replicated (a flattened head's scores in its
+    compute dtype)."""
+    y = run_ops(ops, p, x, 0, None, tp_lstm_op(ax))[1]
+    return y.to(ops[-1].dtype or y.dtype) if ops[-1].kind == "flat" else y
 
 
 # ---------------------------------------------------------- public surface
@@ -248,7 +262,8 @@ def tp_generate(g_params: Params, z: torch.Tensor, mesh, *, axis_name: Optional[
     del manual, check_vma, chunk
     p = _named(g_params)
     ax = _axis(p, mesh, axis_name)
-    return tp_generator_forward(ax, local_params(ax, p), z, slope, activation, ln_eps)
+    ops = generator_ops(p["lstm0.recurrent_kernel"].shape[0], slope, activation, ln_eps)
+    return tp_forward(ax, ops, local_params(ax, p), z)
 
 
 def tp_critic(d_params: Params, x: torch.Tensor, mesh, *, axis_name: Optional[str] = None,
@@ -258,7 +273,8 @@ def tp_critic(d_params: Params, x: torch.Tensor, mesh, *, axis_name: Optional[st
     del manual, check_vma, chunk
     p = _named(d_params)
     ax = _axis(p, mesh, axis_name)
-    return tp_critic_forward(ax, local_params(ax, p), x)
+    return tp_forward(ax, critic_ops(p["lstm0.recurrent_kernel"].shape[0]), local_params(ax, p),
+                      x)
 
 
 def validate_tp_pair(pair, n_tp: int) -> None:
@@ -272,15 +288,15 @@ def validate_tp_pair(pair, n_tp: int) -> None:
 
 def tp_apply_fns(pair, ax: Chain) -> tuple:
     """The step's ``apply_fns`` on a tp mesh: each rank's generator and
-    critic on its gate columns of the modules' parameters."""
-    g = pair.generator
-    slope, act, eps = g.slope, g.lstm0.activation, g.norm0.epsilon
+    critic on its gate columns of the modules' parameters, at the
+    networks' precision policy (``sequence.net_ops``)."""
+    ops_g, ops_d = net_ops(pair.generator), net_ops(pair.discriminator)
 
     def g_apply(module, z):
-        return tp_generator_forward(ax, local_params(ax, _named(module)), z, slope, act, eps)
+        return tp_forward(ax, ops_g, local_params(ax, _named(module)), z)
 
     def d_apply(module, x):
-        return tp_critic_forward(ax, local_params(ax, _named(module)), x)
+        return tp_forward(ax, ops_d, local_params(ax, _named(module)), x)
 
     return g_apply, d_apply
 
@@ -302,8 +318,8 @@ def _tp_step(pair, tcfg, dataset: torch.Tensor, mesh):
 
 
 def make_tp_train_step(pair, tcfg, dataset: torch.Tensor, mesh, **attrs):
-    """Hidden-unit-sharded MTSS-WGAN-GP training: ONE epoch on a ``('tp',)``
-    or ``('dp', 'tp')`` mesh, ``step(state, draws)`` with the global
+    """Hidden-unit-sharded MTSS-WGAN-GP training, float32 or bf16: ONE
+    epoch on a ``('tp',)`` or ``('dp', 'tp')`` mesh, ``step(state, draws)`` with the global
     batch's draws (launched as ``tp_train_step`` / ``dp_tp_train_step``)."""
     from hfrep_tpu_torch.parallel.rules import instrument_mesh_launch
 

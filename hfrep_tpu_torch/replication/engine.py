@@ -82,8 +82,12 @@ share nothing, so a mesh drive is bit for bit the meshless one as far as
 the rows' kernels are (JAX pins the same).  A lane count the dp extent
 does not divide is refused naming the lane axis.  Chunk snapshots hold
 the whole grid (rank 0 writes them), so a drive resumes on another
-device count.  A one-device mesh runs the meshless drive itself; the
-health gauges of a grid split over ranks are not ported (refused).
+device count.  A one-device mesh runs the meshless drive itself.  With
+health on, a split grid's boundary scalars are the whole grid's, reduced
+over the ranks by JAX's rules in the stop flag's exchange (the grad norm
+a NaN-ignoring max, the nonfinite count a sum, the param norm the root of
+the summed squares): rank 0 alone sets the gauges and writes a forensic
+dump of the whole grid, and every rank raises at the same boundary.
 """
 
 from __future__ import annotations
@@ -276,12 +280,16 @@ class _Grid:
         return (torch.sum(torch.square(flat[..., fm:]), dim=-1)
                 + torch.sum(torch.square(flat[..., :fm]), dim=-1))
 
-    def param_norm(self) -> torch.Tensor:
-        """The global norm of every lane's kernels (the JAX carry's
-        params tree: decoder, then encoder)."""
+    def param_sq(self) -> torch.Tensor:
+        """Σ‖leaf‖² over every lane's kernels (the JAX carry's params
+        tree: decoder, then encoder)."""
         fm = self.f * self.m
-        return torch.sqrt(torch.sum(torch.square(self.flat[..., fm:]))
-                          + torch.sum(torch.square(self.flat[..., :fm])))
+        return (torch.sum(torch.square(self.flat[..., fm:]))
+                + torch.sum(torch.square(self.flat[..., :fm])))
+
+    def param_norm(self) -> torch.Tensor:
+        """The global norm of every lane's kernels."""
+        return torch.sqrt(self.param_sq())
 
     def epoch(self, perm: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """One epoch on every lane (``perm`` (D, L, n_train)), in place;
@@ -382,19 +390,35 @@ def _concat_traces(traces: list) -> Tuple[torch.Tensor, ...]:
 
 
 def _emit_ae_health(grid: "_Grid", gn: float, nf: float, pn: float, epoch: int,
-                    snapshot) -> None:
+                    snapshot, split: Optional["_LaneSplit"] = None) -> None:
     """Publish one AE boundary's health scalars; under
     ``abort_on_nonfinite`` a nonfinite count writes a forensic dump of the
     carry (the failing chunk's snapshot is not yet written, so a resume
-    replays it) and raises :class:`~hfrep_tpu_torch.obs.health.NumericFault`."""
+    replays it) and raises :class:`~hfrep_tpu_torch.obs.health.NumericFault`.
+    On a ``split`` grid the scalars are the whole grid's (every rank holds
+    the same): rank 0 sets the gauges and dumps the whole grid's carry,
+    gathered from every rank, and every rank raises."""
+    leader = split is None or split.rank == 0
     obs = get_obs()
-    if obs.enabled:
+    if obs.enabled and leader:
         obs.gauge("health/ae_grad_norm").set(gn, epoch=epoch)
         obs.gauge("health/ae_nonfinite").set(nf, epoch=epoch)
         obs.gauge("health/ae_param_norm").set(pn, epoch=epoch)
-    health_mod.tripwire("chunk", epoch, nf, grid.carry(),
+    cfg = health_mod.active()
+    if split is not None and nf > 0 and cfg is not None and cfg.abort_on_nonfinite:
+        carry = {k: split.gather(v) for k, v in grid.carry().items()}
+    else:
+        carry = grid.carry()
+    health_mod.tripwire("chunk", epoch, nf, carry if leader else None,
                         {"grad_norm": gn, "param_norm": pn},
-                        fallback=str(snapshot.dir) if snapshot is not None else None)
+                        fallback=str(snapshot.dir) if snapshot is not None else None,
+                        leader=leader)
+
+
+def _max_ignoring_nan(gn: torch.Tensor) -> torch.Tensor:
+    """The largest value of ``gn`` ignoring NaN, −inf when every value is
+    NaN (``jnp.nanmax`` reads that −inf back as NaN)."""
+    return torch.where(torch.isnan(gn), torch.full_like(gn, -math.inf), gn).max()
 
 
 def _health_scalars(grid: "_Grid", tr: Tuple[torch.Tensor, ...], last: int):
@@ -402,10 +426,21 @@ def _health_scalars(grid: "_Grid", tr: Tuple[torch.Tensor, ...], last: int):
     ``tr`` as device tensors: the lanes' largest grad norm (NaN when every
     lane's is NaN, as ``jnp.nanmax``), their summed nonfinite count, the
     grid's param norm."""
-    gn = tr[3][..., last]
-    gn = torch.where(torch.isnan(gn), torch.full_like(gn, -math.inf), gn).max()
+    gn = _max_ignoring_nan(tr[3][..., last])
     gn = torch.where(gn == -math.inf, torch.full_like(gn, math.nan), gn)
     return gn, torch.nansum(tr[4][..., last]), grid.param_norm()
+
+
+def _split_health_read(stopped: torch.Tensor, grid: "_Grid", tr: Tuple[torch.Tensor, ...],
+                       last: int) -> Tuple[bool, list]:
+    """A split grid's boundary read, in one copy: this rank's
+    ``all(stopped)`` and its rows' (grad norm, with −inf for "every lane
+    NaN", nonfinite count, Σ param²) of epoch ``last`` of ``tr``, the
+    operands of :meth:`_LaneSplit.agree`'s health reduction."""
+    flag, *vals = (float(v) for v in torch.stack(
+        (torch.all(stopped).float(), _max_ignoring_nan(tr[3][..., last]),
+         torch.nansum(tr[4][..., last]), grid.param_sq())).cpu())
+    return bool(flag), vals
 
 
 def _boundary_sync(stopped: torch.Tensor, grid: Optional["_Grid"], tr: Tuple[torch.Tensor, ...],
@@ -436,7 +471,7 @@ def _snapshot_save_failed(snapshot, pos: int, e: OSError) -> None:
 
 def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: int,
                   double_buffer: bool = True, snapshot=None, grid: Optional["_Grid"] = None,
-                  cross: bool = True, agree: Optional[Callable[[bool], bool]] = None):
+                  cross: bool = True, split: Optional["_LaneSplit"] = None):
     """The host side of chunked early-exit training: ``chunk_fn(pos,
     length)`` runs ``length`` epochs and returns their traces; between
     chunks the host reads ``all(stopped)`` and stops once it holds.  With
@@ -457,17 +492,18 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
     monolithic drive, one scan in the JAX package, has no boundary),
     where injected faults fire and a requested drain raises
     :class:`~hfrep_tpu_torch.resilience.Preempted` with the state
-    already on disk.  ``agree`` (a lane mesh's) turns this rank's stop
-    flag into the grid's at every boundary, read there, and spreads a
-    drain requested on any rank, before the snapshot and the boundary.
-    Returns ``(traces, epochs_dispatched, chunks_dispatched,
-    overshoot_chunks)``."""
+    already on disk.  ``split`` (a lane mesh's, :meth:`_LaneSplit.agree`)
+    turns this rank's stop flag into the grid's at every boundary, read
+    there, and spreads a drain requested on any rank, before the snapshot
+    and the boundary; with health on, the boundary's health scalars join
+    that exchange and the whole grid's are emitted.  Returns ``(traces,
+    epochs_dispatched, chunks_dispatched, overshoot_chunks)``."""
     chunk = int(chunk_epochs) if chunk_epochs and chunk_epochs > 0 else epochs
     traces: list = []
     pos = chunks = overshoot = 0
     stopped_all = False
     health = grid is not None and grid.health
-    if snapshot is not None or health or agree is not None:
+    if snapshot is not None or health or split is not None:
         double_buffer = False
     if snapshot is not None:
         loaded = snapshot.load(grid.carry())
@@ -525,8 +561,11 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
                 pending = flag
             elif pos < epochs:
                 t_sync0 = timeline.clock()
-                stopped_all = _boundary_sync(stopped, grid if health else None, traces[-1],
-                                             pos, snapshot)
+                if health and split is not None:
+                    stopped_all, local = _split_health_read(stopped, grid, traces[-1], -1)
+                else:
+                    stopped_all = _boundary_sync(stopped, grid if health else None, traces[-1],
+                                                 pos, snapshot)
                 if attrib_on:
                     now = timeline.clock()
                     disp_s = attrib.window_dispatch_s()
@@ -536,8 +575,12 @@ def _drive_chunks(chunk_fn, stopped: torch.Tensor, epochs: int, chunk_epochs: in
                                           warmup=calls_here == 1, dispatch_s=disp_s,
                                           sync_wait_s=now - t_sync0, epoch=pos)
                     t_window0, flushes, steps_window = now, flushes + 1, 0
-            if agree is not None:
-                stopped_all = agree(stopped_all or pos >= epochs)
+            if split is not None:
+                if health and pos < epochs:
+                    stopped_all, vals = split.agree(stopped_all, local)
+                    _emit_ae_health(grid, *vals, pos, snapshot, split)
+                else:
+                    stopped_all = split.agree(stopped_all or pos >= epochs)[0]
             if snapshot is not None and not resilience.drain_requested():
                 # a drain already requested (a SIGTERM during the chunk) skips
                 # this boundary's write: the resume replays the chunk from the
@@ -626,14 +669,32 @@ class _LaneSplit:
         """The whole grid's ``t`` from every rank's rows (axis ``gax``)."""
         return self.mesh.all_gather_cat(t, self.gax)
 
-    def agree(self, stopped_all: bool) -> bool:
-        """Every rank's stop flag and drain request in one reduction: the
+    def agree(self, stopped_all: bool, health: Optional[Sequence[float]] = None
+              ) -> Tuple[bool, Optional[list]]:
+        """Every rank's stop flag and drain request in one exchange: the
         grid stops when every rank's lanes have; a drain requested on any
-        rank is requested here too."""
-        running, drain = self.mesh.any(not stopped_all, resilience.drain_requested())
+        rank is requested here too.  ``health`` (this rank's rows' grad
+        norm with −inf for "every lane NaN", nonfinite count and Σ param²,
+        :func:`_split_health_read`) joins the same exchange, an all_gather
+        in place of the flags' reduction, and comes back as the whole
+        grid's (grad norm, nonfinite, param norm) by JAX's rules: the grad
+        norm ``nanmax`` (NaN only when every lane's is NaN), the count
+        ``nansum``, the param norm √(Σ over ranks of Σ param²).
+        Returns ``(stopped_all, health)``."""
+        if health is None:
+            running, drain = self.mesh.any(not stopped_all, resilience.drain_requested())
+            vals = None
+        else:
+            mine = torch.tensor([[float(not stopped_all), float(resilience.drain_requested()),
+                                  *health]], dtype=torch.float64)
+            rows = self.mesh.all_gather_cat(mine, 0)
+            running, drain = bool(rows[:, 0].max() > 0), bool(rows[:, 1].max() > 0)
+            gn = float(rows[:, 2].max())
+            vals = [math.nan if gn == -math.inf else gn, float(torch.nansum(rows[:, 3])),
+                    math.sqrt(float(rows[:, 4].sum()))]
         if drain and not resilience.drain_requested():
             resilience.request_drain("peer")
-        return not running
+        return not running, vals
 
 
 class _SplitSnapshot:
@@ -722,9 +783,6 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
             "operands": digest_arrays(x, masks, rows_info, init_params if given_init else None)})
     full_shape, local_shape = grid_shape, grid_shape
     if split is not None:
-        if health:
-            raise ValueError("the health gauges of a lane grid split over dp ranks are not "
-                             "ported: run with health off or on a one-device mesh")
         if kind == "multi":
             x = split.lead_rows(x)
             rows_info = tuple(split.lead_rows(t) for t in rows_info)
@@ -748,18 +806,24 @@ def _train_grid(cfg: AEConfig, seed: int, x, masks: torch.Tensor, rows_info,
         traces, dispatched, chunks, overshoot = _drive_chunks(
             chunk_fn, grid.stopped, cfg.epochs, 0 if monolithic else cfg.chunk_epochs,
             double_buffer=cfg.double_buffer, snapshot=snap, grid=grid, cross=not monolithic,
-            agree=split.agree if split is not None else None)
+            split=split)
+        if health and not monolithic:
+            # the drive's end: the last dispatched epoch's health scalars
+            # (the monolithic drive, one scan in the JAX package, has none);
+            # a split grid's reduced over the ranks as at a boundary
+            last = max(0, dispatched - 1)
+            if split is None:
+                gn, nf, pn = (float(v) for v in torch.stack(
+                    _health_scalars(grid, traces, last)).cpu())
+            else:
+                gn, nf, pn = split.agree(True, _split_health_read(
+                    grid.stopped, grid, traces, last)[1])[1]
+            _emit_ae_health(grid, gn, nf, pn, dispatched, snap, split)
         params = grid.params()
         if split is not None:
             traces = tuple(split.gather(t) for t in traces)
             params = {k: split.gather(v) for k, v in params.items()}
         tl, vl, st = traces[:3]
-        if health and not monolithic:
-            # the drive's end: the last dispatched epoch's health scalars
-            # (the monolithic drive, one scan in the JAX package, has none)
-            gn, nf, pn = (float(v) for v in torch.stack(
-                _health_scalars(grid, traces, max(0, dispatched - 1))).cpu())
-            _emit_ae_health(grid, gn, nf, pn, dispatched, snap)
         params = {k: v.reshape(lead + v.shape[2:]) for k, v in params.items()}
         tl, vl, st = (t.reshape(lead + (cfg.epochs,)) for t in (tl, vl, st))
         stop_epoch = _stop_epoch(st, cfg.epochs)

@@ -61,8 +61,11 @@ construction, ``generate``'s noise too; rank 0 alone writes a
 checkpoint, synchronously, then every rank meets it at a barrier (every
 rank restores); a drain seen by any rank drains every rank at the same
 block boundary, and the NaN guard's verdict is reduced across ranks, so
-no rank is left waiting in a collective.  On a tp mesh the health
-gauges are refused when the step is built (ROADMAP queue 1 item 9d).
+no rank is left waiting in a collective.  Health on such a mesh: every
+rank's ``health_*`` values are the same (they read the reduced gradients
+and the replicated state), so every rank trips the nonfinite tripwire at
+the same block boundary; rank 0 alone sets the gauges and writes the
+forensic dump.
 """
 
 from __future__ import annotations
@@ -491,12 +494,14 @@ class GanTrainer:
     def _health_boundary(self, host: dict, n: int, base_epoch: int) -> None:
         """A block's health values (already on the host: they rode the
         metrics fetch) as ``health/*`` gauges, and the nonfinite
-        tripwire with a forensic dump of the live checkpoint tree."""
+        tripwire with a forensic dump of the live checkpoint tree (on a
+        multi-process mesh rank 0's gauges and dump, every rank's raise)."""
         from hfrep_tpu_torch.obs import health as health_mod
         if float(np.nansum(host["health_nonfinite"])) > 0:
             self.logger.flush()         # the log up to the fault, before a raise
         health_mod.gan_boundary(host, base_epoch + n - 1, "block", self._ckpt_tree(),
-                                fallback=self.cfg.train.checkpoint_dir)
+                                fallback=self.cfg.train.checkpoint_dir,
+                                leader=not self._multiprocess() or self.mesh.rank == 0)
 
     @property
     def steps_per_sec(self) -> float:

@@ -13,6 +13,11 @@
   1e-4, stop epochs equal).
 * A lane count dp does not divide is refused naming the lane axis, and
   ``lane_mesh`` refuses a lane count the ranks do not divide.
+* Health on the dp=2 split grid: training bit for bit; rank 0's gauges
+  the meshless health-on drive's (the grad norm and the nonfinite count
+  equal, the param norm within rtol 1e-6), rank 1's none; the kill and
+  resume bit for bit; a NaN in one rank's lanes trips both ranks at one
+  boundary with one whole-grid dump.
 * ``run_walkforward`` on a dp=2 lane mesh as two spawned gloo ranks:
   rank 0 alone writes, its outputs byte for byte the meshless drive's,
   every rank's surfaces bit for bit; a drain requested on one rank
@@ -23,6 +28,7 @@
 
 from __future__ import annotations
 
+import json
 import os
 import socket
 import subprocess
@@ -39,7 +45,9 @@ from hfrep_tpu.config import AEConfig as JaxAEConfig
 from hfrep_tpu.models.autoencoder import Autoencoder as JaxAutoencoder
 from hfrep_tpu.parallel import rules as jrules
 from hfrep_tpu.replication import engine as jax_engine
+import hfrep_tpu_torch.obs as obs_pkg
 from hfrep_tpu_torch.config import AEConfig
+from hfrep_tpu_torch.obs import health
 from hfrep_tpu_torch.parallel.rules import Mesh, lane_mesh
 from hfrep_tpu_torch.replication import engine
 
@@ -52,8 +60,10 @@ CFG = dict(n_factors=F, latent_dim=4, epochs=6, batch_size=16, patience=2, seed=
 RANK = r'''
 import sys, torch
 torch.set_num_threads(1)
+import hfrep_tpu_torch.obs as obs_pkg
 from hfrep_tpu_torch import resilience
 from hfrep_tpu_torch.config import AEConfig
+from hfrep_tpu_torch.obs import health
 from hfrep_tpu_torch.parallel import initialize_distributed, lane_mesh, shutdown_distributed
 from hfrep_tpu_torch.replication import engine
 from hfrep_tpu_torch.resilience.faults import FaultPlan
@@ -86,6 +96,34 @@ try:
                                                      job["latents"], mesh=m2,
                                                      resume_dir=job["resume"])
     out["dp"] = (m.shape["dp"], m2.shape["dp"])
+    # health on: the padded drive (its gauges in this rank's stream), the
+    # multi drive killed after chunk 1 and resumed, then a NaN planted in
+    # rank 1's lanes under the armed tripwire
+    health.configure(health.HealthConfig())
+    with obs_pkg.session(job["obs"] + f"/rank{rank}", command="t"):
+        out["padded_health"] = engine.sweep_autoencoders_padded(
+            3, job["a"], job["a"].shape[0], cfg, job["latents"], mesh=m)
+    resilience.install_plan(FaultPlan.parse("preempt@chunk=1"))
+    try:
+        engine.sweep_autoencoders_multi(5, job["stack"], job["rows"], cfg, job["latents"],
+                                        mesh=m2, resume_dir=job["resume_health"])
+        out["preempted_health"] = False
+    except resilience.Preempted:
+        out["preempted_health"] = True
+    finally:
+        resilience.clear_plan()
+    out["resumed_health"] = engine.sweep_autoencoders_multi(
+        5, job["stack"], job["rows"], cfg, job["latents"], mesh=m2,
+        resume_dir=job["resume_health"])
+    health.configure(health.HealthConfig(abort_on_nonfinite=True, dump_dir=job["dump"]))
+    try:
+        engine.sweep_autoencoders_padded(3, job["a"], job["a"].shape[0], cfg, job["latents"],
+                                         init_params=job["nan_init"], mesh=m)
+        out["fault"] = None
+    except health.NumericFault as e:
+        out["fault"] = {"site": e.site, "epoch": e.epoch, "nonfinite": e.nonfinite,
+                        "dump": e.dump}
+    health.configure(None)
     torch.save(out, spec + f".rank{rank}")
 finally:
     shutdown_distributed()
@@ -235,11 +273,16 @@ def test_dp2_lane_mesh_is_the_meshless_drive_bit_for_bit(tmp_path):
     init, perms = _lane_draws(keys, max(LATENTS), jcfg.epochs, int(36 * 0.75))
     lead = (2, len(LATENTS))
     spec = str(tmp_path / "job.pt")
+    nan_init = engine.keras_init_params(torch.Generator().manual_seed(0), (len(LATENTS),), F,
+                                        max(LATENTS), "cpu")
+    nan_init["encoder_kernel"][len(LATENTS) - 1, 0, 0] = float("nan")    # rank 1's lanes
     torch.save({"cfg": CFG, "latents": LATENTS, "a": a, "stack": stack, "rows": rows,
                 "jax_init": {k: torch.from_numpy(v.reshape(lead + v.shape[1:]))
                              for k, v in init.items()},
                 "jax_perms": torch.from_numpy(perms.reshape(lead + perms.shape[1:])),
-                "resume": str(tmp_path / "resume")}, spec)
+                "resume": str(tmp_path / "resume"),
+                "resume_health": str(tmp_path / "resume_health"), "obs": str(tmp_path / "obs"),
+                "dump": str(tmp_path / "dump"), "nan_init": nan_init}, spec)
     ranks = _spawn_ranks(RANK, spec)
     padded = engine.sweep_autoencoders_padded(3, a, 36, cfg, LATENTS, device="cpu")
     multi = engine.sweep_autoencoders_multi(5, stack, rows, cfg, LATENTS, device="cpu")
@@ -262,6 +305,60 @@ def test_dp2_lane_mesh_is_the_meshless_drive_bit_for_bit(tmp_path):
             np.testing.assert_allclose(g, w, rtol=1e-4, err_msg=k)
         assert stats.chunks_dispatched == want_jax_stats.chunks_dispatched
     assert not (tmp_path / "resume" / "chunk_snapshot").exists()   # cleared after the drive
+    _check_split_health(tmp_path, ranks, padded, multi, a, cfg)
+
+
+def _gauge_records(run_dir) -> list:
+    """``(name, value, epoch)`` of every ``health/ae_*`` gauge a stream set,
+    in order."""
+    recs = [json.loads(line) for line in (run_dir / "events.jsonl").read_text().splitlines()
+            if line]
+    return [(r["name"], r["value"], r["epoch"]) for r in recs
+            if r.get("kind") == "gauge" and r["name"].startswith("health/ae_")]
+
+
+def _check_split_health(tmp_path, ranks, padded, multi, a, cfg) -> None:
+    """The dp=2 split grid with health on: training bit for bit the
+    health-off meshless drive's; rank 0's gauges at every boundary and the
+    drive's end the meshless health-on drive's (grad norm and nonfinite
+    count equal, the param norm within rtol 1e-6: JAX's reduction, a
+    NaN-ignoring max, a sum, the root of the summed squares), rank 1's
+    none; the kill and resume with health on bit for bit; a NaN in rank
+    1's lanes raising ``NumericFault`` on both ranks at the same boundary,
+    with one dump, rank 0's, holding the whole grid."""
+    health.configure(health.HealthConfig())
+    try:
+        with obs_pkg.session(tmp_path / "meshless_obs", command="t"):
+            want, want_stats = engine.sweep_autoencoders_padded(3, a, 36, cfg, LATENTS,
+                                                                device="cpu")
+    finally:
+        health.configure(None)
+    assert _equal(want, padded[0])
+    ref = _gauge_records(tmp_path / "meshless_obs")
+    assert len(ref) >= 6
+    got = _gauge_records(tmp_path / "obs" / "rank0")
+    assert [(n, e) for n, _, e in got] == [(n, e) for n, _, e in ref]
+    for (name, g, _), (_, r, _) in zip(got, ref):
+        if name == "health/ae_param_norm":
+            np.testing.assert_allclose(g, r, rtol=1e-6, err_msg=name)
+        else:
+            assert g == r or (np.isnan(g) and np.isnan(r)), (name, g, r)
+    assert _gauge_records(tmp_path / "obs" / "rank1") == []
+    faults = []
+    for doc in ranks:
+        got, stats = doc["padded_health"]
+        assert _equal(got, padded[0]) and stats == want_stats
+        assert doc["preempted_health"] and _equal(doc["resumed_health"][0], multi[0])
+        faults.append(doc["fault"])
+    assert [(f["site"], f["epoch"], f["nonfinite"]) for f in faults] == \
+        [(faults[0]["site"], faults[0]["epoch"], faults[0]["nonfinite"])] * 2
+    assert faults[0]["site"] == "chunk" and faults[0]["nonfinite"] > 0
+    assert faults[1]["dump"] is None
+    dumps = list((tmp_path / "dump").iterdir())
+    assert [str(d) for d in dumps] == [faults[0]["dump"]]
+    with np.load(dumps[0] / "carry.npz") as z:
+        flat = z["leaf_0"]
+    assert flat.shape[:2] == (1, len(LATENTS)) and np.isnan(flat[0, -1]).any()
 
 
 def test_dp2_walkforward_writes_once_and_drains_every_rank(tmp_path):

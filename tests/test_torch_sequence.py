@@ -17,11 +17,21 @@ the JAX package, on the CPU.
   sp mesh against the plain trainer's trajectory at rtol 1e-3, atol
   1e-4, and a resume from its mid-run checkpoint exactly the straight
   run.
-* The refusals: a window sp does not divide, a family sp does not run.
+* Every other family (gan, wgan, wgan_gp, mtss_gan, mtss_wgan) on the
+  sp=2 and 1×2 dp×sp meshes from JAX's init on JAX's draws against JAX's
+  single-device epoch at atol 1e-4, the ranks within rtol 1e-6; the
+  flagship at bf16 there at the bf16 bars (``PERF.md`` §2) against JAX's
+  bf16 epoch and the port's single-device one on both critic routes, and
+  within atol 1e-4 of the chained route.
+* Health on = health off bit for bit (params, slots, metrics) on the dp,
+  sp and pp meshes, the health values the same on both ranks.
+* The refusals: a window sp does not divide, a network with no
+  window-chunk form; every family and bf16 build.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import subprocess
@@ -46,9 +56,11 @@ from hfrep_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
 from hfrep_tpu_torch.models.discriminators import LSTMFlatCritic
 from hfrep_tpu_torch.models.generators import LSTMGenerator
 from hfrep_tpu_torch.models.registry import build_gan
+from hfrep_tpu_torch.obs import health
 from hfrep_tpu_torch.parallel import sequence as seq
 from hfrep_tpu_torch.parallel.rules import Mesh
-from hfrep_tpu_torch.train import Draws, init_gan_state, make_multi_step, sample_draws
+from hfrep_tpu_torch.train import (Draws, init_gan_state, make_multi_step, make_train_step,
+                                   sample_draws)
 from hfrep_tpu_torch.train.trainer import GanTrainer
 from hfrep_tpu_torch.utils.bridge import from_flax, gan_state_from_flax, to_flax
 
@@ -64,8 +76,10 @@ from hfrep_tpu_torch.config import ExperimentConfig, ModelConfig, TrainConfig
 from hfrep_tpu_torch.models.discriminators import LSTMFlatCritic
 from hfrep_tpu_torch.models.generators import LSTMGenerator
 from hfrep_tpu_torch.models.registry import build_gan
+from hfrep_tpu_torch.obs import health
 from hfrep_tpu_torch.parallel import (MeshSpec, build_mesh, initialize_distributed,
-                                      make_dp_sp_train_step, make_mesh_2d, make_sp_multi_step,
+                                      make_dp_sp_train_step, make_gan_train_step, make_mesh_2d,
+                                      make_pp_train_step, make_sp_multi_step,
                                       make_sp_train_step, shutdown_distributed, sp_critic,
                                       sp_generate, sp_lstm)
 from hfrep_tpu_torch.parallel import rules
@@ -123,6 +137,37 @@ try:
                       "g": tr.state.generator.state_dict(), "resumed_at": resumed_at,
                       "resumed_g": back.state.generator.state_dict(),
                       "resumed_history": back.history}
+
+    def keep_all(state, metrics):
+        return dict(keep(state, metrics), slots={"g": state.g_opt, "d": state.d_opt})
+
+    # health on = off on the dp, sp and pp meshes, from the same state and draws
+    out["health"] = {}
+    for name, m, build in (("dp", build_mesh(MeshSpec(dp=2), device="cpu"), make_gan_train_step),
+                           ("sp", mesh, make_sp_train_step),
+                           ("pp", build_mesh(MeshSpec(pp=2), device="cpu"), make_pp_train_step)):
+        runs = []
+        for on in (False, True):
+            health.configure(health.HealthConfig() if on else None)
+            runs.append(keep_all(*build(pair, tcfg, job["dataset"], m)(start(),
+                                                                       Draws(*job["draws"]))))
+        health.configure(None)
+        out["health"][name] = runs
+
+    # every other family, and bf16, on the sp and the 1x2 dp x sp meshes
+    def run_family(fj):
+        fm = ModelConfig(**fj["mcfg"])
+        fp = build_gan(fm, device="cpu")
+        res = {}
+        for name, m, build in (("sp", mesh, make_sp_train_step),
+                               ("dp_sp", make_mesh_2d(1, 2, device="cpu"), make_dp_sp_train_step)):
+            st = init_gan_state(0, fm, "cpu")
+            st.generator.load_state_dict(fj["g0"])
+            st.discriminator.load_state_dict(fj["d0"])
+            res[name] = keep_all(*build(fp, tcfg, job["dataset"], m)(st, Draws(*fj["draws"])))
+        return res
+
+    out["families"] = {fam: run_family(fj) for fam, fj in job["families"].items()}
     torch.save(out, spec + f".rank{rank}")
 finally:
     shutdown_distributed()
@@ -199,6 +244,135 @@ def _jax_epoch():
     key = jax.random.PRNGKey(1)
     out = jax.jit(jax_make_train_step(jpair, jt, jnp.asarray(ds)))(jstate, key)
     return ds, start, _jax_draws(key), out
+
+
+#: the families sp runs besides the flagship, each with its own networks
+OTHER_FAMILIES = ("gan", "wgan", "wgan_gp", "mtss_gan", "mtss_wgan")
+#: the bf16 bars (``tests/test_torch_precision.py``): losses rtol, params
+#: scaled by max(1, max|ref|), each update's relative L2, the slots scaled
+LOSS_RTOL, PARAM_BAR, UPDATE_BAR, SLOT_BAR = 5e-2, 1e-2, 0.25, 0.2
+
+
+def family_draws(loss: str, key) -> Draws:
+    """The draws JAX's ``make_train_step`` derives from ``key`` for a loss
+    kind."""
+    if loss == "bce":
+        k_idx, k_z1, k_z2 = jax.random.split(key, 3)
+        idx = jax.random.randint(k_idx, (B,), 0, N_ROWS)
+        noises = jnp.stack([jax.random.normal(k, (B, W, F)) for k in (k_z1, k_z2)])
+        return Draws(idx=_t(idx, torch.long), noises=_t(noises))
+    if loss == "wgan_gp":
+        return _jax_draws(key)
+    ks = [jax.random.split(jax.random.fold_in(key, i), 2) for i in range(NC)]
+    return Draws(idx=_t(jnp.stack([jax.random.randint(k[0], (B,), 0, N_ROWS) for k in ks]),
+                        torch.long),
+                 noises=_t(jnp.stack([jax.random.normal(k[1], (B, W, F)) for k in ks])))
+
+
+def jax_family_epoch(family: str, dtype: str = "float32") -> dict:
+    """JAX's plain epoch of ``family`` at ``dtype`` on its init, the
+    dataset of :func:`_jax_epoch` and its key's draws: the port's start
+    state, the draws, and JAX's state after the epoch as a port state
+    (params and slots) with its metrics."""
+    from hfrep_tpu_torch.utils.bridge import gan_state_from_jax
+
+    model = dict(family=family, hidden=H, window=W, features=F, dtype=dtype)
+    jm = JaxModelConfig(**model)
+    jt = JaxTrainConfig(batch_size=B, n_critic=NC, lstm_backend="xla")
+    ds = np.random.default_rng(3).uniform(0, 1, (N_ROWS, W, F)).astype(np.float32)
+    jpair = jax_build_gan(jm)
+    jstate = jax_init_gan_state(jax.random.PRNGKey(0), jm, jt, jpair)
+    pair = build_gan(ModelConfig(**model), device="cpu")
+    np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    start = gan_state_from_flax(np_tree(jstate.g_params), np_tree(jstate.d_params), pair)
+    key = jax.random.PRNGKey(1)
+    jstate1, jm1 = jax.jit(jax_make_train_step(jpair, jt, jnp.asarray(ds)))(jstate, key)
+    return {"mcfg": model, "start": start, "draws": family_draws(pair.loss, key),
+            "ref": state_doc(gan_state_from_jax(np_tree(jstate1), pair),
+                             {k: torch.from_numpy(np.array(v)) for k, v in jm1.items()})}
+
+
+def bf16_refs() -> dict:
+    """The flagship's bf16 epoch (:func:`jax_family_epoch`) with the
+    port's single-device bf16 epoch from the same start and draws on each
+    critic route (``"auto"``: the fused stack; ``"chained"``)."""
+    bf = jax_family_epoch("mtss_wgan_gp", "bfloat16")
+    ds = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (N_ROWS, W, F))
+                          .astype(np.float32))
+    for route in ("auto", "chained"):
+        st = copy.deepcopy(bf["start"])
+        st.discriminator.stack = route
+        bf[route] = state_doc(*make_train_step(build_gan(ModelConfig(**bf["mcfg"]), device="cpu"),
+                                               TrainConfig(batch_size=B, n_critic=NC),
+                                               ds)(st, bf["draws"]))
+    return bf
+
+
+def state_doc(state, metrics) -> dict:
+    """An epoch's outcome as the rank jobs keep it: parameters, metrics,
+    optimizer slots, step."""
+    return {"g": state.generator.state_dict(), "d": state.discriminator.state_dict(),
+            "m": metrics, "slots": {"g": state.g_opt, "d": state.d_opt}, "step": state.step}
+
+
+def family_job(fam: dict) -> dict:
+    return {"mcfg": fam["mcfg"], "g0": fam["start"].generator.state_dict(),
+            "d0": fam["start"].discriminator.state_dict(),
+            "draws": (fam["draws"].idx, fam["draws"].noises, fam["draws"].alphas)}
+
+
+def check_close(got: dict, ref: dict, atol: float, rtol: float = 0.0) -> None:
+    """Every parameter and metric of ``got`` within atol + rtol |ref|."""
+    for net in ("g", "d"):
+        for k, v in ref[net].items():
+            np.testing.assert_allclose(got[net][k].numpy(), v.numpy(), atol=atol, rtol=rtol,
+                                       err_msg=f"{net}.{k}")
+    for k, v in ref["m"].items():
+        np.testing.assert_allclose(got["m"][k].numpy(), np.asarray(v), atol=atol, rtol=rtol,
+                                   err_msg=k)
+    assert got["step"] == ref["step"]
+
+
+def bf16_errs(got: dict, ref: dict, p0: dict) -> dict:
+    """A bf16 epoch against a reference, the worst of each measure over
+    every parameter (``tests/test_torch_precision.py``'s): ``loss`` the
+    relative loss error, ``param`` |got - ref| / max(1, max|ref|),
+    ``update`` |Δgot - Δref|_2 / |Δref|_2 with Δ = p1 - p0, ``slot`` the
+    optimizer slots |got - ref| / max|ref|."""
+    errs = {"loss": 0.0, "param": 0.0, "update": 0.0, "slot": 0.0}
+    for k in ("d_loss", "g_loss"):
+        a, r = float(got["m"][k]), float(ref["m"][k])
+        errs["loss"] = max(errs["loss"], abs(a - r) / max(abs(r), 1e-30))
+    for net in ("g", "d"):
+        for k, r in ref[net].items():
+            a, r, z = got[net][k].double(), r.double(), p0[net][k].double()
+            errs["param"] = max(errs["param"],
+                                float((a - r).abs().max()) / max(1.0, float(r.abs().max())))
+            errs["update"] = max(errs["update"], float(((a - z) - (r - z)).norm() / (r - z).norm()))
+            for slot in ("mu", "nu"):
+                if slot in ref["slots"][net]:
+                    x = got["slots"][net][slot][k].double()
+                    y = ref["slots"][net][slot][k].double()
+                    errs["slot"] = max(errs["slot"], float((x - y).abs().max() / y.abs().max()))
+    return errs
+
+
+def assert_bf16_bars(errs: dict) -> None:
+    assert errs["loss"] <= LOSS_RTOL, errs
+    assert errs["param"] <= PARAM_BAR, errs
+    assert errs["update"] <= UPDATE_BAR, errs
+    assert errs["slot"] <= SLOT_BAR, errs
+
+
+def state_equal(a: dict, b: dict, health_keys: bool = False) -> bool:
+    """Parameters, slots and (the plain) metrics bit for bit."""
+    def eq(x, y):
+        if isinstance(x, dict):
+            return set(x) == set(y) and all(eq(x[k], y[k]) for k in x)
+        return torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+    plain = [k for k in a["m"] if health_keys or not k.startswith("health_")]
+    return (eq(a["g"], b["g"]) and eq(a["d"], b["d"]) and eq(a["slots"], b["slots"])
+            and all(torch.equal(a["m"][k], b["m"][k]) for k in plain) and a["step"] == b["step"])
 
 
 # ------------------------------------------------------- the plain forwards
@@ -280,13 +454,18 @@ def sp2(tmp_path_factory):
         **dict(trainer_cfg, checkpoint_dir=None))), torch.from_numpy(ds), device="cpu")
     plain.train(4)
     refs["trainer"] = plain
+    # every other family, and the flagship at bf16: JAX's epochs, and the
+    # port's single-device bf16 epoch on each critic route
+    fams = {f: jax_family_epoch(f) for f in OTHER_FAMILIES}
+    fams["mtss_wgan_gp_bf16"] = bf16_refs()
+    refs["families"] = fams
     job = {"gf": GF, "cw": CW, "h": H, "z": _t(z), "x": _t(x), "generator": gen.state_dict(),
            "critic": critic.state_dict(), "mcfg": dataclasses.asdict(mcfg),
            "tcfg": dict(batch_size=B, n_critic=NC), "dataset": torch.from_numpy(ds),
            "g0": start.generator.state_dict(), "d0": start.discriminator.state_dict(),
            "draws": (draws.idx, draws.noises, draws.alphas),
            "block_draws": [(d.idx, d.noises, d.alphas) for d in block_draws],
-           "trainer": trainer_cfg}
+           "trainer": trainer_cfg, "families": {k: family_job(v) for k, v in fams.items()}}
     spec = str(tmp / "job.pt")
     torch.save(job, spec)
     return refs, run_ranks(RANK, spec)
@@ -400,6 +579,60 @@ def test_sp_trainer_matches_plain_trajectory_and_resumes_exactly(sp2):
     assert ranks[0]["trainer"]["history"] == ranks[1]["trainer"]["history"]
 
 
+def test_health_on_is_off_on_the_dp_sp_and_pp_meshes(sp2):
+    """One epoch on a dp=2, an sp=2 and a pp=2 mesh with health on and
+    off from the same state and draws: params, slots and the plain
+    metrics bit for bit; the five health values finite and the same on
+    both ranks (they read the reduced gradients and the replicated
+    state)."""
+    _, ranks = sp2
+    for doc in ranks:
+        for name, (off, on) in doc["health"].items():
+            assert not any(k.startswith("health_") for k in off["m"]), name
+            assert set(on["m"]) == set(off["m"]) | set(health.STEP_KEYS), name
+            assert state_equal(off, on), name
+            assert all(np.isfinite(float(on["m"][k])) for k in health.STEP_KEYS), name
+            assert float(on["m"]["health_nonfinite"]) == 0.0, name
+    for name in ranks[0]["health"]:
+        assert state_equal(ranks[0]["health"][name][1], ranks[1]["health"][name][1],
+                           health_keys=True), name
+
+
+@pytest.mark.parametrize("mesh", ["sp", "dp_sp"])
+@pytest.mark.parametrize("family", OTHER_FAMILIES)
+def test_every_family_on_sp_matches_jax_s_plain_step(sp2, family, mesh):
+    """Each family's epoch on the sp=2 and the 1×2 dp×sp mesh from JAX's
+    init on JAX's draws against JAX's single-device epoch at atol 1e-4
+    (JAX's two-process bar), the ranks within rtol 1e-6: the Dense
+    networks' chunks with no carry, the per-step critics' scores gathered
+    over the window, the weight clip on the replicated state."""
+    refs, ranks = sp2
+    for doc in ranks:
+        check_close(doc["families"][family][mesh], refs["families"][family]["ref"], atol=1e-4)
+    _ranks_agree(ranks[0]["families"][family][mesh], ranks[1]["families"][family][mesh])
+
+
+@pytest.mark.parametrize("mesh", ["sp", "dp_sp"])
+def test_bf16_on_sp_matches_jax_s_and_the_single_device_step(sp2, mesh):
+    """A bf16 flagship epoch on the sp=2 and 1×2 dp×sp meshes: at the
+    bf16 bars against JAX's bf16 epoch and the port's single-device bf16
+    epoch on either critic route; within sp's float32 bar (atol 1e-4) of
+    the chained route, whose layers run singly as the chunks do (the
+    fused stack adds b2 in float32 where a single layer rounds ``x@k + b``
+    to bf16); float32 state; the ranks within rtol 1e-6."""
+    refs, ranks = sp2
+    bf = refs["families"]["mtss_wgan_gp_bf16"]
+    p0 = state_doc(bf["start"], {})
+    for doc in ranks:
+        got = doc["families"]["mtss_wgan_gp_bf16"][mesh]
+        for ref in (bf["ref"], bf["auto"], bf["chained"]):
+            assert_bf16_bars(bf16_errs(got, ref, p0))
+        check_close(got, bf["chained"], atol=1e-4)
+        assert all(v.dtype == torch.float32 for net in ("g", "d") for v in got[net].values())
+    _ranks_agree(ranks[0]["families"]["mtss_wgan_gp_bf16"][mesh],
+                 ranks[1]["families"]["mtss_wgan_gp_bf16"][mesh])
+
+
 # ---------------------------------------------------------- the refusals
 def test_sp_refusals_name_what_was_asked():
     cpu = torch.device("cpu")
@@ -409,18 +642,25 @@ def test_sp_refusals_name_what_was_asked():
                      device="cpu")
     with pytest.raises(ValueError, match="window 7 not divisible by sp=2"):
         seq.make_sp_multi_step(pair, tcfg, torch.zeros((16, 7, 5)), sp_mesh)
-    wgan = build_gan(ModelConfig(family="wgan_gp", features=5, window=8, hidden=8),
-                     device="cpu")
-    with pytest.raises(ValueError, match="supports the mtss_wgan_gp family"):
-        seq.make_sp_multi_step(wgan, tcfg, torch.zeros((16, 8, 5)), sp_mesh)
+    # every family builds (JAX's sp puts no family rule on the step) ...
+    for family in OTHER_FAMILIES:
+        other = build_gan(ModelConfig(family=family, features=5, window=8, hidden=8),
+                          device="cpu")
+        assert callable(seq.make_sp_multi_step(other, tcfg, torch.zeros((16, 8, 5)), sp_mesh))
+    # ... and a network with no window-chunk form is refused by name
+    from hfrep_tpu_torch.models.conditional import build_conditional_gan
+    cond = build_conditional_gan(ModelConfig(family="wgan_gp", features=5, window=8, hidden=8),
+                                 2, device="cpu")
+    with pytest.raises(ValueError, match="no window-chunk form of ConditionalGenerator"):
+        seq.make_sp_multi_step(cond, tcfg, torch.zeros((16, 8, 5)), sp_mesh)
     for names in (("sp", "tp"), ("sp", "pp")):
         with pytest.raises(ValueError, match="dp_sp_tp.py launch|layer_pipeline.py axis"):
             seq.make_sp_train_step(pair, tcfg, torch.zeros((16, 8, 5)),
                                    Mesh(names, (2, 2), cpu, group=object()))
     bf16 = build_gan(ModelConfig(family="mtss_wgan_gp", features=5, window=8, hidden=8,
                                  dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        seq.validate_sp_pair(bf16)
+    seq.validate_sp_pair(bf16)                  # bf16 runs (JAX puts no dtype rule on sp)
+    assert callable(seq.make_sp_train_step(bf16, tcfg, torch.zeros((16, 8, 5)), sp_mesh))
     with pytest.raises(ValueError, match="axis 'tp' not in mesh"):
         seq._window_chain(sp_mesh, "tp")
     with pytest.raises(NotImplementedError, match="sigmoid gates"):

@@ -19,13 +19,24 @@ dp_sp_tp,rules,mesh}.py``) against the JAX package, on the CPU.
 * On four ranks: dp×tp 2×2 and dp×sp×tp 1×2×2 against JAX's epoch at
   atol 1e-4 with their counts, tp=4's forwards; 2×2×2 on eight (slow, as
   JAX marks it).
-* JAX's refusals and messages, the retired knobs' ``TypeError``, and the
-  launch names (``tests/test_obs.py:402-423``).
+* Health on tp=2 and dp×sp×tp 1×2×2: bit for bit the health-off epoch
+  (params, slots, metrics), the all_reduces unchanged, the five values
+  JAX's ``_health_metrics`` at ``test_torch_health.py``'s bars, the ranks
+  bit-equal; ``GanTrainer`` on the tp mesh with health on (rank 0 alone
+  sets the gauges; a NaN parameter trips every rank at one boundary,
+  rank 0 alone dumps).
+* bf16 on tp=2 and dp×sp×tp 1×2×2 at the bf16 bars (``PERF.md`` §2)
+  against JAX's bf16 epoch and the port's single-device bf16 epochs.
+* JAX's refusals and messages (bf16 and health now build, as in JAX),
+  the retired knobs' ``TypeError``, and the launch names
+  (``tests/test_obs.py:402-423``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -42,8 +53,10 @@ from hfrep_tpu_torch.parallel.rules import GAN_PARTITION_RULES, Mesh, MeshSpec
 from hfrep_tpu_torch.train import init_gan_state, make_multi_step, sample_draws
 from hfrep_tpu_torch.train.trainer import GanTrainer
 from hfrep_tpu_torch.utils.bridge import to_flax
+from hfrep_tpu.obs import health as jax_health
 from test_torch_sequence import (B, CW, F, GF, H, N_ROWS, NC, W, _check_against_jax, _jax_epoch,
-                                 _models, _t, run_ranks)
+                                 _models, _t, assert_bf16_bars, bf16_errs, bf16_refs, family_job,
+                                 jax_family_epoch, run_ranks, state_doc, state_equal)
 
 CPU = torch.device("cpu")
 MCFG = dict(family="mtss_wgan_gp", features=F, window=W, hidden=H)
@@ -64,6 +77,8 @@ from hfrep_tpu_torch.parallel import (MeshSpec, build_mesh, initialize_distribut
 from hfrep_tpu_torch.parallel import rules
 from hfrep_tpu_torch.train import Draws, init_gan_state
 from hfrep_tpu_torch.train.trainer import GanTrainer
+import hfrep_tpu_torch.obs as obs_pkg
+from hfrep_tpu_torch.obs import health
 rank, store, spec = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 job = torch.load(spec, weights_only=False)
 n = job["ranks"]
@@ -85,7 +100,29 @@ try:
     def keep(state, metrics, mesh):
         return {"g": state.generator.state_dict(), "d": state.discriminator.state_dict(),
                 "m": metrics, "step": state.step, "coords": mesh.coords(),
+                "slots": {"g": state.g_opt, "d": state.d_opt},
                 "collectives": rules.collective_counts()}
+
+    def healthy(build, mesh):
+        """The tp job's epoch with health on, its collectives counted."""
+        health.configure(health.HealthConfig())
+        try:
+            rules.reset_collective_counts()
+            return keep(*build(pair, tcfg, job["dataset"], mesh)(start(), Draws(*job["draws"])),
+                        mesh)
+        finally:
+            health.configure(None)
+
+    def bf16(build, mesh):
+        """One bf16 flagship epoch from JAX's bf16 init on its draws."""
+        bj = job["bf16"]
+        bm = ModelConfig(**bj["mcfg"])
+        st = init_gan_state(0, bm, "cpu")
+        st.generator.load_state_dict(bj["g0"])
+        st.discriminator.load_state_dict(bj["d0"])
+        rules.reset_collective_counts()
+        return keep(*build(build_gan(bm, device="cpu"), tcfg, job["dataset"], mesh)(
+            st, Draws(*bj["draws"])), mesh)
 
     if n == 2:
         mesh = build_mesh(MeshSpec(tp=2), device="cpu")
@@ -115,7 +152,33 @@ try:
                           "g": tr.state.generator.state_dict(),
                           "d": tr.state.discriminator.state_dict(), "resumed_at": resumed_at,
                           "resumed_g": back.state.generator.state_dict(),
-                          "resumed_history": back.history}
+                          "resumed_history": back.history,
+                          "slots": {"g": tr.state.g_opt, "d": tr.state.d_opt}}
+        out["tp_health"] = healthy(make_tp_train_step, mesh)
+        out["tp_bf16"] = bf16(make_tp_train_step, mesh)
+        # the trainer with health on: its gauges in rank 0's stream alone
+        plain = ExperimentConfig(model=mcfg, train=TrainConfig(
+            **dict(job["trainer"], checkpoint_dir=None)))
+        health.configure(health.HealthConfig())
+        with obs_pkg.session(job["obs"] + f"/rank{rank}", command="t"):
+            th = GanTrainer(plain, job["dataset"], device="cpu", mesh=mesh)
+            th.train(4)
+        out["trainer_health"] = {"history": th.history, "g": th.state.generator.state_dict(),
+                                 "d": th.state.discriminator.state_dict(),
+                                 "slots": {"g": th.state.g_opt, "d": th.state.d_opt}}
+        # a NaN parameter under the armed tripwire: every rank raises at
+        # the first block boundary, rank 0 alone dumps
+        health.configure(health.HealthConfig(abort_on_nonfinite=True, dump_dir=job["dump"]))
+        tn = GanTrainer(plain, job["dataset"], device="cpu", mesh=mesh)
+        with torch.no_grad():
+            tn.state.generator.lstm0.kernel[0, 0] = float("nan")
+        try:
+            tn.train(4)
+            out["fault"] = None
+        except health.NumericFault as e:
+            out["fault"] = {"site": e.site, "epoch": e.epoch, "dump": e.dump,
+                            "trainer_epoch": tn.epoch}
+        health.configure(None)
     elif n == 4:
         for name, mesh, build in (
                 ("dp_tp", make_mesh_2d(2, 2, device="cpu", axis_names=("dp", "tp")),
@@ -124,6 +187,8 @@ try:
             rules.reset_collective_counts()
             out[name] = keep(*build(pair, tcfg, job["dataset"], mesh)(start(), Draws(*job["draws"])),
                              mesh)
+        out["dp_sp_tp_health"] = healthy(make_dp_sp_tp_train_step, mesh)
+        out["dp_sp_tp_bf16"] = bf16(make_dp_sp_tp_train_step, mesh)
         mesh = build_mesh(MeshSpec(tp=4), device="cpu")
         with torch.no_grad():
             out["gen"] = tp_generate(gen, job["z"], mesh)
@@ -267,13 +332,13 @@ def test_jax_s_refusals_and_messages():
                                          "over a 2-device mesh"):
         tensor.make_tp_multi_step(pair, dataclasses.replace(tcfg, lstm_backend="pallas"), ds,
                                   _tp_mesh())
+    # bf16 and health build on a tp mesh: JAX puts no dtype or health rule
+    # on tp (its _validate_gan_mesh)
     bf16 = build_gan(ModelConfig(**dict(MCFG, dtype="bfloat16")), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        tensor.make_tp_train_step(bf16, tcfg, ds, _tp_mesh())
+    assert callable(tensor.make_tp_train_step(bf16, tcfg, ds, _tp_mesh()))
     health.configure(health.HealthConfig())
     try:
-        with pytest.raises(ValueError, match="item 9d"):
-            tensor.make_tp_train_step(pair, tcfg, ds, _tp_mesh())
+        assert callable(tensor.make_tp_train_step(pair, tcfg, ds, _tp_mesh()))
     finally:
         health.configure(None)
     with pytest.raises(ValueError, match="dp_sp_tp.py launch"):
@@ -364,6 +429,13 @@ def _job(tmp, ranks: int) -> tuple:
             **dict(trainer_cfg, checkpoint_dir=None))), torch.from_numpy(ds), device="cpu")
         plain.train(4)
         refs["trainer"] = plain
+    # JAX's epoch with health on (its _health_metrics), and the bf16 refs
+    jax_health.configure(jax_health.HealthConfig())
+    try:
+        refs["jax_health"] = jax_family_epoch("mtss_wgan_gp")["ref"]["m"]
+    finally:
+        jax_health.configure(None)
+    refs["bf16"] = bf = bf16_refs()
     refs.update(ds=ds, trainer_cfg=trainer_cfg)
     job = {"ranks": ranks, "gf": GF, "cw": CW, "h": H, "z": _t(z), "x": _t(x),
            "generator": gen.state_dict(), "critic": critic.state_dict(),
@@ -372,7 +444,8 @@ def _job(tmp, ranks: int) -> tuple:
            "d0": start.discriminator.state_dict(),
            "draws": (draws.idx, draws.noises, draws.alphas),
            "block_draws": [(d.idx, d.noises, d.alphas) for d in block_draws],
-           "trainer": trainer_cfg}
+           "trainer": trainer_cfg, "bf16": family_job(bf), "obs": str(tmp / "obs"),
+           "dump": str(tmp / "dump")}
     spec = str(tmp / "job.pt")
     torch.save(job, spec)
     return refs, spec
@@ -496,6 +569,127 @@ def test_a_tp_checkpoint_restores_on_one_device_bit_for_bit(tp2):
         assert all(torch.equal(v, t[net][k]) for k, v in module.state_dict().items()), net
 
 
+def test_tp_health_is_off_bit_for_bit_and_jax_s_values(tp2):
+    """One tp=2 epoch with health on from JAX's init on JAX's draws: params,
+    slots and the plain metrics bit for bit the health-off epoch's, the
+    all_reduces still exactly :func:`tp_reduces` (health reads the reduced
+    gradients and the replicated state: no collective of its own), the
+    five values JAX's ``_health_metrics`` at the bars of
+    ``test_torch_health.py::test_health_values_match_jax``, the ranks bit
+    for bit."""
+    refs, ranks = tp2
+    for doc in ranks:
+        on, off = doc["tp_health"], doc["tp"]
+        assert state_equal(off, on)
+        assert set(on["m"]) == set(off["m"]) | set(health.STEP_KEYS)
+        assert on["collectives"]["all_reduce"] == tp_reduces(NC, W), on["collectives"]
+        for k in health.STEP_KEYS:
+            np.testing.assert_allclose(float(on["m"][k]), float(refs["jax_health"][k]),
+                                       atol=1e-5, rtol=1e-4, err_msg=k)
+    assert state_equal(ranks[0]["tp_health"], ranks[1]["tp_health"], health_keys=True)
+
+
+def test_tp_trainer_with_health_gauges_on_rank_0_and_trips_every_rank(tp2, tmp_path_factory):
+    """``GanTrainer`` on the tp mesh with health on: history (the plain
+    keys), params and slots bit for bit the health-off trainer's; the
+    ``health/*`` gauges in rank 0's stream alone; a NaN parameter under
+    the armed tripwire raises ``NumericFault`` on both ranks at the first
+    block boundary, with one dump, rank 0's."""
+    refs, ranks = tp2
+    for doc in ranks:
+        on, off = doc["trainer_health"], doc["trainer"]
+        assert [{k: v for k, v in h.items() if not k.startswith("health_")}
+                for h in on["history"]] == off["history"]
+        assert all("health_nonfinite" in h for h in on["history"])
+        for net in ("g", "d"):
+            assert all(torch.equal(on[net][k], off[net][k]) for k in off[net]), net
+        assert state_equal(dict(on, m={}, step=0), dict(off, m={}, step=0))
+    assert ranks[0]["trainer_health"]["history"] == ranks[1]["trainer_health"]["history"]
+    obs_root = Path(ranks[0]["fault"]["dump"]).parents[1] / "obs"
+    gauges = [{json.loads(line)["name"] for line in
+               (obs_root / f"rank{r}" / "events.jsonl").read_text().splitlines()
+               if line and json.loads(line).get("kind") == "gauge"} for r in (0, 1)]
+    assert {f"health/{k[len('health_'):]}" for k in health.STEP_KEYS} <= gauges[0]
+    assert not any(g.startswith("health/") for g in gauges[1])
+    faults = [d["fault"] for d in ranks]
+    assert [(f["site"], f["epoch"], f["trainer_epoch"]) for f in faults] == [("block", 1, 0)] * 2
+    assert faults[1]["dump"] is None and Path(faults[0]["dump"]).is_dir()
+    assert [p.name for p in Path(faults[0]["dump"]).parent.iterdir()] == ["numeric_fault_1"]
+
+
+def test_tp_bf16_epoch_at_the_bf16_bars(tp2):
+    """A bf16 tp=2 epoch from JAX's bf16 init on its draws: at the bf16
+    bars against JAX's bf16 epoch and the port's single-device bf16 epoch
+    on both critic routes (the rank's gate columns under
+    ``lstm_seq_plain``'s policy: bf16 streams, float32 state and gate
+    math, float32 exchanges), the all_reduces :func:`tp_reduces`, float32
+    state, the ranks bit for bit."""
+    refs, ranks = tp2
+    bf = refs["bf16"]
+    p0 = state_doc(bf["start"], {})
+    for doc in ranks:
+        got = doc["tp_bf16"]
+        for ref in (bf["ref"], bf["auto"], bf["chained"]):
+            assert_bf16_bars(bf16_errs(got, ref, p0))
+        assert got["collectives"]["all_reduce"] == tp_reduces(NC, W)
+        assert all(v.dtype == torch.float32 for net in ("g", "d") for v in got[net].values())
+    assert state_equal(ranks[0]["tp_bf16"], ranks[1]["tp_bf16"])
+
+
+#: one rank of ``train-gan`` on a tiny flagship preset over the committed
+#: panel (H=8, W=12, 2 epochs), the mesh flags after the spec
+CLI_RANK = r'''
+import dataclasses, sys
+from hfrep_tpu_torch import config
+tiny = config.ExperimentConfig(
+    data=config.DataConfig(n_sample=48, window=12),
+    model=config.ModelConfig(family="mtss_wgan_gp", hidden=8, window=12, features=35),
+    train=config.TrainConfig(batch_size=8, n_critic=2, steps_per_call=2, epochs=2), name="tiny")
+config.PRESETS["tiny"] = tiny
+from hfrep_tpu_torch.experiments.cli import main
+sys.exit(main(["train-gan", "--preset", "tiny", *sys.argv[1:]]))
+'''
+
+
+@pytest.mark.parametrize("flags", [("--tp-mesh", "2"), ("--dp-tp", "1x2")])
+def test_train_gan_on_a_tp_mesh_with_health_on(tmp_path, flags):
+    """``train-gan --tp-mesh 2`` and ``--dp-tp 1x2`` as two ranks under
+    ``HFREP_HEALTH=abort``: both exit 0, rank 0's stream alone holds the
+    ``health/*`` gauges, no ``numeric_fault``."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from test_torch_sequence import ROOT
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HFREP_")}
+    env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", HFREP_HEALTH="abort")
+    argv = ["--cleaned-dir", str(ROOT / "results" / "rederived_cleaned"), "--device", "cpu",
+            "--quiet", *flags, "--obs-dir", str(tmp_path / "obs"), "--coordinator",
+            f"127.0.0.1:{port}", "--num-processes", "2"]
+    procs = [subprocess.Popen([sys.executable, "-c", CLI_RANK, *argv, "--process-id", str(r)],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in (0, 1)]
+    try:
+        runs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert [p.returncode for p in procs] == [0, 0], [err[-2000:] for _, err in runs]
+    streams = [(tmp_path / "obs" / f"proc{r}" / "events.jsonl").read_text() for r in (0, 1)]
+    gauges = [{json.loads(line)["name"] for line in text.splitlines()
+               if line and json.loads(line).get("kind") == "gauge"} for text in streams]
+    assert {f"health/{k[len('health_'):]}" for k in health.STEP_KEYS} <= gauges[0]
+    assert not any(g.startswith("health/") for g in gauges[1])
+    assert not any("numeric_fault" in text for text in streams)
+
+
 @pytest.fixture(scope="module")
 def tp4(tmp_path_factory):
     refs, spec = _job(tmp_path_factory.mktemp("tp4"), 4)
@@ -531,6 +725,31 @@ def test_four_rank_meshes_match_jax_s_plain_step(tp4, mesh):
         tiles.setdefault(key, []).append(doc)
     for docs in tiles.values():
         _bit_equal(docs, mesh)
+
+
+def test_dp_sp_tp_health_and_bf16(tp4):
+    """dp×sp×tp 1×2×2: the epoch with health on bit for bit the health-off
+    one (params, slots, plain metrics), its counts unchanged, the health
+    values JAX's; a bf16 epoch at the bf16 bars against JAX's and the
+    port's single-device bf16 epochs; each tp group bit-equal."""
+    refs, ranks = tp4
+    bf = refs["bf16"]
+    p0 = state_doc(bf["start"], {})
+    for doc in ranks:
+        on, off = doc["dp_sp_tp_health"], doc["dp_sp_tp"]
+        assert state_equal(off, on)
+        assert on["collectives"]["all_reduce"] == tp_reduces(NC, W // 2, 2, on["coords"]["sp"])
+        for k in health.STEP_KEYS:
+            np.testing.assert_allclose(float(on["m"][k]), float(refs["jax_health"][k]),
+                                       atol=1e-5, rtol=1e-4, err_msg=k)
+        for ref in (bf["ref"], bf["auto"], bf["chained"]):
+            assert_bf16_bars(bf16_errs(doc["dp_sp_tp_bf16"], ref, p0))
+    for key in ("dp_sp_tp_health", "dp_sp_tp_bf16"):
+        tiles = {}
+        for doc in ranks:
+            tiles.setdefault(doc[key]["coords"]["sp"], []).append(doc[key])
+        for docs in tiles.values():
+            assert state_equal(docs[0], docs[1], health_keys=True), key
 
 
 def test_tp4_forwards_match_jax_s(tp4):
